@@ -1,0 +1,48 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ in `csrc/`).
+
+Counterpart of `ferrum_tpu/ops/pallas/`. Every kernel has a plain
+PyTorch version beside it in the same module; the wrapper takes the
+plain version only for tensors on the CPU, and launches the kernel (or
+raises) for tensors on a CUDA card -- never a silent fallback.
+
+Each kernel's `Kernel` record below counts its launches (one per
+wrapper call that launches it), so a run can show that its path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class Kernel:
+    name: str
+    source: str        # CUDA source, relative to the repository root
+    replaces: str      # the Pallas TPU kernel it replaces (file:line)
+    launches: int = 0
+
+
+_CSRC = "ferrum_tpu_torch/ops/kernels/csrc"
+_QMM = "ferrum_tpu/ops/pallas/quant_matmul.py"
+_KVA = "ferrum_tpu/ops/pallas/kv_append.py"
+
+W4A8TL_DECODE = Kernel("w4a8tl_decode", f"{_CSRC}/w4a8tl_gemm.cu",
+                       f"{_QMM}:601 _qmm_w4a8tl_mxu_kernel")
+W4A8TL_PREFILL = Kernel("w4a8tl_prefill", f"{_CSRC}/w4a8tl_gemm.cu",
+                        f"{_QMM}:289 _qmm_w4a8tl_kernel")
+KV_APPEND_ROWS = Kernel("kv_append_rows", f"{_CSRC}/kv_append.cu",
+                        f"{_KVA}:46 kv_append_rows")
+KV_APPEND_PAGES = Kernel("kv_append_pages", f"{_CSRC}/kv_append.cu",
+                         f"{_KVA}:80 kv_append_pages")
+
+KERNELS = (W4A8TL_DECODE, W4A8TL_PREFILL, KV_APPEND_ROWS, KV_APPEND_PAGES)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}

@@ -1,0 +1,202 @@
+"""Quantization parity: ferrum_tpu_torch vs ferrum_tpu, bit for bit.
+
+Packing, RTN quantization, two-level requantization, activation
+quantization and the plain versions of both w4a8tl GEMM kernels must
+equal the JAX package exactly: the integer math is exact and the float
+steps run in the same f32 order. Oracles: `quant_matmul_w4a8tl_ref`
+and the Pallas kernels themselves in interpret mode (patched as
+tests/test_quant.py does).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (thread count)
+from ferrum_tpu.ops import quant as jq
+from ferrum_tpu.ops.pallas import quant_matmul as jqm
+from ferrum_tpu_torch.ops import quant as tq
+from ferrum_tpu_torch.ops.kernels import quant_matmul as tqm
+
+K, N = 1024, 512
+MS = (1, 7, 32, 64, 96, 256)
+
+
+def _weights(symmetric=False, scale_dtype="f32", seed=0):
+    """Random float weights with per-group offsets (asymmetric groups:
+    zeros, scales2 and chan all vary), quantized in both packages."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(0, 0.02, (K, N)) + rng.uniform(
+        -0.03, 0.03, (K // 128, 1, N)).repeat(128, 0).reshape(K, N)
+    packed, s, z = jq.quantize_weight_np(w.astype(np.float32), 128,
+                                         symmetric)
+    jdt = jnp.bfloat16 if scale_dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if scale_dtype == "bf16" else torch.float32
+    pj = jq.QuantLinearParams(
+        qweight=jnp.asarray(packed), scales=jnp.asarray(s, jdt),
+        zeros=jnp.asarray(z), bias=None, in_features=K, out_features=N,
+        group_size=128)
+    pt = tq.QuantLinearParams(
+        qweight=torch.from_numpy(packed), scales=torch.from_numpy(s).to(tdt),
+        zeros=torch.from_numpy(z), bias=None, in_features=K, out_features=N,
+        group_size=128)
+    return w.astype(np.float32), pj, pt
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def test_pack_unpack_match_jax():
+    rng = np.random.default_rng(1)
+    q = rng.integers(0, 16, (256, 64)).astype(np.uint8)
+    packed = tq.pack_rows_np(q, 128)
+    np.testing.assert_array_equal(packed, jq.pack_rows_np(q, 128))
+    np.testing.assert_array_equal(
+        tq.unpack_rows(torch.from_numpy(packed)).numpy(),
+        np.asarray(jq.unpack_rows(jnp.asarray(packed), 128)))
+    np.testing.assert_array_equal(
+        tq.unpack_rows(torch.from_numpy(packed)).numpy(), q)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_quantize_weight_matches_jax(symmetric):
+    w, _, _ = _weights()
+    want = jq.quantize_weight_np(w, 128, symmetric)
+    got = tq.quantize_weight_np(w, 128, symmetric)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    p = tq.make_quant_linear(torch.from_numpy(w), 128, symmetric,
+                             dtype=torch.float32)
+    for a, b in zip(want, (p.qweight, p.scales, p.zeros)):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("scale_dtype", ["f32", "bf16"])
+def test_requantize_two_level_matches_jax(scale_dtype):
+    _, pj, pt = _weights(scale_dtype=scale_dtype)
+    rj, rt = jq.requantize_two_level(pj), tq.requantize_two_level(pt)
+    for f in ("qweight", "scales2", "zeros"):
+        np.testing.assert_array_equal(np.asarray(getattr(rj, f)),
+                                      getattr(rt, f).numpy())
+    np.testing.assert_array_equal(_np(rj.scales), _np(rt.scales))
+    np.testing.assert_array_equal(_np(rj.chan_scale), _np(rt.chan_scale))
+    assert len(np.unique(np.asarray(rj.scales2))) > 1
+    assert len(np.unique(np.asarray(rj.zeros))) > 1
+    assert tq.requantize_two_level(rt) is rt            # idempotent
+    np.testing.assert_array_equal(
+        tq.dequantize(rt, torch.float32).numpy(),
+        np.asarray(jq.dequantize(rj, jnp.float32)))
+
+
+@pytest.mark.parametrize("m", MS)
+def test_quantize_activation_rows_matches_jax(m):
+    x = np.random.default_rng(m).normal(0, 2, (m, K)).astype(np.float32)
+    x[0, :5] = [0.5, -0.5, 1.5, 2.5, -2.5]      # round-half-even cases
+    xq_j, xs_j = jqm.quantize_activation_rows(jnp.asarray(x))
+    xq_t, xs_t = tqm.quantize_activation_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(xq_j), xq_t.numpy())
+    np.testing.assert_array_equal(np.asarray(xs_j), xs_t.numpy())
+
+
+def _case(m, perm=False, bias=False, seed=0):
+    _, pj, pt = _weights(seed=seed)
+    pj, pt = jq.requantize_two_level(pj), tq.requantize_two_level(pt)
+    rng = np.random.default_rng(100 + m)
+    if perm:
+        order = rng.permutation(K).astype(np.int32)
+        pj = dataclasses.replace(pj, input_perm=jnp.asarray(order))
+        pt = dataclasses.replace(pt, input_perm=torch.from_numpy(
+            order.astype(np.int64)))
+    if bias:
+        b = rng.normal(0, 0.1, N).astype(np.float32)
+        pj = dataclasses.replace(pj, bias=jnp.asarray(b))
+        pt = dataclasses.replace(pt, bias=torch.from_numpy(b))
+    x = rng.normal(0, 1, (m, K)).astype(np.float32)
+    return x, pj, pt
+
+
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("perm,bias", [(False, False), (True, True)])
+def test_quant_matmul_matches_w4a8tl_ref_exactly(m, perm, bias):
+    x, pj, pt = _case(m, perm, bias)
+    want = np.asarray(jq.quant_matmul_w4a8tl_ref(jnp.asarray(x), pj))
+    got = tqm.quant_matmul(torch.from_numpy(x), pt).numpy()
+    np.testing.assert_array_equal(got, want)
+    ref = tq.quant_matmul_w4a8tl_ref(torch.from_numpy(x), pt).numpy()
+    np.testing.assert_array_equal(ref, want)
+
+
+def _interpret(fn, *args):
+    orig = jqm.pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    jqm.pl.pallas_call = patched
+    try:
+        with jax.disable_jit():
+            return fn(*args)
+    finally:
+        jqm.pl.pallas_call = orig
+
+
+@pytest.mark.parametrize("m,kernel", [(1, "decode"), (32, "decode"),
+                                      (64, "decode"), (96, "prefill"),
+                                      (256, "prefill")])
+def test_plain_kernels_match_pallas_interpret(m, kernel):
+    """The port's plain w4a8tl_decode / w4a8tl_prefill equal the Pallas
+    kernels they replace (_qmm_w4a8tl_mxu_kernel / _qmm_w4a8tl_kernel),
+    run in interpret mode on the same int8 activations."""
+    x, pj, pt = _case(m)
+    m_pad = max(32, -(-m // 32) * 32)           # the Pallas int8 tile
+    xp = np.zeros((m_pad, K), np.float32)
+    xp[:m] = x
+    xq, xs = jqm.quantize_activation_rows(jnp.asarray(xp))
+    pallas = (jqm._quant_matmul_w4a8tl_mxu if kernel == "decode"
+              else jqm._quant_matmul_w4a8tl_2d)
+    want = np.asarray(_interpret(pallas, xq, xs, pj, jnp.float32))[:m]
+    port = tqm.w4a8tl_decode if kernel == "decode" else tqm.w4a8tl_prefill
+    txq, txs = tqm.quantize_activation_rows(torch.from_numpy(x))
+    got = port(txq, txs, pt, torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dispatch_by_m(monkeypatch):
+    """m <= 64 takes the decode kernel's function, m > 64 the prefill's."""
+    _, _, pt = _case(1)
+    calls = []
+    for name in ("w4a8tl_decode", "w4a8tl_prefill"):
+        orig = getattr(tqm, name)
+
+        def rec(*a, _n=name, _o=orig):
+            calls.append((_n, a[0].shape[0]))
+            return _o(*a)
+        monkeypatch.setattr(tqm, name, rec)
+    for lead in ((64,), (2, 32), (65,), (3, 40)):
+        x = torch.randn(*lead, K)
+        assert tqm.quant_matmul(x, pt).shape == (*lead, N)
+    assert calls == [("w4a8tl_decode", 64), ("w4a8tl_decode", 64),
+                     ("w4a8tl_prefill", 65), ("w4a8tl_prefill", 120)]
+
+
+def test_params_without_scales2_raise():
+    _, _, pt = _weights()
+    with pytest.raises(NotImplementedError, match="two-level"):
+        tqm.quant_matmul(torch.randn(4, K), pt)
+
+
+def test_w4a16_ref_matches_jax():
+    """The w4a16 oracle (dequantize + float matmul): f32 sums in another
+    order, so 1e-5 of the output scale."""
+    x, pj, pt = _case(7, perm=True, bias=True)
+    want = np.asarray(jq.quant_matmul_ref(jnp.asarray(x), pj))
+    got = tq.quant_matmul_ref(torch.from_numpy(x), pt).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
