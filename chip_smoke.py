@@ -7,17 +7,23 @@ Phases, in order, each printing JSON lines:
   env        nvidia-smi name/power limit, torch / CUDA / nvcc versions
   build      nvcc build of every kernel source (seconds)
   kernels    each Hopper kernel against its plain PyTorch version at the
-             llama-3.1-8b shapes of the served path: exact equality
-             required; kernel / plain / library times (CUDA events) and
-             the card's bound for the same work
+             shapes of the served paths (llama-3.1-8b projections,
+             qwen3-30b-a3b expert stacks): exact equality required;
+             kernel / plain / library times (CUDA events) and the card's
+             bound for the same work
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
-  serve      EngineBuilder(llama-3.1-8b, random int4 weights, seed 0),
-             32 concurrent greedy 256/128 requests through the engine;
-             launch counts of every kernel over that run
+Then for llama-3.1-8b (serve, logits, profile) and for qwen3-30b-a3b at
+its full 48 layers (serve_moe, logits_moe, profile_moe):
+  serve      EngineBuilder(model, random int4 weights, seed 0), 32
+             concurrent greedy 256/128 requests through the engine;
+             launch counts of every kernel over that run, each of the
+             path's kernels required
   logits     one prefill + 4 decode steps at full width, kernels vs plain
-             versions, both on the card
+             versions, both on the card; the MoE run decodes two steps
+             at 32 lanes (all-experts route) and two at 1 lane (sort +
+             grouped route)
   profile    torch.profiler over 32 concurrent 256/32 requests on the
              same engine: device time by kernel, device busy share
 
@@ -45,6 +51,17 @@ DECODE_M = (1, 32, 64)
 PREFILL_M = (256, 2048, 8192)
 SERVE_DECODE_M = 32              # decode lanes of the serve phase
 SERVE_PREFILL_M = 2048           # one batched prefill of the serve phase
+# qwen3-30b-a3b expert stacks: E experts, (K, N) per projection; gate and
+# up read one shared row block, down each expert's own rows.
+MOE_E, MOE_TOPK = 128, 8
+MOE_SHAPES = {"gate": (2048, 768), "up": (2048, 768), "down": (768, 2048)}
+BMM_T = (16, 32, 64)
+GROUPED_A = (8, 2048, 16384)     # t = 1 decode, 256- and 2048-token prefill
+SERVE_BMM_T = 32                 # decode lanes of the MoE serve phase
+SERVE_GROUPED_A = 16384          # one batched MoE prefill: 2048 tokens x 8
+LLAMA_PATH = ("w4a8tl_decode", "w4a8tl_prefill", "kv_append_rows",
+              "kv_append_pages")
+MOE_PATH = LLAMA_PATH + ("moe_bmm", "moe_grouped")
 
 
 def emit(obj) -> None:
@@ -168,6 +185,109 @@ def gemm_rows(torch, timer):
                     raise AssertionError(f"{kernel} {site} m={m}: kernel "
                                          f"differs from plain by {err}")
         del p, w8, w8_cm
+        torch.cuda.empty_cache()
+    return rows
+
+
+def make_moe_stack(torch, k, n, gen):
+    """An expert stack [MOE_E, ...] of non-uniform two-level weights (each
+    expert as make_gemm_weight makes one)."""
+    import dataclasses
+    parts = [make_gemm_weight(torch, k, n, gen) for _ in range(MOE_E)]
+    stacked = {f: torch.stack([getattr(p, f) for p in parts])
+               for f in ("qweight", "scales", "zeros", "scales2",
+                         "chan_scale")}
+    return dataclasses.replace(parts[0], **stacked)
+
+
+def stack_bytes(p, experts):
+    """Bytes of `experts` experts' packed weight, scales2, zeros and chan."""
+    per = (p.qweight[0].nbytes + p.scales2[0].nbytes + p.zeros[0].nbytes
+           + p.chan_scale[0].nbytes)
+    return experts * per
+
+
+def moe_cases(torch, timer):
+    """The two MoE kernels at the qwen3-30b-a3b expert shapes against
+    their plain versions (exact equality), with their times."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (
+        bmm_plain, grouped_plain, grouped_w4a8tl, quant_bmm_all_experts)
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
+        quantize_activation_rows)
+    from ferrum_tpu_torch.ops.moe import route_topk
+    from ferrum_tpu_torch.ops.quant import dequantize
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    rows = []
+
+    def finish(row, got, want, fn, plain, library):
+        torch.cuda.synchronize()
+        row["equal"] = bool(torch.equal(got, want))
+        row["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+        row["kernel_ms"] = timer(fn)
+        row["equal"] &= bool(torch.equal(fn(), want))
+        row["plain_ms"] = timer(plain, reps=3, warmup=1)
+        row["library_ms"] = None if library is None else timer(library)
+        rows.append(row)
+        emit({"phase": "kernel_case", **row})
+        if not row["equal"]:
+            raise AssertionError(f"{row['kernel']} {row['site']}: kernel "
+                                 f"differs from plain by "
+                                 f"{row['max_abs_err']}")
+
+    for site, (k, n) in MOE_SHAPES.items():
+        p = make_moe_stack(torch, k, n, gen)
+        assert p.scales2.unique().numel() > 1 and p.zeros.unique().numel() > 1
+        w_bf16 = dequantize(p, torch.bfloat16)            # [E, K, N]
+        bx = 1 if site != "down" else MOE_E
+        for t in BMM_T:
+            x = torch.randn(bx, t, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = quantize_activation_rows(x.reshape(bx * t, k))
+            xq3, xs3 = xq.reshape(bx, t, k), xs.reshape(bx, t, 1)
+            fn = lambda: quant_bmm_all_experts(  # noqa: E731
+                xq3, xs3, p, torch.bfloat16)
+            got = fn()
+            want = bmm_plain(xq3, xs3, p, torch.bfloat16)
+            row = {"kernel": "moe_bmm", "site": site, "t": t, "k": k,
+                   "n": n, "experts": MOE_E, "shared_rows": bx == 1}
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                stack_bytes(p, MOE_E) + xq3.nbytes + xs3.nbytes
+                + got.nbytes, 2.0 * MOE_E * t * k * n)
+            xb = x.expand(MOE_E, t, k)
+            finish(row, got, want, fn,
+                   lambda: bmm_plain(xq3, xs3, p, torch.bfloat16),
+                   lambda: torch.bmm(xb, w_bf16))
+        for a in GROUPED_A:
+            t = a // MOE_TOPK
+            logits = torch.randn(t, MOE_E, generator=gen, device="cuda"
+                                 ).to(torch.bfloat16)
+            _, ids = route_topk(logits, MOE_TOPK, True)
+            sizes = torch.bincount(ids.reshape(-1), minlength=MOE_E)
+            gs = sizes.to(torch.int32)
+            x = torch.randn(a, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = quantize_activation_rows(x)
+            fn = lambda: grouped_w4a8tl(  # noqa: E731
+                xq, xs, p, gs, torch.bfloat16)
+            got = fn()
+            want = grouped_plain(xq, xs, p, gs, torch.bfloat16)
+            active = int((sizes > 0).sum().item())
+            row = {"kernel": "moe_grouped", "site": site, "rows": a, "k": k,
+                   "n": n, "experts": MOE_E, "active_experts": active,
+                   "empty_experts": MOE_E - active,
+                   "library": "torch._grouped_mm (bf16)"
+                   if grouped_mm is not None else None}
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                stack_bytes(p, active) + xq.nbytes + xs.nbytes + got.nbytes,
+                2.0 * a * k * n)
+            offs = torch.cumsum(sizes, 0).to(torch.int32)
+            finish(row, got, want, fn,
+                   lambda: grouped_plain(xq, xs, p, gs, torch.bfloat16),
+                   None if grouped_mm is None
+                   else lambda: grouped_mm(x, w_bf16, offs=offs))
+        del p, w_bf16
         torch.cuda.empty_cache()
     return rows
 
@@ -301,23 +421,30 @@ def kv_pages_cases(torch, timer):
     return rows
 
 
+def _summed(sel, at):
+    """One summary entry: the cases' times and bounds summed (None where
+    a case lacks the number)."""
+    def tot(key):
+        vals = [c.get(key) for c in sel]
+        return None if any(v is None for v in vals) else sum(vals)
+    tb = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
+    to = sum(c["bound_ms"] for c in sel if c["bound_by"] != "bytes")
+    return {"ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
+            "library_ms": tot("library_ms"), "bound_ms": tot("bound_ms"),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "at": f"{at}, sum over {[c['site'] for c in sel]}"}
+
+
 def summarize(cases):
-    """One entry per kernel: the GEMMs summed over a layer's four
-    projections at the serve phase's m, the appends at their bf16 case."""
+    """One entry per kernel: the GEMMs summed over a layer's projections
+    at the serve phases' shapes, the appends at their bf16 case."""
     out = {}
-    for name, m in (("w4a8tl_decode", SERVE_DECODE_M),
-                    ("w4a8tl_prefill", SERVE_PREFILL_M)):
-        sel = [c for c in cases if c["kernel"] == name and c["m"] == m]
-        tot = lambda key: (sum(c[key] for c in sel)  # noqa: E731
-                           if all(c.get(key) is not None for c in sel)
-                           else None)
-        tb = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
-        to = sum(c["bound_ms"] for c in sel if c["bound_by"] != "bytes")
-        out[name] = {"ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
-                     "library_ms": tot("library_ms"),
-                     "bound_ms": tot("bound_ms"),
-                     "bound_by": "bytes" if tb >= to else "operations",
-                     "at": f"m={m}, sum over {[c['site'] for c in sel]}"}
+    for name, key, at in (("w4a8tl_decode", "m", SERVE_DECODE_M),
+                          ("w4a8tl_prefill", "m", SERVE_PREFILL_M),
+                          ("moe_bmm", "t", SERVE_BMM_T),
+                          ("moe_grouped", "rows", SERVE_GROUPED_A)):
+        out[name] = _summed([c for c in cases if c["kernel"] == name
+                             and c[key] == at], f"{key}={at}")
     for name in ("kv_append_rows", "kv_append_pages"):
         c = next(c for c in cases
                  if c["kernel"] == name and c["dtype"] == "bfloat16")
@@ -403,13 +530,13 @@ def attention_phase(torch, device):
 SERVE_REQUESTS, PROMPT_LEN, OUTPUT_LEN = 32, 256, 128
 
 
-def build_engine():
+def build_engine(model):
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.engine.builder import EngineBuilder
     from ferrum_tpu_torch.models.configs import preset
     from ferrum_tpu_torch.models.quantize import init_random_quant_params
 
-    mc = preset("llama-3.1-8b")
+    mc = preset(model)
     params = init_random_quant_params(mc, seed=0)
     cfg = EngineConfig(
         max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
@@ -425,9 +552,9 @@ def request(tokens, max_tokens=OUTPUT_LEN):
         sampling=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
 
 
-def serve_phase(torch):
-    """32 concurrent greedy 256/128 requests; returns (launch counts,
-    model config, engine)."""
+def serve_phase(torch, model, path):
+    """32 concurrent greedy 256/128 requests on `model`; every kernel of
+    `path` must launch. Returns (launch counts, model config, engine)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -435,7 +562,7 @@ def serve_phase(torch):
     from ferrum_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
-    mc, engine = build_engine()
+    mc, engine = build_engine(model)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -462,13 +589,14 @@ def serve_phase(torch):
     repeat = engine.infer(request(prompts[0])).token_ids
     if repeat != solo:
         raise AssertionError("a repeated request gave other tokens")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels the served path never launched: "
                              f"{idle}")
     ttft = [r.ttft for r in resps]
     tpot = [(r.e2e_latency - r.ttft) / (OUTPUT_LEN - 1) for r in resps]
-    emit({"phase": "serve", "model": "llama-3.1-8b", "layers": mc.num_layers,
+    emit({"phase": "serve" if model == "llama-3.1-8b" else "serve_moe",
+          "model": model, "layers": mc.num_layers,
           "requests": SERVE_REQUESTS, "prompt_len": PROMPT_LEN,
           "output_len": OUTPUT_LEN, "engine_build_s": build_s,
           "wall_s": wall,
@@ -484,14 +612,21 @@ def serve_phase(torch):
     return launches, mc, engine
 
 
-def logits_phase(torch, mc, engine):
-    """One 256-token prefill + 4 decode steps of one prompt at full width,
-    through the kernels and then through their plain versions (both on
-    the card, on the serve phase's weights)."""
+def logits_phase(torch, mc, engine, lanes=(1, 1, 1, 1)):
+    """One 256-token prefill + one decode step per entry of `lanes` of
+    one prompt at full width, through the kernels and then through their
+    plain versions (both on the card, on the serve phase's weights). A
+    step with n > 1 lanes runs n rows: the prompt's token in lane 0 and
+    seeded random tokens in the others, every lane reading the prompt's
+    cache and only lane 0 writing it (as the runner's inactive lanes).
+    Returns the launch counts of the kernel run."""
     import numpy as np
 
     from ferrum_tpu_torch.models import llama_family as lf
-    from ferrum_tpu_torch.ops.kernels import kv_append, quant_matmul as qmm
+    from ferrum_tpu_torch.ops import kernels as K
+    from ferrum_tpu_torch.ops import moe
+    from ferrum_tpu_torch.ops.kernels import kv_append, moe_gemm
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
 
     params = engine.runner.params
     max_len = 1024
@@ -500,6 +635,8 @@ def logits_phase(torch, mc, engine):
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(rng.integers(0, mc.vocab_size, PROMPT_LEN)
                               ).to(dev)[None]
+    others = torch.from_numpy(rng.integers(
+        0, mc.vocab_size, (len(lanes), max(lanes)))).to(dev)
     tables = torch.arange(n_blocks, device=dev)[None]
 
     def run():
@@ -511,21 +648,29 @@ def logits_phase(torch, mc, engine):
             torch.tensor([PROMPT_LEN], device=dev), pos, ctx_pad=256)
         out = [lf.logits_from_hidden(params, mc, h[0])]
         tok = out[0][-1:].argmax(-1)
-        for step in range(4):
-            p = torch.tensor([PROMPT_LEN + step], device=dev)
-            h, kv = lf.decode_forward(params, mc, kv, tok, p, tables, p + 1,
-                                      p, ctx_pad=512)
+        for step, n in enumerate(lanes):
+            p = torch.full((n,), PROMPT_LEN + step, device=dev)
+            toks = torch.cat([tok, others[step, 1:n]])
+            flat = torch.full_like(p, lf.OOB_SENTINEL)
+            flat[0] = PROMPT_LEN + step
+            h, kv = lf.decode_forward(params, mc, kv, toks, p,
+                                      tables.expand(n, -1), p + 1, flat,
+                                      ctx_pad=512)
             out.append(lf.logits_from_hidden(params, mc, h))
-            tok = out[-1].argmax(-1)
+            tok = out[-1][:1].argmax(-1)
         torch.cuda.synchronize()
         return out
 
+    K.reset_launch_counts()
     with_kernels = run()
+    launches = K.launch_counts()
     # The plain versions, swapped in by name for this comparison only.
     swaps = [(qmm, "w4a8tl_decode", qmm.w4a8tl_plain),
              (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
              (lf, "append_rows", kv_append.append_rows_plain),
-             (lf, "append_pages", kv_append.append_pages_plain)]
+             (lf, "append_pages", kv_append.append_pages_plain),
+             (moe, "quant_bmm_all_experts", moe_gemm.bmm_plain),
+             (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -541,12 +686,15 @@ def logits_phase(torch, mc, engine):
     # the same arithmetic: the tolerance (1e-3 of the logit scale) only
     # leaves room for library reductions that are not run-to-run stable.
     ok = finite and diff <= 1e-3 * scale
-    emit({"phase": "logits", "steps": "prefill 256 + 4 decode",
+    emit({"phase": "logits" if mc.moe is None else "logits_moe",
+          "steps": f"prefill {PROMPT_LEN} + decode at lanes {list(lanes)}",
           "max_abs_diff": diff, "max_rel_diff": diff / scale,
           "logit_scale": scale, "finite": finite,
-          "identical": diff == 0.0, "tolerance_rel": 1e-3})
+          "identical": diff == 0.0, "tolerance_rel": 1e-3,
+          "launches": launches})
     if not ok:
         raise AssertionError(f"logits differ: {diff} (scale {scale})")
+    return launches
 
 
 def profile_phase(torch, mc, engine, output_len=32):
@@ -579,7 +727,8 @@ def profile_phase(torch, mc, engine, output_len=32):
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    emit({"phase": "profile", "requests": SERVE_REQUESTS,
+    emit({"phase": "profile" if mc.moe is None else "profile_moe",
+          "requests": SERVE_REQUESTS,
           "prompt_len": PROMPT_LEN, "output_len": output_len,
           "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / (wall * 1e3),
@@ -618,23 +767,37 @@ def main() -> int:
 
     timer = Timer(torch)
     cases = (gemm_rows(torch, timer) + kv_rows_cases(torch, timer)
-             + kv_pages_cases(torch, timer))
+             + kv_pages_cases(torch, timer) + moe_cases(torch, timer))
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})
     del timer
     torch.cuda.empty_cache()
     attention_phase(torch, "cuda")
 
-    launches, mc, engine = serve_phase(torch)
-    logits_phase(torch, mc, engine)
-    profile_phase(torch, mc, engine)
-    engine.stop()
-    del engine
-    torch.cuda.empty_cache()
+    # Each served path: its kernels' counts from 0 over its serve run.
+    by_path = {}
+    for model, path, lanes in (
+            ("llama-3.1-8b", LLAMA_PATH, (1, 1, 1, 1)),
+            # 32 lanes: the all-experts route; 1 lane: sort + grouped.
+            ("qwen3-30b-a3b", MOE_PATH, (SERVE_REQUESTS, SERVE_REQUESTS,
+                                         1, 1))):
+        launches, mc, engine = serve_phase(torch, model, path)
+        by_path[model] = launches
+        routes = logits_phase(torch, mc, engine, lanes)
+        missed = [k for k in path if routes[k] == 0]
+        if missed:
+            raise AssertionError(f"{model} logits run never launched "
+                                 f"{missed}")
+        profile_phase(torch, mc, engine)
+        engine.stop()
+        del engine
+        torch.cuda.empty_cache()
 
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces,
+         "launches": sum(c[k.name] for c in by_path.values()),
+         "launches_by_path": {m: c[k.name] for m, c in by_path.items()},
          "max_abs_err": summary[k.name]["max_abs_err"],
          "ms": summary[k.name]["ms"],
          "plain_ms": summary[k.name]["plain_ms"],

@@ -3,8 +3,9 @@
 Port of `ferrum_tpu/engine/builder.py` for the served path: explicit
 model config + params (`with_model`), the linear KV layout (every slot
 reserves a full max_model_len region), q|k|v and gate|up fusion, and the
-two-level w4a8 requantization. Checkpoint loading, the paged layout and
-its HBM autosizing come with later slices.
+two-level w4a8 requantization (dense linears and MoE expert stacks).
+Checkpoint loading, the paged layout and its HBM autosizing come with
+later slices.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ from .runner import ModelRunner
 def fuse_projections(params: ModelParams) -> ModelParams:
     """q|k|v and gate|up fused into one linear each (one kernel launch
     per site instead of 2-3), layer by layer and in place, so the split
-    weights are freed as each layer is fused."""
+    weights are freed as each layer is fused. MoE layers have no dense
+    gate/up; their expert stacks stay split (the JAX package's default
+    fuse sites), sharing one activation quantization instead."""
     for lp in params.layers:
         if lp.qkv is None and lp.q is not None:
             qkv = concat_linears([lp.q, lp.k, lp.v])
@@ -50,8 +53,9 @@ def apply_two_level(params: ModelParams) -> ModelParams:
             if isinstance(lin, QuantLinearParams) else lin
 
     for lp in params.layers:
-        for f in dataclasses.fields(lp):
-            setattr(lp, f.name, rq(getattr(lp, f.name)))
+        for obj in (lp, lp.moe) if lp.moe is not None else (lp,):
+            for f in dataclasses.fields(obj):
+                setattr(obj, f.name, rq(getattr(obj, f.name)))
     params.lm_head = rq(params.lm_head)
     return params
 

@@ -2,11 +2,13 @@
 
 The dict holds the JAX package's `ModelParams` fields under their own
 names, flattened with dots ("embed", "final_norm", "lm_head.w",
-"layers.0.input_norm", "layers.0.qkv.qweight", ...). Linears are dense
-(`w`, optional `bias`) or packed int4 (`qweight`, `scales`, `zeros` and
-optional `bias`, `input_perm`, `scales2`, `chan_scale`); a missing
-`lm_head` means tied embeddings. The caller does the flattening, so the
-port never sees a JAX object.
+"layers.0.input_norm", "layers.0.qkv.qweight", "layers.0.moe.router.w",
+"layers.0.moe.gate.qweight", ...). Linears are dense (`w`, optional
+`bias`) or packed int4 (`qweight`, `scales`, `zeros` and optional
+`bias`, `input_perm`, `scales2`, `chan_scale`); MoE expert stacks carry
+a leading expert dim on each tensor. A missing `lm_head` means tied
+embeddings. The caller does the flattening, so the port never sees a
+JAX object.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ..ops.linear import DenseLinearParams, LinearParams
 from ..ops.quant import QuantLinearParams
-from .llama_family import LayerParams, ModelParams
+from .llama_family import LayerParams, ModelParams, MoeLayerParams
 
 _LINEARS = ("q", "k", "v", "o", "gate", "up", "down", "qkv", "gate_up")
 _QUANT_OPTIONAL = ("bias", "input_perm", "scales2", "chan_scale")
@@ -32,20 +34,20 @@ def _linear(tree: Dict[str, np.ndarray], prefix: str, to) -> Optional[
                                  bias=None if bias is None else to(bias))
     if f"{prefix}.qweight" not in tree:
         return None
-    qw = tree[f"{prefix}.qweight"]
+    qw = tree[f"{prefix}.qweight"]              # [(E,) in/2, out]
     scales = tree[f"{prefix}.scales"]
-    in_f, out_f = qw.shape[0] * 2, qw.shape[1]
+    in_f, out_f = qw.shape[-2] * 2, qw.shape[-1]
     opt = {name: tree.get(f"{prefix}.{name}") for name in _QUANT_OPTIONAL}
     return QuantLinearParams(
         qweight=to(qw), scales=to(scales), zeros=to(tree[f"{prefix}.zeros"]),
         bias=None if opt["bias"] is None else to(opt["bias"]),
         in_features=in_f, out_features=out_f,
-        group_size=in_f // scales.shape[0],
+        group_size=in_f // scales.shape[-2],
         input_perm=None if opt["input_perm"] is None
         else to(opt["input_perm"]).to(torch.int64),
         scales2=None if opt["scales2"] is None else to(opt["scales2"]),
         chan_scale=None if opt["chan_scale"] is None
-        else to(opt["chan_scale"]).reshape(1, out_f))
+        else to(opt["chan_scale"]).reshape(*qw.shape[:-2], 1, out_f))
 
 
 def params_from_numpy(tree: Dict[str, np.ndarray],
@@ -64,7 +66,12 @@ def params_from_numpy(tree: Dict[str, np.ndarray],
                        else None)
                 for name in ("input_norm", "pre_mlp_norm", "q_norm",
                              "k_norm")}
-        layers.append(LayerParams(**norm, **lin))
+        moe = None
+        if f"{p}.moe.router.w" in tree:
+            moe = MoeLayerParams(**{
+                name: _linear(tree, f"{p}.moe.{name}", to)
+                for name in ("router", "gate", "up", "down", "gate_up")})
+        layers.append(LayerParams(**norm, **lin, moe=moe))
     return ModelParams(embed=to(tree["embed"]), layers=layers,
                        final_norm=to(tree["final_norm"]),
                        lm_head=_linear(tree, "lm_head", to))

@@ -1,9 +1,10 @@
 """Llama-family decoder (GQA + SwiGLU + RoPE) as plain functions on tensors.
 
-Port of `ferrum_tpu/models/llama_family.py` for the served path: the
-linear (slot-contiguous) KV layout, decode steps with the deferred
-per-step append (`attn_impl="linear"`, `win=None`), and batched chunked
-prefill with whole-page appends (`append="pages"`).
+Port of `ferrum_tpu/models/llama_family.py` for the served paths (dense
+llama, and qwen3-moe's sparse MLP through ops/moe.py): the linear
+(slot-contiguous) KV layout, decode steps with the deferred per-step
+append (`attn_impl="linear"`, `win=None`), and batched chunked prefill
+with whole-page appends (`append="pages"`).
 
 The KV cache is [L, NB, page, F = Hkv*D] per K and V, seen by the
 append kernels as the layer-merged flat [L*NB, page, F]. Where the JAX
@@ -19,13 +20,14 @@ KV-out-of-scan-carry `win` accumulator exists to keep the pool out of a
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
 from ..ops.attention import flat_decode_attention, flat_prefill_attention
 from ..ops.kernels.kv_append import append_pages, append_rows
 from ..ops.linear import LinearParams, apply_linear, matmul_f32
+from ..ops.moe import moe_mlp
 from ..ops.norms import fused_add_rms_norm, rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 from .configs import ModelConfig
@@ -33,6 +35,27 @@ from .configs import ModelConfig
 # Flat-slot / block id that drops a write; stays out of range after the
 # per-layer base offset is added.
 OOB_SENTINEL = 1 << 30
+
+
+@dataclass
+class MoeLayerParams:
+    """Sparse-MoE MLP params (Qwen3-30B-A3B style).
+
+    router:  DenseLinearParams [hidden, E]
+    gate/up: stacked expert weights -- a QuantLinearParams with a leading
+             expert dim ([E, hidden/2, I] packed), or dense [E, hidden, I]
+             tensors (moe_mlp_ref only).
+    down:    [E, I, hidden] likewise.
+    gate_up: gate|up fused along the out dim (off by default, as in the
+             JAX package: gate and up share one activation quantization
+             instead).
+    """
+
+    router: LinearParams
+    gate: Any
+    up: Any
+    down: Any
+    gate_up: Any = None
 
 
 @dataclass
@@ -47,10 +70,11 @@ class LayerParams:
     pre_mlp_norm: torch.Tensor
     gate: Optional[LinearParams]
     up: Optional[LinearParams]
-    down: LinearParams
+    down: Optional[LinearParams]           # None in a MoE layer
     # Build-time fusions (engine/builder.fuse_projections).
     qkv: Optional[LinearParams] = None
     gate_up: Optional[LinearParams] = None
+    moe: Optional[MoeLayerParams] = None
 
 
 @dataclass
@@ -94,7 +118,10 @@ def make_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device)
 
 
-def _mlp(x: torch.Tensor, lp: LayerParams) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: LayerParams, cfg: ModelConfig,
+         layer_idx: int) -> torch.Tensor:
+    if lp.moe is not None and cfg.layer_is_moe(layer_idx):
+        return moe_mlp(x, lp.moe, cfg)
     if lp.gate_up is not None:
         g, u = torch.chunk(apply_linear(lp.gate_up, x), 2, dim=-1)
     else:
@@ -142,7 +169,7 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig,
         attn = apply_linear(lp.o, attn)
         x, residual = fused_add_rms_norm(attn, residual, lp.pre_mlp_norm,
                                          cfg.rms_norm_eps)
-        mlp = _mlp(x, lp)
+        mlp = _mlp(x, lp, cfg, li)
         residual = (residual.to(torch.float32)
                     + mlp.to(torch.float32)).to(residual.dtype)
     return rms_norm(residual, params.final_norm, cfg.rms_norm_eps)

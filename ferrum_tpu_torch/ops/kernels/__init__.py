@@ -36,7 +36,14 @@ KV_APPEND_ROWS = Kernel("kv_append_rows", f"{_CSRC}/kv_append.cu",
 KV_APPEND_PAGES = Kernel("kv_append_pages", f"{_CSRC}/kv_append.cu",
                          f"{_KVA}:80 kv_append_pages")
 
-KERNELS = (W4A8TL_DECODE, W4A8TL_PREFILL, KV_APPEND_ROWS, KV_APPEND_PAGES)
+MOE_BMM = Kernel("moe_bmm", f"{_CSRC}/moe_gemm.cu",
+                 f"{_QMM}:1290 _qbmm_w4a8tl_mxu_kernel (and :1243 "
+                 f"_qbmm_w4a8tl_kernel)")
+MOE_GROUPED = Kernel("moe_grouped", f"{_CSRC}/moe_gemm.cu",
+                     f"{_QMM}:1098 _qgmm_w4a8tl_kernel")
+
+KERNELS = (W4A8TL_DECODE, W4A8TL_PREFILL, KV_APPEND_ROWS, KV_APPEND_PAGES,
+           MOE_BMM, MOE_GROUPED)
 
 
 def reset_launch_counts() -> None:

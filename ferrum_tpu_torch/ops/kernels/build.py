@@ -26,7 +26,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "ferrum_tpu_torch")
-SOURCES = ("w4a8tl_gemm", "kv_append")
+SOURCES = ("w4a8tl_gemm", "kv_append", "moe_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -40,6 +40,12 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _P],
         "ferrum_w4a8tl_prefill": [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
+    },
+    "moe_gemm": {
+        "ferrum_moe_bmm": [_P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
+        "ferrum_moe_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
     },
     "kv_append": {
         "ferrum_kv_append_rows": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
@@ -64,9 +70,11 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
+    """Hash of `name`.cu, every header in csrc/ (a source may include any
+    of them) and the flags."""
     h = hashlib.sha256()
     for fn in sorted(os.listdir(CSRC)):
-        if fn.startswith(name) and fn.endswith((".cu", ".cuh")):
+        if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

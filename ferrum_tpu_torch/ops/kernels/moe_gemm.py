@@ -1,0 +1,227 @@
+"""Two-level w4a8 GEMMs over MoE expert stacks: Hopper kernels, plain
+versions, and the grouped kernel's device-side tile map.
+
+Counterpart of the MoE part of `ferrum_tpu/ops/pallas/quant_matmul.py`
+(:936-1477) on the served path (two-level stacks, `w4a8_gd="mxu"`):
+
+  quant_bmm_all_experts  every expert on every row (decode, t <= 64)
+                         <- _qbmm_w4a8tl_mxu_kernel / _qbmm_w4a8tl_kernel
+      out[e] = bf16((f32(xq[e|0] @ w8[e]) * xs[e|0]) * chan[e])
+  quant_grouped_matmul   rows sorted by expert (prefill, small decode)
+                         <- _qgmm_w4a8tl_kernel
+      y[r] = out_t((f32(xq[r] @ w8[e(r)]) * chan[e(r)]) * xs[r])
+
+The two keep their TPU kernels' (different) epilogue orders. On a CUDA
+tensor a wrapper launches its kernel (csrc/moe_gemm.cu); on a CPU tensor
+it runs the plain version, which takes the integer dot in float64
+(exact: every partial sum < 2^53).
+
+Params without `scales2` (the w4a16 grouped kernel, TPU kernel row 9)
+are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..quant import QuantLinearParams, two_level_w8
+from . import MOE_BMM, MOE_GROUPED
+from .build import check, library
+from .quant_matmul import quantize_activation_rows
+
+GROUP = 128
+BMM_MAX_T = 64
+
+TileMap = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def bmm_plain(xq3: torch.Tensor, xs3: torch.Tensor, p: QuantLinearParams,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the all-experts kernel: [1|E, t, K] → [E, t, N]."""
+    acc = xq3.to(torch.float64) @ two_level_w8(p).to(torch.float64)
+    return ((acc.to(torch.float32) * xs3.to(torch.float32))
+            * p.chan_scale.to(torch.float32)).to(out_dtype)
+
+
+def grouped_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+                  group_sizes: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the grouped kernel: rows [A, K] sorted by expert,
+    `group_sizes[e]` rows each → [A, N]; rows past the last group are 0
+    (the JAX kernel's masked rows). Reads the sizes on the host."""
+    w8 = two_level_w8(p)
+    chan = p.chan_scale.to(torch.float32)
+    out = torch.zeros((xq.shape[0], p.out_features), dtype=out_dtype,
+                      device=xq.device)
+    lo = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        hi = lo + size
+        if size:
+            acc = xq[lo:hi].to(torch.float64) @ w8[e].to(torch.float64)
+            out[lo:hi] = ((acc.to(torch.float32) * chan[e])
+                          * xs[lo:hi].to(torch.float32)).to(out_dtype)
+        lo = hi
+    return out
+
+
+# ---------------------------------------------------------------------------
+# grouped kernel: tile map
+# ---------------------------------------------------------------------------
+
+def group_tile_map(group_sizes: torch.Tensor, bm: int,
+                   num_logical: int) -> TileMap:
+    """(gid, mtid, offsets, valid), int32, on group_sizes' device with no
+    host sync: logical tile i of `num_logical` covers the rows of expert
+    gid[i] inside m-tile mtid[i]; offsets [E+1] are the groups' row
+    bounds; tiles at and past the active count repeat the last active
+    pair with valid 0. Port of `_make_group_metadata`, same values."""
+    dev = group_sizes.device
+    gs = group_sizes.to(torch.int64)
+    e = gs.shape[0]
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(gs, 0)])
+    first_tile = offsets[:-1] // bm
+    last_tile = (offsets[1:] + bm - 1) // bm                   # exclusive
+    tiles_per = torch.where(gs > 0, last_tile - first_tile,
+                            torch.zeros_like(gs))
+    seq_start = torch.cumsum(tiles_per, 0) - tiles_per
+    num_active = tiles_per.sum()
+    pos = torch.arange(num_logical, device=dev)
+    # group id at pos = largest g with seq_start[g] <= pos; starts at
+    # num_logical land in a spare bucket (the JAX scatter's mode="drop").
+    bumps = torch.zeros(num_logical + 1, dtype=torch.int64, device=dev)
+    bumps.index_add_(0, seq_start.clamp_max(num_logical),
+                     torch.ones_like(seq_start))
+    gid = (torch.cumsum(bumps[:num_logical], 0) - 1).clamp(0, e - 1)
+    mtid = first_tile[gid] + (pos - seq_start[gid])
+    last_idx = (num_active - 1).clamp_min(0)
+    valid = pos < num_active
+    gid = torch.where(valid, gid, gid[last_idx])
+    mtid = torch.where(valid, mtid, mtid[last_idx])
+    return (gid.to(torch.int32), mtid.to(torch.int32),
+            offsets.to(torch.int32), valid.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _require_two_level(p: QuantLinearParams) -> None:
+    if p.scales2 is None:
+        raise NotImplementedError(
+            "only two-level w4a8 expert stacks are served by the port "
+            "(requantize_two_level first); the w4a16 grouped kernel comes "
+            "in a later slice")
+
+
+def _check_stack(p: QuantLinearParams, k: int, dev: torch.device,
+                 n_align: int) -> Tuple[int, int]:
+    e, n = p.qweight.shape[0], p.out_features
+    if k != p.in_features or k % (2 * GROUP) or p.group_size != GROUP:
+        raise ValueError(f"unsupported K={k} / group {p.group_size}: the "
+                         f"kernel needs group 128 and K % 256 == 0")
+    if n % n_align:
+        raise ValueError(f"N={n} must be a multiple of {n_align}")
+    for name, t, dt, shape in (
+            ("qweight", p.qweight, torch.uint8, (e, k // 2, n)),
+            ("scales2", p.scales2, torch.int8, (e, k // GROUP, n)),
+            ("zeros", p.zeros, torch.int8, (e, k // GROUP, n)),
+            ("chan_scale", p.chan_scale, torch.float32, (e, 1, n))):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dt} {shape}")
+        if t.device != dev or t.data_ptr() % 4:
+            raise ValueError(f"{name} must be 4-byte aligned on {dev}")
+    return e, n
+
+
+def _check_rows(xq: torch.Tensor, xs: torch.Tensor, rows: int,
+                out_dtype: torch.dtype) -> None:
+    if xq.dtype != torch.int8 or not xq.is_contiguous() \
+            or xq.data_ptr() % 16:
+        raise ValueError("xq must be a contiguous, 16-byte aligned int8 "
+                         "tensor")
+    if xs.dtype != torch.float32 or xs.numel() != rows \
+            or not xs.is_contiguous() or xs.device != xq.device:
+        raise ValueError("xs must be a contiguous f32 tensor with one "
+                         "scale per row of xq, on its device")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported output dtype {out_dtype}")
+
+
+def quant_bmm_all_experts(xq3: torch.Tensor, xs3: torch.Tensor,
+                          p: QuantLinearParams,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """out[e] = xq3[e|0] @ W_e for every expert: xq3 int8 [1|E, t, K]
+    (1 = one row block shared by every expert, as gate/up; E = each
+    expert its own rows, as down), xs3 f32 [1|E, t, 1] → [E, t, N]."""
+    _require_two_level(p)
+    if not xq3.is_cuda:
+        return bmm_plain(xq3, xs3, p, out_dtype)
+    bx, t, k = xq3.shape
+    e, n = _check_stack(p, k, xq3.device, 64)
+    if bx not in (1, e) or not 1 <= t <= BMM_MAX_T:
+        raise ValueError(f"xq3 must be [1 or {e}, t <= {BMM_MAX_T}, K], "
+                         f"got {tuple(xq3.shape)}")
+    _check_rows(xq3, xs3, bx * t, out_dtype)
+    out = torch.empty((e, t, n), dtype=out_dtype, device=xq3.device)
+    stream = torch.cuda.current_stream(xq3.device).cuda_stream
+    err = library("moe_gemm").ferrum_moe_bmm(
+        xq3.data_ptr(), xs3.data_ptr(), p.qweight.data_ptr(),
+        p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
+        out.data_ptr(), e, t, n, k, int(bx == 1),
+        int(out_dtype == torch.bfloat16), stream)
+    check(err, "moe_bmm")
+    MOE_BMM.launches += 1
+    return out
+
+
+def grouped_w4a8tl(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+                   group_sizes: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Grouped two-level GEMM over expert-sorted rows xq int8 [A, K], xs
+    f32 [A, 1] → [A, N]. The kernel writes the rows of the groups (the
+    first sum(group_sizes) rows) and no other."""
+    _require_two_level(p)
+    if not xq.is_cuda:
+        return grouped_plain(xq, xs, p, group_sizes, out_dtype)
+    a, k = xq.shape
+    bm = 16 if a <= 256 else 128      # decode-sized / prefill m-tiles
+    e, n = _check_stack(p, k, xq.device, 64 if bm == 16 else 128)
+    _check_rows(xq, xs, a, out_dtype)
+    if group_sizes.shape != (e,) or group_sizes.device != xq.device:
+        raise ValueError(f"group_sizes must be [{e}] on {xq.device}")
+    gid, mtid, offsets, valid = group_tile_map(group_sizes, bm,
+                                               -(-a // bm) + e - 1)
+    out = torch.empty((a, n), dtype=out_dtype, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = library("moe_gemm").ferrum_moe_grouped(
+        xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
+        p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
+        gid.data_ptr(), mtid.data_ptr(), offsets.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), gid.numel(), bm, n, k,
+        int(out_dtype == torch.bfloat16), stream)
+    check(err, "moe_grouped")
+    MOE_GROUPED.launches += 1
+    return out
+
+
+def quant_grouped_matmul(x: torch.Tensor, p: QuantLinearParams,
+                         sorted_ids: torch.Tensor,
+                         group_sizes: torch.Tensor,
+                         act_quant=None) -> torch.Tensor:
+    """Grouped (expert-stacked) int4 matmul over rows x [A, K] sorted by
+    expert → [A, N] in x.dtype, two-level route only. `act_quant` passes
+    a precomputed (xq, xs) so gate and up share one activation
+    quantization. `sorted_ids` is the JAX signature's; the group sizes
+    alone place the rows."""
+    del sorted_ids
+    _require_two_level(p)
+    xq, xs = act_quant if act_quant is not None \
+        else quantize_activation_rows(x)
+    return grouped_w4a8tl(xq, xs, p, group_sizes, x.dtype)

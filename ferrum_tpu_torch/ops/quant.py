@@ -12,7 +12,12 @@ is kept exactly:
   scales2    int8  [K/g, N]  two-level w4a8: scales == chan * scales2
   chan_scale f32   [1, N]
 
-The Hopper kernels (ops/kernels/quant_matmul.py) read this layout as is.
+MoE expert stacks carry a leading expert dim on every tensor
+(qweight [E, K/2, N], scales/zeros/scales2 [E, K/g, N], chan_scale
+[E, 1, N]); `in_features`/`out_features` are one expert's K and N.
+
+The Hopper kernels (ops/kernels/quant_matmul.py, ops/kernels/moe_gemm.py)
+read this layout as is.
 """
 
 from __future__ import annotations
@@ -53,9 +58,10 @@ def pack_rows_np(q: np.ndarray, group_size: int) -> np.ndarray:
 
 
 def unpack_rows(qweight: torch.Tensor) -> torch.Tensor:
-    """uint8 [in/2, out] → uint4-valued int32 [in, out] (inverse of pack)."""
+    """uint8 [..., in/2, out] → uint4-valued int32 [..., in, out]
+    (inverse of pack)."""
     qi = qweight.to(torch.int32)
-    return torch.cat([qi & 0xF, qi >> 4], dim=0)
+    return torch.cat([qi & 0xF, qi >> 4], dim=-2)
 
 
 def quantize_weight_np(
@@ -107,25 +113,28 @@ def make_quant_linear(w: torch.Tensor, group_size: int = 128,
         in_features=in_f, out_features=out_f, group_size=group_size)
 
 
-def dequantize(p: QuantLinearParams, dtype=torch.bfloat16) -> torch.Tensor:
-    """Full dequantization [in, out] (plain reference path)."""
+def _grouped(p: QuantLinearParams) -> torch.Tensor:
+    """Unpacked q as int32 [..., in/g, g, out] (leading expert dims kept)."""
     q = unpack_rows(p.qweight)
     g = p.group_size
-    qg = q.reshape(p.in_features // g, g, p.out_features)
-    w = (qg - p.zeros[:, None, :].to(torch.int32)).to(torch.float32)
-    w = w * p.scales[:, None, :].to(torch.float32)
-    return w.reshape(p.in_features, p.out_features).to(dtype)
+    return q.reshape(*q.shape[:-2], p.in_features // g, g, p.out_features)
+
+
+def dequantize(p: QuantLinearParams, dtype=torch.bfloat16) -> torch.Tensor:
+    """Full dequantization [..., in, out] (plain reference path)."""
+    qg = _grouped(p)
+    w = (qg - p.zeros[..., None, :].to(torch.int32)).to(torch.float32)
+    w = w * p.scales[..., None, :].to(torch.float32)
+    return w.reshape(*qg.shape[:-3], p.in_features, p.out_features).to(dtype)
 
 
 def two_level_w8(p: QuantLinearParams) -> torch.Tensor:
-    """Integer weights w8 = (q - z) * scales2, int32 [in, out], |w8| <= 127
-    (the operand both w4a8tl kernels multiply against)."""
-    q = unpack_rows(p.qweight)
-    g = p.group_size
-    qg = q.reshape(p.in_features // g, g, p.out_features)
-    w8 = ((qg - p.zeros[:, None, :].to(torch.int32))
-          * p.scales2[:, None, :].to(torch.int32))
-    return w8.reshape(p.in_features, p.out_features)
+    """Integer weights w8 = (q - z) * scales2, int32 [..., in, out],
+    |w8| <= 127 (the operand every w4a8tl kernel multiplies against)."""
+    qg = _grouped(p)
+    w8 = ((qg - p.zeros[..., None, :].to(torch.int32))
+          * p.scales2[..., None, :].to(torch.int32))
+    return w8.reshape(*qg.shape[:-3], p.in_features, p.out_features)
 
 
 def _two_level_2d(qweight: torch.Tensor, scales: torch.Tensor,
@@ -159,15 +168,18 @@ def _two_level_2d(qweight: torch.Tensor, scales: torch.Tensor,
 
 def requantize_two_level(p: QuantLinearParams) -> QuantLinearParams:
     """Two-level w4a8 form (see module docstring); idempotent. `scales`
-    becomes the effective chan * qs, so dequantize stays valid."""
+    becomes the effective chan * qs, so dequantize stays valid. Expert
+    stacks [E, ...] are requantized one expert at a time (the JAX
+    package's vmap over E)."""
     if p.scales2 is not None:
         return p
-    if p.qweight.dim() != 2:
-        raise NotImplementedError(
-            "stacked (MoE) two-level requantization belongs to the MoE "
-            "slice of the port")
-    packed, eff, qs, chan = _two_level_2d(p.qweight, p.scales, p.zeros,
-                                          p.group_size)
+    if p.qweight.dim() == 3:
+        parts = [_two_level_2d(qw, s, z, p.group_size)
+                 for qw, s, z in zip(p.qweight, p.scales, p.zeros)]
+        packed, eff, qs, chan = (torch.stack(t) for t in zip(*parts))
+    else:
+        packed, eff, qs, chan = _two_level_2d(p.qweight, p.scales, p.zeros,
+                                              p.group_size)
     return dataclasses.replace(p, qweight=packed,
                                scales=eff.to(p.scales.dtype),
                                scales2=qs, chan_scale=chan)

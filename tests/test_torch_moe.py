@@ -1,0 +1,538 @@
+"""MoE parity: ferrum_tpu_torch vs ferrum_tpu (qwen3-moe, two-level w4a8).
+
+The same numpy inputs go through the JAX package and the port on the
+CPU. The JAX package's two MoE Pallas kernels run in interpret mode
+(`pl.pallas_call(interpret=True)` under `jax.disable_jit()`, as
+tests/test_moe_grouped.py runs them); the moe_mlp, model and engine
+checks route the JAX side to jnp forms of those kernels
+(torch_parity.route_moe_w4a8tl), which the kernel checks below hold bit
+for bit against the interpret runs. Integer functions must match bit
+for bit (requantization, the bmm and the grouped GEMM); float paths
+within a stated tolerance.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from torch_parity import (flatten_jax_params, jax_bmm_w4a8tl,
+                          jax_grouped_w4a8tl, jax_model, route_moe_w4a8tl,
+                          run_pallas_interpret, torch_config)
+
+
+def _jax_stack(e, in_f, out_f, seed, dtype=jnp.float32):
+    """Random float expert stack quantized asymmetric int4 g128 (JAX
+    QuantLinearParams [E, ...]): per-group zeros and scales differ, so an
+    indexing bug in a kernel shows."""
+    from ferrum_tpu.ops.quant import QuantLinearParams, quantize_weight_np
+
+    rng = np.random.default_rng(seed)
+    parts = [quantize_weight_np(rng.normal(0, 0.05, (in_f, out_f)).astype(
+        np.float32), group_size=128, symmetric=False) for _ in range(e)]
+    qw, sc, z = (np.stack(t) for t in zip(*parts))
+    return QuantLinearParams(
+        qweight=jnp.asarray(qw), scales=jnp.asarray(sc, dtype),
+        zeros=jnp.asarray(z), bias=None, in_features=in_f,
+        out_features=out_f, group_size=128)
+
+
+def _to_torch_stack(p):
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.array(a.astype(jnp.float32) if a.dtype == jnp.bfloat16
+                     else a))
+
+    q = QuantLinearParams(
+        qweight=t(p.qweight), scales=t(p.scales), zeros=t(p.zeros),
+        bias=None, in_features=p.in_features, out_features=p.out_features,
+        group_size=p.group_size, scales2=t(p.scales2),
+        chan_scale=t(p.chan_scale))
+    if p.scales.dtype == jnp.bfloat16:
+        q.scales = q.scales.to(torch.bfloat16)
+    return q
+
+
+def _tl_stack(e, in_f, out_f, seed):
+    """(JAX, port) two-level expert stacks with the same bytes."""
+    from ferrum_tpu.ops.quant import requantize_two_level
+
+    jp = requantize_two_level(_jax_stack(e, in_f, out_f, seed))
+    return jp, _to_torch_stack(jp)
+
+
+def _quant_rows(x):
+    from ferrum_tpu.ops.pallas.quant_matmul import quantize_activation_rows
+    xq, xs = quantize_activation_rows(jnp.asarray(x, jnp.float32))
+    return np.array(xq), np.array(xs)
+
+
+# ---------------------------------------------------------------------------
+# 1. stacked two-level requantization: bit-exact
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_requantize_two_level_stack_matches_jax(dtype):
+    from ferrum_tpu.ops.quant import requantize_two_level as jrq
+    from ferrum_tpu_torch.ops.quant import requantize_two_level as trq
+
+    jp = _jax_stack(4, 256, 384, seed=1, dtype=dtype)
+    want = jrq(jp)
+    got = trq(_to_torch_stack(jp))
+    for name in ("qweight", "scales", "zeros", "scales2", "chan_scale"):
+        w = np.asarray(getattr(want, name).astype(jnp.float32)
+                       if name == "scales" else getattr(want, name))
+        g = getattr(got, name)
+        g = (g.float() if name == "scales" else g).numpy()
+        assert g.shape == w.shape, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert tuple(got.chan_scale.shape) == (4, 1, 384)
+
+
+# ---------------------------------------------------------------------------
+# 2. all-experts bmm: plain version == the JAX kernels (interpret), exactly
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [1, 32])
+@pytest.mark.parametrize("gd", ["off", "mxu"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_bmm_plain_matches_jax_kernel(monkeypatch, shared, out_dtype, gd,
+                                      t):
+    """The JAX kernel takes rows in multiples of 32 (its int8 sublane
+    tile): t = 1 runs it on 32 rows, 31 of them zero, and compares row 0.
+    Per-row quantization makes the padding irrelevant to the real row."""
+    from ferrum_tpu.ops.pallas import quant_matmul as qm
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import quant_bmm_all_experts
+
+    e, k, n, t_pad = 4, 256, 256, 32
+    jp, tp = _tl_stack(e, k, n, seed=21)
+    rng = np.random.default_rng(22)
+    bx = 1 if shared else e
+    x = np.zeros((bx, t_pad, k), np.float32)
+    x[:, :t] = rng.normal(0, 1, (bx, t, k))
+    xq, xs = _quant_rows(x.reshape(bx * t_pad, k))
+    xq3, xs3 = xq.reshape(bx, t_pad, k), xs.reshape(bx, t_pad, 1)
+    jdt = getattr(jnp, out_dtype)
+    monkeypatch.setattr(qm, "_W4A8_GD", gd)
+    want = np.asarray(run_pallas_interpret(
+        qm.quant_bmm_all_experts, jnp.asarray(xq3), jnp.asarray(xs3), jp,
+        jdt).astype(jnp.float32))
+    # The jnp form the moe_mlp/model/engine checks route the JAX side to.
+    np.testing.assert_array_equal(np.asarray(jax_bmm_w4a8tl(
+        jnp.asarray(xq3), jnp.asarray(xs3), jp, jdt).astype(jnp.float32)),
+        want)
+    got = quant_bmm_all_experts(
+        torch.from_numpy(np.ascontiguousarray(xq3[:, :t])),
+        torch.from_numpy(np.ascontiguousarray(xs3[:, :t])), tp,
+        getattr(torch, out_dtype))
+    assert tuple(got.shape) == (e, t, n)
+    np.testing.assert_array_equal(got.float().numpy(), want[:, :t])
+
+
+# ---------------------------------------------------------------------------
+# 3. grouped GEMM: plain version == the JAX kernel (interpret), exactly
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sizes", [
+    (32, 32, 32, 32),            # tile-aligned
+    (7, 50, 0, 71),              # straddle + empty
+    (0, 0, 128, 0),              # single active expert
+    (5, 20, 0, 30),              # 55 rows: the JAX kernel pads to 64
+])
+def test_grouped_plain_matches_jax_kernel(sizes):
+    from ferrum_tpu.ops.pallas import quant_matmul as qm
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import grouped_w4a8tl
+
+    e, k, n = len(sizes), 256, 256
+    a = sum(sizes)
+    a_pad = -(-a // 32) * 32
+    jp, tp = _tl_stack(e, k, n, seed=11)
+    rng = np.random.default_rng(12)
+    x = np.zeros((a_pad, k), np.float32)
+    x[:a] = rng.normal(0, 1, (a, k))
+    xq, xs = _quant_rows(x)
+    gs = np.asarray(sizes, np.int32)
+    for out_dtype in ("float32", "bfloat16"):
+        jdt = getattr(jnp, out_dtype)
+        want = np.asarray(run_pallas_interpret(
+            qm._quant_grouped_w4a8tl_2d, jnp.asarray(xq), jnp.asarray(xs),
+            jp, jnp.asarray(gs), jdt, bm=32).astype(jnp.float32))
+        np.testing.assert_array_equal(np.asarray(jax_grouped_w4a8tl(
+            jnp.asarray(xq), jnp.asarray(xs), jp, jnp.asarray(gs),
+            jdt).astype(jnp.float32)), want)
+        got = grouped_w4a8tl(torch.from_numpy(xq[:a].copy()),
+                             torch.from_numpy(xs[:a].copy()), tp,
+                             torch.from_numpy(gs), getattr(torch, out_dtype))
+        np.testing.assert_array_equal(got.float().numpy(), want[:a])
+
+
+@pytest.mark.parametrize("bm", [16, 32, 128])
+@pytest.mark.parametrize("sizes", [(7, 50, 0, 71), (0, 0, 128, 0),
+                                   (1, 1, 1, 125), (0, 3, 0, 0, 9, 0, 0, 4)])
+def test_group_tile_map_matches_jax(sizes, bm):
+    from ferrum_tpu.ops.pallas.quant_matmul import _make_group_metadata
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import group_tile_map
+
+    a = sum(sizes)
+    num_logical = -(-a // bm) + len(sizes) - 1
+    gs = np.asarray(sizes, np.int32)
+    want = _make_group_metadata(jnp.asarray(gs), bm, num_logical)
+    got = group_tile_map(torch.from_numpy(gs), bm, num_logical)
+    for name, w, g in zip(("gid", "mtid", "offsets", "valid"), want, got):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# 4. routing: JAX's top-k order on ties
+# ---------------------------------------------------------------------------
+
+def test_route_topk_breaks_ties_like_jax():
+    from ferrum_tpu.ops.moe import route_topk as jroute
+    from ferrum_tpu_torch.ops.moe import route_topk as troute
+
+    rng = np.random.default_rng(3)
+    # bf16-valued logits on a coarse grid: many equal values, and rows
+    # with a tie straddling the k-th place.
+    logits = np.round(rng.normal(0, 1, (64, 16)) * 4) / 4
+    logits[0, [2, 5, 9, 11]] = 3.0           # 4-way tie at places 1..4
+    logits[1, :] = 0.5                       # all tied
+    logits[2, [1, 14]] = 2.0                 # tie across the k-th place
+    logits[2, [0, 3, 4]] = 2.5
+    logits = logits.astype(np.float32)
+    for k, renorm in ((4, True), (8, False)):
+        wj, ij = jroute(jnp.asarray(logits, jnp.bfloat16), k, renorm)
+        wt, it = troute(torch.from_numpy(logits).to(torch.bfloat16), k,
+                        renorm)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-6,
+                                   atol=0)
+
+
+# ---------------------------------------------------------------------------
+# 5. moe_mlp: port vs the JAX dispatch the TPU runs
+# ---------------------------------------------------------------------------
+
+H, INTER, E, TOPK = 256, 256, 8, 2
+
+
+def _moe_pair(seed=5, fused=False):
+    """(jax cfg, JAX MoeLayerParams, port cfg, port MoeLayerParams);
+    `fused`: gate|up as one stack (the JAX package's "moe" fuse site)."""
+    from ferrum_tpu.models.configs import ModelConfig, MoeConfig
+    from ferrum_tpu.models.llama_family import MoeLayerParams as JMoe
+    from ferrum_tpu.ops.linear import DenseLinearParams as JDense
+    from ferrum_tpu_torch.models.llama_family import MoeLayerParams
+    from ferrum_tpu_torch.ops.linear import DenseLinearParams
+
+    jcfg = ModelConfig(
+        family="qwen3_moe", vocab_size=64, hidden_size=H, num_layers=1,
+        num_heads=4, num_kv_heads=2, head_dim=64, intermediate_size=512,
+        moe=MoeConfig(num_experts=E, num_experts_per_tok=TOPK,
+                      moe_intermediate_size=INTER, norm_topk_prob=True))
+    rng = np.random.default_rng(seed)
+    router = rng.normal(0, 0.5, (H, E)).astype(np.float32)
+    (jg, tg), (ju, tu), (jd, td) = (
+        _tl_stack(E, H, INTER, seed + 1), _tl_stack(E, H, INTER, seed + 2),
+        _tl_stack(E, INTER, H, seed + 3))
+    jp = JMoe(router=JDense(w=jnp.asarray(router), bias=None),
+              gate=jg, up=ju, down=jd)
+    tp = MoeLayerParams(
+        router=DenseLinearParams(w=torch.from_numpy(router), bias=None),
+        gate=tg, up=tu, down=td)
+    if fused:
+        from ferrum_tpu.ops.linear import concat_linears
+        jp.gate_up, jp.gate, jp.up = concat_linears([jg, ju]), None, None
+        tp.gate_up, tp.gate, tp.up = _to_torch_stack(jp.gate_up), None, None
+    return jcfg, jp, torch_config(jcfg), tp
+
+
+# t * k >= E and t <= 64: all-experts; below E, or t > 64: sort + grouped.
+@pytest.mark.parametrize("t,route,fused", [
+    (4, "all_experts", False), (40, "all_experts", False),
+    (3, "sort", False), (96, "sort", False),
+    (4, "all_experts", True), (96, "sort", True)])
+def test_moe_mlp_matches_jax(monkeypatch, t, route, fused):
+    """Routed ids equal; outputs within 1e-5 of the output scale (f32 x).
+    The all-experts route rounds g, u and silu(g)*u to bf16 on both sides
+    (the JAX package's dtypes), where the two frameworks' f32 silu can
+    differ by an ulp and flip one bf16 rounding; every output must still
+    be within 2e-3 of the scale, and 99% within 1e-5."""
+    from ferrum_tpu.ops.linear import apply_linear as japply
+    from ferrum_tpu.ops.moe import moe_mlp as jmoe
+    from ferrum_tpu.ops.moe import route_topk as jroute
+    from ferrum_tpu_torch.ops import moe as tmoe
+
+    route_moe_w4a8tl(monkeypatch)
+    jcfg, jp, cfg, tp = _moe_pair(fused=fused)
+    x = np.random.default_rng(t).normal(0, 1, (t, H)).astype(np.float32)
+    xt = torch.from_numpy(x)
+
+    _, ij = jroute(japply(jp.router, jnp.asarray(x)), TOPK, True)
+    _, it = tmoe.route_topk(tmoe.apply_linear(tp.router, xt), TOPK, True)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+
+    calls = []
+    for name in ("moe_mlp_dense_decode", "quant_grouped_matmul"):
+        fn = getattr(tmoe, name)
+        monkeypatch.setattr(tmoe, name, lambda *a, _fn=fn, _n=name, **kw: (
+            calls.append(_n), _fn(*a, **kw))[1])
+    got = tmoe.moe_mlp(xt, tp, cfg).numpy()
+    assert calls[0] == ("moe_mlp_dense_decode" if route == "all_experts"
+                        else "quant_grouped_matmul")
+    want = np.asarray(jmoe(jnp.asarray(x), jp, jcfg))
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert err.max() <= 2e-3 * scale, err.max() / scale
+    assert np.mean(err <= 1e-5 * scale) >= 0.99
+
+
+def test_moe_mlp_ref_matches_jax():
+    """The one-hot oracle over dense stacks: the same f32 function."""
+    from ferrum_tpu.models.llama_family import MoeLayerParams as JMoe
+    from ferrum_tpu.ops.linear import DenseLinearParams as JDense
+    from ferrum_tpu.ops.moe import moe_mlp_ref as jref
+    from ferrum_tpu_torch.models.llama_family import MoeLayerParams
+    from ferrum_tpu_torch.ops.linear import DenseLinearParams
+    from ferrum_tpu_torch.ops.moe import moe_mlp_ref as tref
+
+    jcfg, _, cfg, _ = _moe_pair()
+    rng = np.random.default_rng(9)
+    router = rng.normal(0, 0.5, (H, E)).astype(np.float32)
+    g, u = (rng.normal(0, 0.05, (E, H, INTER)).astype(np.float32)
+            for _ in range(2))
+    d = rng.normal(0, 0.05, (E, INTER, H)).astype(np.float32)
+    x = rng.normal(0, 1, (24, H)).astype(np.float32)
+    want = np.asarray(jref(jnp.asarray(x), JMoe(
+        router=JDense(w=jnp.asarray(router), bias=None), gate=jnp.asarray(g),
+        up=jnp.asarray(u), down=jnp.asarray(d)), jcfg))
+    t = torch.from_numpy
+    got = tref(t(x), MoeLayerParams(
+        router=DenseLinearParams(w=t(router), bias=None), gate=t(g),
+        up=t(u), down=t(d)), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_moe_combine_sums_in_ascending_expert_order():
+    """The sort route's combine adds each token's k weighted rows in
+    ascending expert order, starting from the first: the same f32 sum as
+    the JAX package's scatter-add over expert-sorted rows."""
+    from ferrum_tpu_torch.ops import moe as tmoe
+
+    _, _, cfg, tp = _moe_pair(seed=7)
+    t = 3                                    # t * k = 6 < E: sort route
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        0, 1, (t, H)).astype(np.float32))
+    seen = []
+    orig = tmoe._sum_in_order
+    tmoe._sum_in_order = lambda rows: (seen.append(rows), orig(rows))[1]
+    try:
+        out = tmoe.moe_mlp(x, tp, cfg)
+    finally:
+        tmoe._sum_in_order = orig
+    rows = seen[0]                                   # [t, k, H]
+    w, ids = tmoe.route_topk(tmoe.apply_linear(tp.router, x), TOPK, True)
+    ids_up, perm = torch.sort(ids, dim=-1)
+    # Each slot holds that expert's weighted row: recompute expert by
+    # expert through the plain grouped GEMM and compare slot by slot.
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import grouped_plain
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
+        quantize_activation_rows)
+    for i in range(t):
+        for j in range(TOPK):
+            ex = int(ids_up[i, j])
+            one = torch.zeros(E, dtype=torch.int32)
+            one[ex] = 1
+            xq, xs = quantize_activation_rows(x[i:i + 1])
+            g = grouped_plain(xq, xs, tp.gate, one, torch.float32)
+            u = grouped_plain(xq, xs, tp.up, one, torch.float32)
+            act = tmoe._silu_mul(g, u, torch.float32)
+            aq, a_s = quantize_activation_rows(act)
+            y = grouped_plain(aq, a_s, tp.down, one, torch.float32)
+            torch.testing.assert_close(
+                rows[i, j], y[0] * w[i, perm[i, j]], rtol=0, atol=0)
+    want = rows[:, 0]
+    for j in range(1, TOPK):
+        want = want + rows[:, j]
+    assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# 6. the slice as a whole: prefill + decode logits
+# ---------------------------------------------------------------------------
+
+SLOTS, PAGE, MAX_LEN, CTX = 2, 16, 128, 64
+PROMPT_LENS = (20, 32)
+T_PAD = 32
+DECODE_STEPS = 4
+
+
+def _jax_moe_model(seed=0):
+    from ferrum_tpu.models.configs import ModelConfig, MoeConfig
+
+    cfg = ModelConfig(
+        family="qwen3_moe", vocab_size=1024, hidden_size=256, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=64, intermediate_size=512,
+        rope_theta=10000.0, qk_norm=True, rms_norm_eps=1e-6,
+        moe=MoeConfig(num_experts=8, num_experts_per_tok=2,
+                      moe_intermediate_size=256, norm_topk_prob=True),
+        eos_token_ids=(2,))
+    return jax_model(cfg, quantized=True, seed=seed)
+
+
+def test_moe_model_carries_over():
+    """params_from_numpy rebuilds the stacked expert tensors [E, ...]."""
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+
+    jcfg, jparams = _jax_moe_model()
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    for jl, tl in zip(jparams.layers, params.layers):
+        assert tl.gate is None and tl.moe is not None
+        assert tl.moe.gate_up is None
+        for name in ("gate", "up", "down"):
+            jq, tq = getattr(jl.moe, name), getattr(tl.moe, name)
+            assert (tq.in_features, tq.out_features, tq.group_size) == (
+                jq.in_features, jq.out_features, jq.group_size)
+            assert tuple(tq.chan_scale.shape) == (8, 1, jq.out_features)
+            np.testing.assert_array_equal(tq.qweight.numpy(),
+                                          np.asarray(jq.qweight))
+            np.testing.assert_array_equal(tq.scales2.numpy(),
+                                          np.asarray(jq.scales2))
+        np.testing.assert_array_equal(tl.moe.router.w.numpy(),
+                                      np.asarray(jl.moe.router.w))
+
+
+def _model_inputs(vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((SLOTS, T_PAD), np.int32)
+    positions = np.full((SLOTS, T_PAD), MAX_LEN + CTX, np.int32)
+    flat = np.full((SLOTS, T_PAD), 1 << 30, np.int32)
+    for s, n in enumerate(PROMPT_LENS):
+        tokens[s, :n] = rng.integers(3, vocab, n)
+        positions[s, :n] = np.arange(n)
+        flat[s, :n] = s * MAX_LEN + np.arange(n)
+    tables = (np.arange(SLOTS)[:, None] * (MAX_LEN // PAGE)
+              + np.arange(MAX_LEN // PAGE)[None, :]).astype(np.int32)
+    return tokens, positions, flat, tables, np.asarray(PROMPT_LENS, np.int32)
+
+
+def _run_jax_model(cfg, params, inputs):
+    import functools
+
+    from ferrum_tpu.models.llama_family import (
+        PagedKvCache, decode_forward, logits_from_hidden,
+        prefill_forward_batched)
+
+    prefill = jax.jit(functools.partial(
+        prefill_forward_batched, cfg=cfg, ctx_pad=CTX, attn_impl="linear",
+        append="pages"))
+    decode = jax.jit(functools.partial(
+        decode_forward, cfg=cfg, ctx_pad=CTX, attn_impl="linear"))
+    tokens, positions, flat, tables, lens = inputs
+    kv = PagedKvCache.create(cfg, SLOTS * MAX_LEN // PAGE, PAGE,
+                             dtype=jnp.float32)
+    h, kv = prefill(params, kv=kv, tokens=tokens, positions=positions,
+                    block_tables=tables, total_lens=lens, flat_slots=flat)
+    out = [np.asarray(logits_from_hidden(params, cfg,
+                                         h.reshape(-1, h.shape[-1])))]
+    last = out[0].reshape(SLOTS, T_PAD, -1)[np.arange(SLOTS), lens - 1]
+    tok = last.argmax(-1).astype(np.int32)
+    fed = []
+    for step in range(DECODE_STEPS):
+        pos = lens + step
+        fed.append(tok)
+        h, kv = decode(
+            params, kv=kv, tokens=tok, positions=pos, block_tables=tables,
+            context_lens=pos + 1,
+            flat_slots=np.arange(SLOTS, dtype=np.int32) * MAX_LEN + pos)
+        lg = np.asarray(logits_from_hidden(params, cfg, h))
+        out.append(lg)
+        tok = lg.argmax(-1).astype(np.int32)
+    return out, fed
+
+
+def _run_torch_model(cfg, params, inputs, fed):
+    from ferrum_tpu_torch.models.llama_family import (
+        PagedKvCache, decode_forward, logits_from_hidden,
+        prefill_forward_batched)
+
+    tokens, positions, flat, tables, lens = inputs
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(torch.int64)  # noqa
+    kv = PagedKvCache.create(cfg, SLOTS * MAX_LEN // PAGE, PAGE,
+                             dtype=torch.float32, device="cpu")
+    h, kv = prefill_forward_batched(
+        params, cfg, kv, t(tokens), t(positions), t(tables), t(lens),
+        t(flat), ctx_pad=CTX)
+    out = [logits_from_hidden(params, cfg, h.reshape(-1, h.shape[-1]))]
+    for step, tok in enumerate(fed):
+        pos = lens + step
+        h, kv = decode_forward(
+            params, cfg, kv, t(tok), t(pos), t(tables), t(pos + 1),
+            t(np.arange(SLOTS) * MAX_LEN + pos), ctx_pad=CTX)
+        out.append(logits_from_hidden(params, cfg, h))
+    return [o.numpy() for o in out]
+
+
+def test_moe_prefill_and_decode_logits_match_jax(monkeypatch):
+    """2 MoE layers, E=8, k=2: the batched prefill (64 rows, 128
+    assignments: sort route) and 4 decode steps of 2 slots (4 < E: sort
+    route at A=4). The int8 activation rounding is exact for equal
+    inputs, but an f32 ulp upstream (the router, silu, a norm) can move
+    one x/s across a .5 boundary; that changes one token's whole row of
+    logits, by up to ~1e-3 of the scale on these weights. So every logit
+    within 5e-2 of the scale, and 95% of the token rows entirely within
+    1e-5 of it (measured: 1 row of 60 off, by 2.5e-4)."""
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+
+    route_moe_w4a8tl(monkeypatch)
+    jcfg, jparams = _jax_moe_model()
+    cfg = torch_config(jcfg)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    inputs = _model_inputs(cfg.vocab_size)
+    want, fed = _run_jax_model(jcfg, jparams, inputs)
+    got = _run_torch_model(cfg, params, inputs, fed)
+    real = (inputs[1] < MAX_LEN).reshape(-1)
+    want[0], got[0] = want[0][real], got[0][real]
+    rows_close = []
+    for w, g in zip(want, got):
+        scale = np.abs(w).max()
+        err = np.abs(w - g)
+        assert err.max() <= 5e-2 * scale, err.max() / scale
+        rows_close += list((err <= 1e-5 * scale).all(axis=-1))
+    assert np.mean(rows_close) >= 0.95
+
+
+# ---------------------------------------------------------------------------
+# 7. the engine: greedy streams equal the JAX engine's
+# ---------------------------------------------------------------------------
+
+def test_moe_greedy_streams_match_jax_engine(monkeypatch):
+    """3 concurrent greedy requests through both engines on the MoE model
+    (4 decode slots: 4 * k = 8 = E, so decode takes the all-experts
+    route; prefill the sort route). Near-ties fail loudly first, as in
+    tests/test_torch_engine.py."""
+    import test_torch_engine as te
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+
+    route_moe_w4a8tl(monkeypatch)
+    jcfg, jparams = _jax_moe_model(seed=4)
+    cfg = torch_config(jcfg)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    got, streamed = te._torch_streams(cfg, params)
+    assert streamed == got
+    for prompt, out in zip(te.PROMPTS, got):
+        assert len(out) == te.MAX_TOKENS
+        argmax, margins = te._margins(cfg, params, prompt, out)
+        assert argmax == out, "engine tokens differ from the model's argmax"
+        assert min(margins) > te.MARGIN, (
+            f"near-tie (margin {min(margins):.2e} of the logit scale): "
+            f"pick another seed, the comparison would be a coin flip")
+    want = te._jax_streams(jcfg, jparams)
+    assert got == want

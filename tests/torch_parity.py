@@ -4,7 +4,12 @@ Inputs are made with numpy from a seed and fed to both packages; the
 JAX package runs on the CPU. Off the TPU the JAX package computes its
 w4a8 two-level matmuls through the w4a16 reference, so `route_w4a8tl`
 points its `quant_matmul` dispatch at `quant_matmul_w4a8tl_ref` -- the
-function both TPU kernels compute -- for the duration of a test.
+function both TPU kernels compute -- for the duration of a test. Its MoE
+dispatch likewise takes the all-experts route only on the TPU and with
+w4a8 on; `route_moe_w4a8tl` turns both on and points the two MoE Pallas
+entries at `jax_bmm_w4a8tl` / `jax_grouped_w4a8tl`, jnp forms that
+tests/test_torch_moe.py holds bit for bit against interpret-mode runs of
+the kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +35,92 @@ def route_w4a8tl(monkeypatch) -> None:
         return orig(x, p)
 
     monkeypatch.setattr(qm, "quant_matmul", routed)
+
+
+def _jax_stack_w8(p):
+    """Two-level integer weights w8 = (q - z) * scales2 of an expert
+    stack, int32 [E, K, N] (jnp)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ferrum_tpu.ops.quant import unpack_rows
+
+    q = jax.vmap(lambda qw: unpack_rows(qw, p.group_size))(p.qweight)
+    e, k, n = q.shape
+    qg = q.reshape(e, k // p.group_size, p.group_size, n)
+    w8 = ((qg - p.zeros[:, :, None, :].astype(jnp.int32))
+          * p.scales2[:, :, None, :].astype(jnp.int32))
+    return w8.reshape(e, k, n)
+
+
+def jax_bmm_w4a8tl(xq3, xs3, p, out_dtype, **_):
+    """jnp form of the JAX package's `quant_bmm_all_experts` (both its
+    kernels): out[e] = ((f32(xq3[e|0] @ w8[e]) * xs3[e|0]) * chan[e])."""
+    import jax.numpy as jnp
+
+    w8 = _jax_stack_w8(p)
+    e, k, n = w8.shape
+    x = jnp.broadcast_to(xq3, (e,) + xq3.shape[1:]).astype(jnp.int32)
+    acc = jnp.einsum("etk,ekn->etn", x, w8,
+                     preferred_element_type=jnp.int32)
+    chan = p.chan_scale.reshape(e, 1, n).astype(jnp.float32)
+    return (acc.astype(jnp.float32) * xs3 * chan).astype(out_dtype)
+
+
+def jax_grouped_w4a8tl(xq, xs, p, group_sizes, out_dtype, **_):
+    """jnp form of the JAX package's `_quant_grouped_w4a8tl_2d`:
+    y[r] = ((f32(xq[r] @ w8[e(r)]) * chan[e(r)]) * xs[r]), 0 past the
+    last group."""
+    import jax.numpy as jnp
+
+    w8 = _jax_stack_w8(p)
+    e, k, n = w8.shape
+    offsets = jnp.concatenate([jnp.zeros(1, jnp.int32),
+                               jnp.cumsum(group_sizes).astype(jnp.int32)])
+    rows = jnp.arange(xq.shape[0])[:, None]
+    chan = p.chan_scale.reshape(e, 1, n).astype(jnp.float32)
+    acc = jnp.zeros((xq.shape[0], n), jnp.float32)
+    for g in range(e):
+        part = jnp.dot(xq.astype(jnp.int32), w8[g],
+                       preferred_element_type=jnp.int32)
+        mine = (rows >= offsets[g]) & (rows < offsets[g + 1])
+        acc = jnp.where(mine, part.astype(jnp.float32) * chan[g], acc)
+    return (acc * xs).astype(out_dtype)
+
+
+def route_moe_w4a8tl(monkeypatch) -> None:
+    """JAX side: the MoE dispatch the TPU runs (w4a8 on, all-experts at
+    decode sizes, the two-level grouped kernel otherwise), through the
+    jnp forms of its two MoE kernels; dense linears as `route_w4a8tl`."""
+    from ferrum_tpu.ops.pallas import quant_matmul as qm
+
+    route_w4a8tl(monkeypatch)
+    monkeypatch.setattr(qm, "on_tpu", lambda: True)
+    monkeypatch.setattr(qm, "_W4A8", True)
+    monkeypatch.setattr(qm, "_W4A8_GD", "mxu")
+    monkeypatch.setattr(qm, "quant_bmm_all_experts", jax_bmm_w4a8tl)
+    monkeypatch.setattr(qm, "_quant_grouped_w4a8tl_2d", jax_grouped_w4a8tl)
+
+
+def run_pallas_interpret(fn, *args, **kw):
+    """Run a JAX-package entry that reaches `pl.pallas_call` with every
+    Pallas kernel in interpret mode, as tests/test_moe_grouped.py does."""
+    import jax
+
+    from ferrum_tpu.ops.pallas import quant_matmul as qm
+
+    orig = qm.pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    qm.pl.pallas_call = patched
+    try:
+        with jax.disable_jit():
+            return fn(*args, **kw)
+    finally:
+        qm.pl.pallas_call = orig
 
 
 def _np(a, dtype=None):
@@ -75,12 +166,18 @@ def flatten_jax_params(params) -> dict:
             lin = getattr(lp, name)
             if lin is not None:
                 _linear(out, f"layers.{i}.{name}", lin)
+        if lp.moe is not None:
+            for name in ("router", "gate", "up", "down", "gate_up"):
+                lin = getattr(lp.moe, name)
+                if lin is not None:
+                    _linear(out, f"layers.{i}.moe.{name}", lin)
     return out
 
 
-def jax_model(preset_name: str, quantized: bool, seed: int = 0):
-    """(jax ModelConfig, f32 JAX params): random float weights, int4 g128
-    two-level requantized when `quantized`, q|k|v and gate|up fused."""
+def jax_model(preset_name, quantized: bool, seed: int = 0):
+    """(jax ModelConfig, f32 JAX params) of a preset name or a JAX
+    ModelConfig: random float weights, int4 g128 two-level requantized
+    when `quantized` (MoE expert stacks too), q|k|v and gate|up fused."""
     import jax
     import jax.numpy as jnp
 
@@ -89,7 +186,8 @@ def jax_model(preset_name: str, quantized: bool, seed: int = 0):
     from ferrum_tpu.models.llama_family import init_random_params
     from ferrum_tpu.models.quantize import quantize_model_params
 
-    cfg = preset(preset_name)
+    cfg = preset(preset_name) if isinstance(preset_name, str) \
+        else preset_name
     params = init_random_params(cfg, seed=seed, dtype=jnp.float32)
     if quantized:
         params = jax.jit(apply_two_level)(
@@ -99,12 +197,13 @@ def jax_model(preset_name: str, quantized: bool, seed: int = 0):
 
 def torch_config(jax_cfg):
     """The port's ModelConfig with the same field values."""
-    from ferrum_tpu_torch.models.configs import ModelConfig, RopeScaling
+    from ferrum_tpu_torch.models.configs import (ModelConfig, MoeConfig,
+                                                 RopeScaling)
     import dataclasses
 
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: getattr(jax_cfg, k) for k in fields}
-    if jax_cfg.rope_scaling is not None:
-        kw["rope_scaling"] = RopeScaling(**dataclasses.asdict(
-            jax_cfg.rope_scaling))
+    for name, cls in (("rope_scaling", RopeScaling), ("moe", MoeConfig)):
+        if kw[name] is not None:
+            kw[name] = cls(**dataclasses.asdict(kw[name]))
     return ModelConfig(**kw)
