@@ -8,28 +8,43 @@ Phases, in order, each printing JSON lines:
   build      nvcc build of every kernel source (seconds)
   kernels    each Hopper kernel against its plain PyTorch version at the
              shapes of the served paths (llama-3.1-8b projections,
-             qwen3-30b-a3b expert stacks): exact equality required;
-             kernel / plain / library times (CUDA events) and the card's
-             bound for the same work
+             qwen3-30b-a3b projections and expert stacks): exact equality
+             for the integer-dot kernels, one bf16 step for the two w4a16
+             ones; kernel / plain / library times (CUDA events) and the
+             card's bound for the same work
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
-Then for llama-3.1-8b (serve, logits, profile) and for qwen3-30b-a3b at
-its full 48 layers (serve_moe, logits_moe, profile_moe):
+Then, for each of four lanes at full width and depth -- A llama-3.1-8b
+and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
+serve_moe, logits_moe), C llama-3.1-8b float-scale w4a8
+(EngineConfig(w4a8_two_level=False); serve_fs, logits_fs, profile_fs)
+and D qwen3-30b-a3b w4a16 (EngineConfig(w4a8=False); serve_moe_w4a16,
+logits_moe_w4a16, profile_moe_w4a16), C and D on the same random weights
+with the two-level fields dropped, the form an int4 checkpoint loads as
+(A's and B's profile phases are left out to keep the run inside its
+time; their numbers are in PERF.md):
   serve      EngineBuilder(model, random int4 weights, seed 0), 32
              concurrent greedy 256/128 requests through the engine;
              launch counts of every kernel over that run, each of the
-             path's kernels required
+             lane's kernels required, the kernels of other routes
+             required to stay at 0
   logits     one prefill + 4 decode steps at full width, kernels vs plain
-             versions, both on the card; the MoE run decodes two steps
-             at 32 lanes (all-experts route) and two at 1 lane (sort +
-             grouped route)
+             versions, both on the card; the MoE runs decode two steps
+             at 32 lanes (B: all-experts route; D: 256 grouped rows) and
+             two at 1 lane (sort + grouped route); the plain run decodes
+             the kernel run's tokens. A, B: every logit within 1e-3 of
+             the logit scale (the kernels are exact). C, D: 99% of the
+             token rows within 2e-2 of it at full depth (one-bf16-step
+             GEMM differences can move a whole row on random weights),
+             also measured at 1, 2, 4 and 8 layers
   profile    torch.profiler over 32 concurrent 256/32 requests on the
              same engine: device time by kernel, device busy share
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
-with no result line; so does a machine without CUDA.
+with no result line; so does a machine without CUDA. Every phase line
+carries `t_s`, the seconds since the script started.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 PAGE = 32
 OOB_SENTINEL = 1 << 30
 # llama-3.1-8b projection shapes (K, N) with fused q|k|v and gate|up.
@@ -62,10 +78,55 @@ SERVE_GROUPED_A = 16384          # one batched MoE prefill: 2048 tokens x 8
 LLAMA_PATH = ("w4a8tl_decode", "w4a8tl_prefill", "kv_append_rows",
               "kv_append_pages")
 MOE_PATH = LLAMA_PATH + ("moe_bmm", "moe_grouped")
+KV_PATH = ("kv_append_rows", "kv_append_pages")
+NEW_KERNELS = ("w4a16_gemm", "w4a8_decode", "moe_grouped_w4a16")
+TWO_LEVEL = ("w4a8tl_decode", "w4a8tl_prefill", "moe_bmm", "moe_grouped")
+# qwen3-30b-a3b dense projections (K, N): fused q|k|v and o.
+QWEN_SHAPES = {"qkv": (2048, 5120), "o": (4096, 2048)}
+QWEN_M = (1, 32, 64, 2048)
+GROUPED_W4A16_A = (8, 256, 2048, 16384)   # decode t=1, t=32; prefills
+SERVE_GROUPED_W4A16_A = 16384
+# The lanes. `path`: kernels that must launch; `unused`: kernels of
+# other routes, which must not. `lanes`: the logits phase's decode lanes.
+# `tol`, `min_rows`: the logits check at full depth -- the share of token
+# rows whose every logit is within `tol` of the logit scale; `depths`:
+# the depths it is also measured at (None = the model's depth).
+# `profile`: whether the lane's profile phase runs (A's and B's are left
+# out to keep the run inside its time; their numbers are in PERF.md).
+LANES = (
+    dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
+         mode={}, float_scale=False, path=LLAMA_PATH,
+         unused=NEW_KERNELS + ("moe_bmm", "moe_grouped"),
+         lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
+         tag="",
+         profile=False),
+    # 32 lanes: the all-experts route; 1 lane: sort + grouped.
+    dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
+         mode={}, float_scale=False, path=MOE_PATH, unused=NEW_KERNELS,
+         lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
+         tag="_moe",
+         profile=False),
+    dict(name="C llama-3.1-8b float-scale w4a8", model="llama-3.1-8b",
+         mode={"w4a8": True, "w4a8_two_level": False}, float_scale=True,
+         path=("w4a8_decode", "w4a16_gemm") + KV_PATH,
+         unused=TWO_LEVEL + ("moe_grouped_w4a16",), lanes=(1, 1, 1, 1),
+         tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None), tag="_fs",
+         profile=True),
+    # 32 lanes: 256 grouped rows a step; 1 lane: 8.
+    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b",
+         mode={"w4a8": False}, float_scale=True,
+         path=("w4a16_gemm", "moe_grouped_w4a16") + KV_PATH,
+         unused=TWO_LEVEL + ("w4a8_decode",), lanes=(32, 32, 1, 1),
+         tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None),
+         tag="_moe_w4a16",
+         profile=True),
+)
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def smi_line() -> str:
@@ -108,29 +169,42 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT8_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bf16_step_check(got, want):
+    """(within, share differing, max abs error): every output within one
+    bf16 step of the plain version, |got - want| <= 2^-7 |want| + 2^-12
+    max|want| (the f32 sums run in another order than the plain
+    version's float64 ones, then round to bf16)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = 2.0 ** -7 * w.abs() + 2.0 ** -12 * w.abs().max()
+    return (bool((diff <= tol).all()), (diff > 0).float().mean().item(),
+            diff.max().item())
 
 
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
 
-def make_gemm_weight(torch, k, n, gen):
+def make_gemm_weight(torch, k, n, gen, two_level=True):
     """Random float weight with asymmetric per-group offsets, quantized
-    asymmetric and requantized two-level: non-uniform scales2, zeros and
-    chan (the uniform bench init cannot catch an indexing bug)."""
+    asymmetric (bf16 scales) and, with `two_level`, requantized two-level:
+    non-uniform scales, zeros (and scales2, chan) -- the uniform bench
+    init cannot catch an indexing bug."""
     from ferrum_tpu_torch.ops.quant import (make_quant_linear,
                                             requantize_two_level)
     w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
     shift = (torch.rand(k // 128, 1, n, generator=gen, device="cuda")
              - 0.5) * 0.06
     w = (w.reshape(k // 128, 128, n) + shift).reshape(k, n)
-    p = requantize_two_level(make_quant_linear(w, 128, symmetric=False))
+    p = make_quant_linear(w, 128, symmetric=False)
     del w
-    return p
+    return requantize_two_level(p) if two_level else p
 
 
 def gemm_rows(torch, timer):
@@ -154,50 +228,129 @@ def gemm_rows(torch, timer):
                 x = torch.randn(m, k, generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
                 xq, xs = quantize_activation_rows(x)
-                got = fn(xq, xs, p, torch.bfloat16)
-                want = w4a8tl_plain(xq, xs, p, torch.bfloat16)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
                 row = {"kernel": kernel, "site": site, "m": m, "k": k,
-                       "n": n, "equal": bool(torch.equal(got, want)),
-                       "max_abs_err": err}
+                       "n": n}
                 nbytes = (p.qweight.nbytes + p.scales2.nbytes
                           + p.zeros.nbytes + p.chan_scale.nbytes
-                          + xq.nbytes + xs.nbytes + got.nbytes)
+                          + xq.nbytes + xs.nbytes + 2 * m * n)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, 2.0 * m * k * n)
-                row["kernel_ms"] = timer(
-                    lambda: fn(xq, xs, p, torch.bfloat16))
-                # After 23 timed launches: the split-K scratch came back
-                # zeroed every time, or this result would differ.
-                row["equal"] &= bool(torch.equal(
-                    fn(xq, xs, p, torch.bfloat16), want))
-                row["plain_ms"] = timer(
-                    lambda: w4a8tl_plain(xq, xs, p, torch.bfloat16),
-                    reps=3, warmup=1)
-                row["library_ms"] = None
-                if m > 16:   # torch._int_mm takes m > 16 only
-                    row["library_ms"] = timer(
-                        lambda: torch._int_mm(xq, w8_cm))
-                rows.append(row)
-                emit({"phase": "kernel_case", **row})
-                if not row["equal"]:
-                    raise AssertionError(f"{kernel} {site} m={m}: kernel "
-                                         f"differs from plain by {err}")
+                # The check after the timed launches also shows that the
+                # split-K scratch came back zeroed every time.
+                check_case(rows, row, timer,
+                           lambda: fn(xq, xs, p, torch.bfloat16),
+                           lambda: w4a8tl_plain(xq, xs, p, torch.bfloat16),
+                           # torch._int_mm takes m > 16 only
+                           (lambda: torch._int_mm(xq, w8_cm))
+                           if m > 16 else None, exact=True)
         del p, w8, w8_cm
         torch.cuda.empty_cache()
     return rows
 
 
-def make_moe_stack(torch, k, n, gen):
-    """An expert stack [MOE_E, ...] of non-uniform two-level weights (each
-    expert as make_gemm_weight makes one)."""
+def float_scale_rows(torch, timer):
+    """The dense float-scale kernels at the served shapes: w4a8_decode
+    (llama projections, decode m) equal to its plain version; w4a16_gemm
+    (llama projections at prefill m, qwen3 qkv / o at decode and prefill
+    m) within one bf16 step of its plain version."""
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
+        quantize_activation_rows, w4a8_decode, w4a8_plain, w4a16_gemm,
+        w4a16_plain)
+    from ferrum_tpu_torch.ops.quant import w4a16_weight
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    rows = []
+    cases = [("llama-3.1-8b", site, k, n, "w4a8_decode", DECODE_M)
+             for site, (k, n) in GEMM_SHAPES.items()]
+    cases += [("llama-3.1-8b", site, k, n, "w4a16_gemm", PREFILL_M)
+              for site, (k, n) in GEMM_SHAPES.items()]
+    cases += [("qwen3-30b-a3b", site, k, n, "w4a16_gemm", QWEN_M)
+              for site, (k, n) in QWEN_SHAPES.items()]
+    for model, site, k, n, kernel, ms_list in cases:
+        p = make_gemm_weight(torch, k, n, gen, two_level=False)
+        assert p.scales.unique().numel() > 1 and p.zeros.unique().numel() > 1
+        w_bf16 = w4a16_weight(p)
+        for m in ms_list:
+            x = torch.randn(m, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            row = {"kernel": kernel, "model": model, "site": site, "m": m,
+                   "k": k, "n": n}
+            wbytes = p.qweight.nbytes + p.scales.nbytes + p.zeros.nbytes
+            if kernel == "w4a8_decode":
+                xq, xs = quantize_activation_rows(x)
+                fn = lambda: w4a8_decode(  # noqa: E731
+                    xq, xs, p, torch.bfloat16)
+                plain = lambda: w4a8_plain(  # noqa: E731
+                    xq, xs, p, torch.bfloat16)
+                library = None   # no one PyTorch call computes it
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    wbytes + xq.nbytes + xs.nbytes + 2 * m * n,
+                    2.0 * m * k * n)
+            else:
+                fn = lambda: w4a16_gemm(x, p)  # noqa: E731
+                plain = lambda: w4a16_plain(x, p)  # noqa: E731
+                library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    wbytes + x.nbytes + 2 * m * n, 2.0 * m * k * n,
+                    BF16_FLOPS_PER_S)
+            check_case(rows, row, timer, fn, plain, library,
+                       exact=kernel == "w4a8_decode")
+        del p, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_case(rows, row, timer, fn, plain, library, exact):
+    """Kernel vs plain version (exact, or within one bf16 step and then
+    the same bits again: deterministic), timed, and checked once more
+    after the timed launches; raises on a miss."""
+    import torch
+    got = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    if exact:
+        ok = bool(torch.equal(got, want))
+        row["equal"] = ok
+        row["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    else:
+        ok, row["share_differing"], row["max_abs_err"] = bf16_step_check(
+            got, want)
+        row["tolerance"] = "2^-7 |want| + 2^-12 max|want|"
+    row["kernel_ms"] = timer(fn)
+    again = fn()
+    ok &= bool(torch.equal(again, want)) if exact \
+        else bf16_step_check(again, want)[0] and bool(torch.equal(again, got))
+    row["ok"] = ok
+    row["plain_ms"] = timer(plain, reps=3, warmup=1)
+    row["library_ms"] = None if library is None else timer(library)
+    rows.append(row)
+    emit({"phase": "kernel_case", **row})
+    if not ok:
+        raise AssertionError(f"{row['kernel']} {row.get('site')}: kernel "
+                             f"differs from plain by {row['max_abs_err']}")
+
+
+def make_moe_stack(torch, k, n, gen, two_level=True):
+    """An expert stack [MOE_E, ...] of non-uniform weights (each expert as
+    make_gemm_weight makes one)."""
     import dataclasses
-    parts = [make_gemm_weight(torch, k, n, gen) for _ in range(MOE_E)]
+    parts = [make_gemm_weight(torch, k, n, gen, two_level)
+             for _ in range(MOE_E)]
+    fields = ("qweight", "scales", "zeros") + (
+        ("scales2", "chan_scale") if two_level else ())
     stacked = {f: torch.stack([getattr(p, f) for p in parts])
-               for f in ("qweight", "scales", "zeros", "scales2",
-                         "chan_scale")}
+               for f in fields}
     return dataclasses.replace(parts[0], **stacked)
+
+
+def routed_sizes(torch, gen, a):
+    """Expert group sizes of `a` rows (a / 8 tokens at top-8) routed by a
+    random router over MOE_E experts."""
+    from ferrum_tpu_torch.ops.moe import route_topk
+    logits = torch.randn(a // MOE_TOPK, MOE_E, generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+    _, ids = route_topk(logits, MOE_TOPK, True)
+    return torch.bincount(ids.reshape(-1), minlength=MOE_E)
 
 
 def stack_bytes(p, experts):
@@ -214,27 +367,11 @@ def moe_cases(torch, timer):
         bmm_plain, grouped_plain, grouped_w4a8tl, quant_bmm_all_experts)
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
         quantize_activation_rows)
-    from ferrum_tpu_torch.ops.moe import route_topk
     from ferrum_tpu_torch.ops.quant import dequantize
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     grouped_mm = getattr(torch, "_grouped_mm", None)
     rows = []
-
-    def finish(row, got, want, fn, plain, library):
-        torch.cuda.synchronize()
-        row["equal"] = bool(torch.equal(got, want))
-        row["max_abs_err"] = (got.float() - want.float()).abs().max().item()
-        row["kernel_ms"] = timer(fn)
-        row["equal"] &= bool(torch.equal(fn(), want))
-        row["plain_ms"] = timer(plain, reps=3, warmup=1)
-        row["library_ms"] = None if library is None else timer(library)
-        rows.append(row)
-        emit({"phase": "kernel_case", **row})
-        if not row["equal"]:
-            raise AssertionError(f"{row['kernel']} {row['site']}: kernel "
-                                 f"differs from plain by "
-                                 f"{row['max_abs_err']}")
 
     for site, (k, n) in MOE_SHAPES.items():
         p = make_moe_stack(torch, k, n, gen)
@@ -246,33 +383,23 @@ def moe_cases(torch, timer):
                             dtype=torch.bfloat16)
             xq, xs = quantize_activation_rows(x.reshape(bx * t, k))
             xq3, xs3 = xq.reshape(bx, t, k), xs.reshape(bx, t, 1)
-            fn = lambda: quant_bmm_all_experts(  # noqa: E731
-                xq3, xs3, p, torch.bfloat16)
-            got = fn()
-            want = bmm_plain(xq3, xs3, p, torch.bfloat16)
             row = {"kernel": "moe_bmm", "site": site, "t": t, "k": k,
                    "n": n, "experts": MOE_E, "shared_rows": bx == 1}
             row["bound_ms"], row["bound_by"] = bound_ms(
                 stack_bytes(p, MOE_E) + xq3.nbytes + xs3.nbytes
-                + got.nbytes, 2.0 * MOE_E * t * k * n)
+                + 2 * MOE_E * t * n, 2.0 * MOE_E * t * k * n)
             xb = x.expand(MOE_E, t, k)
-            finish(row, got, want, fn,
-                   lambda: bmm_plain(xq3, xs3, p, torch.bfloat16),
-                   lambda: torch.bmm(xb, w_bf16))
+            check_case(rows, row, timer,
+                       lambda: quant_bmm_all_experts(
+                           xq3, xs3, p, torch.bfloat16),
+                       lambda: bmm_plain(xq3, xs3, p, torch.bfloat16),
+                       lambda: torch.bmm(xb, w_bf16), exact=True)
         for a in GROUPED_A:
-            t = a // MOE_TOPK
-            logits = torch.randn(t, MOE_E, generator=gen, device="cuda"
-                                 ).to(torch.bfloat16)
-            _, ids = route_topk(logits, MOE_TOPK, True)
-            sizes = torch.bincount(ids.reshape(-1), minlength=MOE_E)
+            sizes = routed_sizes(torch, gen, a)
             gs = sizes.to(torch.int32)
             x = torch.randn(a, k, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
             xq, xs = quantize_activation_rows(x)
-            fn = lambda: grouped_w4a8tl(  # noqa: E731
-                xq, xs, p, gs, torch.bfloat16)
-            got = fn()
-            want = grouped_plain(xq, xs, p, gs, torch.bfloat16)
             active = int((sizes > 0).sum().item())
             row = {"kernel": "moe_grouped", "site": site, "rows": a, "k": k,
                    "n": n, "experts": MOE_E, "active_experts": active,
@@ -280,16 +407,55 @@ def moe_cases(torch, timer):
                    "library": "torch._grouped_mm (bf16)"
                    if grouped_mm is not None else None}
             row["bound_ms"], row["bound_by"] = bound_ms(
-                stack_bytes(p, active) + xq.nbytes + xs.nbytes + got.nbytes,
+                stack_bytes(p, active) + xq.nbytes + xs.nbytes + 2 * a * n,
                 2.0 * a * k * n)
             offs = torch.cumsum(sizes, 0).to(torch.int32)
-            finish(row, got, want, fn,
-                   lambda: grouped_plain(xq, xs, p, gs, torch.bfloat16),
-                   None if grouped_mm is None
-                   else lambda: grouped_mm(x, w_bf16, offs=offs))
+            check_case(rows, row, timer,
+                       lambda: grouped_w4a8tl(xq, xs, p, gs, torch.bfloat16),
+                       lambda: grouped_plain(xq, xs, p, gs, torch.bfloat16),
+                       None if grouped_mm is None
+                       else lambda: grouped_mm(x, w_bf16, offs=offs),
+                       exact=True)
         del p, w_bf16
         torch.cuda.empty_cache()
+        grouped_w4a16_cases(torch, timer, site, k, n, gen, rows)
     return rows
+
+
+def grouped_w4a16_cases(torch, timer, site, k, n, gen, rows):
+    """The w4a16 grouped kernel on a float-scale stack, within one bf16
+    step of its plain version, at the rows of lane D's decode step (256)
+    and prefills, and the single-slot decode (8)."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_w4a16,
+                                                       grouped_w4a16_plain)
+    from ferrum_tpu_torch.ops.quant import w4a16_weight
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    p = make_moe_stack(torch, k, n, gen, two_level=False)
+    assert p.scales.unique().numel() > 1 and p.zeros.unique().numel() > 1
+    w_bf16 = w4a16_weight(p)                              # [E, K, N]
+    for a in GROUPED_W4A16_A:
+        sizes = routed_sizes(torch, gen, a)
+        gs = sizes.to(torch.int32)
+        x = torch.randn(a, k, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        active = int((sizes > 0).sum().item())
+        row = {"kernel": "moe_grouped_w4a16", "site": site, "rows": a,
+               "k": k, "n": n, "experts": MOE_E, "active_experts": active,
+               "library": "torch._grouped_mm (bf16)"
+               if grouped_mm is not None else None}
+        per = p.qweight[0].nbytes + p.scales[0].nbytes + p.zeros[0].nbytes
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            active * per + x.nbytes + 2 * a * n, 2.0 * a * k * n,
+            BF16_FLOPS_PER_S)
+        offs = torch.cumsum(sizes, 0).to(torch.int32)
+        check_case(rows, row, timer,
+                   lambda: grouped_w4a16(x, p, gs),
+                   lambda: grouped_w4a16_plain(x, p, gs),
+                   None if grouped_mm is None
+                   else lambda: grouped_mm(x, w_bf16, offs=offs),
+                   exact=False)
+    del p, w_bf16
+    torch.cuda.empty_cache()
 
 
 def kv_ids(torch, layers, slots, blocks_per_slot, pos, inactive):
@@ -442,9 +608,16 @@ def summarize(cases):
     for name, key, at in (("w4a8tl_decode", "m", SERVE_DECODE_M),
                           ("w4a8tl_prefill", "m", SERVE_PREFILL_M),
                           ("moe_bmm", "t", SERVE_BMM_T),
-                          ("moe_grouped", "rows", SERVE_GROUPED_A)):
+                          ("moe_grouped", "rows", SERVE_GROUPED_A),
+                          ("w4a8_decode", "m", SERVE_DECODE_M),
+                          ("w4a16_gemm", "m", SERVE_PREFILL_M),
+                          ("moe_grouped_w4a16", "rows",
+                           SERVE_GROUPED_W4A16_A)):
+        # The dense GEMMs: a llama-3.1-8b layer's four projections.
         out[name] = _summed([c for c in cases if c["kernel"] == name
-                             and c[key] == at], f"{key}={at}")
+                             and c[key] == at
+                             and c.get("model", "llama-3.1-8b")
+                             == "llama-3.1-8b"], f"{key}={at}")
     for name in ("kv_append_rows", "kv_append_pages"):
         c = next(c for c in cases
                  if c["kernel"] == name and c["dtype"] == "bfloat16")
@@ -530,7 +703,21 @@ def attention_phase(torch, device):
 SERVE_REQUESTS, PROMPT_LEN, OUTPUT_LEN = 32, 256, 128
 
 
-def build_engine(model):
+def drop_two_level(params) -> None:
+    """Drop every int4 linear's two-level fields in place: the float-scale
+    form an int4 checkpoint loads as (scales, zeros only)."""
+    import dataclasses
+
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+    for lp in params.layers:
+        for obj in (lp, lp.moe) if lp.moe is not None else (lp,):
+            for f in dataclasses.fields(obj):
+                lin = getattr(obj, f.name)
+                if isinstance(lin, QuantLinearParams):
+                    lin.scales2, lin.chan_scale = None, None
+
+
+def build_engine(model, mode, float_scale):
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.engine.builder import EngineBuilder
     from ferrum_tpu_torch.models.configs import preset
@@ -538,10 +725,13 @@ def build_engine(model):
 
     mc = preset(model)
     params = init_random_quant_params(mc, seed=0)
+    if float_scale:
+        drop_two_level(params)
     cfg = EngineConfig(
         max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
         prefill_chunk_size=PROMPT_LEN, max_num_batched_tokens=2048,
-        kv_block_size=PAGE, kv_dtype="bf16", decode_multi_step=8, seed=0)
+        kv_block_size=PAGE, kv_dtype="bf16", decode_multi_step=8, seed=0,
+        **mode)
     return mc, EngineBuilder(cfg).with_model(mc, params).build()
 
 
@@ -552,17 +742,20 @@ def request(tokens, max_tokens=OUTPUT_LEN):
         sampling=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
 
 
-def serve_phase(torch, model, path):
-    """32 concurrent greedy 256/128 requests on `model`; every kernel of
-    `path` must launch. Returns (launch counts, model config, engine)."""
+def serve_phase(torch, lane):
+    """32 concurrent greedy 256/128 requests on the lane's model and mode;
+    every kernel of its path must launch and none of its `unused` ones.
+    Returns (launch counts, model config, engine)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from ferrum_tpu_torch.ops import kernels as K
 
+    name, path, unused = lane["name"], lane["path"], lane["unused"]
     t0 = time.perf_counter()
-    mc, engine = build_engine(model)
+    mc, engine = build_engine(lane["model"], lane["mode"],
+                              lane["float_scale"])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -591,12 +784,17 @@ def serve_phase(torch, model, path):
         raise AssertionError("a repeated request gave other tokens")
     idle = [k for k in path if launches[k] == 0]
     if idle:
-        raise AssertionError(f"kernels the served path never launched: "
-                             f"{idle}")
+        raise AssertionError(f"{name}: kernels the served path never "
+                             f"launched: {idle}")
+    stray = [k for k in unused if launches[k] != 0]
+    if stray:
+        raise AssertionError(f"{name}: kernels of another route launched: "
+                             f"{stray}")
     ttft = [r.ttft for r in resps]
     tpot = [(r.e2e_latency - r.ttft) / (OUTPUT_LEN - 1) for r in resps]
-    emit({"phase": "serve" if model == "llama-3.1-8b" else "serve_moe",
-          "model": model, "layers": mc.num_layers,
+    emit({"phase": f"serve{lane['tag']}", "lane": name,
+          "mode": lane["mode"], "model": lane["model"],
+          "layers": mc.num_layers,
           "requests": SERVE_REQUESTS, "prompt_len": PROMPT_LEN,
           "output_len": OUTPUT_LEN, "engine_build_s": build_s,
           "wall_s": wall,
@@ -612,14 +810,17 @@ def serve_phase(torch, model, path):
     return launches, mc, engine
 
 
-def logits_phase(torch, mc, engine, lanes=(1, 1, 1, 1)):
-    """One 256-token prefill + one decode step per entry of `lanes` of
-    one prompt at full width, through the kernels and then through their
-    plain versions (both on the card, on the serve phase's weights). A
-    step with n > 1 lanes runs n rows: the prompt's token in lane 0 and
-    seeded random tokens in the others, every lane reading the prompt's
-    cache and only lane 0 writing it (as the runner's inactive lanes).
-    Returns the launch counts of the kernel run."""
+def logits_phase(torch, mc, engine, lane):
+    """One 256-token prefill + one decode step per entry of lane["lanes"]
+    of one prompt at full width, through the kernels and then through
+    their plain versions (both on the card, on the serve phase's weights),
+    at each depth of lane["depths"] (the model's first d layers). A step
+    with n > 1 lanes runs n rows: the prompt's token in lane 0 and seeded
+    random tokens in the others, every lane reading the prompt's cache and
+    only lane 0 writing it (as the runner's inactive lanes). Returns the
+    launch counts of the full-depth kernel run."""
+    import dataclasses
+
     import numpy as np
 
     from ferrum_tpu_torch.models import llama_family as lf
@@ -628,7 +829,7 @@ def logits_phase(torch, mc, engine, lanes=(1, 1, 1, 1)):
     from ferrum_tpu_torch.ops.kernels import kv_append, moe_gemm
     from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
 
-    params = engine.runner.params
+    lanes, tol = lane["lanes"], lane["tol"]
     max_len = 1024
     n_blocks = max_len // PAGE
     dev = torch.device("cuda")
@@ -639,65 +840,100 @@ def logits_phase(torch, mc, engine, lanes=(1, 1, 1, 1)):
         0, mc.vocab_size, (len(lanes), max(lanes)))).to(dev)
     tables = torch.arange(n_blocks, device=dev)[None]
 
-    def run():
-        kv = lf.PagedKvCache.create(mc, n_blocks, PAGE, dtype=torch.bfloat16,
-                                    device=dev)
+    def run(params, cfg, fed=None):
+        """Logits of every step; decode steps take the argmax of the
+        previous step's logits, or the tokens `fed` (the kernel run's:
+        bf16 logits tie often over a 100k+ vocabulary, and an argmax
+        flipped by one ulp would feed the two runs different tokens)."""
+        kv = lf.PagedKvCache.create(cfg, n_blocks, PAGE,
+                                    dtype=torch.bfloat16, device=dev)
         pos = torch.arange(PROMPT_LEN, device=dev)[None]
         h, kv = lf.prefill_forward_batched(
-            params, mc, kv, prompt, pos, tables,
+            params, cfg, kv, prompt, pos, tables,
             torch.tensor([PROMPT_LEN], device=dev), pos, ctx_pad=256)
-        out = [lf.logits_from_hidden(params, mc, h[0])]
+        out = [lf.logits_from_hidden(params, cfg, h[0])]
+        toks_fed = []
         tok = out[0][-1:].argmax(-1)
         for step, n in enumerate(lanes):
+            tok = tok if fed is None else fed[step]
+            toks_fed.append(tok)
             p = torch.full((n,), PROMPT_LEN + step, device=dev)
             toks = torch.cat([tok, others[step, 1:n]])
             flat = torch.full_like(p, lf.OOB_SENTINEL)
             flat[0] = PROMPT_LEN + step
-            h, kv = lf.decode_forward(params, mc, kv, toks, p,
+            h, kv = lf.decode_forward(params, cfg, kv, toks, p,
                                       tables.expand(n, -1), p + 1, flat,
                                       ctx_pad=512)
-            out.append(lf.logits_from_hidden(params, mc, h))
+            out.append(lf.logits_from_hidden(params, cfg, h))
             tok = out[-1][:1].argmax(-1)
         torch.cuda.synchronize()
-        return out
+        return out, toks_fed
 
-    K.reset_launch_counts()
-    with_kernels = run()
-    launches = K.launch_counts()
-    # The plain versions, swapped in by name for this comparison only.
+    # The plain versions, swapped in by name for the comparison runs only.
     swaps = [(qmm, "w4a8tl_decode", qmm.w4a8tl_plain),
              (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
+             (qmm, "w4a8_decode", qmm.w4a8_plain),
+             (qmm, "w4a16_gemm", qmm.w4a16_plain),
              (lf, "append_rows", kv_append.append_rows_plain),
              (lf, "append_pages", kv_append.append_pages_plain),
              (moe, "quant_bmm_all_experts", moe_gemm.bmm_plain),
-             (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        plain = run()
-    finally:
-        for mod, name, fn in saved:
+             (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain),
+             (moe_gemm, "grouped_w4a16", moe_gemm.grouped_w4a16_plain)]
+    full = engine.runner.params
+    by_depth, launches = [], None
+    for depth in [d for d in lane["depths"]
+                  if d is None or d < mc.num_layers]:
+        d = mc.num_layers if depth is None else depth
+        cfg = dataclasses.replace(mc, num_layers=d)
+        params = dataclasses.replace(full, layers=full.layers[:d])
+        K.reset_launch_counts()
+        with_kernels, fed = run(params, cfg)
+        if depth is None:
+            launches = K.launch_counts()
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
             setattr(mod, name, fn)
-    diff = max((a - b).abs().max().item() for a, b in zip(with_kernels, plain))
-    scale = max(b.abs().max().item() for b in plain)
-    finite = all(bool(torch.isfinite(a).all()) for a in with_kernels)
-    # The kernels match their plain versions bit for bit, so both runs do
-    # the same arithmetic: the tolerance (1e-3 of the logit scale) only
-    # leaves room for library reductions that are not run-to-run stable.
-    ok = finite and diff <= 1e-3 * scale
-    emit({"phase": "logits" if mc.moe is None else "logits_moe",
+        try:
+            plain, _ = run(params, cfg, fed)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(with_kernels, plain))
+        scale = max(b.abs().max().item() for b in plain)
+        finite = all(bool(torch.isfinite(a).all()) for a in with_kernels)
+        # Share of token rows (of every step) whose every logit is within
+        # the tolerance.
+        rows_ok = torch.cat([((a - b).abs() <= tol * scale).all(-1)
+                             for a, b in zip(with_kernels, plain)])
+        by_depth.append({"layers": d, "max_abs_diff": diff,
+                         "max_rel_diff": diff / scale, "logit_scale": scale,
+                         "rows_within_tol": rows_ok.float().mean().item(),
+                         "finite": finite, "identical": diff == 0.0})
+    # Lanes A, B: the kernels match their plain versions bit for bit, so
+    # both runs do the same arithmetic: every logit within 1e-3 of the
+    # logit scale only leaves room for library reductions that are not
+    # run-to-run stable. Lanes C, D: the w4a16 kernels' f32 sums run in
+    # another order than the plain versions' float64 ones, one bf16 step
+    # apart on ~0.2% of outputs. On these random weights a token's hidden
+    # state is dominated by a few huge components, and such a step can
+    # flip a router's top-k or the sign of a cancelling one, which moves
+    # that token's whole row: 99% of the token rows (measured 99.6-100%)
+    # must have every logit within 2e-2 of the logit scale.
+    last = by_depth[-1]
+    ok = all(r["finite"] for r in by_depth) \
+        and last["rows_within_tol"] >= lane["min_rows"]
+    emit({"phase": f"logits{lane['tag']}",
           "steps": f"prefill {PROMPT_LEN} + decode at lanes {list(lanes)}",
-          "max_abs_diff": diff, "max_rel_diff": diff / scale,
-          "logit_scale": scale, "finite": finite,
-          "identical": diff == 0.0, "tolerance_rel": 1e-3,
-          "launches": launches})
+          "tolerance_rel": tol, "min_rows_within_tol": lane["min_rows"],
+          **{k: v for k, v in last.items() if k != "layers"},
+          "by_depth": by_depth, "launches": launches})
     if not ok:
-        raise AssertionError(f"logits differ: {diff} (scale {scale})")
+        raise AssertionError(f"logits differ: {by_depth}")
     return launches
 
 
-def profile_phase(torch, mc, engine, output_len=32):
+def profile_phase(torch, mc, engine, tag, output_len=32):
     """torch.profiler over 32 concurrent 256/`output_len` requests on the
     served engine; device time by kernel and the device's busy share of
     the wall time (the profiler's own host cost inflates the wall time,
@@ -727,7 +963,7 @@ def profile_phase(torch, mc, engine, output_len=32):
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    emit({"phase": "profile" if mc.moe is None else "profile_moe",
+    emit({"phase": f"profile{tag}",
           "requests": SERVE_REQUESTS,
           "prompt_len": PROMPT_LEN, "output_len": output_len,
           "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
@@ -766,8 +1002,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
     timer = Timer(torch)
-    cases = (gemm_rows(torch, timer) + kv_rows_cases(torch, timer)
-             + kv_pages_cases(torch, timer) + moe_cases(torch, timer))
+    cases = (gemm_rows(torch, timer) + float_scale_rows(torch, timer)
+             + kv_rows_cases(torch, timer) + kv_pages_cases(torch, timer)
+             + moe_cases(torch, timer))
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})
     del timer
@@ -776,24 +1013,22 @@ def main() -> int:
 
     # Each served path: its kernels' counts from 0 over its serve run.
     by_path = {}
-    for model, path, lanes in (
-            ("llama-3.1-8b", LLAMA_PATH, (1, 1, 1, 1)),
-            # 32 lanes: the all-experts route; 1 lane: sort + grouped.
-            ("qwen3-30b-a3b", MOE_PATH, (SERVE_REQUESTS, SERVE_REQUESTS,
-                                         1, 1))):
-        launches, mc, engine = serve_phase(torch, model, path)
-        by_path[model] = launches
-        routes = logits_phase(torch, mc, engine, lanes)
-        missed = [k for k in path if routes[k] == 0]
-        if missed:
-            raise AssertionError(f"{model} logits run never launched "
-                                 f"{missed}")
-        profile_phase(torch, mc, engine)
+    for lane in LANES:
+        launches, mc, engine = serve_phase(torch, lane)
+        by_path[lane["name"]] = launches
+        routes = logits_phase(torch, mc, engine, lane)
+        missed = [k for k in lane["path"] if routes[k] == 0]
+        stray = [k for k in lane["unused"] if routes[k] != 0]
+        if missed or stray:
+            raise AssertionError(f"{lane['name']} logits run: never "
+                                 f"launched {missed}, launched {stray}")
+        if lane["profile"]:
+            profile_phase(torch, mc, engine, lane["tag"])
         engine.stop()
-        del engine
+        del engine, mc
         torch.cuda.empty_cache()
 
-    emit({"kernels": [
+    print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
          "launches": sum(c[k.name] for c in by_path.values()),
@@ -804,11 +1039,11 @@ def main() -> int:
          "bound_ms": summary[k.name]["bound_ms"],
          "bound_by": summary[k.name]["bound_by"],
          "library_ms": summary[k.name]["library_ms"]}
-        for k in K.KERNELS]})
+        for k in K.KERNELS]}), flush=True)
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

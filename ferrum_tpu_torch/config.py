@@ -2,9 +2,9 @@
 
 Port of `ferrum_tpu/config.py` (no env/TOML registry yet: the port is
 configured by its callers). Field names and defaults follow the JAX
-package. The fields this slice fixes -- the linear KV layout, two-level
-w4a8 weights, fused projections, chunked prefill -- are not options
-here; they come back as fields when a later slice adds the alternative.
+package. The fields this slice fixes -- the linear KV layout, fused
+projections, chunked prefill -- are not options here; they come back as
+fields when a later slice adds the alternative.
 """
 
 from __future__ import annotations
@@ -29,6 +29,18 @@ class EngineConfig:
     decode_multi_step: int = 8          # steps per window, one host sync
     seed: int = 0
     device: Optional[str] = None        # None = the CUDA card
+    # --- numerics / quant ---
+    # w4a8: int4 weights x dynamic-int8 activations on the int8 tensor
+    # cores; off = w4a16 (bf16 dequant, no activation quantization).
+    w4a8: bool = True
+    # Two-level requantization (QServe-style): group scales become small
+    # integers so the int8 path applies at every batch size. Slightly
+    # perturbs group scales (requantized weights). No effect without w4a8.
+    w4a8_two_level: bool = True
+    # Decode-m (<= 64) kernel for two-level params: mxu = the two-level
+    # decode GEMM; off = the float-scale w4a8 GEMM on the effective
+    # scales. all | down (the group-dot kernel) are not ported yet.
+    w4a8_gd: str = "mxu"
 
     def validate(self) -> None:
         if self.max_num_seqs < 1:
@@ -55,6 +67,11 @@ class EngineConfig:
             raise InvalidRequestError(
                 "kv_dtype must be bf16 or f32 (int8 KV comes with a later "
                 "slice of the port)", param="kv_dtype")
+        if self.w4a8_gd not in ("off", "mxu"):
+            raise InvalidRequestError(
+                f"w4a8_gd={self.w4a8_gd!r}: off | mxu (all | down take the "
+                f"group-dot kernel, TPU kernel row 7, not ported yet)",
+                param="w4a8_gd")
         if self.decode_multi_step < 1:
             raise InvalidRequestError("decode_multi_step must be >= 1",
                                       param="decode_multi_step")

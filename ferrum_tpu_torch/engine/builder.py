@@ -2,10 +2,17 @@
 
 Port of `ferrum_tpu/engine/builder.py` for the served path: explicit
 model config + params (`with_model`), the linear KV layout (every slot
-reserves a full max_model_len region), q|k|v and gate|up fusion, and the
-two-level w4a8 requantization (dense linears and MoE expert stacks).
+reserves a full max_model_len region), q|k|v and gate|up fusion, the
+quantized-matmul mode (`EngineConfig.w4a8` / `w4a8_gd`) and, under
+w4a8 with `w4a8_two_level`, the two-level requantization (dense linears
+and MoE expert stacks). Without it the checkpoint's group scales are
+served as they are: float-scale w4a8 at decode m, w4a16 elsewhere.
 Checkpoint loading, the paged layout and its HBM autosizing come with
 later slices.
+
+The mode is a process-wide switch, as in the JAX package: `build()`
+sets it, so building a second engine with another `w4a8` / `w4a8_gd`
+changes the route of the first one too.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from ..config import EngineConfig
 from ..device import resolve_device
 from ..models.configs import ModelConfig
 from ..models.llama_family import ModelParams, PagedKvCache
+from ..ops.kernels.quant_matmul import set_w4a8, set_w4a8_gd
 from ..ops.linear import concat_linears
 from ..ops.quant import QuantLinearParams, requantize_two_level
 from ..tokenizer import ByteTokenizer, make_byte_tokenizer
@@ -91,7 +99,11 @@ class EngineBuilder:
         if self.tokenizer is None:
             self.tokenizer = make_byte_tokenizer(
                 vocab_extra=max(0, self.model_cfg.vocab_size - 258))
-        self.params = fuse_projections(apply_two_level(self.params))
+        set_w4a8(cfg.w4a8)
+        set_w4a8_gd(cfg.w4a8_gd)
+        if cfg.w4a8 and cfg.w4a8_two_level:
+            self.params = apply_two_level(self.params)
+        self.params = fuse_projections(self.params)
         kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[
             cfg.kv_dtype]
         kv = PagedKvCache.create(

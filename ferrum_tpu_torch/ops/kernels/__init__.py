@@ -42,8 +42,15 @@ MOE_BMM = Kernel("moe_bmm", f"{_CSRC}/moe_gemm.cu",
 MOE_GROUPED = Kernel("moe_grouped", f"{_CSRC}/moe_gemm.cu",
                      f"{_QMM}:1098 _qgmm_w4a8tl_kernel")
 
+W4A16_GEMM = Kernel("w4a16_gemm", f"{_CSRC}/w4a16_gemm.cu",
+                    f"{_QMM}:60 _qmm_kernel")
+W4A8_DECODE = Kernel("w4a8_decode", f"{_CSRC}/w4a8_gemm.cu",
+                     f"{_QMM}:172 _qmm_w4a8_kernel")
+MOE_GROUPED_W4A16 = Kernel("moe_grouped_w4a16", f"{_CSRC}/w4a16_gemm.cu",
+                           f"{_QMM}:970 _qgmm_kernel")
+
 KERNELS = (W4A8TL_DECODE, W4A8TL_PREFILL, KV_APPEND_ROWS, KV_APPEND_PAGES,
-           MOE_BMM, MOE_GROUPED)
+           MOE_BMM, MOE_GROUPED, W4A16_GEMM, W4A8_DECODE, MOE_GROUPED_W4A16)
 
 
 def reset_launch_counts() -> None:

@@ -26,7 +26,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "ferrum_tpu_torch")
-SOURCES = ("w4a8tl_gemm", "kv_append", "moe_gemm")
+SOURCES = ("w4a8tl_gemm", "kv_append", "moe_gemm", "w4a16_gemm",
+           "w4a8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -46,6 +47,16 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P],
         "ferrum_moe_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],
+    },
+    "w4a16_gemm": {
+        "ferrum_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _P],
+        "ferrum_moe_grouped_w4a16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _P],
+    },
+    "w4a8_gemm": {
+        "ferrum_w4a8_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _P],
     },
     "kv_append": {
         "ferrum_kv_append_rows": [_P, _P, _P, _P, _I, _I, _I, _L, _P],

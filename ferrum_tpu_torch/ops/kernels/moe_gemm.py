@@ -1,8 +1,8 @@
-"""Two-level w4a8 GEMMs over MoE expert stacks: Hopper kernels, plain
-versions, and the grouped kernel's device-side tile map.
+"""int4 GEMMs over MoE expert stacks: Hopper kernels, plain versions,
+and the grouped kernels' device-side tile map.
 
 Counterpart of the MoE part of `ferrum_tpu/ops/pallas/quant_matmul.py`
-(:936-1477) on the served path (two-level stacks, `w4a8_gd="mxu"`):
+(:936-1477):
 
   quant_bmm_all_experts  every expert on every row (decode, t <= 64)
                          <- _qbmm_w4a8tl_mxu_kernel / _qbmm_w4a8tl_kernel
@@ -10,14 +10,19 @@ Counterpart of the MoE part of `ferrum_tpu/ops/pallas/quant_matmul.py`
   quant_grouped_matmul   rows sorted by expert (prefill, small decode)
                          <- _qgmm_w4a8tl_kernel
       y[r] = out_t((f32(xq[r] @ w8[e(r)]) * chan[e(r)]) * xs[r])
+                         two-level stacks with w4a8 on: grouped_w4a8tl
+                         <- _qgmm_w4a8tl_kernel
+                         everything else: grouped_w4a16 <- _qgmm_kernel
+      y[r] = out_t(x[r] @ w[e(r)]), w = bf16(bf16(q - z) * bf16(s))
 
-The two keep their TPU kernels' (different) epilogue orders. On a CUDA
-tensor a wrapper launches its kernel (csrc/moe_gemm.cu); on a CPU tensor
-it runs the plain version, which takes the integer dot in float64
-(exact: every partial sum < 2^53).
+The w4a8tl kernels keep their TPU kernels' (different) epilogue orders.
+On a CUDA tensor a wrapper launches its kernel (csrc/moe_gemm.cu,
+csrc/w4a16_gemm.cu); on a CPU tensor it runs the plain version, which
+takes every dot in float64 (exact for the integer dots).
 
-Params without `scales2` (the w4a16 grouped kernel, TPU kernel row 9)
-are not ported yet and raise.
+Stacks the JAX grouped kernels cannot tile (`grouped_tiles` false)
+take `grouped_ref` (dequantize, one float matmul per expert) outside any
+kernel, as the JAX package's dequantize + ragged_dot fallback.
 """
 
 from __future__ import annotations
@@ -26,10 +31,11 @@ from typing import Tuple
 
 import torch
 
-from ..quant import QuantLinearParams, two_level_w8
-from . import MOE_BMM, MOE_GROUPED
+from ..quant import QuantLinearParams, dequantize, two_level_w8, w4a16_weight
+from . import MOE_BMM, MOE_GROUPED, MOE_GROUPED_W4A16
 from .build import check, library
-from .quant_matmul import quantize_activation_rows
+from .quant_matmul import (check_float_scale, quantize_activation_rows,
+                           w4a8_enabled)
 
 GROUP = 128
 BMM_MAX_T = 64
@@ -49,25 +55,53 @@ def bmm_plain(xq3: torch.Tensor, xs3: torch.Tensor, p: QuantLinearParams,
             * p.chan_scale.to(torch.float32)).to(out_dtype)
 
 
+def _per_group(x: torch.Tensor, group_sizes: torch.Tensor, n: int,
+               out_dtype: torch.dtype, fn) -> torch.Tensor:
+    """[A, N] with rows lo:hi of group e set to fn(e, lo, hi); rows past
+    the last group 0. Reads the sizes on the host."""
+    out = torch.zeros((x.shape[0], n), dtype=out_dtype, device=x.device)
+    lo = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        if size:
+            out[lo:lo + size] = fn(e, lo, lo + size).to(out_dtype)
+        lo += size
+    return out
+
+
 def grouped_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
                   group_sizes: torch.Tensor,
                   out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of the grouped kernel: rows [A, K] sorted by expert,
-    `group_sizes[e]` rows each → [A, N]; rows past the last group are 0
-    (the JAX kernel's masked rows). Reads the sizes on the host."""
+    """Plain version of the two-level grouped kernel: rows [A, K] sorted
+    by expert, `group_sizes[e]` rows each → [A, N]; rows past the last
+    group are 0 (the JAX kernel's masked rows)."""
     w8 = two_level_w8(p)
     chan = p.chan_scale.to(torch.float32)
-    out = torch.zeros((xq.shape[0], p.out_features), dtype=out_dtype,
-                      device=xq.device)
-    lo = 0
-    for e, size in enumerate(group_sizes.tolist()):
-        hi = lo + size
-        if size:
-            acc = xq[lo:hi].to(torch.float64) @ w8[e].to(torch.float64)
-            out[lo:hi] = ((acc.to(torch.float32) * chan[e])
-                          * xs[lo:hi].to(torch.float32)).to(out_dtype)
-        lo = hi
-    return out
+
+    def one(e, lo, hi):
+        acc = xq[lo:hi].to(torch.float64) @ w8[e].to(torch.float64)
+        return (acc.to(torch.float32) * chan[e]) \
+            * xs[lo:hi].to(torch.float32)
+    return _per_group(xq, group_sizes, p.out_features, out_dtype, one)
+
+
+def grouped_w4a16_plain(x: torch.Tensor, p: QuantLinearParams,
+                        group_sizes: torch.Tensor) -> torch.Tensor:
+    """Plain version of the w4a16 grouped kernel: rows [A, K] sorted by
+    expert @ each expert's bf16 weight, float64 sums, → [A, N] x.dtype."""
+    w = w4a16_weight(p)                                  # [E, K, N] bf16
+    return _per_group(x, group_sizes, p.out_features, x.dtype,
+                      lambda e, lo, hi: x[lo:hi].to(torch.float64)
+                      @ w[e].to(torch.float64))
+
+
+def grouped_ref(x: torch.Tensor, p: QuantLinearParams,
+                group_sizes: torch.Tensor) -> torch.Tensor:
+    """The JAX package's fallback for stacks its kernels cannot tile:
+    each expert dequantized to x.dtype, f32 sums (ragged_dot)."""
+    w = dequantize(p, x.dtype)
+    return _per_group(x, group_sizes, p.out_features, x.dtype,
+                      lambda e, lo, hi: x[lo:hi].to(torch.float32)
+                      @ w[e].to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -115,9 +149,8 @@ def group_tile_map(group_sizes: torch.Tensor, bm: int,
 def _require_two_level(p: QuantLinearParams) -> None:
     if p.scales2 is None:
         raise NotImplementedError(
-            "only two-level w4a8 expert stacks are served by the port "
-            "(requantize_two_level first); the w4a16 grouped kernel comes "
-            "in a later slice")
+            "the all-experts GEMM takes two-level w4a8 expert stacks "
+            "(requantize_two_level first), as the JAX package's")
 
 
 def _check_stack(p: QuantLinearParams, k: int, dev: torch.device,
@@ -187,7 +220,6 @@ def grouped_w4a8tl(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
     """Grouped two-level GEMM over expert-sorted rows xq int8 [A, K], xs
     f32 [A, 1] → [A, N]. The kernel writes the rows of the groups (the
     first sum(group_sizes) rows) and no other."""
-    _require_two_level(p)
     if not xq.is_cuda:
         return grouped_plain(xq, xs, p, group_sizes, out_dtype)
     a, k = xq.shape
@@ -211,17 +243,67 @@ def grouped_w4a8tl(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
     return out
 
 
+def grouped_w4a16(x: torch.Tensor, p: QuantLinearParams,
+                  group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped w4a16 GEMM over expert-sorted bf16 rows x [A, K] → bf16
+    [A, N]. The kernel writes the rows of the groups (the first
+    sum(group_sizes) rows) and no other."""
+    if not x.is_cuda:
+        return grouped_w4a16_plain(x, p, group_sizes)
+    a, k = x.shape
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise ValueError("grouped_w4a16 takes contiguous, 16-byte aligned "
+                         f"bf16 rows, got {x.dtype}")
+    bm = 16 if a <= 256 else 128      # decode-sized / prefill m-tiles
+    e = p.qweight.shape[0]
+    n = check_float_scale(p, k, x.device, 64 if bm == 16 else 128, (e,))
+    if group_sizes.shape != (e,) or group_sizes.device != x.device:
+        raise ValueError(f"group_sizes must be [{e}] on {x.device}")
+    gid, mtid, offsets, valid = group_tile_map(group_sizes, bm,
+                                               -(-a // bm) + e - 1)
+    out = torch.empty((a, n), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = library("w4a16_gemm").ferrum_moe_grouped_w4a16(
+        x.data_ptr(), p.qweight.data_ptr(), p.scales.data_ptr(),
+        p.zeros.data_ptr(), gid.data_ptr(), mtid.data_ptr(),
+        offsets.data_ptr(), valid.data_ptr(), out.data_ptr(), gid.numel(),
+        bm, n, k, int(p.scales.dtype == torch.float32), stream)
+    check(err, "moe_grouped_w4a16")
+    MOE_GROUPED_W4A16.launches += 1
+    return out
+
+
+def grouped_tiles(p: QuantLinearParams) -> bool:
+    """Whether the JAX package's grouped kernels tile this expert stack
+    (the moe dispatch pads the rows to their m-tile): group 128, K/2 a
+    multiple of 128, and N split by their bn rule (N itself up to 2048,
+    else halved while N % bn, down to 128). False is where their
+    wrappers return None."""
+    n = p.out_features
+    bn = n
+    while bn > 2048 or (bn > 128 and n % bn):
+        bn //= 2
+    return (p.group_size == GROUP and p.in_features % (2 * GROUP) == 0
+            and n % bn == 0)
+
+
 def quant_grouped_matmul(x: torch.Tensor, p: QuantLinearParams,
                          sorted_ids: torch.Tensor,
                          group_sizes: torch.Tensor,
                          act_quant=None) -> torch.Tensor:
     """Grouped (expert-stacked) int4 matmul over rows x [A, K] sorted by
-    expert → [A, N] in x.dtype, two-level route only. `act_quant` passes
-    a precomputed (xq, xs) so gate and up share one activation
+    expert → [A, N] in x.dtype: two-level stacks with w4a8 on take the
+    two-level kernel, every other stack the w4a16 one (the JAX package's
+    dispatch, quant_matmul.py:1457-1467). `act_quant` passes a
+    precomputed (xq, xs) so gate and up share one activation
     quantization. `sorted_ids` is the JAX signature's; the group sizes
     alone place the rows."""
     del sorted_ids
-    _require_two_level(p)
-    xq, xs = act_quant if act_quant is not None \
-        else quantize_activation_rows(x)
-    return grouped_w4a8tl(xq, xs, p, group_sizes, x.dtype)
+    if not grouped_tiles(p):
+        return grouped_ref(x, p, group_sizes)
+    if w4a8_enabled() and p.scales2 is not None:
+        xq, xs = act_quant if act_quant is not None \
+            else quantize_activation_rows(x)
+        return grouped_w4a8tl(xq, xs, p, group_sizes, x.dtype)
+    return grouped_w4a16(x, p, group_sizes)

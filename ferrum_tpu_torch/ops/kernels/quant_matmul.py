@@ -1,31 +1,54 @@
-"""Two-level w4a8 quantized matmul: dispatch, Hopper kernels, plain versions.
+"""Quantized int4 matmul: dispatch, Hopper kernels, plain versions.
 
-Counterpart of `ferrum_tpu/ops/pallas/quant_matmul.py` on the served
-path (two-level params, `w4a8_gd="mxu"`):
+Counterpart of `ferrum_tpu/ops/pallas/quant_matmul.py`'s dense part.
+`quant_matmul` routes as the JAX package's dispatch does (:901-933),
+switched by `set_w4a8` / `set_w4a8_gd` (the engine builder sets them
+from `EngineConfig.w4a8` / `w4a8_gd`):
 
-  quant_matmul(x, p)  m <= 64 -> w4a8tl_decode   (_qmm_w4a8tl_mxu_kernel)
-                      m >  64 -> w4a8tl_prefill  (_qmm_w4a8tl_kernel)
+  w4a8  gd   params      m      entry                kernel (TPU row)
+  on    mxu  two-level   <= 64  quant_matmul_w4a8tl  w4a8tl_decode  (1)
+  on    off  any         <= 64  quant_matmul_w4a8    w4a8_decode    (6)
+  on    mxu  float-scale <= 64  quant_matmul_w4a8    w4a8_decode    (6)
+  on    any  two-level   >  64  quant_matmul_w4a8tl  w4a8tl_prefill (2)
+  on    any  float-scale >  64  quant_matmul_w4a16   w4a16_gemm     (5)
+  off   any  any         any    quant_matmul_w4a16   w4a16_gemm     (5)
 
-Both compute y = out_t(f32(xq @ w8) * xs * chan) with int8 per-row
-activations and w8 = (q - z) * scales2, exactly (see csrc/w4a8tl_gemm.cu
-for the kernels' design and bounds). On a CUDA tensor the wrapper
-launches the kernel; on a CPU tensor it runs the plain version, which
-takes the integer dot in float64 (exact: every partial sum < 2^53).
+A weight the JAX kernels cannot tile (`kernel_tiles` false: group size
+not 128, K/2 or N not a multiple of 128) leaves the int8 entries for
+w4a16, and w4a16 then computes `quant_matmul_ref` (dequantize, one
+float matmul) outside any kernel, as the JAX wrappers' `None` and
+`quant_matmul_ref` returns do. The predicate is decided before any
+launch.
 
-Params without `scales2` (the w4a16 and float-scale w4a8 routes, TPU
-kernel rows 5-7) are not ported in this slice and raise.
+  w4a8tl_*    y = out_t(f32(xq @ w8) * xs * chan), w8 = (q - z) * scales2,
+              exactly (csrc/w4a8tl_gemm.cu)
+  w4a8_decode y = out_t(xs * sum_g s[g] * f32(sum_k xq * (q - z[g]))),
+              groups summed in the TPU kernel's K-step order, exactly
+              (csrc/w4a8_gemm.cu)
+  w4a16_gemm  y = out_t(x @ w), w = bf16(bf16(q - z) * bf16(s)), f32
+              sums (csrc/w4a16_gemm.cu)
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version, which takes every dot in float64
+(exact for the integer dots; the bf16 products rounded once).
+
+The mode is process-wide, as in the JAX package: building a second
+engine with another `w4a8` / `w4a8_gd` changes the first one's route.
+The module defaults are `EngineConfig`'s (w4a8 on, gd "mxu").
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quant import QuantLinearParams, two_level_w8
-from . import W4A8TL_DECODE, W4A8TL_PREFILL
+from ..quant import (QuantLinearParams, quant_matmul_ref, two_level_w8,
+                     unpack_rows, w4a16_weight)
+from . import W4A8_DECODE, W4A8TL_DECODE, W4A8TL_PREFILL, W4A16_GEMM
 from .build import check, library
 
 GROUP = 128
 DECODE_MAX_M = 64
+W4A16_DECODE_KP = 64          # packed rows per K step of w4a16's decode tile
 # Decode splits K until about this many blocks cover the card's 132 SMs.
 _DECODE_TARGET_BLOCKS = 264
 # Split-K scratch of the decode kernel, one per (device, stream).
@@ -138,24 +161,248 @@ def w4a8tl_prefill(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
     return out
 
 
-def quant_matmul(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
-    """y = x @ dequant(qweight) (+ bias) through the two-level int8 path.
-    x: [..., in] → [..., out] in x.dtype."""
-    if p.scales2 is None:
+# ---------------------------------------------------------------------------
+# float-scale w4a8 (TPU row 6) and w4a16 (TPU row 5)
+# ---------------------------------------------------------------------------
+
+def kernel_tiles(p: QuantLinearParams) -> bool:
+    """Whether the JAX package's dense int4 kernels tile this weight:
+    group 128 and K/2, N multiples of 128 (their bkb/bn halving loops
+    end at 128; every m tiles once padded). False is where their
+    wrappers return None / `quant_matmul_ref`."""
+    return (p.group_size == GROUP and p.in_features % (2 * GROUP) == 0
+            and p.out_features % 128 == 0)
+
+
+def w4a8_step_rows(k: int) -> int:
+    """Packed rows per K step of `_quant_matmul_w4a8_2d` (its bkb): the
+    groups of one step are summed per plane before the step's sums join
+    the accumulator, so the step fixes the float order."""
+    bkb = 512
+    while bkb >= GROUP and (k // 2) % bkb:
+        bkb //= 2
+    return bkb
+
+
+def w4a8_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of `w4a8_decode`, in the TPU kernel's order: per K
+    step, the low plane's groups summed from the first, added to the
+    accumulator, then the high plane's; the result times xs. Each group
+    term s[g] * f32(sum_k xq * (q - z[g])) equals the kernel's
+    (f32(p32) - z * f32(sum xq)) * s exactly (integers below 2^24)."""
+    m, k = xq.shape
+    n, g = p.out_features, k // GROUP
+    gpt = w4a8_step_rows(k) // GROUP
+    half = g // 2
+    wz = (unpack_rows(p.qweight).reshape(g, GROUP, n)
+          - p.zeros[:, None, :].to(torch.int32)).to(torch.float64)
+    xg = xq.to(torch.float64).reshape(m, g, GROUP).transpose(0, 1)
+    terms = torch.bmm(xg, wz).to(torch.float32) \
+        * p.scales.to(torch.float32)[:, None, :]             # [G, m, N]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
+    for step in range(half // gpt):
+        for g0 in (step * gpt, half + step * gpt):
+            part = terms[g0]
+            for t in range(1, gpt):
+                part = part + terms[g0 + t]
+            acc = acc + part
+    return (acc * xs.to(torch.float32)).to(out_dtype)
+
+
+def w4a16_plain(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
+    """Plain version of `w4a16_gemm`: x [m, K] (any float dtype) @ the
+    bf16 weight, summed in float64 and rounded to x.dtype."""
+    w = w4a16_weight(p).to(torch.float64)
+    return (x.to(torch.float64) @ w).to(x.dtype)
+
+
+def check_float_scale(p: QuantLinearParams, k: int, dev: torch.device,
+                      n_align: int, lead: tuple = ()) -> int:
+    """Raise unless p is a float-scale weight the kernels take (`lead` =
+    (E,) for an expert stack); returns N."""
+    n = p.out_features
+    if k != p.in_features or k % (2 * GROUP) or p.group_size != GROUP:
+        raise ValueError(f"unsupported K={k} / group {p.group_size}: the "
+                         f"kernel needs group 128 and K % 256 == 0")
+    if n % n_align:
+        raise ValueError(f"N={n} must be a multiple of {n_align}")
+    for name, t, dts, shape in (
+            ("qweight", p.qweight, (torch.uint8,), (*lead, k // 2, n)),
+            ("scales", p.scales, (torch.bfloat16, torch.float32),
+             (*lead, k // GROUP, n)),
+            ("zeros", p.zeros, (torch.int8,), (*lead, k // GROUP, n))):
+        if t.dtype not in dts or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dts} {shape}")
+        if t.device != dev or t.data_ptr() % 4:
+            raise ValueError(f"{name} must be 4-byte aligned on {dev}")
+    return n
+
+
+def w4a8_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """Decode-sized (m <= 64) float-scale w4a8 GEMM → [m, N] out_dtype."""
+    if not xq.is_cuda:
+        return w4a8_plain(xq, xs, p, out_dtype)
+    m, k = xq.shape
+    n = check_float_scale(p, k, xq.device, 64)
+    if not 1 <= m <= DECODE_MAX_M:
+        raise ValueError(f"w4a8_decode takes m <= {DECODE_MAX_M}, got {m}")
+    if xq.dtype != torch.int8 or not xq.is_contiguous() \
+            or xq.data_ptr() % 16:
+        raise ValueError("xq must be a contiguous, 16-byte aligned int8 "
+                         "[m, K] tensor")
+    if xs.dtype != torch.float32 or xs.numel() != m \
+            or not xs.is_contiguous() or xs.device != xq.device:
+        raise ValueError("xs must be a contiguous f32 [m, 1] tensor")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported output dtype {out_dtype}")
+    bkb = w4a8_step_rows(k)
+    steps = (k // 2) // bkb
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    # Each K step's two plane sums, summed in order by the tile's last block.
+    ws = torch.empty((steps, 2, m, n), dtype=torch.float32, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device)
+    counters, _ = _split_k_scratch(stream, n)
+    err = library("w4a8_gemm").ferrum_w4a8_decode(
+        xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
+        p.scales.data_ptr(), p.zeros.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters, m, n, k, bkb // GROUP,
+        int(p.scales.dtype == torch.float32),
+        int(out_dtype == torch.bfloat16), stream.cuda_stream)
+    check(err, "w4a8_decode")
+    W4A8_DECODE.launches += 1
+    return out
+
+
+def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
+    """w4a16 GEMM: bf16 x [m, K] @ the bf16-dequantized weight → bf16
+    [m, N]. m <= 64 splits K across blocks (a fixed-order sum of the
+    splits' f32 partials); larger m takes 128 x 128 tiles."""
+    if not x.is_cuda:
+        return w4a16_plain(x, p)
+    m, k = x.shape
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise ValueError("w4a16_gemm takes a contiguous, 16-byte aligned "
+                         f"bf16 [m, K] x, got {x.dtype}")
+    decode = m <= DECODE_MAX_M
+    n = check_float_scale(p, k, x.device, 64 if decode else 128)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    splits, ws, counters = 1, 0, 0
+    if decode:
+        n_steps = (k // 2) // W4A16_DECODE_KP
+        splits = max(1, min(n_steps, -(-_DECODE_TARGET_BLOCKS // (n // 64))))
+        per = -(-n_steps // splits)
+        splits = -(-n_steps // per)             # every split gets steps
+        if splits > 1:
+            part = torch.empty((splits, m, n), dtype=torch.float32,
+                               device=x.device)
+            ws = part.data_ptr()
+            counters, _ = _split_k_scratch(stream, n)
+    err = library("w4a16_gemm").ferrum_w4a16_gemm(
+        x.data_ptr(), p.qweight.data_ptr(), p.scales.data_ptr(),
+        p.zeros.data_ptr(), out.data_ptr(), ws, counters, m, n, k, splits,
+        int(p.scales.dtype == torch.float32), stream.cuda_stream)
+    check(err, "w4a16_gemm")
+    W4A16_GEMM.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entries and dispatch
+# ---------------------------------------------------------------------------
+
+_W4A8 = True
+_W4A8_GD = "mxu"
+
+
+def set_w4a8(enabled: bool) -> None:
+    """Route int4 matmuls through the w4a8 entries (or w4a16)."""
+    global _W4A8
+    _W4A8 = bool(enabled)
+
+
+def set_w4a8_gd(mode) -> None:
+    """Decode-m mode for two-level params: "mxu" | "off" (bools map to
+    off / all, as in the JAX package)."""
+    global _W4A8_GD
+    if isinstance(mode, bool):
+        mode = "all" if mode else "off"
+    if mode in ("all", "down"):
         raise NotImplementedError(
-            "only two-level w4a8 params are served by this slice of the "
-            "port (requantize_two_level first); the w4a16 / float-scale "
-            "w4a8 kernels come in a later slice")
+            f"w4a8_gd={mode!r} takes the group-dot kernel (TPU kernel row "
+            f"7, _qmm_w4a8tl_gd_kernel), not ported yet")
+    if mode not in ("off", "mxu"):
+        raise ValueError(f"unknown w4a8_gd mode {mode!r}")
+    _W4A8_GD = mode
+
+
+def w4a8_enabled() -> bool:
+    return _W4A8
+
+
+def _rows(x: torch.Tensor, p: QuantLinearParams):
     if p.input_perm is not None:
         x = x.index_select(-1, p.input_perm)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    return x.reshape(-1, x.shape[-1]), x.shape[:-1]
+
+
+def _finish(out: torch.Tensor, lead, p: QuantLinearParams) -> torch.Tensor:
+    out = out.reshape(*lead, p.out_features)
+    if p.bias is not None:
+        out = out + p.bias
+    return out
+
+
+def quant_matmul_w4a8tl(x: torch.Tensor, p: QuantLinearParams
+                        ) -> torch.Tensor:
+    """Two-level w4a8: the decode kernel at m <= 64, the prefill kernel
+    above; w4a16 where `kernel_tiles` is false."""
+    if not kernel_tiles(p):
+        return quant_matmul_w4a16(x, p)
+    x2, lead = _rows(x, p)
     xq, xs = quantize_activation_rows(x2)
     if x2.shape[0] <= DECODE_MAX_M:
         out = w4a8tl_decode(xq, xs, p, x.dtype)
     else:
         out = w4a8tl_prefill(xq, xs, p, x.dtype)
-    out = out.reshape(*lead, p.out_features)
-    if p.bias is not None:
-        out = out + p.bias
-    return out
+    return _finish(out, lead, p)
+
+
+def quant_matmul_w4a8(x: torch.Tensor, p: QuantLinearParams
+                      ) -> torch.Tensor:
+    """Float-scale w4a8 (group scales `p.scales`); w4a16 where
+    `kernel_tiles` is false."""
+    if not kernel_tiles(p):
+        return quant_matmul_w4a16(x, p)
+    x2, lead = _rows(x, p)
+    xq, xs = quantize_activation_rows(x2)
+    return _finish(w4a8_decode(xq, xs, p, x.dtype), lead, p)
+
+
+def quant_matmul_w4a16(x: torch.Tensor, p: QuantLinearParams
+                       ) -> torch.Tensor:
+    """w4a16; `quant_matmul_ref` (no kernel) where `kernel_tiles` is
+    false."""
+    if not kernel_tiles(p):
+        return quant_matmul_ref(x, p)
+    x2, lead = _rows(x, p)
+    return _finish(w4a16_gemm(x2, p), lead, p)
+
+
+def quant_matmul(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
+    """y = x @ dequant(qweight) (+ bias). x: [..., in] → [..., out] in
+    x.dtype, through the route of the module docstring's table."""
+    m = 1
+    for d in x.shape[:-1]:
+        m *= d
+    if _W4A8 and m <= DECODE_MAX_M:
+        if _W4A8_GD == "mxu" and p.scales2 is not None:
+            return quant_matmul_w4a8tl(x, p)
+        return quant_matmul_w4a8(x, p)
+    if _W4A8 and p.scales2 is not None:
+        return quant_matmul_w4a8tl(x, p)
+    return quant_matmul_w4a16(x, p)

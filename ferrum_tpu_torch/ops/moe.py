@@ -3,14 +3,18 @@
 Port of `ferrum_tpu/ops/moe.py`. Two routes, chosen as the TPU chooses
 them (moe.py:228-237), on every device:
 
-  all-experts  two-level stacks, t*k >= E and t <= 64 (decode batches):
-               every expert on every row through quant_bmm_all_experts
-               (gate, up, down), then each token's k routed rows are
-               gathered and summed (moe_mlp_dense_decode)
-  sort         everything else (prefill, small decode): assignments
+  all-experts  w4a8 on, two-level stacks, t*k >= E and t <= 64 (decode
+               batches): every expert on every row through
+               quant_bmm_all_experts (gate, up, down), then each token's
+               k routed rows are gathered and summed
+               (moe_mlp_dense_decode)
+  sort         everything else (prefill, small decode, and every batch
+               under w4a16 or with float-scale stacks): assignments
                sorted by expert, grouped GEMMs over the sorted rows
-               (quant_grouped_matmul), weighted rows summed back per
-               token
+               (quant_grouped_matmul: the two-level kernel with w4a8 on
+               and two-level stacks, the w4a16 kernel otherwise; the
+               activations quantized once for gate and up only on the
+               former), weighted rows summed back per token
 
 Both combines sum a token's k weighted rows one at a time in ascending
 expert order -- the order of the JAX package's `.at[token_of].add` over
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .kernels.moe_gemm import quant_bmm_all_experts, quant_grouped_matmul
-from .kernels.quant_matmul import quantize_activation_rows
+from .kernels.quant_matmul import quantize_activation_rows, w4a8_enabled
 from .linear import apply_linear
 from .quant import QuantLinearParams
 
@@ -121,7 +125,7 @@ def moe_mlp_dense_decode(x: torch.Tensor, p: "MoeLayerParams",
 
 def moe_mlp(x: torch.Tensor, p: "MoeLayerParams",
             cfg: "ModelConfig") -> torch.Tensor:
-    """Sparse MoE MLP over x [t, H] → [t, H] (two-level int4 stacks)."""
+    """Sparse MoE MLP over x [t, H] → [t, H] (int4 expert stacks)."""
     m = cfg.moe
     t = x.shape[0]
     k = m.num_experts_per_tok
@@ -132,8 +136,8 @@ def moe_mlp(x: torch.Tensor, p: "MoeLayerParams",
         raise NotImplementedError(
             "the port serves int4 expert stacks (QuantLinearParams); dense "
             "stacks run through moe_mlp_ref")
-    if (first.scales2 is not None and p.down.scales2 is not None
-            and t * k >= e and t <= 64):
+    if (w4a8_enabled() and first.scales2 is not None
+            and p.down.scales2 is not None and t * k >= e and t <= 64):
         return moe_mlp_dense_decode(x, p, cfg)
 
     logits = apply_linear(p.router, x)
@@ -145,8 +149,9 @@ def moe_mlp(x: torch.Tensor, p: "MoeLayerParams",
         sorted_ids, torch.arange(e + 1, device=x.device)).diff().to(
             torch.int32)
     xs = x[order // k]                                       # [A, H]
-    # gate and up consume the same rows: quantize once.
-    aq = quantize_activation_rows(xs)
+    # gate and up consume the same rows: quantize once (two-level only).
+    aq = quantize_activation_rows(xs) \
+        if w4a8_enabled() and first.scales2 is not None else None
     if p.gate_up is not None:
         g, u = torch.chunk(quant_grouped_matmul(
             xs, p.gate_up, sorted_ids, group_sizes, act_quant=aq), 2, dim=-1)

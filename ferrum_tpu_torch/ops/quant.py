@@ -185,6 +185,49 @@ def requantize_two_level(p: QuantLinearParams) -> QuantLinearParams:
                                scales2=qs, chan_scale=chan)
 
 
+def w4a16_weight(p: QuantLinearParams) -> torch.Tensor:
+    """The w4a16 kernels' bf16 weight [..., in, out]:
+    w = bf16(bf16(q - z) * bf16(s)) per group -- the product of two bf16
+    values is exact in f32 and rounded once (`_qmm_kernel`'s dequant;
+    `dequantize` instead keeps f32 until one final cast)."""
+    qg = _grouped(p)
+    qz = (qg - p.zeros[..., None, :].to(torch.int32)).to(torch.float32)
+    s = p.scales[..., None, :].to(torch.bfloat16).to(torch.float32)
+    w = (qz * s).to(torch.bfloat16)
+    return w.reshape(*qg.shape[:-3], p.in_features, p.out_features)
+
+
+def quant_matmul_w4a8_ref(x: torch.Tensor, p: QuantLinearParams
+                          ) -> torch.Tensor:
+    """Float-scale w4a8 oracle (port of the JAX package's
+    `quant_matmul_w4a8_ref`): per-row int8 activations, one integer dot
+    per group, groups summed in index order:
+        y[m,n] = sx[m] * sum_g s[g,n] * (sum_k xq*q - z[g,n] * sum_k xq)
+    (the kernel sums the groups in its own K-step order instead:
+    ops/kernels/quant_matmul.py::w4a8_plain)."""
+    from .kernels.quant_matmul import quantize_activation_rows
+
+    if p.input_perm is not None:
+        x = x[..., p.input_perm]
+    lead = x.shape[:-1]
+    xq, sx = quantize_activation_rows(x.reshape(-1, x.shape[-1]))
+    q = unpack_rows(p.qweight).to(torch.float64)
+    g = p.group_size
+    y = torch.zeros((xq.shape[0], p.out_features), dtype=torch.float32,
+                    device=x.device)
+    for gi in range(p.in_features // g):
+        xg = xq[:, gi * g:(gi + 1) * g].to(torch.float64)
+        p32 = (xg @ q[gi * g:(gi + 1) * g]).to(torch.float32)   # exact
+        xsum = xg.sum(-1, keepdim=True).to(torch.float32)
+        zt = p.zeros[gi][None].to(torch.float32)
+        st = p.scales[gi][None].to(torch.float32)
+        y = y + (p32 - zt * xsum) * st
+    out = (y * sx).to(x.dtype).reshape(*lead, p.out_features)
+    if p.bias is not None:
+        out = out + p.bias
+    return out
+
+
 def quant_matmul_w4a8tl_ref(x: torch.Tensor, p: QuantLinearParams
                             ) -> torch.Tensor:
     """Two-level w4a8 oracle: per-row int8 activations, integer weights

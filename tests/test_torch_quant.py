@@ -186,10 +186,32 @@ def test_dispatch_by_m(monkeypatch):
                      ("w4a8tl_prefill", 65), ("w4a8tl_prefill", 120)]
 
 
-def test_params_without_scales2_raise():
+@pytest.mark.parametrize("w4a8,m,route", [
+    (True, 4, "w4a8_decode"), (True, 65, "w4a16_gemm"),
+    (False, 4, "w4a16_gemm"), (False, 65, "w4a16_gemm")])
+def test_params_without_scales2_take_float_scale_routes(monkeypatch, w4a8,
+                                                        m, route):
+    """Params without scales2 (a checkpoint served without the two-level
+    step) take the float-scale w4a8 kernel at decode m with w4a8 on, and
+    the w4a16 kernel everywhere else, each computing its plain version."""
     _, _, pt = _weights()
-    with pytest.raises(NotImplementedError, match="two-level"):
-        tqm.quant_matmul(torch.randn(4, K), pt)
+    monkeypatch.setattr(tqm, "_W4A8", w4a8)
+    monkeypatch.setattr(tqm, "_W4A8_GD", "mxu")
+    calls = []
+    for name in ("w4a8tl_decode", "w4a8tl_prefill", "w4a8_decode",
+                 "w4a16_gemm"):
+        orig = getattr(tqm, name)
+        monkeypatch.setattr(tqm, name, lambda *a, _n=name, _o=orig: (
+            calls.append(_n), _o(*a))[1])
+    x = torch.randn(m, K)
+    got = tqm.quant_matmul(x, pt)
+    assert calls == [route]
+    if route == "w4a16_gemm":
+        want = tqm.w4a16_plain(x, pt)
+    else:
+        xq, xs = tqm.quantize_activation_rows(x)
+        want = tqm.w4a8_plain(xq, xs, pt, torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_w4a16_ref_matches_jax():

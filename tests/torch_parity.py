@@ -9,7 +9,11 @@ dispatch likewise takes the all-experts route only on the TPU and with
 w4a8 on; `route_moe_w4a8tl` turns both on and points the two MoE Pallas
 entries at `jax_bmm_w4a8tl` / `jax_grouped_w4a8tl`, jnp forms that
 tests/test_torch_moe.py holds bit for bit against interpret-mode runs of
-the kernels.
+the kernels. `route_float_scale` does the same for the float-scale
+routes (w4a16 and float-scale w4a8, dense and grouped): the JAX
+package's own dispatch runs as on the TPU, with its three Pallas entries
+pointed at jnp forms that tests/test_torch_float_scale.py holds against
+interpret-mode runs.
 """
 
 from __future__ import annotations
@@ -102,6 +106,119 @@ def route_moe_w4a8tl(monkeypatch) -> None:
     monkeypatch.setattr(qm, "_quant_grouped_w4a8tl_2d", jax_grouped_w4a8tl)
 
 
+def _jax_w4a16_weight(p):
+    """bf16 weight of `_qmm_kernel` / `_qgmm_kernel`:
+    bf16(bf16(q - z) * bf16(s)) per group, [..., K, N] (jnp)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ferrum_tpu.ops.quant import unpack_rows
+
+    def one(qw, sc, z):
+        q = unpack_rows(qw, p.group_size)
+        k, n = q.shape
+        qg = q.reshape(k // p.group_size, p.group_size, n)
+        w = ((qg - z[:, None, :].astype(jnp.int32)).astype(jnp.bfloat16)
+             * sc[:, None, :].astype(jnp.bfloat16))
+        return w.reshape(k, n)
+    if p.qweight.ndim == 3:
+        return jax.vmap(one)(p.qweight, p.scales, p.zeros)
+    return one(p.qweight, p.scales, p.zeros)
+
+
+def _jax_tiles(p) -> None:
+    assert p.group_size == 128 and p.in_features % 256 == 0 \
+        and p.out_features % 128 == 0, "the jnp forms take tiled shapes"
+
+
+def jax_qmm_w4a16(x, p, **_):
+    """jnp form of `_quant_matmul_2d` (`_qmm_kernel`): x @ the bf16
+    weight with f32 sums, cast to x.dtype."""
+    import jax.numpy as jnp
+
+    _jax_tiles(p)
+    w = _jax_w4a16_weight(p).astype(jnp.float32)
+    return jnp.dot(x.astype(jnp.float32), w,
+                   preferred_element_type=jnp.float32).astype(x.dtype)
+
+
+def jax_qmm_w4a8(xq, xs, p, out_dtype, **_):
+    """jnp form of `_quant_matmul_w4a8_2d` (`_qmm_w4a8_kernel`), in the
+    kernel's float order: per K step of bkb packed rows, each plane's
+    groups summed from zero and added to the accumulator, low plane
+    first; then times xs. Run op by op, every op rounds on its own;
+    compiled, XLA CPU fuses each scale multiply into the add after it."""
+    import jax.numpy as jnp
+
+    from ferrum_tpu.ops.quant import unpack_rows
+
+    _jax_tiles(p)
+    k, n = p.in_features, p.out_features
+    bkb = 512
+    while (k // 2) % bkb:
+        bkb //= 2
+    gpt, half = bkb // 128, (k // 2) // 128
+    q = unpack_rows(p.qweight, 128)
+    x32 = xq.astype(jnp.int32)
+    acc = jnp.zeros((xq.shape[0], n), jnp.float32)
+    for step in range((k // 2) // bkb):
+        for g0 in (step * gpt, half + step * gpt):
+            part = jnp.zeros_like(acc)
+            for g in range(g0, g0 + gpt):
+                xg = x32[:, g * 128:(g + 1) * 128]
+                p32 = jnp.dot(xg, q[g * 128:(g + 1) * 128],
+                              preferred_element_type=jnp.int32)
+                xsum = jnp.sum(xg, axis=1, keepdims=True).astype(jnp.float32)
+                part += ((p32.astype(jnp.float32)
+                          - p.zeros[g][None].astype(jnp.float32) * xsum)
+                         * p.scales[g][None].astype(jnp.float32))
+            acc += part
+    return (acc * xs).astype(out_dtype)
+
+
+def jax_grouped_w4a16(x, p, group_sizes, **_):
+    """jnp form of `_quant_grouped_2d` (`_qgmm_kernel`): each row @ its
+    expert's bf16 weight, f32 sums, cast to x.dtype; 0 past the last
+    group."""
+    import jax.numpy as jnp
+
+    w = _jax_w4a16_weight(p).astype(jnp.float32)
+    offsets = jnp.concatenate([jnp.zeros(1, jnp.int32),
+                               jnp.cumsum(group_sizes).astype(jnp.int32)])
+    rows = jnp.arange(x.shape[0])[:, None]
+    acc = jnp.zeros((x.shape[0], p.out_features), jnp.float32)
+    for g in range(w.shape[0]):
+        part = jnp.dot(x.astype(jnp.float32), w[g],
+                       preferred_element_type=jnp.float32)
+        mine = (rows >= offsets[g]) & (rows < offsets[g + 1])
+        acc = jnp.where(mine, part, acc)
+    return acc.astype(x.dtype)
+
+
+def route_float_scale(monkeypatch, w4a8: bool, gd: str = "mxu") -> None:
+    """Both packages in one quantized-matmul mode, the JAX side running
+    its dispatch as on the TPU: its float-scale Pallas entries point at
+    the jnp forms above, its two-level ones at those of
+    `route_moe_w4a8tl`. The port's and the JAX package's mode switches
+    are monkeypatched, so a test that builds an engine (which sets them)
+    leaves them as they were."""
+    from ferrum_tpu.ops.pallas import quant_matmul as qm
+    from ferrum_tpu.ops.quant import quant_matmul_w4a8tl_ref
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as tqm
+
+    for mod in (qm, tqm):
+        monkeypatch.setattr(mod, "_W4A8", w4a8)
+        monkeypatch.setattr(mod, "_W4A8_GD", gd)
+    monkeypatch.setattr(qm, "on_tpu", lambda: True)
+    monkeypatch.setattr(qm, "_quant_matmul_2d", jax_qmm_w4a16)
+    monkeypatch.setattr(qm, "_quant_matmul_w4a8_2d", jax_qmm_w4a8)
+    monkeypatch.setattr(qm, "_quant_grouped_2d", jax_grouped_w4a16)
+    monkeypatch.setattr(qm, "quant_matmul_w4a8tl",
+                        lambda x, p, gd=False: quant_matmul_w4a8tl_ref(x, p))
+    monkeypatch.setattr(qm, "quant_bmm_all_experts", jax_bmm_w4a8tl)
+    monkeypatch.setattr(qm, "_quant_grouped_w4a8tl_2d", jax_grouped_w4a8tl)
+
+
 def run_pallas_interpret(fn, *args, **kw):
     """Run a JAX-package entry that reaches `pl.pallas_call` with every
     Pallas kernel in interpret mode, as tests/test_moe_grouped.py does."""
@@ -174,10 +291,12 @@ def flatten_jax_params(params) -> dict:
     return out
 
 
-def jax_model(preset_name, quantized: bool, seed: int = 0):
+def jax_model(preset_name, quantized: bool, seed: int = 0,
+              two_level: bool = True):
     """(jax ModelConfig, f32 JAX params) of a preset name or a JAX
-    ModelConfig: random float weights, int4 g128 two-level requantized
-    when `quantized` (MoE expert stacks too), q|k|v and gate|up fused."""
+    ModelConfig: random float weights, int4 g128 when `quantized`
+    (two-level requantized unless `two_level` is False; MoE expert stacks
+    too), q|k|v and gate|up fused."""
     import jax
     import jax.numpy as jnp
 
@@ -190,8 +309,9 @@ def jax_model(preset_name, quantized: bool, seed: int = 0):
         else preset_name
     params = init_random_params(cfg, seed=seed, dtype=jnp.float32)
     if quantized:
-        params = jax.jit(apply_two_level)(
-            quantize_model_params(params, 128, dtype=jnp.float32))
+        params = quantize_model_params(params, 128, dtype=jnp.float32)
+        if two_level:
+            params = jax.jit(apply_two_level)(params)
     return cfg, fuse_projections(params)
 
 
