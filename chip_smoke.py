@@ -8,36 +8,42 @@ Phases, in order, each printing JSON lines:
   build      nvcc build of every kernel source (seconds)
   kernels    each Hopper kernel against its plain PyTorch version at the
              shapes of the served paths (llama-3.1-8b projections,
-             qwen3-30b-a3b projections and expert stacks): exact equality
-             for the integer-dot kernels, one bf16 step for the two w4a16
-             ones; kernel / plain / library times (CUDA events) and the
-             card's bound for the same work
+             qwen3-30b-a3b projections and expert stacks; the unwired
+             w4a8tl_prefill_mcache at the llama prefill shapes, beside
+             w4a8tl_prefill on the same weights and activations): exact
+             equality for the integer-dot kernels, one bf16 step for the
+             two w4a16 ones; kernel / plain / library times (CUDA events)
+             and the card's bound for the same work
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
-Then, for each of four lanes at full width and depth -- A llama-3.1-8b
+Then, for each of five lanes at full width and depth (lane D at 12 of
+its 48 layers, for the run's time: see LANES) -- A llama-3.1-8b
 and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
 serve_moe, logits_moe), C llama-3.1-8b float-scale w4a8
-(EngineConfig(w4a8_two_level=False); serve_fs, logits_fs, profile_fs)
-and D qwen3-30b-a3b w4a16 (EngineConfig(w4a8=False); serve_moe_w4a16,
+(EngineConfig(w4a8_two_level=False); serve_fs, logits_fs, profile_fs),
+D qwen3-30b-a3b w4a16 (EngineConfig(w4a8=False); serve_moe_w4a16,
 logits_moe_w4a16, profile_moe_w4a16), C and D on the same random weights
-with the two-level fields dropped, the form an int4 checkpoint loads as
-(A's and B's profile phases are left out to keep the run inside its
-time; their numbers are in PERF.md):
+with the two-level fields dropped, the form an int4 checkpoint loads as,
+and E llama-3.1-8b two-level in the group-dot decode mode
+(EngineConfig(w4a8_gd="all"); serve_gd, logits_gd) on A's weights
+(A's, B's and E's profile phases are left out to keep the run inside its
+time; A's and B's numbers are in PERF.md):
   serve      EngineBuilder(model, random int4 weights, seed 0), 32
              concurrent greedy 256/128 requests through the engine;
              launch counts of every kernel over that run, each of the
-             lane's kernels required, the kernels of other routes
-             required to stay at 0
+             lane's kernels required, every other kernel required to
+             stay at 0; E's solo request must give A's tokens (its decode
+             kernel computes A's function bit for bit)
   logits     one prefill + 4 decode steps at full width, kernels vs plain
              versions, both on the card; the MoE runs decode two steps
              at 32 lanes (B: all-experts route; D: 256 grouped rows) and
              two at 1 lane (sort + grouped route); the plain run decodes
-             the kernel run's tokens. A, B: every logit within 1e-3 of
-             the logit scale (the kernels are exact). C, D: 99% of the
-             token rows within 2e-2 of it at full depth (one-bf16-step
-             GEMM differences can move a whole row on random weights),
-             also measured at 1, 2, 4 and 8 layers
+             the kernel run's tokens. A, B, E: every logit within 1e-3
+             of the logit scale (the kernels are exact). C, D: 99% of the
+             token rows within 2e-2 of it at the lane's depth (one-bf16-
+             step GEMM differences can move a whole row on random
+             weights), also measured at 1, 2, 4 and 8 layers
   profile    torch.profiler over 32 concurrent 256/32 requests on the
              same engine: device time by kernel, device busy share
 
@@ -75,51 +81,58 @@ BMM_T = (16, 32, 64)
 GROUPED_A = (8, 2048, 16384)     # t = 1 decode, 256- and 2048-token prefill
 SERVE_BMM_T = 32                 # decode lanes of the MoE serve phase
 SERVE_GROUPED_A = 16384          # one batched MoE prefill: 2048 tokens x 8
-LLAMA_PATH = ("w4a8tl_decode", "w4a8tl_prefill", "kv_append_rows",
-              "kv_append_pages")
-MOE_PATH = LLAMA_PATH + ("moe_bmm", "moe_grouped")
 KV_PATH = ("kv_append_rows", "kv_append_pages")
-NEW_KERNELS = ("w4a16_gemm", "w4a8_decode", "moe_grouped_w4a16")
-TWO_LEVEL = ("w4a8tl_decode", "w4a8tl_prefill", "moe_bmm", "moe_grouped")
+LLAMA_PATH = ("w4a8tl_decode", "w4a8tl_prefill") + KV_PATH
+MOE_PATH = LLAMA_PATH + ("moe_bmm", "moe_grouped")
 # qwen3-30b-a3b dense projections (K, N): fused q|k|v and o.
 QWEN_SHAPES = {"qkv": (2048, 5120), "o": (4096, 2048)}
 QWEN_M = (1, 32, 64, 2048)
 GROUPED_W4A16_A = (8, 256, 2048, 16384)   # decode t=1, t=32; prefills
 SERVE_GROUPED_W4A16_A = 16384
-# The lanes. `path`: kernels that must launch; `unused`: kernels of
-# other routes, which must not. `lanes`: the logits phase's decode lanes.
+# The lanes. `path`: kernels that must launch (every other kernel must
+# not). `lanes`: the logits phase's decode lanes.
 # `tol`, `min_rows`: the logits check at full depth -- the share of token
 # rows whose every logit is within `tol` of the logit scale; `depths`:
 # the depths it is also measured at (None = the model's depth).
-# `profile`: whether the lane's profile phase runs (A's and B's are left
-# out to keep the run inside its time; their numbers are in PERF.md).
+# `profile`: whether the lane's profile phase runs (A's, B's and E's are
+# left out to keep the run inside its time). `solo_as`: the lane whose
+# solo request's tokens this lane's must equal. `layers`: a depth cut
+# (the model's first layers): lane D, the slowest lane on a busy host
+# (its sort-route decode makes ~1.06M launches per profile window at 48
+# layers: 560 of 1043 s of one run on an H100 with a slow host), runs
+# 12 of its 48 layers so the run stays well inside its 1200 s.
 LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
-         unused=NEW_KERNELS + ("moe_bmm", "moe_grouped"),
          lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="",
          profile=False),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
-         mode={}, float_scale=False, path=MOE_PATH, unused=NEW_KERNELS,
+         mode={}, float_scale=False, path=MOE_PATH,
          lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="_moe",
          profile=False),
     dict(name="C llama-3.1-8b float-scale w4a8", model="llama-3.1-8b",
          mode={"w4a8": True, "w4a8_two_level": False}, float_scale=True,
          path=("w4a8_decode", "w4a16_gemm") + KV_PATH,
-         unused=TWO_LEVEL + ("moe_grouped_w4a16",), lanes=(1, 1, 1, 1),
+         lanes=(1, 1, 1, 1),
          tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None), tag="_fs",
          profile=True),
     # 32 lanes: 256 grouped rows a step; 1 lane: 8.
-    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b",
+    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b", layers=12,
          mode={"w4a8": False}, float_scale=True,
          path=("w4a16_gemm", "moe_grouped_w4a16") + KV_PATH,
-         unused=TWO_LEVEL + ("w4a8_decode",), lanes=(32, 32, 1, 1),
+         lanes=(32, 32, 1, 1),
          tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None),
          tag="_moe_w4a16",
          profile=True),
+    dict(name="E llama-3.1-8b w4a8 two-level group-dot",
+         model="llama-3.1-8b", mode={"w4a8_gd": "all"}, float_scale=False,
+         path=("w4a8tl_gd_decode", "w4a8tl_prefill") + KV_PATH,
+         lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
+         tag="_gd", profile=False,
+         solo_as="A llama-3.1-8b w4a8 two-level"),
 )
 T0 = time.perf_counter()
 
@@ -207,44 +220,116 @@ def make_gemm_weight(torch, k, n, gen, two_level=True):
     return requantize_two_level(p) if two_level else p
 
 
-def gemm_rows(torch, timer):
-    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
-        quantize_activation_rows, w4a8tl_decode, w4a8tl_plain,
-        w4a8tl_prefill)
+def int_mm_weight(torch, p):
+    """The two-level int8 weight w8, column-major (torch._int_mm's
+    layout): the library call's operand."""
     from ferrum_tpu_torch.ops.quant import two_level_w8
+    return two_level_w8(p).to(torch.int8).t().contiguous().t()
+
+
+def two_level_case(rows, timer, row, fn, plain, p, w8_cm, xq, xs):
+    """One case of a two-level GEMM kernel: equal to its plain version,
+    again after the timed launches (which also shows that the split-K
+    scratch of the decode kernels came back zeroed every time); bound for
+    its bytes and int8 ops; `torch._int_mm` on the int8 w8 as the
+    library call (it takes m > 16 only)."""
+    import torch
+    m, k = xq.shape
+    n = p.out_features
+    nbytes = (p.qweight.nbytes + p.scales2.nbytes + p.zeros.nbytes
+              + p.chan_scale.nbytes + xq.nbytes + xs.nbytes + 2 * m * n)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n)
+    check_case(rows, row, timer, lambda: fn(xq, xs, p, torch.bfloat16),
+               lambda: plain(xq, xs, p, torch.bfloat16),
+               (lambda: torch._int_mm(xq, w8_cm)) if m > 16 else None,
+               exact=True)
+
+
+def gemm_rows(torch, timer):
+    """The four two-level dense kernels at the llama-3.1-8b projections,
+    each pair of one function on the same weight and activations:
+    w4a8tl_decode and w4a8tl_gd_decode at decode m, w4a8tl_prefill and
+    w4a8tl_prefill_mcache at prefill m."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    pairs = ((DECODE_M, (("w4a8tl_decode", qmm.w4a8tl_decode,
+                          qmm.w4a8tl_plain),
+                         ("w4a8tl_gd_decode", qmm.w4a8tl_gd_decode,
+                          qmm.w4a8tl_gd_plain))),
+             (PREFILL_M, (("w4a8tl_prefill", qmm.w4a8tl_prefill,
+                           qmm.w4a8tl_plain),
+                          ("w4a8tl_prefill_mcache", qmm.w4a8tl_prefill_mcache,
+                           qmm.w4a8tl_plain))))
     rows = []
     for site, (k, n) in GEMM_SHAPES.items():
         p = make_gemm_weight(torch, k, n, gen)
         assert p.scales2.unique().numel() > 1 and p.zeros.unique().numel() > 1
-        w8 = two_level_w8(p).to(torch.int8)
-        w8_cm = w8.t().contiguous().t()          # column-major for _int_mm
-        for kernel, ms_list in (("w4a8tl_decode", DECODE_M),
-                                ("w4a8tl_prefill", PREFILL_M)):
-            fn = w4a8tl_decode if kernel == "w4a8tl_decode" \
-                else w4a8tl_prefill
+        w8_cm = int_mm_weight(torch, p)
+        for ms_list, kernels in pairs:
             for m in ms_list:
                 x = torch.randn(m, k, generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
-                xq, xs = quantize_activation_rows(x)
-                row = {"kernel": kernel, "site": site, "m": m, "k": k,
-                       "n": n}
-                nbytes = (p.qweight.nbytes + p.scales2.nbytes
-                          + p.zeros.nbytes + p.chan_scale.nbytes
-                          + xq.nbytes + xs.nbytes + 2 * m * n)
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, 2.0 * m * k * n)
-                # The check after the timed launches also shows that the
-                # split-K scratch came back zeroed every time.
-                check_case(rows, row, timer,
-                           lambda: fn(xq, xs, p, torch.bfloat16),
-                           lambda: w4a8tl_plain(xq, xs, p, torch.bfloat16),
-                           # torch._int_mm takes m > 16 only
-                           (lambda: torch._int_mm(xq, w8_cm))
-                           if m > 16 else None, exact=True)
-        del p, w8, w8_cm
+                xq, xs = qmm.quantize_activation_rows(x)
+                for kernel, fn, plain in kernels:
+                    two_level_case(rows, timer,
+                                   {"kernel": kernel, "site": site, "m": m,
+                                    "k": k, "n": n},
+                                   fn, plain, p, w8_cm, xq, xs)
+        del p, w8_cm
         torch.cuda.empty_cache()
+    return rows
+
+
+def group_dot_rows(torch, timer):
+    """w4a8tl_gd_decode at the qwen3-30b-a3b dense projections (qkv, o) at
+    decode m, and the wrap case: llama's down shape (K = 14336, N = 4096)
+    at m = 32 with xq = 127, q = 15, z = 15, scales2 = 127. Every w8 is 0,
+    so the result is exactly 0, while sum_g s2 * dot alone would reach
+    ~3.5e9 > 2^31 before the zero correction cancels it."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    rows = []
+
+    def full(shape, v, dt):
+        return torch.full(shape, v, dtype=dt, device="cuda")
+
+    k, n = GEMM_SHAPES["down"]
+    g = k // 128
+    wrap = QuantLinearParams(
+        qweight=full((k // 2, n), 0xFF, torch.uint8),
+        scales=full((g, n), 1.0, torch.bfloat16),
+        zeros=full((g, n), 15, torch.int8), bias=None, in_features=k,
+        out_features=n, group_size=128, scales2=full((g, n), 127, torch.int8),
+        chan_scale=torch.rand(1, n, generator=gen, device="cuda") * 1e-3
+        + 1e-3)
+    cases = [("qwen3-30b-a3b", site, (k, n), DECODE_M)
+             for site, (k, n) in QWEN_SHAPES.items()]
+    cases.append(("wrap case", "down", (k, n), (32,)))
+    for model, site, (k, n), ms_list in cases:
+        p = wrap if model == "wrap case" else make_gemm_weight(torch, k, n,
+                                                               gen)
+        w8_cm = int_mm_weight(torch, p)
+        for m in ms_list:
+            if model == "wrap case":
+                xq = full((m, k), 127, torch.int8)
+                xs = torch.rand(m, 1, generator=gen, device="cuda") + 0.5
+                if qmm.w4a8tl_gd_plain(xq, xs, p, torch.bfloat16).any():
+                    raise AssertionError("the wrap case's exact result is 0")
+            else:
+                x = torch.randn(m, k, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                xq, xs = qmm.quantize_activation_rows(x)
+            two_level_case(rows, timer,
+                           {"kernel": "w4a8tl_gd_decode", "model": model,
+                            "site": site, "m": m, "k": k, "n": n},
+                           qmm.w4a8tl_gd_decode, qmm.w4a8tl_gd_plain, p,
+                           w8_cm, xq, xs)
+        del p, w8_cm
+    del wrap
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -607,6 +692,8 @@ def summarize(cases):
     out = {}
     for name, key, at in (("w4a8tl_decode", "m", SERVE_DECODE_M),
                           ("w4a8tl_prefill", "m", SERVE_PREFILL_M),
+                          ("w4a8tl_gd_decode", "m", SERVE_DECODE_M),
+                          ("w4a8tl_prefill_mcache", "m", SERVE_PREFILL_M),
                           ("moe_bmm", "t", SERVE_BMM_T),
                           ("moe_grouped", "rows", SERVE_GROUPED_A),
                           ("w4a8_decode", "m", SERVE_DECODE_M),
@@ -717,13 +804,17 @@ def drop_two_level(params) -> None:
                     lin.scales2, lin.chan_scale = None, None
 
 
-def build_engine(model, mode, float_scale):
+def build_engine(model, mode, float_scale, layers=None):
+    import dataclasses
+
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.engine.builder import EngineBuilder
     from ferrum_tpu_torch.models.configs import preset
     from ferrum_tpu_torch.models.quantize import init_random_quant_params
 
     mc = preset(model)
+    if layers is not None:
+        mc = dataclasses.replace(mc, num_layers=layers)
     params = init_random_quant_params(mc, seed=0)
     if float_scale:
         drop_two_level(params)
@@ -742,20 +833,28 @@ def request(tokens, max_tokens=OUTPUT_LEN):
         sampling=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
 
 
-def serve_phase(torch, lane):
+def off_path(lane):
+    """The kernels a lane's runs must not launch: all but its path's."""
+    from ferrum_tpu_torch.ops import kernels as K
+    return [k.name for k in K.KERNELS if k.name not in lane["path"]]
+
+
+def serve_phase(torch, lane, want_solo=None):
     """32 concurrent greedy 256/128 requests on the lane's model and mode;
-    every kernel of its path must launch and none of its `unused` ones.
-    Returns (launch counts, model config, engine)."""
+    every kernel of its path must launch and no other. The prompt of
+    request 0 alone, before and after, must give the same tokens, and
+    `want_solo` where given. Returns (launch counts, model config, engine,
+    the solo request's tokens)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from ferrum_tpu_torch.ops import kernels as K
 
-    name, path, unused = lane["name"], lane["path"], lane["unused"]
+    name, path, unused = lane["name"], lane["path"], off_path(lane)
     t0 = time.perf_counter()
     mc, engine = build_engine(lane["model"], lane["mode"],
-                              lane["float_scale"])
+                              lane["float_scale"], lane.get("layers"))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -782,6 +881,9 @@ def serve_phase(torch, lane):
     repeat = engine.infer(request(prompts[0])).token_ids
     if repeat != solo:
         raise AssertionError("a repeated request gave other tokens")
+    if want_solo is not None and solo != want_solo:
+        raise AssertionError(f"{name}: the solo request's tokens differ "
+                             f"from lane {lane['solo_as']}'s")
     idle = [k for k in path if launches[k] == 0]
     if idle:
         raise AssertionError(f"{name}: kernels the served path never "
@@ -804,10 +906,12 @@ def serve_phase(torch, lane):
           "tpot_p50_ms": statistics.median(tpot) * 1e3,
           "max_memory_allocated_gib": peak / 2**30,
           "repeat_identical": True,
+          **({"solo_tokens_equal_to": lane["solo_as"]}
+             if want_solo is not None else {}),
           "batched_vs_solo_same_tokens": sum(
               a == b for a, b in zip(resps[0].token_ids, solo)) / OUTPUT_LEN,
           "launches": launches, "card": smi_line()})
-    return launches, mc, engine
+    return launches, mc, engine, solo
 
 
 def logits_phase(torch, mc, engine, lane):
@@ -871,6 +975,7 @@ def logits_phase(torch, mc, engine, lane):
 
     # The plain versions, swapped in by name for the comparison runs only.
     swaps = [(qmm, "w4a8tl_decode", qmm.w4a8tl_plain),
+             (qmm, "w4a8tl_gd_decode", qmm.w4a8tl_gd_plain),
              (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
              (qmm, "w4a8_decode", qmm.w4a8_plain),
              (qmm, "w4a16_gemm", qmm.w4a16_plain),
@@ -1002,7 +1107,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
     timer = Timer(torch)
-    cases = (gemm_rows(torch, timer) + float_scale_rows(torch, timer)
+    cases = (gemm_rows(torch, timer) + group_dot_rows(torch, timer)
+             + float_scale_rows(torch, timer)
              + kv_rows_cases(torch, timer) + kv_pages_cases(torch, timer)
              + moe_cases(torch, timer))
     summary = summarize(cases)
@@ -1012,13 +1118,14 @@ def main() -> int:
     attention_phase(torch, "cuda")
 
     # Each served path: its kernels' counts from 0 over its serve run.
-    by_path = {}
+    by_path, solos = {}, {}
     for lane in LANES:
-        launches, mc, engine = serve_phase(torch, lane)
+        launches, mc, engine, solos[lane["name"]] = serve_phase(
+            torch, lane, solos.get(lane.get("solo_as")))
         by_path[lane["name"]] = launches
         routes = logits_phase(torch, mc, engine, lane)
         missed = [k for k in lane["path"] if routes[k] == 0]
-        stray = [k for k in lane["unused"] if routes[k] != 0]
+        stray = [k for k in off_path(lane) if routes[k] != 0]
         if missed or stray:
             raise AssertionError(f"{lane['name']} logits run: never "
                                  f"launched {missed}, launched {stray}")

@@ -38,8 +38,11 @@ class EngineConfig:
     # perturbs group scales (requantized weights). No effect without w4a8.
     w4a8_two_level: bool = True
     # Decode-m (<= 64) kernel for two-level params: mxu = the two-level
-    # decode GEMM; off = the float-scale w4a8 GEMM on the effective
-    # scales. all | down (the group-dot kernel) are not ported yet.
+    # decode GEMM; all = its group-dot form (scales2 and the zero
+    # correction on the output side; the same results); down = the
+    # group-dot form only where in_features > out_features, the
+    # float-scale w4a8 GEMM on the effective scales elsewhere; off = that
+    # float-scale GEMM everywhere. Bools map to off / all.
     w4a8_gd: str = "mxu"
 
     def validate(self) -> None:
@@ -67,11 +70,11 @@ class EngineConfig:
             raise InvalidRequestError(
                 "kv_dtype must be bf16 or f32 (int8 KV comes with a later "
                 "slice of the port)", param="kv_dtype")
-        if self.w4a8_gd not in ("off", "mxu"):
+        if not isinstance(self.w4a8_gd, bool) \
+                and self.w4a8_gd not in ("off", "all", "down", "mxu"):
             raise InvalidRequestError(
-                f"w4a8_gd={self.w4a8_gd!r}: off | mxu (all | down take the "
-                f"group-dot kernel, TPU kernel row 7, not ported yet)",
-                param="w4a8_gd")
+                f"unknown w4a8_gd mode {self.w4a8_gd!r}: off | all | down "
+                f"| mxu", param="w4a8_gd")
         if self.decode_multi_step < 1:
             raise InvalidRequestError("decode_multi_step must be >= 1",
                                       param="decode_multi_step")

@@ -3,7 +3,9 @@
 Port of `ferrum_tpu/engine/builder.py` for the served path: explicit
 model config + params (`with_model`), the linear KV layout (every slot
 reserves a full max_model_len region), q|k|v and gate|up fusion, the
-quantized-matmul mode (`EngineConfig.w4a8` / `w4a8_gd`) and, under
+quantized-matmul mode (`EngineConfig.w4a8`, and `w4a8_gd`: the decode
+kernel of two-level weights, mxu | all | down | off, routed as
+ops/kernels/quant_matmul.py's table says) and, under
 w4a8 with `w4a8_two_level`, the two-level requantization (dense linears
 and MoE expert stacks). Without it the checkpoint's group scales are
 served as they are: float-scale w4a8 at decode m, w4a16 elsewhere.
@@ -11,8 +13,8 @@ Checkpoint loading, the paged layout and its HBM autosizing come with
 later slices.
 
 The mode is a process-wide switch, as in the JAX package: `build()`
-sets it, so building a second engine with another `w4a8` / `w4a8_gd`
-changes the route of the first one too.
+sets both switches, so building a second engine with another `w4a8` or
+`w4a8_gd` changes the route of the first one too.
 """
 
 from __future__ import annotations

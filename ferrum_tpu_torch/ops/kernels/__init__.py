@@ -49,8 +49,16 @@ W4A8_DECODE = Kernel("w4a8_decode", f"{_CSRC}/w4a8_gemm.cu",
 MOE_GROUPED_W4A16 = Kernel("moe_grouped_w4a16", f"{_CSRC}/w4a16_gemm.cu",
                            f"{_QMM}:970 _qgmm_kernel")
 
+W4A8TL_GD_DECODE = Kernel("w4a8tl_gd_decode", f"{_CSRC}/w4a8tl_gd.cu",
+                          f"{_QMM}:543 _qmm_w4a8tl_gd_kernel")
+# Unwired, as in the JAX package: reached only through its wrapper.
+W4A8TL_PREFILL_MCACHE = Kernel("w4a8tl_prefill_mcache",
+                               f"{_CSRC}/w4a8tl_mcache.cu",
+                               f"{_QMM}:339 _qmm_w4a8tl_mcache_kernel")
+
 KERNELS = (W4A8TL_DECODE, W4A8TL_PREFILL, KV_APPEND_ROWS, KV_APPEND_PAGES,
-           MOE_BMM, MOE_GROUPED, W4A16_GEMM, W4A8_DECODE, MOE_GROUPED_W4A16)
+           MOE_BMM, MOE_GROUPED, W4A16_GEMM, W4A8_DECODE, MOE_GROUPED_W4A16,
+           W4A8TL_GD_DECODE, W4A8TL_PREFILL_MCACHE)
 
 
 def reset_launch_counts() -> None:

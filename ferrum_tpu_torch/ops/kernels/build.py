@@ -27,7 +27,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 BUILD_ROOT = os.path.join(REPO_ROOT, "build", "ferrum_tpu_torch")
 SOURCES = ("w4a8tl_gemm", "kv_append", "moe_gemm", "w4a16_gemm",
-           "w4a8_gemm")
+           "w4a8_gemm", "w4a8tl_gd", "w4a8tl_mcache")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -41,6 +41,14 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _P],
         "ferrum_w4a8tl_prefill": [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
+    },
+    "w4a8tl_gd": {
+        "ferrum_w4a8tl_gd_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _P],
+    },
+    "w4a8tl_mcache": {
+        "ferrum_w4a8tl_prefill_mcache": [_P, _P, _P, _P, _P, _P, _P,
+                                         _I, _I, _I, _I, _P],
     },
     "moe_gemm": {
         "ferrum_moe_bmm": [_P, _P, _P, _P, _P, _P, _P,

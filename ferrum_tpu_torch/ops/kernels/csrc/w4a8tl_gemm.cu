@@ -38,14 +38,9 @@
 
 namespace {
 
-using w4a8tl::store_out;
-
 // Grid: x = N / BN, y = ceil(M / BM), z = K splits (each `steps_per_split`
-// steps of KP packed rows). !kSplit (one split): write the output
-// directly. kSplit: atomically add the int32 partial sums into ws [M, N]
-// (all zero on entry) and count the tile's arrivals in
-// counters[y * X + x] (zero on entry); the last arrival writes the output
-// and re-zeroes both.
+// steps of KP packed rows); kSplit: more than one split, summed through
+// ws / counters (w4a8tl::Tile::finish).
 template <int BM, int BN, int KP, int WM, int WN, bool kSplit>
 __global__ void __launch_bounds__(WM * WN * 32)
 w4a8tl_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
@@ -66,36 +61,8 @@ w4a8tl_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   typename T::Acc acc;
   T::zero(acc);
   T::mainloop(acc, sm, xq, qw, s2, zr, m0, 0, M, n0, N, K, s_begin, s_end);
-
-  if constexpr (!kSplit) {
-    T::for_each_out(acc, m0, n0, 0, M, [&](int row, int col, int v) {
-      store_out(out, (size_t)row * N + col, (float)v * xs[row] * chan[col],
-                out_bf16);
-    });
-  } else {
-    T::for_each_out(acc, m0, n0, 0, M, [&](int row, int col, int v) {
-      atomicAdd(ws + (size_t)row * N + col, v);
-    });
-    // The tile's last-arriving split takes the full sums back out of ws
-    // (atomicExch: read at L2, where the other splits' adds landed, and
-    // re-zeroed) and applies the epilogue.
-    __shared__ int last;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-      last = atomicAdd(counters + tile, 1) == (int)gridDim.z - 1;
-      if (last) counters[tile] = 0;
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    T::for_each_out(acc, m0, n0, 0, M, [&](int row, int col, int) {
-      const size_t idx = (size_t)row * N + col;
-      store_out(out, idx, (float)atomicExch(ws + idx, 0) * xs[row] * chan[col],
-                out_bf16);
-    });
-  }
+  T::template finish<kSplit>(acc, xs, chan, out, ws, counters, m0, n0, M, N,
+                             out_bf16);
 }
 
 template <int BM, int BN, int KP, int WM, int WN>

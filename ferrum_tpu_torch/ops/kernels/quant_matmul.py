@@ -5,13 +5,21 @@ Counterpart of `ferrum_tpu/ops/pallas/quant_matmul.py`'s dense part.
 switched by `set_w4a8` / `set_w4a8_gd` (the engine builder sets them
 from `EngineConfig.w4a8` / `w4a8_gd`):
 
-  w4a8  gd   params      m      entry                kernel (TPU row)
-  on    mxu  two-level   <= 64  quant_matmul_w4a8tl  w4a8tl_decode  (1)
-  on    off  any         <= 64  quant_matmul_w4a8    w4a8_decode    (6)
-  on    mxu  float-scale <= 64  quant_matmul_w4a8    w4a8_decode    (6)
-  on    any  two-level   >  64  quant_matmul_w4a8tl  w4a8tl_prefill (2)
-  on    any  float-scale >  64  quant_matmul_w4a16   w4a16_gemm     (5)
-  off   any  any         any    quant_matmul_w4a16   w4a16_gemm     (5)
+  w4a8  gd    params      m      entry                kernel (TPU row)
+  on    mxu   two-level   <= 64  quant_matmul_w4a8tl  w4a8tl_decode    (1)
+  on    all   two-level   <= 64  quant_matmul_w4a8tl  w4a8tl_gd_decode (7)
+  on    down  two-level,  <= 64  quant_matmul_w4a8tl  w4a8tl_gd_decode (7)
+              in > out
+  on    off   any         <= 64  quant_matmul_w4a8    w4a8_decode      (6)
+  on    down  two-level,  <= 64  quant_matmul_w4a8    w4a8_decode      (6)
+              in <= out
+  on    any   float-scale <= 64  quant_matmul_w4a8    w4a8_decode      (6)
+  on    any   two-level   >  64  quant_matmul_w4a8tl  w4a8tl_prefill   (2)
+  on    any   float-scale >  64  quant_matmul_w4a16   w4a16_gemm       (5)
+  off   any   any         any    quant_matmul_w4a16   w4a16_gemm       (5)
+
+`w4a8tl_prefill_mcache` (TPU row 8, the m-innermost schedule of row 2)
+is on no route, as in the JAX package: only its wrapper reaches it.
 
 A weight the JAX kernels cannot tile (`kernel_tiles` false: group size
 not 128, K/2 or N not a multiple of 128) leaves the int8 entries for
@@ -21,7 +29,9 @@ float matmul) outside any kernel, as the JAX wrappers' `None` and
 launch.
 
   w4a8tl_*    y = out_t(f32(xq @ w8) * xs * chan), w8 = (q - z) * scales2,
-              exactly (csrc/w4a8tl_gemm.cu)
+              exactly (csrc/w4a8tl_gemm.cu, w4a8tl_gd.cu in the group-dot
+              form, w4a8tl_mcache.cu; plain versions w4a8tl_plain and
+              w4a8tl_gd_plain)
   w4a8_decode y = out_t(xs * sum_g s[g] * f32(sum_k xq * (q - z[g]))),
               groups summed in the TPU kernel's K-step order, exactly
               (csrc/w4a8_gemm.cu)
@@ -43,7 +53,8 @@ import torch
 
 from ..quant import (QuantLinearParams, quant_matmul_ref, two_level_w8,
                      unpack_rows, w4a16_weight)
-from . import W4A8_DECODE, W4A8TL_DECODE, W4A8TL_PREFILL, W4A16_GEMM
+from . import (W4A8_DECODE, W4A8TL_DECODE, W4A8TL_GD_DECODE, W4A8TL_PREFILL,
+               W4A8TL_PREFILL_MCACHE, W4A16_GEMM)
 from .build import check, library
 
 GROUP = 128
@@ -67,10 +78,38 @@ def quantize_activation_rows(x: torch.Tensor):
 
 def w4a8tl_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
                  out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch version of both kernels (the same function)."""
+    """Plain PyTorch version of w4a8tl_decode, w4a8tl_prefill and
+    w4a8tl_prefill_mcache (one function)."""
     acc = xq.to(torch.float64) @ two_level_w8(p).to(torch.float64)
+    return _two_level_out(acc, xs, p, out_dtype)
+
+
+def _two_level_out(acc, xs, p, out_dtype):
     return (acc.to(torch.float32) * xs.to(torch.float32)
             * p.chan_scale.to(torch.float32)).to(out_dtype)
+
+
+def w4a8tl_gd_plain(xq: torch.Tensor, xs: torch.Tensor,
+                    p: QuantLinearParams,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of `w4a8tl_gd_decode`, the group-dot form taken
+    literally: per 128-group g in global order (`unpack_rows`: the low
+    plane's groups, then the high plane's, each with its own columns of
+    xq), dot = xq_g @ q_g on the raw nibbles and sx = sum_k xq_g; then
+    acc = sum_g s2[g] * dot - sum_g sx * (s2 * z)[g]; then
+    f32(acc) * xs * chan. The sums run in float64, where these integers
+    are exact (< 2^53), so acc is w4a8tl_plain's integer dot and the
+    result equals it bit for bit."""
+    m, k = xq.shape
+    n, g = p.out_features, k // GROUP
+    q = unpack_rows(p.qweight).to(torch.float64).reshape(g, GROUP, n)
+    xg = xq.to(torch.float64).reshape(m, g, GROUP).transpose(0, 1)
+    dot = torch.bmm(xg, q)                                   # [G, m, N]
+    sx = xg.sum(-1)                                          # [G, m]
+    s2 = p.scales2.to(torch.float64)                         # [G, N]
+    s2z = s2 * p.zeros.to(torch.float64)
+    acc = (s2[:, None, :] * dot).sum(0) - sx.t() @ s2z
+    return _two_level_out(acc, xs, p, out_dtype)
 
 
 def _check_args(xq, xs, p, out_dtype, n_align):
@@ -120,27 +159,62 @@ def _split_k_scratch(stream: torch.cuda.Stream, n: int):
     return base, base + 4 * (width // 64)
 
 
+def _decode_split_k(entry, name, xq, xs, p, out_dtype) -> torch.Tensor:
+    """Launch a two-level decode kernel (C entry `entry`, the arguments of
+    ferrum_w4a8tl_decode): 64-column tiles, one group per K step, K split
+    until about `_DECODE_TARGET_BLOCKS` blocks, the splits summed through
+    the stream's split-K scratch."""
+    m, k, n = _check_args(xq, xs, p, out_dtype, 64)
+    if not 1 <= m <= DECODE_MAX_M:
+        raise ValueError(f"{name} takes m <= {DECODE_MAX_M}, got {m}")
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    n_steps = (k // 2) // GROUP
+    splits = max(1, min(n_steps, -(-_DECODE_TARGET_BLOCKS // (n // 64))))
+    stream = torch.cuda.current_stream(xq.device)
+    counters, ws = _split_k_scratch(stream, n)
+    check(entry(xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
+                p.scales2.data_ptr(), p.zeros.data_ptr(),
+                p.chan_scale.data_ptr(), out.data_ptr(), ws, counters, m, n,
+                k, splits, int(out_dtype == torch.bfloat16),
+                stream.cuda_stream), name)
+    return out
+
+
 def w4a8tl_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
                   out_dtype: torch.dtype) -> torch.Tensor:
     """Decode-sized (m <= 64) two-level w4a8 GEMM → [m, N] out_dtype."""
     if not xq.is_cuda:
         return w4a8tl_plain(xq, xs, p, out_dtype)
-    m, k, n = _check_args(xq, xs, p, out_dtype, 64)
-    if m > DECODE_MAX_M:
-        raise ValueError(f"w4a8tl_decode takes m <= {DECODE_MAX_M}, got {m}")
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    n_blocks = n // 64
-    n_steps = (k // 2) // GROUP
-    splits = max(1, min(n_steps, -(-_DECODE_TARGET_BLOCKS // n_blocks)))
-    stream = torch.cuda.current_stream(xq.device)
-    counters, ws = _split_k_scratch(stream, n)
-    err = library("w4a8tl_gemm").ferrum_w4a8tl_decode(
-        xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
-        p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
-        out.data_ptr(), ws, counters, m, n, k, splits,
-        int(out_dtype == torch.bfloat16), stream.cuda_stream)
-    check(err, "w4a8tl_decode")
+    out = _decode_split_k(library("w4a8tl_gemm").ferrum_w4a8tl_decode,
+                          "w4a8tl_decode", xq, xs, p, out_dtype)
     W4A8TL_DECODE.launches += 1
+    return out
+
+
+def w4a8tl_gd_decode(xq: torch.Tensor, xs: torch.Tensor,
+                     p: QuantLinearParams,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Decode-sized (m <= 64) two-level w4a8 GEMM in the group-dot form
+    (scales2 and the zero correction on the output side) → [m, N]; the
+    same function as w4a8tl_decode."""
+    if not xq.is_cuda:
+        return w4a8tl_gd_plain(xq, xs, p, out_dtype)
+    out = _decode_split_k(library("w4a8tl_gd").ferrum_w4a8tl_gd_decode,
+                          "w4a8tl_gd_decode", xq, xs, p, out_dtype)
+    W4A8TL_GD_DECODE.launches += 1
+    return out
+
+
+def _prefill(entry, name, xq, xs, p, out_dtype) -> torch.Tensor:
+    """Launch a two-level prefill kernel (C entry `entry`, the arguments
+    of ferrum_w4a8tl_prefill): 128-column tiles, any m."""
+    m, k, n = _check_args(xq, xs, p, out_dtype, 128)
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    check(entry(xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
+                p.scales2.data_ptr(), p.zeros.data_ptr(),
+                p.chan_scale.data_ptr(), out.data_ptr(), m, n, k,
+                int(out_dtype == torch.bfloat16), stream), name)
     return out
 
 
@@ -149,15 +223,23 @@ def w4a8tl_prefill(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
     """Prefill-sized (m > 64) two-level w4a8 GEMM → [m, N] out_dtype."""
     if not xq.is_cuda:
         return w4a8tl_plain(xq, xs, p, out_dtype)
-    m, k, n = _check_args(xq, xs, p, out_dtype, 128)
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = library("w4a8tl_gemm").ferrum_w4a8tl_prefill(
-        xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
-        p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
-        out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16), stream)
-    check(err, "w4a8tl_prefill")
+    out = _prefill(library("w4a8tl_gemm").ferrum_w4a8tl_prefill,
+                   "w4a8tl_prefill", xq, xs, p, out_dtype)
     W4A8TL_PREFILL.launches += 1
+    return out
+
+
+def w4a8tl_prefill_mcache(xq: torch.Tensor, xs: torch.Tensor,
+                          p: QuantLinearParams,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """The prefill GEMM's function with the dequantized weight tile shared
+    by two 128-row tiles (TPU row 8's schedule) → [m, N] out_dtype. On no
+    route, as in the JAX package: only this wrapper reaches it."""
+    if not xq.is_cuda:
+        return w4a8tl_plain(xq, xs, p, out_dtype)
+    out = _prefill(library("w4a8tl_mcache").ferrum_w4a8tl_prefill_mcache,
+                   "w4a8tl_prefill_mcache", xq, xs, p, out_dtype)
+    W4A8TL_PREFILL_MCACHE.launches += 1
     return out
 
 
@@ -326,16 +408,12 @@ def set_w4a8(enabled: bool) -> None:
 
 
 def set_w4a8_gd(mode) -> None:
-    """Decode-m mode for two-level params: "mxu" | "off" (bools map to
-    off / all, as in the JAX package)."""
+    """Decode-m mode for two-level params: "off" | "all" | "down" | "mxu"
+    (bools map to off / all, as in the JAX package)."""
     global _W4A8_GD
     if isinstance(mode, bool):
         mode = "all" if mode else "off"
-    if mode in ("all", "down"):
-        raise NotImplementedError(
-            f"w4a8_gd={mode!r} takes the group-dot kernel (TPU kernel row "
-            f"7, _qmm_w4a8tl_gd_kernel), not ported yet")
-    if mode not in ("off", "mxu"):
+    if mode not in ("off", "all", "down", "mxu"):
         raise ValueError(f"unknown w4a8_gd mode {mode!r}")
     _W4A8_GD = mode
 
@@ -357,19 +435,19 @@ def _finish(out: torch.Tensor, lead, p: QuantLinearParams) -> torch.Tensor:
     return out
 
 
-def quant_matmul_w4a8tl(x: torch.Tensor, p: QuantLinearParams
-                        ) -> torch.Tensor:
-    """Two-level w4a8: the decode kernel at m <= 64, the prefill kernel
-    above; w4a16 where `kernel_tiles` is false."""
+def quant_matmul_w4a8tl(x: torch.Tensor, p: QuantLinearParams,
+                        gd=False) -> torch.Tensor:
+    """Two-level w4a8, kernel by `gd` as the JAX entry (:774-803): False
+    the prefill kernel, True the group-dot decode kernel, "mxu" the decode
+    kernel (both decode kernels take m <= 64, all the dispatch sends
+    them); w4a16 where `kernel_tiles` is false."""
     if not kernel_tiles(p):
         return quant_matmul_w4a16(x, p)
     x2, lead = _rows(x, p)
     xq, xs = quantize_activation_rows(x2)
-    if x2.shape[0] <= DECODE_MAX_M:
-        out = w4a8tl_decode(xq, xs, p, x.dtype)
-    else:
-        out = w4a8tl_prefill(xq, xs, p, x.dtype)
-    return _finish(out, lead, p)
+    kernel = {False: w4a8tl_prefill, True: w4a8tl_gd_decode,
+              "mxu": w4a8tl_decode}[gd]
+    return _finish(kernel(xq, xs, p, x.dtype), lead, p)
 
 
 def quant_matmul_w4a8(x: torch.Tensor, p: QuantLinearParams
@@ -401,7 +479,11 @@ def quant_matmul(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
         m *= d
     if _W4A8 and m <= DECODE_MAX_M:
         if _W4A8_GD == "mxu" and p.scales2 is not None:
-            return quant_matmul_w4a8tl(x, p)
+            return quant_matmul_w4a8tl(x, p, gd="mxu")
+        gd = _W4A8_GD == "all" or (
+            _W4A8_GD == "down" and p.in_features > p.out_features)
+        if gd and p.scales2 is not None:
+            return quant_matmul_w4a8tl(x, p, gd=True)
         return quant_matmul_w4a8(x, p)
     if _W4A8 and p.scales2 is not None:
         return quant_matmul_w4a8tl(x, p)

@@ -267,20 +267,24 @@ def test_untiled_stack_takes_the_reference_fallback(monkeypatch):
 
 # JAX kernel reached → the port wrapper that must run in its place.
 _PORT_OF = {"_qmm_w4a8tl_mxu_kernel": "w4a8tl_decode",
+            "_qmm_w4a8tl_gd_kernel": "w4a8tl_gd_decode",
             "_qmm_w4a8tl_kernel": "w4a8tl_prefill",
             "_qmm_w4a8_kernel": "w4a8_decode",
             "_qmm_kernel": "w4a16_gemm", "ref": "ref"}
 
 
-@pytest.mark.parametrize("n", [256, 96])
+@pytest.mark.parametrize("n", [256, 96, 1024])
 @pytest.mark.parametrize("two_level", [True, False])
-@pytest.mark.parametrize("gd", ["mxu", "off"])
+@pytest.mark.parametrize("gd", ["mxu", "off", "all", "down"])
 @pytest.mark.parametrize("w4a8", [True, False])
 def test_route_table_matches_jax(monkeypatch, w4a8, gd, two_level, n):
-    """The dense dispatch over w4a8 on/off x gd mxu/off x params with and
-    without scales2 x m in {1, 64, 65, 300} x a weight that tiles and one
-    that does not (N = 96): the kernel the JAX package reaches on the TPU
-    and the port's wrapper correspond case by case."""
+    """The dense dispatch over w4a8 on/off x gd mxu/off/all/down x params
+    with and without scales2 x m in {1, 64, 65, 300} x K = 512 against a
+    weight that tiles and narrows (N = 256: "down" takes the group-dot
+    kernel), one that does not tile (N = 96) and one that widens (N =
+    1024: "down" takes the float-scale w4a8 kernel): the kernel the JAX
+    package reaches on the TPU and the port's wrapper correspond case by
+    case."""
     k = 512
     pj, pt = _pair(k, n, seed=3)
     if two_level:
@@ -292,8 +296,8 @@ def test_route_table_matches_jax(monkeypatch, w4a8, gd, two_level, n):
         monkeypatch.setattr(mod, "_W4A8", w4a8)
         monkeypatch.setattr(mod, "_W4A8_GD", gd)
     port = []
-    for name in ("w4a8tl_decode", "w4a8tl_prefill", "w4a8_decode",
-                 "w4a16_gemm", "quant_matmul_ref"):
+    for name in ("w4a8tl_decode", "w4a8tl_gd_decode", "w4a8tl_prefill",
+                 "w4a8_decode", "w4a16_gemm", "quant_matmul_ref"):
         orig = getattr(tqm, name)
         monkeypatch.setattr(tqm, name, lambda *a, _n=name, _o=orig: (
             port.append(_n.replace("quant_matmul_", "")), _o(*a))[1])
@@ -397,17 +401,26 @@ def test_builder_requantizes_only_under_w4a8_two_level(monkeypatch, mode,
     assert tqm.w4a8_enabled() == w4a8 and tqm._W4A8_GD == "mxu"
 
 
-def test_config_rejects_unported_group_dot_modes():
+def test_config_rejects_unported_group_dot_modes(monkeypatch):
+    """The JAX package's four w4a8_gd modes (and its bools) are accepted
+    by both `EngineConfig.validate` and `set_w4a8_gd`; any other mode is
+    rejected by both, as the JAX `set_w4a8_gd` rejects it."""
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.types import InvalidRequestError
 
-    for gd in ("off", "mxu"):
+    monkeypatch.setattr(tqm, "_W4A8_GD", tqm._W4A8_GD)
+    for gd, mode in (("off", "off"), ("all", "all"), ("down", "down"),
+                     ("mxu", "mxu"), (True, "all"), (False, "off")):
         EngineConfig(w4a8_gd=gd).validate()
-    for gd in ("all", "down"):
-        with pytest.raises(InvalidRequestError, match="row 7"):
+        tqm.set_w4a8_gd(gd)
+        assert tqm._W4A8_GD == mode
+    for gd in ("gd", "ALL", "", None):
+        with pytest.raises(InvalidRequestError, match="unknown w4a8_gd"):
             EngineConfig(w4a8_gd=gd).validate()
-        with pytest.raises(NotImplementedError, match="row 7"):
+        with pytest.raises(ValueError, match="unknown w4a8_gd"):
             tqm.set_w4a8_gd(gd)
+        with pytest.raises(ValueError, match="unknown w4a8_gd"):
+            qm.set_w4a8_gd(gd)
 
 
 # ---------------------------------------------------------------------------

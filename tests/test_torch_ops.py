@@ -317,3 +317,23 @@ def test_no_try_gives_way_to_a_plain_version():
         if f.endswith(".py"):
             tree = ast.parse(open(os.path.join(kdir, f)).read())
             assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
+
+
+def test_kernel_records_name_their_sources_and_tpu_kernels():
+    """Every `Kernel` record (the `source` and `replaces` that chip_smoke.py
+    prints): one per TPU kernel of PERF.md's table, eleven; its CUDA source
+    exists and is a built source with C signatures, and every built source
+    carries a record; `replaces` names the function defined at that line of
+    the JAX package."""
+    from ferrum_tpu_torch.ops import kernels as K
+    from ferrum_tpu_torch.ops.kernels import build
+
+    assert len({k.name for k in K.KERNELS}) == len(K.KERNELS) == 11
+    sources = set()
+    for k in K.KERNELS:
+        assert os.path.exists(os.path.join(REPO, k.source)), k.source
+        sources.add(os.path.splitext(os.path.basename(k.source))[0])
+        path, line, fn = k.replaces.replace(":", " ").split()[:3]
+        text = open(os.path.join(REPO, path)).read().splitlines()
+        assert text[int(line) - 1].startswith(f"def {fn}("), k.replaces
+    assert sources == set(build.SOURCES) == set(build.SIGNATURES)

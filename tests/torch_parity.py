@@ -13,7 +13,10 @@ the kernels. `route_float_scale` does the same for the float-scale
 routes (w4a16 and float-scale w4a8, dense and grouped): the JAX
 package's own dispatch runs as on the TPU, with its three Pallas entries
 pointed at jnp forms that tests/test_torch_float_scale.py holds against
-interpret-mode runs.
+interpret-mode runs. Its two-level group-dot entry (`w4a8_gd` all /
+down) likewise runs the JAX package's own entry, with the Pallas wrapper
+pointed at `jax_qmm_w4a8tl_gd`, which tests/test_torch_group_dot.py
+holds bit for bit against interpret-mode runs.
 """
 
 from __future__ import annotations
@@ -176,6 +179,33 @@ def jax_qmm_w4a8(xq, xs, p, out_dtype, **_):
     return (acc * xs).astype(out_dtype)
 
 
+def jax_qmm_w4a8tl_gd(xq, xs, p, out_dtype, **_):
+    """jnp form of `_quant_matmul_w4a8tl_gd` (`_qmm_w4a8tl_gd_kernel`):
+    per 128-group in global order, the int32 dot of xq_g with the raw
+    nibbles times s2, minus sum(xq_g) * s2 * z, added to an int32
+    accumulator; then f32(acc) * xs * chan. None where the Pallas wrapper
+    returns None (a weight it cannot tile)."""
+    import jax.numpy as jnp
+
+    from ferrum_tpu.ops.quant import unpack_rows
+
+    k, n = p.in_features, p.out_features
+    if p.group_size != 128 or (k // 2) % 128 or n % 128:
+        return None
+    q = unpack_rows(p.qweight, 128)
+    x32 = xq.astype(jnp.int32)
+    acc = jnp.zeros((xq.shape[0], n), jnp.int32)
+    for g in range(k // 128):
+        xg = x32[:, g * 128:(g + 1) * 128]
+        st = p.scales2[g][None].astype(jnp.int32)
+        zt = p.zeros[g][None].astype(jnp.int32)
+        dot = jnp.dot(xg, q[g * 128:(g + 1) * 128],
+                      preferred_element_type=jnp.int32)
+        acc = acc + dot * st - jnp.sum(xg, axis=1, keepdims=True) * (st * zt)
+    chan = p.chan_scale.astype(jnp.float32).reshape(1, n)
+    return (acc.astype(jnp.float32) * xs * chan).astype(out_dtype)
+
+
 def jax_grouped_w4a16(x, p, group_sizes, **_):
     """jnp form of `_quant_grouped_2d` (`_qgmm_kernel`): each row @ its
     expert's bf16 weight, f32 sums, cast to x.dtype; 0 past the last
@@ -199,9 +229,11 @@ def route_float_scale(monkeypatch, w4a8: bool, gd: str = "mxu") -> None:
     """Both packages in one quantized-matmul mode, the JAX side running
     its dispatch as on the TPU: its float-scale Pallas entries point at
     the jnp forms above, its two-level ones at those of
-    `route_moe_w4a8tl`. The port's and the JAX package's mode switches
-    are monkeypatched, so a test that builds an engine (which sets them)
-    leaves them as they were."""
+    `route_moe_w4a8tl` and, in the group-dot mode (gd=True), at its own
+    entry with `jax_qmm_w4a8tl_gd` in place of the Pallas wrapper. The
+    port's and the JAX package's mode switches are monkeypatched, so a
+    test that builds an engine (which sets them) leaves them as they
+    were."""
     from ferrum_tpu.ops.pallas import quant_matmul as qm
     from ferrum_tpu.ops.quant import quant_matmul_w4a8tl_ref
     from ferrum_tpu_torch.ops.kernels import quant_matmul as tqm
@@ -213,8 +245,11 @@ def route_float_scale(monkeypatch, w4a8: bool, gd: str = "mxu") -> None:
     monkeypatch.setattr(qm, "_quant_matmul_2d", jax_qmm_w4a16)
     monkeypatch.setattr(qm, "_quant_matmul_w4a8_2d", jax_qmm_w4a8)
     monkeypatch.setattr(qm, "_quant_grouped_2d", jax_grouped_w4a16)
-    monkeypatch.setattr(qm, "quant_matmul_w4a8tl",
-                        lambda x, p, gd=False: quant_matmul_w4a8tl_ref(x, p))
+    entry = qm.quant_matmul_w4a8tl
+    monkeypatch.setattr(qm, "_quant_matmul_w4a8tl_gd", jax_qmm_w4a8tl_gd)
+    monkeypatch.setattr(
+        qm, "quant_matmul_w4a8tl", lambda x, p, gd=False: entry(x, p, gd=True)
+        if gd is True else quant_matmul_w4a8tl_ref(x, p))
     monkeypatch.setattr(qm, "quant_bmm_all_experts", jax_bmm_w4a8tl)
     monkeypatch.setattr(qm, "_quant_grouped_w4a8tl_2d", jax_grouped_w4a8tl)
 
