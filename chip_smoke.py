@@ -385,10 +385,13 @@ def float_scale_rows(torch, timer):
     return rows
 
 
-def check_case(rows, row, timer, fn, plain, library, exact):
+def check_case(rows, row, timer, fn, plain, library, exact, launch=None):
     """Kernel vs plain version (exact, or within one bf16 step and then
     the same bits again: deterministic), timed, and checked once more
-    after the timed launches; raises on a miss."""
+    after the timed launches; raises on a miss. `launch`, where given, is
+    the kernel's launch alone on inputs `fn` prepares itself (a grouped
+    kernel on a tile map built before): it must give `fn`'s bits, and
+    `kernel_ms` times it while `call_ms` times the whole call `fn`."""
     import torch
     got = fn()
     want = plain()
@@ -401,7 +404,10 @@ def check_case(rows, row, timer, fn, plain, library, exact):
         ok, row["share_differing"], row["max_abs_err"] = bf16_step_check(
             got, want)
         row["tolerance"] = "2^-7 |want| + 2^-12 max|want|"
-    row["kernel_ms"] = timer(fn)
+    row["kernel_ms"] = timer(launch or fn)
+    if launch is not None:
+        row["call_ms"] = timer(fn)
+        ok &= bool(torch.equal(launch(), got))
     again = fn()
     ok &= bool(torch.equal(again, want)) if exact \
         else bf16_step_check(again, want)[0] and bool(torch.equal(again, got))
@@ -449,7 +455,8 @@ def moe_cases(torch, timer):
     """The two MoE kernels at the qwen3-30b-a3b expert shapes against
     their plain versions (exact equality), with their times."""
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (
-        bmm_plain, grouped_plain, grouped_w4a8tl, quant_bmm_all_experts)
+        bmm_plain, grouped_map, grouped_plain, grouped_w4a8tl,
+        grouped_w4a8tl_on_map, quant_bmm_all_experts)
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
         quantize_activation_rows)
     from ferrum_tpu_torch.ops.quant import dequantize
@@ -495,12 +502,15 @@ def moe_cases(torch, timer):
                 stack_bytes(p, active) + xq.nbytes + xs.nbytes + 2 * a * n,
                 2.0 * a * k * n)
             offs = torch.cumsum(sizes, 0).to(torch.int32)
+            tmap = grouped_map(gs, a)
             check_case(rows, row, timer,
                        lambda: grouped_w4a8tl(xq, xs, p, gs, torch.bfloat16),
                        lambda: grouped_plain(xq, xs, p, gs, torch.bfloat16),
                        None if grouped_mm is None
                        else lambda: grouped_mm(x, w_bf16, offs=offs),
-                       exact=True)
+                       exact=True,
+                       launch=lambda: grouped_w4a8tl_on_map(
+                           xq, xs, p, tmap, torch.bfloat16))
         del p, w_bf16
         torch.cuda.empty_cache()
         grouped_w4a16_cases(torch, timer, site, k, n, gen, rows)
@@ -511,8 +521,9 @@ def grouped_w4a16_cases(torch, timer, site, k, n, gen, rows):
     """The w4a16 grouped kernel on a float-scale stack, within one bf16
     step of its plain version, at the rows of lane D's decode step (256)
     and prefills, and the single-slot decode (8)."""
-    from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_w4a16,
-                                                       grouped_w4a16_plain)
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (
+        grouped_map, grouped_w4a16, grouped_w4a16_on_map,
+        grouped_w4a16_plain)
     from ferrum_tpu_torch.ops.quant import w4a16_weight
     grouped_mm = getattr(torch, "_grouped_mm", None)
     p = make_moe_stack(torch, k, n, gen, two_level=False)
@@ -533,14 +544,115 @@ def grouped_w4a16_cases(torch, timer, site, k, n, gen, rows):
             active * per + x.nbytes + 2 * a * n, 2.0 * a * k * n,
             BF16_FLOPS_PER_S)
         offs = torch.cumsum(sizes, 0).to(torch.int32)
+        tmap = grouped_map(gs, a)
         check_case(rows, row, timer,
                    lambda: grouped_w4a16(x, p, gs),
                    lambda: grouped_w4a16_plain(x, p, gs),
                    None if grouped_mm is None
                    else lambda: grouped_mm(x, w_bf16, offs=offs),
-                   exact=False)
+                   exact=False,
+                   launch=lambda: grouped_w4a16_on_map(x, p, tmap))
     del p, w_bf16
     torch.cuda.empty_cache()
+
+
+# The exact dequant cases: (m, K, N) dense and (rows, K, N) grouped, each
+# with bf16 and with f32 scales. m = 256 takes 128-column tiles, m = 2048
+# at N = 6144 256-column ones; grouped N = 768 256-column, N = 640 128.
+ONEHOT_DENSE = ((256, 4096, 768), (256, 4096, 6144), (2048, 4096, 6144))
+ONEHOT_GROUPED = ((2048, 2048, 768), (2048, 2048, 640))
+
+
+def onehot_weight(torch, k, n, gen, experts, f32_scales):
+    """A float-scale weight ([experts, ...] when experts > 0) built so a
+    one-hot x reads its dequant exactly: across each group's columns
+    every (q, z) pair in 0..15 x 0..15 (q = (n + k + e) % 16, z = (n / 16
+    + g + e) % 16), the last group of each nibble half with zeros across
+    all of int8, and scales 2^t (1 + u), t sweeping -133 .. 119 over
+    the columns (below 2^-126 the bf16 scale is subnormal), u random (f32
+    scales then round to bf16 in the kernel)."""
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+    dev = "cuda"
+    g = k // 128
+    e = max(experts, 1)
+    ei = torch.arange(e, device=dev)[:, None, None]
+    kk = torch.arange(k, device=dev)[None, :, None]
+    nn = torch.arange(n, device=dev)[None, None, :]
+    gg = torch.arange(g, device=dev)[None, :, None]
+    q = (nn + kk + ei) % 16                                      # [E, K, N]
+    z = (nn // 16 + gg + ei) % 16                                # [E, G, N]
+    wide = (nn * 37 + ei * 11) % 256 - 128
+    z[:, [g // 2 - 1, g - 1], :] = wide.expand(e, 2, n)
+    t = (nn * 11 + gg * 5 + ei) % 253 - 133
+    u = torch.rand((e, g, n), generator=gen, device=dev)
+    s = (1 + u) * torch.pow(2.0, t.to(torch.float32))
+    qw = (q[:, :k // 2] | (q[:, k // 2:] << 4)).to(torch.uint8)
+    fields = dict(qweight=qw, scales=s if f32_scales else s.to(torch.bfloat16),
+                  zeros=z.to(torch.int8))
+    if not experts:
+        fields = {f: v[0].contiguous() for f, v in fields.items()}
+    return QuantLinearParams(**fields, bias=None, in_features=k,
+                             out_features=n, group_size=128)
+
+
+def onehot_x(torch, m, k, gen):
+    """bf16 [m, K], row i one-hot at k_i: the first and the last k of
+    every group (both nibble halves' groups), then random k."""
+    need = torch.stack([torch.arange(0, k, 128, device="cuda"),
+                        torch.arange(127, k, 128, device="cuda")], 1)
+    ks = torch.cat([need.reshape(-1), torch.randint(
+        0, k, (m - need.numel(),), generator=gen, device="cuda")])
+    x = torch.zeros(m, k, dtype=torch.bfloat16, device="cuda")
+    x[torch.arange(m, device="cuda"), ks] = 1.0
+    return x
+
+
+def onehot_cases(torch):
+    """Both w4a16 kernels on one-hot x: y is rows of the dequantized
+    weight, so the kernel must equal its plain version bit for bit --
+    the check a dequant, layout, swizzle or proxy-fence fault cannot
+    pass."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_w4a16,
+                                                       grouped_w4a16_plain)
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (w4a16_gemm,
+                                                           w4a16_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    rows = []
+    cases = [("w4a16_gemm", shape) for shape in ONEHOT_DENSE] \
+        + [("moe_grouped_w4a16", shape) for shape in ONEHOT_GROUPED]
+    for kernel, (m, k, n) in cases:
+        x = onehot_x(torch, m, k, gen)
+        for f32 in (False, True):
+            row = {"kernel": kernel, "case": "one-hot dequant", "m": m,
+                   "k": k, "n": n, "scales": "f32" if f32 else "bf16"}
+            if kernel == "w4a16_gemm":
+                p = onehot_weight(torch, k, n, gen, 0, f32)
+                got, want = w4a16_gemm(x, p), w4a16_plain(x, p)
+            else:
+                sizes = routed_sizes(torch, gen, m)
+                offs = torch.cumsum(sizes, 0)
+                row["boundary_inside_64_rows"] = bool(
+                    (offs[:-1] % 64 != 0).any().item())
+                gs = sizes.to(torch.int32)
+                p = onehot_weight(torch, k, n, gen, MOE_E, f32)
+                got, want = grouped_w4a16(x, p, gs), \
+                    grouped_w4a16_plain(x, p, gs)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            row["equal"] = bool(torch.equal(got, want))
+            row["outputs_differing"] = int((diff > 0).sum().item())
+            row["subnormal_weights"] = int(
+                ((want != 0) & (want.float().abs() < 2.0 ** -126)).sum().item())
+            rows.append(row)
+            emit({"phase": "kernel_case", **row})
+            if not row["equal"] or not row.get("boundary_inside_64_rows",
+                                               True):
+                raise AssertionError(f"{kernel} one-hot {m}x{k}x{n} "
+                                     f"({row['scales']} scales): {row}")
+            del p, got, want
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kv_ids(torch, layers, slots, blocks_per_slot, pos, inactive):
@@ -1111,6 +1223,7 @@ def main() -> int:
              + float_scale_rows(torch, timer)
              + kv_rows_cases(torch, timer) + kv_pages_cases(torch, timer)
              + moe_cases(torch, timer))
+    onehot_cases(torch)
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})
     del timer

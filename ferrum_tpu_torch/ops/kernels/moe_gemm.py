@@ -18,7 +18,9 @@ Counterpart of the MoE part of `ferrum_tpu/ops/pallas/quant_matmul.py`
 The w4a8tl kernels keep their TPU kernels' (different) epilogue orders.
 On a CUDA tensor a wrapper launches its kernel (csrc/moe_gemm.cu,
 csrc/w4a16_gemm.cu); on a CPU tensor it runs the plain version, which
-takes every dot in float64 (exact for the integer dots).
+takes every dot in float64 (exact for the integer dots). Each grouped
+wrapper builds the tile map and launches on it; `*_on_map` launches on
+a map built before (so a caller can time or share the map).
 
 Stacks the JAX grouped kernels cannot tile (`grouped_tiles` false)
 take `grouped_ref` (dequantize, one float matmul per expert) outside any
@@ -68,12 +70,8 @@ def _per_group(x: torch.Tensor, group_sizes: torch.Tensor, n: int,
     return out
 
 
-def grouped_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
-                  group_sizes: torch.Tensor,
-                  out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of the two-level grouped kernel: rows [A, K] sorted
-    by expert, `group_sizes[e]` rows each → [A, N]; rows past the last
-    group are 0 (the JAX kernel's masked rows)."""
+def _two_level_rows(xq, xs, p):
+    """(e, lo, hi) → rows lo:hi of the two-level grouped function."""
     w8 = two_level_w8(p)
     chan = p.chan_scale.to(torch.float32)
 
@@ -81,17 +79,47 @@ def grouped_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
         acc = xq[lo:hi].to(torch.float64) @ w8[e].to(torch.float64)
         return (acc.to(torch.float32) * chan[e]) \
             * xs[lo:hi].to(torch.float32)
-    return _per_group(xq, group_sizes, p.out_features, out_dtype, one)
+    return one
+
+
+def _w4a16_rows(x, p):
+    """(e, lo, hi) → rows lo:hi of the w4a16 grouped function."""
+    w = w4a16_weight(p)                                  # [E, K, N] bf16
+    return lambda e, lo, hi: x[lo:hi].to(torch.float64) @ w[e].to(
+        torch.float64)
+
+
+def grouped_plain(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+                  group_sizes: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the two-level grouped kernel: rows [A, K] sorted
+    by expert, `group_sizes[e]` rows each → [A, N]; rows past the last
+    group are 0 (the JAX kernel's masked rows)."""
+    return _per_group(xq, group_sizes, p.out_features, out_dtype,
+                      _two_level_rows(xq, xs, p))
 
 
 def grouped_w4a16_plain(x: torch.Tensor, p: QuantLinearParams,
                         group_sizes: torch.Tensor) -> torch.Tensor:
     """Plain version of the w4a16 grouped kernel: rows [A, K] sorted by
     expert @ each expert's bf16 weight, float64 sums, → [A, N] x.dtype."""
-    w = w4a16_weight(p)                                  # [E, K, N] bf16
     return _per_group(x, group_sizes, p.out_features, x.dtype,
-                      lambda e, lo, hi: x[lo:hi].to(torch.float64)
-                      @ w[e].to(torch.float64))
+                      _w4a16_rows(x, p))
+
+
+def _on_map_plain(x: torch.Tensor, tile_map, n: int, out_dtype: torch.dtype,
+                  fn) -> torch.Tensor:
+    """[A, N] as a grouped kernel fills it from a tile map: each valid
+    logical tile writes fn(e, lo, hi) for the rows of its expert e inside
+    its m-tile; rows no tile writes are 0. Reads the map on the host."""
+    gid, mtid, offsets, valid = (t.tolist() for t in tile_map)
+    bm = grouped_bm(x.shape[0])
+    out = torch.zeros((x.shape[0], n), dtype=out_dtype, device=x.device)
+    for e, mt, v in zip(gid, mtid, valid):
+        lo, hi = max(offsets[e], mt * bm), min(offsets[e + 1], mt * bm + bm)
+        if v and lo < hi:
+            out[lo:hi] = fn(e, lo, hi).to(out_dtype)
+    return out
 
 
 def grouped_ref(x: torch.Tensor, p: QuantLinearParams,
@@ -214,29 +242,75 @@ def quant_bmm_all_experts(xq3: torch.Tensor, xs3: torch.Tensor,
     return out
 
 
+def grouped_bm(a: int) -> int:
+    """m-tile rows of the grouped kernels for `a` rows: 16 for
+    decode-sized a <= 256, else 128 (prefill)."""
+    return 16 if a <= 256 else 128
+
+
+def grouped_map(group_sizes: torch.Tensor, a: int) -> TileMap:
+    """The grouped kernels' tile map for `a` expert-sorted rows in groups
+    of `group_sizes`: ceil(a / bm) + E - 1 logical tiles."""
+    bm = grouped_bm(a)
+    return group_tile_map(group_sizes, bm,
+                          -(-a // bm) + group_sizes.shape[0] - 1)
+
+
+def _check_sizes(group_sizes: torch.Tensor, e: int,
+                 dev: torch.device) -> None:
+    if group_sizes.shape != (e,) or group_sizes.device != dev:
+        raise ValueError(f"group_sizes must be [{e}] on {dev}")
+
+
+def _check_map(tile_map, a: int, e: int, dev: torch.device) -> int:
+    """Raise unless tile_map is grouped_map's for `a` rows over `e`
+    experts on `dev`; returns its logical tile count."""
+    n_logical = -(-a // grouped_bm(a)) + e - 1
+    for name, t, size in zip(("gid", "mtid", "offsets", "valid"), tile_map,
+                             (n_logical, n_logical, e + 1, n_logical)):
+        if t.dtype != torch.int32 or t.shape != (size,) \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"tile map {name} must be contiguous int32 "
+                             f"[{size}] on {dev}")
+    return n_logical
+
+
 def grouped_w4a8tl(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
                    group_sizes: torch.Tensor,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """Grouped two-level GEMM over expert-sorted rows xq int8 [A, K], xs
-    f32 [A, 1] → [A, N]. The kernel writes the rows of the groups (the
-    first sum(group_sizes) rows) and no other."""
+    f32 [A, 1] → [A, N]: the tile map, then the kernel on it. The kernel
+    writes the rows of the groups (the first sum(group_sizes) rows) and
+    no other."""
     if not xq.is_cuda:
         return grouped_plain(xq, xs, p, group_sizes, out_dtype)
+    _check_sizes(group_sizes, p.qweight.shape[0], xq.device)
+    return grouped_w4a8tl_on_map(xq, xs, p, grouped_map(group_sizes,
+                                                        xq.shape[0]),
+                                 out_dtype)
+
+
+def grouped_w4a8tl_on_map(xq: torch.Tensor, xs: torch.Tensor,
+                          p: QuantLinearParams, tile_map: TileMap,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """The two-level grouped kernel on a tile map built before
+    (`grouped_map` of the rows' group sizes) → [A, N]."""
+    if not xq.is_cuda:
+        return _on_map_plain(xq, tile_map, p.out_features, out_dtype,
+                             _two_level_rows(xq, xs, p))
     a, k = xq.shape
-    bm = 16 if a <= 256 else 128      # decode-sized / prefill m-tiles
+    bm = grouped_bm(a)
     e, n = _check_stack(p, k, xq.device, 64 if bm == 16 else 128)
     _check_rows(xq, xs, a, out_dtype)
-    if group_sizes.shape != (e,) or group_sizes.device != xq.device:
-        raise ValueError(f"group_sizes must be [{e}] on {xq.device}")
-    gid, mtid, offsets, valid = group_tile_map(group_sizes, bm,
-                                               -(-a // bm) + e - 1)
+    n_logical = _check_map(tile_map, a, e, xq.device)
+    gid, mtid, offsets, valid = tile_map
     out = torch.empty((a, n), dtype=out_dtype, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = library("moe_gemm").ferrum_moe_grouped(
         xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
         p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
         gid.data_ptr(), mtid.data_ptr(), offsets.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), gid.numel(), bm, n, k,
+        valid.data_ptr(), out.data_ptr(), n_logical, bm, n, k,
         int(out_dtype == torch.bfloat16), stream)
     check(err, "moe_grouped")
     MOE_GROUPED.launches += 1
@@ -246,28 +320,39 @@ def grouped_w4a8tl(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
 def grouped_w4a16(x: torch.Tensor, p: QuantLinearParams,
                   group_sizes: torch.Tensor) -> torch.Tensor:
     """Grouped w4a16 GEMM over expert-sorted bf16 rows x [A, K] → bf16
-    [A, N]. The kernel writes the rows of the groups (the first
-    sum(group_sizes) rows) and no other."""
+    [A, N]: the tile map, then the kernel on it. The kernel writes the
+    rows of the groups (the first sum(group_sizes) rows) and no other."""
     if not x.is_cuda:
         return grouped_w4a16_plain(x, p, group_sizes)
+    _check_sizes(group_sizes, p.qweight.shape[0], x.device)
+    return grouped_w4a16_on_map(x, p, grouped_map(group_sizes, x.shape[0]))
+
+
+def grouped_w4a16_on_map(x: torch.Tensor, p: QuantLinearParams,
+                         tile_map: TileMap) -> torch.Tensor:
+    """The w4a16 grouped kernel on a tile map built before (`grouped_map`
+    of the rows' group sizes) → bf16 [A, N]."""
+    if not x.is_cuda:
+        return _on_map_plain(x, tile_map, p.out_features, x.dtype,
+                             _w4a16_rows(x, p))
     a, k = x.shape
     if x.dtype != torch.bfloat16 or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise ValueError("grouped_w4a16 takes contiguous, 16-byte aligned "
                          f"bf16 rows, got {x.dtype}")
-    bm = 16 if a <= 256 else 128      # decode-sized / prefill m-tiles
+    bm = grouped_bm(a)
     e = p.qweight.shape[0]
-    n = check_float_scale(p, k, x.device, 64 if bm == 16 else 128, (e,))
-    if group_sizes.shape != (e,) or group_sizes.device != x.device:
-        raise ValueError(f"group_sizes must be [{e}] on {x.device}")
-    gid, mtid, offsets, valid = group_tile_map(group_sizes, bm,
-                                               -(-a // bm) + e - 1)
+    # The prefill tile copies the stacks in 16-byte pieces.
+    n = check_float_scale(p, k, x.device, 64 if bm == 16 else 128, (e,),
+                          align=4 if bm == 16 else 16)
+    n_logical = _check_map(tile_map, a, e, x.device)
+    gid, mtid, offsets, valid = tile_map
     out = torch.empty((a, n), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = library("w4a16_gemm").ferrum_moe_grouped_w4a16(
         x.data_ptr(), p.qweight.data_ptr(), p.scales.data_ptr(),
         p.zeros.data_ptr(), gid.data_ptr(), mtid.data_ptr(),
-        offsets.data_ptr(), valid.data_ptr(), out.data_ptr(), gid.numel(),
+        offsets.data_ptr(), valid.data_ptr(), out.data_ptr(), n_logical,
         bm, n, k, int(p.scales.dtype == torch.float32), stream)
     check(err, "moe_grouped_w4a16")
     MOE_GROUPED_W4A16.launches += 1

@@ -300,9 +300,10 @@ def w4a16_plain(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
 
 
 def check_float_scale(p: QuantLinearParams, k: int, dev: torch.device,
-                      n_align: int, lead: tuple = ()) -> int:
+                      n_align: int, lead: tuple = (), align: int = 4) -> int:
     """Raise unless p is a float-scale weight the kernels take (`lead` =
-    (E,) for an expert stack); returns N."""
+    (E,) for an expert stack; its tensors `align`-byte aligned); returns
+    N."""
     n = p.out_features
     if k != p.in_features or k % (2 * GROUP) or p.group_size != GROUP:
         raise ValueError(f"unsupported K={k} / group {p.group_size}: the "
@@ -317,8 +318,8 @@ def check_float_scale(p: QuantLinearParams, k: int, dev: torch.device,
         if t.dtype not in dts or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dts} {shape}")
-        if t.device != dev or t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned on {dev}")
+        if t.device != dev or t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned on {dev}")
     return n
 
 
@@ -361,7 +362,9 @@ def w4a8_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
 def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
     """w4a16 GEMM: bf16 x [m, K] @ the bf16-dequantized weight → bf16
     [m, N]. m <= 64 splits K across blocks (a fixed-order sum of the
-    splits' f32 partials); larger m takes 128 x 128 tiles."""
+    splits' f32 partials); larger m takes the wgmma main loop's 128-row
+    tiles (csrc/w4a16_wgmma.cuh), which copy the weight in 16-byte
+    pieces."""
     if not x.is_cuda:
         return w4a16_plain(x, p)
     m, k = x.shape
@@ -370,7 +373,8 @@ def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
         raise ValueError("w4a16_gemm takes a contiguous, 16-byte aligned "
                          f"bf16 [m, K] x, got {x.dtype}")
     decode = m <= DECODE_MAX_M
-    n = check_float_scale(p, k, x.device, 64 if decode else 128)
+    n = check_float_scale(p, k, x.device, 64 if decode else 128,
+                          align=4 if decode else 16)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device)
     splits, ws, counters = 1, 0, 0

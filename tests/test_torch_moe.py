@@ -189,6 +189,39 @@ def test_group_tile_map_matches_jax(sizes, bm):
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("kind", ["w4a8tl", "w4a16"])
+@pytest.mark.parametrize("sizes", [(7, 50, 0, 71), (1, 1, 1, 125),
+                                   (100, 0, 140, 60), (0, 0, 300, 0)])
+def test_split_grouped_wrappers_match_one_call(sizes, kind):
+    """The tile map, then the launch on it (what chip_smoke.py times
+    alone) gives what the one-call wrapper gives. On the CPU the on-map
+    route fills, from the map, each valid logical tile's rows of its
+    expert -- the kernels' contract -- and the one-call route each
+    group's rows: 128 rows take 16-row tiles, 300 rows 128-row ones."""
+    from ferrum_tpu_torch.ops.kernels import moe_gemm as tmg
+
+    e, k, n = len(sizes), 256, 256
+    a = sum(sizes)
+    rng = np.random.default_rng(31)
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    tmap = tmg.grouped_map(gs, a)
+    assert tmap[0].numel() == -(-a // tmg.grouped_bm(a)) + e - 1
+    if kind == "w4a8tl":
+        _, tp = _tl_stack(e, k, n, seed=32)
+        xq, xs = (torch.from_numpy(t) for t in _quant_rows(
+            rng.normal(0, 1, (a, k))))
+        want = tmg.grouped_w4a8tl(xq, xs, tp, gs, torch.bfloat16)
+        got = tmg.grouped_w4a8tl_on_map(xq, xs, tp, tmap, torch.bfloat16)
+    else:
+        tp = _to_torch_stack(_jax_stack(e, k, n, seed=33, dtype=jnp.bfloat16))
+        x = torch.from_numpy(rng.normal(0, 1, (a, k))).to(torch.bfloat16)
+        want = tmg.grouped_w4a16(x, tp, gs)
+        got = tmg.grouped_w4a16_on_map(x, tp, tmap)
+    assert got.dtype == want.dtype and got.shape == (a, n)
+    assert torch.equal(got, want)
+    assert bool((want != 0).any(-1).all())
+
+
 # ---------------------------------------------------------------------------
 # 4. routing: JAX's top-k order on ties
 # ---------------------------------------------------------------------------

@@ -257,6 +257,7 @@ def _py_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "torch_w4a16_ab.py")
 
 
 def test_port_imports_neither_jax_nor_ferrum_tpu():

@@ -222,3 +222,50 @@ def test_w4a16_ref_matches_jax():
     got = tq.quant_matmul_ref(torch.from_numpy(x), pt).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+def test_packed_bf16_dequant_identity(scale_dtype):
+    """The wgmma main loop's dequant (csrc/w4a16_wgmma.cuh), in torch bf16
+    on the CPU: a nibble q OR 0x4300 is bf16(128 + q); minus bf16(128 + z)
+    is q - z exactly for every int8 z; times the bf16 scale rounds once.
+    It must equal w4a16_weight bit for bit for every q in 0..15, every
+    int8 z and scales 2^t (1 + u), t = -133 .. 119 (subnormal below
+    2^-126); and the JAX kernel's (q - z).astype(bf16) * scale wherever
+    scale and product are normal (XLA on the CPU flushes subnormals, as
+    the TPU does)."""
+    rng = np.random.default_rng(5)
+    k = 256                                   # groups 0 (low), 1 (high)
+    t = np.arange(-133, 120)
+    zs = np.arange(-128, 128)
+    n = zs.size * 8
+    q = np.tile(np.arange(k)[:, None] % 16, (1, n))            # [K, N]
+    z = np.stack([np.tile(zs, 8), np.roll(np.tile(zs, 8), 77)])  # [2, N]
+    s = ((1 + rng.random((2, n))) * 2.0 ** rng.choice(t, (2, n))
+         ).astype(np.float32)
+    s[:, :t.size] = (1.5 * 2.0 ** t).astype(np.float32)   # every exponent
+    qt, zt = torch.from_numpy(q), torch.from_numpy(z)
+    st = torch.from_numpy(s)
+    if scale_dtype == "bf16":
+        st = st.to(torch.bfloat16)
+    p = tq.QuantLinearParams(
+        qweight=(qt[:k // 2] | (qt[k // 2:] << 4)).to(torch.uint8),
+        scales=st, zeros=zt.to(torch.int8), bias=None, in_features=k,
+        out_features=n, group_size=128)
+    q128 = (qt | 0x4300).to(torch.int16).view(torch.bfloat16)
+    z128 = (zt + 128).to(torch.bfloat16).repeat_interleave(128, 0)
+    sb = st.to(torch.bfloat16).repeat_interleave(128, 0)
+    got = (q128 - z128) * sb
+    assert got.dtype == torch.bfloat16
+    want = tq.w4a16_weight(p)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert ((want != 0) & (want.float().abs() < 2.0 ** -126)).any()
+    jw = ((jnp.asarray(q) - jnp.repeat(jnp.asarray(z), 128, 0)).astype(
+        jnp.bfloat16) * jnp.repeat(jnp.asarray(s).astype(jnp.bfloat16),
+                                   128, 0))
+    normal = ((sb.float() >= 2.0 ** -126)
+              & ((want == 0) | (want.float().abs() >= 2.0 ** -126))).numpy()
+    assert normal.mean() > 0.5
+    np.testing.assert_array_equal(
+        np.asarray(jw).view(np.int16)[normal],
+        want.view(torch.int16).numpy()[normal])
