@@ -13,7 +13,13 @@ Phases, in order, each printing JSON lines:
              w4a8tl_prefill on the same weights and activations): exact
              equality for the integer-dot kernels, one bf16 step for the
              two w4a16 ones; kernel / plain / library times (CUDA events)
-             and the card's bound for the same work
+             and the card's bound for the same work; then exact cases of
+             their own: one-hot x for the w4a16 kernels, and for the two
+             two-level prefill kernels ragged m, the qwen3 sites, the
+             int32 range at K = 14336 and one-hot xq
+  sampling   sample_step's candidate pick (topk_ids: lower ids first among
+             ties, as jax.lax.top_k) at 32 slots x 128256 against a full
+             stable sort, timed beside both and torch.topk
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
@@ -655,6 +661,109 @@ def onehot_cases(torch):
     return rows
 
 
+# The exact cases of the two two-level prefill kernels beyond the timed
+# llama shapes, (m, K, N): ragged m (the engine's batched prefill gives
+# m = b * t_pad), the qwen3-30b-a3b dense sites (N = 5120 and 2048), the
+# int32 range at K = 14336 (every |xq| and |w8| 127), and one-hot xq.
+# m <= 256 and N = 2048 take 128-column tiles in w4a8tl_prefill, m = 2048
+# at N = 4096 / 5120 / 6144 256-column ones.
+PREFILL_RAGGED = tuple((m, 4096, 4096) for m in (65, 100, 257, 2047))
+PREFILL_QWEN = tuple((m, k, n) for k, n in QWEN_SHAPES.values()
+                     for m in (256, 2048))
+PREFILL_EXTREME = ((256, 14336, 512), (2048, 14336, 4096))
+PREFILL_ONEHOT = ((256, 4096, 768), (2048, 4096, 6144))
+
+
+def two_level_weight(torch, k, n, gen, kind):
+    """A two-level weight built for an exact case. "extreme": q in {6, 8},
+    z = 7, scales2 = 127, so every w8 is +-127 (random signs). "onehot":
+    across each group's columns every (q, z) in 0..15 x 0..15 (q = (n +
+    k) % 16, z = (n / 16 + g) % 16), scales2 from 1 up to the cap 127 //
+    max(z, 15 - z) that keeps |w8| <= 127."""
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+    dev = "cuda"
+    g = k // 128
+    kk = torch.arange(k, device=dev)[:, None]
+    nn = torch.arange(n, device=dev)[None, :]
+    gg = torch.arange(g, device=dev)[:, None]
+    if kind == "extreme":
+        q = torch.where(torch.rand(k, n, generator=gen, device=dev) < 0.5,
+                        6, 8)
+        z = torch.full((g, n), 7, device=dev)
+        s2 = torch.full((g, n), 127, device=dev)
+    else:
+        q = (nn + kk) % 16
+        z = (nn // 16 + gg) % 16
+        cap = 127 // torch.maximum(z, 15 - z)
+        s2 = 1 + (nn * 7 + gg * 3) % cap
+    return QuantLinearParams(
+        qweight=(q[:k // 2] | (q[k // 2:] << 4)).to(torch.uint8),
+        scales=torch.ones(g, n, dtype=torch.bfloat16, device=dev),
+        zeros=z.to(torch.int8), bias=None, in_features=k, out_features=n,
+        group_size=128, scales2=s2.to(torch.int8),
+        chan_scale=torch.rand(1, n, generator=gen, device=dev) * 1e-3
+        + 1e-3)
+
+
+def prefill_exact_cases(torch):
+    """w4a8tl_prefill and w4a8tl_prefill_mcache equal to w4a8tl_plain bit
+    for bit on the PREFILL_* cases: ragged m and the qwen3 sites on random
+    non-uniform weights; the extreme case, where each row m meets the
+    largest sum 127 * 127 * K at column m % N; one-hot xq, where every
+    output is one w8 row times xs and chan, in bf16 and in f32 -- the
+    check a dequant, transpose, swizzle or proxy-fence fault cannot
+    pass."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    from ferrum_tpu_torch.ops.quant import two_level_w8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    cases = [("ragged m", s) for s in PREFILL_RAGGED] \
+        + [("qwen3-30b-a3b", s) for s in PREFILL_QWEN] \
+        + [("extreme", s) for s in PREFILL_EXTREME] \
+        + [("one-hot", s) for s in PREFILL_ONEHOT]
+    rows = []
+    for case, (m, k, n) in cases:
+        xs = torch.rand(m, 1, generator=gen, device="cuda") + 0.5
+        if case == "extreme":
+            p = two_level_weight(torch, k, n, gen, "extreme")
+            sign = torch.where(two_level_w8(p) > 0, 1, -1)       # [K, N]
+            flip = torch.where(torch.rand(m, 1, generator=gen,
+                                          device="cuda") < 0.5, 1, -1)
+            cols = torch.arange(m, device="cuda") % n
+            xq = (127 * sign[:, cols].t() * flip).to(torch.int8)
+            xq = xq.contiguous()
+            top = (xq.double() @ two_level_w8(p).double()).abs().max()
+            if top.item() != 127 * 127 * k:
+                raise AssertionError(f"extreme case peaks at {top.item()}")
+        elif case == "one-hot":
+            p = two_level_weight(torch, k, n, gen, "onehot")
+            xq = onehot_x(torch, m, k, gen).to(torch.int8)
+        else:
+            p = make_gemm_weight(torch, k, n, gen)
+            x = torch.randn(m, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = qmm.quantize_activation_rows(x)
+        outs = (torch.bfloat16, torch.float32) if case == "one-hot" \
+            else (torch.bfloat16,)
+        for out_dtype in outs:
+            want = qmm.w4a8tl_plain(xq, xs, p, out_dtype)
+            for kernel in ("w4a8tl_prefill", "w4a8tl_prefill_mcache"):
+                got = getattr(qmm, kernel)(xq, xs, p, out_dtype)
+                torch.cuda.synchronize()
+                row = {"kernel": kernel, "case": case, "m": m, "k": k,
+                       "n": n, "out": str(out_dtype).split(".")[-1],
+                       "equal": bool(torch.equal(got, want)),
+                       "outputs_differing": int((got != want).sum().item())}
+                rows.append(row)
+                emit({"phase": "kernel_case", **row})
+                if not row["equal"]:
+                    raise AssertionError(f"{kernel} {case} {m}x{k}x{n}: "
+                                         f"{row}")
+        del p, xq, xs, want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kv_ids(torch, layers, slots, blocks_per_slot, pos, inactive):
     """Decode append ids for `layers` x `slots` rows at per-slot positions
     `pos` (the model's layer-merged block ids); `inactive` slots carry the
@@ -893,6 +1002,35 @@ def attention_phase(torch, device):
             raise AssertionError(f"{name} attention on {device} is not "
                                  f"the f32-product computation: {out[name]}")
     emit(out)
+
+
+def sampling_phase(torch, timer):
+    """sample_step's candidate pick at the serve shape (32 slots x the
+    llama-3.1-8b vocabulary, 128256, k_cap 256) on logits rounded to 1/8,
+    so ties straddle the cut: topk_ids (jax.lax.top_k's order, lower id
+    first among ties) must give the ids of a full stable descending
+    sort; CUDA-event times of both beside torch.topk (no tie order)."""
+    from ferrum_tpu_torch.sampling.device import TOPK_CAP, topk_ids
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    x = torch.randn(SERVE_REQUESTS, 128256, generator=gen, device="cuda")
+    x = torch.round(x * 8) / 8 + 0.0          # no -0.0: sort ranks it 0.0
+    k = TOPK_CAP
+    want = torch.sort(x, dim=-1, descending=True,
+                      stable=True).indices[:, :k]
+    got = topk_ids(x, k)
+    cut = torch.sort(x, dim=-1, descending=True).values[:, k - 1:k]
+    out = {"phase": "sampling", "slots": x.shape[0], "vocab": x.shape[1],
+           "k_cap": k, "equal_to_stable_sort": bool(torch.equal(got, want)),
+           "ties_at_cut": int((x == cut).sum().item()),
+           "topk_ids_ms": timer(lambda: topk_ids(x, k)),
+           "stable_sort_ms": timer(lambda: torch.sort(
+               x, dim=-1, descending=True, stable=True)),
+           "torch_topk_ms": timer(lambda: torch.topk(x, k, dim=-1)),
+           "card": smi_line()}
+    emit(out)
+    if not out["equal_to_stable_sort"]:
+        raise AssertionError("topk_ids is not the stable descending order")
 
 
 # ---------------------------------------------------------------------------
@@ -1224,8 +1362,10 @@ def main() -> int:
              + kv_rows_cases(torch, timer) + kv_pages_cases(torch, timer)
              + moe_cases(torch, timer))
     onehot_cases(torch)
+    prefill_exact_cases(torch)
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})
+    sampling_phase(torch, timer)
     del timer
     torch.cuda.empty_cache()
     attention_phase(torch, "cuda")

@@ -28,6 +28,9 @@ from ..types import (EngineStoppedError, FinishReason, InferenceRequest,
                      InferenceResponse, InvalidRequestError, StreamChunk)
 from .runner import ModelRunner
 
+# How long stop() waits for the loop thread to end.
+STOP_JOIN_S = 60.0
+
 
 class _RequestState:
     def __init__(self, seq: Sequence):
@@ -114,11 +117,19 @@ class ContinuousBatchEngine:
             e2e_latency=time.monotonic() - t0)
 
     def stop(self) -> None:
-        """Stop the loop and finish every waiting consumer with ABORT."""
+        """Stop the loop and finish every waiting consumer with ABORT.
+        Raises (and sweeps nothing) if the loop thread is still running
+        STOP_JOIN_S seconds later: it could still emit chunks and finish
+        sequences while the sweep ran. A later call retries."""
         self._stop = True
         self._work_event.set()
-        if self._loop_thread is not None:
-            self._loop_thread.join(timeout=60)
+        thread = self._loop_thread
+        if thread is not None:
+            thread.join(timeout=STOP_JOIN_S)
+            if thread.is_alive():
+                raise RuntimeError(
+                    f"engine loop still running {STOP_JOIN_S} s after "
+                    f"stop(); no request was aborted")
         with self._lock:
             states = list(self._requests.values())
             self._requests.clear()

@@ -52,6 +52,9 @@
 
 namespace {
 
+using w4a16_wgmma::aligned_smem;
+using w4a16_wgmma::num_sms;
+
 constexpr int kDecodeBN = 64, kDecodeKP = 64;
 constexpr int kPrefillStages = 4;   // cp.async ring depth
 constexpr int kRasterGroup = 16;    // m-tiles per raster group
@@ -148,11 +151,6 @@ moe_grouped_w4a16_kernel(const __nv_bfloat16* __restrict__ x,
   });
 }
 
-// The block's dynamic shared memory, aligned to the 1024-byte swizzle atom.
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (w4a16_wgmma::smem_u32(raw) & 1023)) & 1023);
-}
-
 // Prefill-sized dense GEMM: one 128 x BN tile per block, grid 1-D over
 // the tiles in raster groups of kRasterGroup m-tiles (m fastest inside a
 // group).
@@ -227,16 +225,6 @@ int launch_wgmma(Kernel kernel, dim3 grid, cudaStream_t st, Args... args) {
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, w4a16_wgmma::kThreads, smem, st>>>(args...);
   return (int)cudaGetLastError();
-}
-
-int num_sms() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
 }
 
 template <int BN, bool kF32>

@@ -109,6 +109,21 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// A block's dynamic shared memory, aligned to the 1024-byte swizzle atom.
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+inline int num_sms() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
 // Shared-memory matrix descriptor with the 128-byte swizzle: start
 // address, leading and stride byte offsets (16-byte units), layout 1.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,

@@ -21,20 +21,22 @@
 // cores' 1979 TOP/s, so it is bound by the 3.35 TB/s of HBM. Prefill at
 // m >= 256 is bound by the int8 tensor-core rate.
 //
-// Design (a first, simple kernel; wgmma/TMA/warp specialisation are for
-// later): one block owns a BM x BN output tile; its int32 main loop
-// (mma.sync m16n8k32 on xq and w8 staged in shared memory) is
-// w4a8tl::Tile in w4a8tl_tile.cuh, shared with the MoE kernels
+// Design: at decode sizes (m <= 64) one block owns a BM x BN output tile;
+// its int32 main loop (mma.sync m16n8k32 on xq and w8 staged in shared
+// memory) is w4a8tl::Tile in w4a8tl_tile.cuh, shared with the MoE kernels
 // (moe_gemm.cu). Decode has few output tiles per call, so it splits K
-// across blockIdx.z (enough blocks to cover the 132 SMs) and reduces the int32 partial sums with integer atomics into
-// a workspace -- order-independent, so still exact. The block that
-// finishes a tile last (a per-tile arrival counter) applies the epilogue
-// from the workspace and leaves the workspace and the counter zeroed, so
-// a decode projection is one launch with no memset. The float epilogue
-// is f32(acc) * xs[m] * chan[n], in that order, then round-to-nearest-
-// even to bf16 (or f32 output).
+// across blockIdx.z (enough blocks to cover the 132 SMs) and reduces the
+// int32 partial sums with integer atomics into a workspace --
+// order-independent, so still exact. The block that finishes a tile last
+// (a per-tile arrival counter) applies the epilogue from the workspace
+// and leaves the workspace and the counter zeroed, so a decode projection
+// is one launch with no memset. At prefill sizes (m > 64) the kernel is
+// w4a8tl_wgmma.cuh's pipelined int8 wgmma main loop on 128-row tiles. The
+// float epilogue is f32(acc) * xs[m] * chan[n], in that order, then
+// round-to-nearest-even to bf16 (or f32 output).
 
 #include "w4a8tl_tile.cuh"
+#include "w4a8tl_wgmma.cuh"
 
 namespace {
 
@@ -115,16 +117,21 @@ extern "C" int ferrum_w4a8tl_decode(const void* xq, const void* xs,
   return (int)cudaGetLastError();
 }
 
-// Prefill tiles: 128 x 128 output per block, 64 packed rows per K step,
-// 8 warps each owning a 64 x 32 warp tile. Requires K % 256 == 0 and
-// N % 128 == 0; any M. Returns cudaGetLastError().
+// Prefill tiles (w4a8tl_wgmma.cuh): 128 rows x 256 columns, or 128 where
+// N % 256 != 0 or 256-column tiles would not fill the SMs once; full K per
+// block. Requires M >= 1, K % 256 == 0, N % 128 == 0, and xq, qweight,
+// scales2 and zeros 16-byte aligned. Returns a cudaError_t.
 extern "C" int ferrum_w4a8tl_prefill(const void* xq, const void* xs,
                                      const void* qw, const void* s2,
                                      const void* z, const void* chan,
                                      void* out, int M, int N, int K,
                                      int out_bf16, void* stream) {
-  launch_gemm<128, 128, 64, 2, 4>(xq, xs, qw, s2, z, chan, out, nullptr,
-                                  nullptr, M, N, K, 1, out_bf16,
-                                  static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  if (M < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_m = (M + 127) / 128;
+  return N % 256 == 0 && tiles_m * (N / 256) >= w4a8tl_wgmma::num_sms()
+      ? w4a8tl_wgmma::launch<128, 256>(xq, xs, qw, s2, z, chan, out, M, N, K,
+                                       out_bf16, st)
+      : w4a8tl_wgmma::launch<128, 128>(xq, xs, qw, s2, z, chan, out, M, N, K,
+                                       out_bf16, st);
 }

@@ -6,9 +6,9 @@
 // high nibble. |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31
 // for K <= 14336: the int32 sums are exact.
 //
-// Used by w4a8tl_gemm.cu (dense projections), w4a8tl_gd.cu (group-dot
-// decode), w4a8tl_mcache.cu (prep-cached prefill) and moe_gemm.cu (expert
-// stacks); each kernel applies its own float epilogue to the tile.
+// Used by w4a8tl_gemm.cu (dense decode projections; prefill sizes run on
+// w4a8tl_wgmma.cuh), w4a8tl_gd.cu (group-dot decode) and moe_gemm.cu
+// (expert stacks); each kernel applies its own float epilogue to the tile.
 //
 // The block owns a BM x BN output tile and walks K in steps of KP packed
 // rows (2*KP k-values: KP low-nibble rows and the matching KP high-nibble

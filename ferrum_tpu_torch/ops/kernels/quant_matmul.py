@@ -30,7 +30,8 @@ launch.
 
   w4a8tl_*    y = out_t(f32(xq @ w8) * xs * chan), w8 = (q - z) * scales2,
               exactly (csrc/w4a8tl_gemm.cu, w4a8tl_gd.cu in the group-dot
-              form, w4a8tl_mcache.cu; plain versions w4a8tl_plain and
+              form, w4a8tl_mcache.cu; m > 64 on the int8 wgmma main loop
+              csrc/w4a8tl_wgmma.cuh; plain versions w4a8tl_plain and
               w4a8tl_gd_plain)
   w4a8_decode y = out_t(xs * sum_g s[g] * f32(sum_k xq * (q - z[g]))),
               groups summed in the TPU kernel's K-step order, exactly
@@ -112,7 +113,7 @@ def w4a8tl_gd_plain(xq: torch.Tensor, xs: torch.Tensor,
     return _two_level_out(acc, xs, p, out_dtype)
 
 
-def _check_args(xq, xs, p, out_dtype, n_align):
+def _check_args(xq, xs, p, out_dtype, n_align, align=4):
     m, k = xq.shape
     n = p.out_features
     dev = xq.device
@@ -131,8 +132,8 @@ def _check_args(xq, xs, p, out_dtype, n_align):
             ("zeros", p.zeros, torch.int8, (k // GROUP, n))):
         if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dt} {shape}")
-        if t.device != dev or t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned on {dev}")
+        if t.device != dev or t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned on {dev}")
     chan = p.chan_scale
     if chan.dtype != torch.float32 or chan.numel() != n \
             or not chan.is_contiguous() or chan.device != dev:
@@ -207,8 +208,10 @@ def w4a8tl_gd_decode(xq: torch.Tensor, xs: torch.Tensor,
 
 def _prefill(entry, name, xq, xs, p, out_dtype) -> torch.Tensor:
     """Launch a two-level prefill kernel (C entry `entry`, the arguments
-    of ferrum_w4a8tl_prefill): 128-column tiles, any m."""
-    m, k, n = _check_args(xq, xs, p, out_dtype, 128)
+    of ferrum_w4a8tl_prefill): the int8 wgmma main loop
+    (csrc/w4a8tl_wgmma.cuh), 128- or 256-column tiles, any m; it copies
+    the weight in 16-byte pieces."""
+    m, k, n = _check_args(xq, xs, p, out_dtype, 128, align=16)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     check(entry(xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
@@ -233,8 +236,9 @@ def w4a8tl_prefill_mcache(xq: torch.Tensor, xs: torch.Tensor,
                           p: QuantLinearParams,
                           out_dtype: torch.dtype) -> torch.Tensor:
     """The prefill GEMM's function with the dequantized weight tile shared
-    by two 128-row tiles (TPU row 8's schedule) → [m, N] out_dtype. On no
-    route, as in the JAX package: only this wrapper reaches it."""
+    by two 128-row tiles (TPU row 8's schedule: 256 x 128 blocks on
+    w4a8tl_prefill's main loop) → [m, N] out_dtype. On no route, as in
+    the JAX package: only this wrapper reaches it."""
     if not xq.is_cuda:
         return w4a8tl_plain(xq, xs, p, out_dtype)
     out = _prefill(library("w4a8tl_mcache").ferrum_w4a8tl_prefill_mcache,

@@ -43,6 +43,21 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
     return -torch.log(-torch.log(u))
 
 
+def topk_ids(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Ids of the k largest values of each row of f32 x [S, V], in
+    `jax.lax.top_k`'s order: descending in the total order of floats
+    (NaN first, +0.0 above -0.0) and, among equal values, lowest id
+    first. `torch.topk` promises no order among ties, so it runs on
+    unique int64 keys instead: the value's bits as a signed integer of
+    the same order (the 31 low bits flipped where the sign bit is set),
+    times 2^32, plus V - 1 - id."""
+    v = x.shape[-1]
+    b = x.contiguous().view(torch.int32)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    rev = torch.arange(v - 1, -1, -1, device=x.device)
+    return torch.topk(b.to(torch.int64) * (1 << 32) + rev, k, dim=-1).indices
+
+
 def sample_step(
     logits: torch.Tensor,            # f32 [S, V]
     params: SlotSamplingParams,
@@ -71,7 +86,9 @@ def sample_step(
 
     temp = params.temperature.clamp_min(1e-5)[:, None]
     k_cap = min(TOPK_CAP, v)
-    vals, idx = torch.topk(logits / temp, k_cap, dim=-1)     # descending
+    scaled = logits / temp
+    idx = topk_ids(scaled, k_cap)                            # descending
+    vals = torch.gather(scaled, 1, idx)
     rank = torch.arange(k_cap, device=logits.device)[None, :]
     k_eff = torch.where(params.top_k[:, None] > 0, params.top_k[:, None],
                         torch.full_like(params.top_k[:, None], k_cap))

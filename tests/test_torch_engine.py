@@ -10,6 +10,9 @@ leads the runner-up by a clear margin, so a near-tie fails loudly
 instead of flaking.
 """
 
+import threading
+
+import pytest
 import torch
 
 from torch_parity import (flatten_jax_params, jax_model, route_w4a8tl,
@@ -117,3 +120,40 @@ def test_greedy_streams_match_jax_engine(monkeypatch):
             f"pick another seed, the comparison would be a coin flip")
     want = _jax_streams(jcfg, jparams)
     assert got == want
+
+
+def test_stop_never_sweeps_while_the_loop_runs(monkeypatch):
+    """stop() aborts the waiting requests only once the loop thread has
+    ended: with the loop held inside an iteration past the join's
+    timeout, stop() raises and leaves every request and its queue as
+    they were; once the iteration returns, the loop ends and stop()
+    finishes the request with ABORT."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine import engine as eng
+    from ferrum_tpu_torch.tokenizer import make_byte_tokenizer
+    from ferrum_tpu_torch.types import (FinishReason, InferenceRequest,
+                                        SamplingParams)
+    engine = eng.ContinuousBatchEngine(
+        EngineConfig(device="cpu", **_engine_kw()), runner=None,
+        tokenizer=make_byte_tokenizer())
+    entered, release = threading.Event(), threading.Event()
+
+    def held_iteration():
+        entered.set()
+        release.wait()
+        return False
+
+    engine.run_iteration = held_iteration
+    q = engine.submit(InferenceRequest(prompt_token_ids=[5, 9, 17],
+                                       sampling=SamplingParams(max_tokens=4)))
+    assert entered.wait(30)
+    monkeypatch.setattr(eng, "STOP_JOIN_S", 0.05)
+    with pytest.raises(RuntimeError, match="still running"):
+        engine.stop()
+    assert q.empty() and len(engine._requests) == 1
+    release.set()
+    monkeypatch.setattr(eng, "STOP_JOIN_S", 30.0)
+    engine.stop()
+    chunk = q.get_nowait()
+    assert chunk.finished and chunk.finish_reason == FinishReason.ABORT
+    assert not engine._requests and q.empty()

@@ -234,6 +234,50 @@ def test_sample_step_matches_jax_with_equal_noise():
     np.testing.assert_array_equal(greedy.numpy(), np.asarray(want_g))
 
 
+@pytest.mark.parametrize("v", [4, 8, 16, 32, 300])
+def test_sample_step_tie_order_matches_jax(v):
+    """Tied logits: the port's sample_step gives the JAX package's token
+    with the same noise. Slots: every logit 0 at top_k 1 (JAX: token 0)
+    and sampled over all of them; only ids 0 and 3 tied at the top, at
+    top_k 1 and sampled between the two; a tie straddling the candidate
+    cut -- at V = 300, 260 ids tied at the top and k_cap = 256; at V <=
+    256 (k_cap = V), 3V/4 ids tied and top_k = V/2 -- sampled; and greedy
+    (temperature 0) over a tie."""
+    from ferrum_tpu.sampling import device as jd
+    from ferrum_tpu_torch.sampling import device as td
+    rng = np.random.default_rng(v)
+    s = 7
+    logits = np.zeros((s, v), np.float32)
+    logits[2:4] = rng.uniform(-30.0, -5.0, (2, v))
+    logits[2:4, [0, 3]] = 1.0
+    tied = rng.permutation(v)[:260 if v > 256 else 3 * v // 4]
+    logits[4:6] = -3.0
+    logits[4:6, tied] = 2.0
+    logits[6] = logits[4]
+    temp = np.array([1.0, 1.0, 1.0, 1.0, 1.0, 0.7, 0.0], np.float32)
+    half = 0 if v > 256 else v // 2
+    top_k = np.array([1, 0, 1, 2, half, 0, 0], np.int32)
+    ones = np.ones(s, np.float32)
+    counts = np.zeros((s, v), np.int32)
+    min_act = np.zeros(s, bool)
+    keys = np.asarray(jax.vmap(lambda i: jax.random.key_data(
+        jax.random.PRNGKey(i)))(jnp.arange(s) + v))
+    want, _ = jd.sample_step(
+        jnp.asarray(logits),
+        jd.SlotSamplingParams(jnp.asarray(temp), jnp.asarray(top_k),
+                              jnp.asarray(ones), jnp.asarray(ones),
+                              jnp.asarray(min_act)),
+        jnp.asarray(counts), jnp.asarray(keys), ())
+    want = np.asarray(want)
+    assert want[0] == 0 and want[2] == 0
+    noise = _jax_noise(keys, min(td.TOPK_CAP, v))
+    params = td.SlotSamplingParams(_t(temp), _t(top_k).long(), _t(ones),
+                                   _t(ones), _t(min_act))
+    got = td.sample_step(_t(logits), params, _t(counts), (),
+                         noise=_t(noise))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("text", ["Hello world", "héllo ✓ 日本 \x00\x7f",
                                   "<bos>abc<eos>x"])
 def test_byte_tokenizer_matches_jax(text):
@@ -258,6 +302,7 @@ def _py_files():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "torch_w4a16_ab.py")
+    yield os.path.join(REPO, "tools", "torch_w4a8tl_ab.py")
 
 
 def test_port_imports_neither_jax_nor_ferrum_tpu():

@@ -269,3 +269,104 @@ def test_packed_bf16_dequant_identity(scale_dtype):
     np.testing.assert_array_equal(
         np.asarray(jw).view(np.int16)[normal],
         want.view(torch.int16).numpy()[normal])
+
+
+def _byte_perm(a, b, sel):
+    """CUDA's __byte_perm(a, b, sel) on uint32 arrays: byte i of the
+    result is byte (sel >> 4i) & 7 of the 8 bytes b:a."""
+    src = (b.astype(np.uint64) << np.uint64(32)) | a.astype(np.uint64)
+    out = np.zeros_like(a, dtype=np.uint64)
+    for i in range(4):
+        j = (sel >> (4 * i)) & 7
+        out |= ((src >> np.uint64(8 * j)) & np.uint64(0xFF)) \
+            << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+def test_packed_int8_dequant_identity(bn):
+    """The int8 wgmma main loop's dequant (csrc/w4a8tl_wgmma.cuh), its
+    uint32 arithmetic emulated in numpy for every thread of a block: the
+    packed tile as cp.async places it (16-byte chunk c of row r at c ^ 2 *
+    (r / 16 % 4)); per thread 16 rows x 4 columns, a 4 x 4 byte transpose
+    by __byte_perm, then per column and nibble half q * s + (-z * s mod
+    256) in two 16-bit lanes; stores into swizzled K-major lines (chunk
+    c of line n at c ^ n % 8). Un-swizzled, line n must be the w8 column
+    n of the K step, [low half 64 k | high half 64 k], equal to
+    two_level_w8 for every q of both halves, every z in 0..15 and every
+    scales2 in -cap..cap with cap = 127 // max(z, 15 - z), |w8| <= 127."""
+    rng = np.random.default_rng(bn)
+    k, kp = 256, 64
+    zz, ss = np.meshgrid(np.arange(16), np.arange(-127, 128))
+    cap = 127 // np.maximum(zz, 15 - zz)
+    pairs = np.stack([zz[np.abs(ss) <= cap], ss[np.abs(ss) <= cap]], 1)
+    steps = -(-len(pairs) // bn)
+    for step in range(steps):
+        pick = pairs[(np.arange(2 * bn) + step * bn) % len(pairs)]
+        z = pick[:, 0].reshape(2, bn)                # [half, N]
+        s = pick[:, 1].reshape(2, bn)
+        z[1], s[1] = np.roll(z[1], 37), np.roll(s[1], 37)
+        q = rng.integers(0, 16, (k, bn))
+        q[:16] = (np.arange(16)[:, None] + np.arange(bn)) % 16
+        packed = (q[:k // 2] | (q[k // 2:] << 4)).astype(np.uint8)
+        # the K step of packed rows 0..63 (groups 0 and K/256 + 0 = 1)
+        tile = np.zeros((kp, bn), np.uint8)
+        for r in range(kp):
+            for c in range(bn // 16):
+                d = c ^ ((r >> 3) & 6)
+                tile[r, 16 * d:16 * d + 16] = packed[r, 16 * c:16 * c + 16]
+        words = tile.view("<u4")                     # [64, bn / 4]
+        tid = np.arange(bn)
+        rb, cu = tid & 3, tid >> 2
+        wcol = (((cu >> 2) ^ (2 * rb)) << 2) + (cu & 3)
+        sw = np.stack([s[h].astype(np.uint8).view("<u4") for h in (0, 1)])
+        zw = np.stack([z[h].astype(np.int8).view("<u4") for h in (0, 1)])
+        lines = np.zeros((bn, 128), np.uint8)
+        lo, hi = np.zeros((4, 4, bn), np.uint32), np.zeros((4, 4, bn),
+                                                             np.uint32)
+        for i4 in range(4):
+            w = [words[16 * rb + 4 * i4 + i, wcol] for i in range(4)]
+            x0, x1 = _byte_perm(w[0], w[1], 0x5140), \
+                _byte_perm(w[0], w[1], 0x7362)
+            x2, x3 = _byte_perm(w[2], w[3], 0x5140), \
+                _byte_perm(w[2], w[3], 0x7362)
+            t = [_byte_perm(x0, x2, 0x5410), _byte_perm(x0, x2, 0x7632),
+                 _byte_perm(x1, x3, 0x5410), _byte_perm(x1, x3, 0x7632)]
+            for j in range(4):
+                for h, out in ((0, lo), (1, hi)):
+                    sb = (sw[h, cu] >> (8 * j)) & 0xFF
+                    zb = ((zw[h, cu] >> (8 * j)) & 0xFF).astype(np.int64)
+                    zb = np.where(zb > 127, zb - 256, zb)
+                    sv = np.where(sb > 127, sb.astype(np.int64) - 256, sb)
+                    c = ((-zb * sv) & 0xFF).astype(np.uint64) * 0x00010001
+                    sh = 4 * h
+                    e = (((t[j].astype(np.uint64) >> sh) & 0x000F000F) * sb
+                         + c) & 0xFFFFFFFF
+                    o = (((t[j].astype(np.uint64) >> (sh + 8)) & 0x000F000F)
+                         * sb + c) & 0xFFFFFFFF
+                    out[j, i4] = _byte_perm(e.astype(np.uint32),
+                                            o.astype(np.uint32), 0x6240)
+        for j in range(4):
+            n = 4 * cu + j
+            for h, out in ((0, lo), (1, hi)):
+                d = ((4 * h + rb) ^ (n & 7)) * 16
+                for i4 in range(4):
+                    for b in range(4):
+                        lines[n, d + 4 * i4 + b] = (out[j, i4] >> (8 * b)) \
+                            & 0xFF
+        logical = np.zeros_like(lines)
+        for n in range(bn):
+            for c in range(8):
+                d = c ^ (n & 7)
+                logical[n, 16 * c:16 * c + 16] = lines[n, 16 * d:16 * d + 16]
+        p = tq.QuantLinearParams(
+            qweight=torch.from_numpy(packed),
+            scales=torch.ones(2, bn, dtype=torch.bfloat16),
+            zeros=torch.from_numpy(z.astype(np.int8)), bias=None,
+            in_features=k, out_features=bn, group_size=128,
+            scales2=torch.from_numpy(s.astype(np.int8)),
+            chan_scale=torch.ones(1, bn))
+        w8 = tq.two_level_w8(p).numpy()
+        assert np.abs(w8).max() <= 127
+        want = np.concatenate([w8[:kp], w8[k // 2:k // 2 + kp]]).T  # [N, 128]
+        np.testing.assert_array_equal(logical.view(np.int8), want)
