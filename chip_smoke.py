@@ -14,9 +14,11 @@ Phases, in order, each printing JSON lines:
              equality for the integer-dot kernels, one bf16 step for the
              two w4a16 ones; kernel / plain / library times (CUDA events)
              and the card's bound for the same work; then exact cases of
-             their own: one-hot x for the w4a16 kernels, and for the two
+             their own: one-hot x for the w4a16 kernels, for the two
              two-level prefill kernels ragged m, the qwen3 sites, the
-             int32 range at K = 14336 and one-hot xq
+             int32 range at K = 14336 and one-hot xq, and for the grouped
+             two-level kernel at 128-row tiles one-hot xq, one expert,
+             four experts, ragged rows and K = 256
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
              ties, as jax.lax.top_k) at 32 slots x 128256 against a full
              stable sort, timed beside both and torch.topk
@@ -674,35 +676,46 @@ PREFILL_EXTREME = ((256, 14336, 512), (2048, 14336, 4096))
 PREFILL_ONEHOT = ((256, 4096, 768), (2048, 4096, 6144))
 
 
-def two_level_weight(torch, k, n, gen, kind):
-    """A two-level weight built for an exact case. "extreme": q in {6, 8},
-    z = 7, scales2 = 127, so every w8 is +-127 (random signs). "onehot":
-    across each group's columns every (q, z) in 0..15 x 0..15 (q = (n +
-    k) % 16, z = (n / 16 + g) % 16), scales2 from 1 up to the cap 127 //
-    max(z, 15 - z) that keeps |w8| <= 127."""
+def two_level_weight(torch, k, n, gen, kind, experts=0):
+    """A two-level weight ([experts, ...] when experts > 0) built for an
+    exact case. "extreme": q in {6, 8}, z = 7, scales2 = 127, so every w8
+    is +-127 (random signs). "onehot": across each group's columns every
+    (q, z) in 0..15 x 0..15 (q = (n + k + e) % 16, z = (n / 16 + g + e) %
+    16), scales2 from 1 up to the cap 127 // max(z, 15 - z) that keeps
+    |w8| <= 127. "random": q and z uniform over 0..15, scales2 uniform
+    over 1 .. the cap."""
     from ferrum_tpu_torch.ops.quant import QuantLinearParams
     dev = "cuda"
     g = k // 128
-    kk = torch.arange(k, device=dev)[:, None]
-    nn = torch.arange(n, device=dev)[None, :]
-    gg = torch.arange(g, device=dev)[:, None]
+    e = max(experts, 1)
+    ei = torch.arange(e, device=dev)[:, None, None]
+    kk = torch.arange(k, device=dev)[None, :, None]
+    nn = torch.arange(n, device=dev)[None, None, :]
+    gg = torch.arange(g, device=dev)[None, :, None]
     if kind == "extreme":
-        q = torch.where(torch.rand(k, n, generator=gen, device=dev) < 0.5,
+        q = torch.where(torch.rand(e, k, n, generator=gen, device=dev) < 0.5,
                         6, 8)
-        z = torch.full((g, n), 7, device=dev)
-        s2 = torch.full((g, n), 127, device=dev)
+        z = torch.full((e, g, n), 7, device=dev)
+        s2 = torch.full((e, g, n), 127, device=dev)
+    elif kind == "onehot":
+        q = (nn + kk + ei) % 16
+        z = (nn // 16 + gg + ei) % 16
+        s2 = 1 + (nn * 7 + gg * 3 + ei) % (127 // torch.maximum(z, 15 - z))
     else:
-        q = (nn + kk) % 16
-        z = (nn // 16 + gg) % 16
-        cap = 127 // torch.maximum(z, 15 - z)
-        s2 = 1 + (nn * 7 + gg * 3) % cap
-    return QuantLinearParams(
-        qweight=(q[:k // 2] | (q[k // 2:] << 4)).to(torch.uint8),
-        scales=torch.ones(g, n, dtype=torch.bfloat16, device=dev),
-        zeros=z.to(torch.int8), bias=None, in_features=k, out_features=n,
-        group_size=128, scales2=s2.to(torch.int8),
-        chan_scale=torch.rand(1, n, generator=gen, device=dev) * 1e-3
+        q = torch.randint(0, 16, (e, k, n), generator=gen, device=dev)
+        z = torch.randint(0, 16, (e, g, n), generator=gen, device=dev)
+        s2 = 1 + (torch.rand(e, g, n, generator=gen, device=dev)
+                  * (127 // torch.maximum(z, 15 - z))).long()
+    fields = dict(
+        qweight=(q[:, :k // 2] | (q[:, k // 2:] << 4)).to(torch.uint8),
+        scales=torch.ones(e, g, n, dtype=torch.bfloat16, device=dev),
+        zeros=z.to(torch.int8), scales2=s2.to(torch.int8),
+        chan_scale=torch.rand(e, 1, n, generator=gen, device=dev) * 1e-3
         + 1e-3)
+    if not experts:
+        fields = {f: v[0] for f, v in fields.items()}
+    return QuantLinearParams(**fields, bias=None, in_features=k,
+                             out_features=n, group_size=128)
 
 
 def prefill_exact_cases(torch):
@@ -760,6 +773,92 @@ def prefill_exact_cases(torch):
                     raise AssertionError(f"{kernel} {case} {m}x{k}x{n}: "
                                          f"{row}")
         del p, xq, xs, want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The exact cases of the grouped two-level kernel at 128-row tiles beyond
+# the timed routed ones, (case, rows, K, N) over MOE_E experts: one-hot xq
+# at the qwen3 gate / up and down sites, every row to one expert, four
+# experts active, ragged row counts (no multiple of top-k), K = 256 (2 K
+# steps, fewer than the ring's 3 prologue loads).
+GROUPED_EXACT = (("one-hot", 2048, 2048, 768), ("one-hot", 2048, 768, 2048),
+                 ("one expert", 2048, 2048, 768),
+                 ("four experts", 2048, 768, 2048),
+                 ("ragged", 257, 2048, 768), ("ragged", 1000, 768, 2048),
+                 ("K = 256", 2048, 256, 768))
+
+
+def grouped_exact_cases(torch, timer):
+    """moe_grouped at 128-row tiles equal to grouped_plain bit for bit on
+    the GROUPED_EXACT cases, in bf16 and f32 out, before and after its
+    timed launches: one-hot xq, where every output is one w8 row of the
+    row's expert times chan and xs (some expert boundary must lie inside
+    a 64-row slice, so a warpgroup's rows span two experts); random
+    stacks and activations otherwise -- the check a window, expert
+    offset, epilogue order, dequant or short-K ring fault cannot pass."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_bm,
+                                                       grouped_map,
+                                                       grouped_plain,
+                                                       grouped_w4a8tl,
+                                                       grouped_w4a8tl_on_map)
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
+        quantize_activation_rows)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    rows = []
+    for case, a, k, n in GROUPED_EXACT:
+        assert grouped_bm(a) == 128
+        if case in ("one-hot", "K = 256"):
+            sizes = routed_sizes(torch, gen, a)
+        elif case == "ragged":
+            sizes = torch.bincount(torch.randint(
+                0, MOE_E, (a,), generator=gen, device="cuda"),
+                minlength=MOE_E)
+        else:
+            sizes = torch.zeros(MOE_E, dtype=torch.int64, device="cuda")
+            if case == "one expert":
+                sizes[77] = a
+            else:
+                sizes[torch.tensor([3, 40, 41, 127], device="cuda")] = \
+                    torch.tensor([1000, 600, 300, 148], device="cuda")
+        gs = sizes.to(torch.int32)
+        offs = torch.cumsum(sizes, 0)
+        p = two_level_weight(torch, k, n, gen,
+                             "onehot" if case == "one-hot" else "random",
+                             experts=MOE_E)
+        if case == "one-hot":
+            xq = onehot_x(torch, a, k, gen).to(torch.int8)
+            xs = torch.rand(a, 1, generator=gen, device="cuda") + 0.5
+        else:
+            xq, xs = quantize_activation_rows(torch.randn(
+                a, k, generator=gen, device="cuda", dtype=torch.bfloat16))
+        tmap = grouped_map(gs, a)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            want = grouped_plain(xq, xs, p, gs, out_dtype)
+            got = grouped_w4a8tl(xq, xs, p, gs, out_dtype)
+            ms = timer(lambda: grouped_w4a8tl_on_map(xq, xs, p, tmap,
+                                                     out_dtype), reps=5,
+                       warmup=1)
+            again = grouped_w4a8tl_on_map(xq, xs, p, tmap, out_dtype)
+            torch.cuda.synchronize()
+            row = {"kernel": "moe_grouped", "case": case, "rows": a, "k": k,
+                   "n": n, "out": str(out_dtype).split(".")[-1],
+                   "active_experts": int((sizes > 0).sum().item()),
+                   "boundary_inside_64_rows": bool(
+                       (offs[:-1] % 64 != 0).any().item()),
+                   "kernel_ms": ms,
+                   "equal": bool(torch.equal(got, want))
+                   and bool(torch.equal(again, want)),
+                   "outputs_differing": int((got != want).sum().item())}
+            rows.append(row)
+            emit({"phase": "kernel_case", **row})
+            if not row["equal"] or (case == "one-hot"
+                                    and not row["boundary_inside_64_rows"]):
+                raise AssertionError(f"moe_grouped {case} {a}x{k}x{n}: "
+                                     f"{row}")
+            del want, got, again
+        del p, xq, xs
     torch.cuda.empty_cache()
     return rows
 
@@ -1363,6 +1462,7 @@ def main() -> int:
              + moe_cases(torch, timer))
     onehot_cases(torch)
     prefill_exact_cases(torch)
+    grouped_exact_cases(torch, timer)
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})
     sampling_phase(torch, timer)

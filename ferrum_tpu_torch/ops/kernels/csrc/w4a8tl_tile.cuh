@@ -8,7 +8,9 @@
 //
 // Used by w4a8tl_gemm.cu (dense decode projections; prefill sizes run on
 // w4a8tl_wgmma.cuh), w4a8tl_gd.cu (group-dot decode) and moe_gemm.cu
-// (expert stacks); each kernel applies its own float epilogue to the tile.
+// (the all-experts bmm, and the grouped GEMM's 16-row tiles; its 128-row
+// ones run on w4a8tl_wgmma.cuh); each kernel applies its own float
+// epilogue to the tile.
 //
 // The block owns a BM x BN output tile and walks K in steps of KP packed
 // rows (2*KP k-values: KP low-nibble rows and the matching KP high-nibble

@@ -1,11 +1,14 @@
 // The two-level w4a8 GEMMs' main loop at prefill sizes on Hopper (sm_90a):
 // one block's int32 tile of  acc[m, n] = sum_k xq[m, k] * w8[k, n],
 //   w8[k, n] = (q[k, n] - zeros[g(k), n]) * scales2[g(k), n],  g(k) = k / 128,
-// then the epilogue y = out_t(f32(acc) * xs[m] * chan[n]), bit for bit the
-// plain version w4a8tl_plain (ops/kernels/quant_matmul.py) and the TPU
-// kernels it replaces in ferrum_tpu/ops/pallas/quant_matmul.py:
-//   :289 _qmm_w4a8tl_kernel         128-row tiles   (w4a8tl_gemm.cu)
-//   :339 _qmm_w4a8tl_mcache_kernel  256-row tiles   (w4a8tl_mcache.cu)
+// then the epilogue y = out_t(f32(acc) * xs[m] * chan[n]) (or with chan
+// before xs), bit for bit the plain versions w4a8tl_plain
+// (ops/kernels/quant_matmul.py) and grouped_plain (moe_gemm.py) and the
+// TPU kernels it replaces in ferrum_tpu/ops/pallas/quant_matmul.py:
+//   :289  _qmm_w4a8tl_kernel         128-row tiles   (w4a8tl_gemm.cu)
+//   :339  _qmm_w4a8tl_mcache_kernel  256-row tiles   (w4a8tl_mcache.cu)
+//   :1098 _qgmm_w4a8tl_kernel        128-row tiles of one expert's rows
+//                                    (moe_gemm.cu)
 // q is packed int4 in GLOBAL HALVES (ops/quant.py): byte row r of qweight
 // [K/2, N] holds row r in its low nibble and row K/2 + r in its high
 // nibble. |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31 for
@@ -35,7 +38,9 @@
 //    [BN lines][128 k] with the hardware's 128-byte swizzle (16-byte chunk
 //    c of line n at c ^ (n % 8)), like the xq tile [BM lines][128 k].
 //  - A ring of S stages, filled by 16-byte cp.async, holds per step the
-//    xq tile (rows outside [0, M) zero-filled), the packed weight tile
+//    xq tile (rows outside the window [row_lo, row_hi) zero-filled: [0,
+//    M) for a dense GEMM, one expert's rows of the tile for the grouped
+//    one), the packed weight tile
 //    ([64, BN] bytes as it lies in the global-halves layout, chunks
 //    XOR-swizzled by 16-row block so the dequant's loads are free of bank
 //    conflicts) and the step's scales2 / zero rows of both halves (groups
@@ -55,10 +60,12 @@
 //    writes that wgmma reads (the dequant's stores, the cp.async tiles)
 //    are each followed by fence.proxy.async before the barrier ahead of
 //    the wgmma. Every warpgroup issues its wgmma, also where its rows lie
-//    past M (zeros): a wgmma in a divergent branch makes ptxas serialize
-//    every wgmma of the kernel (C7518).
-//  - Epilogue: f32(acc) * xs[m] * chan[n], in that order, each product
-//    rounded (no FMA), then round-to-nearest-even to bf16 (or f32 out).
+//    outside the window (zeros): a wgmma in a divergent branch makes
+//    ptxas serialize every wgmma of the kernel (C7518).
+//  - Epilogue, for the window's rows: f32(acc) * xs[m] * chan[n] (the
+//    dense kernels) or f32(acc) * chan[n] * xs[m] (the grouped one,
+//    moe_gemm.cu), in that order, each product rounded (no FMA), then
+//    round-to-nearest-even to bf16 (or f32 out).
 
 #pragma once
 
@@ -233,7 +240,8 @@ struct Mainloop {
   static __device__ __forceinline__ void load(
       uint8_t* base, int slot, int s, const int8_t* __restrict__ xq,
       const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
-      const int8_t* __restrict__ zr, int m0, int M, int n0, int N, int K) {
+      const int8_t* __restrict__ zr, int m0, int row_lo, int row_hi, int n0,
+      int N, int K) {
     const int tid = threadIdx.x;
     const int K2 = K / 2;
     const int r0 = s * kKP;
@@ -247,7 +255,9 @@ struct Mainloop {
       const int row = idx >> 3;
       const int c = idx & 7;
       const int m = m0 + row;
-      const bool ok = m < M;
+      // row_lo <= m < row_hi in one compare (row_lo is 0 for the dense
+      // kernels).
+      const bool ok = (unsigned)(m - row_lo) < (unsigned)(row_hi - row_lo);
       const int8_t* src =
           ok ? xq + (size_t)m * K + (c < 4 ? r0 : K2 + r0 - 64) + c * 16 : xq;
       cp_async16(a_s + row * kLine + ((c ^ (row & 7)) << 4), src,
@@ -372,13 +382,15 @@ struct Mainloop {
   }
 
   // acc += xq[rows m0 .. m0+BM) . w8[:, n0 .. n0+BN) over all of K. xq is
-  // row-major int8 [M, K]; rows past M read as zero. qw/s2/zr point at
+  // row-major int8 [*, K]; rows outside [row_lo, row_hi) read as zero.
+  // qw/s2/zr point at
   // one weight ([K/2, N], [K/128, N] x2). `base` is the block's dynamic
   // shared memory, 1024-byte aligned.
   static __device__ __forceinline__ void run(
       Acc& acc, uint8_t* base, const int8_t* __restrict__ xq,
       const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
-      const int8_t* __restrict__ zr, int m0, int M, int n0, int N, int K) {
+      const int8_t* __restrict__ zr, int m0, int row_lo, int row_hi, int n0,
+      int N, int K) {
     constexpr int S = kStages;
     static_assert(S >= 3, "the ring holds the step whose wgmma runs, the "
                           "step dequantized and at least one in flight");
@@ -388,7 +400,9 @@ struct Mainloop {
 
 #pragma unroll
     for (int st = 0; st < S - 1; ++st) {
-      if (st < nsteps) load(base, st, st, xq, qw, s2, zr, m0, M, n0, N, K);
+      if (st < nsteps) {
+        load(base, st, st, xq, qw, s2, zr, m0, row_lo, row_hi, n0, N, K);
+      }
       cp_async_commit();
     }
     Scales sc;
@@ -412,7 +426,8 @@ struct Mainloop {
       __syncthreads();            // ... for every thread; s-1's reads done
       const int ahead = s + S - 1;
       if (ahead < nsteps) {
-        load(base, ahead % S, ahead, xq, qw, s2, zr, m0, M, n0, N, K);
+        load(base, ahead % S, ahead, xq, qw, s2, zr, m0, row_lo, row_hi, n0,
+             N, K);
       }
       cp_async_commit();
       const int nx = s + 1;
@@ -428,13 +443,15 @@ struct Mainloop {
     cp_async_wait<0>();
   }
 
-  // out[row, col] = out_t(f32(acc) * xs[row] * chan[col]) for the rows
-  // below M. Fragment of m64nN: warp w of the warpgroup holds rows
-  // 16w + lane/4 (+8) of its tile, columns 8j + 2 (lane % 4) (+1).
+  // out[row, col] = out_t(f32(acc) * xs[row] * chan[col]), or with
+  // kChanFirst out_t(f32(acc) * chan[col] * xs[row]), for the rows in
+  // [row_lo, row_hi). Fragment of m64nN: warp w of the warpgroup holds
+  // rows 16w + lane/4 (+8) of its tile, columns 8j + 2 (lane % 4) (+1).
+  template <bool kChanFirst>
   static __device__ __forceinline__ void store(
       const Acc& acc, const float* __restrict__ xs,
-      const float* __restrict__ chan, void* __restrict__ out, int m0, int M,
-      int n0, int N, int out_bf16) {
+      const float* __restrict__ chan, void* __restrict__ out, int m0,
+      int row_lo, int row_hi, int n0, int N, int out_bf16) {
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x % 32;
@@ -444,17 +461,19 @@ struct Mainloop {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = rlo + 8 * e;
-        if (row >= M) continue;
+        if ((unsigned)(row - row_lo) >= (unsigned)(row_hi - row_lo)) continue;
         const float sx = xs[row];
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int col = n0 + j * 8 + (lane % 4) * 2;
-          const float v0 = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[t][j * 4 + 2 * e]), sx),
-              chan[col]);
-          const float v1 = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[t][j * 4 + 2 * e + 1]), sx),
-              chan[col + 1]);
+          const float a0 = __int2float_rn(acc[t][j * 4 + 2 * e]);
+          const float a1 = __int2float_rn(acc[t][j * 4 + 2 * e + 1]);
+          const float v0 = kChanFirst
+              ? __fmul_rn(__fmul_rn(a0, chan[col]), sx)
+              : __fmul_rn(__fmul_rn(a0, sx), chan[col]);
+          const float v1 = kChanFirst
+              ? __fmul_rn(__fmul_rn(a1, chan[col + 1]), sx)
+              : __fmul_rn(__fmul_rn(a1, sx), chan[col + 1]);
           const size_t idx = (size_t)row * N + col;
           if (out_bf16) {
             *reinterpret_cast<__nv_bfloat162*>(
@@ -493,28 +512,34 @@ gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 
   typename L::Acc acc;
   L::zero(acc);
-  L::run(acc, base, xq, qw, s2, zr, m0, M, n0, N, K);
-  L::store(acc, xs, chan, out, m0, M, n0, N, out_bf16);
+  L::run(acc, base, xq, qw, s2, zr, m0, 0, M, n0, N, K);
+  L::template store<false>(acc, xs, chan, out, m0, 0, M, n0, N, out_bf16);
 }
 
-// Launch the BM x BN kernel over [M, N] (dynamic shared memory above the
-// 48 KB default, so the limit is raised first). Returns a cudaError_t.
+// Launch `kernel`, a kernel on Mainloop<BM, BN>, with the main loop's
+// dynamic shared memory (above the 48 KB default, so the limit is raised
+// first). Returns a cudaError_t.
+template <int BM, int BN, class Kernel, class... Args>
+int launch_on(Kernel kernel, dim3 grid, cudaStream_t st, Args... args) {
+  constexpr int smem = Mainloop<BM, BN>::kSmemBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The dense BM x BN kernel over [M, N]. Returns a cudaError_t.
 template <int BM, int BN>
 int launch(const void* xq, const void* xs, const void* qw, const void* s2,
            const void* z, const void* chan, void* out, int M, int N, int K,
            int out_bf16, cudaStream_t st) {
-  constexpr int smem = Mainloop<BM, BN>::kSmemBytes;
-  auto kernel = gemm_kernel<BM, BN>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
   const int tiles = (M + BM - 1) / BM * (N / BN);
-  kernel<<<tiles, kThreads, smem, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const uint8_t*>(qw), static_cast<const int8_t*>(s2),
-      static_cast<const int8_t*>(z), static_cast<const float*>(chan), out, M,
-      N, K, out_bf16);
-  return (int)cudaGetLastError();
+  return launch_on<BM, BN>(
+      gemm_kernel<BM, BN>, dim3(tiles), st, static_cast<const int8_t*>(xq),
+      static_cast<const float*>(xs), static_cast<const uint8_t*>(qw),
+      static_cast<const int8_t*>(s2), static_cast<const int8_t*>(z),
+      static_cast<const float*>(chan), out, M, N, K, out_bf16);
 }
 
 }  // namespace w4a8tl_wgmma

@@ -182,7 +182,7 @@ def _require_two_level(p: QuantLinearParams) -> None:
 
 
 def _check_stack(p: QuantLinearParams, k: int, dev: torch.device,
-                 n_align: int) -> Tuple[int, int]:
+                 n_align: int, align: int = 4) -> Tuple[int, int]:
     e, n = p.qweight.shape[0], p.out_features
     if k != p.in_features or k % (2 * GROUP) or p.group_size != GROUP:
         raise ValueError(f"unsupported K={k} / group {p.group_size}: the "
@@ -196,8 +196,8 @@ def _check_stack(p: QuantLinearParams, k: int, dev: torch.device,
             ("chan_scale", p.chan_scale, torch.float32, (e, 1, n))):
         if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dt} {shape}")
-        if t.device != dev or t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned on {dev}")
+        if t.device != dev or t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned on {dev}")
     return e, n
 
 
@@ -300,7 +300,9 @@ def grouped_w4a8tl_on_map(xq: torch.Tensor, xs: torch.Tensor,
                              _two_level_rows(xq, xs, p))
     a, k = xq.shape
     bm = grouped_bm(a)
-    e, n = _check_stack(p, k, xq.device, 64 if bm == 16 else 128)
+    # The prefill main loop copies the stacks in 16-byte pieces.
+    e, n = _check_stack(p, k, xq.device, 64 if bm == 16 else 128,
+                        align=4 if bm == 16 else 16)
     _check_rows(xq, xs, a, out_dtype)
     n_logical = _check_map(tile_map, a, e, xq.device)
     gid, mtid, offsets, valid = tile_map

@@ -222,6 +222,87 @@ def test_split_grouped_wrappers_match_one_call(sizes, kind):
     assert bool((want != 0).any(-1).all())
 
 
+def _tile_walk(xq, xs, p, tile_map, bn, out_dtype):
+    """What the blocks of the prefill grouped kernel (bm 128, csrc/
+    moe_gemm.cu on csrc/w4a8tl_wgmma.cuh) compute, in numpy: for every
+    valid logical tile and n-tile of `bn` columns, the xq rows outside the
+    window of the tile's expert zeroed; per K step of 64 packed rows the
+    int32 sum over k = [r0, r0 + 64) of the low nibbles and [K/2 + r0,
+    K/2 + r0 + 64) of the high ones, each with its own scale group, w8
+    taken as the kernel's dequant does (the low byte of q * s2 + (-z * s2
+    mod 256)); then (f32(acc) * chan[e]) * xs, each product rounded.
+    Returns (out [A, N] in out_dtype, rows never written zero; writes per
+    row)."""
+    gid, mtid, offsets, valid = (t.numpy() for t in tile_map)
+    xq, xs = xq.numpy().astype(np.int64), xs.numpy()
+    qw, z, s2 = (getattr(p, f).numpy().astype(np.int64)
+                 for f in ("qweight", "zeros", "scales2"))
+    chan = p.chan_scale.numpy()
+    a, k = xq.shape
+    n, k2 = p.out_features, k // 2
+    q = np.concatenate([qw & 15, qw >> 4], axis=1)               # [E, K, N]
+    out = np.zeros((a, n), np.float32)
+    writes = np.zeros(a, np.int64)
+    for e, mt, v in zip(gid, mtid, valid):
+        m0 = mt * 128
+        lo, hi = max(offsets[e], m0), min(offsets[e + 1], m0 + 128)
+        if not v or lo >= hi:
+            continue
+        xt = np.zeros((128, k), np.int64)
+        xt[lo - m0:hi - m0] = xq[lo:hi]
+        for n0 in range(0, n, bn):
+            cols = slice(n0, n0 + bn)
+            acc = np.zeros((128, bn), np.int64)
+            for r0 in range(0, k2, 64):
+                ks = np.r_[r0:r0 + 64, k2 + r0:k2 + r0 + 64]
+                s = s2[e][ks // 128, cols]
+                byte = (q[e][ks, cols] * (s & 0xFF)
+                        + ((-z[e][ks // 128, cols] * s) & 0xFF)) & 0xFF
+                w8 = np.where(byte > 127, byte - 256, byte)
+                acc += xt[:, ks] @ w8
+            assert np.abs(acc).max() < 2 ** 31
+            acc = acc[lo - m0:hi - m0].astype(np.int32).astype(np.float32)
+            out[lo:hi, cols] = (acc * chan[e, 0, cols]) * xs[lo:hi]
+        writes[lo:hi] += 1
+    return torch.from_numpy(out).to(out_dtype), writes
+
+
+@pytest.mark.parametrize("k", [256, 768])
+@pytest.mark.parametrize("sizes", [
+    (100, 0, 130, 70),                  # boundaries inside 64-row slices
+    (0, 0, 300, 0),                     # one expert holds every row
+    (37, 64, 0, 91, 75, 0, 33, 20),     # many straddles, empty experts
+    (1, 0, 0, 383),                     # a one-row expert, then 3 tiles
+])
+def test_grouped_tile_walk_matches_plain(sizes, k):
+    """The prefill grouped kernel's decomposition (row window, K steps of
+    both nibble halves, the expert's chan first, then xs) gives
+    grouped_plain bit for bit, at either column width of the kernel, and
+    every row of the groups is written by exactly one (tile, expert)
+    window. K = 256 is 2 K steps (fewer than the ring's 3 prologue
+    loads), K = 768 the qwen3 down projection's 6."""
+    from ferrum_tpu_torch.ops.kernels import moe_gemm as tmg
+
+    e, n = len(sizes), 256
+    a = sum(sizes)
+    assert tmg.grouped_bm(a) == 128
+    _, tp = _tl_stack(e, k, n, seed=41)
+    xq, xs = (torch.from_numpy(t) for t in _quant_rows(
+        np.random.default_rng(42).normal(0, 1, (a, k))))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    tmap = tmg.grouped_map(gs, a)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        want = tmg.grouped_plain(xq, xs, tp, gs, out_dtype)
+        for bn in (128, 256):
+            got, writes = _tile_walk(xq, xs, tp, tmap, bn, out_dtype)
+            assert torch.equal(got.view(torch.int16 if out_dtype
+                                        == torch.bfloat16 else torch.int32),
+                               want.view(torch.int16 if out_dtype
+                                         == torch.bfloat16 else torch.int32))
+            np.testing.assert_array_equal(writes, np.ones(a, np.int64))
+    assert bool((want != 0).any(-1).all())
+
+
 # ---------------------------------------------------------------------------
 # 4. routing: JAX's top-k order on ties
 # ---------------------------------------------------------------------------
