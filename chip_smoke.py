@@ -16,9 +16,12 @@ Phases, in order, each printing JSON lines:
              and the card's bound for the same work; then exact cases of
              their own: one-hot x for the w4a16 kernels, for the two
              two-level prefill kernels ragged m, the qwen3 sites, the
-             int32 range at K = 14336 and one-hot xq, and for the grouped
-             two-level kernel at 128-row tiles one-hot xq, one expert,
-             four experts, ragged rows and K = 256
+             int32 range at K = 14336 and one-hot xq, for the two-level
+             decode kernel one-hot xq at m = 1 .. 64, the int32 range,
+             K = 256, one and the most K splits and N = 192 (64-column
+             tiles), its split-K counters zero after each, and for the
+             grouped two-level kernel at 128-row tiles one-hot xq, one
+             expert, four experts, ragged rows and K = 256
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
              ties, as jax.lax.top_k) at 32 slots x 128256 against a full
              stable sort, timed beside both and torch.topk
@@ -605,11 +608,16 @@ def onehot_weight(torch, k, n, gen, experts, f32_scales):
 
 def onehot_x(torch, m, k, gen):
     """bf16 [m, K], row i one-hot at k_i: the first and the last k of
-    every group (both nibble halves' groups), then random k."""
+    every group (both nibble halves' groups), then random k; with fewer
+    rows than that, m of those first and last k at random."""
     need = torch.stack([torch.arange(0, k, 128, device="cuda"),
                         torch.arange(127, k, 128, device="cuda")], 1)
-    ks = torch.cat([need.reshape(-1), torch.randint(
-        0, k, (m - need.numel(),), generator=gen, device="cuda")])
+    if m < need.numel():
+        ks = need.reshape(-1)[torch.randperm(
+            need.numel(), generator=gen, device="cuda")[:m]]
+    else:
+        ks = torch.cat([need.reshape(-1), torch.randint(
+            0, k, (m - need.numel(),), generator=gen, device="cuda")])
     x = torch.zeros(m, k, dtype=torch.bfloat16, device="cuda")
     x[torch.arange(m, device="cuda"), ks] = 1.0
     return x
@@ -773,6 +781,76 @@ def prefill_exact_cases(torch):
                     raise AssertionError(f"{kernel} {case} {m}x{k}x{n}: "
                                          f"{row}")
         del p, xq, xs, want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The exact cases of the two-level decode kernel beyond the timed sites,
+# (case, m, K, N, K splits; 0: the launcher's rule): one-hot xq at every
+# BM (16 / 32 / 64) and its edges, the int32 range at K = 14336, K = 256
+# (two K steps of 64 packed rows, fewer than the ring's 3 loads ahead),
+# one split and one per K step, N = 192 (64-column tiles).
+DECODE_EXACT = tuple(("one-hot", m, 4096, 6144, 0)
+                     for m in (1, 5, 16, 17, 32, 33, 64)) + (
+    ("extreme", 64, 14336, 4096, 0), ("random", 32, 256, 768, 0),
+    ("random", 32, 4096, 4096, 1), ("random", 32, 4096, 4096, 32),
+    ("random", 17, 4096, 192, 0))
+
+
+def decode_exact_cases(torch, timer):
+    """w4a8tl_decode equal to w4a8tl_plain bit for bit on the
+    DECODE_EXACT cases, in bf16 and f32 out, before and after its timed
+    launches, with the stream's split-K counters all zero after each --
+    the check a chunk placement, dequant, fragment, ring, split or
+    epilogue fault cannot pass."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    from ferrum_tpu_torch.ops.quant import two_level_w8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    rows = []
+    for case, m, k, n, splits in DECODE_EXACT:
+        xs = torch.rand(m, 1, generator=gen, device="cuda") + 0.5
+        if case == "extreme":
+            p = two_level_weight(torch, k, n, gen, "extreme")
+            sign = torch.where(two_level_w8(p) > 0, 1, -1)       # [K, N]
+            cols = torch.arange(m, device="cuda") % n
+            xq = (127 * sign[:, cols].t()).to(torch.int8).contiguous()
+            top = (xq.double() @ two_level_w8(p).double()).abs().max()
+            if top.item() != 127 * 127 * k:
+                raise AssertionError(f"extreme case peaks at {top.item()}")
+        elif case == "one-hot":
+            p = two_level_weight(torch, k, n, gen, "onehot")
+            xq = onehot_x(torch, m, k, gen).to(torch.int8)
+        else:
+            p = two_level_weight(torch, k, n, gen, "random")
+            xq = torch.randint(-127, 128, (m, k), generator=gen,
+                               device="cuda").to(torch.int8)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            def launch():
+                return qmm.w4a8tl_decode(xq, xs, p, out_dtype, splits=splits)
+            want = qmm.w4a8tl_plain(xq, xs, p, out_dtype)
+            got = launch()
+            ms_ = timer(launch)
+            again = launch()
+            torch.cuda.synchronize()
+            stream = torch.cuda.current_stream()
+            _, scratch = qmm._SCRATCH.get(
+                (stream.device_index, stream.cuda_stream),
+                (0, torch.zeros(1)))
+            row = {"kernel": "w4a8tl_decode", "case": case, "m": m, "k": k,
+                   "n": n, "out": str(out_dtype).split(".")[-1],
+                   "plan": qmm.w4a8tl_decode_plan(m, n, k, splits),
+                   "kernel_ms": ms_,
+                   "equal": bool(torch.equal(got, want))
+                   and bool(torch.equal(again, want)),
+                   "outputs_differing": int((got != want).sum().item()),
+                   "scratch_zero": not bool(scratch.any().item())}
+            rows.append(row)
+            emit({"phase": "kernel_case", **row})
+            if not row["equal"] or not row["scratch_zero"]:
+                raise AssertionError(f"w4a8tl_decode {case} {m}x{k}x{n}: "
+                                     f"{row}")
+        del p, xq, xs, want, got, again
     torch.cuda.empty_cache()
     return rows
 
@@ -1462,6 +1540,7 @@ def main() -> int:
              + moe_cases(torch, timer))
     onehot_cases(torch)
     prefill_exact_cases(torch)
+    decode_exact_cases(torch, timer)
     grouped_exact_cases(torch, timer)
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})

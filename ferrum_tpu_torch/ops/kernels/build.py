@@ -41,6 +41,7 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _P],
         "ferrum_w4a8tl_prefill": [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P],
+        "ferrum_w4a8tl_decode_plan": [_I, _I, _I, _I, _P],
     },
     "w4a8tl_gd": {
         "ferrum_w4a8tl_gd_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -30,12 +30,13 @@
 // w4a8tl_decode (3.35 TB/s). The per-group output rescale is m * N * K/128
 // int32 multiply-adds, small beside the dots.
 //
-// Design (a first, simple kernel): w4a8tl_decode's tiling -- one block per
-// 64-column tile and BM = 16/32/64 rows, one group per plane per K step,
-// K split across blockIdx.z so enough blocks cover the 132 SMs, the int32
-// partial sums added with atomics into the per-stream scratch and the
-// epilogue applied by the tile's last-arriving split, which leaves the
-// scratch and its counter zeroed (w4a8tl::Tile::finish). Per K step the
+// Design (a first, simple kernel): the shared tile's decode tiling
+// (w4a8tl_tile.cuh) -- one block per 64-column tile and BM = 16/32/64
+// rows, one group per plane per K step, K split across blockIdx.z so
+// enough blocks cover the 132 SMs, the int32 partial sums added with
+// atomics into the per-stream scratch and the epilogue applied by the
+// tile's last-arriving split, which leaves the scratch and its counter
+// zeroed (w4a8tl::Tile::finish). Per K step the
 // block stages xq and the raw nibbles (w4a8tl_tile.cuh), the group's
 // scales2 and s2 * z per column and, once per block, each staged
 // activation row's sum sx (dp4a); each plane's 128-deep dot lands in a

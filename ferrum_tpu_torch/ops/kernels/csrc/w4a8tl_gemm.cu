@@ -18,103 +18,190 @@
 //
 // What bounds it on the H100: decode (m <= 64) streams the packed weight
 // once per call and does ~2m int8 ops per weight, far below the tensor
-// cores' 1979 TOP/s, so it is bound by the 3.35 TB/s of HBM. Prefill at
+// cores' 1979 TOP/s, so it is bound by the 3.35 TB/s of HBM -- if the
+// kernel keeps enough bytes in flight per SM (~20 KB at HBM latency) and
+// its per-byte work (the dequant, ~2 instructions per w8) off the copies'
+// path. On an H100 SXM (PERF.md §6) this loop's 16-byte copies alone
+// stream ~1.3 TB/s at llama's gate_up, and a small projection pays a
+// ~13-17 us floor (launch, first load, split epilogue). Prefill at
 // m >= 256 is bound by the int8 tensor-core rate.
 //
-// Design: at decode sizes (m <= 64) one block owns a BM x BN output tile;
-// its int32 main loop (mma.sync m16n8k32 on xq and w8 staged in shared
-// memory) is w4a8tl::Tile in w4a8tl_tile.cuh, shared with the MoE kernels
-// (moe_gemm.cu). Decode has few output tiles per call, so it splits K
-// across blockIdx.z (enough blocks to cover the 132 SMs) and reduces the
-// int32 partial sums with integer atomics into a workspace --
-// order-independent, so still exact. The block that finishes a tile last
-// (a per-tile arrival counter) applies the epilogue from the workspace
-// and leaves the workspace and the counter zeroed, so a decode projection
-// is one launch with no memset. At prefill sizes (m > 64) the kernel is
-// w4a8tl_wgmma.cuh's pipelined int8 wgmma main loop on 128-row tiles. The
-// float epilogue is f32(acc) * xs[m] * chan[n], in that order, then
-// round-to-nearest-even to bf16 (or f32 output).
+// Design: at decode sizes (m <= 64) the kernel is w4a8tl_stream.cuh's
+// main loop: a ring of 16-byte cp.async copies several K steps deep, the
+// dequant of step s+1 and the mma.sync of step s overlapping it, one
+// barrier a step, 128 columns a block (64 for small weights or where
+// N % 128 != 0) and all of m. Decode has few output tiles per call, so
+// it splits K across blockIdx.z -- the count chosen here, so the blocks
+// fill the resident slots in whole waves -- each split storing its int32
+// partial sums in a plane of its own; the block that finishes a tile
+// last (a per-tile arrival counter, left zeroed) sums the planes
+// (order-independent, so still exact) and applies the epilogue, so a
+// decode projection is one launch with no memset. At prefill sizes
+// (m > 64) the kernel is w4a8tl_wgmma.cuh's pipelined int8 wgmma main
+// loop on 128-row tiles. The float epilogue is f32(acc) * xs[m] *
+// chan[n], in that order, then round-to-nearest-even to bf16 (or f32
+// output).
 
-#include "w4a8tl_tile.cuh"
+#include <atomic>
+#include <cstdint>
+
+#include "w4a8tl_stream.cuh"
 #include "w4a8tl_wgmma.cuh"
 
 namespace {
 
-// Grid: x = N / BN, y = ceil(M / BM), z = K splits (each `steps_per_split`
-// steps of KP packed rows); kSplit: more than one split, summed through
-// ws / counters (w4a8tl::Tile::finish).
-template <int BM, int BN, int KP, int WM, int WN, bool kSplit>
-__global__ void __launch_bounds__(WM * WN * 32)
-w4a8tl_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                   const uint8_t* __restrict__ qw,
-                   const int8_t* __restrict__ s2,
-                   const int8_t* __restrict__ zr,
-                   const float* __restrict__ chan, void* __restrict__ out,
-                   int* __restrict__ ws, int* __restrict__ counters, int M,
-                   int N, int K, int steps_per_split, int out_bf16) {
-  using T = w4a8tl::Tile<BM, BN, KP, WM, WN>;
-  __shared__ __align__(16) typename T::Smem sm;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int nsteps = (K / 2) / KP;
-  const int s_begin = blockIdx.z * steps_per_split;
-  const int s_end = min(nsteps, s_begin + steps_per_split);
+constexpr int kDecodeStages = 4;
+// The split count's cost model, in K steps of one block: a block's fixed
+// cost (ring fill, epilogue), and the split-K partial sums whose stores
+// and loads take a step's time (each split adds M x N of them).
+constexpr double kBlockSteps = 2;
+constexpr double kPartialsPerStep = 1e6;
+// Packed weights of at most this many bytes take 64-column tiles.
+constexpr long kNarrowBytes = 16L << 20;
 
-  typename T::Acc acc;
-  T::zero(acc);
-  T::mainloop(acc, sm, xq, qw, s2, zr, m0, 0, M, n0, N, K, s_begin, s_end);
-  T::template finish<kSplit>(acc, xs, chan, out, ws, counters, m0, n0, M, N,
-                             out_bf16);
+// The arguments of a decode launch. plan: when not null, the launch is
+// not made and plan[0..6] get BM, BN, threads, stages, splits, K steps
+// per split and resident blocks per SM.
+struct DecodeArgs {
+  const void *xq, *xs, *qw, *s2, *z, *chan;
+  void* out;
+  int *part, *counters;
+  int M, N, K, splits, out_bf16;
+  cudaStream_t st;
+  int* plan;
+};
+
+// The split count: the fewest of those with the least waves * (steps a
+// split + kBlockSteps) + splits * M * N / kPartialsPerStep (one split:
+// no partials), for `tiles` column tiles of BN and `nsteps` K steps on
+// `slots` resident blocks.
+int decode_splits(int M, int BN, int tiles, int nsteps, int slots) {
+  int best = 1;
+  double best_cost = -1;
+  for (int s = 1; s <= nsteps; ++s) {
+    const int per = (nsteps + s - 1) / s;
+    if ((nsteps + per - 1) / per != s) continue;
+    const int waves = (tiles * s + slots - 1) / slots;
+    const double cost = waves * (per + kBlockSteps)
+        + (s > 1 ? (double)s * M * BN * tiles / kPartialsPerStep : 0.0);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
-template <int BM, int BN, int KP, int WM, int WN>
-void launch_gemm(const void* xq, const void* xs, const void* qw,
-                 const void* s2, const void* z, const void* chan, void* out,
-                 int* ws, int* counters, int M, int N, int K, int splits,
-                 int out_bf16, cudaStream_t stream) {
-  const int nsteps = (K / 2) / KP;
+template <int BM, int BN, int kThreads>
+int decode(const DecodeArgs& a) {
+  constexpr int S = kDecodeStages;
+  using L = w4a8tl_stream::Stream<BM, BN, S, kThreads>;
+  const auto split_k =
+      w4a8tl_stream::decode_kernel<BM, BN, S, kThreads, true>;
+  const auto whole =
+      w4a8tl_stream::decode_kernel<BM, BN, S, kThreads, false>;
+  // The shared-memory limit is raised once per device (the launch is on
+  // every decode projection's path; the host holds the serve loop).
+  static std::atomic<uint64_t> ready{0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    for (auto kernel : {split_k, whole}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    ready.fetch_or(bit);
+  }
+  static const int per_sm = [&] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, split_k, kThreads, L::kSmemBytes);
+    return b > 0 ? b : 1;
+  }();
+  const int nsteps = (a.K / 2) / w4a8tl_stream::kKP;
+  const int tiles = a.N / BN;
+  int splits = a.splits > 0 ? min(a.splits, nsteps)
+      : decode_splits(a.M, BN, tiles, nsteps,
+                      w4a8tl_wgmma::num_sms() * per_sm);
   const int per = (nsteps + splits - 1) / splits;
-  const int used = (nsteps + per - 1) / per;
-  dim3 grid(N / BN, (M + BM - 1) / BM, used);
-  auto kernel = used > 1 ? w4a8tl_gemm_kernel<BM, BN, KP, WM, WN, true>
-                         : w4a8tl_gemm_kernel<BM, BN, KP, WM, WN, false>;
-  kernel<<<grid, WM * WN * 32, 0, stream>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const uint8_t*>(qw), static_cast<const int8_t*>(s2),
-      static_cast<const int8_t*>(z), static_cast<const float*>(chan), out,
-      ws, counters, M, N, K, per, out_bf16);
+  splits = (nsteps + per - 1) / per;        // every split gets steps
+  if (a.plan) {
+    const int plan[7] = {BM, BN, kThreads, S, splits, per, per_sm};
+    for (int i = 0; i < 7; ++i) a.plan[i] = plan[i];
+    return (int)cudaSuccess;
+  }
+  const auto kernel = splits > 1 ? split_k : whole;
+  kernel<<<dim3(tiles, 1, splits), kThreads, L::kSmemBytes, a.st>>>(
+      static_cast<const int8_t*>(a.xq), static_cast<const float*>(a.xs),
+      static_cast<const uint8_t*>(a.qw), static_cast<const int8_t*>(a.s2),
+      static_cast<const int8_t*>(a.z), static_cast<const float*>(a.chan),
+      a.out, a.part, a.counters, a.M, a.N, a.K, per, a.out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// 128 threads where the column tiles alone fill the SMs (the rows of a
+// block's mma on fewer warps); 256 elsewhere (twice the warps to cover
+// the dequant's and the copies' latencies).
+template <int BM, int BN>
+int decode_threads(const DecodeArgs& a) {
+  const bool few = a.N / BN >= w4a8tl_wgmma::num_sms();
+  return few ? decode<BM, BN, 128>(a) : decode<BM, BN, 256>(a);
+}
+
+template <int BN>
+int decode_bm(const DecodeArgs& a) {
+  return a.M <= 16 ? decode_threads<16, BN>(a)
+       : a.M <= 32 ? decode_threads<32, BN>(a)
+                   : decode_threads<64, BN>(a);
+}
+
+int decode_any(const DecodeArgs& a) {
+  if (a.M < 1 || a.M > 64 || a.K % 256 || a.N % 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // 64 columns where N % 128 != 0, or where the packed weight is small:
+  // there the fixed costs of a launch and a split dominate, and twice the
+  // column tiles (at half the shared memory: 4 resident blocks an SM, not
+  // 2) fill the SMs with fewer K splits.
+  const bool narrow = a.N % 128 != 0 || (long)a.K / 2 * a.N <= kNarrowBytes;
+  return narrow ? decode_bm<64>(a) : decode_bm<128>(a);
 }
 
 }  // namespace
 
-// Decode tiles: BN = 64 columns, one group (128 packed rows) per K step,
-// BM = 16/32/64 rows by m; split-K over blockIdx.z when splits > 1. Then
-// `ws` (int32 [M, N]) and `counters` (int32, one per output tile: N / 64)
-// are caller-owned scratch that must be all zero on entry and are all
-// zero again on return, so one scratch serves every call on a stream.
-// Requires M <= 64, K % 256 == 0, N % 64 == 0. Returns cudaGetLastError().
+// Decode tiles (w4a8tl_stream.cuh): all M rows (BM = 16 / 32 / 64) x 128
+// columns (64 where N % 128 != 0 or K/2 x N <= 16 MiB), 64 packed rows
+// (128 k) per K step; K split across blockIdx.z into `splits` parts (0:
+// the count chosen here; at most one split per K step;
+// ferrum_w4a8tl_decode_plan gives the count a launch takes). With more
+// than one split, `ws` is int32 [splits, M, N] of any contents (the
+// splits' partial sums) and `counters` (int32, one per column tile: N /
+// 64 suffice) caller-owned scratch that must be all zero on entry and is
+// all zero again on return, so one serves every call on a stream; with
+// one, neither is touched. Requires 1 <= M <= 64, K % 256 == 0,
+// N % 64 == 0, and xq, qweight, scales2 and zeros 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int ferrum_w4a8tl_decode(const void* xq, const void* xs,
                                     const void* qw, const void* s2,
                                     const void* z, const void* chan, void* out,
                                     void* ws, void* counters, int M, int N,
                                     int K, int splits, int out_bf16,
                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* wsp = static_cast<int*>(ws);
-  int* cnt = static_cast<int*>(counters);
-  if (M <= 16) {
-    launch_gemm<16, 64, 128, 1, 4>(xq, xs, qw, s2, z, chan, out, wsp, cnt, M,
-                                   N, K, splits, out_bf16, st);
-  } else if (M <= 32) {
-    launch_gemm<32, 64, 128, 1, 4>(xq, xs, qw, s2, z, chan, out, wsp, cnt, M,
-                                   N, K, splits, out_bf16, st);
-  } else if (M <= 64) {
-    launch_gemm<64, 64, 128, 1, 4>(xq, xs, qw, s2, z, chan, out, wsp, cnt, M,
-                                   N, K, splits, out_bf16, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return decode_any({xq, xs, qw, s2, z, chan, out, static_cast<int*>(ws),
+                     static_cast<int*>(counters), M, N, K, splits, out_bf16,
+                     static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// The launch ferrum_w4a8tl_decode would make for (M, N, K, splits),
+// without making it: plan[0..6] = BM, BN, threads, ring stages, splits, K
+// steps per split, resident blocks per SM. Returns a cudaError_t.
+extern "C" int ferrum_w4a8tl_decode_plan(int M, int N, int K, int splits,
+                                         int* plan) {
+  return decode_any({nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, M, N, K, splits, 0, nullptr,
+                     plan});
 }
 
 // Prefill tiles (w4a8tl_wgmma.cuh): 128 rows x 256 columns, or 128 where

@@ -1,0 +1,463 @@
+// The two-level w4a8 decode GEMM's main loop on Hopper (sm_90a): one
+// block's int32 tile of  acc[m, n] = sum_k xq[m, k] * w8[k, n],
+//   w8[k, n] = (q[k, n] - zeros[g(k), n]) * scales2[g(k), n],  g(k) = k / 128,
+// over the K steps of one split, for m <= 64 (w4a8tl_gemm.cu's
+// ferrum_w4a8tl_decode; it replaces the TPU kernel
+// ferrum_tpu/ops/pallas/quant_matmul.py:601 _qmm_w4a8tl_mxu_kernel). q is
+// packed int4 in GLOBAL HALVES (ops/quant.py): byte row r of qweight [K/2,
+// N] holds row r in its low nibble and row K/2 + r in its high nibble.
+// |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31 for K <= 14336:
+// the int32 sums are exact, in any order.
+//
+// At decode m the packed weight is streamed once for ~2m int8 ops a byte,
+// so the loop has to keep HBM busy: enough bytes in flight per SM and the
+// per-byte work (the dequant) off the copies' path. Built from parts the
+// prefill loop (w4a8tl_wgmma.cuh) and the shared tile (w4a8tl_tile.cuh)
+// already run:
+//  - 256 threads (8 warps, 2 x 4 over the tile, 1 x 8 where BM = 16) or
+//    128 (1 x 4), as the launcher picks; BM = 16 / 32 / 64 rows (all of
+//    m: grid y is 1), BN = 64 or 128 columns.
+//  - A K step is kKP = 64 packed rows: 64 low-nibble rows (k = r0 + i) and
+//    the 64 matching high-nibble rows (k = K/2 + r0 + i), 128 k-values.
+//    The sums are integers, so the k order inside a step is free: one line
+//    per row of xq holds [xq low 64 | xq high 64] and one per column of w8
+//    [w8 low 64 | w8 high 64], each padded to kLine = 144 bytes (36 words:
+//    the 8 lines a fragment load touches start 4 banks apart, so the
+//    mma.sync fragment loads and the dequant's 16-byte stores are free of
+//    bank conflicts).
+//  - A ring of S stages, filled by 16-byte cp.async, holds per step the
+//    xq lines (rows >= M zero-filled), the packed weight tile ([64, BN]
+//    bytes as it lies in global memory, 16-byte chunk c of row r at
+//    c ^ (r / 8) mod BN/16 (r / 16 * 2 at 128 threads), so the dequant's
+//    loads are free of bank conflicts at BN 128) and, on the split's
+//    first step and each step that starts a group, the group's scales2
+//    and zero rows of both halves. Loads past the split's last step are
+//    skipped and their commit groups left empty (short K: one or two
+//    steps a split).
+//  - Dequant (w4a8tl_wgmma.cuh's, into padded lines): each thread takes
+//    R = 8 packed rows (16 at 128 threads) x 4 columns: four 32-bit loads
+//    per 4 rows, a 4 x 4 byte transpose by __byte_perm, then per column
+//    and nibble half q * s + (-z * s mod 256) in two 16-bit lanes
+//    (dequant4), one R-byte store per column and half.
+//  - mma.sync m16n8k32 s8 x s8 -> s32 on the xq lines (A) and the w8
+//    lines (B), the fragment arithmetic of w4a8tl::Tile::mma_half.
+//  - Step j, one barrier: wait for step j+1's copies; barrier (step j's
+//    w8 written, step j-1's reads done); start step j+S-1's copies into
+//    step j-1's slot; mma on step j and, in the same basic block so the
+//    two interleave, dequantize step j+1 into the w8 buffer step j-1
+//    read. Copies, dequant and mma overlap.
+//  - Split-K epilogue (`finish`): each split stores its int32 partial
+//    sums of the tile's rows below M, as they lie in the mma fragments
+//    (8-byte stores), into its own plane of part [splits, M, N]; the
+//    tile's last arrival (counted in counters, which it leaves zeroed)
+//    sums the planes and writes f32(acc) * xs[m] * chan[n] -- integer
+//    sums, so exact in any order. Plain stores and loads: integer atomics
+//    into one [M, N] plane (w4a8tl::Tile::finish) cost ~8 us per million
+//    on the H100, a third of a small projection's time. One split: the
+//    block writes the output straight from its fragments.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "w4a8tl_tile.cuh"    // accumulator layout, mma_s8
+#include "w4a8tl_wgmma.cuh"   // cp.async, dequant4
+
+namespace w4a8tl_stream {
+
+using w4a8tl_wgmma::cp_async16;
+using w4a8tl_wgmma::cp_async_commit;
+using w4a8tl_wgmma::cp_async_wait;
+using w4a8tl_wgmma::dequant4;
+using w4a8tl_wgmma::smem_u32;
+
+constexpr int kGroup = 128;
+constexpr int kKP = 64;               // packed rows per K step (128 k)
+constexpr int kStepsPerGroup = kGroup / kKP;
+constexpr int kLine = 2 * kKP + 16;   // one padded K-major line, bytes
+
+// The block's kThreads / 32 warps over the BM x BN tile: 1 x 4 at 128
+// threads; 2 x 4 at 256, or 1 x 8 where BM = 16.
+template <int BM, int kThreads>
+struct Warps {
+  static constexpr int WM = kThreads == 256 && BM >= 32 ? 2 : 1;
+  static constexpr int WN = kThreads / 32 / WM;
+};
+
+template <int BM, int BN, int S, int kThreads>
+struct Stream {
+  static_assert(BM == 16 || BM == 32 || BM == 64, "BM is 16, 32 or 64");
+  static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
+  static_assert(kThreads == 128 || kThreads == 256, "128 or 256 threads");
+  static_assert(S >= 3, "the ring holds the step the mma reads, the step "
+                        "dequantized and at least one in flight");
+  static constexpr int WM = Warps<BM, kThreads>::WM;
+  static constexpr int WN = Warps<BM, kThreads>::WN;
+  // The accumulator layout of the shared tile.
+  using T = w4a8tl::Tile<BM, BN, kKP, WM, WN>;
+  using Acc = typename T::Acc;
+  static constexpr int kChunks = BN / 16;       // chunks per packed row
+  static constexpr int kABytes = BM * kLine;    // xq lines
+  static constexpr int kPBytes = kKP * BN;      // packed weight tile
+  static constexpr int kScBytes = 4 * BN;       // s2 lo, s2 hi, z lo, z hi
+  static constexpr int kStageBytes = kABytes + kPBytes + kScBytes;
+  static constexpr int kBBytes = BN * kLine;    // w8 lines, per buffer
+  static constexpr int kSmemBytes = 2 * kBBytes + S * kStageBytes;
+  // Dequant units: R packed rows x 4 columns, one a thread (R = 16 at
+  // 128 threads, 8 at 256); threads past kUnits idle in the dequant.
+  static constexpr int R = kThreads == 256 ? 8 : 16;
+  static constexpr int kRowBlocks = kKP / R;
+  static constexpr int kUnits = kRowBlocks * BN / 4;
+
+  // This thread's 4 columns' scales2 (as unsigned bytes) and -z * s2 mod
+  // 256 (in both 16-bit fields), both halves.
+  struct Scales {
+    uint32_t s[2][4];
+    uint32_t c[2][4];
+  };
+
+  // The XOR of a packed-tile chunk index in rows R * rb .. + R - 1: the
+  // row blocks of one warp's dequant loads land in distinct chunks.
+  static __device__ __forceinline__ int swz(int rb) {
+    return (rb * (R / 8)) & (kChunks - 1);
+  }
+
+  // Whether step s (global index) of a split starting at s_begin stages
+  // its group's scales2 and zero rows.
+  static __device__ __forceinline__ bool stages_scales(int s, int s_begin) {
+    return s == s_begin || s % kStepsPerGroup == 0;
+  }
+
+  // Start step s's copies into stage `st`.
+  static __device__ __forceinline__ void load(
+      uint8_t* st, int s, bool scales, const int8_t* __restrict__ xq,
+      const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
+      const int8_t* __restrict__ zr, int M, int n0, int N, int K) {
+    const int tid = threadIdx.x;
+    const int K2 = K / 2;
+    const int r0 = s * kKP;
+    const uint32_t a_s = smem_u32(st);
+    // xq: BM lines of 8 chunks; chunks 0-3 the low half's 64 k, 4-7 the
+    // high half's.
+    constexpr int kAChunks = BM * 8;
+#pragma unroll
+    for (int i = 0; i < (kAChunks + kThreads - 1) / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      if (kAChunks % kThreads != 0 && idx >= kAChunks) break;
+      const int row = idx >> 3;
+      const int c = idx & 7;
+      const bool ok = row < M;
+      const int8_t* src =
+          ok ? xq + (size_t)row * K + (c < 4 ? r0 : K2 + r0 - 64) + c * 16
+             : xq;
+      cp_async16(a_s + row * kLine + c * 16, src, ok ? 16 : 0);
+    }
+    // Packed weight: 64 rows of BN bytes, chunk c of row r at
+    // c ^ swz(r / R).
+    const uint32_t p_s = a_s + kABytes;
+#pragma unroll
+    for (int i = 0; i < kPBytes / 16 / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int row = idx / kChunks;
+      const int c = idx % kChunks;
+      cp_async16(p_s + row * BN + ((c ^ swz(row / R)) << 4),
+                 qw + (size_t)(r0 + row) * N + n0 + c * 16, 16);
+    }
+    // scales2 rows (glo, ghi), then zero rows (glo, ghi).
+    if (scales && tid < 4 * kChunks) {
+      const int glo = r0 / kGroup;
+      const int ghi = K2 / kGroup + glo;
+      const int h = tid / kChunks;
+      const int c = tid % kChunks;
+      const int8_t* src = (h < 2 ? s2 : zr)
+                          + (size_t)((h & 1) ? ghi : glo) * N + n0 + c * 16;
+      cp_async16(p_s + kPBytes + h * BN + c * 16, src, 16);
+    }
+  }
+
+  // The scales of this thread's columns 4 * (tid / kRowBlocks) .. + 3
+  // from the staged rows of stage `st`.
+  static __device__ __forceinline__ void load_group(const uint8_t* st,
+                                                    Scales& sc) {
+    if (kUnits < kThreads && threadIdx.x >= kUnits) return;
+    const int cu = threadIdx.x / kRowBlocks;
+    const uint8_t* sc_s = st + kABytes + kPBytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t sw =
+          *reinterpret_cast<const uint32_t*>(sc_s + h * BN + cu * 4);
+      const uint32_t zw =
+          *reinterpret_cast<const uint32_t*>(sc_s + (2 + h) * BN + cu * 4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = (int)(int8_t)(sw >> (8 * j));
+        const int z = (int)(int8_t)(zw >> (8 * j));
+        sc.s[h][j] = (uint32_t)s & 0xFFu;
+        sc.c[h][j] = ((uint32_t)(-z * s) & 0xFFu) * 0x00010001u;
+      }
+    }
+  }
+
+  // Dequantize the packed tile of stage `st` into the w8 lines `b_s`:
+  // thread u < kUnits takes packed rows R * rb .. + R - 1 (rb = u %
+  // kRowBlocks) of columns 4 * cu .. + 3 (cu = u / kRowBlocks) and
+  // writes, per column n, bytes R * rb .. + R - 1 (low half) and 64 +
+  // R * rb .. (high half) of line n.
+  static __device__ __forceinline__ void dequant(const uint8_t* st,
+                                                 uint8_t* b_s,
+                                                 const Scales& sc) {
+    const int tid = threadIdx.x;
+    if (kUnits < kThreads && tid >= kUnits) return;
+    const int rb = tid % kRowBlocks;
+    const int cu = tid / kRowBlocks;
+    const uint8_t* p_s = st + kABytes + (((cu >> 2) ^ swz(rb)) << 4)
+                         + ((cu & 3) << 2);
+    constexpr int Q = R / 4;          // k quads a unit
+    uint32_t lo[4][Q], hi[4][Q];      // [column][k quad]
+#pragma unroll
+    for (int i4 = 0; i4 < Q; ++i4) {
+      const int r = R * rb + 4 * i4;
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        w[i] = *reinterpret_cast<const uint32_t*>(p_s + (r + i) * BN);
+      }
+      // 4 x 4 byte transpose: t[j] byte i = w[i] byte j.
+      const uint32_t x0 = __byte_perm(w[0], w[1], 0x5140);
+      const uint32_t x1 = __byte_perm(w[0], w[1], 0x7362);
+      const uint32_t x2 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t x3 = __byte_perm(w[2], w[3], 0x7362);
+      const uint32_t t[4] = {__byte_perm(x0, x2, 0x5410),
+                             __byte_perm(x0, x2, 0x7632),
+                             __byte_perm(x1, x3, 0x5410),
+                             __byte_perm(x1, x3, 0x7632)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo[j][i4] = dequant4<0>(t[j], sc.s[0][j], sc.c[0][j]);
+        hi[j][i4] = dequant4<4>(t[j], sc.s[1][j], sc.c[1][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint8_t* line = b_s + (4 * cu + j) * kLine + R * rb;
+      if constexpr (Q == 4) {
+        *reinterpret_cast<uint4*>(line) =
+            make_uint4(lo[j][0], lo[j][1], lo[j][2], lo[j][3]);
+        *reinterpret_cast<uint4*>(line + kKP) =
+            make_uint4(hi[j][0], hi[j][1], hi[j][2], hi[j][3]);
+      } else {
+        *reinterpret_cast<uint2*>(line) = make_uint2(lo[j][0], lo[j][1]);
+        *reinterpret_cast<uint2*>(line + kKP) =
+            make_uint2(hi[j][0], hi[j][1]);
+      }
+    }
+  }
+
+  // acc += the step's xq lines `a_s` . w8 lines `b_s` over its 128 k:
+  // warp (wm, wn) owns rows wm * BM/WM .. and columns wn * BN/WN ..
+  static __device__ __forceinline__ void mma(Acc& acc, const uint8_t* a_s,
+                                             const uint8_t* b_s) {
+    constexpr int WTM = BM / WM;
+    constexpr int WTN = BN / WN;
+    constexpr int MT = WTM / 16;
+    constexpr int NT = WTN / 8;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;              // mma groupID
+    const int t = lane & 3;               // mma threadID_in_group
+    const int wm = warp / WN;
+    const int wn = warp % WN;
+#pragma unroll
+    for (int kc = 0; kc < 2 * kKP / 32; ++kc) {
+      const int k0 = kc * 32 + t * 4;
+      uint32_t a[MT][4];
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint8_t* ra = a_s + (wm * WTM + i * 16 + g) * kLine + k0;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(ra);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(ra + 8 * kLine);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(ra + 16);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(ra + 8 * kLine + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint8_t* cb = b_s + (wn * WTN + j * 8 + g) * kLine + k0;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(cb);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(cb + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) w4a8tl::mma_s8(acc[i][j], a[i], b[j]);
+    }
+  }
+
+  // f(row, col, v0, v1) for each pair of adjacent accumulators of the
+  // tile (columns col, col + 1; Tile::for_each_elem's layout) in a row
+  // below M.
+  template <class F>
+  static __device__ __forceinline__ void for_each_pair(const Acc& acc, int M,
+                                                       F&& f) {
+    constexpr int WTM = BM / WM;
+    constexpr int WTN = BN / WN;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int wm = warp / WN;
+    const int wn = warp % WN;
+#pragma unroll
+    for (int i = 0; i < WTM / 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int row = wm * WTM + i * 16 + (lane >> 2) + 4 * e;
+        if (row >= M) continue;
+#pragma unroll
+        for (int j = 0; j < WTN / 8; ++j) {
+          f(row, wn * WTN + j * 8 + 2 * (lane & 3), acc[i][j][e],
+            acc[i][j][e + 1]);
+        }
+      }
+    }
+  }
+
+  // out[row, n0 + col] = out_t(f32(v) * xs[row] * chan[n0 + col]), both
+  // products rounded, then round-to-nearest-even for bf16.
+  static __device__ __forceinline__ void store_pair(
+      void* __restrict__ out, const float* __restrict__ xs,
+      const float* __restrict__ chan, int N, int row, int col, int v0,
+      int v1, int out_bf16) {
+    const float sx = xs[row];
+    const float a = __fmul_rn(__fmul_rn(__int2float_rn(v0), sx), chan[col]);
+    const float b =
+        __fmul_rn(__fmul_rn(__int2float_rn(v1), sx), chan[col + 1]);
+    const size_t idx = (size_t)row * N + col;
+    if (out_bf16) {
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out)
+                                         + idx) = __floats2bfloat162_rn(a, b);
+    } else {
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+          make_float2(a, b);
+    }
+  }
+
+  // The epilogue of split blockIdx.z of gridDim.z, column tile n0 (see
+  // the header): kSplit false, one split, straight to out; else through
+  // part [gridDim.z, M, N] and counters[blockIdx.x] (zero on entry, zero
+  // again on return).
+  template <bool kSplit>
+  static __device__ __forceinline__ void finish(
+      const Acc& acc, const float* __restrict__ xs,
+      const float* __restrict__ chan, void* __restrict__ out,
+      int* __restrict__ part, int* __restrict__ counters, int n0, int M,
+      int N, int out_bf16) {
+    if constexpr (!kSplit) {
+      for_each_pair(acc, M, [&](int row, int col, int v0, int v1) {
+        store_pair(out, xs, chan, N, row, n0 + col, v0, v1, out_bf16);
+      });
+    } else {
+      const size_t plane = (size_t)M * N;
+      int* mine = part + blockIdx.z * plane + n0;
+      for_each_pair(acc, M, [&](int row, int col, int v0, int v1) {
+        *reinterpret_cast<int2*>(mine + (size_t)row * N + col) =
+            make_int2(v0, v1);
+      });
+      __shared__ int last;
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        last = atomicAdd(counters + blockIdx.x, 1) == (int)gridDim.z - 1;
+        if (last) counters[blockIdx.x] = 0;
+      }
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+      for_each_pair(acc, M, [&](int row, int col, int, int) {
+        const int* src = part + n0 + (size_t)row * N + col;
+        int s0 = 0, s1 = 0;
+        for (int z = 0; z < (int)gridDim.z; ++z) {
+          const int2 v =
+              __ldcg(reinterpret_cast<const int2*>(src + z * plane));
+          s0 += v.x;
+          s1 += v.y;
+        }
+        store_pair(out, xs, chan, N, row, n0 + col, s0, s1, out_bf16);
+      });
+    }
+  }
+
+  // acc += xq[0 .. M) . w8[:, n0 .. n0 + BN) over K steps [s_begin,
+  // s_end). xq is row-major int8 [M, K]; qw/s2/zr one weight ([K/2, N],
+  // [K/128, N] x2). `smem` is the block's dynamic shared memory (16-byte
+  // aligned, kSmemBytes).
+  static __device__ __forceinline__ void run(
+      Acc& acc, uint8_t* smem, const int8_t* __restrict__ xq,
+      const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
+      const int8_t* __restrict__ zr, int M, int n0, int N, int K,
+      int s_begin, int s_end) {
+    uint8_t* const w8[2] = {smem, smem + kBBytes};
+    uint8_t* const ring = smem + 2 * kBBytes;
+    const int n = s_end - s_begin;
+    auto stage = [&](int j) { return ring + (j % S) * kStageBytes; };
+    auto fetch = [&](int j) {
+      const int s = s_begin + j;
+      if (j < n) {
+        load(stage(j), s, stages_scales(s, s_begin), xq, qw, s2, zr, M, n0,
+             N, K);
+      }
+      cp_async_commit();
+    };
+
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) fetch(j);
+    Scales sc;
+    cp_async_wait<S - 2>();       // step 0's copies (this thread's)
+    __syncthreads();
+    load_group(stage(0), sc);
+    dequant(stage(0), w8[0], sc);
+
+    for (int j = 0; j + 1 < n; ++j) {
+      cp_async_wait<S - 3>();     // step j+1's copies
+      __syncthreads();            // ... everyone's; w8 of step j written;
+                                  // step j-1's reads done
+      fetch(j + S - 1);           // into step j-1's slot
+      if (stages_scales(s_begin + j + 1, s_begin)) {
+        load_group(stage(j + 1), sc);
+      }
+      // One basic block, the mma's shared loads first: the dequant's
+      // loads and arithmetic fill the mma's latencies.
+      mma(acc, stage(j), w8[j & 1]);
+      dequant(stage(j + 1), w8[(j + 1) & 1], sc);
+    }
+    __syncthreads();              // the last step's w8 written
+    mma(acc, stage(n - 1), w8[(n - 1) & 1]);
+    cp_async_wait<0>();
+  }
+};
+
+// One BM x BN tile of K split blockIdx.z (steps [z * per, (z+1) * per)),
+// grid (N / BN, 1, splits); kSplit: more than one split, summed through
+// part / counters (Stream::finish).
+template <int BM, int BN, int S, int kThreads, bool kSplit>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+              const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
+              const int8_t* __restrict__ zr, const float* __restrict__ chan,
+              void* __restrict__ out, int* __restrict__ part,
+              int* __restrict__ counters, int M, int N, int K, int per,
+              int out_bf16) {
+  using L = Stream<BM, BN, S, kThreads>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int n0 = blockIdx.x * BN;
+  const int nsteps = (K / 2) / kKP;
+  const int s_begin = blockIdx.z * per;
+  const int s_end = min(nsteps, s_begin + per);
+  typename L::Acc acc;
+  L::T::zero(acc);
+  L::run(acc, smem, xq, qw, s2, zr, M, n0, N, K, s_begin, s_end);
+  L::template finish<kSplit>(acc, xs, chan, out, part, counters, n0, M, N,
+                             out_bf16);
+}
+
+}  // namespace w4a8tl_stream

@@ -370,3 +370,261 @@ def test_packed_int8_dequant_identity(bn):
         assert np.abs(w8).max() <= 127
         want = np.concatenate([w8[:kp], w8[k // 2:k // 2 + kp]]).T  # [N, 128]
         np.testing.assert_array_equal(logical.view(np.int8), want)
+
+
+# The decode main loop (csrc/w4a8tl_stream.cuh) emulated in numpy, block by
+# block: kKP = 64 packed rows a K step, 144-byte padded lines, a ring of
+# _S stages (w4a8tl_gemm.cu's kDecodeStages), 128 or 256 threads: dequant
+# units of _R packed rows x 4 columns, _RB row blocks a K step.
+_KP, _LINE, _S = 64, 144, 4
+_R = _RB = None
+
+
+def _threads(threads):
+    """Stream<.., kThreads>'s unit rows R and row blocks."""
+    global _R, _RB
+    _R = 8 if threads == 256 else 16
+    _RB = _KP // _R
+
+
+def _warps(bm):
+    """Stream's warp grid (Warps<BM, kThreads>): (WM, WN)."""
+    threads = 256 if _R == 8 else 128
+    wm = 2 if threads == 256 and bm >= 32 else 1
+    return wm, threads // 32 // wm
+
+
+def _stream_load(st, s, scales, xq, qw, s2, zr, m, n0, k, bm, bn):
+    """Stream::load: the 16-byte chunks every thread's cp.async places in
+    stage `st` (flat uint8) for step s; rows >= m zero-filled."""
+    k2, r0, chunks = k // 2, s * _KP, bn // 16
+    b16 = np.arange(16)
+    idx = np.arange(bm * 8)                       # BM lines of 8 chunks
+    row, c = idx >> 3, idx & 7
+    src = row * k + np.where(c < 4, r0, k2 + r0 - 64) + c * 16
+    src = np.minimum(src[:, None] + b16, xq.size - 1)    # rows >= m: any
+    vals = np.where((row < m)[:, None], xq.reshape(-1)[src], 0)
+    st[(row * _LINE + c * 16)[:, None] + b16] = vals
+    a_bytes = bm * _LINE
+    idx = np.arange(_KP * chunks)                 # packed rows, swizzled
+    row, c = idx // chunks, idx % chunks
+    swz = ((row // _R) * (_R // 8)) & (chunks - 1)
+    dst = a_bytes + row * bn + ((c ^ swz) << 4)
+    st[dst[:, None] + b16] = qw[(r0 + row)[:, None],
+                                n0 + c[:, None] * 16 + b16]
+    if scales:
+        glo = r0 // 128
+        ghi = k2 // 128 + glo
+        sc = a_bytes + _KP * bn
+        for h, rows in enumerate((s2[glo], s2[ghi], zr[glo], zr[ghi])):
+            st[sc + h * bn:sc + (h + 1) * bn] = rows[n0:n0 + bn]
+
+
+def _stream_scales(st, bm, bn):
+    """Stream::load_group for the dequant's threads: scales2 bytes and
+    -z * s2 mod 256 in both 16-bit fields, per half and column."""
+    words = st.view("<u4")
+    cu = np.arange(_RB * bn // 4) // _RB
+    base = (bm * _LINE + _KP * bn) // 4
+    s_ = np.zeros((2, 4, cu.size), np.uint64)
+    c_ = np.zeros((2, 4, cu.size), np.uint64)
+    for h in range(2):
+        sw = words[base + (h * bn) // 4 + cu].astype(np.int64)
+        zw = words[base + ((2 + h) * bn) // 4 + cu].astype(np.int64)
+        for j in range(4):
+            s = (((sw >> (8 * j)) & 0xFF) ^ 0x80) - 0x80
+            z = (((zw >> (8 * j)) & 0xFF) ^ 0x80) - 0x80
+            s_[h, j] = s & 0xFF
+            c_[h, j] = ((-z * s) & 0xFF) * 0x00010001
+    return s_, c_
+
+
+def _stream_dequant(st, sc, bm, bn, w8):
+    """Stream::dequant: each unit's _R packed rows x 4 columns, 4 x 4 byte
+    transposes, dequant4 per half, _R-byte stores into lines `w8`."""
+    words = st.view("<u4")
+    out = w8.view("<u4")
+    tid = np.arange(_RB * bn // 4)
+    rb, cu = tid % _RB, tid // _RB
+    swz = (rb * (_R // 8)) & (bn // 16 - 1)
+    base = bm * _LINE + (((cu >> 2) ^ swz) << 4) + ((cu & 3) << 2)
+    mask = np.uint64(0x000F000F)
+    for i4 in range(_R // 4):
+        r = _R * rb + 4 * i4
+        w = [words[(base + (r + i) * bn) // 4] for i in range(4)]
+        x0, x1 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[0], w[1], 0x7362)
+        x2, x3 = _byte_perm(w[2], w[3], 0x5140), _byte_perm(w[2], w[3], 0x7362)
+        t = [_byte_perm(x0, x2, 0x5410), _byte_perm(x0, x2, 0x7632),
+             _byte_perm(x1, x3, 0x5410), _byte_perm(x1, x3, 0x7632)]
+        for j in range(4):
+            line = ((4 * cu + j) * _LINE + _R * rb) // 4 + i4
+            for h in range(2):
+                tj = t[j].astype(np.uint64)
+                e = (((tj >> np.uint64(4 * h)) & mask) * sc[0][h, j]
+                     + sc[1][h, j]) & 0xFFFFFFFF
+                o = (((tj >> np.uint64(4 * h + 8)) & mask) * sc[0][h, j]
+                     + sc[1][h, j]) & 0xFFFFFFFF
+                out[line + h * _KP // 4] = _byte_perm(
+                    e.astype(np.uint32), o.astype(np.uint32), 0x6240)
+
+
+def _stream_mma(acc, st, w8, bm, bn):
+    """Stream::mma: each lane's A and B fragment words read at the
+    kernel's shared-memory offsets, placed per mma.m16n8k32's fragment
+    layout, C added into acc [warp, MT, NT, lane, 4] likewise."""
+    wm_, wn_ = _warps(bm)
+    wtm, wtn = bm // wm_, bn // wn_
+    mt, nt = wtm // 16, wtn // 8
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    b4 = np.arange(4)
+    sb, wb = st.view(np.int8).astype(np.int64), w8.view(np.int8).astype(
+        np.int64)
+    for kc in range(4):
+        k0 = kc * 32 + t * 4
+        amat = np.zeros((wm_, mt, 16, 32), np.int64)
+        for wm in range(wm_):
+            for i in range(mt):
+                ra = (wm * wtm + i * 16 + g) * _LINE + k0
+                for roff, koff in ((0, 0), (8, 0), (0, 16), (8, 16)):
+                    v = sb[(ra + roff * _LINE + koff)[:, None] + b4]
+                    amat[wm, i, (g + roff)[:, None],
+                         koff + t[:, None] * 4 + b4] = v
+        bmat = np.zeros((wn_, nt, 32, 8), np.int64)
+        for wn in range(wn_):
+            for j in range(nt):
+                cb = (wn * wtn + j * 8 + g) * _LINE + k0
+                for koff in (0, 16):
+                    v = wb[(cb + koff)[:, None] + b4]
+                    bmat[wn, j, koff + t[:, None] * 4 + b4, g[:, None]] = v
+        for w in range(wm_ * wn_):
+            c = np.einsum("irk,jkn->ijrn", amat[w // wn_], bmat[w % wn_])
+            for e in range(4):
+                acc[w, ..., e] += c[:, :, g + 8 * (e >> 1), 2 * t + (e & 1)]
+
+
+def _stream_block(xq, qw, s2, zr, w8_full, m, n0, k, bm, bn, s_begin, s_end,
+                  rng):
+    """One block of decode_kernel: its main loop over steps [s_begin,
+    s_end), a ring and w8 buffers that start as garbage; asserts that each
+    step's w8 lines hold two_level_w8's columns. Returns the int sums
+    [BM, BN] by Tile::for_each_elem."""
+    wm_, wn_ = _warps(bm)
+    wtm, wtn = bm // wm_, bn // wn_
+    a_bytes = bm * _LINE
+    ring = rng.integers(0, 256, (_S, a_bytes + _KP * bn + 4 * bn), np.uint8)
+    w8 = rng.integers(0, 256, (2, bn * _LINE), np.uint8)
+    acc = np.zeros((wm_ * wn_, wtm // 16, wtn // 8, 32, 4), np.int64)
+    n = s_end - s_begin
+
+    def fetch(j):
+        s = s_begin + j
+        if j < n:
+            _stream_load(ring[j % _S], s, s == s_begin or s % 2 == 0, xq, qw,
+                         s2, zr, m, n0, k, bm, bn)
+
+    for j in range(_S - 1):
+        fetch(j)
+    sc = _stream_scales(ring[0], bm, bn)
+    _stream_dequant(ring[0], sc, bm, bn, w8[0])
+
+    def mma(j):
+        r0 = (s_begin + j) * _KP
+        want = np.concatenate([w8_full[r0:r0 + _KP, n0:n0 + bn],
+                               w8_full[k // 2 + r0:k // 2 + r0 + _KP,
+                                       n0:n0 + bn]]).T
+        lines = w8[j & 1].view(np.int8).reshape(bn, _LINE)[:, :2 * _KP]
+        np.testing.assert_array_equal(lines, want)
+        _stream_mma(acc, ring[j % _S], w8[j & 1], bm, bn)
+
+    for j in range(n - 1):
+        fetch(j + _S - 1)
+        if (s_begin + j + 1) % 2 == 0:
+            sc = _stream_scales(ring[(j + 1) % _S], bm, bn)
+        mma(j)
+        _stream_dequant(ring[(j + 1) % _S], sc, bm, bn, w8[(j + 1) & 1])
+    mma(n - 1)
+    tile = np.zeros((bm, bn), np.int64)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for w in range(wm_ * wn_):
+        wm, wn = w // wn_, w % wn_
+        for i in range(wtm // 16):
+            for j in range(wtn // 8):
+                for e in range(4):
+                    tile[wm * wtm + i * 16 + g + 8 * (e >> 1),
+                         wn * wtn + j * 8 + 2 * t + (e & 1)] = \
+                        acc[w, i, j, :, e]
+    return tile
+
+
+@pytest.mark.parametrize("threads", [128, 256])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("k", [256, 4096])
+@pytest.mark.parametrize("m", [1, 17, 64])
+def test_decode_stream_walk_matches_plain(m, k, bn, splits, threads):
+    """w4a8tl_decode's main loop and split-K epilogue (csrc/
+    w4a8tl_stream.cuh, csrc/w4a8tl_gemm.cu) emulated block by block in
+    numpy, at both thread counts: where cp.async places each 16-byte
+    chunk (xq lines, the swizzled packed tile, the scale rows only on a
+    split's first step and at group starts), the byte-perm dequant into
+    padded w8 lines, the mma.sync fragment reads, the split plan of the
+    launcher, the partial planes and the arrival counters. The lines must
+    equal two_level_w8, the splits' sums w4a8tl_plain's bit for bit, and
+    every output must be written once, by its tile's last arrival (or by
+    the one split), with the counters zero again."""
+    _threads(threads)
+    rng = np.random.default_rng(1000 * m + k + bn + splits + threads)
+    n = 3 * bn if bn == 64 else 2 * bn          # N = 192: N % 128 != 0
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64
+    q = rng.integers(0, 16, (k, n))
+    z = rng.integers(0, 16, (k // 128, n))
+    cap = 127 // np.maximum(z, 15 - z)
+    s2 = rng.integers(-127, 128, (k // 128, n))
+    s2 = np.clip(s2, -cap, cap)
+    qw = (q[:k // 2] | (q[k // 2:] << 4)).astype(np.uint8)
+    xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    p = tq.QuantLinearParams(
+        qweight=torch.from_numpy(qw),
+        scales=torch.ones(k // 128, n, dtype=torch.bfloat16),
+        zeros=torch.from_numpy(z.astype(np.int8)), bias=None,
+        in_features=k, out_features=n, group_size=128,
+        scales2=torch.from_numpy(s2.astype(np.int8)),
+        chan_scale=torch.from_numpy(rng.uniform(1e-3, 2e-3, (1, n)).astype(
+            np.float32)))
+    xs = torch.from_numpy(rng.uniform(0.5, 1.5, (m, 1)).astype(np.float32))
+    w8_full = tq.two_level_w8(p).numpy()
+    zr8, s28 = z.astype(np.int8).view(np.uint8), s2.astype(np.int8).view(
+        np.uint8)
+    xq8 = xq.view(np.uint8)
+    # the launcher's plan (decode<BM, BN, kThreads>)
+    nsteps = (k // 2) // _KP
+    per = -(-nsteps // min(splits, nsteps))
+    used = -(-nsteps // per)
+    part = rng.integers(-2 ** 31, 2 ** 31, (used, m, n))     # any contents
+    counters = np.zeros(n // bn, np.int64)
+    writes = np.zeros((m, n), np.int64)
+    out = torch.zeros(m, n, dtype=torch.float32)
+    for tile in range(n // bn):
+        n0 = tile * bn
+        cols = slice(n0, n0 + bn)
+        for zi in rng.permutation(used):            # arrival order
+            full = _stream_block(xq8, qw, s28, zr8, w8_full, m, n0, k, bm,
+                                 bn, zi * per, min(nsteps, zi * per + per),
+                                 rng)[:m]
+            if used > 1:
+                part[zi, :, cols] = full
+                counters[tile] += 1
+                if counters[tile] != used:
+                    continue
+                counters[tile] = 0
+                full = part[:, :, cols].sum(0)
+            writes[:, cols] += 1
+            out[:, cols] = (torch.from_numpy(full).to(torch.float32)
+                            * xs) * p.chan_scale[:, cols]
+    assert (writes == 1).all() and not counters.any()
+    acc = xq.astype(np.int64) @ w8_full.astype(np.int64)
+    assert np.abs(acc).max() < 2 ** 31
+    want = tqm.w4a8tl_plain(torch.from_numpy(xq), xs, p, torch.float32)
+    assert torch.equal(out, want)

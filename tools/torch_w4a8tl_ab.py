@@ -2,7 +2,10 @@
 """Time the PyTorch port's two-level w4a8 GEMMs of one source tree on a card.
 
     python3 tools/torch_w4a8tl_ab.py --tree DIR --label NAME
-        [--probe bn128|bn256 ...] [--ptxas] [--out FILE]
+        [--only KERNEL ...] [--sweep-splits S,S,...]
+        [--probe bn128|bn256|stages3|stages6|threads128|threads256|
+                 decode_bn64|decode_bn128|no_mma|no_dequant ...] [--ptxas]
+        [--out FILE]
 
 Imports `ferrum_tpu_torch` from DIR -- this checkout, or an older one
 unpacked with `git archive <commit> | tar -x -C build/<name>` (build/ is
@@ -11,8 +14,9 @@ activations made from fixed seeds (so two trees see the same inputs):
 
   w4a8tl_prefill,         llama-3.1-8b projections at m = 256 / 2048 /
   w4a8tl_prefill_mcache   8192, qwen3-30b-a3b qkv / o at m = 2048
-  w4a8tl_decode,          llama-3.1-8b projections at m = 32 (the serve
-  w4a8tl_gd_decode        phase's decode batch)
+  w4a8tl_decode,          llama-3.1-8b projections and qwen3-30b-a3b qkv /
+  w4a8tl_gd_decode        o at m = 1 / 32 / 64 (32: the serve phase's
+                          decode batch)
   moe_grouped             qwen3-30b-a3b gate / up / down expert stacks at
                           120 (16-row tiles) / 2048 / 16384 routed rows
                           (128-row tiles): the launch alone, on a tile map
@@ -20,16 +24,34 @@ activations made from fixed seeds (so two trees see the same inputs):
                           whole call, map included (`call_ms`)
 
 each required equal to its plain version (torch.equal), beside the
-card's bound and the library call (`torch._int_mm` on the int8 w8;
-`torch._grouped_mm` on the bf16 stack). Times are CUDA-event medians
-with the L2 flushed (chip_smoke.Timer). After the cases, one `layer`
-line per (kernel, m) sums the four llama projections, and one per row
-count sums the qwen3 layer's gate, up and down. To compare trees, run
-them alternately on one machine (A B B A).
+card's bound and the library call (`torch._int_mm` on the int8 w8, which
+takes m > 16 only; `torch._grouped_mm` on the bf16 stack). Times are
+CUDA-event medians with the L2 flushed (chip_smoke.Timer). After the
+cases, one `layer` line per (kernel, m) sums the four llama projections,
+and one per row count sums the qwen3 layer's gate, up and down. To
+compare trees, run them alternately on one machine (A B B A).
+
+--only KERNEL (repeatable) times that kernel's cases alone, skipping the
+others' and their plain versions; it also admits kernels the default run
+leaves out, the decode kernels' neighbours that share no code with the
+two-level ones but are held to their parent's times: moe_bmm (qwen3 gate
+/ up / down at t = 32), w4a8_decode (llama at m = 32) and w4a16_gemm
+(llama at m = 32 and 2048; within one bf16 step of its plain version).
+--sweep-splits adds to each w4a8tl_decode case `sweep`, its time at each
+given K split count (a tree whose wrapper takes `splits`). The
+w4a8tl_decode cases of such a tree carry `plan`, the launch its rule
+makes.
 
 --probe bn128 / bn256 adds `ms_<probe>` to the moe_grouped cases at
 128-row tiles: the launch on a copy of the tree's moe_gemm.cu built with
 its column-tile rule forced to 128 / 256 columns (where N allows).
+--probe stages3 / stages6 / threads128 / threads256 / decode_bn64 /
+decode_bn128 adds `ms_<probe>` to the w4a8tl_decode cases: a copy of
+w4a8tl_gemm.cu built with the decode ring's depth set to 3 / 6 stages,
+128 or 256 threads a block everywhere, or its column tiles forced to 64,
+or to 128 where N allows; no_mma / no_dequant times the loop with that
+part cut from every step but one (wrong results, not compared). A probe
+launches with the K split count the tree's own rule picks.
 --ptxas compiles the sources on the int8 wgmma main loop with `-Xptxas
 -v` and prints each kernel's registers and spills, and fails on a C7518
 (ptxas serialized a kernel's wgmma).
@@ -53,15 +75,52 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LLAMA = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
          "down": (14336, 4096)}
 PREFILL_M = (256, 2048, 8192)
-DECODE_M = 32
+DECODE_MS = (1, 32, 64)
 QWEN = {"qkv": (2048, 5120), "o": (4096, 2048)}
 QWEN_M = 2048
 MOE = {"gate": (2048, 768), "up": (2048, 768), "down": (768, 2048)}
 GROUPED_A = (120, 2048, 16384)
-# --probe: the column-tile rule of the grouped kernel at 128-row tiles.
-PROBES = {"bn128": "const bool wide = false;",
-          "bn256": "const bool wide = N % 256 == 0;"}
-WIDE_RULE = r"const bool wide = [^;]*;"
+BMM_T = 32
+PREFILL = ("w4a8tl_prefill", "w4a8tl_prefill_mcache")
+DECODE = ("w4a8tl_decode", "w4a8tl_gd_decode")
+DEFAULT = PREFILL + DECODE + ("moe_grouped",)
+NEIGHBOURS = ("moe_bmm", "w4a8_decode", "w4a16_gemm")
+# --probe: (library, file of csrc/ edited, the rule replaced, its
+# replacement, kernel timed, whether the probe computes the function).
+STREAM = "w4a8tl_stream.cuh"
+PROBES = {
+    "bn128": ("moe_gemm", "moe_gemm.cu", r"const bool wide = [^;]*;",
+              "const bool wide = false;", "moe_grouped", True),
+    "bn256": ("moe_gemm", "moe_gemm.cu", r"const bool wide = [^;]*;",
+              "const bool wide = N % 256 == 0;", "moe_grouped", True),
+    "stages3": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+                r"constexpr int kDecodeStages = \d+;",
+                "constexpr int kDecodeStages = 3;", "w4a8tl_decode", True),
+    "stages6": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+                r"constexpr int kDecodeStages = \d+;",
+                "constexpr int kDecodeStages = 6;", "w4a8tl_decode", True),
+    "threads128": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+                   r"const bool few = [^;]*;", "const bool few = true;",
+                   "w4a8tl_decode", True),
+    "threads256": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+                   r"const bool few = [^;]*;", "const bool few = false;",
+                   "w4a8tl_decode", True),
+    "decode_bn64": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+                    r"const bool narrow = [^;]*;", "const bool narrow = true;",
+                    "w4a8tl_decode", True),
+    "decode_bn128": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+                     r"const bool narrow = [^;]*;",
+                     "const bool narrow = a.N % 128 != 0;", "w4a8tl_decode",
+                     True),
+    # Cuts (wrong results, timed only): the decode loop without its
+    # mma, or without its dequant, on all steps but the first / last.
+    "no_mma": ("w4a8tl_gemm", STREAM,
+               r"\n      mma\(acc, stage\(j\), w8\[j & 1\]\);", "",
+               "w4a8tl_decode", False),
+    "no_dequant": ("w4a8tl_gemm", STREAM,
+                   r"\n      dequant\(stage\(j \+ 1\), w8\[\(j \+ 1\) "
+                   r"& 1\], sc\);", "", "w4a8tl_decode", False),
+}
 WGMMA_SOURCES = ("w4a8tl_gemm", "w4a8tl_mcache", "moe_gemm")
 
 
@@ -83,22 +142,21 @@ def emit(out, row):
             f.write(line + "\n")
 
 
-def dense_rows(torch, smoke, timer, args):
-    """The four dense two-level kernels, each case on one weight and one
-    activation shared by the kernels of its m; returns the llama rows."""
+def dense_rows(torch, smoke, timer, args, probe_libs):
+    """The selected dense two-level kernels, each case on one weight and
+    one activation shared by the kernels of its m; returns the rows."""
+    from ferrum_tpu_torch.ops.kernels import build
     from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
-    prefill = (("w4a8tl_prefill", qmm.w4a8tl_prefill),
-               ("w4a8tl_prefill_mcache", qmm.w4a8tl_prefill_mcache))
-    decode = (("w4a8tl_decode", qmm.w4a8tl_decode),
-              ("w4a8tl_gd_decode", qmm.w4a8tl_gd_decode))
-    cases = [("llama-3.1-8b", site, kn, (DECODE_M,) + PREFILL_M)
+    cases = [("llama-3.1-8b", site, kn, DECODE_MS + PREFILL_M)
              for site, kn in LLAMA.items()]
-    cases += [("qwen3-30b-a3b", site, kn, (QWEN_M,))
+    cases += [("qwen3-30b-a3b", site, kn, DECODE_MS + (QWEN_M,))
               for site, kn in QWEN.items()]
     rows = []
     for model, site, (k, n), ms in cases:
+        if not any(args.selected(kn) for kn in PREFILL + DECODE):
+            break
         p = smoke.make_gemm_weight(torch, k, n, gen)
         w8_cm = smoke.int_mm_weight(torch, p)
         wbytes = (p.qweight.nbytes + p.scales2.nbytes + p.zeros.nbytes
@@ -106,52 +164,164 @@ def dense_rows(torch, smoke, timer, args):
         for m in ms:
             x = torch.randn(m, k, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
+            kernels = [kn for kn in (DECODE if m <= 64 else PREFILL)
+                       if args.selected(kn)]
+            if not kernels:
+                continue
             xq, xs = qmm.quantize_activation_rows(x)
             want = qmm.w4a8tl_plain(xq, xs, p, torch.bfloat16)
             bound, by = smoke.bound_ms(
                 wbytes + xq.nbytes + xs.nbytes + 2 * m * n, 2.0 * m * k * n)
-            library_ms = timer(lambda: torch._int_mm(xq, w8_cm))
-            for kernel, fn in (decode if m == DECODE_M else prefill):
+            library_ms = timer(lambda: torch._int_mm(xq, w8_cm)) \
+                if m > 16 else None
+            for kernel in kernels:
+                fn = getattr(qmm, kernel)
                 got = fn(xq, xs, p, torch.bfloat16)
                 ms_ = timer(lambda: fn(xq, xs, p, torch.bfloat16))
-                again = fn(xq, xs, p, torch.bfloat16)
-                ok = bool(torch.equal(got, want)) \
-                    and bool(torch.equal(again, want))
                 row = {"tree": args.label, "kernel": kernel, "model": model,
                        "site": site, "m": m, "k": k, "n": n, "ms": ms_,
                        "library_ms": library_ms, "bound_ms": bound,
-                       "bound_by": by, "equal": ok}
+                       "bound_by": by}
+                ok = bool(torch.equal(got, want))
+                if kernel == "w4a8tl_decode" \
+                        and hasattr(qmm, "w4a8tl_decode_plan"):
+                    row["plan"] = qmm.w4a8tl_decode_plan(m, n, k)
+                if kernel == "w4a8tl_decode" and args.sweep_splits:
+                    row["sweep"] = {}
+                    for sp in args.sweep_splits:
+                        def call():
+                            return fn(xq, xs, p, torch.bfloat16, splits=sp)
+                        ok &= bool(torch.equal(call(), want))
+                        row["sweep"][sp] = timer(call)
+                if kernel == "w4a8tl_decode":
+                    saved = build._libs.get("w4a8tl_gemm")
+                    for probe, lib in probe_libs.items():
+                        if PROBES[probe][4] != kernel:
+                            continue
+                        build._libs["w4a8tl_gemm"] = lib
+                        if PROBES[probe][5]:
+                            ok &= bool(torch.equal(
+                                fn(xq, xs, p, torch.bfloat16), want))
+                        row[f"ms_{probe}"] = timer(
+                            lambda: fn(xq, xs, p, torch.bfloat16))
+                    build._libs["w4a8tl_gemm"] = saved
+                again = fn(xq, xs, p, torch.bfloat16)
+                row["equal"] = ok and bool(torch.equal(again, want))
                 emit(args.out, row)
                 rows.append(row)
-                if not ok:
+                if not row["equal"]:
                     raise AssertionError(f"{kernel} {site} m={m} differs")
         del p, w8_cm
         torch.cuda.empty_cache()
     return rows
 
 
-def probe_library(build, probe):
-    """The tree's moe_gemm library built from a copy of its sources with
-    the grouped kernel's column-tile rule replaced by PROBES[probe]."""
-    root = os.path.join(build.BUILD_ROOT, "probe", probe)
-    shutil.rmtree(root, ignore_errors=True)
-    csrc = os.path.join(root, "csrc")
-    shutil.copytree(build.CSRC, csrc)
-    path = os.path.join(csrc, "moe_gemm.cu")
-    with open(path) as f:
-        text, n = re.subn(WIDE_RULE, PROBES[probe], f.read(), count=1)
-    if n != 1:
-        raise RuntimeError(f"{probe}: no column-tile rule in {path}")
-    with open(path, "w") as f:
-        f.write(text)
-    so = os.path.join(root, "libmoe_gemm.so")
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, path],
-                   check=True)
-    lib = ctypes.CDLL(so)
-    for fn, argtypes in build.SIGNATURES["moe_gemm"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
+def neighbour_rows(torch, smoke, timer, args):
+    """moe_bmm, w4a8_decode and w4a16_gemm where --only names them; each
+    against its plain version (w4a16_gemm within one bf16 step)."""
+    from ferrum_tpu_torch.ops.kernels import moe_gemm
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    rows = []
+
+    def case(kernel, site, shape, fn, plain, exact, bound):
+        got, want = fn(), plain()
+        ms_ = timer(fn)
+        again = fn()
+        if exact:
+            ok = bool(torch.equal(got, want)) and bool(torch.equal(again,
+                                                                   want))
+        else:
+            ok = smoke.bf16_step_check(got, want)[0] \
+                and bool(torch.equal(again, got))
+        row = {"tree": args.label, "kernel": kernel, "site": site, **shape,
+               "ms": ms_, "bound_ms": bound[0], "bound_by": bound[1],
+               "equal" if exact else "within_bf16_step": ok}
+        emit(args.out, row)
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"{kernel} {site} {shape} differs")
+
+    if args.selected("moe_bmm"):
+        for site, (k, n) in MOE.items():
+            p = smoke.make_moe_stack(torch, k, n, gen)
+            bx = 1 if site != "down" else smoke.MOE_E
+            x = torch.randn(bx * BMM_T, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = qmm.quantize_activation_rows(x)
+            xq3, xs3 = xq.reshape(bx, BMM_T, k), xs.reshape(bx, BMM_T, 1)
+            case("moe_bmm", site, {"t": BMM_T, "k": k, "n": n},
+                 lambda: moe_gemm.quant_bmm_all_experts(
+                     xq3, xs3, p, torch.bfloat16),
+                 lambda: moe_gemm.bmm_plain(xq3, xs3, p, torch.bfloat16),
+                 True, smoke.bound_ms(
+                     smoke.stack_bytes(p, smoke.MOE_E) + xq3.nbytes
+                     + xs3.nbytes + 2 * smoke.MOE_E * BMM_T * n,
+                     2.0 * smoke.MOE_E * BMM_T * k * n))
+            del p
+            torch.cuda.empty_cache()
+    for kernel, ms in (("w4a8_decode", (32,)), ("w4a16_gemm", (32, 2048))):
+        if not args.selected(kernel):
+            continue
+        for site, (k, n) in LLAMA.items():
+            p = smoke.make_gemm_weight(torch, k, n, gen, two_level=False)
+            wbytes = p.qweight.nbytes + p.scales.nbytes + p.zeros.nbytes
+            for m in ms:
+                x = torch.randn(m, k, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                if kernel == "w4a8_decode":
+                    xq, xs = qmm.quantize_activation_rows(x)
+                    case(kernel, site, {"m": m, "k": k, "n": n},
+                         lambda: qmm.w4a8_decode(xq, xs, p, torch.bfloat16),
+                         lambda: qmm.w4a8_plain(xq, xs, p, torch.bfloat16),
+                         True, smoke.bound_ms(
+                             wbytes + xq.nbytes + xs.nbytes + 2 * m * n,
+                             2.0 * m * k * n))
+                else:
+                    case(kernel, site, {"m": m, "k": k, "n": n},
+                         lambda: qmm.w4a16_gemm(x, p),
+                         lambda: qmm.w4a16_plain(x, p), False,
+                         smoke.bound_ms(wbytes + x.nbytes + 2 * m * n,
+                                        2.0 * m * k * n,
+                                        smoke.BF16_FLOPS_PER_S))
+            del p
+            torch.cuda.empty_cache()
+    return rows
+
+
+def probe_libraries(build, probes):
+    """{probe: the tree's library of PROBES[probe]'s source, built from a
+    copy of its sources with the probe's rule replaced}, one nvcc process
+    a probe, all started together."""
+    procs = {}
+    for probe in probes:
+        source, fname, rule, repl = PROBES[probe][:4]
+        root = os.path.join(build.BUILD_ROOT, "probe", probe)
+        shutil.rmtree(root, ignore_errors=True)
+        csrc = os.path.join(root, "csrc")
+        shutil.copytree(build.CSRC, csrc)
+        path = os.path.join(csrc, fname)
+        with open(path) as f:
+            text, n = re.subn(rule, repl, f.read(), count=1)
+        if n != 1:
+            raise RuntimeError(f"{probe}: no rule {rule!r} in {path}")
+        with open(path, "w") as f:
+            f.write(text)
+        so = os.path.join(root, f"lib{source}.so")
+        procs[probe] = (so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so,
+             os.path.join(csrc, f"{source}.cu")]))
+    libs = {}
+    for probe, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"{probe}: nvcc exit {proc.returncode}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in build.SIGNATURES[PROBES[probe][0]].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[probe] = lib
+    return libs
 
 
 def ptxas_report(build, args):
@@ -215,6 +385,8 @@ def grouped_rows(torch, smoke, timer, args, probe_libs):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     rows = []
+    if not args.selected("moe_grouped"):
+        return rows
     for site, (k, n) in MOE.items():
         p = smoke.make_moe_stack(torch, k, n, gen)
         w_bf16 = dequantize(p, torch.bfloat16)
@@ -252,6 +424,8 @@ def grouped_rows(torch, smoke, timer, args, probe_libs):
             if row["bm"] == 128:
                 saved = build._libs.get("moe_gemm")
                 for probe, lib in probe_libs.items():
+                    if PROBES[probe][4] != "moe_grouped":
+                        continue
                     build._libs["moe_gemm"] = lib
                     ok &= bool(torch.equal(launch(), want))
                     row[f"ms_{probe}"] = timer(launch)
@@ -285,11 +459,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", required=True)
+    ap.add_argument("--only", action="append", default=[],
+                    choices=DEFAULT + NEIGHBOURS)
+    ap.add_argument("--sweep-splits", default="",
+                    type=lambda v: [int(s) for s in v.split(",") if s])
     ap.add_argument("--probe", action="append", default=[],
                     choices=sorted(PROBES))
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
+    args.selected = lambda kernel: kernel in (args.only or DEFAULT)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
     if not torch.cuda.is_available():
@@ -305,16 +484,22 @@ def main() -> int:
                     "card": smoke.smi_line()})
     if args.ptxas:
         ptxas_report(build, args)
-    probe_libs = {p: probe_library(build, p) for p in args.probe}
+    probe_libs = probe_libraries(build, [p for p in args.probe
+                                         if args.selected(PROBES[p][4])])
     timer = smoke.Timer(torch)
-    rows = dense_rows(torch, smoke, timer, args)
-    for kernel in ("w4a8tl_prefill", "w4a8tl_prefill_mcache",
-                   "w4a8tl_decode", "w4a8tl_gd_decode"):
-        for m in (DECODE_M,) + PREFILL_M:
+    rows = dense_rows(torch, smoke, timer, args, probe_libs)
+    for kernel in PREFILL + DECODE:
+        for m in DECODE_MS + PREFILL_M:
             layer_lines(args, rows, kernel, "m", m, tuple(LLAMA))
     rows = grouped_rows(torch, smoke, timer, args, probe_libs)
     for a in GROUPED_A:
         layer_lines(args, rows, "moe_grouped", "rows", a, tuple(MOE))
+    rows = neighbour_rows(torch, smoke, timer, args)
+    for kernel, key, at, sites in (("moe_bmm", "t", BMM_T, tuple(MOE)),
+                                   ("w4a8_decode", "m", 32, tuple(LLAMA)),
+                                   ("w4a16_gemm", "m", 32, tuple(LLAMA)),
+                                   ("w4a16_gemm", "m", 2048, tuple(LLAMA))):
+        layer_lines(args, rows, kernel, key, at, sites)
     return 0
 
 
