@@ -16,10 +16,12 @@ Phases, in order, each printing JSON lines:
              and the card's bound for the same work; then exact cases of
              their own: one-hot x for the w4a16 kernels, for the two
              two-level prefill kernels ragged m, the qwen3 sites, the
-             int32 range at K = 14336 and one-hot xq, for the two-level
-             decode kernel one-hot xq at m = 1 .. 64, the int32 range,
-             K = 256, one and the most K splits and N = 192 (64-column
-             tiles), its split-K counters zero after each, and for the
+             int32 range at K = 14336 and one-hot xq, for the two two-level
+             decode kernels one-hot xq at m = 1 .. 64, the int32 range,
+             K = 256, one, three (a split starting mid-group) and the
+             most K splits, N = 192 (64-column tiles) and the wrap case
+             at one and the most splits, the split-K counters zero after
+             each, and for the
              grouped two-level kernel at 128-row tiles one-hot xq, one
              expert, four experts, ragged rows and K = 256
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
@@ -66,6 +68,7 @@ carries `t_s`, the seconds since the script started.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -691,7 +694,9 @@ def two_level_weight(torch, k, n, gen, kind, experts=0):
     (q, z) in 0..15 x 0..15 (q = (n + k + e) % 16, z = (n / 16 + g + e) %
     16), scales2 from 1 up to the cap 127 // max(z, 15 - z) that keeps
     |w8| <= 127. "random": q and z uniform over 0..15, scales2 uniform
-    over 1 .. the cap."""
+    over 1 .. the cap. "wrap": q = z = 15, scales2 = 127, so every w8 is
+    0, while sum_g s2 * (xq . q) alone passes 2^31 at K = 14336 with xq =
+    127."""
     from ferrum_tpu_torch.ops.quant import QuantLinearParams
     dev = "cuda"
     g = k // 128
@@ -704,6 +709,10 @@ def two_level_weight(torch, k, n, gen, kind, experts=0):
         q = torch.where(torch.rand(e, k, n, generator=gen, device=dev) < 0.5,
                         6, 8)
         z = torch.full((e, g, n), 7, device=dev)
+        s2 = torch.full((e, g, n), 127, device=dev)
+    elif kind == "wrap":
+        q = torch.full((e, k, n), 15, device=dev)
+        z = torch.full((e, g, n), 15, device=dev)
         s2 = torch.full((e, g, n), 127, device=dev)
     elif kind == "onehot":
         q = (nn + kk + ei) % 16
@@ -785,32 +794,46 @@ def prefill_exact_cases(torch):
     return rows
 
 
-# The exact cases of the two-level decode kernel beyond the timed sites,
+# The exact cases of the two-level decode kernels beyond the timed sites,
 # (case, m, K, N, K splits; 0: the launcher's rule): one-hot xq at every
 # BM (16 / 32 / 64) and its edges, the int32 range at K = 14336, K = 256
 # (two K steps of 64 packed rows, fewer than the ring's 3 loads ahead),
-# one split and one per K step, N = 192 (64-column tiles).
+# one split and one per K step, 3 splits of 32 steps (steps 0, 11, 22:
+# one split starts mid-group), N = 192 (64-column tiles), and the wrap
+# case at K = 14336 (exact result 0) at one split and one per K step.
 DECODE_EXACT = tuple(("one-hot", m, 4096, 6144, 0)
                      for m in (1, 5, 16, 17, 32, 33, 64)) + (
     ("extreme", 64, 14336, 4096, 0), ("random", 32, 256, 768, 0),
     ("random", 32, 4096, 4096, 1), ("random", 32, 4096, 4096, 32),
-    ("random", 17, 4096, 192, 0))
+    ("random", 32, 4096, 4096, 3), ("random", 17, 4096, 192, 0),
+    ("wrap", 32, 14336, 4096, 1), ("wrap", 32, 14336, 4096, 112))
 
 
 def decode_exact_cases(torch, timer):
-    """w4a8tl_decode equal to w4a8tl_plain bit for bit on the
+    """Both two-level decode kernels, w4a8tl_decode (the w8 form) and
+    w4a8tl_gd_decode (the group-dot form), each equal to its own plain
+    version (w4a8tl_plain, w4a8tl_gd_plain) bit for bit on the
     DECODE_EXACT cases, in bf16 and f32 out, before and after its timed
     launches, with the stream's split-K counters all zero after each --
-    the check a chunk placement, dequant, fragment, ring, split or
-    epilogue fault cannot pass."""
+    the check a chunk placement, dequant or unpack, fragment, rescale,
+    ring, split or epilogue fault cannot pass."""
     from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
     from ferrum_tpu_torch.ops.quant import two_level_w8
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
+    kernels = (("w4a8tl_decode", qmm.w4a8tl_decode, qmm.w4a8tl_plain,
+                qmm.w4a8tl_decode_plan),
+               ("w4a8tl_gd_decode", qmm.w4a8tl_gd_decode,
+                qmm.w4a8tl_gd_plain, qmm.w4a8tl_gd_decode_plan))
     rows = []
     for case, m, k, n, splits in DECODE_EXACT:
         xs = torch.rand(m, 1, generator=gen, device="cuda") + 0.5
-        if case == "extreme":
+        if case == "wrap":
+            p = two_level_weight(torch, k, n, gen, "wrap")
+            xq = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+            if qmm.w4a8tl_gd_plain(xq, xs, p, torch.float32).any():
+                raise AssertionError("the wrap case's exact result is 0")
+        elif case == "extreme":
             p = two_level_weight(torch, k, n, gen, "extreme")
             sign = torch.where(two_level_w8(p) > 0, 1, -1)       # [K, N]
             cols = torch.arange(m, device="cuda") % n
@@ -825,10 +848,11 @@ def decode_exact_cases(torch, timer):
             p = two_level_weight(torch, k, n, gen, "random")
             xq = torch.randint(-127, 128, (m, k), generator=gen,
                                device="cuda").to(torch.int8)
-        for out_dtype in (torch.bfloat16, torch.float32):
+        for (kernel, fn, plain, plan), out_dtype in itertools.product(
+                kernels, (torch.bfloat16, torch.float32)):
             def launch():
-                return qmm.w4a8tl_decode(xq, xs, p, out_dtype, splits=splits)
-            want = qmm.w4a8tl_plain(xq, xs, p, out_dtype)
+                return fn(xq, xs, p, out_dtype, splits=splits)
+            want = plain(xq, xs, p, out_dtype)
             got = launch()
             ms_ = timer(launch)
             again = launch()
@@ -837,10 +861,9 @@ def decode_exact_cases(torch, timer):
             _, scratch = qmm._SCRATCH.get(
                 (stream.device_index, stream.cuda_stream),
                 (0, torch.zeros(1)))
-            row = {"kernel": "w4a8tl_decode", "case": case, "m": m, "k": k,
-                   "n": n, "out": str(out_dtype).split(".")[-1],
-                   "plan": qmm.w4a8tl_decode_plan(m, n, k, splits),
-                   "kernel_ms": ms_,
+            row = {"kernel": kernel, "case": case, "m": m, "k": k, "n": n,
+                   "out": str(out_dtype).split(".")[-1],
+                   "plan": plan(m, n, k, splits), "kernel_ms": ms_,
                    "equal": bool(torch.equal(got, want))
                    and bool(torch.equal(again, want)),
                    "outputs_differing": int((got != want).sum().item()),
@@ -848,8 +871,7 @@ def decode_exact_cases(torch, timer):
             rows.append(row)
             emit({"phase": "kernel_case", **row})
             if not row["equal"] or not row["scratch_zero"]:
-                raise AssertionError(f"w4a8tl_decode {case} {m}x{k}x{n}: "
-                                     f"{row}")
+                raise AssertionError(f"{kernel} {case} {m}x{k}x{n}: {row}")
         del p, xq, xs, want, got, again
     torch.cuda.empty_cache()
     return rows

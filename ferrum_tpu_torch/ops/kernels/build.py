@@ -46,6 +46,7 @@ SIGNATURES = {
     "w4a8tl_gd": {
         "ferrum_w4a8tl_gd_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P],
+        "ferrum_w4a8tl_gd_decode_plan": [_I, _I, _I, _I, _P],
     },
     "w4a8tl_mcache": {
         "ferrum_w4a8tl_prefill_mcache": [_P, _P, _P, _P, _P, _P, _P,

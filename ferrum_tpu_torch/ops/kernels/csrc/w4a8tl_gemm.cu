@@ -31,7 +31,8 @@
 // dequant of step s+1 and the mma.sync of step s overlapping it, one
 // barrier a step, 128 columns a block (64 for small weights or where
 // N % 128 != 0) and all of m. Decode has few output tiles per call, so
-// it splits K across blockIdx.z -- the count chosen here, so the blocks
+// it splits K across blockIdx.z -- the count chosen by the header's
+// launcher (shared with w4a8tl_gd.cu's group-dot form), so the blocks
 // fill the resident slots in whole waves -- each split storing its int32
 // partial sums in a plane of its own; the block that finishes a tile
 // last (a per-tile arrival counter, left zeroed) sums the planes
@@ -42,141 +43,19 @@
 // chan[n], in that order, then round-to-nearest-even to bf16 (or f32
 // output).
 
-#include <atomic>
 #include <cstdint>
 
 #include "w4a8tl_stream.cuh"
 #include "w4a8tl_wgmma.cuh"
 
-namespace {
+using w4a8tl_stream::decode_any;
 
-constexpr int kDecodeStages = 4;
-// The split count's cost model, in K steps of one block: a block's fixed
-// cost (ring fill, epilogue), and the split-K partial sums whose stores
-// and loads take a step's time (each split adds M x N of them).
-constexpr double kBlockSteps = 2;
-constexpr double kPartialsPerStep = 1e6;
-// Packed weights of at most this many bytes take 64-column tiles.
-constexpr long kNarrowBytes = 16L << 20;
-
-// The arguments of a decode launch. plan: when not null, the launch is
-// not made and plan[0..6] get BM, BN, threads, stages, splits, K steps
-// per split and resident blocks per SM.
-struct DecodeArgs {
-  const void *xq, *xs, *qw, *s2, *z, *chan;
-  void* out;
-  int *part, *counters;
-  int M, N, K, splits, out_bf16;
-  cudaStream_t st;
-  int* plan;
-};
-
-// The split count: the fewest of those with the least waves * (steps a
-// split + kBlockSteps) + splits * M * N / kPartialsPerStep (one split:
-// no partials), for `tiles` column tiles of BN and `nsteps` K steps on
-// `slots` resident blocks.
-int decode_splits(int M, int BN, int tiles, int nsteps, int slots) {
-  int best = 1;
-  double best_cost = -1;
-  for (int s = 1; s <= nsteps; ++s) {
-    const int per = (nsteps + s - 1) / s;
-    if ((nsteps + per - 1) / per != s) continue;
-    const int waves = (tiles * s + slots - 1) / slots;
-    const double cost = waves * (per + kBlockSteps)
-        + (s > 1 ? (double)s * M * BN * tiles / kPartialsPerStep : 0.0);
-    if (best_cost < 0 || cost < best_cost) {
-      best = s;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-template <int BM, int BN, int kThreads>
-int decode(const DecodeArgs& a) {
-  constexpr int S = kDecodeStages;
-  using L = w4a8tl_stream::Stream<BM, BN, S, kThreads>;
-  const auto split_k =
-      w4a8tl_stream::decode_kernel<BM, BN, S, kThreads, true>;
-  const auto whole =
-      w4a8tl_stream::decode_kernel<BM, BN, S, kThreads, false>;
-  // The shared-memory limit is raised once per device (the launch is on
-  // every decode projection's path; the host holds the serve loop).
-  static std::atomic<uint64_t> ready{0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(ready.load() & bit)) {
-    for (auto kernel : {split_k, whole}) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
-      if (e != cudaSuccess) return (int)e;
-    }
-    ready.fetch_or(bit);
-  }
-  static const int per_sm = [&] {
-    int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, split_k, kThreads, L::kSmemBytes);
-    return b > 0 ? b : 1;
-  }();
-  const int nsteps = (a.K / 2) / w4a8tl_stream::kKP;
-  const int tiles = a.N / BN;
-  int splits = a.splits > 0 ? min(a.splits, nsteps)
-      : decode_splits(a.M, BN, tiles, nsteps,
-                      w4a8tl_wgmma::num_sms() * per_sm);
-  const int per = (nsteps + splits - 1) / splits;
-  splits = (nsteps + per - 1) / per;        // every split gets steps
-  if (a.plan) {
-    const int plan[7] = {BM, BN, kThreads, S, splits, per, per_sm};
-    for (int i = 0; i < 7; ++i) a.plan[i] = plan[i];
-    return (int)cudaSuccess;
-  }
-  const auto kernel = splits > 1 ? split_k : whole;
-  kernel<<<dim3(tiles, 1, splits), kThreads, L::kSmemBytes, a.st>>>(
-      static_cast<const int8_t*>(a.xq), static_cast<const float*>(a.xs),
-      static_cast<const uint8_t*>(a.qw), static_cast<const int8_t*>(a.s2),
-      static_cast<const int8_t*>(a.z), static_cast<const float*>(a.chan),
-      a.out, a.part, a.counters, a.M, a.N, a.K, per, a.out_bf16);
-  return (int)cudaGetLastError();
-}
-
-// 128 threads where the column tiles alone fill the SMs (the rows of a
-// block's mma on fewer warps); 256 elsewhere (twice the warps to cover
-// the dequant's and the copies' latencies).
-template <int BM, int BN>
-int decode_threads(const DecodeArgs& a) {
-  const bool few = a.N / BN >= w4a8tl_wgmma::num_sms();
-  return few ? decode<BM, BN, 128>(a) : decode<BM, BN, 256>(a);
-}
-
-template <int BN>
-int decode_bm(const DecodeArgs& a) {
-  return a.M <= 16 ? decode_threads<16, BN>(a)
-       : a.M <= 32 ? decode_threads<32, BN>(a)
-                   : decode_threads<64, BN>(a);
-}
-
-int decode_any(const DecodeArgs& a) {
-  if (a.M < 1 || a.M > 64 || a.K % 256 || a.N % 64) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // 64 columns where N % 128 != 0, or where the packed weight is small:
-  // there the fixed costs of a launch and a split dominate, and twice the
-  // column tiles (at half the shared memory: 4 resident blocks an SM, not
-  // 2) fill the SMs with fewer K splits.
-  const bool narrow = a.N % 128 != 0 || (long)a.K / 2 * a.N <= kNarrowBytes;
-  return narrow ? decode_bm<64>(a) : decode_bm<128>(a);
-}
-
-}  // namespace
-
-// Decode tiles (w4a8tl_stream.cuh): all M rows (BM = 16 / 32 / 64) x 128
-// columns (64 where N % 128 != 0 or K/2 x N <= 16 MiB), 64 packed rows
-// (128 k) per K step; K split across blockIdx.z into `splits` parts (0:
-// the count chosen here; at most one split per K step;
-// ferrum_w4a8tl_decode_plan gives the count a launch takes). With more
-// than one split, `ws` is int32 [splits, M, N] of any contents (the
+// Decode tiles (w4a8tl_stream.cuh, its w8 form and launcher): all M rows
+// (BM = 16 / 32 / 64) x 128 columns (64 where N % 128 != 0 or K/2 x N <=
+// 16 MiB), 64 packed rows (128 k) per K step; K split across blockIdx.z
+// into `splits` parts (0: the launcher's count; at most one split per K
+// step; ferrum_w4a8tl_decode_plan gives the count a launch takes). With
+// more than one split, `ws` is int32 [splits, M, N] of any contents (the
 // splits' partial sums) and `counters` (int32, one per column tile: N /
 // 64 suffice) caller-owned scratch that must be all zero on entry and is
 // all zero again on return, so one serves every call on a stream; with
@@ -189,9 +68,11 @@ extern "C" int ferrum_w4a8tl_decode(const void* xq, const void* xs,
                                     void* ws, void* counters, int M, int N,
                                     int K, int splits, int out_bf16,
                                     void* stream) {
-  return decode_any({xq, xs, qw, s2, z, chan, out, static_cast<int*>(ws),
-                     static_cast<int*>(counters), M, N, K, splits, out_bf16,
-                     static_cast<cudaStream_t>(stream), nullptr});
+  return decode_any<false>({xq, xs, qw, s2, z, chan, out,
+                            static_cast<int*>(ws),
+                            static_cast<int*>(counters), M, N, K, splits,
+                            out_bf16, static_cast<cudaStream_t>(stream),
+                            nullptr});
 }
 
 // The launch ferrum_w4a8tl_decode would make for (M, N, K, splits),
@@ -199,9 +80,9 @@ extern "C" int ferrum_w4a8tl_decode(const void* xq, const void* xs,
 // steps per split, resident blocks per SM. Returns a cudaError_t.
 extern "C" int ferrum_w4a8tl_decode_plan(int M, int N, int K, int splits,
                                          int* plan) {
-  return decode_any({nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, nullptr, M, N, K, splits, 0, nullptr,
-                     plan});
+  return decode_any<false>({nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, M, N, K,
+                            splits, 0, nullptr, plan});
 }
 
 // Prefill tiles (w4a8tl_wgmma.cuh): 128 rows x 256 columns, or 128 where

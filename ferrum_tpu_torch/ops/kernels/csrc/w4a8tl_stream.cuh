@@ -1,19 +1,27 @@
-// The two-level w4a8 decode GEMM's main loop on Hopper (sm_90a): one
+// The two-level w4a8 decode GEMMs' main loop on Hopper (sm_90a): one
 // block's int32 tile of  acc[m, n] = sum_k xq[m, k] * w8[k, n],
 //   w8[k, n] = (q[k, n] - zeros[g(k), n]) * scales2[g(k), n],  g(k) = k / 128,
-// over the K steps of one split, for m <= 64 (w4a8tl_gemm.cu's
-// ferrum_w4a8tl_decode; it replaces the TPU kernel
-// ferrum_tpu/ops/pallas/quant_matmul.py:601 _qmm_w4a8tl_mxu_kernel). q is
-// packed int4 in GLOBAL HALVES (ops/quant.py): byte row r of qweight [K/2,
-// N] holds row r in its low nibble and row K/2 + r in its high nibble.
-// |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31 for K <= 14336:
-// the int32 sums are exact, in any order.
+// over the K steps of one split, for m <= 64, and the launcher that plans
+// the tiles, threads and K splits. Two forms of the same function:
+//  - kGD false, the w8 form: w4a8tl_gemm.cu's ferrum_w4a8tl_decode
+//    (replaces ferrum_tpu/ops/pallas/quant_matmul.py:601
+//    _qmm_w4a8tl_mxu_kernel). The packed tile is dequantized to w8.
+//  - kGD true, the group-dot form: w4a8tl_gd.cu's ferrum_w4a8tl_gd_decode
+//    (replaces quant_matmul.py:543 _qmm_w4a8tl_gd_kernel). The raw
+//    nibbles q go into the mma, and each half step's dot is rescaled on
+//    the output side:  acc += s2 * (xq . q) - (sum_k xq) * (s2 * z).
+// q is packed int4 in GLOBAL HALVES (ops/quant.py): byte row r of qweight
+// [K/2, N] holds row r in its low nibble and row K/2 + r in its high
+// nibble. |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31 for
+// K <= 14336: the int32 sums are exact, in any order. The group-dot
+// rescale runs in unsigned 32-bit arithmetic (mma.sync has no
+// .satfinite), so it is modular and its sum is the same integer.
 //
 // At decode m the packed weight is streamed once for ~2m int8 ops a byte,
 // so the loop has to keep HBM busy: enough bytes in flight per SM and the
-// per-byte work (the dequant) off the copies' path. Built from parts the
-// prefill loop (w4a8tl_wgmma.cuh) and the shared tile (w4a8tl_tile.cuh)
-// already run:
+// per-byte work (the dequant, or the unpack) off the copies' path. Built
+// from parts the prefill loop (w4a8tl_wgmma.cuh) and the shared tile
+// (w4a8tl_tile.cuh) already run:
 //  - 256 threads (8 warps, 2 x 4 over the tile, 1 x 8 where BM = 16) or
 //    128 (1 x 4), as the launcher picks; BM = 16 / 32 / 64 rows (all of
 //    m: grid y is 1), BN = 64 or 128 columns.
@@ -38,29 +46,52 @@
 //    R = 8 packed rows (16 at 128 threads) x 4 columns: four 32-bit loads
 //    per 4 rows, a 4 x 4 byte transpose by __byte_perm, then per column
 //    and nibble half q * s + (-z * s mod 256) in two 16-bit lanes
-//    (dequant4), one R-byte store per column and half.
+//    (dequant4), one R-byte store per column and half. The group-dot
+//    form's unpack takes the same units, loads and transpose and stores
+//    the raw nibbles, t & 0x0F0F0F0F and (t >> 4) & 0x0F0F0F0F.
 //  - mma.sync m16n8k32 s8 x s8 -> s32 on the xq lines (A) and the w8
-//    lines (B), the fragment arithmetic of w4a8tl::Tile::mma_half.
+//    lines (B), the fragment arithmetic of w4a8tl::Tile::mma_half. The
+//    group-dot form runs each half (two of the four 32-k chunks) into a
+//    `dot` fragment of its own, and rescales modulo 2^32: acc += dot * s2
+//    -- every step (the first chunk's mma with a zero accumulator), or,
+//    at BN 128, once a group on dots kept over its steps (the shared
+//    memory already holds an SM to 2 such blocks, so the registers are
+//    free) -- and acc -= sx * (s2 * z) once a group. s2 and s2 * z of
+//    the fragment's columns sit in registers (read on the step that
+//    staged them: a group's first step, or the split's); each lane's part
+//    of sx = sum_k xq of the fragment's rows comes from the A fragments
+//    already in registers (dp4a) and is summed over the mma group's 4
+//    lanes by two shuffles once a group: no shared array, no extra
+//    barrier. The multiply-adds bind (64 a clock an SM): at m = 32 this
+//    way takes ~9% of the layer, against ~14% when every rescale runs
+//    every step (tools/torch_w4a8tl_ab.py's gd_* probes).
 //  - Step j, one barrier: wait for step j+1's copies; barrier (step j's
 //    w8 written, step j-1's reads done); start step j+S-1's copies into
 //    step j-1's slot; mma on step j and, in the same basic block so the
-//    two interleave, dequantize step j+1 into the w8 buffer step j-1
-//    read. Copies, dequant and mma overlap.
+//    two interleave, dequantize (unpack) step j+1 into the w8 buffer
+//    step j-1 read. Copies, dequant and mma overlap.
 //  - Split-K epilogue (`finish`): each split stores its int32 partial
 //    sums of the tile's rows below M, as they lie in the mma fragments
 //    (8-byte stores), into its own plane of part [splits, M, N]; the
 //    tile's last arrival (counted in counters, which it leaves zeroed)
 //    sums the planes and writes f32(acc) * xs[m] * chan[n] -- integer
 //    sums, so exact in any order. Plain stores and loads: integer atomics
-//    into one [M, N] plane (w4a8tl::Tile::finish) cost ~8 us per million
-//    on the H100, a third of a small projection's time. One split: the
-//    block writes the output straight from its fragments.
+//    into one [M, N] plane cost ~8 us per million on the H100, a third
+//    of a small projection's time. One split: the block writes the
+//    output straight from its fragments.
+//  - The launcher (`decode_any`): BN 64 where N % 128 != 0 or the packed
+//    weight is small, else 128; 128 threads where the column tiles alone
+//    fill the SMs, else 256; K splits so the blocks fill the resident
+//    slots in whole waves. Each form keeps its own shared-memory
+//    attribute and occupancy (their registers differ).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "w4a8tl_tile.cuh"    // accumulator layout, mma_s8
 #include "w4a8tl_wgmma.cuh"   // cp.async, dequant4
@@ -77,6 +108,13 @@ constexpr int kGroup = 128;
 constexpr int kKP = 64;               // packed rows per K step (128 k)
 constexpr int kStepsPerGroup = kGroup / kKP;
 constexpr int kLine = 2 * kKP + 16;   // one padded K-major line, bytes
+// The group-dot form's rules. kGdPerGroupMinBN: the dot of both halves
+// is kept over a group's steps and rescaled once a group where BN is at
+// least this (and the extra accumulators fit), else rescaled every step.
+// kGdLateCorrection: the zero correction -sx * (s2 * z) once a group (the
+// row sums kept over its steps), else every step.
+constexpr int kGdPerGroupMinBN = 128;
+constexpr bool kGdLateCorrection = true;
 
 // The block's kThreads / 32 warps over the BM x BN tile: 1 x 4 at 128
 // threads; 2 x 4 at 256, or 1 x 8 where BM = 16.
@@ -86,7 +124,9 @@ struct Warps {
   static constexpr int WN = kThreads / 32 / WM;
 };
 
-template <int BM, int BN, int S, int kThreads>
+// kGD: the group-dot form (raw nibbles into the mma, the scales on the
+// output side); else the w8 form.
+template <int BM, int BN, int S, int kThreads, bool kGD>
 struct Stream {
   static_assert(BM == 16 || BM == 32 || BM == 64, "BM is 16, 32 or 64");
   static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
@@ -98,6 +138,10 @@ struct Stream {
   // The accumulator layout of the shared tile.
   using T = w4a8tl::Tile<BM, BN, kKP, WM, WN>;
   using Acc = typename T::Acc;
+  static constexpr int WTM = BM / WM;           // warp tile
+  static constexpr int WTN = BN / WN;
+  static constexpr int MT = WTM / 16;           // m16 tiles a warp
+  static constexpr int NT = WTN / 8;            // n8 tiles a warp
   static constexpr int kChunks = BN / 16;       // chunks per packed row
   static constexpr int kABytes = BM * kLine;    // xq lines
   static constexpr int kPBytes = kKP * BN;      // packed weight tile
@@ -105,6 +149,11 @@ struct Stream {
   static constexpr int kStageBytes = kABytes + kPBytes + kScBytes;
   static constexpr int kBBytes = BN * kLine;    // w8 lines, per buffer
   static constexpr int kSmemBytes = 2 * kBBytes + S * kStageBytes;
+  // The group-dot dot rescaled once a group, and the zero correction
+  // once a group (see kGdPerGroupMinBN, kGdLateCorrection).
+  static constexpr bool kPerGroup =
+      kGD && BN >= kGdPerGroupMinBN && MT * NT <= 8;
+  static constexpr bool kLateCorrection = kPerGroup || kGdLateCorrection;
   // Dequant units: R packed rows x 4 columns, one a thread (R = 16 at
   // 128 threads, 8 at 256); threads past kUnits idle in the dequant.
   static constexpr int R = kThreads == 256 ? 8 : 16;
@@ -116,6 +165,13 @@ struct Stream {
   struct Scales {
     uint32_t s[2][4];
     uint32_t c[2][4];
+  };
+
+  // The group-dot form's scales at this lane's accumulator columns
+  // wn * WTN + j * 8 + 2t + e, both halves: scales2 and scales2 * zeros.
+  struct ColScales {
+    uint32_t s2[2][NT][2];
+    uint32_t s2z[2][NT][2];
   };
 
   // The XOR of a packed-tile chunk index in rows R * rb .. + R - 1: the
@@ -200,14 +256,41 @@ struct Stream {
     }
   }
 
-  // Dequantize the packed tile of stage `st` into the w8 lines `b_s`:
-  // thread u < kUnits takes packed rows R * rb .. + R - 1 (rb = u %
-  // kRowBlocks) of columns 4 * cu .. + 3 (cu = u / kRowBlocks) and
-  // writes, per column n, bytes R * rb .. + R - 1 (low half) and 64 +
-  // R * rb .. (high half) of line n.
-  static __device__ __forceinline__ void dequant(const uint8_t* st,
-                                                 uint8_t* b_s,
-                                                 const Scales& sc) {
+  // The columns' scales of the group-dot rescale from the staged rows of
+  // stage `st` (the lane's columns: see ColScales).
+  static __device__ __forceinline__ void load_cols(const uint8_t* st,
+                                                   ColScales& cs) {
+    const int wn = (threadIdx.x >> 5) % WN;
+    const int t = threadIdx.x & 3;
+    const uint8_t* sc_s = st + kABytes + kPBytes + wn * WTN + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t sw =
+            *reinterpret_cast<const uint16_t*>(sc_s + h * BN + j * 8);
+        const uint32_t zw =
+            *reinterpret_cast<const uint16_t*>(sc_s + (2 + h) * BN + j * 8);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s2 = (int)(int8_t)(sw >> (8 * e));
+          const int z = (int)(int8_t)(zw >> (8 * e));
+          cs.s2[h][j][e] = (uint32_t)s2;
+          cs.s2z[h][j][e] = (uint32_t)(s2 * z);
+        }
+      }
+    }
+  }
+
+  // The packed tile of stage `st` into the lines `b_s`: thread u <
+  // kUnits takes packed rows R * rb .. + R - 1 (rb = u % kRowBlocks) of
+  // columns 4 * cu .. + 3 (cu = u / kRowBlocks), 4 x 4 byte transposes
+  // t[j] (byte i: packed row r + i of column j), and writes per column n,
+  // bytes R * rb .. + R - 1 (low half) and 64 + R * rb .. (high half) of
+  // line n: f(t[j], j, lo, hi) gives the low and high half's 4 bytes.
+  template <class F>
+  static __device__ __forceinline__ void convert(const uint8_t* st,
+                                                 uint8_t* b_s, F&& f) {
     const int tid = threadIdx.x;
     if (kUnits < kThreads && tid >= kUnits) return;
     const int rb = tid % kRowBlocks;
@@ -234,10 +317,7 @@ struct Stream {
                              __byte_perm(x1, x3, 0x5410),
                              __byte_perm(x1, x3, 0x7632)};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lo[j][i4] = dequant4<0>(t[j], sc.s[0][j], sc.c[0][j]);
-        hi[j][i4] = dequant4<4>(t[j], sc.s[1][j], sc.c[1][j]);
-      }
+      for (int j = 0; j < 4; ++j) f(t[j], j, lo[j][i4], hi[j][i4]);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -255,44 +335,153 @@ struct Stream {
     }
   }
 
-  // acc += the step's xq lines `a_s` . w8 lines `b_s` over its 128 k:
-  // warp (wm, wn) owns rows wm * BM/WM .. and columns wn * BN/WN ..
-  static __device__ __forceinline__ void mma(Acc& acc, const uint8_t* a_s,
-                                             const uint8_t* b_s) {
-    constexpr int WTM = BM / WM;
-    constexpr int WTN = BN / WN;
-    constexpr int MT = WTM / 16;
-    constexpr int NT = WTN / 8;
+  // Dequantize the packed tile of stage `st` into the w8 lines `b_s`
+  // (the thread's columns' scales `sc`, load_group's).
+  static __device__ __forceinline__ void dequant(const uint8_t* st,
+                                                 uint8_t* b_s,
+                                                 const Scales& sc) {
+    convert(st, b_s, [&](uint32_t t, int j, uint32_t& lo, uint32_t& hi) {
+      lo = dequant4<0>(t, sc.s[0][j], sc.c[0][j]);
+      hi = dequant4<4>(t, sc.s[1][j], sc.c[1][j]);
+    });
+  }
+
+  // The group-dot form's unpack: the raw nibbles 0..15 of the packed tile
+  // of stage `st` into the lines `b_s`.
+  static __device__ __forceinline__ void unpack(const uint8_t* st,
+                                                uint8_t* b_s) {
+    convert(st, b_s, [](uint32_t t, int, uint32_t& lo, uint32_t& hi) {
+      lo = t & 0x0F0F0F0Fu;
+      hi = (t >> 4) & 0x0F0F0F0Fu;
+    });
+  }
+
+  // This lane's A fragments (a[i]: m16 tile i) and B fragments (b[j]: n8
+  // tile j) of 32-k chunk kc of the step's lines `a_s`, `b_s`.
+  static __device__ __forceinline__ void fragments(
+      const uint8_t* a_s, const uint8_t* b_s, int kc, uint32_t (&a)[MT][4],
+      uint32_t (&b)[NT][2]) {
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;              // mma groupID
     const int t = lane & 3;               // mma threadID_in_group
     const int wm = warp / WN;
     const int wn = warp % WN;
+    const int k0 = kc * 32 + t * 4;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const uint8_t* ra = a_s + (wm * WTM + i * 16 + g) * kLine + k0;
+      a[i][0] = *reinterpret_cast<const uint32_t*>(ra);
+      a[i][1] = *reinterpret_cast<const uint32_t*>(ra + 8 * kLine);
+      a[i][2] = *reinterpret_cast<const uint32_t*>(ra + 16);
+      a[i][3] = *reinterpret_cast<const uint32_t*>(ra + 8 * kLine + 16);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint8_t* cb = b_s + (wn * WTN + j * 8 + g) * kLine + k0;
+      b[j][0] = *reinterpret_cast<const uint32_t*>(cb);
+      b[j][1] = *reinterpret_cast<const uint32_t*>(cb + 16);
+    }
+  }
+
+  // acc += the step's xq lines `a_s` . w8 lines `b_s` over its 128 k:
+  // warp (wm, wn) owns rows wm * WTM .. and columns wn * WTN ..
+  static __device__ __forceinline__ void mma(Acc& acc, const uint8_t* a_s,
+                                             const uint8_t* b_s) {
 #pragma unroll
     for (int kc = 0; kc < 2 * kKP / 32; ++kc) {
-      const int k0 = kc * 32 + t * 4;
       uint32_t a[MT][4];
       uint32_t b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const uint8_t* ra = a_s + (wm * WTM + i * 16 + g) * kLine + k0;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(ra);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(ra + 8 * kLine);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(ra + 16);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(ra + 8 * kLine + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint8_t* cb = b_s + (wn * WTN + j * 8 + g) * kLine + k0;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(cb);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(cb + 16);
-      }
+      fragments(a_s, b_s, kc, a, b);
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j) w4a8tl::mma_s8(acc[i][j], a[i], b[j]);
     }
+  }
+
+  // The group-dot form's dot of half h of a step (chunks kc = 2h, 2h + 1:
+  // the low, or the high 64 k of the lines): dot += xq . q on the raw
+  // nibbles `b_s` (kFresh: dot = on the first chunk), and sx += this
+  // lane's part of sum_k xq of the C fragment's rows g and g + 8 (dp4a on
+  // its A words).
+  template <bool kFresh>
+  static __device__ __forceinline__ void dot_half(Acc& dot, int (&sx)[MT][2],
+                                                  const uint8_t* a_s,
+                                                  const uint8_t* b_s, int h) {
+#pragma unroll
+    for (int kc = 2 * h; kc < 2 * h + 2; ++kc) {
+      uint32_t a[MT][4];
+      uint32_t b[NT][2];
+      fragments(a_s, b_s, kc, a, b);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        // a[i][0], a[i][2]: row g; a[i][1], a[i][3]: row g + 8.
+        sx[i][0] = __dp4a((int)a[i][0], 0x01010101, sx[i][0]);
+        sx[i][0] = __dp4a((int)a[i][2], 0x01010101, sx[i][0]);
+        sx[i][1] = __dp4a((int)a[i][1], 0x01010101, sx[i][1]);
+        sx[i][1] = __dp4a((int)a[i][3], 0x01010101, sx[i][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (kFresh && kc == 2 * h) {
+            mma_s8_fresh(dot[i][j], a[i], b[j]);
+          } else {
+            w4a8tl::mma_s8(dot[i][j], a[i], b[j]);
+          }
+        }
+      }
+    }
+  }
+
+  // c = a . b (mma.sync with a zero accumulator).
+  static __device__ __forceinline__ void mma_s8_fresh(
+      int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "r"(0));
+  }
+
+  // The group-dot rescale of half h, modulo 2^32 (all of it unsigned
+  // 32-bit): scale_dot adds dot * s2, correct subtracts sx * (s2 * z)
+  // with sx first summed over the mma group's 4 lanes (two xor shuffles)
+  // and then zeroed; `cs` the group's column scales. Rows >= M are zero
+  // lines: their sx is 0.
+  static __device__ __forceinline__ void scale_dot(Acc& acc, const Acc& dot,
+                                                   const ColScales& cs,
+                                                   int h) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = (int)((uint32_t)acc[i][j][e]
+                               + (uint32_t)dot[i][j][e] * cs.s2[h][j][e & 1]);
+  }
+
+  static __device__ __forceinline__ void correct(Acc& acc, int (&sx)[MT][2],
+                                                 const ColScales& cs, int h) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sx[i][r] += __shfl_xor_sync(0xffffffffu, sx[i][r], 1);
+        sx[i][r] += __shfl_xor_sync(0xffffffffu, sx[i][r], 2);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = (int)((uint32_t)acc[i][j][e]
+                               - (uint32_t)sx[i][e >> 1] * cs.s2z[h][j][e & 1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) sx[i][0] = sx[i][1] = 0;
   }
 
   // f(row, col, v0, v1) for each pair of adjacent accumulators of the
@@ -301,20 +490,18 @@ struct Stream {
   template <class F>
   static __device__ __forceinline__ void for_each_pair(const Acc& acc, int M,
                                                        F&& f) {
-    constexpr int WTM = BM / WM;
-    constexpr int WTN = BN / WN;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int wm = warp / WN;
     const int wn = warp % WN;
 #pragma unroll
-    for (int i = 0; i < WTM / 16; ++i) {
+    for (int i = 0; i < MT; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
         const int row = wm * WTM + i * 16 + (lane >> 2) + 4 * e;
         if (row >= M) continue;
 #pragma unroll
-        for (int j = 0; j < WTN / 8; ++j) {
+        for (int j = 0; j < NT; ++j) {
           f(row, wn * WTN + j * 8 + 2 * (lane & 3), acc[i][j][e],
             acc[i][j][e + 1]);
         }
@@ -396,7 +583,7 @@ struct Stream {
       const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
       const int8_t* __restrict__ zr, int M, int n0, int N, int K,
       int s_begin, int s_end) {
-    uint8_t* const w8[2] = {smem, smem + kBBytes};
+    uint8_t* const w8[2] = {smem, smem + kBBytes};  // or raw nibbles
     uint8_t* const ring = smem + 2 * kBBytes;
     const int n = s_end - s_begin;
     auto stage = [&](int j) { return ring + (j % S) * kStageBytes; };
@@ -411,35 +598,103 @@ struct Stream {
 
 #pragma unroll
     for (int j = 0; j < S - 1; ++j) fetch(j);
-    Scales sc;
+    // w8 form: the dequant's scales, of the step it dequantizes (j + 1).
+    // Group-dot form: the rescale's, of the step it multiplies (j), read
+    // on the step whose slot holds them (a group's first, or the split's)
+    // and kept for the group's second step: that slot is refilled before.
+    [[maybe_unused]] Scales sc;
+    [[maybe_unused]] ColScales cs;
+    // Group-dot: both halves' row sums (kLateCorrection: kept over a
+    // group) and dots (kPerGroup: kept over a group).
+    [[maybe_unused]] Acc dot[kPerGroup ? 2 : 1];
+    [[maybe_unused]] int sx[2][MT][2];
+    if constexpr (kGD) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (kPerGroup) T::zero(dot[h]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) sx[h][i][0] = sx[h][i][1] = 0;
+      }
+    }
+    // The group-dot step j: its dots, and those rescales that are made
+    // every step.
+    auto gd_step = [&](int j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (kPerGroup) {
+          dot_half<false>(dot[h], sx[h], stage(j), w8[j & 1], h);
+        } else {
+          Acc d;
+          dot_half<true>(d, sx[h], stage(j), w8[j & 1], h);
+          scale_dot(acc, d, cs, h);
+          if constexpr (!kLateCorrection) correct(acc, sx[h], cs, h);
+        }
+      }
+    };
+    // After step j: the rescales made once a group, if j ends its group
+    // (or the split).
+    auto gd_group_end = [&](int j) {
+      if constexpr (kLateCorrection) {
+        const int s = s_begin + j;
+        if (s % kStepsPerGroup == kStepsPerGroup - 1 || s + 1 == s_end) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if constexpr (kPerGroup) {
+              scale_dot(acc, dot[h], cs, h);
+              T::zero(dot[h]);
+            }
+            correct(acc, sx[h], cs, h);
+          }
+        }
+      }
+    };
     cp_async_wait<S - 2>();       // step 0's copies (this thread's)
     __syncthreads();
-    load_group(stage(0), sc);
-    dequant(stage(0), w8[0], sc);
+    if constexpr (kGD) {
+      unpack(stage(0), w8[0]);
+    } else {
+      load_group(stage(0), sc);
+      dequant(stage(0), w8[0], sc);
+    }
 
     for (int j = 0; j + 1 < n; ++j) {
       cp_async_wait<S - 3>();     // step j+1's copies
       __syncthreads();            // ... everyone's; w8 of step j written;
                                   // step j-1's reads done
       fetch(j + S - 1);           // into step j-1's slot
-      if (stages_scales(s_begin + j + 1, s_begin)) {
-        load_group(stage(j + 1), sc);
-      }
       // One basic block, the mma's shared loads first: the dequant's
       // loads and arithmetic fill the mma's latencies.
-      mma(acc, stage(j), w8[j & 1]);
-      dequant(stage(j + 1), w8[(j + 1) & 1], sc);
+      if constexpr (kGD) {
+        if (stages_scales(s_begin + j, s_begin)) load_cols(stage(j), cs);
+        gd_step(j);
+        unpack(stage(j + 1), w8[(j + 1) & 1]);
+        gd_group_end(j);
+      } else {
+        if (stages_scales(s_begin + j + 1, s_begin)) {
+          load_group(stage(j + 1), sc);
+        }
+        mma(acc, stage(j), w8[j & 1]);
+        dequant(stage(j + 1), w8[(j + 1) & 1], sc);
+      }
     }
     __syncthreads();              // the last step's w8 written
-    mma(acc, stage(n - 1), w8[(n - 1) & 1]);
+    if constexpr (kGD) {
+      if (stages_scales(s_begin + n - 1, s_begin)) {
+        load_cols(stage(n - 1), cs);
+      }
+      gd_step(n - 1);
+      gd_group_end(n - 1);
+    } else {
+      mma(acc, stage(n - 1), w8[(n - 1) & 1]);
+    }
     cp_async_wait<0>();
   }
 };
 
 // One BM x BN tile of K split blockIdx.z (steps [z * per, (z+1) * per)),
-// grid (N / BN, 1, splits); kSplit: more than one split, summed through
-// part / counters (Stream::finish).
-template <int BM, int BN, int S, int kThreads, bool kSplit>
+// grid (N / BN, 1, splits), of form kGD; kSplit: more than one split,
+// summed through part / counters (Stream::finish).
+template <int BM, int BN, int S, int kThreads, bool kGD, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
               const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
@@ -447,7 +702,7 @@ decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
               void* __restrict__ out, int* __restrict__ part,
               int* __restrict__ counters, int M, int N, int K, int per,
               int out_bf16) {
-  using L = Stream<BM, BN, S, kThreads>;
+  using L = Stream<BM, BN, S, kThreads, kGD>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int n0 = blockIdx.x * BN;
   const int nsteps = (K / 2) / kKP;
@@ -459,5 +714,139 @@ decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   L::template finish<kSplit>(acc, xs, chan, out, part, counters, n0, M, N,
                              out_bf16);
 }
+
+// ---------------------------------------------------------------------------
+// The launcher of both forms (decode_any<kGD>), with internal linkage: each
+// library that includes it (and each rebuilt copy of one) keeps its own
+// once-per-device state -- function-local statics of an external template
+// are one object process-wide (STB_GNU_UNIQUE), across dlopen'ed copies.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kDecodeStages = 4;
+// The split count's cost model, in K steps of one block: a block's fixed
+// cost (ring fill, epilogue), and the split-K partial sums whose stores
+// and loads take a step's time (each split adds M x N of them).
+constexpr double kBlockSteps = 2;
+constexpr double kPartialsPerStep = 1e6;
+// Packed weights of at most this many bytes take 64-column tiles.
+constexpr long kNarrowBytes = 16L << 20;
+
+// The arguments of a decode launch. plan: when not null, the launch is
+// not made and plan[0..6] get BM, BN, threads, stages, splits, K steps
+// per split and resident blocks per SM.
+struct DecodeArgs {
+  const void *xq, *xs, *qw, *s2, *z, *chan;
+  void* out;
+  int *part, *counters;
+  int M, N, K, splits, out_bf16;
+  cudaStream_t st;
+  int* plan;
+};
+
+// The split count: the fewest of those with the least waves * (steps a
+// split + kBlockSteps) + splits * M * N / kPartialsPerStep (one split:
+// no partials), for `tiles` column tiles of BN and `nsteps` K steps on
+// `slots` resident blocks.
+int decode_splits(int M, int BN, int tiles, int nsteps, int slots) {
+  int best = 1;
+  double best_cost = -1;
+  for (int s = 1; s <= nsteps; ++s) {
+    const int per = (nsteps + s - 1) / s;
+    if ((nsteps + per - 1) / per != s) continue;
+    const int waves = (tiles * s + slots - 1) / slots;
+    const double cost = waves * (per + kBlockSteps)
+        + (s > 1 ? (double)s * M * BN * tiles / kPartialsPerStep : 0.0);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <bool kGD, int BM, int BN, int kThreads>
+int decode(const DecodeArgs& a) {
+  constexpr int S = kDecodeStages;
+  using L = Stream<BM, BN, S, kThreads, kGD>;
+  const auto split_k = decode_kernel<BM, BN, S, kThreads, kGD, true>;
+  const auto whole = decode_kernel<BM, BN, S, kThreads, kGD, false>;
+  // The shared-memory limit is raised once per device (the launch is on
+  // every decode projection's path; the host holds the serve loop).
+  static std::atomic<uint64_t> ready{0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    for (auto kernel : {split_k, whole}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    ready.fetch_or(bit);
+  }
+  static const int per_sm = [&] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, split_k, kThreads, L::kSmemBytes);
+    return b > 0 ? b : 1;
+  }();
+  const int nsteps = (a.K / 2) / kKP;
+  const int tiles = a.N / BN;
+  int splits = a.splits > 0 ? min(a.splits, nsteps)
+      : decode_splits(a.M, BN, tiles, nsteps,
+                      w4a8tl_wgmma::num_sms() * per_sm);
+  const int per = (nsteps + splits - 1) / splits;
+  splits = (nsteps + per - 1) / per;        // every split gets steps
+  if (a.plan) {
+    const int plan[7] = {BM, BN, kThreads, S, splits, per, per_sm};
+    for (int i = 0; i < 7; ++i) a.plan[i] = plan[i];
+    return (int)cudaSuccess;
+  }
+  const auto kernel = splits > 1 ? split_k : whole;
+  kernel<<<dim3(tiles, 1, splits), kThreads, L::kSmemBytes, a.st>>>(
+      static_cast<const int8_t*>(a.xq), static_cast<const float*>(a.xs),
+      static_cast<const uint8_t*>(a.qw), static_cast<const int8_t*>(a.s2),
+      static_cast<const int8_t*>(a.z), static_cast<const float*>(a.chan),
+      a.out, a.part, a.counters, a.M, a.N, a.K, per, a.out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// 128 threads where the column tiles alone fill the SMs (the rows of a
+// block's mma on fewer warps); 256 elsewhere (twice the warps to cover
+// the dequant's and the copies' latencies).
+template <bool kGD, int BM, int BN>
+int decode_threads(const DecodeArgs& a) {
+  const bool few = a.N / BN >= w4a8tl_wgmma::num_sms();
+  return few ? decode<kGD, BM, BN, 128>(a) : decode<kGD, BM, BN, 256>(a);
+}
+
+template <bool kGD, int BN>
+int decode_bm(const DecodeArgs& a) {
+  return a.M <= 16 ? decode_threads<kGD, 16, BN>(a)
+       : a.M <= 32 ? decode_threads<kGD, 32, BN>(a)
+                   : decode_threads<kGD, 64, BN>(a);
+}
+
+// A decode launch of form kGD (or its plan): all M rows (BM = 16 / 32 /
+// 64) x 128 columns (64 where N % 128 != 0 or K/2 x N <= 16 MiB), 64
+// packed rows (128 k) per K step, K split across blockIdx.z into
+// a.splits parts (0: the count decode_splits picks; at most one split
+// per K step). Requires 1 <= M <= 64, K % 256 == 0, N % 64 == 0.
+template <bool kGD>
+int decode_any(const DecodeArgs& a) {
+  if (a.M < 1 || a.M > 64 || a.K % 256 || a.N % 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // 64 columns where N % 128 != 0, or where the packed weight is small:
+  // there the fixed costs of a launch and a split dominate, and twice the
+  // column tiles (at half the shared memory: 4 resident blocks an SM, not
+  // 2) fill the SMs with fewer K splits.
+  const bool narrow = a.N % 128 != 0 || (long)a.K / 2 * a.N <= kNarrowBytes;
+  return narrow ? decode_bm<kGD, 64>(a) : decode_bm<kGD, 128>(a);
+}
+
+}  // namespace
 
 }  // namespace w4a8tl_stream

@@ -6,18 +6,17 @@
 // high nibble. |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31
 // for K <= 14336: the int32 sums are exact.
 //
-// Used by w4a8tl_gd.cu (group-dot decode) and moe_gemm.cu (the
-// all-experts bmm, and the grouped GEMM's 16-row tiles; its 128-row ones
-// run on w4a8tl_wgmma.cuh); each kernel applies its own float epilogue
-// to the tile. The dense decode loop (w4a8tl_stream.cuh) takes only its
-// accumulator layout and mma_s8.
+// Used by moe_gemm.cu (the all-experts bmm, and the grouped GEMM's
+// 16-row tiles; its 128-row ones run on w4a8tl_wgmma.cuh), which applies
+// its own float epilogue to the tile. The dense decode loop of both forms
+// (w4a8tl_stream.cuh) takes only its accumulator layout and mma_s8.
 //
 // The block owns a BM x BN output tile and walks K in steps of KP packed
 // rows (2*KP k-values: KP low-nibble rows and the matching KP high-nibble
 // rows). Each step stages the xq tile (16-byte loads; rows outside
 // [row_lo, row_hi) are zero; `stage_a`) and the weight tile -- dequantized
-// to int8 w8 (`stage_b<true>`) or as raw nibbles 0..15 (`stage_b<false>`),
-// transposed to [n][k] so a B fragment is one 32-bit shared load -- in
+// to int8 w8 (`stage_b`), transposed to [n][k] so a B fragment is one
+// 32-bit shared load -- in
 // shared memory, then runs mma.sync m16n8k32 s8 x s8 -> s32 from it, one
 // nibble plane (half) at a time (`mma_half`). Rows are padded by 16 bytes
 // so fragment loads hit 32 distinct banks.
@@ -103,11 +102,10 @@ struct Tile {
   }
 
   // sm.B <- the weight tile of the K step at packed row r0, columns n0..,
-  // written transposed ([n][k], 4 k-values per 32-bit word): kW8, the
+  // written transposed ([n][k], 4 k-values per 32-bit word): the
   // dequantized w8 = (q - z) * scales2 of the step's two groups (low
-  // plane: group r0 / 128, high plane: K/256 + r0 / 128); else the raw
-  // nibbles q (s2 and zr unused). 4 packed rows x 4 columns per unit.
-  template <bool kW8>
+  // plane: group r0 / 128, high plane: K/256 + r0 / 128). 4 packed rows x
+  // 4 columns per unit.
   static __device__ __forceinline__ void stage_b(
       Smem& sm, const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
       const int8_t* __restrict__ zr, int n0, int N, int K, int r0) {
@@ -125,13 +123,14 @@ struct Tile {
       for (int i = 0; i < 4; ++i) {
         w[i] = *reinterpret_cast<const uint32_t*>(qw + (size_t)(r + i) * N + n);
       }
-      uint32_t zl = 0u, sl = 0u, zh = 0u, sh = 0u;
-      if constexpr (kW8) {
-        zl = *reinterpret_cast<const uint32_t*>(zr + (size_t)glo * N + n);
-        sl = *reinterpret_cast<const uint32_t*>(s2 + (size_t)glo * N + n);
-        zh = *reinterpret_cast<const uint32_t*>(zr + (size_t)ghi * N + n);
-        sh = *reinterpret_cast<const uint32_t*>(s2 + (size_t)ghi * N + n);
-      }
+      const uint32_t zl =
+          *reinterpret_cast<const uint32_t*>(zr + (size_t)glo * N + n);
+      const uint32_t sl =
+          *reinterpret_cast<const uint32_t*>(s2 + (size_t)glo * N + n);
+      const uint32_t zh =
+          *reinterpret_cast<const uint32_t*>(zr + (size_t)ghi * N + n);
+      const uint32_t sh =
+          *reinterpret_cast<const uint32_t*>(s2 + (size_t)ghi * N + n);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int z_lo = (int)(int8_t)(zl >> (8 * j));
@@ -142,8 +141,8 @@ struct Tile {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int b = (int)((w[i] >> (8 * j)) & 0xFFu);
-          const int lo = kW8 ? ((b & 0xF) - z_lo) * s_lo : (b & 0xF);
-          const int hi = kW8 ? ((b >> 4) - z_hi) * s_hi : (b >> 4);
+          const int lo = ((b & 0xF) - z_lo) * s_lo;
+          const int hi = ((b >> 4) - z_hi) * s_hi;
           plo |= ((uint32_t)lo & 0xFFu) << (8 * i);
           phi |= ((uint32_t)hi & 0xFFu) << (8 * i);
         }
@@ -198,7 +197,7 @@ struct Tile {
     for (int s = s_begin; s < s_end; ++s) {
       const int r0 = s * KP;
       stage_a(sm, xq, m0, row_lo, row_hi, K, r0);
-      stage_b<true>(sm, qw, s2, zr, n0, N, K, r0);
+      stage_b(sm, qw, s2, zr, n0, N, K, r0);
       __syncthreads();
       mma_half(acc, sm, 0);
       mma_half(acc, sm, 1);
@@ -240,50 +239,6 @@ struct Tile {
       const int row = m0 + r;
       if (row >= row_lo && row < row_hi) f(row, n0 + c, acc[i][j][e]);
     });
-  }
-
-  // The two-level epilogue out[row, col] = out_t(f32(acc) * xs[row] *
-  // chan[col]) for the tile's rows below M, in that order, rounded to
-  // nearest even for bf16. !kSplit: the tile holds the full sums. kSplit
-  // (K split across blockIdx.z): atomically add the int32 partial sums
-  // into ws [M, N] (all zero on entry) and count the tile's arrivals in
-  // counters[blockIdx.y * gridDim.x + blockIdx.x] (zero on entry); the
-  // last arrival takes the full sums back out of ws (atomicExch: read at
-  // L2, where the other splits' adds landed, and re-zeroed), re-zeroes
-  // the counter and writes the output.
-  template <bool kSplit>
-  static __device__ __forceinline__ void finish(
-      const Acc& acc, const float* __restrict__ xs,
-      const float* __restrict__ chan, void* __restrict__ out,
-      int* __restrict__ ws, int* __restrict__ counters, int m0, int n0,
-      int M, int N, int out_bf16) {
-    if constexpr (!kSplit) {
-      for_each_out(acc, m0, n0, 0, M, [&](int row, int col, int v) {
-        store_out(out, (size_t)row * N + col, (float)v * xs[row] * chan[col],
-                  out_bf16);
-      });
-    } else {
-      for_each_out(acc, m0, n0, 0, M, [&](int row, int col, int v) {
-        atomicAdd(ws + (size_t)row * N + col, v);
-      });
-      __shared__ int last;
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-        last = atomicAdd(counters + tile, 1) == (int)gridDim.z - 1;
-        if (last) counters[tile] = 0;
-      }
-      __syncthreads();
-      if (!last) return;
-      __threadfence();
-      for_each_out(acc, m0, n0, 0, M, [&](int row, int col, int) {
-        const size_t idx = (size_t)row * N + col;
-        store_out(out, idx,
-                  (float)atomicExch(ws + idx, 0) * xs[row] * chan[col],
-                  out_bf16);
-      });
-    }
   }
 };
 

@@ -30,8 +30,8 @@ launch.
 
   w4a8tl_*    y = out_t(f32(xq @ w8) * xs * chan), w8 = (q - z) * scales2,
               exactly (csrc/w4a8tl_gemm.cu, w4a8tl_gd.cu in the group-dot
-              form, w4a8tl_mcache.cu; m <= 64 of w4a8tl_decode on the
-              streamed main loop csrc/w4a8tl_stream.cuh, m > 64 on the
+              form, w4a8tl_mcache.cu; m <= 64 of both decode kernels on
+              the streamed main loop csrc/w4a8tl_stream.cuh, m > 64 on the
               int8 wgmma main loop csrc/w4a8tl_wgmma.cuh; plain versions
               w4a8tl_plain and w4a8tl_gd_plain)
   w4a8_decode y = out_t(xs * sum_g s[g] * f32(sum_k xq * (q - z[g]))),
@@ -64,12 +64,13 @@ from .build import check, library
 GROUP = 128
 DECODE_MAX_M = 64
 W4A16_DECODE_KP = 64          # packed rows per K step of w4a16's decode tile
-# w4a8tl_gd_decode and w4a16_gemm's decode split K until about this many
-# blocks cover the card's 132 SMs (`decode_target_splits`).
+# w4a16_gemm's decode splits K until about this many blocks cover the
+# card's 132 SMs (`decode_target_splits`).
 _DECODE_TARGET_BLOCKS = 264
-# Split-K scratch of the decode kernels, one per (device, stream).
+# Split-K arrival counters of the decode kernels, one per (device, stream).
 _SCRATCH: dict = {}
-# w4a8tl_decode's launch plans by (device, m, N, K, splits).
+# The two-level decode kernels' launch plans by (kernel, device, m, N, K,
+# splits).
 _DECODE_PLANS: dict = {}
 
 
@@ -151,103 +152,114 @@ def _check_args(xq, xs, p, out_dtype, n_align, align=4):
     return m, k, n
 
 
-def _split_k_scratch(stream: torch.cuda.Stream, n: int):
-    """(counters, ws) pointers of the decode kernels' split-K scratch for
-    `stream`: int32, all zero, and left all zero by every launch, so it
-    is allocated once per stream (and again only for a wider N)."""
+def _split_k_scratch(stream: torch.cuda.Stream, n: int) -> int:
+    """Pointer to the decode kernels' split-K arrival counters for
+    `stream`: int32, one per 64-column tile, all zero, and left all zero
+    by every launch, so they are allocated once per stream (and again
+    only for a wider N)."""
     key = (stream.device_index, stream.cuda_stream)
     width, buf = _SCRATCH.get(key, (0, None))
-    if width < n:                  # layout: [width / 64 counters][64 x width]
-        width = n                  # zeroed on `stream`, the current one
-        buf = torch.zeros(width // 64 + DECODE_MAX_M * width,
-                          dtype=torch.int32, device=stream.device)
+    if width < n:                  # zeroed on `stream`, the current one
+        width = n
+        buf = torch.zeros(width // 64, dtype=torch.int32,
+                          device=stream.device)
         _SCRATCH[key] = (width, buf)
-    base = buf.data_ptr()
-    return base, base + 4 * (width // 64)
+    return buf.data_ptr()
 
 
 def decode_target_splits(n_steps: int, n: int) -> int:
-    """K splits of `w4a8tl_gd_decode` and of `w4a16_gemm` at decode m:
-    64-column tiles, K split until about `_DECODE_TARGET_BLOCKS` blocks
-    (at most one split per K step). `w4a8tl_decode` takes its own
-    launcher's rule (csrc/w4a8tl_gemm.cu)."""
+    """K splits of `w4a16_gemm` at decode m (its 64-column tile,
+    csrc/w4a16_tile.cuh): K split until about `_DECODE_TARGET_BLOCKS`
+    blocks (at most one split per K step). The two-level decode kernels
+    take their launcher's rule (csrc/w4a8tl_stream.cuh)."""
     return max(1, min(n_steps, -(-_DECODE_TARGET_BLOCKS // (n // 64))))
 
 
-def w4a8tl_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
-                  out_dtype: torch.dtype, splits: int = 0) -> torch.Tensor:
-    """Decode-sized (m <= 64) two-level w4a8 GEMM → [m, N] out_dtype, on
-    the streamed main loop (csrc/w4a8tl_stream.cuh), which copies the
-    weight and xq in 16-byte pieces. K is split by the launcher's rule
-    (`w4a8tl_decode_plan`), or into `splits` parts (a test's override);
-    the splits' int32 partial sums go through a [splits, m, N] buffer of
-    this call and the stream's split-K counters."""
-    if not xq.is_cuda:
-        return w4a8tl_plain(xq, xs, p, out_dtype)
+def _stream_decode(kernel, lib, entry, plan_fn, xq, xs, p, out_dtype,
+                   splits) -> torch.Tensor:
+    """Launch a two-level decode kernel on the streamed main loop (C entry
+    `entry` of source `lib`, the arguments of ferrum_w4a8tl_decode): K
+    split by the launcher's rule (`plan_fn`), or into `splits` parts (a
+    test's override); the splits' int32 partial sums go through a
+    [splits, m, N] buffer of this call and the stream's split-K
+    counters."""
     m, k, n = _check_args(xq, xs, p, out_dtype, 64, align=16)
     if not 1 <= m <= DECODE_MAX_M:
-        raise ValueError(f"w4a8tl_decode takes m <= {DECODE_MAX_M}, got {m}")
-    plan = w4a8tl_decode_plan(m, n, k, splits)
+        raise ValueError(f"{kernel.name} takes m <= {DECODE_MAX_M}, got {m}")
+    plan = plan_fn(m, n, k, splits)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     stream = torch.cuda.current_stream(xq.device)
     part, counters = None, 0
     if plan["splits"] > 1:
-        counters, _ = _split_k_scratch(stream, n)
+        counters = _split_k_scratch(stream, n)
         part = torch.empty((plan["splits"], m, n), dtype=torch.int32,
                            device=xq.device)
-    check(library("w4a8tl_gemm").ferrum_w4a8tl_decode(
+    check(getattr(library(lib), entry)(
         xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
         p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
         out.data_ptr(), 0 if part is None else part.data_ptr(), counters,
         m, n, k, plan["splits"], int(out_dtype == torch.bfloat16),
-        stream.cuda_stream), "w4a8tl_decode")
-    W4A8TL_DECODE.launches += 1
+        stream.cuda_stream), kernel.name)
+    kernel.launches += 1
     return out
 
 
-def w4a8tl_decode_plan(m: int, n: int, k: int, splits: int = 0) -> dict:
-    """The launch `w4a8tl_decode` makes for [m, K] x [K, N] on the current
-    card (asked of the launcher once per shape): tile rows and columns,
-    threads a block, ring stages, K splits and steps per split, resident
-    blocks per SM."""
-    key = (torch.cuda.current_device(), m, n, k, splits)
+def _stream_plan(kernel, lib, entry, m, n, k, splits) -> dict:
+    """The launch a streamed decode kernel makes for [m, K] x [K, N] on
+    the current card (asked of its launcher once per shape)."""
+    key = (kernel.name, torch.cuda.current_device(), m, n, k, splits)
     plan = _DECODE_PLANS.get(key)
     if plan is None:
         out = (ctypes.c_int * 7)()
-        check(library("w4a8tl_gemm").ferrum_w4a8tl_decode_plan(
-            m, n, k, splits, out), "w4a8tl_decode_plan")
+        check(getattr(library(lib), entry)(m, n, k, splits, out),
+              f"{kernel.name}_plan")
         plan = _DECODE_PLANS[key] = dict(zip(
             ("bm", "bn", "threads", "stages", "splits", "steps_per_split",
              "blocks_per_sm"), out))
     return plan
 
 
+def w4a8tl_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+                  out_dtype: torch.dtype, splits: int = 0) -> torch.Tensor:
+    """Decode-sized (m <= 64) two-level w4a8 GEMM → [m, N] out_dtype, on
+    the streamed main loop's w8 form (csrc/w4a8tl_stream.cuh), which
+    copies the weight and xq in 16-byte pieces. K is split by the
+    launcher's rule (`w4a8tl_decode_plan`), or into `splits` parts."""
+    if not xq.is_cuda:
+        return w4a8tl_plain(xq, xs, p, out_dtype)
+    return _stream_decode(W4A8TL_DECODE, "w4a8tl_gemm",
+                          "ferrum_w4a8tl_decode", w4a8tl_decode_plan, xq, xs,
+                          p, out_dtype, splits)
+
+
+def w4a8tl_decode_plan(m: int, n: int, k: int, splits: int = 0) -> dict:
+    """The launch `w4a8tl_decode` makes for [m, K] x [K, N] on the current
+    card: tile rows and columns, threads a block, ring stages, K splits
+    and steps per split, resident blocks per SM."""
+    return _stream_plan(W4A8TL_DECODE, "w4a8tl_gemm",
+                        "ferrum_w4a8tl_decode_plan", m, n, k, splits)
+
+
 def w4a8tl_gd_decode(xq: torch.Tensor, xs: torch.Tensor,
-                     p: QuantLinearParams,
-                     out_dtype: torch.dtype) -> torch.Tensor:
+                     p: QuantLinearParams, out_dtype: torch.dtype,
+                     splits: int = 0) -> torch.Tensor:
     """Decode-sized (m <= 64) two-level w4a8 GEMM in the group-dot form
-    (scales2 and the zero correction on the output side) → [m, N]; the
-    same function as w4a8tl_decode. 64-column tiles, one group per K
-    step, K split by `decode_target_splits`, the splits summed through
-    the stream's split-K scratch."""
+    (raw nibbles into the mma; scales2 and the zero correction on the
+    output side) → [m, N]; the same function as w4a8tl_decode, on the
+    streamed main loop's group-dot form (csrc/w4a8tl_stream.cuh) and its
+    launcher's plan (`w4a8tl_gd_decode_plan`), or `splits` K parts."""
     if not xq.is_cuda:
         return w4a8tl_gd_plain(xq, xs, p, out_dtype)
-    m, k, n = _check_args(xq, xs, p, out_dtype, 64)
-    if not 1 <= m <= DECODE_MAX_M:
-        raise ValueError(f"w4a8tl_gd_decode takes m <= {DECODE_MAX_M}, "
-                         f"got {m}")
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    stream = torch.cuda.current_stream(xq.device)
-    counters, ws = _split_k_scratch(stream, n)
-    check(library("w4a8tl_gd").ferrum_w4a8tl_gd_decode(
-        xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
-        p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
-        out.data_ptr(), ws, counters, m, n, k,
-        decode_target_splits((k // 2) // GROUP, n),
-        int(out_dtype == torch.bfloat16), stream.cuda_stream),
-        "w4a8tl_gd_decode")
-    W4A8TL_GD_DECODE.launches += 1
-    return out
+    return _stream_decode(W4A8TL_GD_DECODE, "w4a8tl_gd",
+                          "ferrum_w4a8tl_gd_decode", w4a8tl_gd_decode_plan,
+                          xq, xs, p, out_dtype, splits)
+
+
+def w4a8tl_gd_decode_plan(m: int, n: int, k: int, splits: int = 0) -> dict:
+    """The launch `w4a8tl_gd_decode` makes for [m, K] x [K, N] on the
+    current card (the keys of `w4a8tl_decode_plan`)."""
+    return _stream_plan(W4A8TL_GD_DECODE, "w4a8tl_gd",
+                        "ferrum_w4a8tl_gd_decode_plan", m, n, k, splits)
 
 
 def _prefill(entry, name, xq, xs, p, out_dtype) -> torch.Tensor:
@@ -395,7 +407,7 @@ def w4a8_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
     # Each K step's two plane sums, summed in order by the tile's last block.
     ws = torch.empty((steps, 2, m, n), dtype=torch.float32, device=xq.device)
     stream = torch.cuda.current_stream(xq.device)
-    counters, _ = _split_k_scratch(stream, n)
+    counters = _split_k_scratch(stream, n)
     err = library("w4a8_gemm").ferrum_w4a8_decode(
         xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
         p.scales.data_ptr(), p.zeros.data_ptr(), out.data_ptr(),
@@ -435,7 +447,7 @@ def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
             part = torch.empty((splits, m, n), dtype=torch.float32,
                                device=x.device)
             ws = part.data_ptr()
-            counters, _ = _split_k_scratch(stream, n)
+            counters = _split_k_scratch(stream, n)
     err = library("w4a16_gemm").ferrum_w4a16_gemm(
         x.data_ptr(), p.qweight.data_ptr(), p.scales.data_ptr(),
         p.zeros.data_ptr(), out.data_ptr(), ws, counters, m, n, k, splits,

@@ -4,7 +4,8 @@
     python3 tools/torch_w4a8tl_ab.py --tree DIR --label NAME
         [--only KERNEL ...] [--sweep-splits S,S,...]
         [--probe bn128|bn256|stages3|stages6|threads128|threads256|
-                 decode_bn64|decode_bn128|no_mma|no_dequant ...] [--ptxas]
+                 decode_bn64|decode_bn128|no_mma|no_dequant|
+                 gd_no_unpack|gd_no_rescale ...] [--ptxas]
         [--out FILE]
 
 Imports `ferrum_tpu_torch` from DIR -- this checkout, or an older one
@@ -37,24 +38,34 @@ leaves out, the decode kernels' neighbours that share no code with the
 two-level ones but are held to their parent's times: moe_bmm (qwen3 gate
 / up / down at t = 32), w4a8_decode (llama at m = 32) and w4a16_gemm
 (llama at m = 32 and 2048; within one bf16 step of its plain version).
---sweep-splits adds to each w4a8tl_decode case `sweep`, its time at each
-given K split count (a tree whose wrapper takes `splits`). The
-w4a8tl_decode cases of such a tree carry `plan`, the launch its rule
-makes.
+--sweep-splits adds to each w4a8tl_decode and w4a8tl_gd_decode case
+`sweep`, its time at each given K split count (a tree whose wrapper
+takes `splits`: one with the kernel's `<kernel>_plan`). The decode cases
+of such a tree carry `plan`, the launch its launcher's rule makes.
 
 --probe bn128 / bn256 adds `ms_<probe>` to the moe_grouped cases at
 128-row tiles: the launch on a copy of the tree's moe_gemm.cu built with
 its column-tile rule forced to 128 / 256 columns (where N allows).
 --probe stages3 / stages6 / threads128 / threads256 / decode_bn64 /
-decode_bn128 adds `ms_<probe>` to the w4a8tl_decode cases: a copy of
-w4a8tl_gemm.cu built with the decode ring's depth set to 3 / 6 stages,
-128 or 256 threads a block everywhere, or its column tiles forced to 64,
-or to 128 where N allows; no_mma / no_dequant times the loop with that
-part cut from every step but one (wrong results, not compared). A probe
-launches with the K split count the tree's own rule picks.
---ptxas compiles the sources on the int8 wgmma main loop with `-Xptxas
--v` and prints each kernel's registers and spills, and fails on a C7518
-(ptxas serialized a kernel's wgmma).
+decode_bn128 adds `ms_<probe>` to the w4a8tl_decode cases: w4a8tl_gemm.cu
+built on a copy of the streamed loop's header (w4a8tl_stream.cuh, where
+the launcher's rules live) with the decode ring's depth set to 3 / 6
+stages, 128 or 256 threads a block everywhere, or its column tiles
+forced to 64, or to 128 where N allows; no_mma / no_dequant times the
+loop with that part cut from every step but one (wrong results, not
+compared). gd_no_unpack / gd_no_rescale adds `ms_<probe>` to the
+w4a8tl_gd_decode cases: w4a8tl_gd.cu with the group-dot form's unpack
+cut from every step but the first, or its rescale's multiply-adds (so
+the column scales and row sums go unused) cut, the dots added unscaled
+(wrong results, not compared); gd_per_group_all / gd_per_step /
+gd_step_correction set the group-dot form's rules (w4a8tl_stream.cuh:
+kGdPerGroupMinBN 64 or 256, kGdLateCorrection false), and gd_stages3 ..
+gd_decode_bn128 the launcher's rules above, on w4a8tl_gd.cu. A probe launches with the K split count
+the tree's own rule picks; --ptxas prints each probe build's registers
+too.
+--ptxas compiles the sources on the int8 wgmma main loop and the two
+decode sources with `-Xptxas -v` and prints each kernel's registers and
+spills, and fails on a C7518 (ptxas serialized a kernel's wgmma).
 
 Prints one JSON line per case and appends each to --out.
 """
@@ -86,42 +97,78 @@ DECODE = ("w4a8tl_decode", "w4a8tl_gd_decode")
 DEFAULT = PREFILL + DECODE + ("moe_grouped",)
 NEIGHBOURS = ("moe_bmm", "w4a8_decode", "w4a16_gemm")
 # --probe: (library, file of csrc/ edited, the rule replaced, its
-# replacement, kernel timed, whether the probe computes the function).
+# replacement -- or None, the rule then a tuple of (rule, replacement)
+# pairs --, kernel timed, whether the probe computes the function).
 STREAM = "w4a8tl_stream.cuh"
 PROBES = {
     "bn128": ("moe_gemm", "moe_gemm.cu", r"const bool wide = [^;]*;",
               "const bool wide = false;", "moe_grouped", True),
     "bn256": ("moe_gemm", "moe_gemm.cu", r"const bool wide = [^;]*;",
               "const bool wide = N % 256 == 0;", "moe_grouped", True),
-    "stages3": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+    "stages3": ("w4a8tl_gemm", STREAM,
                 r"constexpr int kDecodeStages = \d+;",
                 "constexpr int kDecodeStages = 3;", "w4a8tl_decode", True),
-    "stages6": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+    "stages6": ("w4a8tl_gemm", STREAM,
                 r"constexpr int kDecodeStages = \d+;",
                 "constexpr int kDecodeStages = 6;", "w4a8tl_decode", True),
-    "threads128": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+    "threads128": ("w4a8tl_gemm", STREAM,
                    r"const bool few = [^;]*;", "const bool few = true;",
                    "w4a8tl_decode", True),
-    "threads256": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+    "threads256": ("w4a8tl_gemm", STREAM,
                    r"const bool few = [^;]*;", "const bool few = false;",
                    "w4a8tl_decode", True),
-    "decode_bn64": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+    "decode_bn64": ("w4a8tl_gemm", STREAM,
                     r"const bool narrow = [^;]*;", "const bool narrow = true;",
                     "w4a8tl_decode", True),
-    "decode_bn128": ("w4a8tl_gemm", "w4a8tl_gemm.cu",
+    "decode_bn128": ("w4a8tl_gemm", STREAM,
                      r"const bool narrow = [^;]*;",
                      "const bool narrow = a.N % 128 != 0;", "w4a8tl_decode",
                      True),
     # Cuts (wrong results, timed only): the decode loop without its
     # mma, or without its dequant, on all steps but the first / last.
     "no_mma": ("w4a8tl_gemm", STREAM,
-               r"\n      mma\(acc, stage\(j\), w8\[j & 1\]\);", "",
+               r"\n        mma\(acc, stage\(j\), w8\[j & 1\]\);", "",
                "w4a8tl_decode", False),
     "no_dequant": ("w4a8tl_gemm", STREAM,
-                   r"\n      dequant\(stage\(j \+ 1\), w8\[\(j \+ 1\) "
+                   r"\n        dequant\(stage\(j \+ 1\), w8\[\(j \+ 1\) "
                    r"& 1\], sc\);", "", "w4a8tl_decode", False),
+    # Cuts of the group-dot form (wrong results, timed only): without its
+    # unpack on all steps but the first, or with the dot added unscaled
+    # (no column scales, sx or multiply-adds).
+    # The group-dot form's rules: the dot rescaled once a group at every
+    # BN, or at none; the zero correction every step.
+    "gd_per_group_all": ("w4a8tl_gd", STREAM,
+                         r"constexpr int kGdPerGroupMinBN = \d+;",
+                         "constexpr int kGdPerGroupMinBN = 64;",
+                         "w4a8tl_gd_decode", True),
+    "gd_per_step": ("w4a8tl_gd", STREAM,
+                    r"constexpr int kGdPerGroupMinBN = \d+;",
+                    "constexpr int kGdPerGroupMinBN = 256;",
+                    "w4a8tl_gd_decode", True),
+    "gd_step_correction": ("w4a8tl_gd", STREAM,
+                           r"constexpr bool kGdLateCorrection = true;",
+                           "constexpr bool kGdLateCorrection = false;",
+                           "w4a8tl_gd_decode", True),
+    # Cuts of the group-dot form (wrong results, timed only): without its
+    # unpack on all steps but the first, or with the dots added unscaled
+    # and uncorrected (no multiply-adds; the column scales and row sums
+    # then unused).
+    "gd_no_unpack": ("w4a8tl_gd", STREAM,
+                     r"\n        unpack\(stage\(j \+ 1\), w8\[\(j \+ 1\) "
+                     r"& 1\]\);", "", "w4a8tl_gd_decode", False),
+    "gd_no_rescale": ("w4a8tl_gd", STREAM,
+                      ((r" \* cs\.s2\[h\]\[j\]\[e & 1\]\);", ");"),
+                       (r"\s*- \(uint32_t\)sx\[i\]\[e >> 1\] \* "
+                        r"cs\.s2z\[h\]\[j\]\[e & 1\]\);", ");")), None,
+                      "w4a8tl_gd_decode", False),
 }
-WGMMA_SOURCES = ("w4a8tl_gemm", "w4a8tl_mcache", "moe_gemm")
+# The launcher's rules probed on the group-dot kernel: gd_stages3 .. .
+PROBES.update({
+    f"gd_{name}": ("w4a8tl_gd", STREAM, rule, repl, "w4a8tl_gd_decode", True)
+    for name, (_, _, rule, repl, _, _) in list(PROBES.items())
+    if name in ("stages3", "stages6", "threads128", "threads256",
+                "decode_bn64", "decode_bn128")})
+PTXAS_SOURCES = ("w4a8tl_gemm", "w4a8tl_mcache", "moe_gemm", "w4a8tl_gd")
 
 
 def load_smoke():
@@ -183,28 +230,29 @@ def dense_rows(torch, smoke, timer, args, probe_libs):
                        "library_ms": library_ms, "bound_ms": bound,
                        "bound_by": by}
                 ok = bool(torch.equal(got, want))
-                if kernel == "w4a8tl_decode" \
-                        and hasattr(qmm, "w4a8tl_decode_plan"):
-                    row["plan"] = qmm.w4a8tl_decode_plan(m, n, k)
-                if kernel == "w4a8tl_decode" and args.sweep_splits:
+                plan = getattr(qmm, f"{kernel}_plan", None) \
+                    if kernel in DECODE else None
+                if plan is not None:
+                    row["plan"] = plan(m, n, k)
+                if plan is not None and args.sweep_splits:
                     row["sweep"] = {}
                     for sp in args.sweep_splits:
                         def call():
                             return fn(xq, xs, p, torch.bfloat16, splits=sp)
                         ok &= bool(torch.equal(call(), want))
                         row["sweep"][sp] = timer(call)
-                if kernel == "w4a8tl_decode":
-                    saved = build._libs.get("w4a8tl_gemm")
-                    for probe, lib in probe_libs.items():
-                        if PROBES[probe][4] != kernel:
-                            continue
-                        build._libs["w4a8tl_gemm"] = lib
-                        if PROBES[probe][5]:
-                            ok &= bool(torch.equal(
-                                fn(xq, xs, p, torch.bfloat16), want))
-                        row[f"ms_{probe}"] = timer(
-                            lambda: fn(xq, xs, p, torch.bfloat16))
-                    build._libs["w4a8tl_gemm"] = saved
+                for probe, lib in probe_libs.items():
+                    source, _, _, _, probed, computes = PROBES[probe]
+                    if probed != kernel:
+                        continue
+                    saved = build._libs.get(source)
+                    build._libs[source] = lib
+                    if computes:
+                        ok &= bool(torch.equal(
+                            fn(xq, xs, p, torch.bfloat16), want))
+                    row[f"ms_{probe}"] = timer(
+                        lambda: fn(xq, xs, p, torch.bfloat16))
+                    build._libs[source] = saved
                 again = fn(xq, xs, p, torch.bfloat16)
                 row["equal"] = ok and bool(torch.equal(again, want))
                 emit(args.out, row)
@@ -290,10 +338,11 @@ def neighbour_rows(torch, smoke, timer, args):
     return rows
 
 
-def probe_libraries(build, probes):
+def probe_libraries(build, probes, args):
     """{probe: the tree's library of PROBES[probe]'s source, built from a
     copy of its sources with the probe's rule replaced}, one nvcc process
-    a probe, all started together."""
+    a probe, all started together; with --ptxas, each build's registers
+    and spills too."""
     procs = {}
     for probe in probes:
         source, fname, rule, repl = PROBES[probe][:4]
@@ -303,19 +352,26 @@ def probe_libraries(build, probes):
         shutil.copytree(build.CSRC, csrc)
         path = os.path.join(csrc, fname)
         with open(path) as f:
-            text, n = re.subn(rule, repl, f.read(), count=1)
-        if n != 1:
-            raise RuntimeError(f"{probe}: no rule {rule!r} in {path}")
+            text = f.read()
+        for rule_, repl_ in (rule if repl is None else ((rule, repl),)):
+            text, n = re.subn(rule_, repl_, text, count=1)
+            if n != 1:
+                raise RuntimeError(f"{probe}: no rule {rule_!r} in {path}")
         with open(path, "w") as f:
             f.write(text)
         so = os.path.join(root, f"lib{source}.so")
+        verbose = ["-Xptxas", "-v"] if args.ptxas else []
         procs[probe] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so,
-             os.path.join(csrc, f"{source}.cu")]))
+            [build.nvcc_path(), *build.NVCC_FLAGS, *verbose, "-o", so,
+             os.path.join(csrc, f"{source}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     libs = {}
     for probe, (so, proc) in procs.items():
-        if proc.wait():
-            raise RuntimeError(f"{probe}: nvcc exit {proc.returncode}")
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{probe}: nvcc exit {proc.returncode}\n{log}")
+        if args.ptxas:
+            ptxas_rows(args, f"{PROBES[probe][0]}:{probe}", log)
         lib = ctypes.CDLL(so)
         for fn, argtypes in build.SIGNATURES[PROBES[probe][0]].items():
             getattr(lib, fn).argtypes = argtypes
@@ -326,8 +382,8 @@ def probe_libraries(build, probes):
 
 def ptxas_report(build, args):
     """Registers and spills of every kernel of the sources on the int8
-    wgmma main loop (`nvcc -Xptxas -v`, one process a source, in
-    parallel); raises on a C7518."""
+    wgmma main loop and the two decode sources (`nvcc -Xptxas -v`, one
+    process a source, in parallel); raises on a C7518."""
     root = os.path.join(build.BUILD_ROOT, "ptxas")
     os.makedirs(root, exist_ok=True)
     procs = [(name, subprocess.Popen(
@@ -335,31 +391,39 @@ def ptxas_report(build, args):
          os.path.join(root, f"lib{name}.so"),
          os.path.join(build.CSRC, f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in WGMMA_SOURCES]
+        for name in PTXAS_SOURCES]
     serialized = []
     for name, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {name}: exit {proc.returncode}\n{log}")
-        fn = spills = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn, spills = m.group(1), None
-            elif "C7518" in line:
-                serialized.append(line.strip())
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and fn:
-                spills = (int(m.group(1)), int(m.group(2)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                emit(args.out, {"tree": args.label, "ptxas": name,
-                                "kernel": fn, "registers": int(m.group(1)),
-                                "spill_stores_loads": spills})
-                fn = None
+        serialized += ptxas_rows(args, name, log)
     if serialized:
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
+
+
+def ptxas_rows(args, name, log):
+    """Emit each kernel's registers and spills from `nvcc -Xptxas -v`'s
+    log of source `name`; returns its C7518 lines."""
+    serialized = []
+    fn = spills = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = m.group(1), None
+        elif "C7518" in line:
+            serialized.append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and fn:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            emit(args.out, {"tree": args.label, "ptxas": name,
+                            "kernel": fn, "registers": int(m.group(1)),
+                            "spill_stores_loads": spills})
+            fn = None
+    return serialized
 
 
 def tile_windows(tile_map, bm):
@@ -485,7 +549,8 @@ def main() -> int:
     if args.ptxas:
         ptxas_report(build, args)
     probe_libs = probe_libraries(build, [p for p in args.probe
-                                         if args.selected(PROBES[p][4])])
+                                         if args.selected(PROBES[p][4])],
+                                 args)
     timer = smoke.Timer(torch)
     rows = dense_rows(torch, smoke, timer, args, probe_libs)
     for kernel in PREFILL + DECODE:
