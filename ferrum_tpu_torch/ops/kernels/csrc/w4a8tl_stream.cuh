@@ -108,13 +108,10 @@ constexpr int kGroup = 128;
 constexpr int kKP = 64;               // packed rows per K step (128 k)
 constexpr int kStepsPerGroup = kGroup / kKP;
 constexpr int kLine = 2 * kKP + 16;   // one padded K-major line, bytes
-// The group-dot form's rules. kGdPerGroupMinBN: the dot of both halves
-// is kept over a group's steps and rescaled once a group where BN is at
-// least this (and the extra accumulators fit), else rescaled every step.
-// kGdLateCorrection: the zero correction -sx * (s2 * z) once a group (the
-// row sums kept over its steps), else every step.
+// The group-dot form's rule: the dot of both halves is kept over a
+// group's steps and rescaled once a group where BN is at least this (and
+// the extra accumulators fit), else rescaled every step.
 constexpr int kGdPerGroupMinBN = 128;
-constexpr bool kGdLateCorrection = true;
 
 // The block's kThreads / 32 warps over the BM x BN tile: 1 x 4 at 128
 // threads; 2 x 4 at 256, or 1 x 8 where BM = 16.
@@ -149,11 +146,9 @@ struct Stream {
   static constexpr int kStageBytes = kABytes + kPBytes + kScBytes;
   static constexpr int kBBytes = BN * kLine;    // w8 lines, per buffer
   static constexpr int kSmemBytes = 2 * kBBytes + S * kStageBytes;
-  // The group-dot dot rescaled once a group, and the zero correction
-  // once a group (see kGdPerGroupMinBN, kGdLateCorrection).
+  // The group-dot dot rescaled once a group (see kGdPerGroupMinBN).
   static constexpr bool kPerGroup =
       kGD && BN >= kGdPerGroupMinBN && MT * NT <= 8;
-  static constexpr bool kLateCorrection = kPerGroup || kGdLateCorrection;
   // Dequant units: R packed rows x 4 columns, one a thread (R = 16 at
   // 128 threads, 8 at 256); threads past kUnits idle in the dequant.
   static constexpr int R = kThreads == 256 ? 8 : 16;
@@ -604,8 +599,8 @@ struct Stream {
     // and kept for the group's second step: that slot is refilled before.
     [[maybe_unused]] Scales sc;
     [[maybe_unused]] ColScales cs;
-    // Group-dot: both halves' row sums (kLateCorrection: kept over a
-    // group) and dots (kPerGroup: kept over a group).
+    // Group-dot: both halves' row sums, kept over a group, and dots
+    // (kPerGroup: kept over a group).
     [[maybe_unused]] Acc dot[kPerGroup ? 2 : 1];
     [[maybe_unused]] int sx[2][MT][2];
     if constexpr (kGD) {
@@ -627,24 +622,21 @@ struct Stream {
           Acc d;
           dot_half<true>(d, sx[h], stage(j), w8[j & 1], h);
           scale_dot(acc, d, cs, h);
-          if constexpr (!kLateCorrection) correct(acc, sx[h], cs, h);
         }
       }
     };
     // After step j: the rescales made once a group, if j ends its group
     // (or the split).
     auto gd_group_end = [&](int j) {
-      if constexpr (kLateCorrection) {
-        const int s = s_begin + j;
-        if (s % kStepsPerGroup == kStepsPerGroup - 1 || s + 1 == s_end) {
+      const int s = s_begin + j;
+      if (s % kStepsPerGroup == kStepsPerGroup - 1 || s + 1 == s_end) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if constexpr (kPerGroup) {
-              scale_dot(acc, dot[h], cs, h);
-              T::zero(dot[h]);
-            }
-            correct(acc, sx[h], cs, h);
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (kPerGroup) {
+            scale_dot(acc, dot[h], cs, h);
+            T::zero(dot[h]);
           }
+          correct(acc, sx[h], cs, h);
         }
       }
     };

@@ -57,10 +57,10 @@ compared). gd_no_unpack / gd_no_rescale adds `ms_<probe>` to the
 w4a8tl_gd_decode cases: w4a8tl_gd.cu with the group-dot form's unpack
 cut from every step but the first, or its rescale's multiply-adds (so
 the column scales and row sums go unused) cut, the dots added unscaled
-(wrong results, not compared); gd_per_group_all / gd_per_step /
-gd_step_correction set the group-dot form's rules (w4a8tl_stream.cuh:
-kGdPerGroupMinBN 64 or 256, kGdLateCorrection false), and gd_stages3 ..
-gd_decode_bn128 the launcher's rules above, on w4a8tl_gd.cu. A probe launches with the K split count
+(wrong results, not compared); gd_per_group_all / gd_per_step set the
+group-dot form's rule (w4a8tl_stream.cuh: kGdPerGroupMinBN 64 or 256),
+and gd_stages3 .. gd_decode_bn128 the launcher's rules above, on
+w4a8tl_gd.cu. A probe launches with the K split count
 the tree's own rule picks; --ptxas prints each probe build's registers
 too.
 --ptxas compiles the sources on the int8 wgmma main loop and the two
@@ -135,8 +135,8 @@ PROBES = {
     # Cuts of the group-dot form (wrong results, timed only): without its
     # unpack on all steps but the first, or with the dot added unscaled
     # (no column scales, sx or multiply-adds).
-    # The group-dot form's rules: the dot rescaled once a group at every
-    # BN, or at none; the zero correction every step.
+    # The group-dot form's rule: the dot rescaled once a group at every
+    # BN, or at none.
     "gd_per_group_all": ("w4a8tl_gd", STREAM,
                          r"constexpr int kGdPerGroupMinBN = \d+;",
                          "constexpr int kGdPerGroupMinBN = 64;",
@@ -145,10 +145,6 @@ PROBES = {
                     r"constexpr int kGdPerGroupMinBN = \d+;",
                     "constexpr int kGdPerGroupMinBN = 256;",
                     "w4a8tl_gd_decode", True),
-    "gd_step_correction": ("w4a8tl_gd", STREAM,
-                           r"constexpr bool kGdLateCorrection = true;",
-                           "constexpr bool kGdLateCorrection = false;",
-                           "w4a8tl_gd_decode", True),
     # Cuts of the group-dot form (wrong results, timed only): without its
     # unpack on all steps but the first, or with the dots added unscaled
     # and uncorrected (no multiply-adds; the column scales and row sums
