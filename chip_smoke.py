@@ -21,7 +21,10 @@ Phases, in order, each printing JSON lines:
              K = 256, one, three (a split starting mid-group) and the
              most K splits, N = 192 (64-column tiles) and the wrap case
              at one and the most splits, the split-K counters zero after
-             each, and for the
+             each, for the all-experts bmm one-hot xq on shared and on
+             each expert's own rows (3 and 128 experts; t = 1 .. 64),
+             the int32 range, K = 256 and N = 192, each with its launch
+             plan, and for the
              grouped two-level kernel at 128-row tiles one-hot xq, one
              expert, four experts, ragged rows and K = 256
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
@@ -470,7 +473,7 @@ def moe_cases(torch, timer):
     their plain versions (exact equality), with their times."""
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (
         bmm_plain, grouped_map, grouped_plain, grouped_w4a8tl,
-        grouped_w4a8tl_on_map, quant_bmm_all_experts)
+        grouped_w4a8tl_on_map, moe_bmm_plan, quant_bmm_all_experts)
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
         quantize_activation_rows)
     from ferrum_tpu_torch.ops.quant import dequantize
@@ -490,7 +493,8 @@ def moe_cases(torch, timer):
             xq, xs = quantize_activation_rows(x.reshape(bx * t, k))
             xq3, xs3 = xq.reshape(bx, t, k), xs.reshape(bx, t, 1)
             row = {"kernel": "moe_bmm", "site": site, "t": t, "k": k,
-                   "n": n, "experts": MOE_E, "shared_rows": bx == 1}
+                   "n": n, "experts": MOE_E, "shared_rows": bx == 1,
+                   "plan": moe_bmm_plan(t, n, k, MOE_E)}
             row["bound_ms"], row["bound_by"] = bound_ms(
                 stack_bytes(p, MOE_E) + xq3.nbytes + xs3.nbytes
                 + 2 * MOE_E * t * n, 2.0 * MOE_E * t * k * n)
@@ -873,6 +877,92 @@ def decode_exact_cases(torch, timer):
             if not row["equal"] or not row["scratch_zero"]:
                 raise AssertionError(f"{kernel} {case} {m}x{k}x{n}: {row}")
         del p, xq, xs, want, got, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The exact cases of the all-experts bmm beyond the timed ones, (case,
+# experts, t, K, N, shared rows): one-hot xq at the qwen3 gate / up site
+# on shared rows and at the down site on each expert's own rows (128
+# experts), at every BM (t = 1, 17, 33, 64) on 3 experts; the int32 range
+# at K = 14336 on each expert's own rows; K = 256 (2 K steps, fewer than
+# the ring's 3 prologue loads); N = 192 (64-column tiles) on 3 and 128
+# experts.
+BMM_EXACT = (("one-hot", 128, 32, 2048, 768, True),
+             ("one-hot", 128, 32, 768, 2048, False),
+             ("one-hot", 3, 1, 2048, 768, True),
+             ("one-hot", 3, 17, 2048, 768, False),
+             ("one-hot", 3, 33, 768, 2048, True),
+             ("one-hot", 3, 64, 768, 2048, False),
+             ("extreme", 3, 64, 14336, 256, False),
+             ("random", 3, 17, 256, 768, True),
+             ("random", 3, 33, 256, 768, False),
+             ("random", 3, 16, 2048, 192, True),
+             ("random", 128, 64, 2048, 192, False))
+
+
+def bmm_exact_cases(torch, timer):
+    """moe_bmm equal to bmm_plain bit for bit on the BMM_EXACT cases, in
+    bf16 and f32 out, before and after its timed launches, each row with
+    the launch's plan (moe_bmm_plan). One-hot xq makes every output one
+    w8 row of its expert times xs and chan, on stacks whose experts
+    differ (q, z and scales2 depend on the expert); on per-expert rows
+    each expert's row i is hot at its own k (k_i + 129 e mod K), so a
+    fault in an expert's weight, scale, chan, row or output offset
+    cannot pass. The extreme case: each expert's row m meets the largest
+    sum 127 * 127 * K at column m % N."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (bmm_plain,
+                                                       moe_bmm_plan,
+                                                       quant_bmm_all_experts)
+    from ferrum_tpu_torch.ops.quant import two_level_w8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = []
+    for case, e, t, k, n, shared in BMM_EXACT:
+        bx = 1 if shared else e
+        p = two_level_weight(torch, k, n, gen,
+                             "onehot" if case == "one-hot" else case,
+                             experts=e)
+        xs3 = torch.rand(bx, t, 1, generator=gen, device="cuda") + 0.5
+        if case == "one-hot":
+            hot = onehot_x(torch, t, k, gen).argmax(-1)           # [t]
+            shift = 129 * torch.arange(bx, device="cuda")[:, None]
+            xq3 = torch.zeros(bx, t, k, dtype=torch.int8, device="cuda")
+            xq3.scatter_(2, ((hot[None] + shift) % k)[..., None], 1)
+        elif case == "extreme":
+            w8 = two_level_w8(p)                                  # [E, K, N]
+            cols = torch.arange(t, device="cuda") % n
+            xq3 = (127 * torch.where(w8[:, :, cols] > 0, 1, -1)
+                   .transpose(1, 2)).to(torch.int8).contiguous()
+            top = (xq3.double() @ w8.double()).abs().amax((1, 2))
+            if (top != 127 * 127 * k).any():
+                raise AssertionError(f"extreme case peaks at {top}")
+            del w8
+        else:
+            xq3 = torch.randint(-127, 128, (bx, t, k), generator=gen,
+                                device="cuda").to(torch.int8)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            def launch():
+                return quant_bmm_all_experts(xq3, xs3, p, out_dtype)
+            want = bmm_plain(xq3, xs3, p, out_dtype)
+            got = launch()
+            ms_ = timer(launch, reps=5, warmup=1)
+            again = launch()
+            torch.cuda.synchronize()
+            row = {"kernel": "moe_bmm", "case": case, "experts": e, "t": t,
+                   "k": k, "n": n, "shared_rows": shared,
+                   "out": str(out_dtype).split(".")[-1],
+                   "plan": moe_bmm_plan(t, n, k, e), "kernel_ms": ms_,
+                   "equal": bool(torch.equal(got, want))
+                   and bool(torch.equal(again, want)),
+                   "outputs_differing": int((got != want).sum().item())}
+            rows.append(row)
+            emit({"phase": "kernel_case", **row})
+            if not row["equal"]:
+                raise AssertionError(f"moe_bmm {case} E={e} t={t} "
+                                     f"{k}x{n}: {row}")
+            del want, got, again
+        del p, xq3, xs3
     torch.cuda.empty_cache()
     return rows
 
@@ -1563,6 +1653,7 @@ def main() -> int:
     onehot_cases(torch)
     prefill_exact_cases(torch)
     decode_exact_cases(torch, timer)
+    bmm_exact_cases(torch, timer)
     grouped_exact_cases(torch, timer)
     summary = summarize(cases)
     emit({"phase": "kernels", "card": smi, "summary": summary})

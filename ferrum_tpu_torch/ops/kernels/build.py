@@ -55,6 +55,7 @@ SIGNATURES = {
     "moe_gemm": {
         "ferrum_moe_bmm": [_P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
+        "ferrum_moe_bmm_plan": [_I, _I, _I, _I, _P],
         "ferrum_moe_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],
     },

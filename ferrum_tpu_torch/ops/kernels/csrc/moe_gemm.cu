@@ -29,13 +29,22 @@
 // expert, so the tensor cores do about twice the real work.
 //
 // Design:
-//  - bmm: grid (N / 64, E), one block per (expert, 64-column tile) with
-//    every row in it (BM = 16/32/64 >= t), walking the full K with the
-//    mma.sync tile w4a8tl::Tile (w4a8tl_tile.cuh): at the qwen3-30b-a3b
-//    shapes that is 1536 (gate, up) or 4096 (down) blocks, enough to fill
-//    132 SMs without splitting K, so no cross-block sum. A template flag
-//    picks shared rows (gate/up read one [t, K] block) or per-expert rows
-//    (down reads xq[e]).
+//  - bmm: the decode GEMMs' streamed main loop (w4a8tl_stream.cuh, its
+//    w8 form: a ring of 16-byte cp.async copies several K steps deep,
+//    the dequant of step s+1 overlapping the mma.sync of step s, one
+//    barrier a step) with the expert as a grid axis: grid (N / BN, E),
+//    one block per (column tile, expert) with every row in it (BM = 16 /
+//    32 / 64 >= t), walking the full K. The block offsets the stacks'
+//    pointers by its expert, and xq / xs too where each expert has its
+//    own rows (down; gate and up share one [t, K] block), then runs
+//    Stream::run and Stream::finish<false>, whose epilogue is this
+//    kernel's order. One K split: E x N / BN blocks fill the SMs in
+//    whole waves without one (at the qwen3-30b-a3b shapes 768 blocks for
+//    gate and up, 2048 for down, at BN 128), so there are no partial
+//    planes, no arrival counters and no scratch. The launcher picks BN
+//    and the thread count by the E x N / BN tiles and the ring's depth
+//    by BM (its rule lines below; on an H100 each pick beat the others
+//    at every qwen3-30b-a3b site, PERF.md).
 //  - grouped: grid (N / BN, logical tiles). The host bounds the logical
 //    tiles statically by ceil(A / BM) + E - 1 and the device-side tile
 //    map (gid, mtid, valid; moe_gemm.py::group_tile_map, the counterpart
@@ -54,6 +63,9 @@
 //    wgmma, also where the expert's rows all lie in the other one's 64
 //    (zero rows): a wgmma behind a branch makes ptxas serialize them all.
 
+#include <atomic>
+
+#include "w4a8tl_stream.cuh"
 #include "w4a8tl_tile.cuh"
 #include "w4a8tl_wgmma.cuh"
 
@@ -61,31 +73,31 @@ namespace {
 
 using w4a8tl::store_out;
 
-template <int BM, int BN, int KP, int WM, int WN, bool kShared>
-__global__ void __launch_bounds__(WM * WN * 32)
+// One BM x BN tile of expert blockIdx.y, columns blockIdx.x * BN.., over
+// the full K: the expert's stacks, its xq / xs rows (x_rows: the rows of
+// one expert's block of xq3 / xs3; 0 where every expert shares one
+// block), its chan, and its [T, N] plane of out.
+template <int BM, int BN, int S, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 moe_bmm_kernel(const int8_t* __restrict__ xq3, const float* __restrict__ xs3,
                const uint8_t* __restrict__ qw, const int8_t* __restrict__ s2,
                const int8_t* __restrict__ zr, const float* __restrict__ chan,
-               void* __restrict__ out, int T, int N, int K, int out_bf16) {
-  using Tl = w4a8tl::Tile<BM, BN, KP, WM, WN>;
-  __shared__ __align__(16) typename Tl::Smem sm;
+               void* __restrict__ out, int x_rows, int T, int N, int K,
+               int out_bf16) {
+  using L = w4a8tl_stream::Stream<BM, BN, S, kThreads, false>;
+  extern __shared__ __align__(16) uint8_t smem[];
   const int n0 = blockIdx.x * BN;
-  const int e = blockIdx.y;
+  const size_t e = blockIdx.y;
   const size_t wstride = (size_t)(K / 2) * N;
-  const size_t gstride = (size_t)(K / w4a8tl::kGroup) * N;
-  const int8_t* xq = kShared ? xq3 : xq3 + (size_t)e * T * K;
-  const float* xs = kShared ? xs3 : xs3 + (size_t)e * T;
-  const float* ch = chan + (size_t)e * N;
-
-  typename Tl::Acc acc;
-  Tl::zero(acc);
-  Tl::mainloop(acc, sm, xq, qw + e * wstride, s2 + e * gstride,
-               zr + e * gstride, 0, 0, T, n0, N, K, 0, (K / 2) / KP);
-  const size_t obase = (size_t)e * T * N;
-  Tl::for_each_out(acc, 0, n0, 0, T, [&](int row, int col, int v) {
-    store_out(out, obase + (size_t)row * N + col,
-              ((float)v * xs[row]) * ch[col], out_bf16);
-  });
+  const size_t gstride = (size_t)(K / w4a8tl_stream::kGroup) * N;
+  const size_t ostride = (size_t)T * N * (out_bf16 ? 2 : 4);
+  typename L::Acc acc;
+  L::T::zero(acc);
+  L::run(acc, smem, xq3 + e * x_rows * K, qw + e * wstride, s2 + e * gstride,
+         zr + e * gstride, T, n0, N, K, 0, (K / 2) / w4a8tl_stream::kKP);
+  L::template finish<false>(acc, xs3 + e * x_rows, chan + e * N,
+                            static_cast<uint8_t*>(out) + e * ostride,
+                            nullptr, nullptr, n0, T, N, out_bf16);
 }
 
 template <int BM, int BN, int KP, int WM, int WN>
@@ -163,16 +175,96 @@ moe_grouped_wgmma_kernel(const int8_t* __restrict__ xq,
                           row_hi, n0, N, out_bf16);
 }
 
-template <int BM, bool kShared>
-void launch_bmm(const void* xq3, const void* xs3, const void* qw,
-                const void* s2, const void* z, const void* chan, void* out,
-                int E, int T, int N, int K, int out_bf16, cudaStream_t st) {
-  dim3 grid(N / 64, E);
-  moe_bmm_kernel<BM, 64, 128, 1, 4, kShared><<<grid, 128, 0, st>>>(
-      static_cast<const int8_t*>(xq3), static_cast<const float*>(xs3),
-      static_cast<const uint8_t*>(qw), static_cast<const int8_t*>(s2),
-      static_cast<const int8_t*>(z), static_cast<const float*>(chan), out, T,
-      N, K, out_bf16);
+// ---------------------------------------------------------------------------
+// The bmm's launcher (bmm_any), with internal linkage like the decode
+// launcher's (w4a8tl_stream.cuh): each library, and each rebuilt copy of
+// one, keeps its own once-per-device state.
+// ---------------------------------------------------------------------------
+
+// The ring's depth by the tile's rows: 3 stages where BM <= 32, so that
+// a third block fits an SM at BN 128 (down's 6 K steps a block then hide
+// its ring fill and epilogue better); 4 at BM 64, where two fit either
+// way and the deeper ring wins.
+template <int BM>
+constexpr int kBmmStages = BM <= 32 ? 3 : 4;
+
+// The arguments of a bmm launch. plan: when not null, the launch is not
+// made and plan[0..4] get BM, BN, threads, stages and resident blocks
+// per SM.
+struct BmmArgs {
+  const void *xq3, *xs3, *qw, *s2, *z, *chan;
+  void* out;
+  int E, T, N, K, shared, out_bf16;
+  cudaStream_t st;
+  int* plan;
+};
+
+template <int BM, int BN, int kThreads>
+int bmm(const BmmArgs& a) {
+  constexpr int S = kBmmStages<BM>;
+  using L = w4a8tl_stream::Stream<BM, BN, S, kThreads, false>;
+  const auto kernel = moe_bmm_kernel<BM, BN, S, kThreads>;
+  // The shared-memory limit is raised once per device (the launch is on
+  // every MoE decode layer's path).
+  static std::atomic<uint64_t> ready{0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(bit);
+  }
+  static const int per_sm = [&] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, kThreads,
+                                                  L::kSmemBytes);
+    return b > 0 ? b : 1;
+  }();
+  if (a.plan) {
+    const int plan[5] = {BM, BN, kThreads, S, per_sm};
+    for (int i = 0; i < 5; ++i) a.plan[i] = plan[i];
+    return (int)cudaSuccess;
+  }
+  kernel<<<dim3(a.N / BN, a.E), kThreads, L::kSmemBytes, a.st>>>(
+      static_cast<const int8_t*>(a.xq3), static_cast<const float*>(a.xs3),
+      static_cast<const uint8_t*>(a.qw), static_cast<const int8_t*>(a.s2),
+      static_cast<const int8_t*>(a.z), static_cast<const float*>(a.chan),
+      a.out, a.shared ? 0 : a.T, a.T, a.N, a.K, a.out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// The thread count by the E x N / BN tiles: 128 threads where they fill
+// the SMs (the rows of a block's mma on fewer warps), else 256.
+template <int BM, int BN>
+int bmm_threads(const BmmArgs& a) {
+  const bool bmm_few = (long)a.E * (a.N / BN) >= w4a8tl_wgmma::num_sms();
+  return bmm_few ? bmm<BM, BN, 128>(a) : bmm<BM, BN, 256>(a);
+}
+
+template <int BN>
+int bmm_bm(const BmmArgs& a) {
+  return a.T <= 16 ? bmm_threads<16, BN>(a)
+       : a.T <= 32 ? bmm_threads<32, BN>(a)
+                   : bmm_threads<64, BN>(a);
+}
+
+// A bmm launch (or its plan): all T rows (BM = 16 / 32 / 64) x BN
+// columns of one expert a block, the full K. Requires E >= 1, 1 <= T <=
+// 64, K % 256 == 0, N % 64 == 0.
+int bmm_any(const BmmArgs& a) {
+  if (a.E < 1 || a.T < 1 || a.T > 64 || a.K % 256 || a.N % 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // 128 columns wherever N allows and the E x N / 128 tiles fill the SMs
+  // once: a block stages its BM lines of xq (BM x 144 bytes) every K
+  // step beside its packed tile (64 x BN), and every block re-reads them
+  // from L2, so wider tiles move fewer bytes; 64 columns only where 128
+  // would leave SMs idle.
+  const bool bmm_wide =
+      a.N % 128 == 0 && (long)a.E * (a.N / 128) >= w4a8tl_wgmma::num_sms();
+  return bmm_wide ? bmm_bm<128>(a) : bmm_bm<64>(a);
 }
 
 template <int BM, int BN, int KP, int WM, int WN>
@@ -212,29 +304,23 @@ int launch_grouped_wgmma(const void* xq, const void* xs, const void* qw,
 
 // All-experts batched GEMM. xq3 int8 [shared ? 1 : E, T, K], xs3 f32
 // [shared ? 1 : E, T], out [E, T, N]. Requires T <= 64, K % 256 == 0,
-// N % 64 == 0. Returns cudaGetLastError().
+// N % 64 == 0, and xq3, qweight, scales2 and zeros 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int ferrum_moe_bmm(const void* xq3, const void* xs3,
                               const void* qw, const void* s2, const void* z,
                               const void* chan, void* out, int E, int T,
                               int N, int K, int shared, int out_bf16,
                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FERRUM_BMM(BM)                                                      \
-  (shared ? launch_bmm<BM, true>(xq3, xs3, qw, s2, z, chan, out, E, T, N, \
-                                 K, out_bf16, st)                         \
-          : launch_bmm<BM, false>(xq3, xs3, qw, s2, z, chan, out, E, T, N, \
-                                  K, out_bf16, st))
-  if (T <= 16) {
-    FERRUM_BMM(16);
-  } else if (T <= 32) {
-    FERRUM_BMM(32);
-  } else if (T <= 64) {
-    FERRUM_BMM(64);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef FERRUM_BMM
-  return (int)cudaGetLastError();
+  return bmm_any({xq3, xs3, qw, s2, z, chan, out, E, T, N, K, shared,
+                  out_bf16, static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// The launch ferrum_moe_bmm would make for (E, T, N, K), without making
+// it: plan[0..4] = BM, BN, threads, ring stages, resident blocks per SM.
+// Returns a cudaError_t.
+extern "C" int ferrum_moe_bmm_plan(int T, int N, int K, int E, int* plan) {
+  return bmm_any({nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, E, T, N, K, 1, 0, nullptr, plan});
 }
 
 // Grouped GEMM over expert-sorted rows. xq int8 [A, K], xs f32 [A],

@@ -5,7 +5,10 @@
 // the tiles, threads and K splits. Two forms of the same function:
 //  - kGD false, the w8 form: w4a8tl_gemm.cu's ferrum_w4a8tl_decode
 //    (replaces ferrum_tpu/ops/pallas/quant_matmul.py:601
-//    _qmm_w4a8tl_mxu_kernel). The packed tile is dequantized to w8.
+//    _qmm_w4a8tl_mxu_kernel). The packed tile is dequantized to w8. Its
+//    third user, moe_gemm.cu's all-experts bmm (replaces quant_matmul.py
+//    :1290 _qbmm_w4a8tl_mxu_kernel), runs this form's Stream::run and
+//    finish<false> once per (column tile, expert) with its own launcher.
 //  - kGD true, the group-dot form: w4a8tl_gd.cu's ferrum_w4a8tl_gd_decode
 //    (replaces quant_matmul.py:543 _qmm_w4a8tl_gd_kernel). The raw
 //    nibbles q go into the mma, and each half step's dot is rescaled on

@@ -6,10 +6,11 @@
 // high nibble. |xq| <= 127 and |w8| <= 127, so |acc| <= 127*127*K < 2^31
 // for K <= 14336: the int32 sums are exact.
 //
-// Used by moe_gemm.cu (the all-experts bmm, and the grouped GEMM's
-// 16-row tiles; its 128-row ones run on w4a8tl_wgmma.cuh), which applies
-// its own float epilogue to the tile. The dense decode loop of both forms
-// (w4a8tl_stream.cuh) takes only its accumulator layout and mma_s8.
+// Used by moe_gemm.cu's grouped GEMM at its 16-row tiles (its 128-row
+// ones run on w4a8tl_wgmma.cuh), which applies its own float epilogue to
+// the tile. The streamed decode loop (w4a8tl_stream.cuh: both dense
+// decode forms and the all-experts bmm) takes only its accumulator layout
+// and mma_s8.
 //
 // The block owns a BM x BN output tile and walks K in steps of KP packed
 // rows (2*KP k-values: KP low-nibble rows and the matching KP high-nibble

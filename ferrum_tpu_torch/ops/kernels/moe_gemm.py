@@ -29,6 +29,7 @@ kernel, as the JAX package's dequantize + ragged_dot fallback.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -220,12 +221,16 @@ def quant_bmm_all_experts(xq3: torch.Tensor, xs3: torch.Tensor,
                           out_dtype: torch.dtype) -> torch.Tensor:
     """out[e] = xq3[e|0] @ W_e for every expert: xq3 int8 [1|E, t, K]
     (1 = one row block shared by every expert, as gate/up; E = each
-    expert its own rows, as down), xs3 f32 [1|E, t, 1] → [E, t, N]."""
+    expert its own rows, as down), xs3 f32 [1|E, t, 1] → [E, t, N]. On
+    the card, one block per (column tile, expert) on the decode GEMMs'
+    streamed main loop (csrc/moe_gemm.cu), tiles, threads and ring
+    depth by its launcher's rule (`moe_bmm_plan`)."""
     _require_two_level(p)
     if not xq3.is_cuda:
         return bmm_plain(xq3, xs3, p, out_dtype)
     bx, t, k = xq3.shape
-    e, n = _check_stack(p, k, xq3.device, 64)
+    # The streamed main loop copies the stacks in 16-byte pieces.
+    e, n = _check_stack(p, k, xq3.device, 64, align=16)
     if bx not in (1, e) or not 1 <= t <= BMM_MAX_T:
         raise ValueError(f"xq3 must be [1 or {e}, t <= {BMM_MAX_T}, K], "
                          f"got {tuple(xq3.shape)}")
@@ -240,6 +245,16 @@ def quant_bmm_all_experts(xq3: torch.Tensor, xs3: torch.Tensor,
     check(err, "moe_bmm")
     MOE_BMM.launches += 1
     return out
+
+
+def moe_bmm_plan(t: int, n: int, k: int, e: int) -> dict:
+    """The launch `quant_bmm_all_experts` makes for t rows over e experts
+    of [K, N] on the current card, as its launcher plans it: tile rows
+    and columns, threads a block, ring stages, resident blocks per SM."""
+    out = (ctypes.c_int * 5)()
+    check(library("moe_gemm").ferrum_moe_bmm_plan(t, n, k, e, out),
+          "moe_bmm_plan")
+    return dict(zip(("bm", "bn", "threads", "stages", "blocks_per_sm"), out))
 
 
 def grouped_bm(a: int) -> int:

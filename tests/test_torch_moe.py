@@ -304,6 +304,151 @@ def test_grouped_tile_walk_matches_plain(sizes, k):
 
 
 # ---------------------------------------------------------------------------
+# 3b. all-experts bmm on the card (csrc/moe_gemm.cu on csrc/
+#     w4a8tl_stream.cuh): its launcher's rule and its grid walk, in numpy
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+# The launcher's rule lines in csrc/moe_gemm.cu that _bmm_plan mirrors.
+_BMM_RULE = {
+    "bmm_wide": "a.N % 128 == 0 && (long)a.E * (a.N / 128) >= "
+                "w4a8tl_wgmma::num_sms()",
+    "bmm_few": "(long)a.E * (a.N / BN) >= w4a8tl_wgmma::num_sms()",
+}
+_BMM_STAGES = "BM <= 32 ? 3 : 4"
+
+
+def _bmm_plan(t, n, e, sms=H100_SMS):
+    """The bmm launcher's rule (bmm_any, bmm_bm, bmm_threads,
+    kBmmStages), in Python: (BM, BN, threads, ring stages) for t rows
+    over e experts of N columns on `sms` SMs."""
+    bm = 16 if t <= 16 else 32 if t <= 32 else 64
+    bn = 128 if n % 128 == 0 and e * (n // 128) >= sms else 64
+    return (bm, bn, 128 if e * (n // bn) >= sms else 256,
+            3 if bm <= 32 else 4)
+
+
+@pytest.mark.parametrize("e", [128, 64])
+def test_bmm_launch_rule_at_qwen3_sites(e):
+    """The rule the launcher keeps (the source's rule lines are the ones
+    _bmm_plan mirrors) picks, at the qwen3 expert sites with 128 experts
+    (qwen3-30b-a3b) and 64, 128-column tiles on 128 threads with every
+    row in one block, and so E x N / 128 blocks: at least 2.9 waves of
+    the 2 resident blocks an SM the tile's shared memory allows on 132
+    SMs where E = 128, and more than one wave where E = 64; a 3-stage
+    ring at BM <= 32 and a 4-stage one at BM 64."""
+    import os
+    import re
+
+    src = open(os.path.join(
+        os.path.dirname(__file__), os.pardir, "ferrum_tpu_torch", "ops",
+        "kernels", "csrc", "moe_gemm.cu")).read()
+    for name, rule in _BMM_RULE.items():
+        got = re.search(rf"const bool {name} =\s*([^;]*);", src)
+        assert got and " ".join(got.group(1).split()) == rule, name
+    assert f"constexpr int kBmmStages = {_BMM_STAGES};" in src
+    waves = []
+    for k, n in ((2048, 768), (768, 2048)):          # gate / up, down
+        for t in (1, 16, 17, 32, 33, 64):
+            bm, bn, threads, stages = _bmm_plan(t, n, e)
+            assert (bm, bn, threads, stages) == (
+                16 if t <= 16 else 32 if t <= 32 else 64, 128, 128,
+                3 if t <= 32 else 4)
+            waves.append(e * (n // bn) / (2 * H100_SMS))
+    assert min(waves) > (2.9 if e == 128 else 1.0)
+    # 64-column tiles where N % 128 != 0, or where E x N / 128 tiles
+    # would leave SMs idle; 256 threads where even those do.
+    assert _bmm_plan(32, 192, 128)[1:3] == (64, 128)
+    assert _bmm_plan(32, 768, 8)[1:3] == (64, 256)
+
+
+@pytest.mark.parametrize("threads", [128, 256])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("k", [256, 768])
+@pytest.mark.parametrize("t", [1, 17, 64])
+def test_bmm_stream_walk_matches_plain(monkeypatch, t, k, bn, threads):
+    """moe_bmm's blocks emulated in numpy: grid (N / BN, E), each block
+    the streamed main loop of tests/test_torch_quant.py's decode walk
+    (_stream_block: cp.async placement, the byte-perm dequant into padded
+    lines, mma.sync fragments; one K split) on its expert's slices of the
+    flat stacks at the kernel's pointer offsets, on shared rows (gate,
+    up) and on each expert's own rows (down), then finish<false>'s
+    epilogue (f32(acc) * xs[row]) * chan[col] into the expert's plane of
+    the flat output. Every output of [E, t, N] must be written exactly
+    once and equal bmm_plain bit for bit, in f32 and bf16, with the ring
+    as deep as the launcher's rule makes it (3 stages at BM <= 32, 4 at
+    64). Three experts
+    with their own q, z, scales2 and chan; N = 192 forces 64 columns;
+    K = 256 is 2 K steps (no more than the ring's prologue loads), 768
+    the qwen3 down projection's 6."""
+    import test_torch_quant as walk
+    from ferrum_tpu_torch.ops.kernels import moe_gemm as tmg
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams, two_level_w8
+
+    e = 3
+    n = 3 * bn if bn == 64 else 2 * bn
+    bm, _, _, stages = _bmm_plan(t, n, e)
+    walk._threads(threads)
+    monkeypatch.setattr(walk, "_S", stages)
+    rng = np.random.default_rng(100 * t + k + bn + threads)
+    q = rng.integers(0, 16, (e, k, n))
+    z = rng.integers(0, 16, (e, k // 128, n))
+    s2 = np.clip(rng.integers(-127, 128, (e, k // 128, n)),
+                 -(127 // np.maximum(z, 15 - z)), 127 // np.maximum(z, 15 - z))
+    p = QuantLinearParams(
+        qweight=torch.from_numpy(
+            (q[:, :k // 2] | (q[:, k // 2:] << 4)).astype(np.uint8)),
+        scales=torch.ones(e, k // 128, n, dtype=torch.bfloat16),
+        zeros=torch.from_numpy(z.astype(np.int8)), bias=None,
+        in_features=k, out_features=n, group_size=128,
+        scales2=torch.from_numpy(s2.astype(np.int8)),
+        chan_scale=torch.from_numpy(
+            rng.uniform(1e-3, 2e-3, (e, 1, n)).astype(np.float32)))
+    w8 = two_level_w8(p).numpy()
+    # The stacks as the kernel's flat pointers see them.
+    qw_f = p.qweight.numpy().reshape(-1)
+    s2_f, zr_f = (getattr(p, f).numpy().view(np.uint8).reshape(-1)
+                  for f in ("scales2", "zeros"))
+    chan_f = torch.from_numpy(p.chan_scale.numpy().reshape(-1))
+    wstride, gstride = k // 2 * n, k // 128 * n
+    for shared in (True, False):
+        bx = 1 if shared else e
+        xq3 = rng.integers(-127, 128, (bx, t, k)).astype(np.int8)
+        xs3 = rng.uniform(0.5, 1.5, (bx, t, 1)).astype(np.float32)
+        xq_f, xs_f = xq3.view(np.uint8).reshape(-1), torch.from_numpy(
+            xs3.reshape(-1))
+        x_rows = 0 if shared else t
+        outs = {dt: torch.zeros(e * t * n, dtype=dt)
+                for dt in (torch.float32, torch.bfloat16)}
+        writes = np.zeros(e * t * n, np.int64)
+        rows = np.arange(t)
+        for ey in range(e):                              # blockIdx.y
+            for n0 in range(0, n, bn):                   # blockIdx.x * BN
+                tile = walk._stream_block(
+                    xq_f[ey * x_rows * k:][:t * k].reshape(t, k),
+                    qw_f[ey * wstride:][:wstride].reshape(k // 2, n),
+                    s2_f[ey * gstride:][:gstride].reshape(k // 128, n),
+                    zr_f[ey * gstride:][:gstride].reshape(k // 128, n),
+                    w8[ey], t, n0, k, bm, bn, 0, k // 128, rng)[:t]
+                cols = n0 + np.arange(bn)
+                idx = ey * t * n + rows[:, None] * n + cols[None, :]
+                val = (torch.from_numpy(tile).to(torch.float32)
+                       * xs_f[ey * x_rows + rows][:, None]) \
+                    * chan_f[ey * n + cols][None, :]
+                for dt, out in outs.items():
+                    out[torch.from_numpy(idx.reshape(-1))] = \
+                        val.reshape(-1).to(dt)
+                np.add.at(writes, idx.reshape(-1), 1)
+        assert (writes == 1).all()
+        acc = xq3.astype(np.int64) @ w8.astype(np.int64)
+        assert np.abs(acc).max() < 2 ** 31
+        for dt, out in outs.items():
+            want = tmg.bmm_plain(torch.from_numpy(xq3),
+                                 torch.from_numpy(xs3), p, dt)
+            assert torch.equal(out.reshape(e, t, n), want), (shared, dt)
+
+
+# ---------------------------------------------------------------------------
 # 4. routing: JAX's top-k order on ties
 # ---------------------------------------------------------------------------
 

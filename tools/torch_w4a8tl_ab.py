@@ -5,7 +5,9 @@
         [--only KERNEL ...] [--sweep-splits S,S,...]
         [--probe bn128|bn256|stages3|stages6|threads128|threads256|
                  decode_bn64|decode_bn128|no_mma|no_dequant|
-                 gd_no_unpack|gd_no_rescale ...] [--ptxas]
+                 gd_no_unpack|gd_no_rescale|bmm_bn64|bmm_bn128|
+                 bmm_threads128|bmm_threads256|bmm_stages3|bmm_stages4|
+                 bmm_stages6|bmm_no_mma|bmm_no_dequant ...] [--ptxas]
         [--out FILE]
 
 Imports `ferrum_tpu_torch` from DIR -- this checkout, or an older one
@@ -34,9 +36,12 @@ compare trees, run them alternately on one machine (A B B A).
 
 --only KERNEL (repeatable) times that kernel's cases alone, skipping the
 others' and their plain versions; it also admits kernels the default run
-leaves out, the decode kernels' neighbours that share no code with the
-two-level ones but are held to their parent's times: moe_bmm (qwen3 gate
-/ up / down at t = 32), w4a8_decode (llama at m = 32) and w4a16_gemm
+leaves out: moe_bmm (qwen3-30b-a3b gate / up / down over its 128
+experts at t = 16 / 32 / 64, beside `torch.bmm` on the bf16 stack, each
+case with the launch its launcher's rule makes, `plan`, on a tree that
+has moe_bmm_plan; a `layer` line at each t), and the decode kernels'
+neighbours that share no code with the two-level ones but are held to
+their parent's times: w4a8_decode (llama at m = 32) and w4a16_gemm
 (llama at m = 32 and 2048; within one bf16 step of its plain version).
 --sweep-splits adds to each w4a8tl_decode and w4a8tl_gd_decode case
 `sweep`, its time at each given K split count (a tree whose wrapper
@@ -60,7 +65,14 @@ the column scales and row sums go unused) cut, the dots added unscaled
 (wrong results, not compared); gd_per_group_all / gd_per_step set the
 group-dot form's rule (w4a8tl_stream.cuh: kGdPerGroupMinBN 64 or 256),
 and gd_stages3 .. gd_decode_bn128 the launcher's rules above, on
-w4a8tl_gd.cu. A probe launches with the K split count
+w4a8tl_gd.cu. bmm_bn64 / bmm_bn128 / bmm_threads128 / bmm_threads256 /
+bmm_stages3 / bmm_stages4 / bmm_stages6 adds `ms_<probe>` to the moe_bmm
+cases: moe_gemm.cu built with the bmm launcher's column tiles forced to
+64, or to 128 where N allows, 128 or 256 threads a block everywhere, or
+its ring 3, 4 or 6 stages deep at every BM; bmm_no_mma / bmm_no_dequant
+the bmm on a copy of the streamed loop's header with that part cut from
+every step but one (wrong results, not compared). A probe launches with
+the K split count
 the tree's own rule picks; --ptxas prints each probe build's registers
 too.
 --ptxas compiles the sources on the int8 wgmma main loop and the two
@@ -91,7 +103,7 @@ QWEN = {"qkv": (2048, 5120), "o": (4096, 2048)}
 QWEN_M = 2048
 MOE = {"gate": (2048, 768), "up": (2048, 768), "down": (768, 2048)}
 GROUPED_A = (120, 2048, 16384)
-BMM_T = 32
+BMM_T = (16, 32, 64)
 PREFILL = ("w4a8tl_prefill", "w4a8tl_prefill_mcache")
 DECODE = ("w4a8tl_decode", "w4a8tl_gd_decode")
 DEFAULT = PREFILL + DECODE + ("moe_grouped",)
@@ -158,6 +170,26 @@ PROBES = {
                         r"cs\.s2z\[h\]\[j\]\[e & 1\]\);", ");")), None,
                       "w4a8tl_gd_decode", False),
 }
+# The bmm launcher's rules (moe_gemm.cu) and cuts of its main loop.
+PROBES.update({
+    "bmm_bn64": ("moe_gemm", "moe_gemm.cu", r"const bool bmm_wide =[^;]*;",
+                 "const bool bmm_wide = false;", "moe_bmm", True),
+    "bmm_bn128": ("moe_gemm", "moe_gemm.cu", r"const bool bmm_wide =[^;]*;",
+                  "const bool bmm_wide = a.N % 128 == 0;", "moe_bmm", True),
+    "bmm_threads128": ("moe_gemm", "moe_gemm.cu",
+                       r"const bool bmm_few = [^;]*;",
+                       "const bool bmm_few = true;", "moe_bmm", True),
+    "bmm_threads256": ("moe_gemm", "moe_gemm.cu",
+                       r"const bool bmm_few = [^;]*;",
+                       "const bool bmm_few = false;", "moe_bmm", True),
+    **{f"bmm_stages{d}": ("moe_gemm", "moe_gemm.cu",
+                          r"constexpr int kBmmStages = [^;]*;",
+                          f"constexpr int kBmmStages = {d};", "moe_bmm", True)
+       for d in (3, 4, 6)},
+    "bmm_no_mma": ("moe_gemm",) + PROBES["no_mma"][1:4] + ("moe_bmm", False),
+    "bmm_no_dequant": ("moe_gemm",) + PROBES["no_dequant"][1:4]
+    + ("moe_bmm", False),
+})
 # The launcher's rules probed on the group-dot kernel: gd_stages3 .. .
 PROBES.update({
     f"gd_{name}": ("w4a8tl_gd", STREAM, rule, repl, "w4a8tl_gd_decode", True)
@@ -260,50 +292,70 @@ def dense_rows(torch, smoke, timer, args, probe_libs):
     return rows
 
 
-def neighbour_rows(torch, smoke, timer, args):
+def neighbour_rows(torch, smoke, timer, args, probe_libs):
     """moe_bmm, w4a8_decode and w4a16_gemm where --only names them; each
     against its plain version (w4a16_gemm within one bf16 step)."""
+    from ferrum_tpu_torch.ops.kernels import build
     from ferrum_tpu_torch.ops.kernels import moe_gemm
     from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    from ferrum_tpu_torch.ops.quant import dequantize
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     rows = []
 
-    def case(kernel, site, shape, fn, plain, exact, bound):
+    def case(kernel, site, shape, fn, plain, exact, bound, extra=None):
         got, want = fn(), plain()
-        ms_ = timer(fn)
+        row = {"tree": args.label, "kernel": kernel, "site": site, **shape,
+               "ms": timer(fn), "bound_ms": bound[0], "bound_by": bound[1],
+               **(extra or {})}
+        ok = True
+        for probe, lib in probe_libs.items():
+            source, _, _, _, probed, computes = PROBES[probe]
+            if probed != kernel:
+                continue
+            saved = build._libs.get(source)
+            build._libs[source] = lib
+            if computes:
+                ok &= bool(torch.equal(fn(), want))
+            row[f"ms_{probe}"] = timer(fn)
+            build._libs[source] = saved
         again = fn()
         if exact:
-            ok = bool(torch.equal(got, want)) and bool(torch.equal(again,
-                                                                   want))
+            ok &= bool(torch.equal(got, want)) and bool(torch.equal(again,
+                                                                    want))
         else:
-            ok = smoke.bf16_step_check(got, want)[0] \
+            ok &= smoke.bf16_step_check(got, want)[0] \
                 and bool(torch.equal(again, got))
-        row = {"tree": args.label, "kernel": kernel, "site": site, **shape,
-               "ms": ms_, "bound_ms": bound[0], "bound_by": bound[1],
-               "equal" if exact else "within_bf16_step": ok}
+        row["equal" if exact else "within_bf16_step"] = ok
         emit(args.out, row)
         rows.append(row)
         if not ok:
             raise AssertionError(f"{kernel} {site} {shape} differs")
 
     if args.selected("moe_bmm"):
+        plan = getattr(moe_gemm, "moe_bmm_plan", None)
         for site, (k, n) in MOE.items():
             p = smoke.make_moe_stack(torch, k, n, gen)
+            w_bf16 = dequantize(p, torch.bfloat16)            # [E, K, N]
             bx = 1 if site != "down" else smoke.MOE_E
-            x = torch.randn(bx * BMM_T, k, generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            xq, xs = qmm.quantize_activation_rows(x)
-            xq3, xs3 = xq.reshape(bx, BMM_T, k), xs.reshape(bx, BMM_T, 1)
-            case("moe_bmm", site, {"t": BMM_T, "k": k, "n": n},
-                 lambda: moe_gemm.quant_bmm_all_experts(
-                     xq3, xs3, p, torch.bfloat16),
-                 lambda: moe_gemm.bmm_plain(xq3, xs3, p, torch.bfloat16),
-                 True, smoke.bound_ms(
-                     smoke.stack_bytes(p, smoke.MOE_E) + xq3.nbytes
-                     + xs3.nbytes + 2 * smoke.MOE_E * BMM_T * n,
-                     2.0 * smoke.MOE_E * BMM_T * k * n))
-            del p
+            for t in BMM_T:
+                x = torch.randn(bx, t, k, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                xq, xs = qmm.quantize_activation_rows(x.reshape(bx * t, k))
+                xq3, xs3 = xq.reshape(bx, t, k), xs.reshape(bx, t, 1)
+                xb = x.expand(smoke.MOE_E, t, k)
+                extra = {"library_ms": timer(lambda: torch.bmm(xb, w_bf16))}
+                if plan is not None:
+                    extra["plan"] = plan(t, n, k, smoke.MOE_E)
+                case("moe_bmm", site, {"t": t, "k": k, "n": n},
+                     lambda: moe_gemm.quant_bmm_all_experts(
+                         xq3, xs3, p, torch.bfloat16),
+                     lambda: moe_gemm.bmm_plain(xq3, xs3, p, torch.bfloat16),
+                     True, smoke.bound_ms(
+                         smoke.stack_bytes(p, smoke.MOE_E) + xq3.nbytes
+                         + xs3.nbytes + 2 * smoke.MOE_E * t * n,
+                         2.0 * smoke.MOE_E * t * k * n), extra)
+            del p, w_bf16
             torch.cuda.empty_cache()
     for kernel, ms in (("w4a8_decode", (32,)), ("w4a16_gemm", (32, 2048))):
         if not args.selected(kernel):
@@ -555,11 +607,12 @@ def main() -> int:
     rows = grouped_rows(torch, smoke, timer, args, probe_libs)
     for a in GROUPED_A:
         layer_lines(args, rows, "moe_grouped", "rows", a, tuple(MOE))
-    rows = neighbour_rows(torch, smoke, timer, args)
-    for kernel, key, at, sites in (("moe_bmm", "t", BMM_T, tuple(MOE)),
-                                   ("w4a8_decode", "m", 32, tuple(LLAMA)),
-                                   ("w4a16_gemm", "m", 32, tuple(LLAMA)),
-                                   ("w4a16_gemm", "m", 2048, tuple(LLAMA))):
+    rows = neighbour_rows(torch, smoke, timer, args, probe_libs)
+    for kernel, key, at, sites in (
+            *(("moe_bmm", "t", t, tuple(MOE)) for t in BMM_T),
+            ("w4a8_decode", "m", 32, tuple(LLAMA)),
+            ("w4a16_gemm", "m", 32, tuple(LLAMA)),
+            ("w4a16_gemm", "m", 2048, tuple(LLAMA))):
         layer_lines(args, rows, kernel, key, at, sites)
     return 0
 
