@@ -13,8 +13,12 @@ Phases, in order, each printing JSON lines:
              w4a8tl_prefill on the same weights and activations): exact
              equality for the integer-dot kernels, one bf16 step for the
              two w4a16 ones; kernel / plain / library times (CUDA events)
-             and the card's bound for the same work; then exact cases of
-             their own: one-hot x for the w4a16 kernels, for the two
+             and the card's bound for the same work, each decode-size
+             w4a16 case with its launch plan; then exact cases of their
+             own: one-hot x for the w4a16 kernels at prefill and decode
+             sizes (m = 1 .. 64, K = 14336, forced K splits starting
+             mid-group; 8 and 256 grouped rows over 3 and 128 experts),
+             bf16 and f32 scales, for the two
              two-level prefill kernels ragged m, the qwen3 sites, the
              int32 range at K = 14336 and one-hot xq, for the two two-level
              decode kernels one-hot xq at m = 1 .. 64, the int32 range,
@@ -356,8 +360,8 @@ def float_scale_rows(torch, timer):
     (llama projections at prefill m, qwen3 qkv / o at decode and prefill
     m) within one bf16 step of its plain version."""
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
-        quantize_activation_rows, w4a8_decode, w4a8_plain, w4a16_gemm,
-        w4a16_plain)
+        quantize_activation_rows, w4a8_decode, w4a8_plain, w4a16_decode_plan,
+        w4a16_gemm, w4a16_plain)
     from ferrum_tpu_torch.ops.quant import w4a16_weight
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
@@ -392,6 +396,8 @@ def float_scale_rows(torch, timer):
                 fn = lambda: w4a16_gemm(x, p)  # noqa: E731
                 plain = lambda: w4a16_plain(x, p)  # noqa: E731
                 library = lambda: torch.matmul(x, w_bf16)  # noqa: E731
+                if m <= 64:
+                    row["plan"] = w4a16_decode_plan(m, n, k)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     wbytes + x.nbytes + 2 * m * n, 2.0 * m * k * n,
                     BF16_FLOPS_PER_S)
@@ -540,8 +546,8 @@ def grouped_w4a16_cases(torch, timer, site, k, n, gen, rows):
     step of its plain version, at the rows of lane D's decode step (256)
     and prefills, and the single-slot decode (8)."""
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (
-        grouped_map, grouped_w4a16, grouped_w4a16_on_map,
-        grouped_w4a16_plain)
+        grouped_bm, grouped_map, grouped_w4a16, grouped_w4a16_on_map,
+        grouped_w4a16_plain, grouped_w4a16_plan)
     from ferrum_tpu_torch.ops.quant import w4a16_weight
     grouped_mm = getattr(torch, "_grouped_mm", None)
     p = make_moe_stack(torch, k, n, gen, two_level=False)
@@ -557,6 +563,8 @@ def grouped_w4a16_cases(torch, timer, site, k, n, gen, rows):
                "k": k, "n": n, "experts": MOE_E, "active_experts": active,
                "library": "torch._grouped_mm (bf16)"
                if grouped_mm is not None else None}
+        if grouped_bm(a) == 16:
+            row["plan"] = grouped_w4a16_plan(a, n, k, MOE_E)
         per = p.qweight[0].nbytes + p.scales[0].nbytes + p.zeros[0].nbytes
         row["bound_ms"], row["bound_by"] = bound_ms(
             active * per + x.nbytes + 2 * a * n, 2.0 * a * k * n,
@@ -579,6 +587,23 @@ def grouped_w4a16_cases(torch, timer, site, k, n, gen, rows):
 # at N = 6144 256-column ones; grouped N = 768 256-column, N = 640 128.
 ONEHOT_DENSE = ((256, 4096, 768), (256, 4096, 6144), (2048, 4096, 6144))
 ONEHOT_GROUPED = ((2048, 2048, 768), (2048, 2048, 640))
+# ... and at decode sizes, on the streamed decode loop in bf16
+# (csrc/w4a16_stream.cuh). Dense (m, K, N, splits; 0: the launcher's
+# count): every BM (m = 1 / 32 / 64) at the qwen3-30b-a3b qkv and o
+# sites, K = 14336 (llama down), and forced splits of 3 steps and of 1
+# (every other split starting mid-group). Grouped (rows, experts, K, N,
+# group sizes; None: routed): 8 and 256 rows over the 128 experts at the
+# qwen3 gate / up and down sites, and over 3 experts with an empty group
+# and groups spanning 16-row tiles.
+ONEHOT_DECODE_DENSE = tuple((m, k, n, 0) for m in (1, 32, 64)
+                            for k, n in QWEN_SHAPES.values()) + (
+    (32, 14336, 4096, 0), (32, 2048, 5120, 6), (1, 4096, 2048, 32))
+ONEHOT_DECODE_GROUPED = ((8, MOE_E, 2048, 768, None),
+                         (256, MOE_E, 2048, 768, None),
+                         (256, MOE_E, 768, 2048, None),
+                         (8, 3, 768, 2048, (1, 0, 7)),
+                         (256, 3, 2048, 768, (10, 200, 46)),
+                         (256, 3, 768, 2048, (0, 17, 239)))
 
 
 def onehot_weight(torch, k, n, gen, experts, f32_scales):
@@ -631,10 +656,11 @@ def onehot_x(torch, m, k, gen):
 
 
 def onehot_cases(torch):
-    """Both w4a16 kernels on one-hot x: y is rows of the dequantized
-    weight, so the kernel must equal its plain version bit for bit --
-    the check a dequant, layout, swizzle or proxy-fence fault cannot
-    pass."""
+    """Both w4a16 kernels on one-hot x, at prefill sizes (ONEHOT_DENSE,
+    ONEHOT_GROUPED) and decode sizes (onehot_decode_cases): y is rows of
+    the dequantized weight, so the kernel must equal its plain version
+    bit for bit -- the check a dequant, layout, swizzle, fragment, split
+    or proxy-fence fault cannot pass."""
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_w4a16,
                                                        grouped_w4a16_plain)
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (w4a16_gemm,
@@ -661,19 +687,76 @@ def onehot_cases(torch):
                 p = onehot_weight(torch, k, n, gen, MOE_E, f32)
                 got, want = grouped_w4a16(x, p, gs), \
                     grouped_w4a16_plain(x, p, gs)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            row["equal"] = bool(torch.equal(got, want))
-            row["outputs_differing"] = int((diff > 0).sum().item())
-            row["subnormal_weights"] = int(
-                ((want != 0) & (want.float().abs() < 2.0 ** -126)).sum().item())
-            rows.append(row)
-            emit({"phase": "kernel_case", **row})
-            if not row["equal"] or not row.get("boundary_inside_64_rows",
-                                               True):
-                raise AssertionError(f"{kernel} one-hot {m}x{k}x{n} "
-                                     f"({row['scales']} scales): {row}")
+            onehot_row(torch, rows, row, got, want)
             del p, got, want
+        torch.cuda.empty_cache()
+    return rows + onehot_decode_cases(torch, gen)
+
+
+def onehot_row(torch, rows, row, got, want):
+    """Finish and emit one one-hot case's row: equal bit for bit, else
+    raise."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    row["equal"] = bool(torch.equal(got, want))
+    row["outputs_differing"] = int((diff > 0).sum().item())
+    row["subnormal_weights"] = int(
+        ((want != 0) & (want.float().abs() < 2.0 ** -126)).sum().item())
+    rows.append(row)
+    emit({"phase": "kernel_case", **row})
+    if not row["equal"] or not row.get("boundary_inside_64_rows", True) \
+            or not row.get("group_spans_16_row_tiles", True) \
+            or not row.get("scratch_zero", True):
+        raise AssertionError(f"{row['kernel']} one-hot: {row}")
+
+
+def onehot_decode_cases(torch, gen):
+    """Both w4a16 kernels' decode sizes on one-hot x (ONEHOT_DECODE_*),
+    bf16 and f32 scales: equal to the plain version bit for bit, each row
+    with its launch plan; the dense kernel's split-K counters zero after
+    each case; some group of each grouped case spans two 16-row tiles
+    (at 256 rows)."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_w4a16,
+                                                       grouped_w4a16_plain,
+                                                       grouped_w4a16_plan)
+    rows = []
+    for m, k, n, splits in ONEHOT_DECODE_DENSE:
+        x = onehot_x(torch, m, k, gen)
+        for f32 in (False, True):
+            p = onehot_weight(torch, k, n, gen, 0, f32)
+            got = qmm.w4a16_gemm(x, p, splits=splits)
+            stream = torch.cuda.current_stream()
+            _, scratch = qmm._SCRATCH.get(
+                (stream.device_index, stream.cuda_stream),
+                (0, torch.zeros(1)))
+            row = {"kernel": "w4a16_gemm", "case": "one-hot decode", "m": m,
+                   "k": k, "n": n, "scales": "f32" if f32 else "bf16",
+                   "plan": qmm.w4a16_decode_plan(m, n, k, splits),
+                   "scratch_zero": not bool(scratch.any().item())}
+            onehot_row(torch, rows, row, got, qmm.w4a16_plain(x, p))
+            del p, got
+        torch.cuda.empty_cache()
+    for a, e, k, n, sizes in ONEHOT_DECODE_GROUPED:
+        x = onehot_x(torch, a, k, gen)
+        if sizes is None:
+            gs = routed_sizes(torch, gen, a).to(torch.int32)
+        else:
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        offs = torch.cumsum(gs, 0).tolist()
+        spans = any(lo // 16 != (hi - 1) // 16
+                    for lo, hi in zip([0] + offs[:-1], offs) if hi > lo)
+        for f32 in (False, True):
+            p = onehot_weight(torch, k, n, gen, e, f32)
+            row = {"kernel": "moe_grouped_w4a16", "case": "one-hot decode",
+                   "rows": a, "experts": e, "k": k, "n": n,
+                   "scales": "f32" if f32 else "bf16",
+                   "plan": grouped_w4a16_plan(a, n, k, e)}
+            if a > 16:
+                row["group_spans_16_row_tiles"] = spans
+            onehot_row(torch, rows, row, grouped_w4a16(x, p, gs),
+                       grouped_w4a16_plain(x, p, gs))
+            del p
         torch.cuda.empty_cache()
     return rows
 

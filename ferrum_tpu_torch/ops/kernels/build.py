@@ -62,8 +62,10 @@ SIGNATURES = {
     "w4a16_gemm": {
         "ferrum_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
+        "ferrum_w4a16_decode_plan": [_I, _I, _I, _I, _P],
         "ferrum_moe_grouped_w4a16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _P],
+        "ferrum_moe_grouped_w4a16_plan": [_I, _I, _I, _P],
     },
     "w4a8_gemm": {
         "ferrum_w4a8_decode": [_P, _P, _P, _P, _P, _P, _P, _P,

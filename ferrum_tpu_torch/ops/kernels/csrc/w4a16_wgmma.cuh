@@ -1,8 +1,8 @@
 // The w4a16 GEMMs' main loop at prefill sizes on Hopper (sm_90a): one
 // block's f32 tile of  acc[m, n] = sum_k x[m, k] * w[k, n]  with bf16 x and
 //   w[k, n] = bf16( bf16(q[k, n] - zeros[g(k), n]) * bf16(scales[g(k), n]) ),
-// g(k) = k / 128, bit for bit the dequant of w4a16_tile.cuh and of the TPU
-// kernels it replaces in ferrum_tpu/ops/pallas/quant_matmul.py:
+// g(k) = k / 128, bit for bit the dequant of w4a16_stream.cuh and of the
+// TPU kernels it replaces in ferrum_tpu/ops/pallas/quant_matmul.py:
 //   :60  _qmm_kernel   dense projections, m > 64   (w4a16_gemm.cu)
 //   :970 _qgmm_kernel  rows sorted by expert, 128-row tiles (w4a16_gemm.cu)
 //
@@ -26,7 +26,7 @@
 //    the global-halves layout of ops/quant.py) and the step's scale and
 //    zero rows of both halves (groups glo and K/256 + glo). Loads for
 //    steps s+1 .. s+S-2 are in flight while step s computes.
-//  - Dequant in packed bf16x2, exactly w4a16_tile.cuh's arithmetic: a
+//  - Dequant in packed bf16x2, exactly the TPU kernels' arithmetic: a
 //    nibble OR 0x4300 is bf16(128 + q); minus bf16(128 + z) gives q - z
 //    exactly (|q - z| <= 143 < 256); times the bf16 scale rounds once to
 //    nearest even, as __float2bfloat16_rn((float)(q - z) * s) does. f32

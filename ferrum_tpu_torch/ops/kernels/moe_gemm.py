@@ -17,10 +17,12 @@ Counterpart of the MoE part of `ferrum_tpu/ops/pallas/quant_matmul.py`
 
 The w4a8tl kernels keep their TPU kernels' (different) epilogue orders.
 On a CUDA tensor a wrapper launches its kernel (csrc/moe_gemm.cu,
-csrc/w4a16_gemm.cu); on a CPU tensor it runs the plain version, which
-takes every dot in float64 (exact for the integer dots). Each grouped
-wrapper builds the tile map and launches on it; `*_on_map` launches on
-a map built before (so a caller can time or share the map).
+csrc/w4a16_gemm.cu: at decode-sized row counts on the streamed main
+loop in bf16, csrc/w4a16_stream.cuh); on a CPU tensor it runs the plain
+version, which takes every dot in float64 (exact for the integer dots).
+Each grouped wrapper builds the tile map and launches on it; `*_on_map`
+launches on a map built before (so a caller can time or share the
+map).
 
 Stacks the JAX grouped kernels cannot tile (`grouped_tiles` false)
 take `grouped_ref` (dequantize, one float matmul per expert) outside any
@@ -359,9 +361,9 @@ def grouped_w4a16_on_map(x: torch.Tensor, p: QuantLinearParams,
                          f"bf16 rows, got {x.dtype}")
     bm = grouped_bm(a)
     e = p.qweight.shape[0]
-    # The prefill tile copies the stacks in 16-byte pieces.
+    # Both main loops copy x and the stacks in 16-byte pieces.
     n = check_float_scale(p, k, x.device, 64 if bm == 16 else 128, (e,),
-                          align=4 if bm == 16 else 16)
+                          align=16)
     n_logical = _check_map(tile_map, a, e, x.device)
     gid, mtid, offsets, valid = tile_map
     out = torch.empty((a, n), dtype=torch.bfloat16, device=x.device)
@@ -374,6 +376,22 @@ def grouped_w4a16_on_map(x: torch.Tensor, p: QuantLinearParams,
     check(err, "moe_grouped_w4a16")
     MOE_GROUPED_W4A16.launches += 1
     return out
+
+
+def grouped_w4a16_plan(a: int, n: int, k: int, e: int) -> dict:
+    """The launch the w4a16 grouped kernel makes at decode-sized `a` <=
+    256 rows over e experts of [K, N] (16-row tiles on the streamed main
+    loop in bf16, csrc/w4a16_stream.cuh) on the current card, as its
+    launcher plans it: the keys of `quant_matmul.w4a16_decode_plan`, one
+    split of the full K."""
+    if grouped_bm(a) != 16:
+        raise ValueError(f"{a} rows take the 128-row tiles, planned by no "
+                         "launcher rule")
+    out = (ctypes.c_int * 7)()
+    check(library("w4a16_gemm").ferrum_moe_grouped_w4a16_plan(
+        -(-a // 16) + e - 1, n, k, out), "moe_grouped_w4a16_plan")
+    return dict(zip(("bm", "bn", "threads", "stages", "splits",
+                     "steps_per_split", "blocks_per_sm"), out))
 
 
 def grouped_tiles(p: QuantLinearParams) -> bool:

@@ -38,7 +38,9 @@ launch.
               groups summed in the TPU kernel's K-step order, exactly
               (csrc/w4a8_gemm.cu)
   w4a16_gemm  y = out_t(x @ w), w = bf16(bf16(q - z) * bf16(s)), f32
-              sums (csrc/w4a16_gemm.cu)
+              sums (csrc/w4a16_gemm.cu; m <= 64 on the streamed main loop
+              in bf16, csrc/w4a16_stream.cuh, m > 64 on the bf16 wgmma
+              main loop csrc/w4a16_wgmma.cuh)
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which takes every dot in float64
@@ -63,13 +65,9 @@ from .build import check, library
 
 GROUP = 128
 DECODE_MAX_M = 64
-W4A16_DECODE_KP = 64          # packed rows per K step of w4a16's decode tile
-# w4a16_gemm's decode splits K until about this many blocks cover the
-# card's 132 SMs (`decode_target_splits`).
-_DECODE_TARGET_BLOCKS = 264
 # Split-K arrival counters of the decode kernels, one per (device, stream).
 _SCRATCH: dict = {}
-# The two-level decode kernels' launch plans by (kernel, device, m, N, K,
+# The streamed decode kernels' launch plans by (kernel, device, m, N, K,
 # splits).
 _DECODE_PLANS: dict = {}
 
@@ -167,14 +165,6 @@ def _split_k_scratch(stream: torch.cuda.Stream, n: int) -> int:
     return buf.data_ptr()
 
 
-def decode_target_splits(n_steps: int, n: int) -> int:
-    """K splits of `w4a16_gemm` at decode m (its 64-column tile,
-    csrc/w4a16_tile.cuh): K split until about `_DECODE_TARGET_BLOCKS`
-    blocks (at most one split per K step). The two-level decode kernels
-    take their launcher's rule (csrc/w4a8tl_stream.cuh)."""
-    return max(1, min(n_steps, -(-_DECODE_TARGET_BLOCKS // (n // 64))))
-
-
 def _stream_decode(kernel, lib, entry, plan_fn, xq, xs, p, out_dtype,
                    splits) -> torch.Tensor:
     """Launch a two-level decode kernel on the streamed main loop (C entry
@@ -206,7 +196,9 @@ def _stream_decode(kernel, lib, entry, plan_fn, xq, xs, p, out_dtype,
 
 def _stream_plan(kernel, lib, entry, m, n, k, splits) -> dict:
     """The launch a streamed decode kernel makes for [m, K] x [K, N] on
-    the current card (asked of its launcher once per shape)."""
+    the current card (asked of its launcher once per shape): tile rows
+    and columns, threads a block, ring stages, K splits and steps per
+    split, resident blocks per SM."""
     key = (kernel.name, torch.cuda.current_device(), m, n, k, splits)
     plan = _DECODE_PLANS.get(key)
     if plan is None:
@@ -419,11 +411,15 @@ def w4a8_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
     return out
 
 
-def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
+def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams,
+               splits: int = 0) -> torch.Tensor:
     """w4a16 GEMM: bf16 x [m, K] @ the bf16-dequantized weight → bf16
-    [m, N]. m <= 64 splits K across blocks (a fixed-order sum of the
-    splits' f32 partials); larger m takes the wgmma main loop's 128-row
-    tiles (csrc/w4a16_wgmma.cuh), which copy the weight in 16-byte
+    [m, N]. m <= 64 runs the streamed main loop in bf16
+    (csrc/w4a16_stream.cuh), K split by its launcher's rule
+    (`w4a16_decode_plan`), or into `splits` parts, the splits' f32
+    partials summed in split order through a [splits, m, N] buffer of the
+    call; larger m takes the wgmma main loop's 128-row tiles
+    (csrc/w4a16_wgmma.cuh). Both copy x and the weight in 16-byte
     pieces."""
     if not x.is_cuda:
         return w4a16_plain(x, p)
@@ -433,28 +429,31 @@ def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams) -> torch.Tensor:
         raise ValueError("w4a16_gemm takes a contiguous, 16-byte aligned "
                          f"bf16 [m, K] x, got {x.dtype}")
     decode = m <= DECODE_MAX_M
-    n = check_float_scale(p, k, x.device, 64 if decode else 128,
-                          align=4 if decode else 16)
+    n = check_float_scale(p, k, x.device, 64 if decode else 128, align=16)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device)
-    splits, ws, counters = 1, 0, 0
+    part, counters = None, 0
     if decode:
-        n_steps = (k // 2) // W4A16_DECODE_KP
-        splits = decode_target_splits(n_steps, n)
-        per = -(-n_steps // splits)
-        splits = -(-n_steps // per)             # every split gets steps
+        splits = w4a16_decode_plan(m, n, k, splits)["splits"]
         if splits > 1:
+            counters = _split_k_scratch(stream, n)
             part = torch.empty((splits, m, n), dtype=torch.float32,
                                device=x.device)
-            ws = part.data_ptr()
-            counters = _split_k_scratch(stream, n)
     err = library("w4a16_gemm").ferrum_w4a16_gemm(
         x.data_ptr(), p.qweight.data_ptr(), p.scales.data_ptr(),
-        p.zeros.data_ptr(), out.data_ptr(), ws, counters, m, n, k, splits,
+        p.zeros.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), counters, m, n, k, splits,
         int(p.scales.dtype == torch.float32), stream.cuda_stream)
     check(err, "w4a16_gemm")
     W4A16_GEMM.launches += 1
     return out
+
+
+def w4a16_decode_plan(m: int, n: int, k: int, splits: int = 0) -> dict:
+    """The launch `w4a16_gemm` makes at m <= 64 for [m, K] x [K, N] on the
+    current card (the keys of `w4a8tl_decode_plan`)."""
+    return _stream_plan(W4A16_GEMM, "w4a16_gemm", "ferrum_w4a16_decode_plan",
+                        m, n, k, splits)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ kernel's ops taken one at a time, the two bf16 ones within one bf16 step
 float64). The route tables of both packages must correspond case by
 case; model logits and engine streams are compared with the JAX side
 routed to jnp forms of the kernels (torch_parity.route_float_scale),
-which are held against the interpret-mode runs here too.
+which are held against the interpret-mode runs here too. The two w4a16
+kernels' decode-size main loop (csrc/w4a16_stream.cuh) is emulated block
+by block in numpy and held against their plain versions (section 5).
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ import torch
 import test_torch_engine as te
 import test_torch_model as tm
 import test_torch_moe as tmo
+from test_torch_quant import _byte_perm
 from torch_parity import (flatten_jax_params, jax_grouped_w4a16, jax_model,
                           jax_qmm_w4a8, jax_qmm_w4a16, route_float_scale,
                           run_pallas_interpret, torch_config)
@@ -531,3 +534,600 @@ def test_greedy_streams_match_jax_engine(monkeypatch, mode):
             f"near-tie (margin {min(margins):.2e} of the logit scale): "
             f"pick another seed, the comparison would be a coin flip")
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# 5. the w4a16 kernels' decode-size tile walk, emulated: csrc/
+#    w4a16_stream.cuh (the streamed decode loop in bf16) block by block in
+#    numpy -- ring layout, dequant bit arithmetic, fragment reads, split-K
+#    planes, row windows -- against the plain versions
+# ---------------------------------------------------------------------------
+
+_W16_KP, _W16_LINE = 64, 272                # kKP, kLine
+
+
+def _w16_stages(bm):
+    """kStreamStages<BM>: the launcher's ring depth."""
+    return 3 if bm == 64 else 4
+
+
+H100_SMS = 132
+H100_SMEM_PER_SM = 233472                   # 228 KB a block set may use
+H100_SMEM_PER_BLOCK_RESERVED = 1024
+
+
+def _rne_bf16(f):
+    """bf16 bits (uint16) of f32 values, rounded to nearest even on the
+    f32 bits (subnormals too: their bf16 keeps the top 16 bits as well)."""
+    b = np.asarray(f, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _bf16_f32(bits):
+    return (np.asarray(bits).astype(np.uint32) << np.uint32(16)).view(
+        np.float32)
+
+
+def _w16_dequant2(t, z128, s, shift):
+    """w4a16_wgmma.cuh's dequant2 on uint32 words t: q128 = ((t >> shift)
+    & 0x000F000F) | 0x43004300, then sub.rn.bf16x2 by z128 and
+    mul.rn.bf16x2 by s, each 16-bit half in f32 (exact: the difference
+    is an integer below 256, the product of two bf16 has 16 significant
+    bits) and rounded to bf16 on its bits."""
+    t = np.asarray(t, np.uint32)
+    q = ((t >> np.uint32(shift)) & np.uint32(0x000F000F)) \
+        | np.uint32(0x43004300)
+    out = np.zeros_like(q)
+    for half in (0, 16):
+        def f(w):
+            return _bf16_f32((np.asarray(w, np.uint32) >> np.uint32(half))
+                             & np.uint32(0xFFFF))
+        d = _rne_bf16(f(q) - f(z128))
+        out |= _rne_bf16(_bf16_f32(d) * f(s)).astype(np.uint32) \
+            << np.uint32(half)
+    return out
+
+
+def _w16_geometry(bm):
+    """Stream<BM, ..>'s warp grid (WM, WN) of its 256 threads and unit
+    rows R."""
+    wm = 2 if bm >= 32 else 1
+    return wm, 8 // wm, 8
+
+
+def _w16_stage_bytes(bm, bn, scb):
+    return bm * _W16_LINE + _W16_KP * bn + 2 * bn * scb + 2 * bn
+
+
+def _w16_load(st, s, scales, x8, qw, sc8, zr8, win, n0, k, bm, bn, r,
+              scb):
+    """Stream::load: the 16-byte chunks cp.async places in stage `st`
+    (flat uint8) for step s. x8: x's bf16 rows as bytes [rows, 2K]; line
+    i holds row m0 + i, zero outside [row_lo, row_hi) (win); the packed
+    tile's chunk c of row r at c ^ swz(r / R); with `scales`, the scale
+    rows (sc8: bytes [K/128, N * scb]) and zero rows of both halves."""
+    m0, row_lo, row_hi = win
+    k2, r0, chunks = k // 2, s * _W16_KP, bn // 16
+    b16 = np.arange(16)
+    idx = np.arange(bm * 16)
+    row, c = idx >> 4, idx & 15
+    m = m0 + row
+    ok = (m >= row_lo) & (m < row_hi)
+    col = 2 * (np.where(c < 8, r0, k2 + r0 - 64) + c * 8)
+    vals = x8[np.clip(m, 0, x8.shape[0] - 1)[:, None], col[:, None] + b16]
+    st[(row * _W16_LINE + c * 16)[:, None] + b16] = np.where(ok[:, None],
+                                                             vals, 0)
+    a_bytes = bm * _W16_LINE
+    idx = np.arange(_W16_KP * chunks)
+    row, c = idx // chunks, idx % chunks
+    swz = ((row // r) * (r // 8)) & (chunks - 1)
+    st[(a_bytes + row * bn + ((c ^ swz) << 4))[:, None] + b16] = \
+        qw[(r0 + row)[:, None], n0 + c[:, None] * 16 + b16]
+    if scales:
+        base, row_b = a_bytes + _W16_KP * bn, bn * scb
+        for h, g in enumerate((r0 // 128, k2 // 128 + r0 // 128)):
+            st[base + h * row_b:base + (h + 1) * row_b] = \
+                sc8[g, n0 * scb:(n0 + bn) * scb]
+            st[base + 2 * row_b + h * bn:base + 2 * row_b + (h + 1) * bn] = \
+                zr8[g, n0:n0 + bn]
+
+
+def _w16_scales(st, bm, bn, r, scb):
+    """Stream::load_group for the dequant's units: per half h and column j
+    of unit u's 4 columns 4 * (u / rbs) + j, bf16(128 + z) and the bf16
+    scale (f32 scales rounded), each in both 16-bit halves of a word."""
+    rbs = _W16_KP // r
+    cu = np.arange(rbs * bn // 4) // rbs
+    base, row_b = bm * _W16_LINE + _W16_KP * bn, bn * scb
+    z128 = np.zeros((2, 4, cu.size), np.uint32)
+    s = np.zeros((2, 4, cu.size), np.uint32)
+    for h in range(2):
+        for j in range(4):
+            z = st[base + 2 * row_b + h * bn + 4 * cu + j].view(np.int8)
+            z128[h, j] = _rne_bf16(128 + z.astype(np.float32)).astype(
+                np.uint32) * 0x00010001
+            raw = np.ascontiguousarray(
+                st[(base + h * row_b + (4 * cu + j) * scb)[:, None]
+                   + np.arange(scb)])
+            bits = _rne_bf16(raw.view(np.float32)[:, 0]) if scb == 4 \
+                else raw.view(np.uint16)[:, 0]
+            s[h, j] = bits.astype(np.uint32) * 0x00010001
+    return z128, s
+
+
+def _w16_dequant(st, scl, bm, bn, r, lines):
+    """Stream::dequant into the w lines (flat uint8): unit u takes packed
+    rows R * rb .. (rb = u % rbs) of columns 4 * cu .. (cu = u / rbs), one
+    __byte_perm per row pair and column, dequant2 per half, a 16-byte
+    store per column and half at byte 2 * R * rb of the half."""
+    words, out = st.view("<u4"), lines.view("<u4")
+    rbs = _W16_KP // r
+    u = np.arange(rbs * bn // 4)
+    rb, cu = u % rbs, u // rbs
+    swz = (rb * (r // 8)) & (bn // 16 - 1)
+    base = bm * _W16_LINE + (((cu >> 2) ^ swz) << 4) + ((cu & 3) << 2)
+    z128, s = scl
+    row = r * rb
+    lo = np.zeros((4, r // 2, u.size), np.uint32)
+    hi = np.zeros((4, r // 2, u.size), np.uint32)
+    for i in range(r // 2):
+        w0 = words[(base + (row + 2 * i) * bn) // 4]
+        w1 = words[(base + (row + 2 * i + 1) * bn) // 4]
+        for j in range(4):
+            t = _byte_perm(w0, w1, 0x4400 + 0x1111 * j)
+            lo[j, i] = _w16_dequant2(t, z128[0, j], s[0, j], 0)
+            hi[j, i] = _w16_dequant2(t, z128[1, j], s[1, j], 4)
+    for j in range(4):
+        w = ((4 * cu + j) * _W16_LINE + 2 * row) // 4
+        for i in range(r // 2):
+            out[w + i] = lo[j, i]
+            out[w + 2 * _W16_KP // 4 + i] = hi[j, i]
+
+
+def _w16_mma(acc, st, lines, bm, bn, wm_, wn_):
+    """Stream::mma: each lane's A and B fragment words read at the
+    kernel's shared-memory offsets and placed per mma.m16n8k16's bf16
+    fragment layout (the lower k of a pair in the lower half); each mma's
+    C added into acc [warp, MT, NT, lane, 4] and rounded to f32."""
+    wtm, wtn = bm // wm_, bn // wn_
+    mt, nt = wtm // 16, wtn // 8
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    sa, sb = st.view("<u2"), lines.view("<u2")
+    for kc in range(2 * _W16_KP // 16):
+        k0 = kc * 32 + t * 4
+        amat = np.zeros((wm_, mt, 16, 16))
+        for wm in range(wm_):
+            for i in range(mt):
+                ra = (wm * wtm + i * 16 + g) * _W16_LINE + k0
+                for roff, koff in ((0, 0), (8, 0), (0, 8), (8, 8)):
+                    h = (ra + roff * _W16_LINE + 2 * koff) // 2
+                    amat[wm, i, g + roff, koff + 2 * t] = _bf16_f32(sa[h])
+                    amat[wm, i, g + roff, koff + 2 * t + 1] = _bf16_f32(
+                        sa[h + 1])
+        bmat = np.zeros((wn_, nt, 16, 8))
+        for wn in range(wn_):
+            for j in range(nt):
+                cb = (wn * wtn + j * 8 + g) * _W16_LINE + k0
+                for koff in (0, 8):
+                    h = (cb + 2 * koff) // 2
+                    bmat[wn, j, koff + 2 * t, g] = _bf16_f32(sb[h])
+                    bmat[wn, j, koff + 2 * t + 1, g] = _bf16_f32(sb[h + 1])
+        for w in range(wm_ * wn_):
+            c = np.einsum("irk,jkn->ijrn", amat[w // wn_], bmat[w % wn_])
+            for e in range(4):
+                acc[w, ..., e] = (acc[w, ..., e] + c[
+                    :, :, g + 8 * (e >> 1), 2 * t + (e & 1)]).astype(
+                        np.float32)
+
+
+def _w16_block(w, x8, win, n0, k, bm, bn, s_begin, s_end, rng):
+    """One block of dense_kernel / grouped_kernel: its main loop over
+    steps [s_begin, s_end) with a ring and w line buffers that start as
+    garbage; asserts that each step's w lines hold w4a16_weight's columns
+    bit for bit. w: one weight's (qw, sc8, zr8, scb, bf16 weight bits
+    [K, N]). Returns the f32 sums [BM, BN] by Stream::for_each_pair."""
+    qw, sc8, zr8, scb, w_bits = w
+    wm_, wn_, r = _w16_geometry(bm)
+    wtm, wtn = bm // wm_, bn // wn_
+    stages = _w16_stages(bm)
+    ring = rng.integers(0, 256, (stages, _w16_stage_bytes(bm, bn, scb)),
+                        np.uint8)
+    lines = rng.integers(0, 256, (2, bn * _W16_LINE), np.uint8)
+    acc = np.zeros((wm_ * wn_, wtm // 16, wtn // 8, 32, 4), np.float32)
+    n = s_end - s_begin
+
+    def fetch(j):
+        s = s_begin + j
+        if j < n:
+            _w16_load(ring[j % stages], s, s == s_begin or s % 2 == 0, x8,
+                      qw, sc8, zr8, win, n0, k, bm, bn, r, scb)
+
+    def mma(j):
+        r0 = (s_begin + j) * _W16_KP
+        want = np.concatenate([w_bits[r0:r0 + _W16_KP, n0:n0 + bn],
+                               w_bits[k // 2 + r0:k // 2 + r0 + _W16_KP,
+                                      n0:n0 + bn]]).T
+        got = lines[j & 1].view("<u2").reshape(bn, _W16_LINE // 2)
+        np.testing.assert_array_equal(got[:, :2 * _W16_KP], want)
+        _w16_mma(acc, ring[j % stages], lines[j & 1], bm, bn, wm_, wn_)
+
+    for j in range(stages - 1):
+        fetch(j)
+    scl = _w16_scales(ring[0], bm, bn, r, scb)
+    _w16_dequant(ring[0], scl, bm, bn, r, lines[0])
+    for j in range(n - 1):
+        fetch(j + stages - 1)
+        if (s_begin + j + 1) % 2 == 0:
+            scl = _w16_scales(ring[(j + 1) % stages], bm, bn, r, scb)
+        mma(j)
+        _w16_dequant(ring[(j + 1) % stages], scl, bm, bn, r,
+                     lines[(j + 1) & 1])
+    mma(n - 1)
+    tile = np.zeros((bm, bn), np.float32)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for w_ in range(wm_ * wn_):
+        wm, wn = w_ // wn_, w_ % wn_
+        for i in range(wtm // 16):
+            for j in range(wtn // 8):
+                for e in range(4):
+                    tile[wm * wtm + i * 16 + g + 8 * (e >> 1),
+                         wn * wtn + j * 8 + 2 * t + (e & 1)] = \
+                        acc[w_, i, j, :, e]
+    return tile
+
+
+def _w16_weight_bytes(p, e=None):
+    """(qw, scale bytes, zero bytes, scale bytes a value, bf16 weight bits
+    [K, N]) of weight p, or of expert e of a stack."""
+    pick = (lambda t: t) if e is None else (lambda t: t[e])
+    sc = pick(p.scales)
+    scb = 4 if sc.dtype == torch.float32 else 2
+    sc8 = (sc.contiguous().view(torch.int16) if scb == 2 else sc).numpy() \
+        .view(np.uint8).reshape(sc.shape[0], -1)
+    w = tq.w4a16_weight(p)
+    return (pick(p.qweight).numpy(), sc8,
+            pick(p.zeros).numpy().view(np.uint8), scb,
+            pick(w).contiguous().view(torch.int16).numpy().view(np.uint16))
+
+
+def _x8(x):
+    return x.contiguous().view(torch.int16).numpy().view(np.uint8).reshape(
+        x.shape[0], -1)
+
+
+def _w16_dense(x, p, bn, splits, rng):
+    """w4a16_gemm at decode m emulated: grid (N / BN, 1, splits) of
+    dense_kernel blocks (BM = 16 / 32 / 64 by m), each split's f32 tile
+    into its plane of part (random contents before), the planes summed in
+    split order by each tile's last arrival (random order) and rounded to
+    bf16; with one split the block's tile is rounded straight away."""
+    m, k = x.shape
+    n = p.out_features
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64
+    nsteps = k // 2 // _W16_KP
+    per = -(-nsteps // min(splits, nsteps))
+    used = -(-nsteps // per)
+    w, x8 = _w16_weight_bytes(p), _x8(x)
+    part = rng.standard_normal((used, m, n)).astype(np.float32)
+    counters = np.zeros(n // bn, np.int64)
+    writes = np.zeros((m, n), np.int64)
+    out = np.zeros((m, n), np.uint16)
+    for tile in range(n // bn):
+        n0 = tile * bn
+        cols = slice(n0, n0 + bn)
+        for zi in rng.permutation(used):            # arrival order
+            full = _w16_block(w, x8, (0, 0, m), n0, k, bm, bn, zi * per,
+                              min(nsteps, zi * per + per), rng)[:m]
+            if used > 1:
+                part[zi, :, cols] = full
+                counters[tile] += 1
+                if counters[tile] != used:
+                    continue
+                counters[tile] = 0
+                full = np.zeros((m, bn), np.float32)
+                for z in range(used):
+                    full = full + part[z, :, cols]
+            writes[:, cols] += 1
+            out[:, cols] = _rne_bf16(full)
+    assert (writes == 1).all() and not counters.any()
+    return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
+
+
+def _w16_grouped(x, p, sizes, bn, rng):
+    """The grouped kernel at 16-row tiles emulated: grid (N / BN, logical
+    tiles of group_tile_map), each valid tile's block on its expert's
+    weight over the full K, staging and writing only its expert's rows."""
+    a, k = x.shape
+    e, n = p.qweight.shape[0], p.out_features
+    n_logical = -(-a // 16) + e - 1
+    gid, mtid, offsets, valid = (t.tolist() for t in tmg.group_tile_map(
+        torch.tensor(sizes, dtype=torch.int32), 16, n_logical))
+    x8 = _x8(x)
+    out = np.zeros((a, n), np.uint16)
+    writes = np.zeros((a, n), np.int64)
+    for i in range(n_logical):
+        g, m0 = gid[i], mtid[i] * 16
+        lo, hi = max(offsets[g], m0), min(offsets[g + 1], m0 + 16)
+        if not valid[i] or lo >= hi:
+            continue
+        w = _w16_weight_bytes(p, g)
+        for n0 in range(0, n, bn):
+            full = _w16_block(w, x8, (m0, lo, hi), n0, k, 16, bn, 0,
+                              k // 2 // _W16_KP, rng)
+            out[lo:hi, n0:n0 + bn] = _rne_bf16(full[lo - m0:hi - m0])
+            writes[lo:hi, n0:n0 + bn] += 1
+    assert (writes == 1).all()
+    return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
+
+
+def _w16_inputs(kind, rows, k, n, seed, scale_dtype, experts=0):
+    """(x bf16 [rows, K], float-scale weight or [experts, ...] stack).
+    "exact": x in -3..3, q and z in 0..15, scales powers of two (2^-4 ..
+    2^3): every product and f32 sum is exact, so the kernel must give the
+    plain version's bits. "random": normal x, a quantized random weight
+    (scales and zeros vary by group and column)."""
+    rng = np.random.default_rng(seed)
+    e = max(experts, 1)
+    if kind == "exact":
+        x = rng.integers(-3, 4, (rows, k)).astype(np.float32)
+        q = rng.integers(0, 16, (e, k, n))
+        z = rng.integers(0, 16, (e, k // 128, n)).astype(np.int8)
+        s = np.exp2(rng.integers(-4, 4, (e, k // 128, n))).astype(np.float32)
+        packed = (q[:, :k // 2] | (q[:, k // 2:] << 4)).astype(np.uint8)
+    else:
+        x = rng.normal(0, 1, (rows, k)).astype(np.float32)
+        parts = [_pair(k, n, seed + 1 + i)[1] for i in range(e)]
+        packed = np.stack([pp.qweight.numpy() for pp in parts])
+        z = np.stack([pp.zeros.numpy() for pp in parts])
+        s = np.stack([pp.scales.float().numpy() for pp in parts])
+    sdt = torch.bfloat16 if scale_dtype == "bf16" else torch.float32
+    pick = (lambda a_: a_[0]) if not experts else (lambda a_: a_)
+    p = tq.QuantLinearParams(
+        qweight=torch.from_numpy(pick(packed)).contiguous(),
+        scales=torch.from_numpy(pick(s)).to(sdt).contiguous(),
+        zeros=torch.from_numpy(pick(z)).contiguous(), bias=None,
+        in_features=k, out_features=n, group_size=128)
+    return torch.from_numpy(x).to(torch.bfloat16), p
+
+
+# (m, K, N, BN, splits): every m of the decode rows' tiles (BM 16 / 32 /
+# 64), K of 2, 6 and 16 steps, N = 192 (64-column tiles only) and the
+# 128-column ones at N = 128 and 640; splits 2 at K = 256 and at K =
+# 768, and 6 at K = 2048, start a split mid-group (1 and 3 steps a split).
+_W16_DENSE = [(1, 256, 128, 64, 2), (1, 2048, 640, 128, 1),
+              (17, 768, 192, 64, 2), (17, 2048, 128, 128, 6),
+              (32, 256, 640, 64, 1), (32, 2048, 192, 64, 6),
+              (32, 768, 128, 128, 1), (64, 768, 640, 128, 2),
+              (64, 2048, 192, 64, 1), (64, 256, 128, 64, 1)]
+
+
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("m,k,n,bn,splits", _W16_DENSE)
+def test_w4a16_stream_walk_matches_plain(m, k, n, bn, splits, kind):
+    """w4a16_gemm at decode m on csrc/w4a16_stream.cuh, emulated block by
+    block in numpy: where cp.async places each chunk (x lines, the
+    swizzled packed tile, the scale rows only on a split's first step and
+    at group starts), the byte-perm + bf16x2 dequant into 272-byte lines
+    (bit arithmetic, rounded to nearest even on the f32 bits), the
+    mma.sync fragment reads, the split plan, the planes and counters. The
+    lines must equal w4a16_weight, and the result w4a16_plain's bits on
+    exact inputs and within one bf16 step on random ones; bf16 and f32
+    scales alternate with the case."""
+    scale_dtype = ("bf16", "f32")[(m + k + (kind == "exact")) % 2]
+    x, p = _w16_inputs(kind, m, k, n, 100 * m + k + n, scale_dtype)
+    rng = np.random.default_rng(m + k + n + splits)
+    got = _w16_dense(x, p, bn, splits, rng)
+    want = tqm.w4a16_plain(x, p)
+    if kind == "exact":
+        assert torch.equal(got, want)
+    else:
+        assert_one_bf16_step(got, want)
+
+
+# (group sizes, K, N, BN): one expert over three 16-row tiles, a single
+# row, and three experts with an empty group, a single row and a group
+# spanning tiles (boundaries inside a tile).
+_W16_GROUPED = [((33,), 256, 128, 64), ((1,), 768, 192, 64),
+                ((0, 1, 40), 256, 192, 64), ((17, 0, 5), 768, 128, 128)]
+
+
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("sizes,k,n,bn", _W16_GROUPED)
+def test_grouped_w4a16_stream_walk_matches_plain(sizes, k, n, bn, kind):
+    """moe_grouped_w4a16 at 16-row tiles on csrc/w4a16_stream.cuh,
+    emulated: each valid logical tile's block on its expert's weight,
+    scales and zeros (the stack offsets), its row window staged and
+    written, the rest zero lines. Rows of each group equal
+    grouped_w4a16_plain's bits on exact inputs and lie within one bf16
+    step on random ones."""
+    scale_dtype = ("bf16", "f32")[(k + len(sizes) + (kind == "exact")) % 2]
+    x, p = _w16_inputs(kind, sum(sizes), k, n, 7 * k + n, scale_dtype,
+                       experts=len(sizes))
+    got = _w16_grouped(x, p, sizes, bn, np.random.default_rng(sum(sizes) + k))
+    want = tmg.grouped_w4a16_plain(x, p, torch.tensor(sizes))
+    if kind == "exact":
+        assert torch.equal(got, want)
+    else:
+        assert_one_bf16_step(got, want)
+
+
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+def test_w4a16_stream_dequant_exhaustive(scale_dtype):
+    """The streamed loop's dequant (one byte_perm per row pair, dequant2
+    per half) through its stage layout, for every q in 0..15, every int8
+    z (the quantizer emits 0..15; the arithmetic is exact for all) in
+    both nibble halves, and scales 2^t (1 + u) for every t in -133 ..
+    119 (bf16-subnormal below 2^-126) with random u (bf16 scales, or f32
+    ones that the kernel rounds to bf16): the w lines must equal
+    w4a16_weight bit for bit, at both column tiles (BN 64 and 128)."""
+    rng = np.random.default_rng(21)
+    k, n = 256, 512
+    zs = np.arange(-128, 128)
+    z = np.stack([np.tile(zs, 2), np.roll(np.tile(zs, 2), 77)]).astype(
+        np.int8)
+    t = rng.integers(-133, 120, (2, n))
+    t[0, :253] = np.arange(-133, 120)
+    s = ((1 + rng.random((2, n))) * np.exp2(t.astype(np.float64))).astype(
+        np.float32)
+    q = (np.arange(k)[:, None] + np.arange(n)[None] * 7) % 16
+    p = tq.QuantLinearParams(
+        qweight=torch.from_numpy((q[:k // 2] | (q[k // 2:] << 4)).astype(
+            np.uint8)),
+        scales=torch.from_numpy(s).to(torch.bfloat16 if scale_dtype == "bf16"
+                                      else torch.float32),
+        zeros=torch.from_numpy(z), bias=None, in_features=k, out_features=n,
+        group_size=128)
+    w = _w16_weight_bytes(p)
+    assert ((tq.w4a16_weight(p).float().abs() < 2.0 ** -126)
+            & (tq.w4a16_weight(p) != 0)).any()
+    x8 = np.zeros((1, 2 * k), np.uint8)
+    _, _, r = _w16_geometry(16)
+    for bn in (64, 128):
+        for n0 in range(0, n, bn):
+            for s_ in range(k // 2 // _W16_KP):
+                st = np.zeros(_w16_stage_bytes(16, bn, w[3]), np.uint8)
+                lines = np.zeros(bn * _W16_LINE, np.uint8)
+                _w16_load(st, s_, True, x8, w[0], w[1], w[2], (0, 0, 1),
+                          n0, k, 16, bn, r, w[3])
+                _w16_dequant(st, _w16_scales(st, 16, bn, r, w[3]), 16, bn,
+                             r, lines)
+                r0 = s_ * _W16_KP
+                want = np.concatenate([w[4][r0:r0 + 64, n0:n0 + bn],
+                                       w[4][k // 2 + r0:k // 2 + r0 + 64,
+                                            n0:n0 + bn]]).T
+                got = lines.view("<u2").reshape(bn, -1)[:, :128]
+                np.testing.assert_array_equal(got, want)
+
+
+def test_w4a16_stream_line_banks():
+    """The 272-byte line (68 words, so the 8 lines of a fragment load
+    start 4 banks apart): every mma.sync fragment load of the x and w
+    lines touches 32 distinct banks, and the dequant's 16-byte stores
+    give each quarter warp 32 distinct banks (8 row blocks of one
+    column's 128 bytes)."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for kc in range(8):
+        for roff in (0, 8):
+            for koff in (0, 16):
+                word = ((g + roff) * _W16_LINE + kc * 32 + 4 * t + koff) // 4
+                assert np.unique(word % 32).size == 32
+
+    def phases_free(addr):
+        """16-byte stores `addr` [32 lanes]: each quarter warp's 8 stores
+        cover 32 distinct banks."""
+        banks = (addr[:, None] // 4 + np.arange(4)) % 32
+        return all(np.unique(banks[q:q + 8]).size == 32
+                   for q in range(0, 32, 8))
+
+    _, _, r = _w16_geometry(16)
+    rbs = _W16_KP // r
+    rb, cu = lane % rbs, lane // rbs
+    for warp_cu in (0, 4, 8, 12):                 # four warps' column units
+        for j in range(4):
+            for half in (0, 2 * _W16_KP):
+                addr = ((4 * (cu + warp_cu) + j) * _W16_LINE
+                        + 2 * r * rb + half)
+                assert phases_free(addr)
+
+
+def _decode_splits(m, bn, tiles, nsteps, slots):
+    """w4a8tl_stream.cuh's decode_splits: the fewest splits with the least
+    waves * (steps a split + 2) + splits * M * N / 1e6 (one split: no
+    partials)."""
+    best, best_cost = 1, None
+    for s in range(1, nsteps + 1):
+        per = -(-nsteps // s)
+        if -(-nsteps // per) != s:
+            continue
+        waves = -(-(tiles * s) // slots)
+        cost = waves * (per + 2) + (s * m * bn * tiles / 1e6 if s > 1
+                                    else 0.0)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+# The launcher's rule lines in csrc/w4a16_stream.cuh that _w16_plan
+# mirrors.
+_W16_RULE = {
+    "stream_narrow": "a.N % 128 != 0 || (long)a.K / 2 * a.N <= "
+                     "kStreamNarrowBytes",
+}
+_W16_RULE_LINES = ("constexpr int kStreamStages = BM == 64 ? 3 : 4;",
+                   "constexpr int kThreads = 256;",
+                   "constexpr int kLine = 4 * kKP + 16;")
+
+
+def _w16_plan(m, n, k, experts=None, sms=H100_SMS):
+    """The launcher's rule (decode_any, launch_bn, launch_bm, launch) in
+    Python for m rows (grouped: m expert-sorted rows over `experts`): the
+    plan's BM, BN, threads, stages, splits, K steps a split and resident
+    blocks an SM, the last as the shared memory and the threads allow
+    (registers may allow fewer)."""
+    bn = 64 if n % 128 or k // 2 * n <= 16 << 20 else 128
+    grouped = experts is not None
+    bm = 16 if grouped or m <= 16 else 32 if m <= 32 else 64
+    threads, stages = 256, _w16_stages(bm)
+    smem = 2 * bn * _W16_LINE + stages * _w16_stage_bytes(bm, bn, 2)
+    per_sm = min(H100_SMEM_PER_SM // (smem + H100_SMEM_PER_BLOCK_RESERVED),
+                 2048 // threads)
+    nsteps = k // 2 // _W16_KP
+    splits = 1 if grouped else _decode_splits(m, bn, n // bn, nsteps,
+                                              sms * per_sm)
+    per = -(-nsteps // splits)
+    return dict(bm=bm, bn=bn, threads=threads, stages=stages,
+                splits=-(-nsteps // per), steps_per_split=per,
+                blocks_per_sm=per_sm)
+
+
+# The served decode shapes and the plans the rule gives them on an H100
+# (132 SMs): qwen3-30b-a3b qkv / o at m = 1 / 32 / 64, llama-3.1-8b's four
+# projections at m = 32 (EngineConfig(w4a8=False) on llama), and the
+# qwen3-30b-a3b expert sites at 8 and 256 rows over 128 experts.
+_W16_SERVED = {
+    # (site, m, K, N, experts): (BM, BN, threads, splits, blocks an SM)
+    ("qwen3 qkv", 1, 2048, 5120, None): (16, 64, 256, 4, 3),
+    ("qwen3 qkv", 32, 2048, 5120, None): (32, 64, 256, 3, 2),
+    ("qwen3 qkv", 64, 2048, 5120, None): (64, 64, 256, 3, 2),
+    ("qwen3 o", 1, 4096, 2048, None): (16, 64, 256, 11, 3),
+    ("qwen3 o", 32, 4096, 2048, None): (32, 64, 256, 8, 2),
+    ("qwen3 o", 64, 4096, 2048, None): (64, 64, 256, 8, 2),
+    ("llama qkv", 32, 4096, 6144, None): (32, 64, 256, 2, 2),
+    ("llama o", 32, 4096, 4096, None): (32, 64, 256, 4, 2),
+    ("llama gate_up", 32, 4096, 28672, None): (32, 128, 256, 1, 1),
+    ("llama down", 32, 14336, 4096, None): (32, 128, 256, 4, 1),
+    ("qwen3 gate / up", 8, 2048, 768, 128): (16, 64, 256, 1, 3),
+    ("qwen3 down", 8, 768, 2048, 128): (16, 64, 256, 1, 3),
+    ("qwen3 gate / up", 256, 2048, 768, 128): (16, 64, 256, 1, 3),
+    ("qwen3 down", 256, 768, 2048, 128): (16, 64, 256, 1, 3),
+}
+
+
+@pytest.mark.parametrize("shape", list(_W16_SERVED), ids=str)
+def test_w4a16_stream_launch_rule_at_served_shapes(shape):
+    """The rule the launcher keeps (the source's rule lines are the ones
+    _w16_plan mirrors) gives each served decode shape the pinned plan,
+    the plan the card reported (chip_smoke.py's decode cases): 64-column
+    tiles up to 16 MiB of packed weight, 256 threads, a 3-stage ring at
+    BM 64 (two blocks an SM) and 4 elsewhere, the dense K splits that
+    fill the resident slots in whole waves, one split of the full K where
+    grouped."""
+    import os
+    import re
+
+    src = open(os.path.join(
+        os.path.dirname(__file__), os.pardir, "ferrum_tpu_torch", "ops",
+        "kernels", "csrc", "w4a16_stream.cuh")).read()
+    for name, rule in _W16_RULE.items():
+        got = re.search(rf"const bool {name} =\s*([^;]*);", src)
+        assert got and " ".join(got.group(1).split()) == rule, name
+    for line in _W16_RULE_LINES:
+        assert line in src, line
+    _, m, k, n, e = shape
+    plan = _w16_plan(m, n, k, e)
+    assert (plan["bm"], plan["bn"], plan["threads"], plan["splits"],
+            plan["blocks_per_sm"]) == _W16_SERVED[shape]
+    assert plan["stages"] == _w16_stages(plan["bm"])
