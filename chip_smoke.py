@@ -25,7 +25,12 @@ Phases, in order, each printing JSON lines:
              K = 256, one, three (a split starting mid-group) and the
              most K splits, N = 192 (64-column tiles) and the wrap case
              at one and the most splits, the split-K counters zero after
-             each, for the all-experts bmm one-hot xq on shared and on
+             each, for the float-scale decode kernel (its timed cases
+             with their plans) one-hot xq at m = 1 .. 64, the integer
+             range at K = 14336, gpt 1 and 2, forced K splits (more than
+             the TPU steps too) and N = 192, bf16 and f32 scales, the
+             counters zero after each, for the all-experts bmm one-hot
+             xq on shared and on
              each expert's own rows (3 and 128 experts; t = 1 .. 64),
              the int32 range, K = 256 and N = 192, each with its launch
              plan, and for the
@@ -360,8 +365,8 @@ def float_scale_rows(torch, timer):
     (llama projections at prefill m, qwen3 qkv / o at decode and prefill
     m) within one bf16 step of its plain version."""
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
-        quantize_activation_rows, w4a8_decode, w4a8_plain, w4a16_decode_plan,
-        w4a16_gemm, w4a16_plain)
+        quantize_activation_rows, w4a8_decode, w4a8_decode_plan, w4a8_plain,
+        w4a16_decode_plan, w4a16_gemm, w4a16_plain)
     from ferrum_tpu_torch.ops.quant import w4a16_weight
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
@@ -389,6 +394,7 @@ def float_scale_rows(torch, timer):
                 plain = lambda: w4a8_plain(  # noqa: E731
                     xq, xs, p, torch.bfloat16)
                 library = None   # no one PyTorch call computes it
+                row["plan"] = w4a8_decode_plan(m, n, k)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     wbytes + xq.nbytes + xs.nbytes + 2 * m * n,
                     2.0 * m * k * n)
@@ -403,9 +409,22 @@ def float_scale_rows(torch, timer):
                     BF16_FLOPS_PER_S)
             check_case(rows, row, timer, fn, plain, library,
                        exact=kernel == "w4a8_decode")
+            if kernel == "w4a8_decode" and not scratch_zero(torch):
+                raise AssertionError(f"w4a8_decode {site} m={m}: split-K "
+                                     f"counters not zero after the case")
         del p, w_bf16
         torch.cuda.empty_cache()
     return rows
+
+
+def scratch_zero(torch) -> bool:
+    """Whether the current stream's split-K counters are all zero."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    _, scratch = qmm._SCRATCH.get((stream.device_index, stream.cuda_stream),
+                                  (0, torch.zeros(1)))
+    return not bool(scratch.any().item())
 
 
 def check_case(rows, row, timer, fn, plain, library, exact, launch=None):
@@ -726,14 +745,10 @@ def onehot_decode_cases(torch, gen):
         for f32 in (False, True):
             p = onehot_weight(torch, k, n, gen, 0, f32)
             got = qmm.w4a16_gemm(x, p, splits=splits)
-            stream = torch.cuda.current_stream()
-            _, scratch = qmm._SCRATCH.get(
-                (stream.device_index, stream.cuda_stream),
-                (0, torch.zeros(1)))
             row = {"kernel": "w4a16_gemm", "case": "one-hot decode", "m": m,
                    "k": k, "n": n, "scales": "f32" if f32 else "bf16",
                    "plan": qmm.w4a16_decode_plan(m, n, k, splits),
-                   "scratch_zero": not bool(scratch.any().item())}
+                   "scratch_zero": scratch_zero(torch)}
             onehot_row(torch, rows, row, got, qmm.w4a16_plain(x, p))
             del p, got
         torch.cuda.empty_cache()
@@ -943,22 +958,108 @@ def decode_exact_cases(torch, timer):
             got = launch()
             ms_ = timer(launch)
             again = launch()
-            torch.cuda.synchronize()
-            stream = torch.cuda.current_stream()
-            _, scratch = qmm._SCRATCH.get(
-                (stream.device_index, stream.cuda_stream),
-                (0, torch.zeros(1)))
             row = {"kernel": kernel, "case": case, "m": m, "k": k, "n": n,
                    "out": str(out_dtype).split(".")[-1],
                    "plan": plan(m, n, k, splits), "kernel_ms": ms_,
                    "equal": bool(torch.equal(got, want))
                    and bool(torch.equal(again, want)),
                    "outputs_differing": int((got != want).sum().item()),
-                   "scratch_zero": not bool(scratch.any().item())}
+                   "scratch_zero": scratch_zero(torch)}
             rows.append(row)
             emit({"phase": "kernel_case", **row})
             if not row["equal"] or not row["scratch_zero"]:
                 raise AssertionError(f"{kernel} {case} {m}x{k}x{n}: {row}")
+        del p, xq, xs, want, got, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The exact cases of the float-scale decode kernel beyond the timed llama
+# sites, (case, m, K, N, K splits -- 0: the launcher's rule --, f32
+# scales): one-hot xq at every row tile's edge (each output one scaled
+# group term; bf16-subnormal scales, zeros across int8), the integer
+# range at K = 14336 (|xq| = 127, |q - z| = 15), gpt 1 (K = 256: one TPU
+# step; 768: three) and 2 (K = 1536), forced splits (4 of 14 TPU steps:
+# 4, 4, 4, 2; one a TPU step; 8 of 3), N = 192 (three 64-column tiles).
+FS_EXACT = tuple(("one-hot", m, 4096, 768, 0, m % 2 == 1)
+                 for m in (1, 17, 33, 64)) + (
+    ("extreme", 64, 14336, 256, 0, False), ("extreme", 17, 14336, 256, 3, True),
+    ("random", 32, 256, 768, 0, True), ("random", 32, 768, 768, 0, False),
+    ("random", 33, 1536, 768, 0, True), ("random", 32, 14336, 4096, 4, False),
+    ("random", 1, 14336, 4096, 14, True), ("random", 64, 768, 768, 8, False),
+    ("random", 17, 4096, 192, 0, True), ("random", 64, 4096, 192, 2, False))
+
+
+def float_scale_weight(torch, k, n, gen, kind, f32_scales):
+    """A float-scale weight for an exact case. Scales of random sign and
+    mantissa, 2^-12 .. 2^1. "extreme": z in {0, 15}, q = 15 - z, so every
+    |q - z| is 15; "random": q and z uniform over 0..15."""
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+    dev = "cuda"
+    g = k // 128
+    if kind == "extreme":
+        z = torch.where(torch.rand(g, n, generator=gen, device=dev) < 0.5,
+                        0, 15)
+        q = 15 - z.repeat_interleave(128, 0)
+    else:
+        q = torch.randint(0, 16, (k, n), generator=gen, device=dev)
+        z = torch.randint(0, 16, (g, n), generator=gen, device=dev)
+    sign = torch.where(torch.rand(g, n, generator=gen, device=dev) < 0.5,
+                       -1.0, 1.0)
+    s = sign * (1 + torch.rand(g, n, generator=gen, device=dev)) * torch.pow(
+        2.0, torch.randint(-12, 2, (g, n), generator=gen, device=dev).float())
+    return QuantLinearParams(
+        qweight=(q[:k // 2] | (q[k // 2:] << 4)).to(torch.uint8),
+        scales=s if f32_scales else s.to(torch.bfloat16),
+        zeros=z.to(torch.int8), bias=None, in_features=k, out_features=n,
+        group_size=128)
+
+
+def float_scale_exact_cases(torch, timer):
+    """w4a8_decode equal to w4a8_plain bit for bit on the FS_EXACT cases,
+    in bf16 and f32 out, before and after its timed launches, with the
+    stream's split-K counters all zero after each, each row with its
+    plan -- the check a ring, unpack, row-sum, scale-slot, fold-order,
+    row-tile, split-plane or epilogue fault cannot pass."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    rows = []
+    for case, m, k, n, splits, f32 in FS_EXACT:
+        xs = torch.rand(m, 1, generator=gen, device="cuda") + 0.5
+        if case == "one-hot":
+            p = onehot_weight(torch, k, n, gen, 0, f32)
+            xq = onehot_x(torch, m, k, gen).to(torch.int8)
+        elif case == "extreme":
+            p = float_scale_weight(torch, k, n, gen, "extreme", f32)
+            sign = torch.where(torch.rand(m, k // 128, generator=gen,
+                                          device="cuda") < 0.5, -127, 127)
+            xq = sign.repeat_interleave(128, 1).to(torch.int8).contiguous()
+        else:
+            p = float_scale_weight(torch, k, n, gen, "random", f32)
+            xq = torch.randint(-127, 128, (m, k), generator=gen,
+                               device="cuda").to(torch.int8)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            def launch():
+                return qmm.w4a8_decode(xq, xs, p, out_dtype, splits=splits)
+            want = qmm.w4a8_plain(xq, xs, p, out_dtype)
+            got = launch()
+            zero_before = scratch_zero(torch)
+            ms_ = timer(launch)
+            again = launch()
+            row = {"kernel": "w4a8_decode", "case": case, "m": m, "k": k,
+                   "n": n, "scales": "f32" if f32 else "bf16",
+                   "out": str(out_dtype).split(".")[-1],
+                   "plan": qmm.w4a8_decode_plan(m, n, k, splits),
+                   "kernel_ms": ms_,
+                   "equal": bool(torch.equal(got, want))
+                   and bool(torch.equal(again, want)),
+                   "outputs_differing": int((got != want).sum().item()),
+                   "scratch_zero": zero_before and scratch_zero(torch)}
+            rows.append(row)
+            emit({"phase": "kernel_case", **row})
+            if not row["equal"] or not row["scratch_zero"]:
+                raise AssertionError(f"w4a8_decode {case} {m}x{k}x{n}: {row}")
         del p, xq, xs, want, got, again
     torch.cuda.empty_cache()
     return rows
@@ -1736,6 +1837,7 @@ def main() -> int:
     onehot_cases(torch)
     prefill_exact_cases(torch)
     decode_exact_cases(torch, timer)
+    float_scale_exact_cases(torch, timer)
     bmm_exact_cases(torch, timer)
     grouped_exact_cases(torch, timer)
     summary = summarize(cases)

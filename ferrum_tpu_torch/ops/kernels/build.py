@@ -70,6 +70,7 @@ SIGNATURES = {
     "w4a8_gemm": {
         "ferrum_w4a8_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P],
+        "ferrum_w4a8_decode_plan": [_I, _I, _I, _I, _P],
     },
     "kv_append": {
         "ferrum_kv_append_rows": [_P, _P, _P, _P, _I, _I, _I, _L, _P],

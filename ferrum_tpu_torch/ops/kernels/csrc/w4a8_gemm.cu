@@ -2,7 +2,7 @@
 // ctypes:
 //
 //   y[m, n] = out_t( acc[m, n] * xs[m] ),
-//   acc = sum over K steps kk, in order, of  lo(kk) then hi(kk),
+//   acc = sum over TPU K steps kk, in order, of  lo(kk) then hi(kk),
 //   lo(kk) = sum_{t < gpt} s[g, n] * f32(sum_{k in g} xq[m, k] * (q[k, n] - z[g, n]))
 //            over the low plane's groups g = kk * gpt + t (summed from t = 0),
 //   hi(kk) = the same over the high plane's groups half_groups + kk * gpt + t
@@ -13,280 +13,273 @@
 // ferrum_tpu/ops/pallas/quant_matmul.py, which computes each group's
 // term as (f32(sum xq * q) - z * f32(sum xq)) * s: both integers are below
 // 2^24, so that difference is exact and equals f32(sum xq * (q - z)); the
-// one rounding is the multiply by s. Every multiply and add here is an
+// one rounding is the multiply by s. Every multiply and add is an
 // explicit __fmul_rn / __fadd_rn (no FMA contraction), so the kernel
 // equals its plain version (ops/kernels/quant_matmul.py::w4a8_plain) and
 // an interpret-mode run of the TPU kernel bit for bit. gpt (groups per
-// K step) is the TPU wrapper's bkb / 128 (quant_matmul.py::w4a8_step_rows).
+// TPU K step) is the TPU wrapper's bkb / 128 (quant_matmul.py::
+// w4a8_step_rows; fs_gpt below).
 //
 // What bounds it on the H100: it runs at decode (m <= 64), streaming the
 // packed weight once per call for ~2m int8 ops per weight: HBM-bound
-// (3.35 TB/s), like the two-level decode GEMM (w4a8tl_gemm.cu).
+// (3.35 TB/s), like the two-level decode GEMMs, whose streamed main loop
+// it runs.
 //
-// Design (a first, simple kernel): grid (N / 64, 1, K steps). Each block
-// owns 64 columns and one TPU K step (gpt groups of each plane); per group
-// it stages xq and (q - z) as int8 in shared memory (w4a8tl_tile.cuh's
-// layout) and runs mma.sync m16n8k32 s8 x s8 -> s32 into a fresh int32
-// tile per plane, then folds the group's scaled term into the step's two
-// f32 plane sums. The steps' plane sums go to a workspace [steps, 2, M, N];
-// the block that arrives last at a column tile (a per-tile counter) adds
-// them in K-step order, low before high, scales by xs and writes the
-// output, then re-zeroes the counter: one launch per call, and the order
-// of the sum never depends on which block finished first.
+// Design: the float-scale form of w4a8tl_stream.cuh's main loop
+// (FloatScale, fs_decode_kernel) and its launcher (fs_decode_any): the
+// group-dot form's ring of 16-byte cp.async copies, raw-nibble unpack and
+// per-half int32 dots and row sums, kept over each group's two streamed
+// steps; once a group and half the term f32(dot - z * sum(xq)) * s joins
+// that half's plane sum, and at each TPU step's end acc = (acc + lo) +
+// hi. 64-column tiles (128 for weights over 16 MiB), 256 threads, row
+// tiles of 16 / 32 / 64 rows and K splits on TPU-step boundaries chosen
+// by one cost model that counts the splits' f32 planes and the row
+// tiles' weight re-reads as bytes, each kernel compiled to the register
+// cap of the blocks an SM it should hold (its five fragments -- acc, the
+// two plane sums, the two halves' dots -- take more registers than the
+// group-dot form's, and occupancy was its largest lever). Split 0 writes its acc, each later split its TPU
+// steps' (lo, hi) planes, and the tile's last arrival continues the fold
+// in TPU-step order, so the order never depends on which block finished
+// first. The first version of this kernel split K at every TPU step and
+// wrote every step's two planes (~54.5 MB a llama layer at m = 32, half
+// the weight's bytes), staged the weight with 4-byte loads between two
+// barriers a group and subtracted the zeros byte by byte.
 
-#include "w4a8tl_tile.cuh"
+#include <cstdint>
 
+#include "w4a8tl_stream.cuh"
+
+// The float-scale form's launcher (fs_decode_any): column tiles of 64 or
+// 128, row tiles and K splits on TPU-step boundaries by one cost model.
+// Internal linkage, as the two-level launchers' (w4a8tl_stream.cuh): a
+// probe's rebuilt copy of this library keeps its own once-per-device
+// state.
 namespace {
 
-using w4a8tl::mma_s8;
-using w4a8tl::store_out;
+using namespace w4a8tl_stream;
 
-constexpr int kGroup = 128;
-constexpr int kBN = 64;                  // columns per block
-constexpr int kWN = 4;                   // warps, each 16 columns
-constexpr int kLDS = kGroup + w4a8tl::kPad;
+constexpr int kFsStages = 4;
+constexpr int kFsThreads = 256;
+// Row tiles: BM from all of m (16 / 32 / 64) down to kFsMinBM, at most
+// kFsMaxBM (and fs_top_bm's).
+constexpr int kFsMinBM = 16;
+constexpr int kFsMaxBM = 64;
+// A streamed step's time grows with the block's rows (the mma, the xq
+// lines): 1 + kFsRowStep * (BM / 16 - 1) steps of a 16-row block.
+constexpr double kFsRowStep = 0.25;
 
-template <bool kF32>
-__device__ __forceinline__ float scale_f32(const void* s, size_t idx) {
-  if constexpr (kF32) {
-    return static_cast<const float*>(s)[idx];
-  } else {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(s)[idx]);
-  }
+// The largest row tile at BN columns and kThreads threads: the five
+// fragments of a larger one spill.
+template <int BN, int kThreads>
+constexpr int fs_top_bm() {
+  const int fits = kThreads == 256 ? (BN == 64 ? 64 : 32)
+                                   : (BN == 64 ? 32 : 16);
+  return fits < kFsMaxBM ? fits : kFsMaxBM;
 }
 
-template <int BM, bool kF32>
-__global__ void __launch_bounds__(kWN * 32)
-w4a8_decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                   const uint8_t* __restrict__ qw, const void* __restrict__ sc,
-                   const int8_t* __restrict__ zr, void* __restrict__ out,
-                   float* __restrict__ ws, int* __restrict__ counters, int M,
-                   int N, int K, int gpt, int out_bf16) {
-  constexpr int kThreads = kWN * 32;
-  constexpr int MT = BM / 16;
-  constexpr int NT = (kBN / kWN) / 8;
-  __shared__ __align__(16) int8_t A[2][BM][kLDS];
-  __shared__ __align__(16) int8_t B[2][kBN][kLDS];
-
-  const int tid = threadIdx.x;
-  const int wn = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * kBN;
-  const int step = blockIdx.z;
-  const int K2 = K / 2;
-  const int half_groups = K2 / kGroup;
-
-  float part[2][MT][NT][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[h][i][j][e] = 0.f;
-
-  for (int gi = 0; gi < gpt; ++gi) {
-    const int glo = step * gpt + gi;     // low-plane group; packed rows too
-    const int ghi = half_groups + glo;
-    const int r0 = glo * kGroup;
-
-    constexpr int kAVec = BM * kGroup / 16;
-#pragma unroll 2
-    for (int i = tid; i < 2 * kAVec; i += kThreads) {
-      const int h = i / kAVec;
-      const int j = i - h * kAVec;
-      const int row = j / (kGroup / 16);
-      const int c16 = j - row * (kGroup / 16);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M) {
-        v = *reinterpret_cast<const uint4*>(
-            xq + (size_t)row * K + (size_t)h * K2 + r0 + c16 * 16);
-      }
-      *reinterpret_cast<uint4*>(&A[h][row][c16 * 16]) = v;
-    }
-
-    // (q - z) in [-15, 15] as int8, transposed to [n][k].
-    constexpr int kUnits = (kGroup / 4) * (kBN / 4);
-#pragma unroll 2
-    for (int u = tid; u < kUnits; u += kThreads) {
-      const int cu = u % (kBN / 4);
-      const int ru = u / (kBN / 4);
-      const int n = n0 + cu * 4;
-      const int r = r0 + ru * 4;
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w[i] = *reinterpret_cast<const uint32_t*>(qw + (size_t)(r + i) * N + n);
-      }
-      const uint32_t zl = *reinterpret_cast<const uint32_t*>(zr + (size_t)glo * N + n);
-      const uint32_t zh = *reinterpret_cast<const uint32_t*>(zr + (size_t)ghi * N + n);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int z_lo = (int)(int8_t)(zl >> (8 * j));
-        const int z_hi = (int)(int8_t)(zh >> (8 * j));
-        uint32_t plo = 0u, phi = 0u;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int b = (int)((w[i] >> (8 * j)) & 0xFFu);
-          plo |= ((uint32_t)((b & 0xF) - z_lo) & 0xFFu) << (8 * i);
-          phi |= ((uint32_t)((b >> 4) - z_hi) & 0xFFu) << (8 * i);
-        }
-        *reinterpret_cast<uint32_t*>(&B[0][cu * 4 + j][ru * 4]) = plo;
-        *reinterpret_cast<uint32_t*>(&B[1][cu * 4 + j][ru * 4]) = phi;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int acc[MT][NT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-#pragma unroll
-      for (int kc = 0; kc < kGroup / 32; ++kc) {
-        const int k0 = kc * 32 + t * 4;
-        uint32_t a[MT][4];
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int ra = i * 16 + g;
-          a[i][0] = *reinterpret_cast<const uint32_t*>(&A[h][ra][k0]);
-          a[i][1] = *reinterpret_cast<const uint32_t*>(&A[h][ra + 8][k0]);
-          a[i][2] = *reinterpret_cast<const uint32_t*>(&A[h][ra][k0 + 16]);
-          a[i][3] = *reinterpret_cast<const uint32_t*>(&A[h][ra + 8][k0 + 16]);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int cb = wn * (kBN / kWN) + j * 8 + g;
-          b[j][0] = *reinterpret_cast<const uint32_t*>(&B[h][cb][k0]);
-          b[j][1] = *reinterpret_cast<const uint32_t*>(&B[h][cb][k0 + 16]);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j]);
-      }
-      // part[h] += s[group, col] * f32(acc), one group at a time.
-      const size_t grow = (size_t)(h ? ghi : glo) * N;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = n0 + wn * (kBN / kWN) + j * 8 + t * 2;
-        const float s0 = scale_f32<kF32>(sc, grow + col);
-        const float s1 = scale_f32<kF32>(sc, grow + col + 1);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float term = __fmul_rn((float)acc[i][j][e], (e & 1) ? s1 : s0);
-            part[h][i][j][e] = __fadd_rn(part[h][i][j][e], term);
-          }
-      }
-    }
-    __syncthreads();
-  }
-
-  // This step's two plane sums -> ws[step][h][row][col], rows < M.
-  const size_t plane = (size_t)M * N;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = i * 16 + g + ((e >> 1) << 3);
-          const int col = n0 + wn * (kBN / kWN) + j * 8 + t * 2 + (e & 1);
-          if (row < M) {
-            ws[((size_t)step * 2 + h) * plane + (size_t)row * N + col] =
-                part[h][i][j][e];
-          }
-        }
-
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    last = atomicAdd(counters + blockIdx.x, 1) == (int)gridDim.z - 1;
-    if (last) counters[blockIdx.x] = 0;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int steps = (int)gridDim.z;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = i * 16 + g + ((e >> 1) << 3);
-        const int col = n0 + wn * (kBN / kWN) + j * 8 + t * 2 + (e & 1);
-        if (row >= M) continue;
-        const size_t idx = (size_t)row * N + col;
-        float acc = 0.f;
-        for (int s = 0; s < steps; ++s) {
-          acc = __fadd_rn(acc, __ldcg(ws + (size_t)(2 * s) * plane + idx));
-          acc = __fadd_rn(acc, __ldcg(ws + (size_t)(2 * s + 1) * plane + idx));
-        }
-        store_out(out, idx, __fmul_rn(acc, xs[row]), out_bf16);
-      }
+// The resident blocks an SM each kernel is compiled to fit
+// (__launch_bounds__: a register cap of 65536 / (blocks * threads)), the
+// most it holds without spilling -- BM 64 at 256 threads spills ~50 bytes
+// at 2, against one block an SM at 162 registers. Uncapped, ptxas gives
+// BM 32 at 256 threads 124 registers (two blocks), capped at 85 it fits
+// 80 (three).
+template <int BM, int BN, int kThreads>
+constexpr int fs_min_blocks() {
+  if (kThreads == 256) return BN == 128 ? 2 : BM == 16 ? 4 : BM == 32 ? 3 : 2;
+  return BN == 128 ? 3 : BM == 16 ? 4 : 3;
 }
 
-template <int BM, bool kF32>
-void launch(const void* xq, const void* xs, const void* qw, const void* sc,
-            const void* z, void* out, float* ws, int* counters, int M, int N,
-            int K, int gpt, int out_bf16, cudaStream_t st) {
-  const int steps = (K / 2) / (gpt * kGroup);
-  dim3 grid(N / kBN, 1, steps);
-  w4a8_decode_kernel<BM, kF32><<<grid, kWN * 32, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const uint8_t*>(qw), sc, static_cast<const int8_t*>(z),
-      out, ws, counters, M, N, K, gpt, out_bf16);
+template <int BM, int BN, int kThreads, bool kSplit>
+auto fs_kernel() {
+  return fs_decode_kernel<BM, BN, kFsStages, kThreads,
+                          fs_min_blocks<BM, BN, kThreads>(), kSplit>;
 }
 
-template <bool kF32>
-int decode(const void* xq, const void* xs, const void* qw, const void* sc,
-           const void* z, void* out, float* ws, int* cnt, int M, int N, int K,
-           int gpt, int out_bf16, cudaStream_t st) {
-  if (M <= 16) {
-    launch<16, kF32>(xq, xs, qw, sc, z, out, ws, cnt, M, N, K, gpt, out_bf16, st);
-  } else if (M <= 32) {
-    launch<32, kF32>(xq, xs, qw, sc, z, out, ws, cnt, M, N, K, gpt, out_bf16, st);
-  } else {
-    launch<64, kF32>(xq, xs, qw, sc, z, out, ws, cnt, M, N, K, gpt, out_bf16, st);
+// The arguments of a float-scale decode launch; plan as DecodeArgs'
+// (plan[5]: TPU K steps a split).
+struct FsArgs {
+  const void *xq, *xs, *qw, *sc, *z;
+  void* out;
+  float* part;
+  int* counters;
+  int M, N, K, splits, sf32, out_bf16;
+  cudaStream_t st;
+  int* plan;
+};
+
+// Groups of each plane a TPU K step: the TPU wrapper's bkb / 128, bkb the
+// largest of 512, 256, 128 that divides K/2 (w4a8_step_rows); 0 if none.
+inline int fs_gpt(int K) {
+  int bkb = 512;
+  while (bkb >= kGroup && (K / 2) % bkb) bkb /= 2;
+  return bkb >= kGroup ? bkb / kGroup : 0;
+}
+
+// Raise both split forms' shared-memory limit once per device; resident
+// blocks an SM (at least 1).
+template <int BM, int BN, int kThreads>
+int fs_prepare(int* per_sm) {
+  using F = FloatScale<BM, BN, kFsStages, kThreads>;
+  const auto split_k = fs_kernel<BM, BN, kThreads, true>();
+  const auto whole = fs_kernel<BM, BN, kThreads, false>();
+  static std::atomic<uint64_t> ready{0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    for (auto kernel : {split_k, whole}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmemBytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    ready.fetch_or(bit);
   }
+  static const int b = [&] {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, split_k, kThreads,
+                                                  F::kSmemBytes);
+    return n > 0 ? n : 1;
+  }();
+  *per_sm = b;
+  return (int)cudaSuccess;
+}
+
+template <int BM, int BN, int kThreads>
+int fs_launch(const FsArgs& a, int gpt, int splits, int per) {
+  using F = FloatScale<BM, BN, kFsStages, kThreads>;
+  const auto split_k = fs_kernel<BM, BN, kThreads, true>();
+  const auto whole = fs_kernel<BM, BN, kThreads, false>();
+  const auto kernel = splits > 1 ? split_k : whole;
+  const dim3 grid((a.M + BM - 1) / BM, a.N / BN, splits);
+  kernel<<<grid, kThreads, F::kSmemBytes, a.st>>>(
+      static_cast<const int8_t*>(a.xq), static_cast<const float*>(a.xs),
+      static_cast<const uint8_t*>(a.qw), static_cast<const uint8_t*>(a.sc),
+      static_cast<const int8_t*>(a.z), a.out, a.part, a.counters, a.M, a.N,
+      a.K, gpt, per, a.sf32, a.out_bf16);
   return (int)cudaGetLastError();
+}
+
+// The plan: the (BM, splits) of the least cost
+//   waves * (steps a split * (1 + kFsRowStep * (BM / 16 - 1)) + kBlockSteps)
+//   + (plane bytes written and read + weight bytes read again)
+//     / the weight bytes of one step of all resident blocks,
+// waves of row tiles * column tiles * splits blocks on the resident slots,
+// plane bytes 8 * M * N * (1 + 2 * (T - per)) where there is more than one
+// split, the weight read again by each row tile after the first (from L2,
+// but through the SMs' copies and unpack all the same); ties to the fewer
+// blocks. a.splits > 0 fixes the split count (at most one a TPU step).
+template <int BN, int kThreads>
+int fs_decode(const FsArgs& a) {
+  constexpr int top = fs_top_bm<BN, kThreads>();
+  const int gpt = fs_gpt(a.K);
+  const int T = (a.K / 2) / (gpt * kGroup);
+  const int tiles = a.N / BN;
+  const int sms = w4a8tl_wgmma::num_sms();
+  const int bms[3] = {16, 32, 64};
+  int per_sm[3] = {1, 1, 1};
+  int e = fs_prepare<16, BN, kThreads>(per_sm);
+  if constexpr (top >= 32) {
+    if (!e) e = fs_prepare<32, BN, kThreads>(per_sm + 1);
+  }
+  if constexpr (top >= 64) {
+    if (!e) e = fs_prepare<64, BN, kThreads>(per_sm + 2);
+  }
+  if (e) return e;
+  const int full = a.M <= 16 ? 16 : a.M <= 32 ? 32 : 64;
+  const int hi_bm = min(top, full);
+  const int lo_bm = min(kFsMinBM, hi_bm);
+  int best_bm = hi_bm, best_s = 1, best_per = T;
+  long best_blocks = 0;
+  double best_cost = -1;
+  for (int i = 0; i < 3; ++i) {
+    const int bm = bms[i];
+    if (bm < lo_bm || bm > hi_bm) continue;
+    const int rt = (a.M + bm - 1) / bm;
+    const long slots = (long)sms * per_sm[i];
+    const double step = 1.0 + kFsRowStep * (bm / 16 - 1);
+    const int s_lo = a.splits > 0 ? min(a.splits, T) : 1;
+    const int s_hi = a.splits > 0 ? s_lo : T;
+    for (int s = s_lo; s <= s_hi; ++s) {
+      const int per = (T + s - 1) / s;
+      const int used = (T + per - 1) / per;   // every split gets steps
+      if (used != s && a.splits <= 0) continue;
+      const long blocks = (long)tiles * rt * used;
+      const long waves = (blocks + slots - 1) / slots;
+      const double planes = used > 1 ? 1 + 2.0 * (T - per) : 0.0;
+      const double cost =
+          waves * (per * 2.0 * gpt * step + kBlockSteps)
+          + (planes * 8.0 * a.M * a.N + (rt - 1) * (a.K / 2.0) * a.N)
+            / ((double)slots * kKP * BN);
+      if (best_cost < 0 || cost < best_cost
+          || (cost == best_cost && blocks < best_blocks)) {
+        best_cost = cost;
+        best_bm = bm;
+        best_s = used;
+        best_per = per;
+        best_blocks = blocks;
+      }
+    }
+  }
+  if (a.plan) {
+    const int bi = best_bm == 16 ? 0 : best_bm == 32 ? 1 : 2;
+    const int plan[7] = {best_bm, BN, kThreads, kFsStages, best_s,
+                         best_per, per_sm[bi]};
+    for (int i = 0; i < 7; ++i) a.plan[i] = plan[i];
+    return (int)cudaSuccess;
+  }
+  if constexpr (top >= 64) {
+    if (best_bm == 64) return fs_launch<64, BN, kThreads>(a, gpt, best_s, best_per);
+  }
+  if constexpr (top >= 32) {
+    if (best_bm == 32) return fs_launch<32, BN, kThreads>(a, gpt, best_s, best_per);
+  }
+  return fs_launch<16, BN, kThreads>(a, gpt, best_s, best_per);
+}
+
+// A float-scale decode launch (or its plan): 64 columns where N % 128 !=
+// 0 or the packed weight is small (kNarrowBytes, the two-level decode
+// rule), else 128; kFsThreads threads. Requires 1 <= M <= 64,
+// K % 256 == 0, N % 64 == 0.
+inline int fs_decode_any(const FsArgs& a) {
+  if (a.M < 1 || a.M > 64 || a.K % 256 || a.N % 64 || !fs_gpt(a.K)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool fs_narrow = a.N % 128 != 0 || (long)a.K / 2 * a.N <= kNarrowBytes;
+  return fs_narrow ? fs_decode<64, kFsThreads>(a)
+                   : fs_decode<128, kFsThreads>(a);
 }
 
 }  // namespace
 
-// xq int8 [M, K], xs f32 [M], scales bf16 or f32 (scales_f32) [K/128, N],
-// out [M, N] bf16 or f32. gpt = groups per K step (the TPU wrapper's
-// bkb / 128; (K/2) % (gpt * 128) == 0). `ws` (f32, >= steps * 2 * M * N)
-// and `counters` (int32, one per 64-column tile, all zero on entry and on
-// return) are caller-owned scratch. Requires 1 <= M <= 64, K % 256 == 0,
-// N % 64 == 0. Returns cudaGetLastError().
+// xq int8 [M, K], xs f32 [M], qweight uint8 [K/2, N], scales bf16 or f32
+// (scales_f32) [K/128, N], zeros int8 [K/128, N], out [M, N] bf16 or f32.
+// `splits` 0: the launcher's plan (ferrum_w4a8_decode_plan); else that
+// many K splits (at most one a TPU step). With more than one split, `ws`
+// is f32 [1 + 2 * (T - per), M, N] of any contents (T TPU steps, per a
+// split: the plan's) and `counters` (int32, one per (row tile, 64-column
+// tile): N / 64 times the row tiles) all zero on entry and all zero again
+// on return; with one, neither is touched. Requires 1 <= M <= 64,
+// K % 256 == 0, N % 64 == 0, and xq, qweight, scales and zeros 16-byte
+// aligned. Returns cudaGetLastError().
 extern "C" int ferrum_w4a8_decode(const void* xq, const void* xs,
                                   const void* qw, const void* sc,
                                   const void* z, void* out, void* ws,
                                   void* counters, int M, int N, int K,
-                                  int gpt, int scales_f32, int out_bf16,
+                                  int splits, int scales_f32, int out_bf16,
                                   void* stream) {
-  if (M < 1 || M > 64 || gpt < 1 || (K / 2) % (gpt * kGroup)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* wsp = static_cast<float*>(ws);
-  int* cnt = static_cast<int*>(counters);
-  return scales_f32
-      ? decode<true>(xq, xs, qw, sc, z, out, wsp, cnt, M, N, K, gpt, out_bf16, st)
-      : decode<false>(xq, xs, qw, sc, z, out, wsp, cnt, M, N, K, gpt, out_bf16, st);
+  return fs_decode_any({xq, xs, qw, sc, z, out, static_cast<float*>(ws),
+                        static_cast<int*>(counters), M, N, K, splits,
+                        scales_f32, out_bf16,
+                        static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// The launch ferrum_w4a8_decode would make for (M, N, K, splits), without
+// making it: plan[0..6] = BM (rows a row tile), BN, threads, ring stages,
+// splits, TPU K steps per split, resident blocks per SM. Returns a
+// cudaError_t.
+extern "C" int ferrum_w4a8_decode_plan(int M, int N, int K, int splits,
+                                       int* plan) {
+  return fs_decode_any({nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, M, N, K, splits, 0, 0,
+                        nullptr, plan});
 }

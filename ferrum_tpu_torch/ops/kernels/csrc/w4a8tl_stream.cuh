@@ -2,7 +2,9 @@
 // block's int32 tile of  acc[m, n] = sum_k xq[m, k] * w8[k, n],
 //   w8[k, n] = (q[k, n] - zeros[g(k), n]) * scales2[g(k), n],  g(k) = k / 128,
 // over the K steps of one split, for m <= 64, and the launcher that plans
-// the tiles, threads and K splits. Two forms of the same function:
+// the tiles, threads and K splits. Two forms of the same function, and a
+// third form of the loop for the float-scale GEMM (`FloatScale`, below:
+// its own function, f32 sums in the TPU kernel's order):
 //  - kGD false, the w8 form: w4a8tl_gemm.cu's ferrum_w4a8tl_decode
 //    (replaces ferrum_tpu/ops/pallas/quant_matmul.py:601
 //    _qmm_w4a8tl_mxu_kernel). The packed tile is dequantized to w8. Its
@@ -708,6 +710,373 @@ decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   L::run(acc, smem, xq, qw, s2, zr, M, n0, N, K, s_begin, s_end);
   L::template finish<kSplit>(acc, xs, chan, out, part, counters, n0, M, N,
                              out_bf16);
+}
+
+// ---------------------------------------------------------------------------
+// The float-scale form (w4a8_gemm.cu's ferrum_w4a8_decode; replaces
+// ferrum_tpu/ops/pallas/quant_matmul.py:172 _qmm_w4a8_kernel):
+//
+//   y[m, n] = out_t( acc[m, n] * xs[m] ),
+//   acc     = left fold over the TPU K steps kk of  (acc + lo(kk)) + hi(kk),
+//   lo(kk)  = ((term(g0) + term(g0 + 1)) + ...), gpt terms, g0 = kk * gpt,
+//   hi(kk)  = the same over the high plane's groups K/256 + kk * gpt + t,
+//   term(g) = f32(sum_{k in g} xq[m, k] * (q[k, n] - z[g, n])) * f32(s[g, n])
+//
+// in f32, each add and multiply rounded (__fadd_rn / __fmul_rn, no FMA),
+// with float group scales s (bf16 or f32) and gpt = the TPU wrapper's
+// bkb / 128 (1, 2 or 4: quant_matmul.py::w4a8_step_rows). The float order
+// is the TPU kernel's and is kept bit for bit. The integer in a term is
+// below 2^24 in magnitude (128 * 127 * 143), so it is taken in int32 as
+// dot(xq, q) - z * sum(xq) and converted exactly.
+//
+// The group-dot form's parts as they are: the ring of 16-byte cp.async
+// copies (Stream::load, no scales2 rows), the raw-nibble unpack, the
+// per-half int32 dots of mma.sync and the per-half row sums sum(xq) from
+// the A fragments (Stream::dot_half). New: each half's dot and row sums
+// are kept over the group's two streamed steps; on the group's last step
+// the term is made per half (int32 correction, one conversion, one
+// multiply) and added to that half's plane sum (lo or hi), which restarts
+// at each TPU step's first group; at the TPU step's last group the block
+// folds acc = (acc + lo) + hi. A TPU step is 2 * gpt streamed steps; every
+// boundary comes from gpt. The scales and zero rows of both halves ride in
+// the ring's scale slot on each group's second step, where the group's
+// term reads them (f32 scale rows of 4 * BN bytes; bf16 ones fill half).
+// BN 64 or 128 columns (at 128, tiles of 16 or 32 rows: the five fragments
+// of a larger one spill).
+//
+// K splits fall on TPU-step boundaries only, so no group or TPU step is
+// cut. Split 0 folds its steps from zero and writes its acc into plane 0
+// of part [planes, M, N] (f32); each later split writes its steps' (lo,
+// hi) plane pairs (planes 1 + 2 * (kk - per), + 1) as it reaches each TPU
+// step's end; the tile's last arrival continues the fold from plane 0 in
+// TPU-step order and leaves its counter zero. One split: the block writes
+// the output from its registers. Row tiles (grid x, 16 / 32 / 64 rows of
+// m, side by side in launch order) each walk the whole weight tile; the
+// second read comes from L2.
+// ---------------------------------------------------------------------------
+
+template <int BM, int BN, int S, int kThreads>
+struct FloatScale {
+  using L = Stream<BM, BN, S, kThreads, true>;
+  using Acc = typename L::Acc;
+  static constexpr int MT = L::MT;
+  static constexpr int NT = L::NT;
+  static constexpr int WN = L::WN;
+  static constexpr int WTM = L::WTM;
+  static constexpr int WTN = L::WTN;
+  using FAcc = float[MT][NT][4];
+  // Scale slot: s lo, s hi (BN f32, or BN bf16 in the first half of the
+  // row), z lo, z hi (BN int8).
+  static constexpr int kSRow = 4 * BN;
+  static constexpr int kScBytes = 2 * kSRow + 2 * BN;
+  static constexpr int kStageBytes = L::kABytes + L::kPBytes + kScBytes;
+  static constexpr int kSmemBytes = 2 * L::kBBytes + S * kStageBytes;
+  static_assert(kStageBytes % 16 == 0, "stages stay 16-byte aligned");
+
+  static __device__ __forceinline__ void zero(FAcc& a) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[i][j][e] = 0.f;
+  }
+
+  // Start the copies of group (s / 2)'s scale and zero rows of both
+  // halves into the scale slot of stage `st` (step s, the group's second).
+  static __device__ __forceinline__ void load_scales(
+      uint8_t* st, int s, const uint8_t* __restrict__ sc,
+      const int8_t* __restrict__ zr, int sf32, int N, int K, int n0) {
+    const int glo = (s * kKP) / kGroup;
+    const int ghi = (K / 2) / kGroup + glo;
+    const int sbytes = sf32 ? 4 : 2;
+    const int sch = BN * sbytes / 16;     // chunks a scale row
+    constexpr int zch = BN / 16;
+    const uint32_t sc_s = smem_u32(st) + L::kABytes + L::kPBytes;
+    int i = threadIdx.x;
+    if (i < 2 * sch) {
+      const int h = i / sch;
+      const int c = i - h * sch;
+      cp_async16(sc_s + h * kSRow + c * 16,
+                 sc + ((size_t)(h ? ghi : glo) * N + n0) * sbytes + c * 16,
+                 16);
+    } else if ((i -= 2 * sch) < 2 * zch) {
+      const int h = i / zch;
+      const int c = i - h * zch;
+      cp_async16(sc_s + 2 * kSRow + h * BN + c * 16,
+                 zr + (size_t)(h ? ghi : glo) * N + n0 + c * 16, 16);
+    }
+  }
+
+  // The group's terms of both halves into the plane sums pl (first: the
+  // TPU step's first group, pl = term), from the dots and this lane's row
+  // sum parts (summed over the mma group's 4 lanes by two shuffles), with
+  // the scales and zeros of stage `st`; then dot and sx are zeroed.
+  static __device__ __forceinline__ void group_terms(
+      Acc (&dot)[2], int (&sx)[2][MT][2], FAcc (&pl)[2], const uint8_t* st,
+      int sf32, bool first) {
+    const int wn = (threadIdx.x >> 5) % WN;
+    const int t = threadIdx.x & 3;
+    const uint8_t* sc_s = st + L::kABytes + L::kPBytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s[NT][2];
+      int z[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = wn * WTN + j * 8 + 2 * t;
+        if (sf32) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(sc_s + h * kSRow + col * 4);
+          s[j][0] = v.x;
+          s[j][1] = v.y;
+        } else {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              sc_s + h * kSRow + col * 2);
+          s[j][0] = __low2float(v);
+          s[j][1] = __high2float(v);
+        }
+        const uint32_t zw = *reinterpret_cast<const uint16_t*>(
+            sc_s + 2 * kSRow + h * BN + col);
+        z[j][0] = (int)(int8_t)(zw & 0xFFu);
+        z[j][1] = (int)(int8_t)(zw >> 8);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          sx[h][i][r] += __shfl_xor_sync(0xffffffffu, sx[h][i][r], 1);
+          sx[h][i][r] += __shfl_xor_sync(0xffffffffu, sx[h][i][r], 2);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int v = dot[h][i][j][e] - z[j][e & 1] * sx[h][i][e >> 1];
+            const float term = __fmul_rn(__int2float_rn(v), s[j][e & 1]);
+            pl[h][i][j][e] = first ? term : __fadd_rn(pl[h][i][j][e], term);
+          }
+      L::T::zero(dot[h]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) sx[h][i][0] = sx[h][i][1] = 0;
+    }
+  }
+
+  // f(row, col, e) for each pair of adjacent elements e, e + 1 of the
+  // fragments (columns col, col + 1) in a row below M.
+  template <class F>
+  static __device__ __forceinline__ void for_each_pair(int M, F&& f) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int wm = warp / WN;
+    const int wn = warp % WN;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int row = wm * WTM + i * 16 + (lane >> 2) + 4 * e;
+        if (row >= M) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          f(row, wn * WTN + j * 8 + 2 * (lane & 3), i, j, e);
+        }
+      }
+    }
+  }
+
+  // acc folded over streamed steps [s_begin, s_end) (whole TPU steps) of
+  // rows [0, M) of xq and columns n0 .. n0 + BN: lohi null (split 0), the
+  // TPU steps fold into acc; else each TPU step's (lo, hi) goes to planes
+  // lohi + 2 * i * plane and + plane (its i-th TPU step).
+  static __device__ __forceinline__ void run(
+      FAcc& acc, uint8_t* smem, const int8_t* __restrict__ xq,
+      const uint8_t* __restrict__ qw, const uint8_t* __restrict__ sc,
+      const int8_t* __restrict__ zr, int sf32, int M, int n0, int N, int K,
+      int s_begin, int s_end, int gpt, float* __restrict__ lohi,
+      size_t plane) {
+    uint8_t* const nib[2] = {smem, smem + L::kBBytes};
+    uint8_t* const ring = smem + 2 * L::kBBytes;
+    const int n = s_end - s_begin;
+    auto stage = [&](int j) { return ring + (j % S) * kStageBytes; };
+    auto fetch = [&](int j) {
+      const int s = s_begin + j;
+      if (j < n) {
+        L::load(stage(j), s, false, xq, qw, nullptr, nullptr, M, n0, N, K);
+        if (s & 1) load_scales(stage(j), s, sc, zr, sf32, N, K, n0);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) fetch(j);
+    Acc dot[2];
+    int sx[2][MT][2];
+    FAcc pl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      L::T::zero(dot[h]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) sx[h][i][0] = sx[h][i][1] = 0;
+    }
+    zero(pl[0]);
+    zero(pl[1]);
+    auto dots = [&](int j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        L::template dot_half<false>(dot[h], sx[h], stage(j), nib[j & 1], h);
+      }
+    };
+    // After step j, the second of its group (s_begin is even): the
+    // group's terms, and at the TPU step's last group its fold or planes.
+    auto group_end = [&](int j) {
+      const int g = (s_begin + j) >> 1;
+      const int gi = g & (gpt - 1);
+      group_terms(dot, sx, pl, stage(j), sf32, gi == 0);
+      if (gi != gpt - 1) return;
+      if (lohi == nullptr) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][jj][e] = __fadd_rn(__fadd_rn(acc[i][jj][e],
+                                                  pl[0][i][jj][e]),
+                                        pl[1][i][jj][e]);
+      } else {
+        float* lo = lohi + (size_t)(2 * (g / gpt - s_begin / (2 * gpt)))
+                           * plane + n0;
+        for_each_pair(M, [&](int row, int col, int i, int jj, int e) {
+          const size_t idx = (size_t)row * N + col;
+          *reinterpret_cast<float2*>(lo + idx) =
+              make_float2(pl[0][i][jj][e], pl[0][i][jj][e + 1]);
+          *reinterpret_cast<float2*>(lo + plane + idx) =
+              make_float2(pl[1][i][jj][e], pl[1][i][jj][e + 1]);
+        });
+      }
+    };
+    cp_async_wait<S - 2>();       // step 0's copies (this thread's)
+    __syncthreads();
+    L::unpack(stage(0), nib[0]);
+    for (int j = 0; j + 1 < n; ++j) {
+      cp_async_wait<S - 3>();     // step j+1's copies
+      __syncthreads();            // ... everyone's; step j's nibbles
+                                  // written; step j-1's reads done
+      fetch(j + S - 1);           // into step j-1's slot
+      dots(j);
+      L::unpack(stage(j + 1), nib[(j + 1) & 1]);
+      if (j & 1) group_end(j);
+    }
+    __syncthreads();              // the last step's nibbles written
+    dots(n - 1);
+    group_end(n - 1);             // n is even: a group's second step
+    cp_async_wait<0>();
+  }
+
+  // out[row, n0 + col .. + 1] = out_t(a * xs[row]), out_t(b * xs[row]).
+  static __device__ __forceinline__ void store_pair(
+      void* __restrict__ out, const float* __restrict__ xs, int N, int row,
+      int col, float a, float b, int out_bf16) {
+    const float sx = xs[row];
+    a = __fmul_rn(a, sx);
+    b = __fmul_rn(b, sx);
+    const size_t idx = (size_t)row * N + col;
+    if (out_bf16) {
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out)
+                                         + idx) = __floats2bfloat162_rn(a, b);
+    } else {
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+          make_float2(a, b);
+    }
+  }
+
+  // The epilogue of split blockIdx.z of gridDim.z (see the header):
+  // kSplit false, straight to out; else split 0's acc into plane 0 of
+  // part, then the tile's last arrival (*counter: zero on entry, zero
+  // again on return) folds plane 0 with the (lo, hi) planes of TPU
+  // steps per .. T - 1 in order.
+  template <bool kSplit>
+  static __device__ __forceinline__ void finish(
+      const FAcc& acc, const float* __restrict__ xs, void* __restrict__ out,
+      float* __restrict__ part, int* __restrict__ counter, int n0, int M,
+      int N, size_t plane, int T, int per, int out_bf16) {
+    if constexpr (!kSplit) {
+      for_each_pair(M, [&](int row, int col, int i, int j, int e) {
+        store_pair(out, xs, N, row, n0 + col, acc[i][j][e],
+                   acc[i][j][e + 1], out_bf16);
+      });
+    } else {
+      if (blockIdx.z == 0) {
+        for_each_pair(M, [&](int row, int col, int i, int j, int e) {
+          *reinterpret_cast<float2*>(part + (size_t)row * N + n0 + col) =
+              make_float2(acc[i][j][e], acc[i][j][e + 1]);
+        });
+      }
+      __shared__ int last;
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        last = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+        if (last) *counter = 0;
+      }
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+      for_each_pair(M, [&](int row, int col, int, int, int) {
+        const float* src = part + (size_t)row * N + n0 + col;
+        float2 a = __ldcg(reinterpret_cast<const float2*>(src));
+        for (int kk = per; kk < T; ++kk) {
+          const float* p = src + (size_t)(1 + 2 * (kk - per)) * plane;
+          const float2 lo = __ldcg(reinterpret_cast<const float2*>(p));
+          const float2 hi = __ldcg(reinterpret_cast<const float2*>(p + plane));
+          a.x = __fadd_rn(__fadd_rn(a.x, lo.x), hi.x);
+          a.y = __fadd_rn(__fadd_rn(a.y, lo.y), hi.y);
+        }
+        store_pair(out, xs, N, row, n0 + col, a.x, a.y, out_bf16);
+      });
+    }
+  }
+};
+
+// One BM x BN tile of the float-scale form: row tile blockIdx.x (rows
+// BM * x ..; the row tiles of a column tile run side by side, so the
+// second read of its weight tile comes from L2), column tile blockIdx.y,
+// TPU steps [z * per, (z+1) * per) of K split blockIdx.z; grid
+// (ceil(M / BM), N / BN, splits). part: f32 [1 + 2 * (T - per), M, N]
+// where kSplit; counters one per (column tile, row tile).
+// kMinBlocks: the resident blocks an SM the kernel is compiled to fit
+// (a register cap of 65536 / (kMinBlocks * kThreads); 1 leaves ptxas its
+// own count).
+template <int BM, int BN, int S, int kThreads, int kMinBlocks, bool kSplit>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fs_decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+                 const uint8_t* __restrict__ qw, const uint8_t* __restrict__ sc,
+                 const int8_t* __restrict__ zr, void* __restrict__ out,
+                 float* __restrict__ part, int* __restrict__ counters, int M,
+                 int N, int K, int gpt, int per, int sf32, int out_bf16) {
+  using F = FloatScale<BM, BN, S, kThreads>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int row0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int rows = min(BM, M - row0);
+  const int T = (K / 2) / (gpt * kGroup);
+  const int t_begin = blockIdx.z * per;
+  const int t_end = min(T, t_begin + per);
+  const size_t plane = (size_t)M * N;
+  float* const rpart = part + (size_t)row0 * N;
+  float* const lohi = blockIdx.z == 0
+      ? nullptr : rpart + (size_t)(1 + 2 * (t_begin - per)) * plane;
+  typename F::FAcc acc;
+  F::zero(acc);
+  F::run(acc, smem, xq + (size_t)row0 * K, qw, sc, zr, sf32, rows, n0, N, K,
+         t_begin * 2 * gpt, t_end * 2 * gpt, gpt, lohi, plane);
+  void* const rout = static_cast<uint8_t*>(out)
+                     + (size_t)row0 * N * (out_bf16 ? 2 : 4);
+  F::template finish<kSplit>(acc, xs + row0, rout, rpart,
+                             counters + blockIdx.y * gridDim.x + blockIdx.x,
+                             n0, rows, N, plane, T, per, out_bf16);
 }
 
 // ---------------------------------------------------------------------------

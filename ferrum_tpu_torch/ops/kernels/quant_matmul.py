@@ -36,7 +36,9 @@ launch.
               w4a8tl_plain and w4a8tl_gd_plain)
   w4a8_decode y = out_t(xs * sum_g s[g] * f32(sum_k xq * (q - z[g]))),
               groups summed in the TPU kernel's K-step order, exactly
-              (csrc/w4a8_gemm.cu)
+              (csrc/w4a8_gemm.cu: the float-scale form of the streamed
+              main loop csrc/w4a8tl_stream.cuh; row tiles and K splits on
+              TPU-step boundaries, `w4a8_decode_plan`)
   w4a16_gemm  y = out_t(x @ w), w = bf16(bf16(q - z) * bf16(s)), f32
               sums (csrc/w4a16_gemm.cu; m <= 64 on the streamed main loop
               in bf16, csrc/w4a16_stream.cuh, m > 64 on the bf16 wgmma
@@ -194,7 +196,12 @@ def _stream_decode(kernel, lib, entry, plan_fn, xq, xs, p, out_dtype,
     return out
 
 
-def _stream_plan(kernel, lib, entry, m, n, k, splits) -> dict:
+_PLAN_KEYS = ("bm", "bn", "threads", "stages", "splits", "steps_per_split",
+              "blocks_per_sm")
+
+
+def _stream_plan(kernel, lib, entry, m, n, k, splits,
+                 keys=_PLAN_KEYS) -> dict:
     """The launch a streamed decode kernel makes for [m, K] x [K, N] on
     the current card (asked of its launcher once per shape): tile rows
     and columns, threads a block, ring stages, K splits and steps per
@@ -205,9 +212,7 @@ def _stream_plan(kernel, lib, entry, m, n, k, splits) -> dict:
         out = (ctypes.c_int * 7)()
         check(getattr(library(lib), entry)(m, n, k, splits, out),
               f"{kernel.name}_plan")
-        plan = _DECODE_PLANS[key] = dict(zip(
-            ("bm", "bn", "threads", "stages", "splits", "steps_per_split",
-             "blocks_per_sm"), out))
+        plan = _DECODE_PLANS[key] = dict(zip(keys, out))
     return plan
 
 
@@ -375,13 +380,28 @@ def check_float_scale(p: QuantLinearParams, k: int, dev: torch.device,
     return n
 
 
+def w4a8_planes(k: int, splits: int, tpu_steps_per_split: int) -> int:
+    """The f32 [m, N] planes a `w4a8_decode` launch writes: none for one
+    split; else split 0's running sum and each later TPU K step's low and
+    high plane sums."""
+    if splits <= 1:
+        return 0
+    steps = (k // 2) // w4a8_step_rows(k)
+    return 1 + 2 * (steps - tpu_steps_per_split)
+
+
 def w4a8_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
-                out_dtype: torch.dtype) -> torch.Tensor:
-    """Decode-sized (m <= 64) float-scale w4a8 GEMM → [m, N] out_dtype."""
+                out_dtype: torch.dtype, splits: int = 0) -> torch.Tensor:
+    """Decode-sized (m <= 64) float-scale w4a8 GEMM → [m, N] out_dtype, on
+    the streamed main loop's float-scale form (csrc/w4a8tl_stream.cuh),
+    its row tiles and K splits (on TPU-step boundaries) by the launcher's
+    rule (`w4a8_decode_plan`), or `splits` K parts; the splits' f32 plane
+    sums go through a buffer of this call sized by the plan and the
+    stream's split-K counters."""
     if not xq.is_cuda:
         return w4a8_plain(xq, xs, p, out_dtype)
     m, k = xq.shape
-    n = check_float_scale(p, k, xq.device, 64)
+    n = check_float_scale(p, k, xq.device, 64, align=16)
     if not 1 <= m <= DECODE_MAX_M:
         raise ValueError(f"w4a8_decode takes m <= {DECODE_MAX_M}, got {m}")
     if xq.dtype != torch.int8 or not xq.is_contiguous() \
@@ -393,22 +413,46 @@ def w4a8_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
         raise ValueError("xs must be a contiguous f32 [m, 1] tensor")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported output dtype {out_dtype}")
-    bkb = w4a8_step_rows(k)
-    steps = (k // 2) // bkb
+    plan = w4a8_decode_plan(m, n, k, splits)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    # Each K step's two plane sums, summed in order by the tile's last block.
-    ws = torch.empty((steps, 2, m, n), dtype=torch.float32, device=xq.device)
     stream = torch.cuda.current_stream(xq.device)
-    counters = _split_k_scratch(stream, n)
+    part, counters = None, 0
+    if plan["splits"] > 1:
+        # Counters for 16-row tiles, the most a launch of m rows takes.
+        counters = _split_k_scratch(stream, n * -(-m // 16))
+        part = torch.empty((plan["planes"], m, n), dtype=torch.float32,
+                           device=xq.device)
+    # The plan's split count, which fixes the planes (its row tiles, at
+    # that count, are the rule's).
     err = library("w4a8_gemm").ferrum_w4a8_decode(
         xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
         p.scales.data_ptr(), p.zeros.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), counters, m, n, k, bkb // GROUP,
+        0 if part is None else part.data_ptr(), counters, m, n, k,
+        plan["splits"],
         int(p.scales.dtype == torch.float32),
         int(out_dtype == torch.bfloat16), stream.cuda_stream)
     check(err, "w4a8_decode")
     W4A8_DECODE.launches += 1
     return out
+
+
+def w4a8_decode_plan(m: int, n: int, k: int, splits: int = 0) -> dict:
+    """The launch `w4a8_decode` makes for [m, K] x [K, N] on the current
+    card: rows a row tile (`bm`; `row_tiles` of them), columns, threads a
+    block, ring stages, K splits and TPU K steps per split (each
+    w4a8_step_rows(k) packed rows), resident blocks per SM; with the
+    TPU K steps' groups per plane (`gpt`) and the f32 [m, N] `planes` the
+    splits write."""
+    plan = _stream_plan(
+        W4A8_DECODE, "w4a8_gemm", "ferrum_w4a8_decode_plan", m, n, k, splits,
+        ("bm", "bn", "threads", "stages", "splits", "tpu_steps_per_split",
+         "blocks_per_sm"))
+    if "planes" not in plan:            # the cached plan, completed once
+        plan.update(row_tiles=-(-m // plan["bm"]),
+                    gpt=w4a8_step_rows(k) // GROUP,
+                    planes=w4a8_planes(k, plan["splits"],
+                                       plan["tpu_steps_per_split"]))
+    return plan
 
 
 def w4a16_gemm(x: torch.Tensor, p: QuantLinearParams,

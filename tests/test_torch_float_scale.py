@@ -14,7 +14,11 @@ case; model logits and engine streams are compared with the JAX side
 routed to jnp forms of the kernels (torch_parity.route_float_scale),
 which are held against the interpret-mode runs here too. The two w4a16
 kernels' decode-size main loop (csrc/w4a16_stream.cuh) is emulated block
-by block in numpy and held against their plain versions (section 5).
+by block in numpy and held against their plain versions (section 5), and
+so is the float-scale w4a8 kernel's (the streamed loop's float-scale
+form: its f32 fold in the TPU kernel's order, row tiles and split
+planes), bit for bit against w4a8_plain, with its launcher's rule
+(section 6).
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ import torch
 import test_torch_engine as te
 import test_torch_model as tm
 import test_torch_moe as tmo
+import test_torch_quant as ttq
 from test_torch_quant import _byte_perm
 from torch_parity import (flatten_jax_params, jax_grouped_w4a16, jax_model,
                           jax_qmm_w4a8, jax_qmm_w4a16, route_float_scale,
@@ -1131,3 +1136,488 @@ def test_w4a16_stream_launch_rule_at_served_shapes(shape):
     assert (plan["bm"], plan["bn"], plan["threads"], plan["splits"],
             plan["blocks_per_sm"]) == _W16_SERVED[shape]
     assert plan["stages"] == _w16_stages(plan["bm"])
+
+
+# ---------------------------------------------------------------------------
+# 6. the float-scale decode kernel's walk, emulated: w4a8_decode on the
+#    float-scale form of csrc/w4a8tl_stream.cuh (FloatScale,
+#    fs_decode_kernel) block by block in numpy -- the ring (xq lines,
+#    packed tile, the scale slot on each group's second step), the
+#    raw-nibble unpack, the per-half dots and row sums of the group-dot
+#    form, the per-group terms and plane sums in np.float32, the TPU-step
+#    fold, row tiles, the split planes and the last arrival's fold --
+#    against w4a8_plain bit for bit
+# ---------------------------------------------------------------------------
+
+_KP_W8, _LINE_W8, _S_W8 = ttq._KP, ttq._LINE, ttq._S
+
+
+def _fs_stage_bytes(bm, bn):
+    """FloatScale::kStageBytes: xq lines, packed tile, scale slot (two
+    f32-wide scale rows of 4 * BN bytes, two zero rows)."""
+    return bm * _LINE_W8 + _KP_W8 * bn + 2 * 4 * bn + 2 * bn
+
+
+def _fs_load_scales(st, s, sc8, zr8, sbytes, k, n0, bm, bn, threads):
+    """FloatScale::load_scales: the 16-byte chunks thread i copies into
+    the scale slot of stage `st` for step s (a group's second): scale
+    rows (sbytes a column) of the low and high group, then their zero
+    rows."""
+    glo = s * _KP_W8 // 128
+    ghi = k // 2 // 128 + glo
+    base = bm * _LINE_W8 + _KP_W8 * bn
+    sch, zch = bn * sbytes // 16, bn // 16
+    copied = 0
+    for i in range(threads):
+        if i < 2 * sch:
+            h, c = divmod(i, sch)
+            src = sc8[(ghi if h else glo), n0 * sbytes + 16 * c:][:16]
+            dst = base + h * 4 * bn + 16 * c
+        elif i - 2 * sch < 2 * zch:
+            h, c = divmod(i - 2 * sch, zch)
+            src = zr8[(ghi if h else glo), n0 + 16 * c:][:16]
+            dst = base + 2 * 4 * bn + h * bn + 16 * c
+        else:
+            continue
+        st[dst:dst + 16] = src
+        copied += 1
+    assert copied == 2 * sch + 2 * zch
+
+
+def _fs_group_terms(dot, sx, pl, st, bm, bn, sf32, first):
+    """FloatScale::group_terms, every warp: per half, the lanes' row-sum
+    parts summed over each mma group (xor shuffles 1, 2), v = dot - z *
+    sx in int32, term = f32(v) * s (one rounding), pl = term on the TPU
+    step's first group, else pl + term (f32); then dot and sx zeroed.
+    The scales and zeros are read at each lane's columns wn * WTN + j * 8
+    + 2t + e from the scale slot of stage `st`."""
+    wm_, wn_ = ttq._warps(bm)
+    wtn = bn // wn_
+    t = np.arange(32) & 3
+    base = bm * _LINE_W8 + _KP_W8 * bn
+    col = (np.arange(wn_)[:, None, None, None] * wtn
+           + np.arange(wtn // 8)[:, None, None] * 8
+           + 2 * t[:, None] + np.arange(2))            # [WN, NT, lane, 2]
+    lane = np.arange(32)
+    e = np.arange(4)
+    for h in range(2):
+        row = st[base + h * 4 * bn:base + (h + 1) * 4 * bn]
+        if sf32:
+            s = row.view("<f4")[col]
+        else:
+            s = (row[:2 * bn].view("<u2")[col].astype(np.uint32)
+                 << np.uint32(16)).view(np.float32)
+        z = st[base + 8 * bn + h * bn:][:bn].view(np.int8)[col].astype(
+            np.int64)
+        x = sx[:, h]                                   # [warp, MT, lane, 2]
+        for sh in (1, 2):
+            x = x + x[:, :, lane ^ sh]
+        wn = np.arange(dot.shape[0]) % wn_
+        v = dot[:, h] - z[wn][:, None][..., e & 1] \
+            * x[:, :, None][..., e >> 1]              # [warp, MT, NT, lane, 4]
+        assert np.abs(v).max(initial=0) < 2 ** 24
+        term = v.astype(np.int32).astype(np.float32) \
+            * s[wn][:, None][..., e & 1]
+        pl[h] = term if first else pl[h] + term
+        dot[:, h] = 0
+        sx[:, h] = 0
+
+
+def _fs_fold(acc, lo, hi, order):
+    """acc = (acc + lo) + hi in f32 (order "hi_lo": hi first, the
+    reordered fold the sensitivity test must catch)."""
+    if order == "hi_lo":
+        return (acc + hi) + lo
+    return (acc + lo) + hi
+
+
+def _fs_block(xq8, qw, sc8, zr8, sbytes, rows, n0, k, bm, bn, s_begin,
+              s_end, gpt, rng, order, store_planes):
+    """One block of fs_decode_kernel: FloatScale::run over streamed steps
+    [s_begin, s_end) (whole TPU steps) of rows [0, rows) of xq8 (the row
+    tile's), with a ring and nibble lines that start as garbage; the
+    unpacked lines are checked against the packed weight's nibbles.
+    store_planes(i, lo, hi) takes the i-th TPU step's plane sums (tiles
+    [BM, BN]) of a later split; split 0 (store_planes None) folds them.
+    Returns the folded acc tile [BM, BN] (split 0)."""
+    import test_torch_group_dot as tgd
+    wm_, wn_ = ttq._warps(bm)
+    wtm, wtn = bm // wm_, bn // wn_
+    mt, nt = wtm // 16, wtn // 8
+    nw = wm_ * wn_
+    ring = rng.integers(0, 256, (_S_W8, _fs_stage_bytes(bm, bn)), np.uint8)
+    lines = rng.integers(0, 256, (2, bn * _LINE_W8), np.uint8)
+    dot = np.zeros((nw, 2, mt, nt, 32, 4), np.int64)
+    sx = np.zeros((nw, 2, mt, 32, 2), np.int64)
+    pl = [np.zeros((nw, mt, nt, 32, 4), np.float32) for _ in range(2)]
+    acc = np.zeros((nw, mt, nt, 32, 4), np.float32)
+    n = s_end - s_begin
+    assert s_begin % (2 * gpt) == 0 and n % (2 * gpt) == 0
+    q_full = np.concatenate([qw & 15, qw >> 4])
+
+    def tile(frag):
+        out = np.zeros((bm, bn), frag.dtype)
+        g, t = np.arange(32) >> 2, np.arange(32) & 3
+        for w in range(nw):
+            wm, wn = w // wn_, w % wn_
+            for i in range(mt):
+                for j in range(nt):
+                    for e in range(4):
+                        out[wm * wtm + i * 16 + g + 8 * (e >> 1),
+                            wn * wtn + j * 8 + 2 * t + (e & 1)] = \
+                            frag[w, i, j, :, e]
+        return out
+
+    def fetch(j):
+        s = s_begin + j
+        if j < n:
+            ttq._stream_load(ring[j % _S_W8], s, False, xq8, qw, None, None,
+                             rows, n0, k, bm, bn)
+            if s & 1:
+                _fs_load_scales(ring[j % _S_W8], s, sc8, zr8, sbytes, k, n0,
+                                bm, bn, 32 * nw)
+
+    def dots(j):
+        r0 = (s_begin + j) * _KP_W8
+        want = np.concatenate([q_full[r0:r0 + _KP_W8, n0:n0 + bn],
+                               q_full[k // 2 + r0:k // 2 + r0 + _KP_W8,
+                                      n0:n0 + bn]]).T
+        np.testing.assert_array_equal(
+            lines[j & 1].reshape(bn, _LINE_W8)[:, :2 * _KP_W8], want)
+        d, part = tgd._gd_dots(ring[j % _S_W8], lines[j & 1], bm, bn)
+        dot[...] += d
+        sx[...] += part
+
+    def group_end(j):
+        nonlocal acc
+        g = (s_begin + j) >> 1
+        gi = g & (gpt - 1)
+        _fs_group_terms(dot, sx, pl, ring[j % _S_W8], bm, bn, sbytes == 4,
+                        gi == 0)
+        if gi != gpt - 1:
+            return
+        if store_planes is None:
+            acc = _fs_fold(acc, pl[0], pl[1], order)
+        else:
+            store_planes(g // gpt - s_begin // (2 * gpt), tile(pl[0]),
+                         tile(pl[1]))
+
+    for j in range(_S_W8 - 1):
+        fetch(j)
+    tgd._gd_unpack(ring[0], bm, bn, lines[0])
+    for j in range(n - 1):
+        fetch(j + _S_W8 - 1)
+        dots(j)
+        tgd._gd_unpack(ring[(j + 1) % _S_W8], bm, bn, lines[(j + 1) & 1])
+        if j & 1:
+            group_end(j)
+    dots(n - 1)
+    group_end(n - 1)
+    return tile(acc)
+
+
+def _fs_walk(xq, xs, p, bm, bn, splits, threads, rng, order="lo_hi"):
+    """w4a8_decode's launch emulated: grid (ceil(m / BM), N / BN, splits)
+    at `splits` K splits on TPU-step boundaries (the launcher's
+    normalization: per = ceil(T / splits), every split non-empty), each
+    tile's blocks in a random arrival order; later splits' (lo, hi)
+    planes and split 0's acc through a buffer of garbage, the last
+    arrival's fold from plane 0 in TPU-step order (order "pre_add": lo +
+    hi added first, the reordered fold the sensitivity test must catch),
+    out = acc * xs in f32. Returns (out, planes written, counters)."""
+    ttq._threads(threads)
+    m, k = xq.shape
+    n = p.out_features
+    gpt = tqm.w4a8_step_rows(k) // 128
+    tsteps = k // 2 // (gpt * 128)
+    per = -(-tsteps // min(splits, tsteps))
+    used = -(-tsteps // per)
+    rt = -(-m // bm)
+    planes = tqm.w4a8_planes(k, used, per)
+    part = rng.standard_normal((max(planes, 1), m, n)).astype(np.float32)
+    written = np.zeros(max(planes, 1), np.int64)
+    counters = np.zeros(rt * (n // bn), np.int64)
+    writes = np.zeros((m, n), np.int64)
+    out = np.zeros((m, n), np.float32)
+    sbytes = p.scales.element_size()
+    sc = p.scales.view(torch.int16) if sbytes == 2 else p.scales
+    sc8 = sc.numpy().view(np.uint8).reshape(k // 128, n * sbytes)
+    zr8 = p.zeros.numpy().view(np.uint8)
+    qw = p.qweight.numpy()
+    xs_ = xs.numpy().reshape(-1)
+    for tile in range(n // bn):
+        n0 = tile * bn
+        cols = slice(n0, n0 + bn)
+        for r in range(rt):
+            row0 = r * bm
+            rows = min(bm, m - row0)
+            rs = slice(row0, row0 + rows)
+            xq8 = np.ascontiguousarray(xq[rs]).view(np.uint8)
+            for zi in rng.permutation(used):            # arrival order
+                t0, t1 = zi * per, min(tsteps, zi * per + per)
+
+                def store(i, lo, hi, t0=t0):
+                    pi = 1 + 2 * (t0 + i - per)
+                    part[pi, rs, cols] = lo[:rows]
+                    part[pi + 1, rs, cols] = hi[:rows]
+                    written[pi:pi + 2] += 1
+                acc = _fs_block(xq8, qw, sc8, zr8, sbytes, rows, n0, k, bm,
+                                bn, t0 * 2 * gpt, t1 * 2 * gpt, gpt, rng,
+                                order, None if zi == 0 else store)[:rows]
+                if used > 1:
+                    if zi == 0:
+                        part[0, rs, cols] = acc
+                        written[0] += 1
+                    c = tile * rt + r
+                    counters[c] += 1
+                    if counters[c] != used:
+                        continue
+                    counters[c] = 0
+                    acc = part[0, rs, cols].copy()
+                    for kk in range(per, tsteps):
+                        lo = part[1 + 2 * (kk - per), rs, cols]
+                        hi = part[2 + 2 * (kk - per), rs, cols]
+                        acc = acc + (lo + hi) if order == "pre_add" \
+                            else _fs_fold(acc, lo, hi, order)
+                writes[rs, cols] += 1
+                out[rs, cols] = acc * xs_[rs, None]
+    assert (writes == 1).all()
+    return out, written[:planes], counters
+
+
+def _fs_inputs(m, k, n, seed, sf32, kind="random"):
+    """Float-scale params and activations for the walk: q, z uniform over
+    0..15 and scales of random sign, mantissa and exponent (bf16 or f32),
+    xq uniform over -127..127 ("extreme": q and z at 0 and 15, |q - z| =
+    15, xq = +-127 signed so every group's integer is 127 * 15 * 128 in
+    magnitude)."""
+    rng = np.random.default_rng(seed)
+    g = k // 128
+    if kind == "extreme":
+        z = np.where(rng.random((g, n)) < 0.5, 0, 15)
+        q = np.where(np.repeat(z, 128, 0) == 0, 15, 0)
+        xq = np.repeat(np.where(rng.random((m, g)) < 0.5, -127, 127), 128,
+                       1).astype(np.int8)
+    else:
+        q = rng.integers(0, 16, (k, n))
+        z = rng.integers(0, 16, (g, n))
+        xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    s = (rng.choice([-1.0, 1.0], (g, n)) * (1 + rng.random((g, n)))
+         * np.exp2(rng.integers(-12, 2, (g, n)))).astype(np.float32)
+    p = tq.QuantLinearParams(
+        qweight=torch.from_numpy((q[:k // 2] | (q[k // 2:] << 4)).astype(
+            np.uint8)),
+        scales=torch.from_numpy(s) if sf32
+        else torch.from_numpy(s).to(torch.bfloat16),
+        zeros=torch.from_numpy(z.astype(np.int8)), bias=None, in_features=k,
+        out_features=n, group_size=128)
+    xs = torch.from_numpy(rng.uniform(0.5, 1.5, (m, 1)).astype(np.float32))
+    return torch.from_numpy(xq), xs, p
+
+
+# (m, K, N, BM, BN, splits, threads): gpt 1 (K = 256: one TPU step; 768:
+# three), 2 (K = 1536) and 4 (K = 4096, 14336); every m of the row tiles'
+# edges (1, 17, 33, 64) at all of m and at 16-row tiles; 64-column tiles
+# at N = 192 and 128, 128-column ones (16-row tiles only) at N = 256; one
+# split, two, three, and counts that do not divide the TPU steps (4 of
+# 14: 4, 4, 4, 2) or pass them (5 of 3).
+_FS_WALK = []
+for _i, (_k, _n) in enumerate(((256, 192), (768, 128), (1536, 192),
+                               (4096, 64))):
+    for _j, _m in enumerate((1, 17, 33, 64)):
+        _full = 16 if _m <= 16 else 32 if _m <= 32 else 64
+        _FS_WALK.append((_m, _k, _n, (_full, 16)[(_i + _j) // 2 % 2], 64,
+                         (1, 2, 3, 5)[(_i + _j) % 4], (128, 256)[_j % 2]))
+_FS_WALK += [(64, 14336, 64, 16, 64, 4, 256), (33, 14336, 64, 64, 64, 3, 128),
+             (33, 1536, 256, 16, 128, 2, 128), (1, 4096, 256, 16, 128, 3, 256),
+             (64, 768, 256, 16, 128, 1, 256)]
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,splits,threads", _FS_WALK,
+                         ids=["-".join(map(str, c)) for c in _FS_WALK])
+def test_fs_stream_walk_matches_plain(m, k, n, bm, bn, splits, threads):
+    """w4a8_decode's blocks on the float-scale form of the streamed loop,
+    emulated in numpy (section 6's header), at its row tiles, column
+    tiles and K splits: the nibble lines equal the packed weight's, every
+    output is written once, by its tile's last arrival (or by the one
+    split), the counters are zero again, exactly the plan's planes are
+    written once each, and the result equals w4a8_plain bit for bit (bf16
+    and f32 scales)."""
+    sf32 = (m + k) % 2 == 0
+    xq, xs, p = _fs_inputs(m, k, n, 31 * m + k + splits, sf32)
+    got, written, counters = _fs_walk(xq, xs, p, bm, bn, splits, threads,
+                                      np.random.default_rng(m + k + bm))
+    assert not counters.any()
+    assert (written == -(-m // bm) * (n // bn)).all()
+    want = tqm.w4a8_plain(xq, xs, p, torch.float32)
+    assert torch.equal(torch.from_numpy(got), want)
+
+
+def test_fs_stream_walk_extreme_case():
+    """The integer range: |xq| = 127 and |q - z| = 15 at K = 14336, so
+    every group's integer is 127 * 15 * 128 in magnitude before its
+    scale; bit for bit at three K splits and 16-row tiles."""
+    xq, xs, p = _fs_inputs(17, 14336, 64, 5, False, kind="extreme")
+    q = tq.unpack_rows(p.qweight).numpy().astype(np.int64)
+    z = np.repeat(p.zeros.numpy().astype(np.int64), 128, 0)
+    assert (np.abs(q - z) == 15).all() and (xq.abs() == 127).all()
+    got, _, _ = _fs_walk(xq, xs, p, 16, 64, 3, 256,
+                         np.random.default_rng(2))
+    assert torch.equal(torch.from_numpy(got),
+                       tqm.w4a8_plain(xq, xs, p, torch.float32))
+
+
+@pytest.mark.parametrize("order,splits", [("hi_lo", 1), ("pre_add", 2)])
+def test_fs_walk_catches_a_reordered_fold(order, splits):
+    """The comparison can see the order: the same walk with the high
+    plane's sum added before the low one's, or with a later split's lo
+    and hi pre-added before they join the accumulator, differs from
+    w4a8_plain in some bits (K = 4096: four TPU steps of four groups),
+    while the kernel's order equals it."""
+    xq, xs, p = _fs_inputs(17, 4096, 64, 11, True)
+    want = tqm.w4a8_plain(xq, xs, p, torch.float32)
+    right, _, _ = _fs_walk(xq, xs, p, 32, 64, splits, 256,
+                           np.random.default_rng(4))
+    wrong, _, _ = _fs_walk(xq, xs, p, 32, 64, splits, 256,
+                           np.random.default_rng(4), order=order)
+    assert torch.equal(torch.from_numpy(right), want)
+    assert not torch.equal(torch.from_numpy(wrong), want)
+
+
+# FloatScale's blocks an SM at 256 threads, (BM, BN): the shared memory
+# (_fs_smem) and the register cap each kernel is compiled to
+# (fs_min_blocks: 4 / 3 / 2 at 64 columns, 2 at 128) allow.
+def _fs_smem(bm, bn, stages=4):
+    """FloatScale::kSmemBytes: two nibble-line buffers and the ring."""
+    return 2 * bn * _LINE_W8 + stages * _fs_stage_bytes(bm, bn)
+
+
+_FS_MIN_BLOCKS = {(16, 64): 4, (32, 64): 3, (64, 64): 2, (16, 128): 2,
+                  (32, 128): 2}
+
+
+def _fs_blocks_per_sm(bm, bn):
+    return min(H100_SMEM_PER_SM // (_fs_smem(bm, bn)
+                                    + H100_SMEM_PER_BLOCK_RESERVED),
+               _FS_MIN_BLOCKS[(bm, bn)], 2048 // 256)
+
+
+def _fs_plan(m, n, k, splits=0, sms=H100_SMS, row_step=0.25,
+             narrow_bytes=16 << 20):
+    """w4a8_gemm.cu's launcher (fs_decode_any, fs_decode) in Python: 256
+    threads; 64 columns where N % 128 != 0 or the packed weight is at
+    most 16 MiB, else 128 (row tiles of at most 32 rows there); the (BM,
+    splits) of the least waves * (streamed steps a split * (1 + row_step
+    * (BM / 16 - 1)) + 2) + (f32 plane bytes written and read + the
+    weight bytes each row tile after the first reads again) over the
+    weight bytes one step of all resident blocks streams, ties to the
+    fewer blocks; splits on TPU-step boundaries. Returns the plan's
+    fields as w4a8_decode_plan names them."""
+    gpt = tqm.w4a8_step_rows(k) // 128
+    tsteps = k // 2 // (gpt * 128)
+    bn = 64 if n % 128 or k // 2 * n <= narrow_bytes else 128
+    tiles = n // bn
+    full = 16 if m <= 16 else 32 if m <= 32 else 64
+    hi = min(64 if bn == 64 else 32, full)
+    best = None
+    for bm in (16, 32, 64):
+        if bm > hi:
+            continue
+        rt = -(-m // bm)
+        slots = sms * _fs_blocks_per_sm(bm, bn)
+        step = 1.0 + row_step * (bm // 16 - 1)
+        for s in ([min(splits, tsteps)] if splits > 0
+                  else range(1, tsteps + 1)):
+            per = -(-tsteps // s)
+            used = -(-tsteps // per)
+            if used != s and splits <= 0:
+                continue
+            blocks = tiles * rt * used
+            planes = 1 + 2.0 * (tsteps - per) if used > 1 else 0.0
+            cost = (-(-blocks // slots) * (per * 2.0 * gpt * step + 2)
+                    + (planes * 8.0 * m * n + (rt - 1) * (k / 2) * n)
+                    / (slots * 64 * bn))
+            if best is None or cost < best[0] or (cost == best[0]
+                                                  and blocks < best[1]):
+                best = (cost, blocks, bm, used, per)
+    _, _, bm, used, per = best
+    return dict(bm=bm, bn=bn, threads=256, stages=4, splits=used,
+                tpu_steps_per_split=per,
+                blocks_per_sm=_fs_blocks_per_sm(bm, bn),
+                row_tiles=-(-m // bm), gpt=gpt,
+                planes=tqm.w4a8_planes(k, used, per))
+
+
+# The launcher's rule lines in csrc/w4a8_gemm.cu (and the two-level
+# header's constants it shares) that _fs_plan mirrors.
+_FS_RULE_LINES = (
+    ("w4a8_gemm.cu", "constexpr int kFsStages = 4;"),
+    ("w4a8_gemm.cu", "constexpr int kFsThreads = 256;"),
+    ("w4a8_gemm.cu", "constexpr int kFsMinBM = 16;"),
+    ("w4a8_gemm.cu", "constexpr int kFsMaxBM = 64;"),
+    ("w4a8_gemm.cu", "constexpr double kFsRowStep = 0.25;"),
+    ("w4a8_gemm.cu", "if (kThreads == 256) return BN == 128 ? 2 : BM == 16 "
+                     "? 4 : BM == 32 ? 3 : 2;"),
+    ("w4a8_gemm.cu", "const bool fs_narrow = a.N % 128 != 0 || (long)a.K / 2 "
+                     "* a.N <= kNarrowBytes;"),
+    ("w4a8_gemm.cu", "while (bkb >= kGroup && (K / 2) % bkb) bkb /= 2;"),
+    ("w4a8tl_stream.cuh", "constexpr double kBlockSteps = 2;"),
+    ("w4a8tl_stream.cuh", "constexpr long kNarrowBytes = 16L << 20;"),
+)
+
+# The served decode shapes of lane C (llama-3.1-8b's four projections at
+# m = 1 / 32 / 64) and the plans the rule gives them on an H100 (132 SMs):
+# (BN, BM, splits, TPU steps a split, blocks an SM).
+_FS_SERVED = {
+    ("qkv", 1): (64, 16, 4, 1, 4), ("o", 1): (64, 16, 4, 1, 4),
+    ("gate_up", 1): (128, 16, 1, 4, 2), ("down", 1): (128, 16, 7, 2, 2),
+    ("qkv", 32): (64, 32, 4, 1, 3), ("o", 32): (64, 32, 4, 1, 3),
+    ("gate_up", 32): (128, 32, 1, 4, 2), ("down", 32): (128, 32, 7, 2, 2),
+    ("qkv", 64): (64, 32, 2, 2, 3), ("o", 64): (64, 64, 4, 1, 2),
+    ("gate_up", 64): (128, 32, 1, 4, 2), ("down", 64): (128, 32, 4, 4, 2),
+}
+_LLAMA_SITES = {"qkv": (4096, 6144), "o": (4096, 4096),
+                "gate_up": (4096, 28672), "down": (14336, 4096)}
+
+
+def test_fs_launch_rule_lines():
+    """The rule the launcher keeps is the one _fs_plan mirrors (its
+    constants, register caps, column rule and TPU step rule), and the
+    Python TPU step rule is the C one's."""
+    import os
+    csrc = os.path.join(os.path.dirname(__file__), os.pardir,
+                        "ferrum_tpu_torch", "ops", "kernels", "csrc")
+    for fname, line in _FS_RULE_LINES:
+        src = " ".join(open(os.path.join(csrc, fname)).read().split())
+        assert line in src, (fname, line)
+    for k in range(256, 16384, 256):
+        bkb = tqm.w4a8_step_rows(k)
+        assert bkb in (128, 256, 512) and (k // 2) % bkb == 0
+        assert all((k // 2) % b for b in (512, 256) if b > bkb)
+
+
+@pytest.mark.parametrize("shape", list(_FS_SERVED), ids=str)
+def test_fs_launch_rule_at_served_shapes(shape):
+    """The rule at lane C's decode shapes gives the pinned plan (the plan
+    the card reported for each, chip_smoke.py's timed cases): its splits
+    fall on TPU-step boundaries (every split non-empty, the last one the
+    rest), the planes are split 0's acc and two for each TPU step after
+    the first split, and their f32 bytes are as the plan states."""
+    site, m = shape
+    k, n = _LLAMA_SITES[site]
+    plan = _fs_plan(m, n, k)
+    assert (plan["bn"], plan["bm"], plan["splits"],
+            plan["tpu_steps_per_split"],
+            plan["blocks_per_sm"]) == _FS_SERVED[shape]
+    gpt = tqm.w4a8_step_rows(k) // 128
+    tsteps = k // 2 // (gpt * 128)
+    per, splits = plan["tpu_steps_per_split"], plan["splits"]
+    bounds = [min(tsteps, z * per) for z in range(splits + 1)]
+    assert bounds[-1] == tsteps and all(b1 > b0 for b0, b1
+                                        in zip(bounds, bounds[1:]))
+    assert plan["planes"] == (0 if splits == 1 else 1 + 2 * (tsteps - per))
+    assert plan["row_tiles"] * plan["bm"] >= m > (plan["row_tiles"] - 1) \
+        * plan["bm"]
+    # Every site's planes at m = 32 stay under half of its weight.
+    if m == 32:
+        assert 4 * m * n * plan["planes"] < (k // 2) * n / 2

@@ -7,7 +7,10 @@
                  decode_bn64|decode_bn128|no_mma|no_dequant|
                  gd_no_unpack|gd_no_rescale|bmm_bn64|bmm_bn128|
                  bmm_threads128|bmm_threads256|bmm_stages3|bmm_stages4|
-                 bmm_stages6|bmm_no_mma|bmm_no_dequant ...] [--ptxas]
+                 bmm_stages6|bmm_no_mma|bmm_no_dequant|fs_rows|
+                 fs_no_rows|fs_bn64|fs_bn128|fs_stages3|fs_stages6|
+                 fs_threads128|fs_caps_off|fs_no_unpack|fs_no_fold ...]
+        [--ptxas]
         [--out FILE]
 
 Imports `ferrum_tpu_torch` from DIR -- this checkout, or an older one
@@ -41,12 +44,16 @@ experts at t = 16 / 32 / 64, beside `torch.bmm` on the bf16 stack, each
 case with the launch its launcher's rule makes, `plan`, on a tree that
 has moe_bmm_plan; a `layer` line at each t), and the decode kernels'
 neighbours that share no code with the two-level ones but are held to
-their parent's times: w4a8_decode (llama at m = 32) and w4a16_gemm
-(llama at m = 32 and 2048; within one bf16 step of its plain version).
---sweep-splits adds to each w4a8tl_decode and w4a8tl_gd_decode case
-`sweep`, its time at each given K split count (a tree whose wrapper
-takes `splits`: one with the kernel's `<kernel>_plan`). The decode cases
-of such a tree carry `plan`, the launch its launcher's rule makes.
+their parent's times: w4a8_decode (llama at m = 1 / 32 / 64, on a tree
+that has w4a8_decode_plan each case with its `plan` and the f32
+`plane_bytes` its K splits write; with `--only w4a8tl_gd_decode` too,
+row 7's layer lines on the same shapes beside it) and w4a16_gemm (llama
+at m = 32 and 2048; within one bf16 step of its plain version).
+--sweep-splits adds to each w4a8tl_decode, w4a8tl_gd_decode and
+w4a8_decode case `sweep`, its time at each given K split count (a tree
+whose wrapper takes `splits`: one with the kernel's `<kernel>_plan`;
+w4a8_decode's counts are of TPU K steps). The decode cases of such a
+tree carry `plan`, the launch its launcher's rule makes.
 
 --probe bn128 / bn256 adds `ms_<probe>` to the moe_grouped cases at
 128-row tiles: the launch on a copy of the tree's moe_gemm.cu built with
@@ -71,11 +78,20 @@ cases: moe_gemm.cu built with the bmm launcher's column tiles forced to
 64, or to 128 where N allows, 128 or 256 threads a block everywhere, or
 its ring 3, 4 or 6 stages deep at every BM; bmm_no_mma / bmm_no_dequant
 the bmm on a copy of the streamed loop's header with that part cut from
-every step but one (wrong results, not compared). A probe launches with
+every step but one (wrong results, not compared). fs_rows / fs_no_rows /
+fs_bn64 / fs_bn128 / fs_stages3 / fs_stages6 / fs_threads128 /
+fs_caps_off adds `ms_<probe>` (and `plan_<probe>`) to the w4a8_decode
+cases: w4a8_gemm.cu built with its launcher's row tiles forced to 16
+rows or to none (all of m a block, up to the largest tile that fits),
+its column tiles forced to 64, or to 128 where N allows, its ring 3 or
+6 stages deep, 128 threads a block, or no register caps; fs_no_unpack /
+fs_no_fold its loop without the unpack on all steps but the first, or
+without the group terms and the TPU-step fold on all groups but the
+last (wrong results, not compared). A probe launches with
 the K split count
 the tree's own rule picks; --ptxas prints each probe build's registers
 too.
---ptxas compiles the sources on the int8 wgmma main loop and the two
+--ptxas compiles the sources on the int8 wgmma main loop and the three
 decode sources with `-Xptxas -v` and prints each kernel's registers and
 spills, and fails on a C7518 (ptxas serialized a kernel's wgmma).
 
@@ -190,13 +206,47 @@ PROBES.update({
     "bmm_no_dequant": ("moe_gemm",) + PROBES["no_dequant"][1:4]
     + ("moe_bmm", False),
 })
+# The float-scale decode kernel (w4a8_gemm.cu's launcher, the float-scale
+# form of the streamed loop's header): row tiles forced to 16 rows, or
+# none (all of m a block, up to the largest tile that fits); 64 columns
+# everywhere, or 128 wherever N allows; its ring 3 or 6 stages deep; 128
+# threads; no register caps (ptxas's own count); and its loop without the
+# unpack on all steps but the first, or without the terms and fold on
+# all groups but the last.
+FS = ("w4a8_gemm", "w4a8_gemm.cu")
+PROBES.update({
+    "fs_rows": FS + (r"constexpr int kFsMaxBM = \d+;",
+                     "constexpr int kFsMaxBM = 16;", "w4a8_decode", True),
+    "fs_no_rows": FS + (r"constexpr int kFsMinBM = \d+;",
+                        "constexpr int kFsMinBM = 64;", "w4a8_decode", True),
+    "fs_bn64": FS + (r"const bool fs_narrow = [^;]*;",
+                     "const bool fs_narrow = true;", "w4a8_decode", True),
+    "fs_bn128": FS + (r"const bool fs_narrow = [^;]*;",
+                      "const bool fs_narrow = a.N % 128 != 0;",
+                      "w4a8_decode", True),
+    **{f"fs_stages{d}": FS + (r"constexpr int kFsStages = \d+;",
+                              f"constexpr int kFsStages = {d};",
+                              "w4a8_decode", True) for d in (3, 6)},
+    "fs_threads128": FS + (r"constexpr int kFsThreads = \d+;",
+                           "constexpr int kFsThreads = 128;", "w4a8_decode",
+                           True),
+    "fs_caps_off": FS + (r"if \(kThreads == 256\) return [^;]*;\n"
+                         r"  return [^;]*;", "return 1;", "w4a8_decode",
+                         True),
+    "fs_no_unpack": ("w4a8_gemm", STREAM,
+                     r"\n      L::unpack\(stage\(j \+ 1\), nib\[\(j \+ 1\) "
+                     r"& 1\]\);", "", "w4a8_decode", False),
+    "fs_no_fold": ("w4a8_gemm", STREAM, r"\n      if \(j & 1\) group_end\(j\);",
+                   "", "w4a8_decode", False),
+})
 # The launcher's rules probed on the group-dot kernel: gd_stages3 .. .
 PROBES.update({
     f"gd_{name}": ("w4a8tl_gd", STREAM, rule, repl, "w4a8tl_gd_decode", True)
     for name, (_, _, rule, repl, _, _) in list(PROBES.items())
     if name in ("stages3", "stages6", "threads128", "threads256",
                 "decode_bn64", "decode_bn128")})
-PTXAS_SOURCES = ("w4a8tl_gemm", "w4a8tl_mcache", "moe_gemm", "w4a8tl_gd")
+PTXAS_SOURCES = ("w4a8tl_gemm", "w4a8tl_mcache", "moe_gemm", "w4a8tl_gd",
+                 "w4a8_gemm")
 
 
 def load_smoke():
@@ -302,23 +352,35 @@ def neighbour_rows(torch, smoke, timer, args, probe_libs):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     rows = []
+    fs_plan = getattr(qmm, "w4a8_decode_plan", None)
 
-    def case(kernel, site, shape, fn, plain, exact, bound, extra=None):
+    def case(kernel, site, shape, fn, plain, exact, bound, extra=None,
+             sweep=None):
         got, want = fn(), plain()
         row = {"tree": args.label, "kernel": kernel, "site": site, **shape,
                "ms": timer(fn), "bound_ms": bound[0], "bound_by": bound[1],
                **(extra or {})}
         ok = True
+        if sweep is not None and args.sweep_splits:
+            row["sweep"] = {}
+            for sp in args.sweep_splits:
+                ok &= bool(torch.equal(sweep(sp), want))
+                row["sweep"][sp] = timer(lambda: sweep(sp))
         for probe, lib in probe_libs.items():
             source, _, _, _, probed, computes = PROBES[probe]
             if probed != kernel:
                 continue
             saved = build._libs.get(source)
             build._libs[source] = lib
+            qmm._DECODE_PLANS.clear()      # the probe's launcher plans
             if computes:
                 ok &= bool(torch.equal(fn(), want))
             row[f"ms_{probe}"] = timer(fn)
+            if kernel == "w4a8_decode" and fs_plan is not None:
+                row[f"plan_{probe}"] = fs_plan(shape["m"], shape["n"],
+                                               shape["k"])
             build._libs[source] = saved
+            qmm._DECODE_PLANS.clear()
         again = fn()
         if exact:
             ok &= bool(torch.equal(got, want)) and bool(torch.equal(again,
@@ -357,7 +419,8 @@ def neighbour_rows(torch, smoke, timer, args, probe_libs):
                          2.0 * smoke.MOE_E * t * k * n), extra)
             del p, w_bf16
             torch.cuda.empty_cache()
-    for kernel, ms in (("w4a8_decode", (32,)), ("w4a16_gemm", (32, 2048))):
+    for kernel, ms in (("w4a8_decode", DECODE_MS),
+                       ("w4a16_gemm", (32, 2048))):
         if not args.selected(kernel):
             continue
         for site, (k, n) in LLAMA.items():
@@ -368,12 +431,21 @@ def neighbour_rows(torch, smoke, timer, args, probe_libs):
                                 dtype=torch.bfloat16)
                 if kernel == "w4a8_decode":
                     xq, xs = qmm.quantize_activation_rows(x)
+                    extra, sweep = {}, None
+                    if fs_plan is not None:
+                        extra["plan"] = fs_plan(m, n, k)
+                        extra["plane_bytes"] = 4 * m * n \
+                            * extra["plan"]["planes"]
+
+                        def sweep(sp):
+                            return qmm.w4a8_decode(xq, xs, p, torch.bfloat16,
+                                                   splits=sp)
                     case(kernel, site, {"m": m, "k": k, "n": n},
                          lambda: qmm.w4a8_decode(xq, xs, p, torch.bfloat16),
                          lambda: qmm.w4a8_plain(xq, xs, p, torch.bfloat16),
                          True, smoke.bound_ms(
                              wbytes + xq.nbytes + xs.nbytes + 2 * m * n,
-                             2.0 * m * k * n))
+                             2.0 * m * k * n), extra, sweep)
                 else:
                     case(kernel, site, {"m": m, "k": k, "n": n},
                          lambda: qmm.w4a16_gemm(x, p),
@@ -610,7 +682,7 @@ def main() -> int:
     rows = neighbour_rows(torch, smoke, timer, args, probe_libs)
     for kernel, key, at, sites in (
             *(("moe_bmm", "t", t, tuple(MOE)) for t in BMM_T),
-            ("w4a8_decode", "m", 32, tuple(LLAMA)),
+            *(("w4a8_decode", "m", m, tuple(LLAMA)) for m in DECODE_MS),
             ("w4a16_gemm", "m", 32, tuple(LLAMA)),
             ("w4a16_gemm", "m", 2048, tuple(LLAMA))):
         layer_lines(args, rows, kernel, key, at, sites)
