@@ -33,9 +33,14 @@ Phases, in order, each printing JSON lines:
              xq on shared and on
              each expert's own rows (3 and 128 experts; t = 1 .. 64),
              the int32 range, K = 256 and N = 192, each with its launch
-             plan, and for the
+             plan, for the
              grouped two-level kernel at 128-row tiles one-hot xq, one
-             expert, four experts, ragged rows and K = 256
+             expert, four experts, ragged rows and K = 256, and at decode
+             sizes (the expert-grid loop, each with its plan) one-hot xq
+             at 8 / 120 / 256 rows, experts over BM rows, one expert
+             holding all rows and K = 256; kv_append_rows one array and
+             K with V in one launch (bf16, f32, int8), the pair timed
+             beside an empty kernel's launch
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
              ties, as jax.lax.top_k) at 32 slots x 128256 against a full
              stable sort, timed beside both and torch.topk
@@ -63,7 +68,8 @@ time; A's and B's numbers are in PERF.md):
   logits     one prefill + 4 decode steps at full width, kernels vs plain
              versions, both on the card; the MoE runs decode two steps
              at 32 lanes (B: all-experts route; D: 256 grouped rows) and
-             two at 1 lane (sort + grouped route); the plain run decodes
+             two at 1 lane (sort + grouped route: 8 rows, so B must
+             launch moe_grouped's decode-sized loop); the plain run decodes
              the kernel run's tokens. A, B, E: every logit within 1e-3
              of the logit scale (the kernels are exact). C, D: 99% of the
              token rows within 2e-2 of it at the lane's depth (one-bf16-
@@ -104,7 +110,9 @@ SERVE_PREFILL_M = 2048           # one batched prefill of the serve phase
 MOE_E, MOE_TOPK = 128, 8
 MOE_SHAPES = {"gate": (2048, 768), "up": (2048, 768), "down": (768, 2048)}
 BMM_T = (16, 32, 64)
-GROUPED_A = (8, 2048, 16384)     # t = 1 decode, 256- and 2048-token prefill
+# t = 1, 15 and 32 decode (the expert-grid loop at <= 256 rows), 256- and
+# 2048-token prefill.
+GROUPED_A = (8, 120, 256, 2048, 16384)
 SERVE_BMM_T = 32                 # decode lanes of the MoE serve phase
 SERVE_GROUPED_A = 16384          # one batched MoE prefill: 2048 tokens x 8
 KV_PATH = ("kv_append_rows", "kv_append_pages")
@@ -497,8 +505,9 @@ def moe_cases(torch, timer):
     """The two MoE kernels at the qwen3-30b-a3b expert shapes against
     their plain versions (exact equality), with their times."""
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (
-        bmm_plain, grouped_map, grouped_plain, grouped_w4a8tl,
-        grouped_w4a8tl_on_map, moe_bmm_plan, quant_bmm_all_experts)
+        bmm_plain, grouped_bm, grouped_map, grouped_plain, grouped_plan,
+        grouped_w4a8tl, grouped_w4a8tl_on_map, moe_bmm_plan,
+        quant_bmm_all_experts)
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
         quantize_activation_rows)
     from ferrum_tpu_torch.ops.quant import dequantize
@@ -541,6 +550,8 @@ def moe_cases(torch, timer):
                    "empty_experts": MOE_E - active,
                    "library": "torch._grouped_mm (bf16)"
                    if grouped_mm is not None else None}
+            if grouped_bm(a) == 16:
+                row["plan"] = grouped_plan(a, n, k, MOE_E)
             row["bound_ms"], row["bound_by"] = bound_ms(
                 stack_bytes(p, active) + xq.nbytes + xs.nbytes + 2 * a * n,
                 2.0 * a * k * n)
@@ -1151,29 +1162,39 @@ def bmm_exact_cases(torch, timer):
     return rows
 
 
-# The exact cases of the grouped two-level kernel at 128-row tiles beyond
-# the timed routed ones, (case, rows, K, N) over MOE_E experts: one-hot xq
-# at the qwen3 gate / up and down sites, every row to one expert, four
+# The exact cases of the grouped two-level kernel beyond the timed routed
+# ones, (case, rows, K, N) over MOE_E experts. At 128-row tiles: one-hot
+# xq at the qwen3 gate / up and down sites, every row to one expert, four
 # experts active, ragged row counts (no multiple of top-k), K = 256 (2 K
-# steps, fewer than the ring's 3 prologue loads).
+# steps, fewer than the ring's 3 prologue loads). At decode sizes (<= 256
+# rows, the expert-grid loop): one-hot xq at 8 / 120 / 256 rows, experts
+# over BM rows (chunks), every row to one expert, K = 256.
 GROUPED_EXACT = (("one-hot", 2048, 2048, 768), ("one-hot", 2048, 768, 2048),
                  ("one expert", 2048, 2048, 768),
                  ("four experts", 2048, 768, 2048),
                  ("ragged", 257, 2048, 768), ("ragged", 1000, 768, 2048),
-                 ("K = 256", 2048, 256, 768))
+                 ("K = 256", 2048, 256, 768),
+                 ("one-hot", 8, 2048, 768), ("one-hot", 8, 768, 2048),
+                 ("one-hot", 120, 2048, 768), ("one-hot", 120, 768, 2048),
+                 ("one-hot", 256, 2048, 768), ("one-hot", 256, 768, 2048),
+                 ("experts over BM rows", 256, 768, 2048),
+                 ("one expert", 120, 2048, 768),
+                 ("K = 256", 120, 256, 768))
 
 
 def grouped_exact_cases(torch, timer):
-    """moe_grouped at 128-row tiles equal to grouped_plain bit for bit on
-    the GROUPED_EXACT cases, in bf16 and f32 out, before and after its
-    timed launches: one-hot xq, where every output is one w8 row of the
-    row's expert times chan and xs (some expert boundary must lie inside
-    a 64-row slice, so a warpgroup's rows span two experts); random
-    stacks and activations otherwise -- the check a window, expert
-    offset, epilogue order, dequant or short-K ring fault cannot pass."""
+    """moe_grouped equal to grouped_plain bit for bit on the GROUPED_EXACT
+    cases, in bf16 and f32 out, before and after its timed launches:
+    one-hot xq, where every output is one w8 row of the row's expert
+    times chan and xs (at 128-row tiles some expert boundary must lie
+    inside a 64-row slice, so a warpgroup's rows span two experts);
+    random stacks and activations otherwise -- the check a window, chunk,
+    expert offset, epilogue order, dequant or short-K ring fault cannot
+    pass. Decode-sized rows carry their launch's plan."""
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_bm,
                                                        grouped_map,
                                                        grouped_plain,
+                                                       grouped_plan,
                                                        grouped_w4a8tl,
                                                        grouped_w4a8tl_on_map)
     from ferrum_tpu_torch.ops.kernels.quant_matmul import (
@@ -1182,7 +1203,6 @@ def grouped_exact_cases(torch, timer):
     gen.manual_seed(10)
     rows = []
     for case, a, k, n in GROUPED_EXACT:
-        assert grouped_bm(a) == 128
         if case in ("one-hot", "K = 256"):
             sizes = routed_sizes(torch, gen, a)
         elif case == "ragged":
@@ -1193,9 +1213,12 @@ def grouped_exact_cases(torch, timer):
             sizes = torch.zeros(MOE_E, dtype=torch.int64, device="cuda")
             if case == "one expert":
                 sizes[77] = a
-            else:
+            elif case == "four experts":
                 sizes[torch.tensor([3, 40, 41, 127], device="cuda")] = \
                     torch.tensor([1000, 600, 300, 148], device="cuda")
+            else:                           # experts over BM rows
+                sizes[torch.tensor([3, 77, 127], device="cuda")] = \
+                    torch.tensor([40, 100, 116], device="cuda")
         gs = sizes.to(torch.int32)
         offs = torch.cumsum(sizes, 0)
         p = two_level_weight(torch, k, n, gen,
@@ -1208,6 +1231,7 @@ def grouped_exact_cases(torch, timer):
             xq, xs = quantize_activation_rows(torch.randn(
                 a, k, generator=gen, device="cuda", dtype=torch.bfloat16))
         tmap = grouped_map(gs, a)
+        tiles = grouped_bm(a)
         for out_dtype in (torch.bfloat16, torch.float32):
             want = grouped_plain(xq, xs, p, gs, out_dtype)
             got = grouped_w4a8tl(xq, xs, p, gs, out_dtype)
@@ -1219,16 +1243,26 @@ def grouped_exact_cases(torch, timer):
             row = {"kernel": "moe_grouped", "case": case, "rows": a, "k": k,
                    "n": n, "out": str(out_dtype).split(".")[-1],
                    "active_experts": int((sizes > 0).sum().item()),
-                   "boundary_inside_64_rows": bool(
-                       (offs[:-1] % 64 != 0).any().item()),
+                   "most_rows_an_expert": int(sizes.max().item()),
                    "kernel_ms": ms,
                    "equal": bool(torch.equal(got, want))
                    and bool(torch.equal(again, want)),
                    "outputs_differing": int((got != want).sum().item())}
+            if tiles == 128:
+                row["boundary_inside_64_rows"] = bool(
+                    (offs[:-1] % 64 != 0).any().item())
+            else:
+                row["plan"] = grouped_plan(a, n, k, MOE_E)
             rows.append(row)
             emit({"phase": "kernel_case", **row})
-            if not row["equal"] or (case == "one-hot"
-                                    and not row["boundary_inside_64_rows"]):
+            # The case must reach what it is for: a warpgroup's rows over
+            # two experts (one-hot at 128-row tiles), an expert in several
+            # chunks (decode sizes, one expert or experts over BM rows).
+            reached = row["boundary_inside_64_rows"] if tiles == 128 \
+                else row["most_rows_an_expert"] > row["plan"]["bm"]
+            if not row["equal"] or not reached and (
+                    case == "one-hot" if tiles == 128
+                    else case in ("one expert", "experts over BM rows")):
                 raise AssertionError(f"moe_grouped {case} {a}x{k}x{n}: "
                                      f"{row}")
             del want, got, again
@@ -1252,8 +1286,15 @@ def kv_ids(torch, layers, slots, blocks_per_slot, pos, inactive):
 
 
 def kv_rows_cases(torch, timer):
-    from ferrum_tpu_torch.ops.kernels.kv_append import (append_rows,
-                                                        append_rows_plain)
+    """kv_append_rows at the llama-3.1-8b decode step's shape (32 layers x
+    32 slots, two inactive slots and one id exactly B dropped), one array
+    (append_rows) and K with V in one launch (append_rows_pairs, as
+    decode_forward calls it), each equal to its plain version bit for bit
+    in bf16, f32 and int8. The bf16 cases are timed beside index_copy_
+    (one per array), and the pair beside an empty kernel's launch
+    (`floor_ms`, torch.cuda._sleep(0)) with the same Timer."""
+    from ferrum_tpu_torch.ops.kernels.kv_append import (
+        append_rows_pairs, append_rows_pairs_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     layers, slots, bps = 32, 32, 1024 // PAGE
@@ -1261,45 +1302,60 @@ def kv_rows_cases(torch, timer):
     pos = torch.randint(0, 1024, (slots,), generator=gen, device="cuda")
     blk, off = kv_ids(torch, layers, slots, bps, pos, inactive=[3, 17])
     blk[5] = b                                   # exactly B: dropped
+    valid = (blk < b)
+    n_valid = int(valid.sum().item())
     rows = []
     for dt, f in ((torch.bfloat16, 1024), (torch.float32, 8),
                   (torch.int8, 1024)):
-        if dt == torch.int8:
-            cache = torch.randint(-127, 128, (b, PAGE, f), generator=gen,
-                                  device="cuda", dtype=torch.int8)
-            new = torch.randint(-127, 128, (blk.numel(), f), generator=gen,
-                                device="cuda", dtype=torch.int8)
-        else:
-            cache = torch.randn(b, PAGE, f, generator=gen, device="cuda"
-                                ).to(dt)
-            new = torch.randn(blk.numel(), f, generator=gen,
-                              device="cuda").to(dt)
-        ref = append_rows_plain(cache.clone(), new, blk, off)
-        append_rows(cache, new, blk, off)
-        torch.cuda.synchronize()
-        err = (cache.float() - ref.float()).abs().max().item()
-        row = {"kernel": "kv_append_rows", "dtype": str(dt).split(".")[-1],
-               "rows": blk.numel(), "f": f,
-               "equal": bool(torch.equal(cache, ref)), "max_abs_err": err}
-        del ref
-        valid = (blk < b)
-        n_valid = int(valid.sum().item())
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            2 * n_valid * f * cache.element_size() + 2 * blk.nbytes, 0)
-        if dt == torch.bfloat16:
-            row["kernel_ms"] = timer(
-                lambda: append_rows(cache, new, blk, off))
-            row["plain_ms"] = timer(
-                lambda: append_rows_plain(cache, new, blk, off), reps=10)
-            flat = cache.view(-1, f)
-            idx = (blk.long() * PAGE + off.long())[valid]
-            src = new[valid]
-            row["library_ms"] = timer(lambda: flat.index_copy_(0, idx, src))
-        rows.append(row)
-        emit({"phase": "kernel_case", **row})
-        if not row["equal"]:
-            raise AssertionError(f"kv_append_rows {dt}: differs by {err}")
-        del cache, new
+        for arrays in (1, 2):
+            pairs = []
+            for _ in range(arrays):
+                if dt == torch.int8:
+                    cache = torch.randint(-127, 128, (b, PAGE, f),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int8)
+                    new = torch.randint(-127, 128, (blk.numel(), f),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int8)
+                else:
+                    cache = torch.randn(b, PAGE, f, generator=gen,
+                                        device="cuda").to(dt)
+                    new = torch.randn(blk.numel(), f, generator=gen,
+                                      device="cuda").to(dt)
+                pairs.append((cache, new))
+            ref = append_rows_pairs_plain([(c.clone(), r) for c, r in pairs],
+                                          blk, off)
+            append_rows_pairs(pairs, blk, off)
+            torch.cuda.synchronize()
+            err = max((c.float() - w.float()).abs().max().item()
+                      for (c, _), w in zip(pairs, ref))
+            row = {"kernel": "kv_append_rows",
+                   "dtype": str(dt).split(".")[-1], "arrays": arrays,
+                   "rows": blk.numel(), "f": f,
+                   "equal": all(bool(torch.equal(c, w))
+                                for (c, _), w in zip(pairs, ref)),
+                   "max_abs_err": err}
+            del ref
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                arrays * 2 * n_valid * f * pairs[0][0].element_size()
+                + 2 * blk.nbytes, 0)
+            if dt == torch.bfloat16:
+                row["kernel_ms"] = timer(
+                    lambda: append_rows_pairs(pairs, blk, off))
+                row["plain_ms"] = timer(
+                    lambda: append_rows_pairs_plain(pairs, blk, off), reps=10)
+                idx = (blk.long() * PAGE + off.long())[valid]
+                copies = [(c.view(-1, f), r[valid]) for c, r in pairs]
+                row["library_ms"] = timer(lambda: [
+                    flat.index_copy_(0, idx, src) for flat, src in copies])
+                if arrays == 2:
+                    row["floor_ms"] = timer(lambda: torch.cuda._sleep(0))
+            rows.append(row)
+            emit({"phase": "kernel_case", **row})
+            if not row["equal"]:
+                raise AssertionError(f"kv_append_rows {dt} x {arrays}: "
+                                     f"differs by {err}")
+            del pairs
     return rows
 
 
@@ -1399,14 +1455,18 @@ def summarize(cases):
                              and c[key] == at
                              and c.get("model", "llama-3.1-8b")
                              == "llama-3.1-8b"], f"{key}={at}")
+    # The appends: a decode step's K and V in one launch, a prefill's
+    # pages of one array.
     for name in ("kv_append_rows", "kv_append_pages"):
         c = next(c for c in cases
-                 if c["kernel"] == name and c["dtype"] == "bfloat16")
+                 if c["kernel"] == name and c["dtype"] == "bfloat16"
+                 and c.get("arrays", 2) == 2)
         out[name] = {k: c.get(k) for k in ("plain_ms", "library_ms",
                                            "bound_ms", "bound_by")}
         out[name]["ms"] = c.get("kernel_ms")
         out[name]["at"] = (f"{c.get('rows', c.get('pages'))} "
-                           f"{'rows' if 'rows' in c else 'pages'}, F={c['f']}")
+                           f"{'rows' if 'rows' in c else 'pages'}, F={c['f']}"
+                           + (", K and V" if "arrays" in c else ""))
     for name in out:
         errs = [c["max_abs_err"] for c in cases if c["kernel"] == name]
         out[name]["max_abs_err"] = max(errs) if errs else None
@@ -1556,6 +1616,17 @@ def request(tokens, max_tokens=OUTPUT_LEN):
         sampling=SamplingParams(max_tokens=max_tokens, ignore_eos=True))
 
 
+# The counts' key of moe_grouped's launches at <= 256 rows (the
+# expert-grid loop), a part of its launches.
+GROUPED_DECODE = "moe_grouped at <= 256 rows"
+
+
+def counts(K):
+    """Every kernel's launches since the last reset, and GROUPED_DECODE."""
+    return {**K.launch_counts(),
+            GROUPED_DECODE: K.MOE_GROUPED.decode_launches}
+
+
 def off_path(lane):
     """The kernels a lane's runs must not launch: all but its path's."""
     from ferrum_tpu_torch.ops import kernels as K
@@ -1593,7 +1664,7 @@ def serve_phase(torch, lane, want_solo=None):
         resps = list(ex.map(engine.infer, [request(p) for p in prompts]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.launch_counts()
+    launches = counts(K)
     peak = torch.cuda.max_memory_allocated()
 
     for r in resps:
@@ -1702,7 +1773,7 @@ def logits_phase(torch, mc, engine, lane):
              (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
              (qmm, "w4a8_decode", qmm.w4a8_plain),
              (qmm, "w4a16_gemm", qmm.w4a16_plain),
-             (lf, "append_rows", kv_append.append_rows_plain),
+             (lf, "append_rows_pairs", kv_append.append_rows_pairs_plain),
              (lf, "append_pages", kv_append.append_pages_plain),
              (moe, "quant_bmm_all_experts", moe_gemm.bmm_plain),
              (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain),
@@ -1717,7 +1788,7 @@ def logits_phase(torch, mc, engine, lane):
         K.reset_launch_counts()
         with_kernels, fed = run(params, cfg)
         if depth is None:
-            launches = K.launch_counts()
+            launches = counts(K)
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
@@ -1854,7 +1925,11 @@ def main() -> int:
             torch, lane, solos.get(lane.get("solo_as")))
         by_path[lane["name"]] = launches
         routes = logits_phase(torch, mc, engine, lane)
-        missed = [k for k in lane["path"] if routes[k] == 0]
+        # A 1-lane MoE decode step takes the sort route: 8 rows through
+        # moe_grouped's decode-sized loop.
+        missed = [k for k in lane["path"]
+                  + ((GROUPED_DECODE,) if "moe_grouped" in lane["path"]
+                     else ()) if routes[k] == 0]
         stray = [k for k in off_path(lane) if routes[k] != 0]
         if missed or stray:
             raise AssertionError(f"{lane['name']} logits run: never "
@@ -1870,6 +1945,9 @@ def main() -> int:
          "replaces": k.replaces,
          "launches": sum(c[k.name] for c in by_path.values()),
          "launches_by_path": {m: c[k.name] for m, c in by_path.items()},
+         **({"launches_at_most_256_rows_by_path": {
+             m: c[GROUPED_DECODE] for m, c in by_path.items()}}
+            if k.name == "moe_grouped" else {}),
          "max_abs_err": summary[k.name]["max_abs_err"],
          "ms": summary[k.name]["ms"],
          "plain_ms": summary[k.name]["plain_ms"],

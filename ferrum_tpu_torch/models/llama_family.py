@@ -25,7 +25,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from ..ops.attention import flat_decode_attention, flat_prefill_attention
-from ..ops.kernels.kv_append import append_pages, append_rows
+from ..ops.kernels.kv_append import append_pages, append_rows_pairs
 from ..ops.linear import LinearParams, apply_linear, matmul_f32
 from ..ops.moe import moe_mlp
 from ..ops.norms import fused_add_rms_norm, rms_norm
@@ -203,8 +203,8 @@ def decode_forward(
 ):
     """One batched decode step over every slot of the linear layout →
     (hidden [S, H], kv). This step's K/V join attention as the self
-    term and are appended to the cache after the trunk, one `append_rows`
-    of L*S rows."""
+    term and are appended to the cache after the trunk: one
+    `append_rows_pairs` of L*S rows of K and of V."""
     if inv_freq is None:
         inv_freq = make_inv_freq(cfg, tokens.device)
     nb, page = kv.num_blocks, kv.page
@@ -232,10 +232,11 @@ def decode_forward(
     off_all = (fl % page).to(torch.int32).repeat(n_layers)
     k_rows = torch.stack(new_ks).reshape(n_layers * s_slots, f)
     v_rows = torch.stack(new_vs).reshape(n_layers * s_slots, f)
-    append_rows(kv.k.view(n_layers * nb, page, f),
-                k_rows.to(kv.k.dtype).contiguous(), blk_all, off_all)
-    append_rows(kv.v.view(n_layers * nb, page, f),
-                v_rows.to(kv.v.dtype).contiguous(), blk_all, off_all)
+    append_rows_pairs(
+        [(kv.k.view(n_layers * nb, page, f),
+          k_rows.to(kv.k.dtype).contiguous()),
+         (kv.v.view(n_layers * nb, page, f),
+          v_rows.to(kv.v.dtype).contiguous())], blk_all, off_all)
     return h, kv
 
 

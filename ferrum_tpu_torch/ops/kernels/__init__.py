@@ -21,6 +21,9 @@ class Kernel:
     source: str        # CUDA source, relative to the repository root
     replaces: str      # the Pallas TPU kernel it replaces (file:line)
     launches: int = 0
+    # Those of the launches made at decode sizes, where a kernel runs
+    # another loop there (moe_grouped at <= 256 rows).
+    decode_launches: int = 0
 
 
 _CSRC = "ferrum_tpu_torch/ops/kernels/csrc"
@@ -63,7 +66,7 @@ KERNELS = (W4A8TL_DECODE, W4A8TL_PREFILL, KV_APPEND_ROWS, KV_APPEND_PAGES,
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.decode_launches = 0
 
 
 def launch_counts() -> dict:

@@ -57,7 +57,10 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P],
         "ferrum_moe_bmm_plan": [_I, _I, _I, _I, _P],
         "ferrum_moe_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _P],
+        "ferrum_moe_grouped_decode": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _P],
+        "ferrum_moe_grouped_plan": [_I, _I, _I, _I, _P],
     },
     "w4a16_gemm": {
         "ferrum_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _P,
@@ -73,7 +76,7 @@ SIGNATURES = {
         "ferrum_w4a8_decode_plan": [_I, _I, _I, _I, _P],
     },
     "kv_append": {
-        "ferrum_kv_append_rows": [_P, _P, _P, _P, _I, _I, _I, _L, _P],
+        "ferrum_kv_append_rows": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
         "ferrum_kv_append_pages": [_P, _P, _P, _I, _I, _L, _P],
     },
 }

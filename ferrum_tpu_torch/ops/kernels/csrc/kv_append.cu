@@ -8,20 +8,32 @@
 //
 //   ferrum_kv_append_rows  replaces ferrum_tpu/ops/pallas/kv_append.py
 //                          kv_append_rows: cache[blk[i], off[i], :] = rows[i]
-//                          (decode: one row per (layer, slot)).
+//                          (decode: one row per (layer, slot)), for one to
+//                          four (cache, rows) pairs that share blk and off
+//                          (K and V; int8 KV's two scale planes would be
+//                          two more) in one launch.
 //   ferrum_kv_append_pages replaces kv_append.py kv_append_pages:
 //                          cache[blk[i]] = pages[i] (prefill, whole pages).
 //
 // What bounds them on the H100: pure data movement -- each valid row/page
 // is read once and written once, so HBM bandwidth (3.35 TB/s). The TPU
 // kernels read-modify-write the whole target page because Mosaic has no
-// dynamic sublane store; here a row is written directly. Design: one warp
-// per row (decode rows are 2 KiB at the 8B shapes) and one block per page,
-// both with 16-byte vector copies when the row/page size allows, bytes
-// otherwise. (block, offset) pairs are unique within one call, so the
-// writes never race.
+// dynamic sublane store; here a row is written directly. A decode step's
+// rows are few MB (1024 rows x 2 KiB for K and again for V at the 8B
+// shapes: a bound of ~2.5 us), so the rows kernel is bound by latency:
+// the launch, and how many bytes are in flight at once. Design: one
+// launch for every pair; each thread takes kRowChunks 16-byte chunks of
+// one (pair, row), strided by the row's threads so a warp's loads are
+// contiguous, reads the row's ids once, and issues all its loads before
+// its first store; the grid spreads (pair, row, chunk) over enough
+// blocks to fill the card. Bytes instead of 16-byte chunks where a
+// pointer or row size is not a multiple of 16. Pages: one block per page
+// with 16-byte vector copies when the page size allows, bytes otherwise.
+// (block, offset) pairs are unique within one call, so the writes never
+// race.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -40,21 +52,63 @@ __device__ __forceinline__ void copy_bytes(uint8_t* __restrict__ dst,
   }
 }
 
-__global__ void append_rows_kernel(uint8_t* __restrict__ cache,
-                                   const uint8_t* __restrict__ rows,
-                                   const int* __restrict__ blk,
-                                   const int* __restrict__ off, int n, int B,
-                                   int page, long long row_bytes, int vec16) {
-  const int warps_per_block = blockDim.x >> 5;
-  const int row = blockIdx.x * warps_per_block + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
+// The (cache, rows) pairs of a rows launch, by value. units: 16-byte
+// chunks (or bytes) a row; tpr: threads a row, ceil(units / kRowChunks);
+// first: the pair's first thread; total: the launch's threads.
+constexpr int kMaxPairs = 4;
+constexpr int kRowChunks = 4;
+
+struct RowPairs {
+  uint8_t* cache[kMaxPairs];
+  const uint8_t* rows[kMaxPairs];
+  int units[kMaxPairs];
+  int tpr[kMaxPairs];
+  int first[kMaxPairs];
+  int pairs, total;
+};
+
+// Thread g copies units slot, slot + tpr, .. (kRowChunks of them) of row
+// `row` of its pair, V a 16-byte chunk or a byte.
+template <typename V>
+__global__ void append_rows_kernel(RowPairs rp, const int* __restrict__ blk,
+                                   const int* __restrict__ off, int B,
+                                   int page) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= rp.total) return;
+  // The pair, by static indices only (the parameters stay in the
+  // constant bank).
+  uint8_t* cache = rp.cache[0];
+  const uint8_t* rows = rp.rows[0];
+  int units = rp.units[0], tpr = rp.tpr[0], first = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxPairs; ++i) {
+    if (i < rp.pairs && g >= rp.first[i]) {
+      cache = rp.cache[i];
+      rows = rp.rows[i];
+      units = rp.units[i];
+      tpr = rp.tpr[i];
+      first = rp.first[i];
+    }
+  }
+  const int row = (g - first) / tpr;
+  const int slot = g - first - row * tpr;
   const long long b = (long long)(unsigned)blk[row];
   if (b >= B) return;                      // dropped write (sentinel / pad)
   const long long flat = b * page + off[row];
   if (flat < 0 || flat >= (long long)B * page) return;
-  copy_bytes(cache + flat * row_bytes, rows + (long long)row * row_bytes,
-             row_bytes, vec16, lane, 32);
+  const V* src = reinterpret_cast<const V*>(rows) + (long long)row * units;
+  V* dst = reinterpret_cast<V*>(cache) + flat * units;
+  V v[kRowChunks];
+#pragma unroll
+  for (int i = 0; i < kRowChunks; ++i) {
+    const int u = slot + i * tpr;
+    if (u < units) v[i] = src[u];
+  }
+#pragma unroll
+  for (int i = 0; i < kRowChunks; ++i) {
+    const int u = slot + i * tpr;
+    if (u < units) dst[u] = v[i];
+  }
 }
 
 __global__ void append_pages_kernel(uint8_t* __restrict__ cache,
@@ -75,20 +129,48 @@ int aligned16(const void* a, const void* b, long long nbytes) {
 
 }  // namespace
 
-// cache [B, page, F] (row_bytes = F * element size), rows [n, F],
-// blk/off int32 [n]. Returns cudaGetLastError().
-extern "C" int ferrum_kv_append_rows(void* cache, const void* rows,
+// `pairs` (1 to 4) caches [B, page, F_i] and their rows [n, F_i]
+// (row_bytes[i] = F_i * element size), caches[i] / rows[i] host arrays of
+// device pointers; blk/off int32 [n], shared. Returns cudaGetLastError().
+extern "C" int ferrum_kv_append_rows(void* const* caches,
+                                     const void* const* rows,
+                                     const long long* row_bytes, int pairs,
                                      const void* blk, const void* off, int n,
-                                     int B, int page, long long row_bytes,
-                                     void* stream) {
+                                     int B, int page, void* stream) {
+  if (pairs < 1 || pairs > kMaxPairs) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
+  int vec16 = 1;
+  for (int i = 0; i < pairs; ++i) {
+    vec16 &= aligned16(caches[i], rows[i], row_bytes[i]);
+  }
+  RowPairs rp{};
+  long long total = 0;
+  for (int i = 0; i < pairs; ++i) {
+    const long long units = vec16 ? row_bytes[i] >> 4 : row_bytes[i];
+    const long long tpr = (units + kRowChunks - 1) / kRowChunks;
+    if (units < 1 || units > INT_MAX) return (int)cudaErrorInvalidValue;
+    rp.cache[i] = static_cast<uint8_t*>(caches[i]);
+    rp.rows[i] = static_cast<const uint8_t*>(rows[i]);
+    rp.units[i] = (int)units;
+    rp.tpr[i] = (int)tpr;
+    rp.first[i] = (int)total;
+    total += n * tpr;
+    if (total > INT_MAX) return (int)cudaErrorInvalidValue;
+  }
+  rp.pairs = pairs;
+  rp.total = (int)total;
   const int threads = 256;
-  const int rows_per_block = threads / 32;
-  append_rows_kernel<<<(n + rows_per_block - 1) / rows_per_block, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(cache), static_cast<const uint8_t*>(rows),
-      static_cast<const int*>(blk), static_cast<const int*>(off), n, B, page,
-      row_bytes, aligned16(cache, rows, row_bytes));
+  const int blocks = (int)((total + threads - 1) / threads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec16) {
+    append_rows_kernel<uint4><<<blocks, threads, 0, st>>>(
+        rp, static_cast<const int*>(blk), static_cast<const int*>(off), B,
+        page);
+  } else {
+    append_rows_kernel<uint8_t><<<blocks, threads, 0, st>>>(
+        rp, static_cast<const int*>(blk), static_cast<const int*>(off), B,
+        page);
+  }
   return (int)cudaGetLastError();
 }
 

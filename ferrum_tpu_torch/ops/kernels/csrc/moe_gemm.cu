@@ -20,7 +20,11 @@
 // What bounds them on the H100: the all-experts bmm runs at decode
 // (t <= 64 rows) and streams every expert's packed weight once per call
 // (100.7 MB at 128 x 2048 x 768) for ~2t int8 ops per weight: HBM-bound.
-// The grouped GEMM reads only the experts that have rows; at a 2048-token
+// The grouped GEMM reads only the experts that have rows. At decode sizes
+// its bound is the bytes too (t = 1: 8 rows over 8 experts, ~19.6 MB of
+// weights a qwen3 layer's gate, up and down, 5.9 us at 3.35 TB/s), but
+// few blocks stream them: a launch's fixed cost and each block's serial
+// K steps take most of its time (PERF.md). At a 2048-token
 // prefill (16384 rows at top-8) it does 2 * 16384 * K * N int8 ops
 // against the same ~100 MB of weights plus the rows: HBM-bound by the
 // bytes it must move (0.05 ms a projection), and the int8 tensor-core
@@ -45,18 +49,30 @@
 //    and the thread count by the E x N / BN tiles and the ring's depth
 //    by BM (its rule lines below; on an H100 each pick beat the others
 //    at every qwen3-30b-a3b site, PERF.md).
-//  - grouped: grid (N / BN, logical tiles). The host bounds the logical
-//    tiles statically by ceil(A / BM) + E - 1 and the device-side tile
-//    map (gid, mtid, valid; moe_gemm.py::group_tile_map, the counterpart
-//    of _make_group_metadata) assigns each one an (expert, m-tile) pair;
-//    a block whose tile is not valid, or whose expert has no row in its
-//    m-tile, exits before any load. A block stages only its expert's rows
-//    of the m-tile (the others zero-filled) and writes only those rows: a
-//    row belongs to one expert, so a tile shared by two experts is
-//    written by two blocks, each its own rows, with no cross-block sum.
-//    No host sync: the grid is static and the offsets stay on the device.
-//    Decode-sized maps (BM = 16, A <= 256) run w4a8tl::Tile with 64
-//    columns; prefill maps (BM = 128) run the dense prefill GEMM's
+//  - grouped at decode sizes (A <= 256 rows): the same loop with the
+//    expert as a grid axis, grid (N / BN, E). A block reads its expert's
+//    row window [offsets[e], offsets[e + 1]) and walks it in chunks of BM
+//    rows (an expert with no rows exits before any load), each chunk the
+//    full K through Stream::run on xq + row_lo * K with M = the chunk's
+//    rows (the loop zero-fills rows >= M), then finish<false, true>: the
+//    chan-first epilogue, into the chunk's rows of out. Chunks are 16
+//    rows: at top-8 routing a decode expert holds ~1-2 rows (at most A /
+//    8), so one chunk is the usual case, and each touched expert's
+//    weight tile is read once a chunk. No tile map: the offsets alone
+//    place the rows. Its launcher picks the threads and the ring's depth
+//    by the blocks the expected active experts make (its rule lines
+//    below; PERF.md has the probes that chose them).
+//  - grouped at prefill sizes: grid (N / BN, logical tiles). The host
+//    bounds the logical tiles statically by ceil(A / 128) + E - 1 and the
+//    device-side tile map (gid, mtid, valid; moe_gemm.py::group_tile_map,
+//    the counterpart of _make_group_metadata) assigns each one an
+//    (expert, m-tile) pair; a block whose tile is not valid, or whose
+//    expert has no row in its m-tile, exits before any load. A block
+//    stages only its expert's rows of the m-tile (the others zero-filled)
+//    and writes only those rows: a row belongs to one expert, so a tile
+//    shared by two experts is written by two blocks, each its own rows,
+//    with no cross-block sum. No host sync: the grid is static and the
+//    offsets stay on the device. It runs the dense prefill GEMM's
 //    pipelined int8 wgmma main loop (w4a8tl_wgmma.cuh) on the expert's
 //    weight, scales and chan, with the row window of the tile's expert
 //    and the chan-first epilogue. Both of its warpgroups issue every
@@ -64,14 +80,12 @@
 //    (zero rows): a wgmma behind a branch makes ptxas serialize them all.
 
 #include <atomic>
+#include <cmath>
 
 #include "w4a8tl_stream.cuh"
-#include "w4a8tl_tile.cuh"
 #include "w4a8tl_wgmma.cuh"
 
 namespace {
-
-using w4a8tl::store_out;
 
 // One BM x BN tile of expert blockIdx.y, columns blockIdx.x * BN.., over
 // the full K: the expert's stacks, its xq / xs rows (x_rows: the rows of
@@ -100,40 +114,41 @@ moe_bmm_kernel(const int8_t* __restrict__ xq3, const float* __restrict__ xs3,
                             nullptr, nullptr, n0, T, N, out_bf16);
 }
 
-template <int BM, int BN, int KP, int WM, int WN>
-__global__ void __launch_bounds__(WM * WN * 32)
-moe_grouped_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                   const uint8_t* __restrict__ qw,
-                   const int8_t* __restrict__ s2,
-                   const int8_t* __restrict__ zr,
-                   const float* __restrict__ chan,
-                   const int* __restrict__ gid, const int* __restrict__ mtid,
-                   const int* __restrict__ offsets,
-                   const int* __restrict__ valid, void* __restrict__ out,
-                   int N, int K, int out_bf16) {
-  using Tl = w4a8tl::Tile<BM, BN, KP, WM, WN>;
-  __shared__ __align__(16) typename Tl::Smem sm;
-  const int i = blockIdx.y;                  // logical tile
-  if (!valid[i]) return;
-  const int g = gid[i];
-  const int m0 = mtid[i] * BM;
-  const int row_lo = max(offsets[g], m0);
-  const int row_hi = min(offsets[g + 1], m0 + BM);
-  if (row_lo >= row_hi) return;
+// Decode-sized grouped GEMM: columns blockIdx.x * BN.. of expert
+// blockIdx.y over its rows [offsets[e], offsets[e + 1]), BM rows at a
+// time, the full K each.
+template <int BM, int BN, int S, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+moe_grouped_stream_kernel(const int8_t* __restrict__ xq,
+                          const float* __restrict__ xs,
+                          const uint8_t* __restrict__ qw,
+                          const int8_t* __restrict__ s2,
+                          const int8_t* __restrict__ zr,
+                          const float* __restrict__ chan,
+                          const int* __restrict__ offsets,
+                          void* __restrict__ out, int N, int K,
+                          int out_bf16) {
+  using L = w4a8tl_stream::Stream<BM, BN, S, kThreads, false>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const size_t e = blockIdx.y;
+  const int row_lo = offsets[e];
+  const int row_hi = offsets[e + 1];
   const int n0 = blockIdx.x * BN;
   const size_t wstride = (size_t)(K / 2) * N;
-  const size_t gstride = (size_t)(K / w4a8tl::kGroup) * N;
-  const float* ch = chan + (size_t)g * N;
-
-  typename Tl::Acc acc;
-  Tl::zero(acc);
-  Tl::mainloop(acc, sm, xq, qw + g * wstride, s2 + g * gstride,
-               zr + g * gstride, m0, row_lo, row_hi, n0, N, K, 0,
-               (K / 2) / KP);
-  Tl::for_each_out(acc, m0, n0, row_lo, row_hi, [&](int row, int col, int v) {
-    store_out(out, (size_t)row * N + col, ((float)v * ch[col]) * xs[row],
-              out_bf16);
-  });
+  const size_t gstride = (size_t)(K / w4a8tl_stream::kGroup) * N;
+  const size_t row_bytes = (size_t)N * (out_bf16 ? 2 : 4);
+  for (int r0 = row_lo; r0 < row_hi; r0 += BM) {
+    if (r0 != row_lo) __syncthreads();     // the last chunk's ring reads
+    typename L::Acc acc;
+    L::T::zero(acc);
+    L::run(acc, smem, xq + (size_t)r0 * K, qw + e * wstride,
+           s2 + e * gstride, zr + e * gstride, min(BM, row_hi - r0), n0, N,
+           K, 0, (K / 2) / w4a8tl_stream::kKP);
+    L::template finish<false, true>(
+        acc, xs + r0, chan + e * N,
+        static_cast<uint8_t*>(out) + r0 * row_bytes, nullptr, nullptr, n0,
+        min(BM, row_hi - r0), N, out_bf16);
+  }
 }
 
 // Prefill-sized grouped GEMM: logical tile blockIdx.y of the tile map
@@ -176,10 +191,37 @@ moe_grouped_wgmma_kernel(const int8_t* __restrict__ xq,
 }
 
 // ---------------------------------------------------------------------------
-// The bmm's launcher (bmm_any), with internal linkage like the decode
-// launcher's (w4a8tl_stream.cuh): each library, and each rebuilt copy of
-// one, keeps its own once-per-device state.
+// The launchers of the bmm (bmm_any) and of the decode-sized grouped GEMM
+// (grouped_any), with internal linkage like the decode launcher's
+// (w4a8tl_stream.cuh): each library, and each rebuilt copy of one, keeps
+// its own once-per-device state.
 // ---------------------------------------------------------------------------
+
+// Raise `kernel`'s dynamic shared-memory limit to `smem` bytes once per
+// device (`ready`: a bit per device where it was raised; the launches are
+// on every MoE decode layer's path). Returns a cudaError_t.
+template <class Kernel>
+int raise_smem(std::atomic<uint64_t>& ready, Kernel kernel, int smem) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(bit);
+  }
+  return (int)cudaSuccess;
+}
+
+// `kernel`'s resident blocks an SM at `threads` and `smem` bytes (1 where
+// the runtime says 0).
+template <class Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
+  int b = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, threads, smem);
+  return b > 0 ? b : 1;
+}
 
 // The ring's depth by the tile's rows: 3 stages where BM <= 32, so that
 // a third block fits an SM at BN 128 (down's 6 K steps a block then hide
@@ -204,24 +246,10 @@ int bmm(const BmmArgs& a) {
   constexpr int S = kBmmStages<BM>;
   using L = w4a8tl_stream::Stream<BM, BN, S, kThreads, false>;
   const auto kernel = moe_bmm_kernel<BM, BN, S, kThreads>;
-  // The shared-memory limit is raised once per device (the launch is on
-  // every MoE decode layer's path).
   static std::atomic<uint64_t> ready{0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(ready.load() & bit)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
-    if (e != cudaSuccess) return (int)e;
-    ready.fetch_or(bit);
-  }
-  static const int per_sm = [&] {
-    int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kernel, kThreads,
-                                                  L::kSmemBytes);
-    return b > 0 ? b : 1;
-  }();
+  const int err = raise_smem(ready, kernel, L::kSmemBytes);
+  if (err != (int)cudaSuccess) return err;
+  static const int per_sm = blocks_per_sm(kernel, kThreads, L::kSmemBytes);
   if (a.plan) {
     const int plan[5] = {BM, BN, kThreads, S, per_sm};
     for (int i = 0; i < 5; ++i) a.plan[i] = plan[i];
@@ -267,20 +295,92 @@ int bmm_any(const BmmArgs& a) {
   return bmm_wide ? bmm_bm<128>(a) : bmm_bm<64>(a);
 }
 
-template <int BM, int BN, int KP, int WM, int WN>
-void launch_grouped(const void* xq, const void* xs, const void* qw,
-                    const void* s2, const void* z, const void* chan,
-                    const void* gid, const void* mtid, const void* offsets,
-                    const void* valid, void* out, int n_logical, int N, int K,
-                    int out_bf16, cudaStream_t st) {
-  dim3 grid(N / BN, n_logical);
-  moe_grouped_kernel<BM, BN, KP, WM, WN><<<grid, WM * WN * 32, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const uint8_t*>(qw), static_cast<const int8_t*>(s2),
-      static_cast<const int8_t*>(z), static_cast<const float*>(chan),
-      static_cast<const int*>(gid), static_cast<const int*>(mtid),
-      static_cast<const int*>(offsets), static_cast<const int*>(valid), out,
-      N, K, out_bf16);
+// The decode-sized grouped GEMM's chunk rows at every A <= 256: an
+// expert with more rows takes more chunks (at 256 rows on an H100, 16-row
+// chunks took 7% less time a qwen3 layer than 32-row ones, PERF.md).
+constexpr int kGroupedBM = 16;
+
+// The arguments of a decode-sized grouped launch: A expert-sorted rows,
+// offsets int32 [E + 1] on the device. plan: when not null, the launch is
+// not made and plan[0..4] get BM, BN, threads, stages and resident blocks
+// per SM.
+struct GroupedArgs {
+  const void *xq, *xs, *qw, *s2, *z, *chan, *offsets;
+  void* out;
+  int A, E, N, K, out_bf16;
+  cudaStream_t st;
+  int* plan;
+};
+
+template <int BN, int S, int kThreads>
+int grouped(const GroupedArgs& a) {
+  constexpr int BM = kGroupedBM;
+  using L = w4a8tl_stream::Stream<BM, BN, S, kThreads, false>;
+  const auto kernel = moe_grouped_stream_kernel<BM, BN, S, kThreads>;
+  static std::atomic<uint64_t> ready{0};
+  const int err = raise_smem(ready, kernel, L::kSmemBytes);
+  if (err != (int)cudaSuccess) return err;
+  static const int per_sm = blocks_per_sm(kernel, kThreads, L::kSmemBytes);
+  if (a.plan) {
+    const int plan[5] = {BM, BN, kThreads, S, per_sm};
+    for (int i = 0; i < 5; ++i) a.plan[i] = plan[i];
+    return (int)cudaSuccess;
+  }
+  kernel<<<dim3(a.N / BN, a.E), kThreads, L::kSmemBytes, a.st>>>(
+      static_cast<const int8_t*>(a.xq), static_cast<const float*>(a.xs),
+      static_cast<const uint8_t*>(a.qw), static_cast<const int8_t*>(a.s2),
+      static_cast<const int8_t*>(a.z), static_cast<const float*>(a.chan),
+      static_cast<const int*>(a.offsets), a.out, a.N, a.K, a.out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// The resident blocks of grouped<BN, S, kThreads> on the whole card.
+template <int BN, int S, int kThreads>
+long grouped_slots(const GroupedArgs& a) {
+  int plan[5] = {0, 0, 0, 0, 1};
+  GroupedArgs q = a;
+  q.plan = plan;
+  grouped<BN, S, kThreads>(q);
+  return (long)plan[4] * w4a8tl_wgmma::num_sms();
+}
+
+// The experts expected to hold rows when A rows fall on E experts at
+// random, E (1 - (1 - 1/E)^A): the host cannot see the group sizes
+// without a sync (at 128 experts 7.8 / 78 / 111 at 8 / 120 / 256 rows).
+double grouped_active(const GroupedArgs& a) {
+  return a.E * (1.0 - std::pow(1.0 - 1.0 / a.E, a.A));
+}
+
+long waves(double blocks, long slots) {
+  return (long)std::ceil(blocks / slots);
+}
+
+template <int BN>
+int grouped_bn(const GroupedArgs& a) {
+  const double blocks = grouped_active(a) * (a.N / BN);
+  // Blocks for fewer than half the SMs (t = 1 at gate and up): each
+  // streams its tile alone on an SM, through an 8-deep ring on 256
+  // threads.
+  const bool grouped_few = 2 * blocks < w4a8tl_wgmma::num_sms();
+  if (grouped_few) return grouped<BN, 8, 256>(a);
+  // Else 128 threads and a 4-deep ring (2 blocks an SM at BN 128), unless
+  // a 3-deep one (3 an SM) takes fewer waves.
+  const bool grouped_deep = waves(blocks, grouped_slots<BN, 4, 128>(a))
+                            <= waves(blocks, grouped_slots<BN, 3, 128>(a));
+  return grouped_deep ? grouped<BN, 4, 128>(a) : grouped<BN, 3, 128>(a);
+}
+
+// A decode-sized grouped launch (or its plan): one block per (column
+// tile, expert), the expert's rows in chunks of kGroupedBM, the full K.
+// Requires E >= 1, 1 <= A <= 256, K % 256 == 0, N % 64 == 0.
+int grouped_any(const GroupedArgs& a) {
+  if (a.E < 1 || a.A < 1 || a.A > 256 || a.K % 256 || a.N % 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // 128 columns wherever N allows: a block stages its xq lines beside
+  // every packed tile, so wider tiles move fewer bytes.
+  const bool grouped_wide = a.N % 128 == 0;
+  return grouped_wide ? grouped_bn<128>(a) : grouped_bn<64>(a);
 }
 
 template <int BN>
@@ -323,27 +423,44 @@ extern "C" int ferrum_moe_bmm_plan(int T, int N, int K, int E, int* plan) {
                   nullptr, E, T, N, K, 1, 0, nullptr, plan});
 }
 
-// Grouped GEMM over expert-sorted rows. xq int8 [A, K], xs f32 [A],
-// out [A, N]; gid/mtid/valid int32 [n_logical] and offsets int32 [E + 1]
-// on the device (group_tile_map with the same bm). bm 16: 64-column
-// tiles (N % 64 == 0); bm 128: the wgmma main loop on 256- or 128-column
-// tiles (N % 128 == 0; xq and the stacks 16-byte aligned). Requires
-// K % 256 == 0. Returns a cudaError_t.
+// Decode-sized grouped GEMM over expert-sorted rows (A <= 256). xq int8
+// [A, K], xs f32 [A], out [A, N]: the rows [offsets[e], offsets[e + 1])
+// of every expert e, and no other; offsets int32 [E + 1] on the device.
+// Requires K % 256 == 0, N % 64 == 0, and xq, qweight, scales2 and
+// zeros 16-byte aligned. Returns a cudaError_t.
+extern "C" int ferrum_moe_grouped_decode(const void* xq, const void* xs,
+                                         const void* qw, const void* s2,
+                                         const void* z, const void* chan,
+                                         const void* offsets, void* out,
+                                         int A, int E, int N, int K,
+                                         int out_bf16, void* stream) {
+  return grouped_any({xq, xs, qw, s2, z, chan, offsets, out, A, E, N, K,
+                      out_bf16, static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// The launch ferrum_moe_grouped_decode would make for (A, N, K, E),
+// without making it: plan[0..4] = BM, BN, threads, ring stages, resident
+// blocks per SM. Returns a cudaError_t.
+extern "C" int ferrum_moe_grouped_plan(int A, int N, int K, int E,
+                                       int* plan) {
+  return grouped_any({nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, A, E, N, K, 0, nullptr, plan});
+}
+
+// Prefill-sized grouped GEMM over expert-sorted rows (A > 256). xq int8
+// [A, K], xs f32 [A], out [A, N]; gid/mtid/valid int32 [n_logical] and
+// offsets int32 [E + 1] on the device (group_tile_map with bm 128): the
+// wgmma main loop on 256- or 128-column tiles. Requires N % 128 == 0,
+// K % 256 == 0, and xq and the stacks 16-byte aligned. Returns a
+// cudaError_t.
 extern "C" int ferrum_moe_grouped(const void* xq, const void* xs,
                                   const void* qw, const void* s2,
                                   const void* z, const void* chan,
                                   const void* gid, const void* mtid,
                                   const void* offsets, const void* valid,
-                                  void* out, int n_logical, int bm, int N,
-                                  int K, int out_bf16, void* stream) {
+                                  void* out, int n_logical, int N, int K,
+                                  int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bm == 16) {
-    launch_grouped<16, 64, 128, 1, 4>(xq, xs, qw, s2, z, chan, gid, mtid,
-                                      offsets, valid, out, n_logical, N, K,
-                                      out_bf16, st);
-    return (int)cudaGetLastError();
-  }
-  if (bm != 128) return (int)cudaErrorInvalidValue;
   // BN 256 wherever N allows it: on an H100 it took 15-23% less time
   // than BN 128 at every qwen3-30b-a3b expert site, at 2048 and at 16384
   // rows (PERF.md).

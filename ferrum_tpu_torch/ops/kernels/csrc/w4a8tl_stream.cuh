@@ -7,10 +7,13 @@
 // its own function, f32 sums in the TPU kernel's order):
 //  - kGD false, the w8 form: w4a8tl_gemm.cu's ferrum_w4a8tl_decode
 //    (replaces ferrum_tpu/ops/pallas/quant_matmul.py:601
-//    _qmm_w4a8tl_mxu_kernel). The packed tile is dequantized to w8. Its
-//    third user, moe_gemm.cu's all-experts bmm (replaces quant_matmul.py
-//    :1290 _qbmm_w4a8tl_mxu_kernel), runs this form's Stream::run and
-//    finish<false> once per (column tile, expert) with its own launcher.
+//    _qmm_w4a8tl_mxu_kernel). The packed tile is dequantized to w8.
+//    moe_gemm.cu runs this form's Stream::run and finish<false> once per
+//    (column tile, expert), each with its own launcher: the all-experts
+//    bmm (replaces quant_matmul.py:1290 _qbmm_w4a8tl_mxu_kernel), and
+//    the grouped GEMM at decode sizes (replaces :1098
+//    _qgmm_w4a8tl_kernel there), over its expert's rows in chunks, with
+//    finish's chan-first epilogue.
 //  - kGD true, the group-dot form: w4a8tl_gd.cu's ferrum_w4a8tl_gd_decode
 //    (replaces quant_matmul.py:543 _qmm_w4a8tl_gd_kernel). The raw
 //    nibbles q go into the mma, and each half step's dot is rescaled on
@@ -25,8 +28,8 @@
 // At decode m the packed weight is streamed once for ~2m int8 ops a byte,
 // so the loop has to keep HBM busy: enough bytes in flight per SM and the
 // per-byte work (the dequant, or the unpack) off the copies' path. Built
-// from parts the prefill loop (w4a8tl_wgmma.cuh) and the shared tile
-// (w4a8tl_tile.cuh) already run:
+// from parts of the prefill loop (w4a8tl_wgmma.cuh: cp.async, dequant4)
+// and the accumulator layout of w4a8tl_tile.cuh:
 //  - 256 threads (8 warps, 2 x 4 over the tile, 1 x 8 where BM = 16) or
 //    128 (1 x 4), as the launcher picks; BM = 16 / 32 / 64 rows (all of
 //    m: grid y is 1), BN = 64 or 128 columns.
@@ -55,7 +58,7 @@
 //    form's unpack takes the same units, loads and transpose and stores
 //    the raw nibbles, t & 0x0F0F0F0F and (t >> 4) & 0x0F0F0F0F.
 //  - mma.sync m16n8k32 s8 x s8 -> s32 on the xq lines (A) and the w8
-//    lines (B), the fragment arithmetic of w4a8tl::Tile::mma_half. The
+//    lines (B) in w4a8tl::Tile's accumulator layout. The
 //    group-dot form runs each half (two of the four 32-k chunks) into a
 //    `dot` fragment of its own, and rescales modulo 2^32: acc += dot * s2
 //    -- every step (the first chunk's mma with a zero accumulator), or,
@@ -510,15 +513,22 @@ struct Stream {
   }
 
   // out[row, n0 + col] = out_t(f32(v) * xs[row] * chan[n0 + col]), both
-  // products rounded, then round-to-nearest-even for bf16.
+  // products rounded, then round-to-nearest-even for bf16; kChanFirst:
+  // (f32(v) * chan) * xs, the grouped GEMM's order.
+  template <bool kChanFirst = false>
   static __device__ __forceinline__ void store_pair(
       void* __restrict__ out, const float* __restrict__ xs,
       const float* __restrict__ chan, int N, int row, int col, int v0,
       int v1, int out_bf16) {
     const float sx = xs[row];
-    const float a = __fmul_rn(__fmul_rn(__int2float_rn(v0), sx), chan[col]);
-    const float b =
-        __fmul_rn(__fmul_rn(__int2float_rn(v1), sx), chan[col + 1]);
+    float a, b;
+    if constexpr (kChanFirst) {
+      a = __fmul_rn(__fmul_rn(__int2float_rn(v0), chan[col]), sx);
+      b = __fmul_rn(__fmul_rn(__int2float_rn(v1), chan[col + 1]), sx);
+    } else {
+      a = __fmul_rn(__fmul_rn(__int2float_rn(v0), sx), chan[col]);
+      b = __fmul_rn(__fmul_rn(__int2float_rn(v1), sx), chan[col + 1]);
+    }
     const size_t idx = (size_t)row * N + col;
     if (out_bf16) {
       *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out)
@@ -530,10 +540,10 @@ struct Stream {
   }
 
   // The epilogue of split blockIdx.z of gridDim.z, column tile n0 (see
-  // the header): kSplit false, one split, straight to out; else through
-  // part [gridDim.z, M, N] and counters[blockIdx.x] (zero on entry, zero
-  // again on return).
-  template <bool kSplit>
+  // the header): kSplit false, one split, straight to out (kChanFirst:
+  // store_pair's grouped order); else through part [gridDim.z, M, N] and
+  // counters[blockIdx.x] (zero on entry, zero again on return).
+  template <bool kSplit, bool kChanFirst = false>
   static __device__ __forceinline__ void finish(
       const Acc& acc, const float* __restrict__ xs,
       const float* __restrict__ chan, void* __restrict__ out,
@@ -541,7 +551,8 @@ struct Stream {
       int N, int out_bf16) {
     if constexpr (!kSplit) {
       for_each_pair(acc, M, [&](int row, int col, int v0, int v1) {
-        store_pair(out, xs, chan, N, row, n0 + col, v0, v1, out_bf16);
+        store_pair<kChanFirst>(out, xs, chan, N, row, n0 + col, v0, v1,
+                               out_bf16);
       });
     } else {
       const size_t plane = (size_t)M * N;

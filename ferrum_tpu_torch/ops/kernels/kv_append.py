@@ -5,6 +5,9 @@ return a new cache (aliased in place by XLA); these update `cache` in
 place and return it, so call sites read the same either way.
 
   append_rows(cache, rows, block_ids, offsets)  cache[blk, off] = rows[i]
+  append_rows_pairs(pairs, block_ids, offsets)  the same for up to four
+                                                (cache, rows) pairs, as K
+                                                and V, in one launch
   append_pages(cache, pages, block_ids)         cache[blk] = pages[i]
 
 A row or page whose block id is >= B (the model's OOB_SENTINEL) is
@@ -14,6 +17,9 @@ tensors they run the plain indexed writes beside them.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
 
 import torch
 
@@ -33,6 +39,14 @@ def append_rows_plain(cache: torch.Tensor, rows: torch.Tensor,
     return cache
 
 
+def append_rows_pairs_plain(pairs: Sequence[Tuple[torch.Tensor,
+                                                  torch.Tensor]],
+                            block_ids: torch.Tensor,
+                            offsets: torch.Tensor) -> tuple:
+    return tuple(append_rows_plain(cache, rows, block_ids, offsets)
+                 for cache, rows in pairs)
+
+
 def append_pages_plain(cache: torch.Tensor, pages: torch.Tensor,
                        block_ids: torch.Tensor) -> torch.Tensor:
     b = cache.shape[0]
@@ -49,29 +63,54 @@ def _check_ids(ids: torch.Tensor, n: int, dev, name: str) -> None:
                          f"on {dev}")
 
 
+MAX_PAIRS = 4
+
+
 def append_rows(cache: torch.Tensor, rows: torch.Tensor,
                 block_ids: torch.Tensor,
                 offsets: torch.Tensor) -> torch.Tensor:
     """cache [B, page, F]; rows [N, F]; block_ids/offsets int32 [N]."""
-    if not cache.is_cuda:
-        return append_rows_plain(cache, rows, block_ids, offsets)
-    b, page, f = cache.shape
-    n = rows.shape[0]
-    if not cache.is_contiguous():
-        raise ValueError("cache must be contiguous")
-    if rows.dtype != cache.dtype or rows.shape != (n, f) \
-            or not rows.is_contiguous() or rows.device != cache.device:
-        raise ValueError(f"rows must be contiguous {cache.dtype} [{n}, {f}] "
-                         f"on {cache.device}")
-    _check_ids(block_ids, n, cache.device, "block_ids")
-    _check_ids(offsets, n, cache.device, "offsets")
-    stream = torch.cuda.current_stream(cache.device).cuda_stream
+    return append_rows_pairs([(cache, rows)], block_ids, offsets)[0]
+
+
+def append_rows_pairs(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      block_ids: torch.Tensor,
+                      offsets: torch.Tensor) -> tuple:
+    """append_rows for each (cache [B, page, F_i], rows [N, F_i]) of
+    `pairs` (one to four; every cache of one B and page), all at
+    block_ids/offsets int32 [N], in one launch on CUDA tensors. Returns
+    the caches."""
+    if not 1 <= len(pairs) <= MAX_PAIRS:
+        raise ValueError(f"1 to {MAX_PAIRS} (cache, rows) pairs, got "
+                         f"{len(pairs)}")
+    first = pairs[0][0]
+    if not first.is_cuda:
+        return append_rows_pairs_plain(pairs, block_ids, offsets)
+    b, page, _ = first.shape
+    n = block_ids.shape[0]
+    for cache, rows in pairs:
+        f = cache.shape[-1]
+        if cache.dim() != 3 or cache.shape[:2] != (b, page) \
+                or not cache.is_contiguous() or cache.device != first.device:
+            raise ValueError(f"caches must be contiguous [{b}, {page}, F] "
+                             f"on {first.device}")
+        if rows.dtype != cache.dtype or rows.shape != (n, f) \
+                or not rows.is_contiguous() or rows.device != cache.device:
+            raise ValueError(f"rows must be contiguous {cache.dtype} "
+                             f"[{n}, {f}] on {cache.device}")
+    _check_ids(block_ids, n, first.device, "block_ids")
+    _check_ids(offsets, n, first.device, "offsets")
+    k = len(pairs)
+    stream = torch.cuda.current_stream(first.device).cuda_stream
     err = library("kv_append").ferrum_kv_append_rows(
-        cache.data_ptr(), rows.data_ptr(), block_ids.data_ptr(),
-        offsets.data_ptr(), n, b, page, f * cache.element_size(), stream)
+        (ctypes.c_void_p * k)(*(c.data_ptr() for c, _ in pairs)),
+        (ctypes.c_void_p * k)(*(r.data_ptr() for _, r in pairs)),
+        (ctypes.c_longlong * k)(*(c.shape[-1] * c.element_size()
+                                  for c, _ in pairs)),
+        k, block_ids.data_ptr(), offsets.data_ptr(), n, b, page, stream)
     check(err, "kv_append_rows")
     KV_APPEND_ROWS.launches += 1
-    return cache
+    return tuple(c for c, _ in pairs)
 
 
 def append_pages(cache: torch.Tensor, pages: torch.Tensor,

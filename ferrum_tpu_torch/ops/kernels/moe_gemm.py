@@ -22,7 +22,9 @@ loop in bf16, csrc/w4a16_stream.cuh); on a CPU tensor it runs the plain
 version, which takes every dot in float64 (exact for the integer dots).
 Each grouped wrapper builds the tile map and launches on it; `*_on_map`
 launches on a map built before (so a caller can time or share the
-map).
+map). The two-level grouped kernel at decode sizes (<= 256 rows) needs
+only the groups' row offsets: `grouped_w4a8tl` builds those alone
+there, and `grouped_w4a8tl_on_map` reads the map's.
 
 Stacks the JAX grouped kernels cannot tile (`grouped_tiles` false)
 take `grouped_ref` (dequantize, one float matmul per expert) outside any
@@ -136,8 +138,15 @@ def grouped_ref(x: torch.Tensor, p: QuantLinearParams,
 
 
 # ---------------------------------------------------------------------------
-# grouped kernel: tile map
+# grouped kernel: row offsets, tile map
 # ---------------------------------------------------------------------------
+
+def group_offsets(group_sizes: torch.Tensor) -> torch.Tensor:
+    """int32 [E + 1]: the groups' row bounds (0, then the cumulative sum
+    of group_sizes), on group_sizes' device with no host sync."""
+    return torch.nn.functional.pad(
+        torch.cumsum(group_sizes, 0, dtype=torch.int32), (1, 0))
+
 
 def group_tile_map(group_sizes: torch.Tensor, bm: int,
                    num_logical: int) -> TileMap:
@@ -260,8 +269,9 @@ def moe_bmm_plan(t: int, n: int, k: int, e: int) -> dict:
 
 
 def grouped_bm(a: int) -> int:
-    """m-tile rows of the grouped kernels for `a` rows: 16 for
-    decode-sized a <= 256, else 128 (prefill)."""
+    """m-tile rows of the grouped kernels' tile maps for `a` rows: 16
+    for decode-sized a <= 256 (the w4a16 kernel's tiles; the two-level
+    kernel reads such a map's offsets alone), else 128 (prefill)."""
     return 16 if a <= 256 else 128
 
 
@@ -296,14 +306,17 @@ def grouped_w4a8tl(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
                    group_sizes: torch.Tensor,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """Grouped two-level GEMM over expert-sorted rows xq int8 [A, K], xs
-    f32 [A, 1] → [A, N]: the tile map, then the kernel on it. The kernel
-    writes the rows of the groups (the first sum(group_sizes) rows) and
-    no other."""
+    f32 [A, 1] → [A, N]: at decode sizes (A <= 256) the groups' row
+    offsets, else the tile map, then the kernel. The kernel writes the
+    rows of the groups (the first sum(group_sizes) rows) and no other."""
     if not xq.is_cuda:
         return grouped_plain(xq, xs, p, group_sizes, out_dtype)
     _check_sizes(group_sizes, p.qweight.shape[0], xq.device)
-    return grouped_w4a8tl_on_map(xq, xs, p, grouped_map(group_sizes,
-                                                        xq.shape[0]),
+    a = xq.shape[0]
+    if grouped_bm(a) == 16:
+        return _grouped_decode(xq, xs, p, group_offsets(group_sizes),
+                               out_dtype)
+    return grouped_w4a8tl_on_map(xq, xs, p, grouped_map(group_sizes, a),
                                  out_dtype)
 
 
@@ -311,17 +324,18 @@ def grouped_w4a8tl_on_map(xq: torch.Tensor, xs: torch.Tensor,
                           p: QuantLinearParams, tile_map: TileMap,
                           out_dtype: torch.dtype) -> torch.Tensor:
     """The two-level grouped kernel on a tile map built before
-    (`grouped_map` of the rows' group sizes) → [A, N]."""
+    (`grouped_map` of the rows' group sizes) → [A, N]; at decode sizes
+    (A <= 256) the kernel reads the map's offsets alone."""
     if not xq.is_cuda:
         return _on_map_plain(xq, tile_map, p.out_features, out_dtype,
                              _two_level_rows(xq, xs, p))
     a, k = xq.shape
-    bm = grouped_bm(a)
+    n_logical = _check_map(tile_map, a, p.qweight.shape[0], xq.device)
+    if grouped_bm(a) == 16:
+        return _grouped_decode(xq, xs, p, tile_map[2], out_dtype)
     # The prefill main loop copies the stacks in 16-byte pieces.
-    e, n = _check_stack(p, k, xq.device, 64 if bm == 16 else 128,
-                        align=4 if bm == 16 else 16)
+    e, n = _check_stack(p, k, xq.device, 128, align=16)
     _check_rows(xq, xs, a, out_dtype)
-    n_logical = _check_map(tile_map, a, e, xq.device)
     gid, mtid, offsets, valid = tile_map
     out = torch.empty((a, n), dtype=out_dtype, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
@@ -329,11 +343,54 @@ def grouped_w4a8tl_on_map(xq: torch.Tensor, xs: torch.Tensor,
         xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
         p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
         gid.data_ptr(), mtid.data_ptr(), offsets.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), n_logical, bm, n, k,
+        valid.data_ptr(), out.data_ptr(), n_logical, n, k,
         int(out_dtype == torch.bfloat16), stream)
     check(err, "moe_grouped")
     MOE_GROUPED.launches += 1
     return out
+
+
+def _grouped_decode(xq: torch.Tensor, xs: torch.Tensor, p: QuantLinearParams,
+                    offsets: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The two-level grouped kernel at decode sizes on the CUDA rows xq
+    [A <= 256, K]: one block per (column tile, expert) on the streamed
+    main loop (csrc/moe_gemm.cu), its rows [offsets[e], offsets[e + 1])
+    in chunks, tiles, threads and ring depth by its launcher's rule
+    (`grouped_plan`)."""
+    a, k = xq.shape
+    # The streamed main loop copies the stacks in 16-byte pieces.
+    e, n = _check_stack(p, k, xq.device, 64, align=16)
+    _check_rows(xq, xs, a, out_dtype)
+    if offsets.dtype != torch.int32 or offsets.shape != (e + 1,) \
+            or not offsets.is_contiguous() or offsets.device != xq.device:
+        raise ValueError(f"offsets must be contiguous int32 [{e + 1}] on "
+                         f"{xq.device}")
+    out = torch.empty((a, n), dtype=out_dtype, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = library("moe_gemm").ferrum_moe_grouped_decode(
+        xq.data_ptr(), xs.data_ptr(), p.qweight.data_ptr(),
+        p.scales2.data_ptr(), p.zeros.data_ptr(), p.chan_scale.data_ptr(),
+        offsets.data_ptr(), out.data_ptr(), a, e, n, k,
+        int(out_dtype == torch.bfloat16), stream)
+    check(err, "moe_grouped")
+    MOE_GROUPED.launches += 1
+    MOE_GROUPED.decode_launches += 1
+    return out
+
+
+def grouped_plan(a: int, n: int, k: int, e: int) -> dict:
+    """The launch the two-level grouped kernel makes at decode-sized `a`
+    <= 256 rows over e experts of [K, N] on the current card, as its
+    launcher plans it: chunk rows and tile columns, threads a block, ring
+    stages, resident blocks per SM."""
+    if grouped_bm(a) != 16:
+        raise ValueError(f"{a} rows take the 128-row tiles, planned by no "
+                         "launcher rule")
+    out = (ctypes.c_int * 5)()
+    check(library("moe_gemm").ferrum_moe_grouped_plan(a, n, k, e, out),
+          "moe_grouped_plan")
+    return dict(zip(("bm", "bn", "threads", "stages", "blocks_per_sm"), out))
 
 
 def grouped_w4a16(x: torch.Tensor, p: QuantLinearParams,

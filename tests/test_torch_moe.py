@@ -449,6 +449,166 @@ def test_bmm_stream_walk_matches_plain(monkeypatch, t, k, bn, threads):
 
 
 # ---------------------------------------------------------------------------
+# 3c. grouped GEMM at decode sizes on the card (csrc/moe_gemm.cu on csrc/
+#     w4a8tl_stream.cuh): its launcher's rule and its expert-grid walk
+# ---------------------------------------------------------------------------
+
+# The launcher's rule lines in csrc/moe_gemm.cu that _grouped_plan mirrors.
+_GROUPED_RULE = {
+    "grouped_wide": "a.N % 128 == 0",
+    "grouped_few": "2 * blocks < w4a8tl_wgmma::num_sms()",
+    "grouped_deep": "waves(blocks, grouped_slots<BN, 4, 128>(a)) <= "
+                    "waves(blocks, grouped_slots<BN, 3, 128>(a))",
+}
+_GROUPED_LINES = (
+    "constexpr int kGroupedBM = 16;",
+    "return a.E * (1.0 - std::pow(1.0 - 1.0 / a.E, a.A));",
+    "if (grouped_few) return grouped<BN, 8, 256>(a);",
+    "return grouped_deep ? grouped<BN, 4, 128>(a) : grouped<BN, 3, 128>(a);")
+# Resident blocks an SM of each configuration (BN, stages, threads) at 16
+# rows, as an H100 reported them (its plan's blocks_per_sm; shared memory
+# binds each).
+_GROUPED_PER_SM = {(128, 4, 128): 2, (128, 3, 128): 3, (64, 4, 128): 4,
+                   (64, 3, 128): 5}
+
+
+def _grouped_plan(a, n, e, sms=H100_SMS):
+    """The decode-sized grouped launcher's rule (grouped_any, grouped_bn,
+    grouped_active, kGroupedBM), in Python: (BM, BN, threads, ring stages)
+    for a rows over e experts of N columns on `sms` SMs."""
+    bn = 128 if n % 128 == 0 else 64
+    blocks = e * (1 - (1 - 1 / e) ** a) * (n // bn)
+    if 2 * blocks < sms:
+        return 16, bn, 256, 8
+    waves = {d: -(-blocks // (_GROUPED_PER_SM[bn, d, 128] * sms))
+             for d in (3, 4)}
+    return 16, bn, 128, 4 if waves[4] <= waves[3] else 3
+
+
+def test_grouped_launch_rule_at_qwen3_sites():
+    """The rule the decode-sized grouped launcher keeps (its source lines
+    are the ones _grouped_plan mirrors) at the qwen3-30b-a3b expert sites
+    (128 experts, top-8), with 16-row chunks and 128-column tiles: at t =
+    1 (8 rows, ~7.8 experts expected) an 8-deep ring on 256 threads at
+    gate / up (47 blocks: one an SM), a 4-deep one on 128 at down (124
+    blocks: one wave at 2 an SM); at t = 15 (120 rows, ~78 experts) 4
+    stages at gate / up (468 blocks: 2 waves at 2 or at 3 an SM) and 3 at
+    down (1248: 4 waves at 3 an SM, 5 at 2); at t = 32 (256 rows, ~111
+    experts) 3 stages (666 and 1773 blocks: 2 and 5 waves at 3 an SM, 3
+    and 7 at 2)."""
+    import os
+    import re
+
+    src = open(os.path.join(
+        os.path.dirname(__file__), os.pardir, "ferrum_tpu_torch", "ops",
+        "kernels", "csrc", "moe_gemm.cu")).read()
+    for name, rule in _GROUPED_RULE.items():
+        got = re.search(rf"const bool {name} =\s*([^;]*);", src)
+        assert got and " ".join(got.group(1).split()) == rule, name
+    flat = " ".join(src.split())
+    for line in _GROUPED_LINES:
+        assert line in flat, line
+    want = {8: {768: (16, 128, 256, 8), 2048: (16, 128, 128, 4)},
+            120: {768: (16, 128, 128, 4), 2048: (16, 128, 128, 3)},
+            256: {768: (16, 128, 128, 3), 2048: (16, 128, 128, 3)}}
+    for a, by_n in want.items():
+        for n, plan in by_n.items():
+            assert _grouped_plan(a, n, 128) == plan, (a, n)
+    # 64-column tiles where N % 128 != 0.
+    assert _grouped_plan(120, 192, 128)[1] == 64
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 4])
+@pytest.mark.parametrize("k", [256, 768])
+@pytest.mark.parametrize("sizes", [
+    (1, 1, 1, 1, 1, 1, 1, 1),           # t = 1: 8 rows over 8 experts
+    (17, 0, 30, 9, 0, 25, 16, 23),      # 120 rows, empty experts
+    (40, 0, 75, 141),                   # 256 rows: experts in chunks
+    (0, 0, 120, 0),                     # every row in one expert
+])
+def test_grouped_stream_walk_matches_plain(monkeypatch, sizes, k, sms):
+    """moe_grouped's decode-sized blocks emulated in numpy: grid (N / BN,
+    E); each block reads its expert's row window from the offsets and
+    walks it in chunks of BM rows, each chunk the streamed main loop of
+    tests/test_torch_quant.py's decode walk (_stream_block: cp.async
+    placement with rows >= the chunk's zero-filled, the byte-perm dequant
+    of both nibble halves a K step, mma.sync fragments; one K split) on
+    xq from the chunk's first row and the expert's slices of the flat
+    stacks, then finish<false, true>'s chan-first epilogue (f32(acc) *
+    chan[col]) * xs[row] into the chunk's rows. Every row of the groups
+    must be written exactly once and equal grouped_plain bit for bit, in
+    f32 and bf16, with the plan the launcher's rule makes (N = 256:
+    128-column tiles; on 132 SMs 256 threads and an 8-deep ring at these
+    few experts, on 4 SMs 128 threads and a 3- or 4-deep one). K = 256
+    is 2 K steps (fewer than the ring's prologue loads), 768 the qwen3
+    down projection's 6."""
+    import test_torch_quant as walk
+    from ferrum_tpu_torch.ops.kernels import moe_gemm as tmg
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams, two_level_w8
+
+    e, n, a = len(sizes), 256, sum(sizes)
+    bm, bn, threads, stages = _grouped_plan(a, n, e, sms)
+    walk._threads(threads)
+    monkeypatch.setattr(walk, "_S", stages)
+    rng = np.random.default_rng(7 * a + k + sms)
+    q = rng.integers(0, 16, (e, k, n))
+    z = rng.integers(0, 16, (e, k // 128, n))
+    s2 = np.clip(rng.integers(-127, 128, (e, k // 128, n)),
+                 -(127 // np.maximum(z, 15 - z)), 127 // np.maximum(z, 15 - z))
+    p = QuantLinearParams(
+        qweight=torch.from_numpy(
+            (q[:, :k // 2] | (q[:, k // 2:] << 4)).astype(np.uint8)),
+        scales=torch.ones(e, k // 128, n, dtype=torch.bfloat16),
+        zeros=torch.from_numpy(z.astype(np.int8)), bias=None,
+        in_features=k, out_features=n, group_size=128,
+        scales2=torch.from_numpy(s2.astype(np.int8)),
+        chan_scale=torch.from_numpy(
+            rng.uniform(1e-3, 2e-3, (e, 1, n)).astype(np.float32)))
+    w8 = two_level_w8(p).numpy()
+    # The stacks and rows as the kernel's flat pointers see them.
+    qw_f = p.qweight.numpy().reshape(-1)
+    s2_f, zr_f = (getattr(p, f).numpy().view(np.uint8).reshape(-1)
+                  for f in ("scales2", "zeros"))
+    chan_f = torch.from_numpy(p.chan_scale.numpy().reshape(-1))
+    wstride, gstride = k // 2 * n, k // 128 * n
+    xq = rng.integers(-127, 128, (a, k)).astype(np.int8)
+    xs = torch.from_numpy(rng.uniform(0.5, 1.5, (a, 1)).astype(np.float32))
+    xq_f = xq.view(np.uint8).reshape(-1)
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    offsets = tmg.group_offsets(gs).numpy()
+    assert offsets.tolist() == [0, *np.cumsum(sizes).tolist()]
+    outs = {dt: torch.zeros(a * n, dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    writes = np.zeros(a * n, np.int64)
+    for ey in range(e):                                  # blockIdx.y
+        row_lo, row_hi = offsets[ey], offsets[ey + 1]
+        for n0 in range(0, n, bn):                       # blockIdx.x * BN
+            for r0 in range(row_lo, row_hi, bm):         # the chunks
+                m = min(bm, row_hi - r0)
+                tile = walk._stream_block(
+                    xq_f[r0 * k:][:m * k].reshape(m, k),
+                    qw_f[ey * wstride:][:wstride].reshape(k // 2, n),
+                    s2_f[ey * gstride:][:gstride].reshape(k // 128, n),
+                    zr_f[ey * gstride:][:gstride].reshape(k // 128, n),
+                    w8[ey], m, n0, k, bm, bn, 0, k // 128, rng)[:m]
+                rows = r0 + np.arange(m)
+                cols = n0 + np.arange(bn)
+                idx = rows[:, None] * n + cols[None, :]
+                val = (torch.from_numpy(tile).to(torch.float32)
+                       * chan_f[ey * n + cols][None, :]) \
+                    * xs[rows, 0][:, None]
+                for dt, out in outs.items():
+                    out[torch.from_numpy(idx.reshape(-1))] = \
+                        val.reshape(-1).to(dt)
+                np.add.at(writes, idx.reshape(-1), 1)
+    assert (writes == 1).all()
+    for dt, out in outs.items():
+        want = tmg.grouped_plain(torch.from_numpy(xq), xs, p, gs, dt)
+        assert torch.equal(out.reshape(a, n), want), dt
+    assert bool((want != 0).any(-1).all())
+
+
+# ---------------------------------------------------------------------------
 # 4. routing: JAX's top-k order on ties
 # ---------------------------------------------------------------------------
 

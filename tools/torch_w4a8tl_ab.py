@@ -9,7 +9,9 @@
                  bmm_threads128|bmm_threads256|bmm_stages3|bmm_stages4|
                  bmm_stages6|bmm_no_mma|bmm_no_dequant|fs_rows|
                  fs_no_rows|fs_bn64|fs_bn128|fs_stages3|fs_stages6|
-                 fs_threads128|fs_caps_off|fs_no_unpack|fs_no_fold ...]
+                 fs_threads128|fs_caps_off|fs_no_unpack|fs_no_fold|
+                 gdec_bn<64|128>_s<3|4|6|8>_t<128|256>|gdec_bm32|
+                 kv_chunks1|kv_chunks2|kv_chunks8|kv_chunks16 ...]
         [--ptxas]
         [--out FILE]
 
@@ -24,7 +26,9 @@ activations made from fixed seeds (so two trees see the same inputs):
   w4a8tl_gd_decode        o at m = 1 / 32 / 64 (32: the serve phase's
                           decode batch)
   moe_grouped             qwen3-30b-a3b gate / up / down expert stacks at
-                          120 (16-row tiles) / 2048 / 16384 routed rows
+                          8 / 120 / 256 routed rows (t = 1, 15 and 32
+                          decode; on a tree that has grouped_plan each
+                          with its launch `plan`) and 2048 / 16384
                           (128-row tiles): the launch alone, on a tile map
                           built before the timed window (`ms`), and the
                           whole call, map included (`call_ms`)
@@ -48,7 +52,14 @@ their parent's times: w4a8_decode (llama at m = 1 / 32 / 64, on a tree
 that has w4a8_decode_plan each case with its `plan` and the f32
 `plane_bytes` its K splits write; with `--only w4a8tl_gd_decode` too,
 row 7's layer lines on the same shapes beside it) and w4a16_gemm (llama
-at m = 32 and 2048; within one bf16 step of its plain version).
+at m = 32 and 2048; within one bf16 step of its plain version), and
+kv_append_rows: a decode step's K and V appends at the llama-3.1-8b (32
+layers x 32 slots, 2 KiB rows) and qwen3-30b-a3b (48 x 32, 1 KiB rows)
+shapes, in bf16, as the tree's decode_forward makes them -- one launch
+(append_rows_pairs) where the tree has it, else two (append_rows each)
+-- (`ms`), one array alone (`single_ms`), two index_copy_ calls
+(`library_ms`) and an empty kernel's launch (`floor_ms`,
+torch.cuda._sleep(0)) with the same timer.
 --sweep-splits adds to each w4a8tl_decode, w4a8tl_gd_decode and
 w4a8_decode case `sweep`, its time at each given K split count (a tree
 whose wrapper takes `splits`: one with the kernel's `<kernel>_plan`;
@@ -87,7 +98,14 @@ its column tiles forced to 64, or to 128 where N allows, its ring 3 or
 6 stages deep, 128 threads a block, or no register caps; fs_no_unpack /
 fs_no_fold its loop without the unpack on all steps but the first, or
 without the group terms and the TPU-step fold on all groups but the
-last (wrong results, not compared). A probe launches with
+last (wrong results, not compared). gdec_bn<BN>_s<S>_t<T> (BN 64 or
+128, S 3 / 4 / 6 / 8, T 128 or 256) / gdec_bm32 adds `ms_<probe>` (and
+`plan_<probe>`) to the moe_grouped cases at <= 256 rows: moe_gemm.cu
+built with the decode-sized grouped launcher launching BN columns, an S
+stage ring and T threads a block everywhere, or 32-row chunks.
+kv_chunks1 / kv_chunks2 / kv_chunks8 / kv_chunks16 adds `ms_<probe>` to
+the kv_append_rows cases: kv_append.cu built with that many 16-byte
+chunks a thread. A probe launches with
 the K split count
 the tree's own rule picks; --ptxas prints each probe build's registers
 too.
@@ -118,12 +136,14 @@ DECODE_MS = (1, 32, 64)
 QWEN = {"qkv": (2048, 5120), "o": (4096, 2048)}
 QWEN_M = 2048
 MOE = {"gate": (2048, 768), "up": (2048, 768), "down": (768, 2048)}
-GROUPED_A = (120, 2048, 16384)
+GROUPED_A = (8, 120, 256, 2048, 16384)
 BMM_T = (16, 32, 64)
 PREFILL = ("w4a8tl_prefill", "w4a8tl_prefill_mcache")
 DECODE = ("w4a8tl_decode", "w4a8tl_gd_decode")
 DEFAULT = PREFILL + DECODE + ("moe_grouped",)
-NEIGHBOURS = ("moe_bmm", "w4a8_decode", "w4a16_gemm")
+NEIGHBOURS = ("moe_bmm", "w4a8_decode", "w4a16_gemm", "kv_append_rows")
+# kv_append_rows: (layers, F) of a decode step's appends, 32 slots, bf16.
+KV_SHAPES = {"llama-3.1-8b": (32, 1024), "qwen3-30b-a3b": (48, 512)}
 # --probe: (library, file of csrc/ edited, the rule replaced, its
 # replacement -- or None, the rule then a tuple of (rule, replacement)
 # pairs --, kernel timed, whether the probe computes the function).
@@ -239,6 +259,24 @@ PROBES.update({
     "fs_no_fold": ("w4a8_gemm", STREAM, r"\n      if \(j & 1\) group_end\(j\);",
                    "", "w4a8_decode", False),
 })
+# The decode-sized grouped launcher's configurations (moe_gemm.cu),
+# applied at <= 256 rows, and the rows append's chunks a thread
+# (kv_append.cu).
+MG = ("moe_gemm", "moe_gemm.cu")
+PROBES.update({
+    # One configuration everywhere: BN, ring stages, threads.
+    **{f"gdec_bn{bn}_s{d}_t{t}": MG + (
+        r"return grouped_wide \? grouped_bn<128>\(a\) : grouped_bn<64>\(a\);",
+        f"return grouped<{bn}, {d}, {t}>(a);", "moe_grouped", True)
+       for bn in (64, 128) for d in (3, 4, 6, 8) for t in (128, 256)},
+    "gdec_bm32": MG + (r"constexpr int kGroupedBM = \d+;",
+                       "constexpr int kGroupedBM = 32;", "moe_grouped",
+                       True),
+    **{f"kv_chunks{c}": ("kv_append", "kv_append.cu",
+                         r"constexpr int kRowChunks = \d+;",
+                         f"constexpr int kRowChunks = {c};",
+                         "kv_append_rows", True) for c in (1, 2, 8, 16)},
+})
 # The launcher's rules probed on the group-dot kernel: gd_stages3 .. .
 PROBES.update({
     f"gd_{name}": ("w4a8tl_gd", STREAM, rule, repl, "w4a8tl_gd_decode", True)
@@ -246,7 +284,7 @@ PROBES.update({
     if name in ("stages3", "stages6", "threads128", "threads256",
                 "decode_bn64", "decode_bn128")})
 PTXAS_SOURCES = ("w4a8tl_gemm", "w4a8tl_mcache", "moe_gemm", "w4a8tl_gd",
-                 "w4a8_gemm")
+                 "w4a8_gemm", "kv_append")
 
 
 def load_smoke():
@@ -557,7 +595,7 @@ def tile_windows(tile_map, bm):
 
 def grouped_rows(torch, smoke, timer, args, probe_libs):
     """moe_grouped at the qwen3 expert sites; returns the rows."""
-    from ferrum_tpu_torch.ops.kernels import build
+    from ferrum_tpu_torch.ops.kernels import build, moe_gemm
     from ferrum_tpu_torch.ops.kernels.moe_gemm import (grouped_bm,
                                                        grouped_map,
                                                        grouped_plain,
@@ -593,6 +631,7 @@ def grouped_rows(torch, smoke, timer, args, probe_libs):
             want = grouped_plain(xq, xs, p, gs, torch.bfloat16)
             ok = bool(torch.equal(launch(), want))
             wins = tile_windows(tmap, grouped_bm(a))
+            plan = getattr(moe_gemm, "grouped_plan", None)
             row = {"tree": args.label, "kernel": "moe_grouped",
                    "site": site, "rows": a, "bm": grouped_bm(a), "k": k,
                    "n": n, "active_experts": active,
@@ -605,21 +644,95 @@ def grouped_rows(torch, smoke, timer, args, probe_libs):
                    "library_ms": None if grouped_mm is None else timer(
                        lambda: grouped_mm(x, w_bf16, offs=offs)),
                    "bound_ms": bound, "bound_by": by}
-            if row["bm"] == 128:
-                saved = build._libs.get("moe_gemm")
-                for probe, lib in probe_libs.items():
-                    if PROBES[probe][4] != "moe_grouped":
-                        continue
-                    build._libs["moe_gemm"] = lib
-                    ok &= bool(torch.equal(launch(), want))
-                    row[f"ms_{probe}"] = timer(launch)
-                build._libs["moe_gemm"] = saved
+            if row["bm"] == 16 and plan is not None:
+                row["plan"] = plan(a, n, k, smoke.MOE_E)
+            saved = build._libs.get("moe_gemm")
+            for probe, lib in probe_libs.items():
+                # gdec_* probes at decode sizes, the others at 128-row
+                # tiles.
+                if PROBES[probe][4] != "moe_grouped" or (
+                        probe.startswith("gdec_") != (row["bm"] == 16)):
+                    continue
+                build._libs["moe_gemm"] = lib
+                ok &= bool(torch.equal(launch(), want))
+                row[f"ms_{probe}"] = timer(launch)
+                if row["bm"] == 16:
+                    row[f"plan_{probe}"] = plan(a, n, k, smoke.MOE_E)
+            build._libs["moe_gemm"] = saved
             row["equal"] = ok and bool(torch.equal(launch(), want))
             emit(args.out, row)
             rows.append(row)
             if not row["equal"]:
                 raise AssertionError(f"moe_grouped {site} {a} differs")
         del p, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def kv_rows(torch, smoke, timer, args, probe_libs):
+    """kv_append_rows at a decode step's K and V shapes (KV_SHAPES), as
+    the tree's decode_forward appends them, equal to the plain appends;
+    returns the rows."""
+    from ferrum_tpu_torch.ops.kernels import build
+    from ferrum_tpu_torch.ops.kernels import kv_append as kva
+    rows = []
+    if not args.selected("kv_append_rows"):
+        return rows
+    pairs_fn = getattr(kva, "append_rows_pairs", None)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    slots, bps = 32, 1024 // smoke.PAGE
+    for model, (layers, f) in KV_SHAPES.items():
+        b = layers * slots * bps
+        pos = torch.randint(0, 1024, (slots,), generator=gen, device="cuda")
+        blk, off = smoke.kv_ids(torch, layers, slots, bps, pos,
+                                inactive=[3, 17])
+        caches = [torch.randn(b, smoke.PAGE, f, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        news = [torch.randn(blk.numel(), f, generator=gen, device="cuda"
+                            ).to(torch.bfloat16) for _ in range(2)]
+        want = [kva.append_rows_plain(c.clone(), r, blk, off)
+                for c, r in zip(caches, news)]
+        if pairs_fn is not None:
+            def call():
+                pairs_fn(list(zip(caches, news)), blk, off)
+        else:
+            def call():
+                for c, r in zip(caches, news):
+                    kva.append_rows(c, r, blk, off)
+        call()
+        ok = all(bool(torch.equal(c, w)) for c, w in zip(caches, want))
+        valid = blk < b
+        idx = (blk.long() * smoke.PAGE + off.long())[valid]
+        copies = [(c.view(-1, f), r[valid]) for c, r in zip(caches, news)]
+        bound, by = smoke.bound_ms(
+            2 * 2 * int(valid.sum().item()) * f * 2 + 2 * blk.nbytes, 0)
+        row = {"tree": args.label, "kernel": "kv_append_rows",
+               "model": model, "rows": blk.numel(), "f": f, "arrays": 2,
+               "launches": 1 if pairs_fn is not None else 2,
+               "ms": timer(call),
+               "single_ms": timer(lambda: kva.append_rows(
+                   caches[0], news[0], blk, off)),
+               "floor_ms": timer(lambda: torch.cuda._sleep(0)),
+               "library_ms": timer(lambda: [
+                   flat.index_copy_(0, idx, src) for flat, src in copies]),
+               "bound_ms": bound, "bound_by": by}
+        saved = build._libs.get("kv_append")
+        for probe, lib in probe_libs.items():
+            if PROBES[probe][4] != "kv_append_rows":
+                continue
+            build._libs["kv_append"] = lib
+            row[f"ms_{probe}"] = timer(call)
+            ok &= all(bool(torch.equal(c, w)) for c, w in zip(caches, want))
+        build._libs["kv_append"] = saved
+        row["equal"] = ok and all(bool(torch.equal(c, w))
+                                  for c, w in zip(caches, want))
+        emit(args.out, row)
+        rows.append(row)
+        if not row["equal"]:
+            raise AssertionError(f"kv_append_rows {model} differs")
+        del caches, news, want, copies
         torch.cuda.empty_cache()
     return rows
 
@@ -679,6 +792,7 @@ def main() -> int:
     rows = grouped_rows(torch, smoke, timer, args, probe_libs)
     for a in GROUPED_A:
         layer_lines(args, rows, "moe_grouped", "rows", a, tuple(MOE))
+    kv_rows(torch, smoke, timer, args, probe_libs)
     rows = neighbour_rows(torch, smoke, timer, args, probe_libs)
     for kernel, key, at, sites in (
             *(("moe_bmm", "t", t, tuple(MOE)) for t in BMM_T),
