@@ -40,7 +40,9 @@ Phases, in order, each printing JSON lines:
              at 8 / 120 / 256 rows, experts over BM rows, one expert
              holding all rows and K = 256; kv_append_rows one array and
              K with V in one launch (bf16, f32, int8), the pair timed
-             beside an empty kernel's launch
+             beside an empty kernel's launch, and K with V at a decode
+             window's size (lane A at bucket 32 with a 256-token chunk
+             riding it: 16384 rows x 2 KiB each), the summary's row
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
              ties, as jax.lax.top_k) at 32 slots x 128256 against a full
              stable sort, timed beside both and torch.topk
@@ -57,14 +59,28 @@ logits_moe_w4a16, profile_moe_w4a16), C and D on the same random weights
 with the two-level fields dropped, the form an int4 checkpoint loads as,
 and E llama-3.1-8b two-level in the group-dot decode mode
 (EngineConfig(w4a8_gd="all"); serve_gd, logits_gd) on A's weights
-(A's, B's and E's profile phases are left out to keep the run inside its
-time; A's and B's numbers are in PERF.md):
-  serve      EngineBuilder(model, random int4 weights, seed 0), 32
-             concurrent greedy 256/128 requests through the engine;
-             launch counts of every kernel over that run, each of the
-             lane's kernels required, every other kernel required to
-             stay at 0; E's solo request must give A's tokens (its decode
-             kernel computes A's function bit for bit)
+(B's and E's profile phases are left out to keep the run inside its
+time):
+  serve      EngineBuilder(model, random int4 weights, seed 0) with
+             bench.py's engine settings (lane buckets 1, 8, 32; T = 32 at
+             bucket 1, 8 elsewhere; the pipelined loop, mixed prefill and
+             refill-first, the defaults), 32 concurrent greedy 256/128
+             requests; launch counts of every kernel over that run, each
+             of the lane's kernels required, every other kernel required
+             to stay at 0; windows by bucket, mixed windows, the most
+             windows in flight, kv_append_rows launches a window; E's
+             solo request must give A's tokens (its decode kernel
+             computes A's function bit for bit). Lane A's run dispatches
+             under torch.cuda.set_sync_debug_mode("error"): a host sync
+             of the stream inside a window or prefill dispatch fails it
+  serve_c1, serve_c4 (A: serve, B: serve_moe)  the same with 1 and 4
+             requests: 1- and 8-lane windows (on B the MoE sort route:
+             moe_grouped's <= 256-row loop must launch, moe_bmm need not)
+  window_check (A)  a T = 8 window through decode_forward's window form
+             and one append against 8 per-step calls from the same state
+             (8 lanes, 256-token prompts): hidden states within one bf16
+             step on 95% of the token rows and 5e-2 of the scale, the
+             cache's other rows unchanged, layer 0's window rows equal
   logits     one prefill + 4 decode steps at full width, kernels vs plain
              versions, both on the card; the MoE runs decode two steps
              at 32 lanes (B: all-experts route; D: 256 grouped rows) and
@@ -75,8 +91,9 @@ time; A's and B's numbers are in PERF.md):
              token rows within 2e-2 of it at the lane's depth (one-bf16-
              step GEMM differences can move a whole row on random
              weights), also measured at 1, 2, 4 and 8 layers
-  profile    torch.profiler over 32 concurrent 256/32 requests on the
-             same engine: device time by kernel, device busy share
+  profile    (A, C, D) torch.profiler over 32 concurrent 256/32
+             requests on the same engine: device time by kernel, device
+             busy share
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
@@ -128,8 +145,11 @@ SERVE_GROUPED_W4A16_A = 16384
 # `tol`, `min_rows`: the logits check at full depth -- the share of token
 # rows whose every logit is within `tol` of the logit scale; `depths`:
 # the depths it is also measured at (None = the model's depth).
-# `profile`: whether the lane's profile phase runs (A's, B's and E's are
-# left out to keep the run inside its time). `solo_as`: the lane whose
+# `profile`: whether the lane's profile phase runs (B's and E's are left
+# out to keep the run inside its time). `small`: the lane also serves 1
+# and 4 requests. `sync_check`: its 32-request serve dispatches under
+# the no-sync check. `window_check`: the window form is checked against
+# the per-step form at its width. `solo_as`: the lane whose
 # solo request's tokens this lane's must equal. `layers`: a depth cut
 # (the model's first layers): lane D, the slowest lane on a busy host
 # (its sort-route decode makes ~1.06M launches per profile window at 48
@@ -139,14 +159,13 @@ LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
          lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
-         tag="",
-         profile=False),
+         tag="", profile=True, small=True, sync_check=True,
+         window_check=True),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
          mode={}, float_scale=False, path=MOE_PATH,
          lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
-         tag="_moe",
-         profile=False),
+         tag="_moe", profile=False, small=True),
     dict(name="C llama-3.1-8b float-scale w4a8", model="llama-3.1-8b",
          mode={"w4a8": True, "w4a8_two_level": False}, float_scale=True,
          path=("w4a8_decode", "w4a16_gemm") + KV_PATH,
@@ -1359,6 +1378,77 @@ def kv_rows_cases(torch, timer):
     return rows
 
 
+# A decode window's append on lane A at bucket 32 with a mixed-prefill
+# block: T = 8 steps of 32 lanes and P = 32 chunk rows (a 256-token
+# chunk), 32 layers: 32 x 8 x 64 = 16384 rows of K and of V, F = 1024.
+WIN_T, WIN_LANES, WIN_P = 8, 32, 32
+
+
+def kv_window_case(torch, timer):
+    """kv_append_rows at the window size append_window_kv gives it: K and
+    V of one window in one launch, ids laid out as the model lays them
+    (layer-major, then step, then lane, then chunk row): 31 decoding
+    lanes at seeded positions, slot 5's lane a pad (dropped) while its
+    256-token chunk rides the window's rows. Equal to its plain version
+    bit for bit; timed beside two index_copy_ (one per array)."""
+    from ferrum_tpu_torch.ops.kernels.kv_append import (
+        append_rows_pairs, append_rows_pairs_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    layers, bps, f = 32, 1024 // PAGE, 1024
+    nb = WIN_LANES * bps
+    b = layers * nb
+    pos = torch.randint(256, 1024 - WIN_T, (WIN_LANES,), generator=gen,
+                        device="cuda")
+    steps = torch.arange(WIN_T, device="cuda")[:, None]
+    lane_flat = torch.arange(WIN_LANES, device="cuda") * 1024 + pos + steps
+    lane_flat[:, 5] = OOB_SENTINEL                     # the pad lane
+    chunk = 5 * 1024 + torch.arange(WIN_T * WIN_P, device="cuda")
+    flat = torch.cat([lane_flat, chunk.view(WIN_T, WIN_P)], 1).reshape(-1)
+    ok = flat < OOB_SENTINEL
+    blk = torch.where(ok[None], torch.arange(layers, device="cuda")[:, None]
+                      * nb + (flat // PAGE)[None],
+                      torch.full((layers, 1), OOB_SENTINEL, device="cuda"))
+    blk = blk.reshape(-1).to(torch.int32).contiguous()
+    off = (flat % PAGE).repeat(layers).to(torch.int32).contiguous()
+    n = blk.numel()
+    pairs = [(torch.randn(b, PAGE, f, generator=gen, device="cuda")
+              .to(torch.bfloat16),
+              torch.randn(n, f, generator=gen, device="cuda")
+              .to(torch.bfloat16)) for _ in range(2)]
+    ref = append_rows_pairs_plain([(c.clone(), r) for c, r in pairs],
+                                  blk, off)
+    append_rows_pairs(pairs, blk, off)
+    torch.cuda.synchronize()
+    row = {"kernel": "kv_append_rows", "dtype": "bfloat16", "arrays": 2,
+           "rows": n, "f": f, "window": True,
+           "at": f"one window: {layers} layers x T={WIN_T} x "
+                 f"({WIN_LANES} lanes + {WIN_P} chunk rows)",
+           "equal": all(bool(torch.equal(c, w))
+                        for (c, _), w in zip(pairs, ref)),
+           "max_abs_err": max((c.float() - w.float()).abs().max().item()
+                              for (c, _), w in zip(pairs, ref))}
+    del ref
+    valid = blk < b
+    n_valid = int(valid.sum().item())
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2 * 2 * n_valid * f * 2 + blk.nbytes + off.nbytes, 0)
+    row["kernel_ms"] = timer(lambda: append_rows_pairs(pairs, blk, off))
+    row["plain_ms"] = timer(
+        lambda: append_rows_pairs_plain(pairs, blk, off), reps=10)
+    idx = (blk.long() * PAGE + off.long())[valid]
+    copies = [(c.view(-1, f), r[valid]) for c, r in pairs]
+    row["library_ms"] = timer(lambda: [
+        flat_c.index_copy_(0, idx, src) for flat_c, src in copies])
+    emit({"phase": "kernel_case", **row})
+    if not row["equal"]:
+        raise AssertionError(f"kv_append_rows at window size differs by "
+                             f"{row['max_abs_err']}")
+    del pairs, copies
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def kv_pages_cases(torch, timer):
     from ferrum_tpu_torch.ops.kernels.kv_append import (append_pages,
                                                         append_pages_plain)
@@ -1455,12 +1545,13 @@ def summarize(cases):
                              and c[key] == at
                              and c.get("model", "llama-3.1-8b")
                              == "llama-3.1-8b"], f"{key}={at}")
-    # The appends: a decode step's K and V in one launch, a prefill's
-    # pages of one array.
+    # The appends: a decode window's K and V in one launch (the served
+    # path's size), a prefill's pages of one array.
     for name in ("kv_append_rows", "kv_append_pages"):
         c = next(c for c in cases
                  if c["kernel"] == name and c["dtype"] == "bfloat16"
-                 and c.get("arrays", 2) == 2)
+                 and c.get("arrays", 2) == 2
+                 and c.get("window", name != "kv_append_rows"))
         out[name] = {k: c.get(k) for k in ("plain_ms", "library_ms",
                                            "bound_ms", "bound_by")}
         out[name]["ms"] = c.get("kernel_ms")
@@ -1601,11 +1692,14 @@ def build_engine(model, mode, float_scale, layers=None):
     params = init_random_quant_params(mc, seed=0)
     if float_scale:
         drop_two_level(params)
+    # bench.py's engine settings: lane buckets 1, 8 and the top, T = 32
+    # at bucket 1 and 8 elsewhere; the pipelined loop with mixed
+    # prefill-in-window and refill-first are the defaults.
     cfg = EngineConfig(
         max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
         prefill_chunk_size=PROMPT_LEN, max_num_batched_tokens=2048,
         kv_block_size=PAGE, kv_dtype="bf16", decode_multi_step=8, seed=0,
-        **mode)
+        decode_bucket_spec="1,8", decode_t_spec="1:32", **mode)
     return mc, EngineBuilder(cfg).with_model(mc, params).build()
 
 
@@ -1633,79 +1727,252 @@ def off_path(lane):
     return [k.name for k in K.KERNELS if k.name not in lane["path"]]
 
 
-def serve_phase(torch, lane, want_solo=None):
-    """32 concurrent greedy 256/128 requests on the lane's model and mode;
-    every kernel of its path must launch and no other. The prompt of
-    request 0 alone, before and after, must give the same tokens, and
-    `want_solo` where given. Returns (launch counts, model config, engine,
-    the solo request's tokens)."""
+def serve_run(torch, engine, mc, lane, prompts, path, sync_check=False):
+    """len(prompts) concurrent greedy 256/128 requests (all at once)
+    through the engine, the launch counts
+    set to 0 just before and read just after. Every kernel of `path`
+    must launch and no kernel off the lane's path. sync_check: the
+    engine's dispatches run under torch.cuda.set_sync_debug_mode
+    ("error"), so any host sync of the stream inside one fails the run.
+    Returns (launches, responses, the emitted line)."""
     from concurrent.futures import ThreadPoolExecutor
-
-    import numpy as np
 
     from ferrum_tpu_torch.ops import kernels as K
 
-    name, path, unused = lane["name"], lane["path"], off_path(lane)
-    t0 = time.perf_counter()
-    mc, engine = build_engine(lane["model"], lane["mode"],
-                              lane["float_scale"], lane.get("layers"))
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(0, mc.vocab_size, (SERVE_REQUESTS, PROMPT_LEN))
-    # The same request alone before and after the loaded run: identical
-    # tokens (deterministic, no state left behind by the run).
-    solo = engine.infer(request(prompts[0])).token_ids
-
+    runner = engine.runner
+    conc = len(prompts)
+    buckets0 = dict(runner.windows_by_bucket)
+    mixed0 = runner.mixed_windows
+    engine.max_inflight = 0
+    runner.sync_debug = "error" if sync_check else None
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(SERVE_REQUESTS) as ex:
-        resps = list(ex.map(engine.infer, [request(p) for p in prompts]))
-    torch.cuda.synchronize()
+    try:
+        with ThreadPoolExecutor(conc) as ex:
+            resps = list(ex.map(engine.infer, [request(p) for p in prompts]))
+        torch.cuda.synchronize()
+    finally:
+        runner.sync_debug = None
     wall = time.perf_counter() - t0
     launches = counts(K)
     peak = torch.cuda.max_memory_allocated()
-
     for r in resps:
         if len(r.token_ids) != OUTPUT_LEN or r.completion_tokens != OUTPUT_LEN:
             raise AssertionError(f"{r.request_id}: {len(r.token_ids)} tokens")
         if not all(0 <= t < mc.vocab_size for t in r.token_ids):
             raise AssertionError(f"{r.request_id}: token out of vocab")
+    name = lane["name"]
+    idle = [k for k in path if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"{name} c={conc}: kernels the served path "
+                             f"never launched: {idle}")
+    stray = [k for k in off_path(lane) if launches[k] != 0]
+    if stray:
+        raise AssertionError(f"{name} c={conc}: kernels of another route "
+                             f"launched: {stray}")
+    windows = {b: n - buckets0.get(b, 0)
+               for b, n in sorted(runner.windows_by_bucket.items())
+               if n - buckets0.get(b, 0)}
+    n_windows = sum(windows.values())
+    ttft = [r.ttft for r in resps]
+    tpot = [(r.e2e_latency - r.ttft) / (OUTPUT_LEN - 1) for r in resps]
+    line = {"phase": f"serve{lane['tag']}" + ("" if conc == SERVE_REQUESTS
+                                              else f"_c{conc}"),
+            "lane": name, "mode": lane["mode"], "model": lane["model"],
+            "layers": mc.num_layers, "requests": conc,
+            "prompt_len": PROMPT_LEN, "output_len": OUTPUT_LEN,
+            "wall_s": wall, "output_tok_s": conc * OUTPUT_LEN / wall,
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "ttft_max_ms": max(ttft) * 1e3,
+            "tpot_p50_ms": statistics.median(tpot) * 1e3,
+            "windows_by_bucket": windows, "mixed_windows":
+            runner.mixed_windows - mixed0,
+            "max_windows_in_flight": engine.max_inflight,
+            "kv_append_rows_per_window":
+            launches["kv_append_rows"] / max(n_windows, 1),
+            "no_sync_checked": sync_check,
+            "max_memory_allocated_gib": peak / 2**30,
+            "launches": launches, "card": smi_line()}
+    return launches, resps, line
+
+
+def sync_canary(torch, runner):
+    """The no-sync check can fail: under the runner's guard at "error", a
+    host sync (`.item()`) raises in this torch build."""
+    runner.sync_debug = "error"
+    try:
+        with runner.sync_guard():
+            torch.ones(1, device="cuda").item()
+    except RuntimeError:
+        return
+    finally:
+        runner.sync_debug = None
+    raise AssertionError("set_sync_debug_mode('error') let a sync through")
+
+
+def serve_phase(torch, lane, want_solo=None):
+    """The lane's serve runs on its model and mode: 32 concurrent greedy
+    256/128 requests (every kernel of its path must launch and no
+    other), then for lanes with `small` 1 and 4 concurrent ones (their
+    path without moe_bmm: 1- and 8-lane windows take the MoE sort
+    route, so moe_grouped must launch its <= 256-row loop). The prompt
+    of request 0 alone, before and after the 32, must give the same
+    tokens, and `want_solo` where given. Returns (launch counts by run,
+    model config, engine, the solo request's tokens)."""
+    import numpy as np
+
+    name, path = lane["name"], lane["path"]
+    t0 = time.perf_counter()
+    mc, engine = build_engine(lane["model"], lane["mode"],
+                              lane["float_scale"], lane.get("layers"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(
+        0, mc.vocab_size, (SERVE_REQUESTS, PROMPT_LEN))
+    # The same request alone before and after the loaded run: identical
+    # tokens (deterministic, no state left behind by the run).
+    solo = engine.infer(request(prompts[0])).token_ids
+
+    if lane.get("sync_check"):
+        sync_canary(torch, engine.runner)
+    launches, resps, line = serve_run(torch, engine, mc, lane, prompts,
+                                      path, lane.get("sync_check", False))
     repeat = engine.infer(request(prompts[0])).token_ids
     if repeat != solo:
         raise AssertionError("a repeated request gave other tokens")
     if want_solo is not None and solo != want_solo:
         raise AssertionError(f"{name}: the solo request's tokens differ "
                              f"from lane {lane['solo_as']}'s")
-    idle = [k for k in path if launches[k] == 0]
-    if idle:
-        raise AssertionError(f"{name}: kernels the served path never "
-                             f"launched: {idle}")
-    stray = [k for k in unused if launches[k] != 0]
-    if stray:
-        raise AssertionError(f"{name}: kernels of another route launched: "
-                             f"{stray}")
-    ttft = [r.ttft for r in resps]
-    tpot = [(r.e2e_latency - r.ttft) / (OUTPUT_LEN - 1) for r in resps]
-    emit({"phase": f"serve{lane['tag']}", "lane": name,
-          "mode": lane["mode"], "model": lane["model"],
-          "layers": mc.num_layers,
-          "requests": SERVE_REQUESTS, "prompt_len": PROMPT_LEN,
-          "output_len": OUTPUT_LEN, "engine_build_s": build_s,
-          "wall_s": wall,
-          "output_tok_s": SERVE_REQUESTS * OUTPUT_LEN / wall,
-          "ttft_p50_ms": statistics.median(ttft) * 1e3,
-          "ttft_max_ms": max(ttft) * 1e3,
-          "tpot_p50_ms": statistics.median(tpot) * 1e3,
-          "max_memory_allocated_gib": peak / 2**30,
-          "repeat_identical": True,
+    emit({**line, "engine_build_s": build_s, "repeat_identical": True,
           **({"solo_tokens_equal_to": lane["solo_as"]}
              if want_solo is not None else {}),
           "batched_vs_solo_same_tokens": sum(
-              a == b for a, b in zip(resps[0].token_ids, solo)) / OUTPUT_LEN,
-          "launches": launches, "card": smi_line()})
-    return launches, mc, engine, solo
+              a == b for a, b in zip(resps[0].token_ids, solo)) / OUTPUT_LEN})
+    by_run = {name: launches}
+    if lane.get("small"):
+        small_path = tuple(k for k in path if k != "moe_bmm") + (
+            (GROUPED_DECODE,) if "moe_grouped" in path else ())
+        for conc in (1, 4):
+            launches, _, line = serve_run(
+                torch, engine, mc, lane, np.random.default_rng(conc).integers(
+                    0, mc.vocab_size, (conc, PROMPT_LEN)), small_path)
+            emit(line)
+            by_run[f"{name} c={conc}"] = launches
+    return by_run, mc, engine, solo
+
+
+# The window check's frame: 8 lanes (bucket 8) at 256-token prompts.
+WCHECK_LANES = 8
+# Its tolerance on the hidden states (bf16): the share of token rows
+# whose every value is within one bf16 step of the per-step form's
+# (bf16_step_check's bound), and the largest difference over the scale.
+WCHECK_MIN_ROWS, WCHECK_MAX_REL = 0.95, 5e-2
+
+
+def window_check(torch, mc, engine):
+    """From one state (8 lanes, each with its 256-token prompt prefilled),
+    a T = 8 decode window through decode_forward's window form with one
+    append_window_kv, against 8 per-step decode_forward calls on the same
+    tokens, at the lane's full width. The window form computes the same
+    attention over the frozen cache and the window's earlier steps (not
+    cached yet), so its f32 sums run in another order: the hidden
+    states must agree within WCHECK_MIN_ROWS /
+    WCHECK_MAX_REL, layer 0's window rows of the cache bit for bit (their
+    K/V precede any attention), the rest of the window rows within the
+    same bound, and every other cache row stays as it was."""
+    import numpy as np
+
+    from ferrum_tpu_torch.models import llama_family as lf
+
+    params, dev = engine.runner.params, torch.device("cuda")
+    s, t, max_len = WCHECK_LANES, WIN_T, 512
+    bps = max_len // PAGE
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, mc.vocab_size,
+                                         (s, PROMPT_LEN))).to(dev)
+    fed = torch.from_numpy(rng.integers(0, mc.vocab_size, (t, s))).to(dev)
+    tables = (torch.arange(s, device=dev)[:, None] * bps
+              + torch.arange(bps, device=dev)[None])
+    kv = lf.PagedKvCache.create(mc, s * bps, PAGE, dtype=torch.bfloat16,
+                                device=dev)
+    pos = torch.arange(PROMPT_LEN, device=dev)[None].expand(s, -1)
+    lf.prefill_forward_batched(
+        params, mc, kv, toks, pos, tables,
+        torch.full((s,), PROMPT_LEN, device=dev),
+        tables[:, :1] * PAGE + pos, ctx_pad=PROMPT_LEN)
+    state = (kv.k.clone(), kv.v.clone())
+    p0 = torch.full((s,), PROMPT_LEN, device=dev)
+    flat = [torch.arange(s, device=dev) * max_len + PROMPT_LEN + i
+            for i in range(t)]
+    per_step = []
+    for i in range(t):
+        h, _ = lf.decode_forward(params, mc, kv, fed[i], p0 + i, tables,
+                                 p0 + i + 1, flat[i], ctx_pad=max_len)
+        per_step.append(h)
+    want_k, want_v = kv.k.clone(), kv.v.clone()
+    kv.k.copy_(state[0])
+    kv.v.copy_(state[1])
+    f = kv.kv_heads * kv.head_dim
+    win = {"k": torch.zeros((mc.num_layers, t, s, kv.kv_heads, kv.head_dim),
+                            dtype=kv.k.dtype, device=dev),
+           "cache_len": p0 + 1,
+           "k_lins": [kv.k[li].view(s, -1, f)[:, :max_len]
+                      for li in range(mc.num_layers)],
+           "v_lins": [kv.v[li].view(s, -1, f)[:, :max_len]
+                      for li in range(mc.num_layers)]}
+    win["v"] = torch.zeros_like(win["k"])
+    windowed = []
+    for i in range(t):
+        win["step"] = i
+        win["valid"] = (torch.arange(t, device=dev) < i)[None].expand(s, t)
+        h, win = lf.decode_forward(params, mc, kv, fed[i], p0 + i, None,
+                                   p0 + i + 1, None, ctx_pad=max_len,
+                                   win=win)
+        windowed.append(h)
+    lf.append_window_kv(kv, win["k"], win["v"], torch.stack(flat))
+    torch.cuda.synchronize()
+    got, want = torch.stack(windowed), torch.stack(per_step)
+    scale = want.float().abs().max().item()
+    rows = torch.cat([((g.float() - w.float()).abs()
+                       <= 2.0 ** -7 * w.float().abs() + 2.0 ** -12 * scale
+                       ).all(-1) for g, w in zip(got, want)])
+    h_rel = (got.float() - want.float()).abs().max().item() / scale
+    written = torch.zeros(s * bps * PAGE, dtype=torch.bool, device=dev)
+    written[torch.stack(flat).reshape(-1)] = True
+    written = written.view(s * bps, PAGE)
+    cache = {}
+    for name, a, w, s0 in (("k", kv.k, want_k, state[0]),
+                           ("v", kv.v, want_v, state[1])):
+        cache[name] = {
+            "others_unchanged": bool(torch.equal(a[:, ~written],
+                                                 s0[:, ~written])),
+            "layer0_window_rows_equal": bool(torch.equal(
+                a[0][written], w[0][written])),
+            "window_rows_max_rel": ((a[:, written].float()
+                                     - w[:, written].float()).abs().max()
+                                    / w[:, written].float().abs().max()
+                                    ).item()}
+    ok = (rows.float().mean().item() >= WCHECK_MIN_ROWS
+          and h_rel <= WCHECK_MAX_REL
+          and all(c["others_unchanged"] and c["layer0_window_rows_equal"]
+                  and c["window_rows_max_rel"] <= WCHECK_MAX_REL
+                  for c in cache.values()))
+    line = {"phase": "window_check", "lanes": s, "steps": t,
+            "prompt_len": PROMPT_LEN,
+            "tolerance": f">= {WCHECK_MIN_ROWS} of token rows within one "
+                         f"bf16 step, every value within {WCHECK_MAX_REL} "
+                         f"of the scale",
+            "rows_within_bf16_step": rows.float().mean().item(),
+            "hidden_max_rel_diff": h_rel, "hidden_scale": scale,
+            "identical": bool(torch.equal(got, want)), "cache": cache,
+            "ok": ok}
+    emit(line)
+    del kv, state, want_k, want_v, win
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"window form differs from the per-step form: "
+                             f"{line}")
 
 
 def logits_phase(torch, mc, engine, lane):
@@ -1903,7 +2170,8 @@ def main() -> int:
     timer = Timer(torch)
     cases = (gemm_rows(torch, timer) + group_dot_rows(torch, timer)
              + float_scale_rows(torch, timer)
-             + kv_rows_cases(torch, timer) + kv_pages_cases(torch, timer)
+             + kv_rows_cases(torch, timer) + kv_window_case(torch, timer)
+             + kv_pages_cases(torch, timer)
              + moe_cases(torch, timer))
     onehot_cases(torch)
     prefill_exact_cases(torch)
@@ -1921,9 +2189,11 @@ def main() -> int:
     # Each served path: its kernels' counts from 0 over its serve run.
     by_path, solos = {}, {}
     for lane in LANES:
-        launches, mc, engine, solos[lane["name"]] = serve_phase(
+        by_run, mc, engine, solos[lane["name"]] = serve_phase(
             torch, lane, solos.get(lane.get("solo_as")))
-        by_path[lane["name"]] = launches
+        by_path.update(by_run)
+        if lane.get("window_check"):
+            window_check(torch, mc, engine)
         routes = logits_phase(torch, mc, engine, lane)
         # A 1-lane MoE decode step takes the sort route: 8 rows through
         # moe_grouped's decode-sized loop.

@@ -2,18 +2,27 @@
 
 Port of `ferrum_tpu/engine/engine.py` for the served path: requests are
 submitted from any thread and consumed through per-request queues; one
-background loop runs `run_iteration`: scheduler → one batched prefill
-of this iteration's chunks (first tokens accepted right after) → one
-decode window of T steps over the decoding sequences → token acceptance
-(EOS / max_tokens finishes), incremental detokenization and emission.
+background loop runs `run_iteration`, the JAX package's pipelined loop:
+  (a) accept the first tokens of last iteration's batched prefills;
+  (b) schedule (sequences riding windows in flight are pinned);
+  (c) dispatch the prefill chunks as batched prefills, holding one back
+      to ride the decode window (mixed prefill), unless refill-first
+      holds decode for this iteration;
+  (d) dispatch window W+1 (chained on the device from W), then fetch
+      and accept the oldest windows until at most `pipeline_depth` (1
+      at <= 4 decoding sequences) stay in flight.
+Tokens are accepted a window at a time (EOS / max_tokens finishes),
+with one incremental detokenization and one chunk a window.
 
-Not yet ported (later slices): the dispatch-ahead window pipeline, the
-mixed prefill-in-window path, prefix reuse, guided decoding, stop
-strings, speculative decoding and prompt scoring.
+Everything runs on ONE CUDA stream; the loop leans on its order (see
+`_retire`). Not yet ported (later slices): adaptive window lengths,
+slack slots, prefix reuse, guided decoding, stop strings, speculative
+decoding and prompt scoring.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -26,7 +35,10 @@ from ..scheduler.sequence import Phase, Sequence
 from ..tokenizer import ByteTokenizer
 from ..types import (EngineStoppedError, FinishReason, InferenceRequest,
                      InferenceResponse, InvalidRequestError, StreamChunk)
-from .runner import ModelRunner
+from .runner import DecodeWindow, ModelRunner
+
+# Refill-first holds decode for at most this many iterations in a row.
+MAX_HOLD_STREAK = 8
 
 # How long stop() waits for the loop thread to end.
 STOP_JOIN_S = 60.0
@@ -51,6 +63,14 @@ class ContinuousBatchEngine:
         self._stop = False
         self._loop_thread: Optional[threading.Thread] = None
         self._loop_error: Optional[BaseException] = None
+        # Windows dispatched and not yet fetched, oldest first; prefills
+        # whose first tokens are fetched next iteration.
+        self._inflight_q: "collections.deque[DecodeWindow]" = \
+            collections.deque()
+        self._pending_first: List = []
+        self._hold_streak = 0
+        # The most windows in flight at once, over the engine's life.
+        self.max_inflight = 0
 
     # ------------------------------------------------------------------
     # Public API
@@ -117,10 +137,11 @@ class ContinuousBatchEngine:
             e2e_latency=time.monotonic() - t0)
 
     def stop(self) -> None:
-        """Stop the loop and finish every waiting consumer with ABORT.
-        Raises (and sweeps nothing) if the loop thread is still running
-        STOP_JOIN_S seconds later: it could still emit chunks and finish
-        sequences while the sweep ran. A later call retries."""
+        """Stop the loop, accept what the windows and prefills in flight
+        produced, and finish every waiting consumer with ABORT. Raises
+        (and drains and sweeps nothing) if the loop thread is still
+        running STOP_JOIN_S seconds later: it could still emit chunks
+        and finish sequences meanwhile. A later call retries."""
         self._stop = True
         self._work_event.set()
         thread = self._loop_thread
@@ -130,6 +151,8 @@ class ContinuousBatchEngine:
                 raise RuntimeError(
                     f"engine loop still running {STOP_JOIN_S} s after "
                     f"stop(); no request was aborted")
+        if self._loop_error is None:
+            self._drain()
         with self._lock:
             states = list(self._requests.values())
             self._requests.clear()
@@ -169,25 +192,152 @@ class ContinuousBatchEngine:
 
     def run_iteration(self) -> bool:
         """One scheduler + device iteration; False when idle."""
+        cfg = self.cfg
+        did_work = self._accept_first_tokens()
+
+        # --- (b) schedule; sequences riding windows in flight pinned ---
+        pinned = frozenset().union(*(w.covered for w in self._inflight_q))
         with self._lock:
-            batch = self.scheduler.next_batch()
+            batch = self.scheduler.next_batch(
+                pinned=pinned,
+                inflight_steps=sum(w.num_steps for w in self._inflight_q))
         for seq in batch.admitted:
             self.runner.admit_slot(seq)
-        decode_seqs = [s for s in batch.decode_seqs
-                       if s.phase == Phase.DECODING]
-        if batch.prefill_chunks:
-            toks = self.runner.run_prefill_batch(batch.prefill_chunks)
-            for chunk, tok in zip(batch.prefill_chunks, toks):
+        decoding = [s for s in batch.decode_seqs
+                    if s.phase == Phase.DECODING]
+        # A sequence whose windows in flight reach its max_tokens finishes
+        # when they are read: another window would only make tokens past
+        # its end (the JAX engine dispatches it anyway; at c = 1 that is
+        # a whole 32-step window a request).
+        decode_seqs = [s for s in decoding if self._tokens_ahead(s)
+                       < s.request.sampling.max_tokens]
+        t_steps = batch.decode_steps or max(1, cfg.decode_multi_step)
+        if not batch.decode_steps and decode_seqs:
+            t_steps = cfg.t_for_bucket(
+                self.runner.lane_bucket(len(decode_seqs)))
+
+        # --- (c) prefill: one chunk may ride the window ---
+        pf_chunk = None
+        if batch.prefill_chunks and cfg.mixed_prefill and decode_seqs \
+                and cfg.pipeline_decode:
+            pf_chunk = next(
+                (c for c in batch.prefill_chunks
+                 if c.seq.num_output_tokens == 0
+                 and len(c.tokens) <= 128 * t_steps), None)
+        # Refill-first: while a wave of >= 2 prompts prefills at low
+        # occupancy, hold decode so the next windows run fuller; at most
+        # MAX_HOLD_STREAK iterations in a row. The streak resets only in
+        # an iteration whose hold conditions are false (the JAX package
+        # resets it on the forced iteration too, so a steady admission
+        # stream held decode 8 iterations of every 9).
+        hold_conds = (cfg.refill_first and len(batch.prefill_chunks) >= 2
+                      and 0 < len(decoding) <= self.runner.num_slots // 2
+                      and not batch.deferred_decodes)
+        hold = hold_conds and self._hold_streak < MAX_HOLD_STREAK
+        if hold:
+            self._hold_streak += 1
+            pf_chunk = None
+        elif not hold_conds:
+            self._hold_streak = 0
+        rest = [c for c in batch.prefill_chunks if c is not pf_chunk]
+        if rest:
+            self._dispatch_prefill(rest)
+
+        # --- (d) dispatch W+1, then fetch and accept the oldest ---
+        new_window = None
+        if decode_seqs and cfg.pipeline_decode and not hold \
+                and not (batch.deferred_decodes and pinned):
+            new_window = self.runner.start_decode_window(
+                decode_seqs, t_steps,
+                prev=self._inflight_q[-1] if self._inflight_q else None,
+                pf_chunk=pf_chunk)
+            if pf_chunk is not None:
+                self.scheduler.note_prefill_done(pf_chunk)
+                pf_chunk = None
+        if pf_chunk is not None:       # found no window to ride
+            self._dispatch_prefill([pf_chunk])
+        if new_window is not None:
+            self._inflight_q.append(new_window)
+            self.max_inflight = max(self.max_inflight,
+                                    len(self._inflight_q))
+            depth = 1 if len(batch.decode_seqs) <= 4 \
+                else cfg.pipeline_depth
+        else:
+            depth = 0                  # nothing dispatched: drain
+        while len(self._inflight_q) > depth:
+            self._process_window(self._inflight_q.popleft())
+            did_work = True
+        if decode_seqs and not cfg.pipeline_decode and not hold:
+            self._accept_window_tokens(
+                decode_seqs, self.runner.run_decode_multi(decode_seqs,
+                                                          t_steps), t_steps)
+        return did_work or not batch.is_empty or bool(self._inflight_q) \
+            or bool(batch.deferred_decodes)
+
+    def _tokens_ahead(self, seq: Sequence) -> int:
+        """Tokens accepted plus those the windows in flight will give."""
+        rid = seq.request.request_id
+        n = seq.num_output_tokens
+        for w in self._inflight_q:
+            if rid in w.lanes:
+                n += w.num_steps
+            elif w.pf_seq is seq and w.pf_is_last:
+                n += 1
+        return n
+
+    def _accept_first_tokens(self) -> bool:
+        """(a) The first tokens of the prefills dispatched last iteration:
+        one wait per batched prefill."""
+        if not self._pending_first:
+            return False
+        pending, self._pending_first = self._pending_first, []
+        fetched: Dict[int, object] = {}
+        for seq, res in pending:
+            if seq.phase == Phase.FINISHED or seq.blocks is None:
+                continue
+            toks = fetched.get(id(res))
+            if toks is None:
+                toks = fetched[id(res)] = res.tokens.numpy()
+            self._accept_tokens(seq, [int(toks[res.rows[
+                seq.request.request_id]])])
+        return True
+
+    def _dispatch_prefill(self, chunks) -> None:
+        """Chunks sharing a (chunk, context) bucket go in one batched
+        prefill; final chunks' first tokens are fetched next iteration."""
+        groups: Dict[tuple, list] = {}
+        for chunk in chunks:
+            key = (self.runner.chunk_bucket(len(chunk.tokens)),
+                   self.runner.ctx_bucket(chunk.start + len(chunk.tokens)))
+            groups.setdefault(key, []).append(chunk)
+        for group in groups.values():
+            res = self.runner.run_prefill_batch(group)
+            for chunk in group:
                 self.scheduler.note_prefill_done(chunk)
                 if chunk.is_last:
-                    self._accept_tokens(chunk.seq, [int(tok)])
-        if decode_seqs:
-            lists = self.runner.run_decode_window(
-                decode_seqs, self.cfg.decode_multi_step)
-            for seq in decode_seqs:
-                if seq.phase == Phase.DECODING:
-                    self._accept_tokens(seq, lists[seq.request.request_id])
-        return not batch.is_empty
+                    self._pending_first.append((chunk.seq, res))
+
+    def _process_window(self, window: DecodeWindow) -> None:
+        """Fetch a window's tokens and accept them; a mixed-prefill chunk
+        that ended its prompt gives its sequence's first token."""
+        lists = self.runner.sync_window(window)
+        self._accept_window_tokens(window.seqs, lists, window.num_steps)
+        pf = window.pf_seq
+        if pf is not None and window.pf_is_last \
+                and pf.phase == Phase.DECODING and not pf.output_tokens:
+            self._accept_tokens(pf, lists[pf.request.request_id][-1:])
+
+    def _accept_window_tokens(self, seqs, lists, t_steps) -> None:
+        for seq in seqs:
+            if seq.phase == Phase.DECODING:   # else finished earlier
+                self._accept_tokens(
+                    seq, lists[seq.request.request_id][:t_steps])
+
+    def _drain(self) -> None:
+        """Accept everything in flight (the loop has ended)."""
+        self._accept_first_tokens()
+        while self._inflight_q:
+            self._process_window(self._inflight_q.popleft())
 
     # ------------------------------------------------------------------
     def _accept_tokens(self, seq: Sequence, toks: List[int]) -> None:
@@ -229,4 +379,15 @@ class ContinuousBatchEngine:
         if finish is not None:
             with self._lock:
                 self._requests.pop(seq.request.request_id, None)
-                self.scheduler.finish(seq)
+            self._retire(seq)
+
+    def _retire(self, seq: Sequence) -> None:
+        """Release a finished sequence's slot and region at once, even
+        while a window in flight still runs its lane (the JAX package's
+        linear-layout rule). That is safe only because everything runs
+        on ONE CUDA stream: the zombie lane writes inside the slot's own
+        region, and a replacement's admission, prefill and K/V writes
+        are issued after the window, so the stream orders them after
+        it. Issue nothing of the engine on a side stream."""
+        with self._lock:
+            self.scheduler.finish(seq)

@@ -2,9 +2,13 @@
 
 Port of `ferrum_tpu/models/llama_family.py` for the served paths (dense
 llama, and qwen3-moe's sparse MLP through ops/moe.py): the linear
-(slot-contiguous) KV layout, decode steps with the deferred per-step
-append (`attn_impl="linear"`, `win=None`), and batched chunked prefill
-with whole-page appends (`append="pages"`).
+(slot-contiguous) KV layout, decode steps (`attn_impl="linear"`) in
+either form -- the per-step form (`win=None`), which appends its K/V
+after the trunk, and the window form (`win`), whose cache stays
+read-only while K/V collect in the window's accumulator and land with
+one `append_window_kv` after the window, optionally with one slot's
+prefill block riding the steps -- and batched chunked prefill with
+whole-page appends (`append="pages"`).
 
 The KV cache is [L, NB, page, F = Hkv*D] per K and V, seen by the
 append kernels as the layer-merged flat [L*NB, page, F]. Where the JAX
@@ -12,9 +16,9 @@ package returns a new cache (updated in place by XLA buffer donation),
 the port writes the cache tensors IN PLACE and returns the same object.
 
 The decode window (T steps with on-device token feedback) is a Python
-loop of `decode_forward` calls in engine/runner.py: the JAX package's
-KV-out-of-scan-carry `win` accumulator exists to keep the pool out of a
-`lax.scan` carry, which eager in-place updates do not have.
+loop of `decode_forward` calls in engine/runner.py. Its `win` form
+keeps the JAX package's design for the launch count: the window's K/V
+of every layer, step and lane land in one `kv_append_rows` launch.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from ..ops.attention import flat_decode_attention, flat_prefill_attention
+from ..ops.attention import (flat_decode_attention, flat_prefill_attention,
+                             flat_prefill_window_attention)
 from ..ops.kernels.kv_append import append_pages, append_rows_pairs
 from ..ops.linear import LinearParams, apply_linear, matmul_f32
 from ..ops.moe import moe_mlp
@@ -192,24 +197,62 @@ def _layer_block_ids(blk: torch.Tensor, valid: torch.Tensor, layers: int,
     return ids.reshape(-1).to(torch.int32)
 
 
-def decode_forward(
-    params: ModelParams, cfg: ModelConfig, kv: PagedKvCache,
-    tokens: torch.Tensor,         # int [S]
-    positions: torch.Tensor,      # int [S] (== context_lens - 1)
-    block_tables: torch.Tensor,   # int [S, max_pages] (identity: linear)
-    context_lens: torch.Tensor,   # int [S] incl. the new token
-    flat_slots: torch.Tensor,     # int [S]; >= OOB_SENTINEL = drop
-    *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
-):
-    """One batched decode step over every slot of the linear layout →
-    (hidden [S, H], kv). This step's K/V join attention as the self
-    term and are appended to the cache after the trunk: one
-    `append_rows_pairs` of L*S rows of K and of V."""
-    if inv_freq is None:
-        inv_freq = make_inv_freq(cfg, tokens.device)
+def _append_kv_rows(kv: PagedKvCache, k_rows: torch.Tensor,
+                    v_rows: torch.Tensor, flat: torch.Tensor) -> None:
+    """Rows [L, n, Hkv, D] of K and V (every layer at the flat slots
+    [n], >= OOB_SENTINEL dropped) into the cache: one launch."""
     nb, page = kv.num_blocks, kv.page
     f = kv.kv_heads * kv.head_dim
     n_layers = kv.k.shape[0]
+    fl = flat.to(torch.int64)
+    blk_all = _layer_block_ids(fl // page, fl < OOB_SENTINEL, n_layers, nb)
+    off_all = (fl % page).to(torch.int32).repeat(n_layers)
+    append_rows_pairs(
+        [(kv.k.view(n_layers * nb, page, f),
+          k_rows.reshape(-1, f).to(kv.k.dtype).contiguous()),
+         (kv.v.view(n_layers * nb, page, f),
+          v_rows.reshape(-1, f).to(kv.v.dtype).contiguous())],
+        blk_all, off_all)
+
+
+def decode_forward(
+    params: ModelParams, cfg: ModelConfig, kv: PagedKvCache,
+    tokens: torch.Tensor,         # int [S] (+ [P] window prefill rows)
+    positions: torch.Tensor,      # int [S] (== context_lens - 1) (+ [P])
+    block_tables: Optional[torch.Tensor],  # int [S, max_pages] (identity)
+    context_lens: torch.Tensor,   # int [S] incl. the new token
+    flat_slots: Optional[torch.Tensor],    # int [S]; >= OOB_SENTINEL = drop
+    *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
+    win: Optional[dict] = None,
+):
+    """One batched decode step over S lanes of the linear layout.
+
+    Per-step form (`win=None`) → (hidden [S, H], kv): this step's K/V
+    join attention as the self term and are appended to the cache after
+    the trunk, one `append_rows_pairs` of L*S rows of K and of V.
+
+    Window form → (hidden [S (+P), H], win), the cache untouched. `win`:
+      "k"/"v"      [L, T, S, Hkv, D] the window's accumulators; this
+                   step's K/V are written at index "step"
+      "step"       int; "valid" bool [S, T] (the steps before it);
+      "cache_len"  int [S] the cache's lengths at the window's start
+      "k_lins"/"v_lins"  optional per-layer [S, ctx_pad, F] views of
+                   the lanes' regions, taken once a window (else sliced
+                   here from the frame of block_tables' S slots)
+      "pk"/"pv", "pf"  optional mixed prefill: tokens/positions carry P
+                   rows of one slot's chunk after the S lanes; the trunk
+                   runs once over S+P rows and attention splits by
+                   phase. "pf": "chunk_start", "valid_len" (ints),
+                   "positions" [P], "k_ctx"/"v_ctx" per-layer [C, F]
+                   views of the slot's region.
+    The caller lands the window with `append_window_kv`."""
+    if inv_freq is None:
+        inv_freq = make_inv_freq(cfg, tokens.device)
+    f = kv.kv_heads * kv.head_dim
+    if win is not None:
+        return _decode_forward_win(params, cfg, kv, tokens, positions,
+                                   block_tables, context_lens, ctx_pad,
+                                   inv_freq, win)
     s_slots = block_tables.shape[0]
     new_ks: List[torch.Tensor] = []
     new_vs: List[torch.Tensor] = []
@@ -225,19 +268,62 @@ def decode_forward(
 
     h = forward_hidden(params, cfg, tokens, positions, attn,
                        inv_freq=inv_freq)
-
-    fl = flat_slots.to(torch.int64)
-    valid = fl < OOB_SENTINEL
-    blk_all = _layer_block_ids(fl // page, valid, n_layers, nb)
-    off_all = (fl % page).to(torch.int32).repeat(n_layers)
-    k_rows = torch.stack(new_ks).reshape(n_layers * s_slots, f)
-    v_rows = torch.stack(new_vs).reshape(n_layers * s_slots, f)
-    append_rows_pairs(
-        [(kv.k.view(n_layers * nb, page, f),
-          k_rows.to(kv.k.dtype).contiguous()),
-         (kv.v.view(n_layers * nb, page, f),
-          v_rows.to(kv.v.dtype).contiguous())], blk_all, off_all)
+    _append_kv_rows(kv, torch.stack(new_ks), torch.stack(new_vs),
+                    flat_slots)
     return h, kv
+
+
+def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
+                        context_lens, ctx_pad, inv_freq, win):
+    f = kv.kv_heads * kv.head_dim
+    s = win["k"].shape[2]
+    step = win["step"]
+    pf = win.get("pf")
+
+    def attn(li, q, k_new, v_new):
+        if "k_lins" in win:
+            k_lin, v_lin = win["k_lins"][li], win["v_lins"][li]
+        else:
+            frame = block_tables.shape[0]
+            k_lin = kv.k[li].reshape(frame, -1, f)[:, :ctx_pad]
+            v_lin = kv.v[li].reshape(frame, -1, f)[:, :ctx_pad]
+        q_d, kn_d, vn_d = q[:s], k_new[:s], v_new[:s]
+        # The window's K/V stay out of the cache until the window ends.
+        win["k"][li, step] = kn_d
+        win["v"][li, step] = vn_d
+        # Step 0 has no earlier window rows: no window terms.
+        out_d = flat_decode_attention(
+            q_d, k_lin, v_lin, context_lens, kn_d, vn_d,
+            hkv=kv.kv_heads, scale=cfg.attn_scale,
+            k_win=win["k"][li] if step else None, v_win=win["v"][li],
+            win_valid=win["valid"], cache_len=win["cache_len"])
+        if pf is None:
+            return out_d
+        kn_p, vn_p = k_new[s:], v_new[s:]
+        win["pk"][li, step] = kn_p
+        win["pv"][li, step] = vn_p
+        out_p = flat_prefill_window_attention(
+            q[s:], pf["k_ctx"][li], pf["v_ctx"][li], pf["chunk_start"],
+            win["pk"][li], win["pv"][li], step, pf["chunk_start"],
+            pf["valid_len"], kn_p, vn_p, pf["positions"],
+            hkv=kv.kv_heads, scale=cfg.attn_scale)
+        return torch.cat([out_d, out_p])
+
+    h = forward_hidden(params, cfg, tokens, positions, attn,
+                       inv_freq=inv_freq)
+    return h, win
+
+
+def append_window_kv(kv: PagedKvCache, win_k: torch.Tensor,
+                     win_v: torch.Tensor,
+                     flat_mat: torch.Tensor) -> PagedKvCache:
+    """A whole decode window's K/V -- win_k/win_v [L, W, S, Hkv, D] at
+    the flat slots flat_mat int [W, S] (>= OOB_SENTINEL dropped) -- into
+    the cache in ONE `kv_append_rows` launch, in place."""
+    n_layers, w, s = win_k.shape[:3]
+    _append_kv_rows(kv, win_k.reshape(n_layers, w * s, -1),
+                    win_v.reshape(n_layers, w * s, -1), flat_mat.reshape(-1))
+    return kv
 
 
 def prefill_forward_batched(

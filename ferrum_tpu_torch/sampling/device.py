@@ -106,8 +106,14 @@ def sample_step(
 
 def update_counts(counts: torch.Tensor, slot_ids: torch.Tensor,
                   tokens: torch.Tensor) -> torch.Tensor:
-    """counts[slot_ids[i], tokens[i]] += 1, in place (valid slots only)."""
-    counts.index_put_((slot_ids, tokens),
-                      torch.ones_like(tokens, dtype=counts.dtype),
-                      accumulate=True)
+    """counts[slot_ids[i], tokens[i]] += 1, in place. A pair whose slot id
+    is outside [0, S) or whose token is outside [0, V) is dropped (the
+    JAX package's mode="drop": pad lanes carry slot id S, count pads
+    token V), with no host sync: it adds 0 at element 0 instead."""
+    s, v = counts.shape
+    slot_ids = slot_ids.reshape(-1).to(torch.int64)
+    tokens = tokens.reshape(-1).to(torch.int64)
+    keep = (slot_ids >= 0) & (slot_ids < s) & (tokens >= 0) & (tokens < v)
+    idx = torch.where(keep, slot_ids * v + tokens, torch.zeros_like(tokens))
+    counts.view(-1).index_add_(0, idx, keep.to(counts.dtype))
     return counts

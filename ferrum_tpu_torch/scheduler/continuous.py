@@ -1,14 +1,20 @@
 """Continuous-batching scheduler: token budget, chunked prefill, admission.
 
 Port of `ferrum_tpu/scheduler/continuous.py` for the linear KV layout
-and the arrival-order policy. One `next_batch()` per engine iteration:
+and the arrival-order policy. One `next_batch(pinned, inflight_steps)`
+per engine iteration:
   1. every decoding sequence (one budget token each), with its slot
-     region grown to cover the next decode window;
+     region grown to cover the windows still in flight and the next;
   2. the next chunk of every prefilling sequence;
   3. admission of waiting requests while slots and budget remain.
 Chunks are full-size or the whole remainder (the JAX package's rule,
 kept so both engines schedule the same chunks). Linear slots reserve
-their capacity, so KV-pressure preemption never happens here.
+their capacity, so KV-pressure preemption never happens here. The
+JAX package's minimum-progress path (one step past the in-flight
+windows' exact write horizon, `inflight_steps`; `deferred_decodes`,
+`decode_steps`) is ported with the loop that reads it; the linear
+layout never takes it (a region holds max_model_len), the paged
+layout's slice will.
 
 Host-only code; it runs once per iteration.
 """
@@ -17,7 +23,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, List
+from typing import Deque, List, Optional
 
 from ..config import EngineConfig
 from ..kv.block_pool import SlotBlocks
@@ -40,6 +46,12 @@ class ScheduledBatch:
     prefill_chunks: List[PrefillChunk] = field(default_factory=list)
     decode_seqs: List[Sequence] = field(default_factory=list)
     admitted: List[Sequence] = field(default_factory=list)
+    # Decodes whose region could not cover even one step past the
+    # windows in flight: the engine breaks the pipeline chain.
+    deferred_decodes: List[Sequence] = field(default_factory=list)
+    # Set to 1 when some region covers only one more step: the whole
+    # batch's window is clamped to it (minimum progress). None = full.
+    decode_steps: Optional[int] = None
 
     @property
     def is_empty(self) -> bool:
@@ -49,7 +61,15 @@ class ScheduledBatch:
 class ContinuousBatchScheduler:
     def __init__(self, cfg: EngineConfig):
         self.cfg = cfg
-        self.decode_lookahead = max(1, cfg.decode_multi_step)
+        # Positions a decoding sequence may write past its host-visible
+        # length: the windows in flight (up to pipeline_depth of them)
+        # plus the one being scheduled. The JAX package counts
+        # decode_multi_step steps a window; the port counts the longest
+        # window any bucket runs (decode_t_spec), so a bucket with longer
+        # windows never has its last positions' K/V dropped.
+        steps = max(cfg.t_for_bucket(b) for b in cfg.decode_buckets)
+        depth = cfg.pipeline_depth if cfg.pipeline_decode else 0
+        self.decode_lookahead = steps * (1 + depth)
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []     # admission order
         self._free_slots: List[int] = list(range(cfg.num_slots - 1, -1, -1))
@@ -78,19 +98,41 @@ class ContinuousBatchScheduler:
             seq.blocks = None
         seq.phase = Phase.FINISHED
 
-    def _grow(self, seq: Sequence, tokens: int) -> None:
-        seq.blocks.ensure_capacity(min(tokens, self.cfg.max_model_len))
+    def _grow(self, seq: Sequence, tokens: int) -> bool:
+        """Reserve the region `tokens` positions need (at most
+        max_model_len); False if the region cannot hold them."""
+        try:
+            seq.blocks.ensure_capacity(min(tokens, self.cfg.max_model_len))
+        except CapacityError:
+            return False
+        return True
 
-    def next_batch(self) -> ScheduledBatch:
+    def next_batch(self, pinned: frozenset = frozenset(),
+                   inflight_steps: int = -1) -> ScheduledBatch:
+        """`pinned`: request ids riding windows in flight;
+        `inflight_steps`: those windows' steps (their exact write
+        horizon; -1 = unknown, take depth * decode_multi_step)."""
         cfg = self.cfg
         batch = ScheduledBatch()
         budget = cfg.max_num_batched_tokens
 
         # --- 1. decode set ---
         for seq in self.running:
-            if seq.phase != Phase.DECODING or budget <= 0:
+            if seq.phase != Phase.DECODING:
                 continue
-            self._grow(seq, seq.total_tokens + self.decode_lookahead)
+            if budget <= 0:
+                break
+            if not self._grow(seq, seq.total_tokens + self.decode_lookahead):
+                if seq.request.request_id not in pinned:
+                    inflight = 0
+                elif inflight_steps >= 0:
+                    inflight = inflight_steps
+                else:
+                    inflight = cfg.decode_multi_step * cfg.pipeline_depth
+                if not self._grow(seq, seq.total_tokens + inflight + 1):
+                    batch.deferred_decodes.append(seq)
+                    continue
+                batch.decode_steps = 1
             batch.decode_seqs.append(seq)
             budget -= 1
 

@@ -126,3 +126,218 @@ def test_prefill_and_decode_logits_match_jax(monkeypatch, preset_name,
             assert np.mean(err <= 1e-5 * scale) >= 0.99
         else:
             np.testing.assert_allclose(g, w, atol=1e-5 * scale, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# One decode window: T steps of decode_forward's window form, then one
+# append_window_kv, against the JAX package's and the port's per-step form
+# ---------------------------------------------------------------------------
+
+W_SLOTS, W_T, W_CTX = 3, 4, 64
+W_LENS = (20, 32, 16)          # slot 2: a 16-token prefix, then a chunk
+PF_N, PF_P = 10, 8             # the chunk's 10 tokens in 4 blocks of 8
+
+
+def _window_setup(vocab):
+    """Prefill inputs of the three slots; the window's lane rows (lanes
+    0, 1 decode, lane 2 is the prefilling slot's pad lane) and the
+    chunk's rows, as the runner packs them."""
+    rng = np.random.default_rng(11)
+    tokens = np.zeros((W_SLOTS, T_PAD), np.int32)
+    positions = np.full((W_SLOTS, T_PAD), MAX_LEN + W_CTX, np.int32)
+    flat = np.full((W_SLOTS, T_PAD), 1 << 30, np.int32)
+    for s, n in enumerate(W_LENS):
+        tokens[s, :n] = rng.integers(3, vocab, n)
+        positions[s, :n] = np.arange(n)
+        flat[s, :n] = s * MAX_LEN + np.arange(n)
+    tables = (np.arange(W_SLOTS)[:, None] * (MAX_LEN // PAGE)
+              + np.arange(MAX_LEN // PAGE)[None, :]).astype(np.int32)
+    lens = np.asarray(W_LENS, np.int32)
+    pos0 = np.array([W_LENS[0], W_LENS[1], 0], np.int32)
+    cache_len = np.array([W_LENS[0] + 1, W_LENS[1] + 1, 0], np.int32)
+    rows = np.arange(W_T * PF_P)
+    start = W_LENS[2]
+    pf = dict(tokens=np.where(rows < PF_N, rng.integers(3, vocab, rows.size),
+                              0).astype(np.int32),
+              positions=np.where(rows < PF_N, start + rows,
+                                 MAX_LEN + (1 << 16)).astype(np.int32),
+              flat=np.where(rows < PF_N, 2 * MAX_LEN + start + rows,
+                            1 << 30).astype(np.int32))
+    lane_flat = np.stack([np.where(cache_len > 0,
+                                   np.arange(W_SLOTS) * MAX_LEN + pos0 + t,
+                                   1 << 30) for t in range(W_T)]
+                         ).astype(np.int32)                       # [T, S]
+    return (tokens, positions, flat, tables, lens, pos0, cache_len, pf,
+            lane_flat)
+
+
+def _jax_window(cfg, params, setup, with_pf):
+    import jax.numpy as jnp
+
+    from ferrum_tpu.models.llama_family import (
+        PagedKvCache, append_window_kv, decode_forward, logits_from_hidden,
+        prefill_forward_batched)
+
+    (tokens, positions, flat, tables, lens, pos0, cache_len, pf,
+     lane_flat) = setup
+    kv = PagedKvCache.create(cfg, W_SLOTS * MAX_LEN // PAGE, PAGE,
+                             dtype=jnp.float32)
+    h, kv = prefill_forward_batched(
+        params, cfg, kv, tokens, positions, tables, lens, flat,
+        ctx_pad=W_CTX, attn_impl="linear", append="pages")
+    kv0 = (np.asarray(kv.k), np.asarray(kv.v))
+    lg = np.asarray(logits_from_hidden(params, cfg, h.reshape(-1,
+                                                              h.shape[-1])))
+    last = lg.reshape(W_SLOTS, T_PAD, -1)[np.arange(W_SLOTS), lens - 1]
+    tok = np.where(cache_len > 0, last.argmax(-1), 0).astype(np.int32)
+    f = kv.kv_heads * kv.head_dim
+    L = cfg.num_layers
+    win = {"k": jnp.zeros((L, W_T, W_SLOTS, kv.kv_heads, kv.head_dim)),
+           "cache_len": jnp.asarray(cache_len)}
+    win["v"] = jnp.zeros_like(win["k"])
+    if with_pf:
+        win["pk"] = jnp.zeros((L, W_T, PF_P, kv.kv_heads, kv.head_dim))
+        win["pv"] = jnp.zeros_like(win["pk"])
+        ctx = [(kv.k[li].reshape(W_SLOTS, -1, f)[2, :W_CTX],
+                kv.v[li].reshape(W_SLOTS, -1, f)[2, :W_CTX])
+               for li in range(L)]
+    fed, hs = [], []
+    for step in range(W_T):
+        fed.append(tok)
+        win["step"] = jnp.int32(step)
+        win["valid"] = jnp.broadcast_to(jnp.arange(W_T)[None] < step,
+                                        (W_SLOTS, W_T))
+        toks_in, pos_in = tok, pos0 + step
+        if with_pf:
+            blk = slice(step * PF_P, (step + 1) * PF_P)
+            win["pf"] = {"chunk_start": jnp.int32(W_LENS[2]),
+                         "valid_len": jnp.int32(PF_N),
+                         "positions": jnp.asarray(pf["positions"][blk]),
+                         "k_ctx": [c[0] for c in ctx],
+                         "v_ctx": [c[1] for c in ctx]}
+            toks_in = np.concatenate([tok, pf["tokens"][blk]])
+            pos_in = np.concatenate([pos_in, pf["positions"][blk]])
+        h, win = decode_forward(params, cfg, kv, jnp.asarray(toks_in),
+                                jnp.asarray(pos_in), tables,
+                                jnp.asarray(cache_len + step), None,
+                                ctx_pad=W_CTX, attn_impl="linear", win=win)
+        hs.append(np.asarray(h))
+        lg = np.asarray(logits_from_hidden(params, cfg, h[:W_SLOTS]))
+        tok = np.where(cache_len > 0, lg.argmax(-1), 0).astype(np.int32)
+    wk, wv, fm = win["k"], win["v"], lane_flat
+    if with_pf:
+        wk = jnp.concatenate([wk, win["pk"]], axis=2)
+        wv = jnp.concatenate([wv, win["pv"]], axis=2)
+        fm = np.concatenate([lane_flat, pf["flat"].reshape(W_T, PF_P)], 1)
+    kv = append_window_kv(kv, wk, wv, jnp.asarray(fm))
+    return kv0, fed, hs, (np.asarray(kv.k), np.asarray(kv.v))
+
+
+def _torch_window(cfg, params, setup, kv0, fed, with_pf, per_step=False):
+    from ferrum_tpu_torch.models import llama_family as lf
+
+    (_, _, _, tables, _, pos0, cache_len, pf, lane_flat) = setup
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(torch.int64)  # noqa
+    kv = lf.PagedKvCache(k=torch.from_numpy(kv0[0].copy()),
+                         v=torch.from_numpy(kv0[1].copy()), page=PAGE,
+                         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim)
+    hs = []
+    if per_step:
+        for step, tok in enumerate(fed):
+            h, kv = lf.decode_forward(
+                params, cfg, kv, t(tok), t(pos0 + step), t(tables),
+                t(cache_len + step), t(lane_flat[step]), ctx_pad=W_CTX)
+            hs.append(h.numpy())
+        return hs, (kv.k.numpy(), kv.v.numpy())
+    L, f = cfg.num_layers, kv.kv_heads * kv.head_dim
+    win = {"k": torch.zeros(L, W_T, W_SLOTS, kv.kv_heads, kv.head_dim),
+           "cache_len": t(cache_len)}
+    win["v"] = torch.zeros_like(win["k"])
+    if with_pf:
+        win["pk"] = torch.zeros(L, W_T, PF_P, kv.kv_heads, kv.head_dim)
+        win["pv"] = torch.zeros_like(win["pk"])
+        win["pf"] = {"chunk_start": W_LENS[2], "valid_len": PF_N,
+                     "k_ctx": [kv.k[li].view(W_SLOTS, -1, f)[2, :W_CTX]
+                               for li in range(L)],
+                     "v_ctx": [kv.v[li].view(W_SLOTS, -1, f)[2, :W_CTX]
+                               for li in range(L)]}
+    for step, tok in enumerate(fed):
+        win["step"] = step
+        win["valid"] = (torch.arange(W_T)[None] < step).expand(W_SLOTS, W_T)
+        toks_in, pos_in = t(tok), t(pos0 + step)
+        if with_pf:
+            blk = slice(step * PF_P, (step + 1) * PF_P)
+            win["pf"]["positions"] = t(pf["positions"][blk])
+            toks_in = torch.cat([toks_in, t(pf["tokens"][blk])])
+            pos_in = torch.cat([pos_in, t(pf["positions"][blk])])
+        h, win = lf.decode_forward(params, cfg, kv, toks_in, pos_in,
+                                   t(tables), t(cache_len + step), None,
+                                   ctx_pad=W_CTX, win=win)
+        hs.append(h.numpy())
+    wk, wv, fm = win["k"], win["v"], t(lane_flat)
+    if with_pf:
+        wk = torch.cat([wk, win["pk"]], dim=2)
+        wv = torch.cat([wv, win["pv"]], dim=2)
+        fm = torch.cat([fm, t(pf["flat"].reshape(W_T, PF_P))], dim=1)
+    lf.append_window_kv(kv, wk, wv, fm)
+    return hs, (kv.k.numpy(), kv.v.numpy())
+
+
+def _close(got, want, share):
+    """Every value within 5e-2 of the scale, and `share` of them within
+    1e-5 of it (a flipped int8 activation rounding moves one row by up to
+    ~2e-2 of the scale; share 1.0: all within 1e-5)."""
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert err.max() <= (5e-2 if share < 1 else 1e-5) * scale, \
+        err.max() / scale
+    assert np.mean(err <= 1e-5 * scale) >= share, \
+        np.mean(err <= 1e-5 * scale)
+
+
+# Tolerances, f32. tiny-test (dense): everything within 1e-5 of the scale
+# (the same math in other summation orders). tiny-quant: the lanes' rows
+# 99% within 1e-5 of the scale and every value within 5e-2; the chunk's
+# rows, and its slot's cache rows, within 5e-2 only: one flipped int8
+# activation rounding in one chunk row (measured: 1 row of 10 at one
+# layer, 1.5e-2 of the scale) reaches every later chunk row through
+# attention.
+@pytest.mark.parametrize("preset_name,quantized,with_pf", [
+    ("tiny-quant", True, False), ("tiny-quant", True, True),
+    ("tiny-test", False, True)])
+def test_decode_window_matches_jax_and_per_step_form(monkeypatch,
+                                                     preset_name, quantized,
+                                                     with_pf):
+    """One window of 4 steps (f32, linear layout, 3 slots): lanes 0 and 1
+    decode, lane 2 is a pad lane whose slot prefills a 10-token chunk in
+    blocks of 8 rows riding the steps (with_pf). Each step's hidden
+    states (the chunk's real rows, not its pads) and the cache after
+    append_window_kv equal the JAX package's window; the lanes' hidden
+    states and their cache rows also equal 4 steps of the port's
+    per-step form (which takes no chunk)."""
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+
+    route_w4a8tl(monkeypatch)
+    jcfg, jparams = jax_model(preset_name, quantized)
+    cfg = torch_config(jcfg)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    setup = _window_setup(cfg.vocab_size)
+    kv0, fed, want_h, want_kv = _jax_window(jcfg, jparams, setup, with_pf)
+    got_h, got_kv = _torch_window(cfg, params, setup, kv0, fed, with_pf)
+    share = 0.99 if quantized else 1.0
+    for step, (g, w) in enumerate(zip(got_h, want_h)):
+        _close(g[:W_SLOTS], w[:W_SLOTS], share)
+        real = step * PF_P + np.arange(len(g) - W_SLOTS) < PF_N
+        if real.any():
+            _close(g[W_SLOTS:][real], w[W_SLOTS:][real],
+                   0.0 if quantized else 1.0)
+    lanes = np.arange(W_SLOTS * MAX_LEN // PAGE) < 2 * MAX_LEN // PAGE
+    for g, w in zip(got_kv, want_kv):
+        _close(g[:, lanes], w[:, lanes], share)
+        _close(g[:, ~lanes], w[:, ~lanes], 0.0 if quantized else 1.0)
+    ref_h, ref_kv = _torch_window(cfg, params, setup, kv0, fed, False,
+                                  per_step=True)
+    for g, r in zip(got_h, ref_h):
+        _close(g[:2], r[:2], share)
+    for g, r in zip(got_kv, ref_kv):
+        _close(g[:, lanes], r[:, lanes], share)

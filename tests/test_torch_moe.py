@@ -932,11 +932,14 @@ def test_moe_prefill_and_decode_logits_match_jax(monkeypatch):
 # 7. the engine: greedy streams equal the JAX engine's
 # ---------------------------------------------------------------------------
 
-def test_moe_greedy_streams_match_jax_engine(monkeypatch):
-    """3 concurrent greedy requests through both engines on the MoE model
-    (4 decode slots: 4 * k = 8 = E, so decode takes the all-experts
-    route; prefill the sort route). Near-ties fail loudly first, as in
-    tests/test_torch_engine.py."""
+@pytest.mark.parametrize("loop", ["unpipelined-c3", "pipelined-c1",
+                                  "pipelined-c4"])
+def test_moe_greedy_streams_match_jax_engine(monkeypatch, loop):
+    """Concurrent greedy requests through both engines on the MoE model,
+    in each loop of tests/test_torch_engine.py (4 decode slots: at the
+    full frame 4 * k = 8 = E, so decode takes the all-experts route; a
+    1- or 2-lane window, and prefill, the sort route). Near-ties fail
+    loudly first, as there."""
     import test_torch_engine as te
     from ferrum_tpu_torch.models.convert import params_from_numpy
 
@@ -944,14 +947,4 @@ def test_moe_greedy_streams_match_jax_engine(monkeypatch):
     jcfg, jparams = _jax_moe_model(seed=4)
     cfg = torch_config(jcfg)
     params = params_from_numpy(flatten_jax_params(jparams), "cpu")
-    got, streamed = te._torch_streams(cfg, params)
-    assert streamed == got
-    for prompt, out in zip(te.PROMPTS, got):
-        assert len(out) == te.MAX_TOKENS
-        argmax, margins = te._margins(cfg, params, prompt, out)
-        assert argmax == out, "engine tokens differ from the model's argmax"
-        assert min(margins) > te.MARGIN, (
-            f"near-tie (margin {min(margins):.2e} of the logit scale): "
-            f"pick another seed, the comparison would be a coin flip")
-    want = te._jax_streams(jcfg, jparams)
-    assert got == want
+    te.check_streams(cfg, params, jcfg, jparams, loop)

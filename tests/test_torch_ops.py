@@ -114,6 +114,89 @@ def test_flat_prefill_attention_matches_jax():
     np.testing.assert_allclose(one.numpy(), got.numpy()[0], **TOL)
 
 
+# Window attention: T steps of a decode window over S lanes, the cache
+# frozen at each lane's cache_len; the window's own K/V rows of the steps
+# before `step` join as extra terms.
+WIN_T, WIN_S, WIN_C = 4, 3, 32
+
+
+def _win_inputs(seed):
+    rng = np.random.default_rng(seed)
+    s, c, t = WIN_S, WIN_C, WIN_T
+    f32 = lambda *sh: rng.normal(0, 1, sh).astype(np.float32)  # noqa
+    return dict(q=f32(s, HQ, D), k=f32(s, c, F), v=f32(s, c, F),
+                ks=f32(s, HKV, D), vs=f32(s, HKV, D),
+                kw=f32(t, s, HKV, D), vw=f32(t, s, HKV, D),
+                # lane 0: 1 cached token (no history); lane 2: pad lane
+                # (cache_len 0: the self term and the window only).
+                cache_len=np.array([1, 20, 0], np.int32))
+
+
+@pytest.mark.parametrize("step", [0, WIN_T - 1])
+def test_flat_decode_attention_window_terms_match_jax(step):
+    """flat_decode_attention with k_win/v_win/win_valid/cache_len equals
+    the JAX function at the window's first and last step (f32, 1e-5)."""
+    from ferrum_tpu.ops.attention import flat_decode_attention as jfn
+    from ferrum_tpu_torch.ops.attention import flat_decode_attention as tfn
+    a = _win_inputs(5 + step)
+    lens = a["cache_len"] + step
+    valid = np.broadcast_to(np.arange(WIN_T)[None] < step, (WIN_S, WIN_T))
+    want = jfn(a["q"], a["k"], a["v"], lens, a["ks"], a["vs"], hkv=HKV,
+               scale=0.25, k_win=a["kw"], v_win=a["vw"],
+               win_valid=jnp.asarray(valid), cache_len=a["cache_len"])
+    got = tfn(_t(a["q"]), _t(a["k"]), _t(a["v"]), _t(lens), _t(a["ks"]),
+              _t(a["vs"]), hkv=HKV, scale=0.25, k_win=_t(a["kw"]),
+              v_win=_t(a["vw"]), win_valid=_t(valid),
+              cache_len=_t(a["cache_len"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("step,valid_len", [(0, 10), (WIN_T - 1, 10),
+                                            (WIN_T - 1, WIN_T * 8)])
+def test_flat_prefill_window_attention_matches_jax(step, valid_len):
+    """A P-row block of one slot's chunk riding a decode window: the slot's
+    cached prefix (5 tokens), the chunk's blocks of earlier steps and
+    itself, causally. valid_len 10 < T*P leaves pad rows (the last
+    steps' blocks are all pads); every row is compared, pads included
+    (f32, 1e-5)."""
+    from ferrum_tpu.ops.attention import flat_prefill_window_attention as jfn
+    from ferrum_tpu_torch.ops.attention import (
+        flat_prefill_window_attention as tfn)
+    rng = np.random.default_rng(7 + step)
+    p, c, start = 8, 16, 5
+    f32 = lambda *sh: rng.normal(0, 1, sh).astype(np.float32)  # noqa
+    q, kc, vc = f32(p, HQ, D), f32(c, F), f32(c, F)
+    wk, wv = f32(WIN_T, p, HKV, D), f32(WIN_T, p, HKV, D)
+    kn, vn = f32(p, HKV, D), f32(p, HKV, D)
+    rows = step * p + np.arange(p)
+    pos = np.where(rows < valid_len, start + rows,
+                   (1 << 16) + rows).astype(np.int32)
+    want = jfn(q, kc, vc, jnp.int32(start), wk, wv, jnp.int32(step),
+               jnp.int32(start), jnp.int32(valid_len), kn, vn, pos,
+               hkv=HKV, scale=0.25)
+    got = tfn(_t(q), _t(kc), _t(vc), start, _t(wk), _t(wv), step, start,
+              valid_len, _t(kn), _t(vn), _t(pos), hkv=HKV, scale=0.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("slots,toks", [
+    ([0, 4], [1, 2]),            # slot 4 of 4: a pad id, dropped
+    ([2, 4, 4, 1], [3, 5, 6, 8]),  # pad lanes at s_pad = 4, token 8 = V
+    ([3, 3, 0], [7, 7, 0]),      # repeats accumulate
+])
+def test_update_counts_drops_pad_ids_as_jax(slots, toks):
+    """update_counts on counts int32 [4, 8]: ids outside [0, S) (pad
+    lanes at s_pad) and tokens outside [0, V) (count pads) are dropped,
+    as the JAX function's mode="drop"; exact."""
+    from ferrum_tpu.sampling.device import update_counts as jfn
+    from ferrum_tpu_torch.sampling.device import update_counts as tfn
+    base = np.random.default_rng(9).integers(0, 3, (4, 8)).astype(np.int32)
+    sl, tk = np.array(slots, np.int32), np.array(toks, np.int32)
+    want = np.asarray(jfn(jnp.asarray(base), sl, tk))
+    got = tfn(_t(base), _t(sl).long(), _t(tk).long())
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def _bf16(a):
     """numpy f32 → the same values rounded to bf16, as (numpy f32, torch
     bf16) so both packages see identical bf16 inputs."""
