@@ -49,8 +49,9 @@ Phases, in order, each printing JSON lines:
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
-Then, for each of five lanes at full width and depth (lane D at 12 of
-its 48 layers, for the run's time: see LANES) -- A llama-3.1-8b
+Then, for each of five lanes at full width and depth (lanes B and D at
+24 and 12 of their 48 layers, for the run's time: see LANES) -- A
+llama-3.1-8b
 and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
 serve_moe, logits_moe), C llama-3.1-8b float-scale w4a8
 (EngineConfig(w4a8_two_level=False); serve_fs, logits_fs, profile_fs),
@@ -94,6 +95,27 @@ time):
   profile    (A, C, D) torch.profiler over 32 concurrent 256/32
              requests on the same engine: device time by kernel, device
              busy share
+  bench      (A) bench/bench_engine.py's run_bench on the same engine:
+             cells c = 1 / 4 / 32 with 2 / 8 / 32 requests of 256/128,
+             three repeats each (a warm-up before each cell's first);
+             every cell and repeat completes its requests without error,
+             meets no program key for the first time (the runner's
+             compile audit), runs decode steps, and its decode dispatch,
+             decode sync and prefill times are >= 0 and sum to no more
+             than its wall time; each cell carries its stats over the
+             repeats; kernels 1-4 launch during the cells, no other
+  profile_sink (A) utils/profile.py's sink at detail debug, sample rate
+             1.0, with a memory sink, over one extra cell (32 x 256/32):
+             every line schema 2 with a known kind and status, one
+             window.dispatch per window dispatched, one engine.compile
+             per key the audit counted, an engine.memory line with the
+             card's bytes in use; tools/analyze_profile.py reads the file
+  cli        `python -m ferrum_tpu_torch bench random:llama-3.1-8b` (dense
+             bf16, the JAX CLI's random: weights, 4 x 256/32) in its own
+             process, started when lane A's phases end and drawing its
+             weights on the host while lanes B-E run: exit code 0, 4
+             requests completed without error, jax never imported; the
+             weight draws' and the process's seconds
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
@@ -147,7 +169,8 @@ SERVE_GROUPED_W4A16_A = 16384
 # the depths it is also measured at (None = the model's depth).
 # `profile`: whether the lane's profile phase runs (B's and E's are left
 # out to keep the run inside its time). `small`: the lane also serves 1
-# and 4 requests. `sync_check`: its 32-request serve dispatches under
+# and 4 requests. `bench`: the lane's engine runs the bench,
+# profile_sink and cli phases. `sync_check`: its 32-request serve dispatches under
 # the no-sync check. `window_check`: the window form is checked against
 # the per-step form at its width. `solo_as`: the lane whose
 # solo request's tokens this lane's must equal. `layers`: a depth cut
@@ -160,7 +183,7 @@ LANES = (
          mode={}, float_scale=False, path=LLAMA_PATH,
          lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="", profile=True, small=True, sync_check=True,
-         window_check=True),
+         window_check=True, bench=True),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
          mode={}, float_scale=False, path=MOE_PATH,
@@ -2141,6 +2164,309 @@ def profile_phase(torch, mc, engine, tag, output_len=32):
 
 
 # ---------------------------------------------------------------------------
+# bench, profile sink, cli (the measuring modules)
+# ---------------------------------------------------------------------------
+
+# bench's cells on lane A's engine: concurrency -> requests, each at
+# BENCH_REPEATS repeats, 256/128 (bench.py's cell shape).
+BENCH_CELLS = {1: 2, 4: 8, 32: 32}
+BENCH_REPEATS = 3
+# The phase times are rounded to the millisecond in the report.
+ROUND_S = 1.5e-3
+
+
+def bench_phase(torch, engine):
+    """bench/bench_engine.py's `run_bench` on lane A's engine (no new
+    engine): every cell and repeat completes its requests without error,
+    meets no program key for the first time (the runner's compile audit;
+    the warm-up before each cell's first repeat), runs decode steps, and
+    its three phase times are >= 0 and sum to no more than its wall
+    time; the last cell carries its stats over the repeats. Kernels 1-4
+    must launch during the cells and no other kernel, and the engine's
+    metrics count every request of the phase (warm-ups too) completed
+    with its OUTPUT_LEN tokens. One line per cell."""
+    import dataclasses
+
+    from ferrum_tpu_torch.bench import bench_engine as be
+    from ferrum_tpu_torch.ops import kernels as K
+
+    reps, warm = [], []
+    run_cell = be.run_cell
+    runner = engine.runner
+    siblings = runner.warm_prefill_siblings
+
+    def recorded(*args, **kw):
+        t = time.perf_counter()
+        reps.append(run_cell(*args, **kw))
+        # The call's seconds outside the cell: the warm-up wave and the
+        # sibling warm-up (first repeat only), request set-up.
+        reps[-1] = dict(reps[-1], call_s=time.perf_counter() - t)
+        return reps[-1]
+
+    def timed_siblings():
+        t = time.perf_counter()
+        keys = siblings()
+        warm.append({"siblings_s": time.perf_counter() - t,
+                     "sibling_keys": keys})
+        return keys
+
+    be.run_cell = recorded
+    runner.warm_prefill_siblings = timed_siblings
+    K.reset_launch_counts()
+    m0 = dataclasses.replace(engine.metrics_snapshot())
+    t0 = time.perf_counter()
+    try:
+        report = be.run_bench(
+            engine, concurrencies=tuple(BENCH_CELLS),
+            num_requests_per_cell=BENCH_CELLS, input_len=PROMPT_LEN,
+            output_len=OUTPUT_LEN, model_label="random-int4 llama-3.1-8b",
+            n_repeats=BENCH_REPEATS)
+    finally:
+        be.run_cell = run_cell
+        del runner.warm_prefill_siblings
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(K)
+    m1 = engine.metrics_snapshot()
+    # run_cell's warm-up wave: max(concurrency, 2) requests, first
+    # repeat only.
+    n_req = sum(max(c, 2) + BENCH_REPEATS * n for c, n in BENCH_CELLS.items())
+    done = m1.requests_completed - m0.requests_completed
+    decoded = m1.tokens_decoded - m0.tokens_decoded
+    if done != n_req or decoded != n_req * (OUTPUT_LEN - 1):
+        raise AssertionError(f"bench: {done} of {n_req} requests, {decoded} "
+                             f"decode tokens")
+    lane = LANES[0]
+    idle = [k for k in lane["path"] if launches[k] == 0]
+    stray = [k for k in off_path(lane) if launches[k] != 0]
+    if idle or stray:
+        raise AssertionError(f"bench: never launched {idle}, launched "
+                             f"{stray}")
+    if report["schema"] != "ferrum-tpu-bench/v1" \
+            or len(reps) != len(BENCH_CELLS) * BENCH_REPEATS:
+        raise AssertionError("bench: report schema or repeat count")
+    smi = smi_line()
+    for i, (conc, cell) in enumerate(zip(BENCH_CELLS, report["cells"])):
+        mine = reps[i * BENCH_REPEATS:(i + 1) * BENCH_REPEATS]
+        for r in mine:
+            pt = r["phase_times"]
+            parts = (pt["decode_dispatch_s"], pt["decode_sync_s"],
+                     pt["prefill_s"])
+            if r["completed"] != r["requested"] or r["errors"]:
+                raise AssertionError(f"bench c={conc}: {r['completed']} of "
+                                     f"{r['requested']}, errors "
+                                     f"{r['error_samples']}")
+            if r["compilations_during_cell"]:
+                raise AssertionError(f"bench c={conc}: keys first met in the "
+                                     f"cell: {r['compiled_in_cell']}")
+            if pt["decode_steps"] <= 0 or min(parts) < 0 \
+                    or sum(parts) > r["wall_s"] + ROUND_S:
+                raise AssertionError(f"bench c={conc}: phase times {pt}, "
+                                     f"wall {r['wall_s']}")
+        stats = cell.get("output_tok_s_stats")
+        if stats is None or stats["n"] != BENCH_REPEATS:
+            raise AssertionError(f"bench c={conc}: stats {stats}")
+        first = mine[0]
+        emit({"phase": "bench", "lane": lane["name"], "concurrency": conc,
+              "requests": cell["requested"], "prompt_len": PROMPT_LEN,
+              "output_len": OUTPUT_LEN, "repeats": BENCH_REPEATS,
+              # Before the first repeat: the warm-up wave (max(c, 2)
+              # requests) and the no-op sibling dispatches.
+              "warmup_s": first["call_s"] - first["wall_s"],
+              **warm[i],
+              **{k: cell[k] for k in cell if k.endswith("_stats")},
+              "per_repeat": [{
+                  "wall_s": r["wall_s"], "output_tok_s": r["output_tok_s"],
+                  "ttft_p50_ms": r["ttft_p50_ms"],
+                  "tpot_p50_ms": r["tpot_p50_ms"],
+                  "itl_p95_ms": r["itl_p95_ms"],
+                  "compilations_during_cell": r["compilations_during_cell"],
+                  "phase_times": r["phase_times"],
+                  "phase_shares": {
+                      k: r["phase_times"][k] / r["wall_s"]
+                      for k in ("decode_dispatch_s", "decode_sync_s",
+                                "prefill_s")}} for r in mine],
+              "env_hash": report["env_hash"], "card": smi})
+    emit({"phase": "bench_done", "wall_s": wall, "launches": launches,
+          "requests_completed": done, "tokens_decoded": decoded,
+          "compilations": engine.runner.compilations, "card": smi})
+
+
+def profile_sink_phase(torch, engine):
+    """The profile sink (utils/profile.py) at detail debug and sample rate
+    1.0, with a memory sink, over one short extra cell on lane A (c = 32,
+    32 requests, 256/32; after the timed cells, so its spans cost them
+    nothing): every line schema 2 with a known kind and status, one
+    window.dispatch per window the runner dispatched, one engine.compile
+    per key the runner's audit counted, an engine.memory line from an
+    emit_memory() with the card's bytes in use, and
+    tools/analyze_profile.py's load / analyze / render accept the file."""
+    import os
+
+    from ferrum_tpu_torch.bench.bench_engine import run_cell
+    from ferrum_tpu_torch.utils import profile as prof
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import analyze_profile
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    path, mem = "chiprun_out/profile.jsonl", "chiprun_out/memory.jsonl"
+    for f in (path, mem):
+        if os.path.exists(f):
+            os.remove(f)
+    runner = engine.runner
+    windows0 = sum(runner.windows_by_bucket.values())
+    comp0 = runner.compilations
+    sink = prof.configure_global_profile(path, entrypoint="synthetic",
+                                         sample_rate=1.0, detail="debug",
+                                         memory_path=mem)
+    try:
+        cell = run_cell(engine, concurrency=SERVE_REQUESTS,
+                        num_requests=SERVE_REQUESTS, input_len=PROMPT_LEN,
+                        output_len=32, seed=7, warmup=0)
+        torch.cuda.synchronize()
+        prof.emit_memory({"phase": "profile_sink"})
+    finally:
+        counters = (sink.events_emitted, sink.events_sampled_out,
+                    sink.events_detail_gated)
+        prof.configure_global_profile(None)
+    windows = sum(runner.windows_by_bucket.values()) - windows0
+    compiled = runner.compilations - comp0
+    events = [json.loads(x) for x in open(path) if x.strip()]
+    bad = [e for e in events if e["schema"] != prof.SCHEMA_VERSION
+           or e["kind"] not in prof.KINDS or e["status"] not in prof.STATUSES]
+    if bad:
+        raise AssertionError(f"profile_sink: malformed lines {bad[:3]}")
+    by = {}
+    for e in events:
+        by[e["event"]] = by.get(e["event"], 0) + 1
+    if by.get("window.dispatch", 0) != windows or windows == 0:
+        raise AssertionError(f"profile_sink: {by.get('window.dispatch')} "
+                             f"window.dispatch lines, {windows} windows")
+    if by.get("engine.compile", 0) != compiled:
+        raise AssertionError(f"profile_sink: {by.get('engine.compile')} "
+                             f"engine.compile lines, {compiled} keys")
+    mem_lines = [json.loads(x) for x in open(mem) if x.strip()]
+    last = mem_lines[-1] if mem_lines else {}
+    if last.get("event") != "engine.memory" \
+            or last["attrs"].get("device_bytes_in_use", 0) <= 0:
+        raise AssertionError(f"profile_sink: memory sink {mem_lines[-2:]}")
+    report = analyze_profile.analyze(analyze_profile.load(path))
+    text = analyze_profile.render(report)
+    if cell["completed"] != SERVE_REQUESTS or not text:
+        raise AssertionError("profile_sink: cell or analyzer")
+    emit({"phase": "profile_sink", "requests": SERVE_REQUESTS,
+          "prompt_len": PROMPT_LEN, "output_len": 32, "lines": len(events),
+          "by_event": by, "windows": windows, "compilations": compiled,
+          "sink_counters": counters, "memory_lines": len(mem_lines),
+          "device_bytes_in_use": last["attrs"]["device_bytes_in_use"],
+          "wall_s": cell["wall_s"], "output_tok_s": cell["output_tok_s"],
+          "analyzer_keys": sorted(report),
+          "card": smi_line()})
+
+
+# The cli phase: the port's CLI on the card in its own process, dense
+# bf16 random:llama-3.1-8b (the JAX CLI's random: source).
+CLI_ARGS = ("bench", "random:llama-3.1-8b", "--concurrency", "4",
+            "--num-requests", "4", "--input-len", "256", "--output-len",
+            "32", "--max-model-len", "1024", "--max-num-seqs", "4",
+            "--output", "chiprun_out/cli_bench.json")
+# Runs `python -m ferrum_tpu_torch ...` through runpy, times the weight
+# draws (init_random_params) and fails if jax was ever imported. Its
+# bench waits for a line on stdin (after the engine is built), so the
+# card runs it alone once the lanes are done.
+CLI_PRELUDE = """
+import json, runpy, sys, time
+T0 = time.perf_counter()
+import ferrum_tpu_torch.bench.bench_engine as be
+import ferrum_tpu_torch.models.llama_family as lf
+run_bench = be.run_bench
+def gated(*a, **kw):
+    ready = time.perf_counter()
+    sys.stdin.readline()
+    print(json.dumps({"ready_after_s": ready - T0,
+                      "gate_wait_s": time.perf_counter() - ready}),
+          file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    out = run_bench(*a, **kw)
+    print(json.dumps({"run_bench_s": time.perf_counter() - t0}),
+          file=sys.stderr, flush=True)
+    return out
+be.run_bench = gated
+init = lf.init_random_params
+def timed(*a, **kw):
+    t0 = time.perf_counter()
+    out = init(*a, **kw)
+    print(json.dumps({"init_random_params_s": time.perf_counter() - t0}),
+          file=sys.stderr, flush=True)
+    return out
+lf.init_random_params = timed
+sys.argv = ["ferrum_tpu_torch", *ARGS]
+t0 = time.perf_counter()
+try:
+    runpy.run_module("ferrum_tpu_torch", run_name="__main__")
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"cli_s": time.perf_counter() - t0}), file=sys.stderr)
+assert "jax" not in sys.modules, "the port imported jax"
+sys.exit(rc)
+"""
+
+
+def cli_start():
+    """Start the cli phase's process (it draws its weights on the host
+    while later phases run; see main)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    code = CLI_PRELUDE.replace("ARGS", repr(list(CLI_ARGS)))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", code], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+
+
+def cli_finish(started, timeout_s=600):
+    """Let the cli phase's process run its bench (the lanes are done)
+    and wait for it: exit code 0, its report's one cell completed 4
+    requests with no error, and no jax imported."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(input="go\n", timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: exit {proc.returncode}\n{err[-3000:]}")
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out", "cli_bench.json")) as f:
+        report = json.load(f)
+    cell = report["cells"][0]
+    if cell["completed"] != 4 or cell["errors"] != 0:
+        raise AssertionError(f"cli: {cell['completed']} completed, "
+                             f"{cell['error_samples']}")
+    timing = {}
+    for line in err.splitlines():
+        if line.startswith("{"):
+            timing.update(json.loads(line))
+    emit({"phase": "cli", "command": "python -m ferrum_tpu_torch "
+          + " ".join(CLI_ARGS), "rc": proc.returncode, "no_jax": True,
+          "schema": report["schema"], "completed": cell["completed"],
+          "errors": cell["errors"], "output_tok_s": cell["output_tok_s"],
+          "ttft_p50_ms": cell["ttft_p50_ms"],
+          "tpot_p50_ms": cell["tpot_p50_ms"],
+          "compilations_during_cell": cell["compilations_during_cell"],
+          "phase_times": cell["phase_times"], **timing,
+          "started_t_s": t0 - T0,
+          "process_wall_s": time.perf_counter() - t0, "card": smi_line()})
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2188,27 +2514,42 @@ def main() -> int:
 
     # Each served path: its kernels' counts from 0 over its serve run.
     by_path, solos = {}, {}
-    for lane in LANES:
-        by_run, mc, engine, solos[lane["name"]] = serve_phase(
-            torch, lane, solos.get(lane.get("solo_as")))
-        by_path.update(by_run)
-        if lane.get("window_check"):
-            window_check(torch, mc, engine)
-        routes = logits_phase(torch, mc, engine, lane)
-        # A 1-lane MoE decode step takes the sort route: 8 rows through
-        # moe_grouped's decode-sized loop.
-        missed = [k for k in lane["path"]
-                  + ((GROUPED_DECODE,) if "moe_grouped" in lane["path"]
-                     else ()) if routes[k] == 0]
-        stray = [k for k in off_path(lane) if routes[k] != 0]
-        if missed or stray:
-            raise AssertionError(f"{lane['name']} logits run: never "
-                                 f"launched {missed}, launched {stray}")
-        if lane["profile"]:
-            profile_phase(torch, mc, engine, lane["tag"])
-        engine.stop()
-        del engine, mc
-        torch.cuda.empty_cache()
+    cli = None
+    try:
+        for lane in LANES:
+            by_run, mc, engine, solos[lane["name"]] = serve_phase(
+                torch, lane, solos.get(lane.get("solo_as")))
+            by_path.update(by_run)
+            if lane.get("window_check"):
+                window_check(torch, mc, engine)
+            routes = logits_phase(torch, mc, engine, lane)
+            # A 1-lane MoE decode step takes the sort route: 8 rows
+            # through moe_grouped's decode-sized loop.
+            missed = [k for k in lane["path"]
+                      + ((GROUPED_DECODE,) if "moe_grouped" in lane["path"]
+                         else ()) if routes[k] == 0]
+            stray = [k for k in off_path(lane) if routes[k] != 0]
+            if missed or stray:
+                raise AssertionError(f"{lane['name']} logits run: never "
+                                     f"launched {missed}, launched {stray}")
+            if lane["profile"]:
+                profile_phase(torch, mc, engine, lane["tag"])
+            if lane.get("bench"):
+                bench_phase(torch, engine)
+                profile_sink_phase(torch, engine)
+            engine.stop()
+            del engine, mc
+            torch.cuda.empty_cache()
+            if lane.get("bench"):
+                # The cli process draws its 8B weights on the host while
+                # the next lanes run (the card holds them); its bench
+                # runs after the last lane (cli_finish).
+                cli = cli_start()
+        cli_finish(cli)
+    finally:
+        if cli is not None and cli[1].poll() is None:
+            cli[1].kill()
+            cli[1].communicate()
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

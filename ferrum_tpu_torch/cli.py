@@ -1,0 +1,213 @@
+"""`python -m ferrum_tpu_torch`: the port's CLI (bench / replay / list).
+
+Port of `ferrum_tpu/cli.py`'s engine flags and its `bench`, `replay`
+and `list` subcommands; `run`, `serve`, `bench-serve`, `embed`,
+`transcribe`, `tts`, `pull`, `stop` and `route` wait for their modules
+(ROADMAP Queue 1). Every JAX engine flag is accepted, and one whose
+feature the port does not have yet (`--kv-layout paged`, `--tp 2`,
+`--spec-draft`, `--quantization gguf_q4k`, `--enable-prefix-cache`,
+...) raises InvalidRequestError, as `EngineConfig.resolve` does for a
+FERRUM_* variable or a ferrum.toml key; `main` turns it into exit code 1
+and `error: ...` on stderr. `--device` (default: the CUDA card) picks
+the device; `--device cpu` runs the plain PyTorch versions.
+
+Usage: python -m ferrum_tpu_torch bench random:llama-3.1-8b [...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Any, Dict
+
+from .config import EngineConfig
+from .types import FerrumError
+
+
+def _add_engine_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("model", help="random:<preset> (checkpoint loaders "
+                                 "are not yet ported)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default: the CUDA card) or cpu")
+    p.add_argument("--max-num-seqs", type=int, default=None)
+    p.add_argument("--max-num-batched-tokens", type=int, default=None)
+    p.add_argument("--max-model-len", type=int, default=None)
+    p.add_argument("--kv-capacity", type=int, default=None,
+                   help="KV block cap (0 = the linear layout's reservation)")
+    p.add_argument("--kv-block-size", type=int, default=None)
+    p.add_argument("--kv-dtype", default=None, choices=["bf16", "f32", "int8"])
+    p.add_argument("--kv-layout", default=None,
+                   choices=["paged", "linear", "auto"],
+                   help="auto (default) and linear: the linear layout; "
+                        "paged is not yet ported")
+    p.add_argument("--quantization", default=None,
+                   choices=["none", "gptq_int4", "gguf_q4k"])
+    p.add_argument("--enable-prefix-cache", action="store_true", default=None)
+    p.add_argument("--no-prefix-cache", dest="enable_prefix_cache",
+                   action="store_false")
+    p.add_argument("--scheduler", default=None,
+                   choices=["continuous", "fifo", "priority"])
+    p.add_argument("--prefill-chunk", type=int, default=None)
+    p.add_argument("--decode-multi-step", type=int, default=None)
+    p.add_argument("--tp", type=int, default=None, dest="tensor_parallel")
+    p.add_argument("--spec-draft", default=None, dest="spec_draft_model")
+    p.add_argument("--spec-k", type=int, default=None,
+                   dest="spec_num_tokens")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--config", default="ferrum.toml",
+                   help="ferrum.toml path (CLI > env > file precedence)")
+    # The profile sink (utils/profile.py, schema v2).
+    p.add_argument("--profile-jsonl", default=None, dest="profile_path",
+                   help="write sampled profile events (JSONL, schema v2)")
+    p.add_argument("--profile-detail", default=None,
+                   choices=["off", "basic", "debug", "full"])
+    p.add_argument("--profile-sample-rate", type=float, default=None)
+    p.add_argument("--memory-profile-jsonl", default=None,
+                   dest="memory_profile_path",
+                   help="separate sink for periodic memory snapshots")
+
+
+def _build_engine(args) -> Any:
+    from .engine.builder import EngineBuilder
+
+    overrides: Dict[str, Any] = {
+        "model": args.model,
+        "device": args.device,
+        "max_num_seqs": args.max_num_seqs,
+        "max_num_batched_tokens": args.max_num_batched_tokens,
+        "max_model_len": args.max_model_len,
+        "kv_num_blocks": args.kv_capacity,
+        "kv_block_size": args.kv_block_size,
+        "kv_dtype": args.kv_dtype,
+        "kv_layout": args.kv_layout,
+        "quantization": args.quantization,
+        "enable_prefix_cache": args.enable_prefix_cache,
+        "scheduler": args.scheduler,
+        "prefill_chunk_size": args.prefill_chunk,
+        "decode_multi_step": args.decode_multi_step,
+        "tensor_parallel": args.tensor_parallel,
+        "spec_draft_model": args.spec_draft_model,
+        "spec_num_tokens": args.spec_num_tokens,
+        "seed": args.seed,
+        "profile_path": args.profile_path,
+        "profile_detail": args.profile_detail,
+        "profile_sample_rate": args.profile_sample_rate,
+        "memory_profile_path": args.memory_profile_path,
+    }
+    # Base layer (lowest precedence), as the JAX CLI's: the layout
+    # "auto", which the port resolves to linear.
+    cfg = EngineConfig.resolve(cli_overrides=overrides,
+                               toml_path=args.config, kv_layout="auto")
+    return EngineBuilder(cfg).build()
+
+
+def cmd_replay(args) -> int:
+    """Re-run a captured request bundle and compare its tokens with the
+    observed ones (exit 2 on a mismatch)."""
+    from .utils.replay import replay_bundle
+
+    engine = _build_engine(args)
+    try:
+        record = replay_bundle(args.bundle, engine)
+        print(json.dumps(record, indent=2))
+        return 0 if record["matches_observed"] else 2
+    finally:
+        engine.stop()
+
+
+def cmd_bench(args) -> int:
+    engine = _build_engine(args)
+    from .bench.bench_engine import run_bench, run_cell_open_loop
+
+    try:
+        if args.open_loop_rps:
+            report = run_cell_open_loop(
+                engine, rate_rps=args.open_loop_rps,
+                duration_s=args.duration, input_len=args.input_len,
+                output_len=args.output_len)
+        else:
+            concs = tuple(int(c) for c in args.concurrency.split(","))
+            report = run_bench(
+                engine, concurrencies=concs,
+                num_requests_per_cell={c: args.num_requests for c in concs},
+                input_len=args.input_len, output_len=args.output_len,
+                model_label=args.model)
+    finally:
+        engine.stop()
+    out = json.dumps(report, indent=2)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(out)
+    print(out)
+    return 0
+
+
+# The JAX CLI's listed presets; the port has those in models/configs.py.
+LISTED = ("llama-3.1-8b", "qwen3-0.6b", "qwen3-4b", "qwen3-8b",
+          "qwen3-30b-a3b")
+PORT_EXTRA = ("qwen3-15b-a3b", "tiny-quant", "tiny-test")
+
+
+def cmd_list(args) -> int:
+    from .models.configs import preset
+
+    print(f"{'PRESET':24} {'FAMILY':10} {'SHAPE':14} KIND")
+    missing = []
+    for n in LISTED + PORT_EXTRA:
+        try:
+            c = preset(n)
+        except ValueError:
+            missing.append(n)
+            continue
+        family = "qwen3" if c.qk_norm else "llama"
+        print(f"{n:24} {family:10} {f'{c.num_layers}L/{c.hidden_size}H':14} "
+              f"{'moe' if c.moe else 'dense'}")
+    if missing:
+        print("\nnot yet ported:", ", ".join(missing))
+    cache = os.path.expanduser(os.environ.get(
+        "FERRUM_MODELS_DIR", "~/.cache/ferrum-tpu/models"))
+    if os.path.isdir(cache):
+        local = [d for d in sorted(os.listdir(cache))
+                 if os.path.isdir(os.path.join(cache, d))]
+        if local:
+            print("\nlocal checkpoints under", cache,
+                  "(loaders not yet ported)")
+            for d in local:
+                print(" ", d)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="ferrum-tpu-torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("bench", help="offline engine benchmark")
+    _add_engine_flags(p)
+    p.add_argument("--concurrency", default="1,4,16,32")
+    p.add_argument("--num-requests", type=int, default=64)
+    p.add_argument("--input-len", type=int, default=256)
+    p.add_argument("--output-len", type=int, default=128)
+    p.add_argument("--output", default=None)
+    p.add_argument("--open-loop-rps", type=float, default=None,
+                   help="Poisson arrival rate (req/s): open-loop mode")
+    p.add_argument("--duration", type=float, default=30.0,
+                   help="open-loop launch window in seconds")
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("list", help="list model presets")
+    p.set_defaults(fn=cmd_list)
+
+    p = sub.add_parser(
+        "replay", help="re-run a captured request bundle (repro gate)")
+    _add_engine_flags(p)
+    p.add_argument("--bundle", required=True, help="bundle JSON path")
+    p.set_defaults(fn=cmd_replay)
+
+    args = parser.parse_args(argv)
+    try:
+        return args.fn(args)
+    except FerrumError as e:
+        print(f"error: {e.message}", file=sys.stderr)
+        return 1

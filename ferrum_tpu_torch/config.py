@@ -1,28 +1,202 @@
-"""Engine configuration: the `EngineConfig` fields the served path reads.
+"""Engine configuration, with CLI > env > file > base precedence.
 
-Port of `ferrum_tpu/config.py` (no env/TOML registry yet: the port is
-configured by its callers). Field names and defaults follow the JAX
-package. The fields this slice fixes -- the linear KV layout, fused
-projections, chunked prefill -- are not options here; they come back as
-fields when a later slice adds the alternative.
+Port of `ferrum_tpu/config.py`. Field names and defaults follow the JAX
+package. The fields the port does not have yet -- the paged layout,
+prefix caching, parallelism, speculative and adaptive decoding, ... --
+are not options here: `NOT_PORTED` holds the value the port fixes for
+each (the JAX field and env names). `resolve` raises
+InvalidRequestError, naming the field and "not yet ported", when a
+source sets one of them to anything else; the JAX package's resolve
+drops unknown keys, the port never drops a request silently.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from .types import InvalidRequestError
 
+# ---------------------------------------------------------------------------
+# Env registry: name -> (field, python type, description). The port's
+# own fields; NOT_PORTED_ENV names the JAX package's others.
+# ---------------------------------------------------------------------------
+
+ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
+    "FERRUM_MAX_NUM_SEQS": ("max_num_seqs", int, "decode slot count"),
+    "FERRUM_MAX_NUM_BATCHED_TOKENS": (
+        "max_num_batched_tokens", int, "per-iteration token budget"),
+    "FERRUM_KV_BLOCK_SIZE": ("kv_block_size", int, "tokens per KV block"),
+    "FERRUM_MAX_MODEL_LEN": ("max_model_len", int, "max sequence length"),
+    "FERRUM_PREFILL_CHUNK": ("prefill_chunk_size", int,
+                             "max prefill chunk tokens"),
+    "FERRUM_KV_DTYPE": ("kv_dtype", str, "bf16|f32"),
+    "FERRUM_DTYPE": ("dtype", str, "activation/weight dtype: bf16|f32"),
+    "FERRUM_W4A8": ("w4a8", bool,
+                    "int8-activation path for int4 matmuls"),
+    "FERRUM_W4A8_GD": ("w4a8_gd", str,
+                       "two-level decode kernel mode: off|all|down|mxu"),
+    "FERRUM_W4A8_TL": ("w4a8_two_level", bool, "two-level requantize"),
+    "FERRUM_SEED": ("seed", int, "base PRNG seed"),
+    "FERRUM_PROFILE_JSONL": ("profile_path", str, "profile event JSONL path"),
+    "FERRUM_PROFILE_DETAIL": ("profile_detail", str,
+                              "profile detail level: off|basic|debug|full"),
+    "FERRUM_PROFILE_SAMPLE_RATE": ("profile_sample_rate", float,
+                                   "timed-span sampling rate (full forces "
+                                   "1.0)"),
+    "FERRUM_MEMORY_PROFILE_JSONL": ("memory_profile_path", str,
+                                    "separate sink for memory snapshots"),
+    "FERRUM_DECODE_BUCKETS": ("decode_bucket_spec", str,
+                              "decode lane buckets: '' = pow2 ladder, "
+                              "'max' = full frame, or e.g. '1,8,32'"),
+    "FERRUM_DECODE_T_SPEC": ("decode_t_spec", str,
+                             "per-bucket window length, e.g. 1:32,8:16"),
+    "FERRUM_DECODE_MULTI_STEP": ("decode_multi_step", int,
+                                 "decode steps per window"),
+    "FERRUM_REFILL_FIRST": ("refill_first", bool,
+                            "hold decode while admission waves prefill"),
+    "FERRUM_PIPELINE_DEPTH": ("pipeline_depth", int,
+                              "decode windows outstanding at once"),
+    "FERRUM_PIPELINE_DECODE": ("pipeline_decode", bool,
+                               "dispatch window W+1 before reading W"),
+    "FERRUM_MIXED_PREFILL": ("mixed_prefill", bool,
+                             "one prefill chunk rides each decode window"),
+}
+
+# The JAX package's fields the port does not have, each at the value
+# the port fixes (a tuple: every value it accepts). "auto" for the
+# layout resolves to linear, the port's one layout.
+NOT_PORTED: Dict[str, Any] = {
+    "tokenizer": None,
+    "enable_chunked_prefill": True,
+    "scheduler": "continuous",
+    "kv_layout": ("linear", "auto"),
+    # A pinned KV capacity: under "auto" the JAX builder takes the paged
+    # layout for any nonzero value.
+    "kv_num_blocks": 0,
+    "enable_prefix_cache": False,
+    "prefix_cache_policy": "lru",
+    "prefix_cache_blocks": -1,
+    "prefix_offload_mb": 0,
+    "prefix_offload_algo": "int8",
+    "gdn_chunk_block": 64,
+    "quantization": "none",
+    "squeeze_embeddings": False,
+    "fuse_proj": True,
+    "fuse_sites": "qkv,gate_up",
+    "tensor_parallel": 1,
+    "data_parallel": 1,
+    "expert_parallel": 1,
+    "adaptive_windows": False,
+    "slot_slack": 0,
+    "greedy_argmax_device": True,
+    "spec_draft_model": None,
+    "spec_num_tokens": 4,
+    "session_cache_entries": 64,
+    "session_cache_tokens": 8192,
+    "scheduler_trace_path": None,
+}
+
+NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
+    "FERRUM_ENABLE_PREFIX_CACHE": ("enable_prefix_cache", bool),
+    "FERRUM_PREFIX_CACHE_POLICY": ("prefix_cache_policy", str),
+    "FERRUM_PREFIX_OFFLOAD_MB": ("prefix_offload_mb", int),
+    "FERRUM_PREFIX_OFFLOAD_ALGO": ("prefix_offload_algo", str),
+    "FERRUM_PREFIX_CACHE_BLOCKS": ("prefix_cache_blocks", int),
+    "FERRUM_ENABLE_CHUNKED_PREFILL": ("enable_chunked_prefill", bool),
+    "FERRUM_SCHEDULER": ("scheduler", str),
+    "FERRUM_KV_LAYOUT": ("kv_layout", str),
+    "FERRUM_KV_MAX_BLOCKS": ("kv_num_blocks", int),
+    "FERRUM_QUANT": ("quantization", str),
+    "FERRUM_SQUEEZE_EMBED": ("squeeze_embeddings", bool),
+    "FERRUM_FUSE_PROJ": ("fuse_proj", bool),
+    "FERRUM_TP": ("tensor_parallel", int),
+    "FERRUM_DP": ("data_parallel", int),
+    "FERRUM_EP": ("expert_parallel", int),
+    "FERRUM_SCHEDULER_TRACE_JSONL": ("scheduler_trace_path", str),
+    "FERRUM_SESSION_CACHE_ENTRIES": ("session_cache_entries", int),
+    "FERRUM_SESSION_CACHE_TOKENS": ("session_cache_tokens", int),
+    "FERRUM_GREEDY_ARGMAX": ("greedy_argmax_device", bool),
+    "FERRUM_SPEC_DRAFT": ("spec_draft_model", str),
+    "FERRUM_SPEC_K": ("spec_num_tokens", int),
+    "FERRUM_SLOT_SLACK": ("slot_slack", int),
+    "FERRUM_ADAPTIVE_WINDOWS": ("adaptive_windows", bool),
+    "FERRUM_GDN_CHUNKED": ("gdn_chunk_block", int),
+    "FERRUM_FUSE_SITES": ("fuse_sites", str),
+}
+
+
+def _parse_env_value(raw: str, ty: type) -> Any:
+    if ty is bool:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    if ty is int:
+        return int(raw.strip())
+    if ty is float:
+        return float(raw.strip())
+    return raw
+
+
+def snapshot_from_process_env(environ: Optional[Mapping[str, str]] = None
+                              ) -> Dict[str, Any]:
+    """field -> value of the FERRUM_* variables in `environ` (default:
+    the process's), the port's registry and the names of the fields it
+    does not have alike."""
+    env = os.environ if environ is None else environ
+    out: Dict[str, Any] = {}
+    for name, raw in env.items():
+        entry = ENV_REGISTRY.get(name) or NOT_PORTED_ENV.get(name)
+        if entry is None:
+            continue
+        try:
+            out[entry[0]] = _parse_env_value(raw, entry[1])
+        except ValueError as e:
+            raise InvalidRequestError(f"bad env value {name}={raw!r}: {e}",
+                                      param=name)
+    return out
+
+
+def load_toml_runtime(path: str) -> Dict[str, Any]:
+    """The [runtime] table of a ferrum.toml: the port's fields and those
+    of NOT_PORTED (checked by `resolve`); other keys are ignored, as in
+    the JAX package."""
+    import tomllib
+
+    with open(path, "rb") as f:
+        data = tomllib.load(f)
+    valid = {f.name for f in dataclasses.fields(EngineConfig)} \
+        | set(NOT_PORTED)
+    return {k: v for k, v in data.get("runtime", {}).items() if k in valid}
+
+
+def check_not_ported(values: Mapping[str, Any]) -> None:
+    """Raise on a field the port does not have, set to another value
+    than the one the port fixes."""
+    for name, value in values.items():
+        if name not in NOT_PORTED:
+            continue
+        fixed = NOT_PORTED[name]
+        ok = fixed if isinstance(fixed, tuple) else (fixed,)
+        if value not in ok:
+            raise InvalidRequestError(
+                f"{name}={value!r} is not yet ported (the port runs "
+                f"{name}={ok[0]!r})", param=name)
+
+
+# ---------------------------------------------------------------------------
+# EngineConfig
+# ---------------------------------------------------------------------------
 
 @dataclass
 class EngineConfig:
+    model: str = ""                     # source: random:<preset> (loaders later)
     # --- batching / scheduling ---
     max_num_seqs: int = 32              # decode slots
     max_num_batched_tokens: int = 2048  # per-iteration token budget
     max_model_len: int = 4096
     prefill_chunk_size: int = 512
-    # --- KV cache ---
+    # --- KV cache (the linear layout: max_model_len for every slot) ---
     kv_block_size: int = 32
     kv_dtype: str = "bf16"              # bf16 | f32
     # --- decoding ---
@@ -50,6 +224,7 @@ class EngineConfig:
     seed: int = 0
     device: Optional[str] = None        # None = the CUDA card
     # --- numerics / quant ---
+    dtype: str = "bf16"                 # random:<preset> weights: bf16 | f32
     # w4a8: int4 weights x dynamic-int8 activations on the int8 tensor
     # cores; off = w4a16 (bf16 dequant, no activation quantization).
     w4a8: bool = True
@@ -64,6 +239,12 @@ class EngineConfig:
     # float-scale w4a8 GEMM on the effective scales elsewhere; off = that
     # float-scale GEMM everywhere. Bools map to off / all.
     w4a8_gd: str = "mxu"
+
+    # --- observability (utils/profile.py's locked schema) ---
+    profile_path: Optional[str] = None
+    profile_detail: str = "basic"       # off|basic|debug|full
+    profile_sample_rate: float = 0.01
+    memory_profile_path: Optional[str] = None
 
     def validate(self) -> None:
         if self.max_num_seqs < 1:
@@ -88,8 +269,14 @@ class EngineConfig:
                 param="max_num_batched_tokens")
         if self.kv_dtype not in ("bf16", "f32"):
             raise InvalidRequestError(
-                "kv_dtype must be bf16 or f32 (int8 KV comes with a later "
-                "slice of the port)", param="kv_dtype")
+                f"kv_dtype={self.kv_dtype!r} is not yet ported (bf16 or "
+                f"f32)", param="kv_dtype")
+        if self.dtype not in ("bf16", "f32"):
+            raise InvalidRequestError("dtype must be bf16 or f32",
+                                      param="dtype")
+        if self.profile_detail not in ("off", "basic", "debug", "full"):
+            raise InvalidRequestError("unknown profile_detail",
+                                      param="profile_detail")
         if not isinstance(self.w4a8_gd, bool) \
                 and self.w4a8_gd not in ("off", "all", "down", "mxu"):
             raise InvalidRequestError(
@@ -154,3 +341,30 @@ class EngineConfig:
     @property
     def max_blocks_per_seq(self) -> int:
         return self.max_model_len // self.kv_block_size
+
+    @classmethod
+    def resolve(cls, cli_overrides: Optional[Dict[str, Any]] = None,
+                environ: Optional[Mapping[str, str]] = None,
+                toml_path: Optional[str] = None,
+                **base: Any) -> "EngineConfig":
+        """Merge sources with precedence CLI > env > file > base (``**base``
+        is the lowest layer). CLI values of None are unset. A field the
+        port does not have raises unless it holds the value the port
+        fixes (`check_not_ported`); any other unknown key raises."""
+        merged: Dict[str, Any] = dict(base)
+        if toml_path and os.path.exists(toml_path):
+            merged.update(load_toml_runtime(toml_path))
+        merged.update(snapshot_from_process_env(environ))
+        if cli_overrides:
+            merged.update({k: v for k, v in cli_overrides.items()
+                           if v is not None})
+        check_not_ported(merged)
+        valid = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(k for k in merged
+                         if k not in valid and k not in NOT_PORTED)
+        if unknown:
+            raise InvalidRequestError(f"unknown config field {unknown[0]!r}",
+                                      param=unknown[0])
+        cfg = cls(**{k: v for k, v in merged.items() if k in valid})
+        cfg.validate()
+        return cfg

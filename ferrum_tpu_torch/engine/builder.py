@@ -9,8 +9,12 @@ ops/kernels/quant_matmul.py's table says) and, under
 w4a8 with `w4a8_two_level`, the two-level requantization (dense linears
 and MoE expert stacks). Without it the checkpoint's group scales are
 served as they are: float-scale w4a8 at decode m, w4a16 elsewhere.
-Checkpoint loading, the paged layout and its HBM autosizing come with
-later slices.
+The model comes from `with_model`, else from `EngineConfig.model`:
+`random:<preset>` builds the JAX package's random dense weights
+(`init_random_params`, in `EngineConfig.dtype`); checkpoint loading, the
+paged layout and its HBM autosizing come with later slices. A profile
+path in the config sets the global profile sink at build, as in the
+JAX builder.
 
 The mode is a process-wide switch, as in the JAX package: `build()`
 sets both switches, so building a second engine with another `w4a8` or
@@ -20,14 +24,16 @@ sets both switches, so building a second engine with another `w4a8` or
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
 
 from ..config import EngineConfig
 from ..device import resolve_device
-from ..models.configs import ModelConfig
-from ..models.llama_family import ModelParams, PagedKvCache
+from ..models.configs import ModelConfig, preset
+from ..models.llama_family import (ModelParams, PagedKvCache,
+                                   init_random_params)
 from ..ops.kernels.quant_matmul import set_w4a8, set_w4a8_gd
 from ..ops.linear import concat_linears
 from ..ops.quant import QuantLinearParams, requantize_two_level
@@ -87,14 +93,47 @@ class EngineBuilder:
         self.tokenizer = tok
         return self
 
+    def _resolve_model(self, device: torch.device) -> None:
+        """`with_model` wins; else `cfg.model`: random:<preset>."""
+        if self.model_cfg is not None:
+            return
+        src = self.cfg.model
+        if src.startswith("random:"):
+            try:
+                model_cfg = preset(src.split(":", 1)[1])
+            except ValueError as e:
+                raise ModelLoadError(str(e)) from None
+            dtype = torch.bfloat16 if self.cfg.dtype == "bf16" \
+                else torch.float32
+            self.params = init_random_params(model_cfg, self.cfg.seed,
+                                             dtype=dtype, device=device)
+            self.model_cfg = model_cfg
+            return
+        if os.path.isdir(src):
+            raise ModelLoadError(
+                f"{src!r}: checkpoint loaders are not yet ported (ROADMAP "
+                f"Queue 1 item 5)")
+        raise ModelLoadError(
+            f"cannot resolve model source {src!r} (the port takes "
+            f"random:<preset>; checkpoint loaders: ROADMAP Queue 1 item 5)")
+
     def build(self) -> ContinuousBatchEngine:
         cfg = self.cfg
         cfg.validate()
         device = resolve_device(cfg.device)
-        if self.model_cfg is None:
+        if cfg.profile_path or cfg.memory_profile_path:
+            from ..utils.profile import configure_global_profile
+            configure_global_profile(
+                cfg.profile_path or cfg.memory_profile_path,
+                entrypoint="serve", sample_rate=cfg.profile_sample_rate,
+                detail=cfg.profile_detail,
+                memory_path=cfg.memory_profile_path)
+        self._resolve_model(device)
+        if any(lp.moe is not None and not isinstance(
+                lp.moe.down, QuantLinearParams) for lp in self.params.layers):
             raise ModelLoadError(
-                "this slice of the port builds from explicit params "
-                "(with_model); checkpoint loaders come later")
+                "dense (unquantized) expert stacks are not yet ported "
+                "(ROADMAP Queue 1 item 16)")
         if self.params.embed.device.type != device.type:
             raise ModelLoadError(f"params live on {self.params.embed.device}"
                                  f", the engine on {device}")

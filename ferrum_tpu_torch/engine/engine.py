@@ -14,6 +14,14 @@ background loop runs `run_iteration`, the JAX package's pipelined loop:
 Tokens are accepted a window at a time (EOS / max_tokens finishes),
 with one incremental detokenization and one chunk a window.
 
+Counters: `metrics` (`metrics_snapshot()`), the JAX engine's
+EngineMetricsSnapshot at the JAX sites: iterations that scheduled work,
+requests submitted and completed, prompt tokens dispatched to prefill,
+tokens accepted from decode windows (a prompt's first token, sampled by
+its prefill, is not a decode token). Each iteration emits an
+`engine.iteration` span, and every 256th an `engine.memory` snapshot
+(utils/profile.py).
+
 Everything runs on ONE CUDA stream; the loop leans on its order (see
 `_retire`). Not yet ported (later slices): adaptive window lengths,
 slack slots, prefix reuse, guided decoding, stop strings, speculative
@@ -33,8 +41,10 @@ from ..config import EngineConfig
 from ..scheduler.continuous import ContinuousBatchScheduler
 from ..scheduler.sequence import Phase, Sequence
 from ..tokenizer import ByteTokenizer
-from ..types import (EngineStoppedError, FinishReason, InferenceRequest,
-                     InferenceResponse, InvalidRequestError, StreamChunk)
+from ..types import (EngineMetricsSnapshot, EngineStoppedError,
+                     FinishReason, InferenceRequest, InferenceResponse,
+                     InvalidRequestError, StreamChunk)
+from ..utils import profile as _prof
 from .runner import DecodeWindow, ModelRunner
 
 # Refill-first holds decode for at most this many iterations in a row.
@@ -71,6 +81,8 @@ class ContinuousBatchEngine:
         self._hold_streak = 0
         # The most windows in flight at once, over the engine's life.
         self.max_inflight = 0
+        self.metrics = EngineMetricsSnapshot()
+        self._mem_profile_tick = 0
 
     # ------------------------------------------------------------------
     # Public API
@@ -101,6 +113,7 @@ class ContinuousBatchEngine:
         with self._lock:
             self._requests[request.request_id] = state
             self.scheduler.submit(seq)
+            self.metrics.requests_submitted += 1
         self.ensure_loop()
         self._work_event.set()
         return state.out_queue
@@ -162,6 +175,17 @@ class ContinuousBatchEngine:
                 token_ids=[], finished=True,
                 finish_reason=FinishReason.ABORT))
 
+    def metrics_snapshot(self) -> EngineMetricsSnapshot:
+        m = self.metrics
+        m.kv_blocks_total = self.runner.kv.num_blocks
+        with self._lock:
+            running = list(self.scheduler.running)
+            m.waiting_requests = len(self.scheduler.waiting)
+        m.running_requests = len(running)
+        m.kv_blocks_free = m.kv_blocks_total - sum(
+            len(s.blocks.blocks) for s in running if s.blocks is not None)
+        return m
+
     # ------------------------------------------------------------------
     # Background loop
     # ------------------------------------------------------------------
@@ -193,6 +217,7 @@ class ContinuousBatchEngine:
     def run_iteration(self) -> bool:
         """One scheduler + device iteration; False when idle."""
         cfg = self.cfg
+        iter_t0 = time.monotonic()
         did_work = self._accept_first_tokens()
 
         # --- (b) schedule; sequences riding windows in flight pinned ---
@@ -203,6 +228,8 @@ class ContinuousBatchEngine:
                 inflight_steps=sum(w.num_steps for w in self._inflight_q))
         for seq in batch.admitted:
             self.runner.admit_slot(seq)
+        if not batch.is_empty:
+            self.metrics.iterations_total += 1
         decoding = [s for s in batch.decode_seqs
                     if s.phase == Phase.DECODING]
         # A sequence whose windows in flight reach its max_tokens finishes
@@ -253,6 +280,7 @@ class ContinuousBatchEngine:
                 pf_chunk=pf_chunk)
             if pf_chunk is not None:
                 self.scheduler.note_prefill_done(pf_chunk)
+                self.metrics.tokens_prefilled += len(pf_chunk.tokens)
                 pf_chunk = None
         if pf_chunk is not None:       # found no window to ride
             self._dispatch_prefill([pf_chunk])
@@ -271,6 +299,14 @@ class ContinuousBatchEngine:
             self._accept_window_tokens(
                 decode_seqs, self.runner.run_decode_multi(decode_seqs,
                                                           t_steps), t_steps)
+        _prof.emit("engine.iteration", time.monotonic() - iter_t0, {
+            "decode": len(decode_seqs),
+            "prefill_chunks": len(batch.prefill_chunks)})
+        self._mem_profile_tick += 1
+        if self._mem_profile_tick % 256 == 1:
+            _prof.emit_memory({"iterations": self.metrics.iterations_total,
+                               "running": len(self.scheduler.running),
+                               "waiting": len(self.scheduler.waiting)})
         return did_work or not batch.is_empty or bool(self._inflight_q) \
             or bool(batch.deferred_decodes)
 
@@ -314,6 +350,7 @@ class ContinuousBatchEngine:
             res = self.runner.run_prefill_batch(group)
             for chunk in group:
                 self.scheduler.note_prefill_done(chunk)
+                self.metrics.tokens_prefilled += len(chunk.tokens)
                 if chunk.is_last:
                     self._pending_first.append((chunk.seq, res))
 
@@ -331,7 +368,8 @@ class ContinuousBatchEngine:
         for seq in seqs:
             if seq.phase == Phase.DECODING:   # else finished earlier
                 self._accept_tokens(
-                    seq, lists[seq.request.request_id][:t_steps])
+                    seq, lists[seq.request.request_id][:t_steps],
+                    decoded=True)
 
     def _drain(self) -> None:
         """Accept everything in flight (the loop has ended)."""
@@ -340,9 +378,11 @@ class ContinuousBatchEngine:
             self._process_window(self._inflight_q.popleft())
 
     # ------------------------------------------------------------------
-    def _accept_tokens(self, seq: Sequence, toks: List[int]) -> None:
+    def _accept_tokens(self, seq: Sequence, toks: List[int],
+                       decoded: bool = False) -> None:
         """Accept a window of tokens: stop at EOS (past min_tokens) or at
-        max_tokens, detokenize once, emit one chunk."""
+        max_tokens, detokenize once, emit one chunk. `decoded`: the
+        tokens came from a decode window (counted in tokens_decoded)."""
         sp = seq.request.sampling
         if seq.eos_cache is None:
             seq.eos_cache = frozenset(self.tokenizer.eos_token_ids) \
@@ -362,6 +402,8 @@ class ContinuousBatchEngine:
                 break
         accepted = list(toks[:n_acc])
         seq.output_tokens.extend(accepted)
+        if decoded:
+            self.metrics.tokens_decoded += n_acc
         visible = seq.output_tokens[:-1] if finish == FinishReason.STOP \
             else seq.output_tokens
         text = ""
@@ -379,6 +421,7 @@ class ContinuousBatchEngine:
         if finish is not None:
             with self._lock:
                 self._requests.pop(seq.request.request_id, None)
+                self.metrics.requests_completed += 1
             self._retire(seq)
 
     def _retire(self, seq: Sequence) -> None:

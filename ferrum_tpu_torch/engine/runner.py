@@ -17,6 +17,8 @@ eagerly, so each call here issues the kernels directly:
                        window's K/V land with one append at its end.
                        Returns without waiting (DecodeWindow).
   sync_window          waits for one window's tokens alone.
+  warm_prefill_siblings  no-op dispatches of the program keys a cell may
+                       meet that the warm-up did not (see below).
 
 Windows chain on the device through the slot-indexed `last_toks`: a
 window reads the input token of every lane its predecessor covered
@@ -30,11 +32,27 @@ since).
 Per-slot state has one row past the slots, the sink at index
 `num_slots`: pad lanes carry that slot id, so their gathers read the
 sink and their scatters write it, with no mask and no host sync.
+
+Counters (the JAX runner's): `decode_steps`, `prefill_steps` (chunks
+dispatched, a window's riding chunk too), host seconds in the window
+dispatches (`decode_device_time`), blocked in `sync_window`
+(`decode_sync_time`) and in the prefill dispatches
+(`prefill_device_time`), and the compile audit: `compilations` and
+`compile_log`, one (site, key) entry per program key first dispatched.
+The port compiles no program: a key is the shape of the work a site
+issues -- `window` (lane bucket, context bucket, T, chunk rows, greedy)
+and `prefill` (batch pad, chunk pad, context pad, greedy), the JAX
+runner's sites -- plus `kernel_build`, one per CUDA library first used
+in the process (ops/kernels/build.py `LOADED`). A key first met inside
+a measured bench cell is a warm-up hole (bench/bench_engine.py counts
+them per cell). The CUDA graphs of a later slice are captured at the
+same keys.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -47,9 +65,11 @@ from ..models.llama_family import (
     OOB_SENTINEL, ModelParams, PagedKvCache, append_window_kv,
     decode_forward, logits_from_hidden, make_inv_freq,
     prefill_forward_batched)
+from ..ops.kernels import build as kernel_build
 from ..sampling.device import SlotSamplingParams, sample_step, update_counts
 from ..scheduler.continuous import PrefillChunk
 from ..scheduler.sequence import Sequence
+from ..utils import profile as _prof
 
 
 def _round_up_pow2(x: int, lo: int, hi: int) -> int:
@@ -99,6 +119,7 @@ class DecodeWindow:
     num_steps: int
     lanes: Dict[str, int]             # request id -> lane
     s_pad: int                        # the lane bucket
+    p_rows: int = 0                   # rows a step of the riding chunk
     # Mixed prefill: the chunk that rode the window; when it was the
     # prompt's last, its first token.
     pf_seq: Optional[Sequence] = None
@@ -142,6 +163,17 @@ class ModelRunner:
         self.windows_by_bucket: Dict[int, int] = {}
         self.mixed_windows = 0
         self.decode_steps = 0
+        self.prefill_steps = 0
+        self.decode_device_time = 0.0
+        self.decode_sync_time = 0.0
+        self.prefill_device_time = 0.0
+        # Compile audit: program keys first dispatched, by site.
+        self.compilations = 0
+        self.compile_log: list = []
+        self._prefill_keys: set = set()
+        self._window_keys: set = set()
+        self._chunk_lens: set = set()        # prompt chunk lengths seen
+        self._builds_seen = len(kernel_build.LOADED)
         # "error" makes every dispatch fail on a host sync of the stream
         # (torch.cuda.set_sync_debug_mode), to prove the pipeline free
         # of them.
@@ -155,6 +187,28 @@ class ModelRunner:
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _note_compile(self, site: str, key) -> None:
+        """One program key first dispatched: count it, audit it, and emit
+        `engine.compile`."""
+        self.compilations += 1
+        self.compile_log.append((site, key))
+        _prof.emit_instant("engine.compile",
+                           {"site": site, "key": repr(key)},
+                           status="diagnostic_only")
+
+    def _note_key(self, keys: set, site: str, key) -> None:
+        if key not in keys:
+            keys.add(key)
+            self._note_compile(site, key)
+
+    def _note_kernel_builds(self) -> None:
+        """A `kernel_build` entry for each CUDA library first used in the
+        process since the last dispatch."""
+        loaded = kernel_build.LOADED
+        while self._builds_seen < len(loaded):
+            self._note_compile("kernel_build", loaded[self._builds_seen])
+            self._builds_seen += 1
 
     @contextlib.contextmanager
     def sync_guard(self):
@@ -219,28 +273,46 @@ class ModelRunner:
         """One trunk pass over every chunk (one per sequence); the token
         sampled at each chunk's last position is on its way to the host
         when this returns."""
+        t0 = time.perf_counter()
         with self.sync_guard():
-            return self._prefill(chunks)
+            res = self._prefill(chunks)
+        self.prefill_device_time += time.perf_counter() - t0
+        self.prefill_steps += len(chunks)
+        self._note_kernel_builds()
+        return res
 
-    def _prefill(self, chunks: List[PrefillChunk]) -> BatchPrefillResult:
-        b = len(chunks)
-        t_pad = self.chunk_bucket(max(len(c.tokens) for c in chunks))
-        ctx_pad = max(self.ctx_bucket(c.start + len(c.tokens))
-                      for c in chunks)
+    def _prefill(self, chunks: List[PrefillChunk],
+                 warm: Optional[tuple] = None) -> BatchPrefillResult:
+        """warm: the key (b, t_pad, ctx_pad, greedy) of a no-op prefill
+        with no chunks (every row a pad row)."""
+        if warm is None:
+            b = len(chunks)
+            t_pad = self.chunk_bucket(max(len(c.tokens) for c in chunks))
+            ctx_pad = max(self.ctx_bucket(c.start + len(c.tokens))
+                          for c in chunks)
+            greedy = bool(all(self._temps[c.seq.slot] == 0
+                              for c in chunks))
+        else:
+            b, t_pad, ctx_pad, greedy = warm
+        self._note_key(self._prefill_keys, "prefill",
+                       (b, t_pad, ctx_pad, greedy))
         # int rows: tokens, positions (pads past the context), flat slots
         # (pads dropped), count tokens (pads = vocab, dropped); per-row
         # scalars: slot, last index, total length, min_tokens active,
-        # final-chunk slot (else the sink).
+        # final-chunk slot (else the sink). The rows of a warm-up take
+        # the sink slot and write nothing.
         v = self.model_cfg.vocab_size
         packed = np.zeros((4, b, t_pad), np.int64)
         packed[1] = self.cfg.max_model_len + ctx_pad
         packed[2] = OOB_SENTINEL
         packed[3] = v
         scal = np.zeros((5, b), np.int64)
+        scal[0] = scal[4] = self.num_slots
         rows: Dict[str, int] = {}
         for i, c in enumerate(chunks):
             seq = c.seq
             n = len(c.tokens)
+            self._chunk_lens.add(n)
             total = c.start + n
             packed[0, i, :n] = c.tokens
             packed[1, i, :n] = np.arange(c.start, total)
@@ -263,7 +335,6 @@ class ModelRunner:
         update_counts(self.counts, slots[:, None].expand(b, t_pad), pk[3])
         hs = h[torch.arange(b, device=self.device), sc[1]]      # [B, H]
         logits = logits_from_hidden(self.params, self.model_cfg, hs)
-        greedy = bool(all(self._temps[c.seq.slot] == 0 for c in chunks))
         toks = sample_step(logits, self._sampling(slots, sc[3] == 1),
                            self.counts[slots], self.eos_mask,
                            greedy_only=greedy, generator=self.generator)
@@ -296,13 +367,32 @@ class ModelRunner:
         T blocks of P rows (mixed prefill). When it ends the prompt, its
         first token is sampled after the steps, written to `last_toks`
         (the next window chains from it) and returned as `pf_tok`."""
+        t0 = time.perf_counter()
         with self.sync_guard():
-            return self._window(seqs, num_steps, prev, pf_chunk)
+            window = self._window(seqs, num_steps, prev, pf_chunk)
+        dt = time.perf_counter() - t0
+        self.decode_device_time += dt
+        _prof.emit("window.dispatch", dt, {
+            "steps": num_steps, "lanes": len(seqs), "bucket": window.s_pad,
+            "p_rows": window.p_rows})
+        self.windows_by_bucket[window.s_pad] = self.windows_by_bucket.get(
+            window.s_pad, 0) + 1
+        self.decode_steps += num_steps
+        if pf_chunk is not None:
+            self.mixed_windows += 1
+            self.prefill_steps += 1
+        self._note_kernel_builds()
+        return window
 
-    def _window(self, seqs, num_steps, prev, pf_chunk) -> DecodeWindow:
+    def _window(self, seqs, num_steps, prev, pf_chunk,
+                warm: Optional[tuple] = None) -> DecodeWindow:
+        """warm: (s_pad, ctx_pad, p_rows, greedy) of a no-op window with
+        no sequences (every lane a pad lane; a chunk block of p_rows pad
+        rows on the sink slot when p_rows > 0)."""
         s = self.num_slots
         t = num_steps
-        s_pad = self.lane_bucket(max(1, len(seqs)))
+        s_pad = warm[0] if warm is not None \
+            else self.lane_bucket(max(1, len(seqs)))
         ident = s_pad == s
         # Lane rows: tokens, positions, cache lens, slots (the sink for
         # pads), min_tokens active, token from the carry; then the flat
@@ -339,31 +429,41 @@ class ModelRunner:
 
         parts = [lrows.reshape(-1), flat.reshape(-1)]
         p_rows = 0
-        if pf_chunk is not None:
-            seq_p = pf_chunk.seq
-            n = len(pf_chunk.tokens)
-            start = pf_chunk.start
-            p_rows = _round_up_pow2(-(-n // t), 8, 512)
+        if pf_chunk is not None or (warm is not None and warm[2]):
+            if pf_chunk is not None:
+                seq_p = pf_chunk.seq
+                n, start, psl = len(pf_chunk.tokens), pf_chunk.start, \
+                    seq_p.slot
+                self._chunk_lens.add(n)
+                p_rows = _round_up_pow2(-(-n // t), 8, 512)
+            else:                   # a no-op block: pad rows, sink slot
+                n, start, psl, p_rows = 0, 0, s, warm[2]
             # Rows: tokens, count tokens (pads = vocab), positions (pads
             # past every context), flat slots (pads dropped).
             pf = np.zeros((4, t * p_rows), np.int64)
             pf[1] = self.model_cfg.vocab_size
             pf[2] = self.cfg.max_model_len + (1 << 16)
             pf[3] = OOB_SENTINEL
-            pf[0, :n] = pf_chunk.tokens
-            pf[1, :n] = pf_chunk.tokens
-            pf[2, :n] = np.arange(start, start + n)
-            pf[3, :n] = self._flat_rows(seq_p, start, n)
+            if pf_chunk is not None:
+                pf[0, :n] = pf_chunk.tokens
+                pf[1, :n] = pf_chunk.tokens
+                pf[2, :n] = np.arange(start, start + n)
+                pf[3, :n] = self._flat_rows(seq_p, start, n)
+                max_len = max(max_len, start + n)
+                if pf_chunk.is_last:
+                    covered.add(seq_p.request.request_id)
+                    end_pos[psl] = start + n
             parts.append(pf.reshape(-1))
-            max_len = max(max_len, start + n)
-            if pf_chunk.is_last:
-                covered.add(seq_p.request.request_id)
-                end_pos[seq_p.slot] = start + n
         dev = self._upload(np.concatenate(parts))
-        ctx_pad = self.ctx_bucket(max_len + t)
-        greedy = bool(all(self._temps[q.slot] == 0 for q in seqs)
-                      and (pf_chunk is None
-                           or self._temps[pf_chunk.seq.slot] == 0))
+        if warm is not None:
+            ctx_pad, greedy = warm[1], warm[3]
+        else:
+            ctx_pad = self.ctx_bucket(max_len + t)
+            greedy = bool(all(self._temps[q.slot] == 0 for q in seqs)
+                          and (pf_chunk is None
+                               or self._temps[pf_chunk.seq.slot] == 0))
+        self._note_key(self._window_keys, "window",
+                       (s_pad, ctx_pad, t, p_rows, greedy))
 
         lr = dev[:6 * s_pad].view(6, s_pad)
         flat_dev = dev[6 * s_pad:(6 + t) * s_pad].view(t, s_pad)
@@ -398,16 +498,17 @@ class ModelRunner:
         if p_rows:
             pfd = dev[(6 + t) * s_pad:].view(4, t, p_rows)
             pf_toks, pf_pos = pfd[0], pfd[2]
-            psl = seq_p.slot
+            # A no-op block's sink slot reads the last slot's region.
+            pc = min(psl, s - 1)
             win["pk"] = torch.zeros((n_layers, t, p_rows, kv.kv_heads,
                                      kv.head_dim), dtype=kv.k.dtype,
                                     device=self.device)
             win["pv"] = torch.zeros_like(win["pk"])
             win["pf"] = {
                 "chunk_start": start, "valid_len": n,
-                "k_ctx": [kv.k[li].view(s, -1, f)[psl, :ctx_pad]
+                "k_ctx": [kv.k[li].view(s, -1, f)[pc, :ctx_pad]
                           for li in range(n_layers)],
-                "v_ctx": [kv.v[li].view(s, -1, f)[psl, :ctx_pad]
+                "v_ctx": [kv.v[li].view(s, -1, f)[pc, :ctx_pad]
                           for li in range(n_layers)]}
             last_t, last_j = (n - 1) // p_rows, (n - 1) % p_rows
         h_last = None
@@ -457,7 +558,7 @@ class ModelRunner:
             update_counts(self.counts,
                           torch.full_like(pfd[1], psl).reshape(-1),
                           pfd[1].reshape(-1))
-            if pf_chunk.is_last:
+            if pf_chunk is not None and pf_chunk.is_last:
                 slot_t = lane_slots.new_full((1,), psl)
                 min_act = torch.full(
                     (1,), seq_p.num_output_tokens
@@ -473,14 +574,10 @@ class ModelRunner:
                 update_counts(self.counts, slot_t, tok_p)
                 self.last_toks[psl:psl + 1] = tok_p
                 pf_tok = HostCopy(tok_p)
-            self.mixed_windows += 1
-        self.windows_by_bucket[s_pad] = self.windows_by_bucket.get(
-            s_pad, 0) + 1
-        self.decode_steps += t
         return DecodeWindow(
             seqs=list(seqs), covered=frozenset(covered),
             toks=HostCopy(all_toks), end_pos=end_pos, num_steps=t,
-            lanes=lanes, s_pad=s_pad,
+            lanes=lanes, s_pad=s_pad, p_rows=p_rows,
             pf_seq=pf_chunk.seq if pf_chunk is not None else None,
             pf_is_last=bool(pf_chunk is not None and pf_chunk.is_last),
             pf_tok=pf_tok)
@@ -489,16 +586,117 @@ class ModelRunner:
         """A window's tokens per request id; waits for that window alone.
         A completed mixed-prefill chunk's sequence gets a list whose
         last entry is its first token."""
+        t0 = time.perf_counter()
         host = window.toks.numpy()                            # [T, s_pad]
+        pf_tok = None
+        if window.pf_tok is not None:
+            pf_tok = int(window.pf_tok.numpy()[0])
+        dt = time.perf_counter() - t0
+        self.decode_sync_time += dt
+        _prof.emit("window.fetch", dt, {
+            "steps": window.num_steps, "lanes": len(window.seqs)})
         out = {seq.request.request_id:
                host[:, window.lanes[seq.request.request_id]].tolist()
                for seq in window.seqs}
-        if window.pf_tok is not None:
+        if pf_tok is not None:
             out[window.pf_seq.request.request_id] = \
-                [0] * (window.num_steps - 1) + [int(window.pf_tok.numpy()[0])]
+                [0] * (window.num_steps - 1) + [pf_tok]
         return out
 
     def run_decode_multi(self, seqs: List[Sequence], num_steps: int
                          ) -> Dict[str, List[int]]:
         """One window, waited for (the unpipelined loop)."""
         return self.sync_window(self.start_decode_window(seqs, num_steps))
+
+    # ------------------------------------------------------------------
+    # Warm-up: no-op dispatches of the keys a cell may meet
+    # ------------------------------------------------------------------
+    def warm_prefill_siblings(self) -> int:
+        """Dispatch every batch-size sibling of the prefill keys already
+        seen as a no-op (every row a pad row on the sink slot:
+        nothing is written), then the smaller lane buckets and the mixed
+        variants of the windows seen (`warm_decode_buckets`,
+        `warm_mixed_windows`), so a measured cell meets no key for the
+        first time however its admission waves fall. Returns the number
+        of keys added."""
+        done = 0
+        budget = self.cfg.max_num_batched_tokens
+        for (_, t_pad, ctx_pad, greedy) in sorted(self._prefill_keys):
+            # A (b, t_pad) group's chunks each hold > t_pad / 2 tokens,
+            # and the scheduler admits within the token budget: no larger
+            # batch is ever dispatched.
+            # (The JAX runner pads the batch to a power of two and warms
+            # those; the port runs the exact batch, so it warms each.)
+            max_b = min(max(1, budget // max(1, t_pad // 2 + 1)),
+                        max(self.num_slots, 1))
+            for b in range(1, max_b + 1):
+                key = (b, t_pad, ctx_pad, greedy)
+                if key not in self._prefill_keys:
+                    self._prefill([], warm=key).tokens.numpy()
+                    done += 1
+        done += self.warm_decode_buckets() + self.warm_mixed_windows()
+        self._note_kernel_builds()
+        return done
+
+    def _warm_window(self, s_pad: int, ctx_pad: int, t: int, p_rows: int,
+                     greedy: bool) -> None:
+        self._window([], t, None, None,
+                     warm=(s_pad, ctx_pad, p_rows, greedy)).toks.numpy()
+
+    def warm_decode_buckets(self) -> int:
+        """For every window key seen, the same window at every other lane
+        bucket (at that bucket's window length under decode_t_spec), so
+        a cell's shrinking tail, or a wave the warm-up never held
+        together, meets no new key. (The JAX runner warms the smaller
+        buckets only: a warm-up wave whose requests end inside one window
+        never reaches its own bucket.)"""
+        done = 0
+        t_spec = bool(self.cfg.decode_t_spec)
+        for (s_pad, ctx_pad, t, p_rows, greedy) in sorted(self._window_keys):
+            for b in self.cfg.decode_buckets:
+                if b == s_pad:
+                    continue
+                t_b = self.cfg.t_for_bucket(b) if t_spec else t
+                # Another T needs its own chunk geometry: the plain window
+                # here, warm_mixed_windows adds its mixed variants.
+                for ctx in self._ctx_at_t(ctx_pad, t, t_b):
+                    key = (b, ctx, t_b, p_rows if t_b == t else 0, greedy)
+                    if key not in self._window_keys:
+                        self._warm_window(*key)
+                        done += 1
+        return done
+
+    def _ctx_at_t(self, ctx_pad: int, t: int, t_b: int) -> List[int]:
+        """The context buckets a window of t_b steps can take where one
+        of t steps took ctx_pad: ctx_bucket(m + t) == ctx_pad bounds the
+        window's length m, so m + t_b falls in ctx_pad's bucket or the
+        next one up (t_b > t) or down (t_b < t)."""
+        if t_b > t:
+            return sorted({ctx_pad, self.ctx_bucket(ctx_pad + t_b - t)})
+        if t_b < t:
+            return sorted({ctx_pad, self.ctx_bucket(ctx_pad // 2)})
+        return [ctx_pad]
+
+    def warm_mixed_windows(self) -> int:
+        """The mixed variants of every plain window key seen: the chunk
+        rows a step of a 256-token chunk, of a full chunk and of every
+        chunk length dispatched so far (the JAX runner takes the first
+        two only: a cell of shorter prompts then meets its chunks' rows
+        first inside the cell)."""
+        if not self.cfg.mixed_prefill:
+            return 0
+        done = 0
+        chunk_cap = max(16, min(self.cfg.prefill_chunk_size,
+                                self.cfg.max_num_batched_tokens))
+        lengths = self._chunk_lens | {256, chunk_cap}
+        for (s_pad, ctx_pad, t, p0, greedy) in sorted(self._window_keys):
+            if p0:
+                continue
+            p_want = {_round_up_pow2(-(-n // t), 8, 512)
+                      for n in lengths if n <= 128 * t}
+            for p_rows in sorted(p_want):
+                key = (s_pad, ctx_pad, t, p_rows, greedy)
+                if key not in self._window_keys:
+                    self._warm_window(*key)
+                    done += 1
+        return done

@@ -24,14 +24,17 @@ of every layer, step and lane land in one `kv_append_rows` launch.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Union
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.attention import (flat_decode_attention, flat_prefill_attention,
                              flat_prefill_window_attention)
 from ..ops.kernels.kv_append import append_pages, append_rows_pairs
-from ..ops.linear import LinearParams, apply_linear, matmul_f32
+from ..ops.linear import (DenseLinearParams, LinearParams, apply_linear,
+                          matmul_f32)
 from ..ops.moe import moe_mlp
 from ..ops.norms import fused_add_rms_norm, rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -381,3 +384,60 @@ def prefill_forward_batched(
     append_pages(kv.v.view(n_layers * nb, page, f),
                  v_pages.to(kv.v.dtype).contiguous(), blk_all)
     return h.reshape(b, t_pad, -1), kv
+
+
+# ---------------------------------------------------------------------------
+# Random init (benches, tests; real weights come from loaders)
+# ---------------------------------------------------------------------------
+
+def init_random_params(cfg: ModelConfig, seed: int = 0,
+                       dtype=torch.bfloat16,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> ModelParams:
+    """The JAX package's `init_random_params` (llama_family.py:981), bit
+    for bit: the same draws from np.random.default_rng(seed) in the same
+    order (a layer's MLP, then q, k, v, o; the embedding, then an untied
+    lm_head), each a float64 normal cast to float32 and then to `dtype`
+    (round to nearest even, as jnp.asarray). Dense linears, and dense
+    expert stacks [E, ...] in MoE layers. Each tensor goes to the device
+    as it is drawn, so the host holds one at a time. On the card unless
+    `device` says otherwise."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape) -> torch.Tensor:
+        a = rng.normal(0.0, 0.02, shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def lin(i: int, o: int) -> DenseLinearParams:
+        return DenseLinearParams(w=normal(i, o), bias=None)
+
+    def ones(n: int) -> torch.Tensor:
+        return torch.ones(n, dtype=dtype, device=dev)
+
+    h = cfg.hidden_size
+    layers = []
+    for li in range(cfg.num_layers):
+        moe = None
+        gate = up = down = None
+        if cfg.layer_is_moe(li):
+            m = cfg.moe
+            e, mi = m.num_experts, m.moe_intermediate_size
+            router = lin(h, e)
+            moe = MoeLayerParams(router=router, gate=normal(e, h, mi),
+                                 up=normal(e, h, mi), down=normal(e, mi, h))
+        else:
+            gate = lin(h, cfg.intermediate_size)
+            up = lin(h, cfg.intermediate_size)
+            down = lin(cfg.intermediate_size, h)
+        q, k = lin(h, cfg.q_size), lin(h, cfg.kv_size)
+        v, o = lin(h, cfg.kv_size), lin(cfg.q_size, h)
+        layers.append(LayerParams(
+            input_norm=ones(h), q=q, k=k, v=v, o=o,
+            q_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
+            k_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
+            pre_mlp_norm=ones(h), gate=gate, up=up, down=down, moe=moe))
+    embed = normal(cfg.vocab_size, h)
+    lm_head = None if cfg.tie_word_embeddings else lin(h, cfg.vocab_size)
+    return ModelParams(embed=embed, layers=layers, final_norm=ones(h),
+                       lm_head=lm_head)

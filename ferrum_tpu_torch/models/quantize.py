@@ -1,7 +1,11 @@
-"""Architecture-true random int4 weights, made on the device.
+"""Int4 weights: random ones made on the device, and RTN quantization.
 
-Port of `ferrum_tpu/models/quantize.py::init_random_quant_params` (dense
-layers, and MoE layers' expert stacks [E, ...] with a bf16 router).
+Port of `ferrum_tpu/models/quantize.py`: `quantize_model_params` (the
+JAX package's round-to-nearest group quantization of every transformer
+linear and expert stack, through the same numpy quantizer, so the
+packed bytes and scales equal the JAX package's) and
+`init_random_quant_params` (dense layers, and MoE layers' expert stacks
+[E, ...] with a bf16 router).
 Throughput is weight-value independent, so the served-path benchmark
 uses random packed bytes; the weights are generated directly on the
 device from an explicit `torch.Generator(seed)`. Like the JAX
@@ -18,11 +22,13 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops.linear import DenseLinearParams
-from ..ops.quant import QuantLinearParams
+from ..ops.quant import QuantLinearParams, quantize_weight_np
+from ..types import InvalidRequestError
 from .configs import ModelConfig
 from .llama_family import LayerParams, ModelParams, MoeLayerParams
 
@@ -88,3 +94,74 @@ def init_random_quant_params(cfg: ModelConfig, seed: int = 0,
         w=normal(h, cfg.vocab_size), bias=None)
     return ModelParams(embed=embed, layers=layers, final_norm=ones(h),
                        lm_head=lm_head)
+
+
+def _quant_dense(lin, group_size: int, dtype):
+    """A dense [in, out] linear → int4 on its own device (the JAX
+    `_quant_dense`); already-quantized or oddly-shaped linears pass."""
+    if lin is None or not isinstance(lin, DenseLinearParams):
+        return lin
+    w = lin.w.to(torch.float32).cpu().numpy()
+    if w.shape[0] % group_size:
+        return lin
+    packed, scales, zeros = quantize_weight_np(w, group_size)
+    dev = lin.w.device
+    return QuantLinearParams(
+        qweight=torch.from_numpy(packed).to(dev),
+        scales=torch.from_numpy(scales).to(dev, dtype),
+        zeros=torch.from_numpy(zeros).to(dev),
+        bias=None if lin.bias is None else lin.bias.to(dtype),
+        in_features=w.shape[0], out_features=w.shape[1],
+        group_size=group_size)
+
+
+def _quant_expert_stack(w: torch.Tensor, group_size: int, dtype
+                        ) -> QuantLinearParams:
+    """A dense stack [E, in, out] → a QuantLinearParams with a leading E."""
+    wn = w.to(torch.float32).cpu().numpy()
+    e, in_f, out_f = wn.shape
+    parts = [quantize_weight_np(wn[i], group_size) for i in range(e)]
+    return QuantLinearParams(
+        qweight=torch.from_numpy(np.stack([p[0] for p in parts])).to(w.device),
+        scales=torch.from_numpy(np.stack([p[1] for p in parts])).to(
+            w.device, dtype),
+        zeros=torch.from_numpy(np.stack([p[2] for p in parts])).to(w.device),
+        bias=None, in_features=in_f, out_features=out_f,
+        group_size=group_size)
+
+
+def quantize_model_params(params: ModelParams, group_size: int = 128,
+                          dtype=torch.bfloat16,
+                          quantize_experts: bool = True,
+                          squeeze_embeddings: bool = False) -> ModelParams:
+    """Every transformer linear (q / k / v / o, gate / up / down) and
+    expert stack to int4 g`group_size` (symmetric RTN); embeddings, norms,
+    the router and lm_head stay as they are (GPTQ checkpoints'
+    convention). The int8-embedding squeeze is not yet ported."""
+    if squeeze_embeddings:
+        raise InvalidRequestError("squeeze_embeddings is not yet ported",
+                                  param="squeeze_embeddings")
+    layers = []
+    for lp in params.layers:
+        moe = lp.moe
+        if moe is not None and quantize_experts \
+                and not isinstance(moe.gate, QuantLinearParams):
+            moe = MoeLayerParams(
+                router=moe.router,
+                gate=_quant_expert_stack(moe.gate, group_size, dtype),
+                up=_quant_expert_stack(moe.up, group_size, dtype),
+                down=_quant_expert_stack(moe.down, group_size, dtype))
+        layers.append(LayerParams(
+            input_norm=lp.input_norm,
+            q=_quant_dense(lp.q, group_size, dtype),
+            k=_quant_dense(lp.k, group_size, dtype),
+            v=_quant_dense(lp.v, group_size, dtype),
+            o=_quant_dense(lp.o, group_size, dtype),
+            q_norm=lp.q_norm, k_norm=lp.k_norm,
+            pre_mlp_norm=lp.pre_mlp_norm,
+            gate=_quant_dense(lp.gate, group_size, dtype),
+            up=_quant_dense(lp.up, group_size, dtype),
+            down=_quant_dense(lp.down, group_size, dtype),
+            moe=moe))
+    return ModelParams(embed=params.embed, layers=layers,
+                       final_norm=params.final_norm, lm_head=params.lm_head)

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -83,6 +83,11 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Libraries `library` brought into this process, in order: built here or
+# loaded from an earlier build (a library's first use, the eager
+# counterpart of a program's first trace). The engine runner's compile
+# audit reads it (engine/runner.py `_note_kernel_builds`).
+LOADED: List[str] = []
 
 
 def nvcc_path() -> str:
@@ -158,6 +163,7 @@ def library(name: str) -> ctypes.CDLL:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
             _libs[name] = lib
+            LOADED.append(name)
     return lib
 
 

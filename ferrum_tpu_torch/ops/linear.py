@@ -29,10 +29,14 @@ LinearParams = Union[DenseLinearParams, QuantLinearParams]
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[M, K] @ [K, N], or batched [B, M, K] @ [B, K, N], → f32 sums never
     rounded to the operands' dtype (XLA's preferred_element_type=f32).
+    Operands of two dtypes are promoted first, as jnp.einsum does.
     bf16 operands stay bf16 on the card (a bf16 GEMM with an f32 output);
     elsewhere they are widened to f32 first, which is exact."""
     if a.dim() == 2:
         return matmul_f32(a[None], b[None])[0]
+    if a.dtype != b.dtype:      # jnp's promotion: an f32 model, a bf16 cache
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:

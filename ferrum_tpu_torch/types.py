@@ -1,7 +1,8 @@
 """Requests, responses and errors of the engine boundary.
 
 Port of `ferrum_tpu/types.py`, trimmed to the served path (no guided
-decoding, echo scoring, LoRA or stop strings yet). Plain dataclasses.
+decoding, echo scoring, LoRA or stop strings yet), and the engine's
+metrics snapshot. Plain dataclasses.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import enum
 import uuid
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 
 class FerrumError(Exception):
@@ -107,3 +108,28 @@ class InferenceResponse:
     completion_tokens: int
     ttft: Optional[float] = None          # seconds, host clock
     e2e_latency: Optional[float] = None
+
+
+@dataclass
+class EngineMetricsSnapshot:
+    """The engine's counters (the JAX package's fields and defaults).
+    The port's KV pool is the linear layout's reservation, so
+    `kv_blocks_free` is the pool less the blocks running sequences hold,
+    and the prefix-cache fields stay 0 (no prefix cache yet)."""
+
+    iterations_total: int = 0
+    requests_submitted: int = 0
+    requests_completed: int = 0
+    requests_preempted: int = 0
+    tokens_prefilled: int = 0
+    tokens_decoded: int = 0
+    kv_blocks_total: int = 0
+    kv_blocks_free: int = 0
+    waiting_requests: int = 0
+    running_requests: int = 0
+    prefix_cache_hits: int = 0
+    prefix_cache_misses: int = 0
+    prefix_cache_saved_tokens: int = 0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dict(self.__dict__)

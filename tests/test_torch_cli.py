@@ -1,0 +1,170 @@
+"""The port's CLI (`python -m ferrum_tpu_torch`) on the CPU.
+
+Run as a subprocess the way tests/test_cli.py runs the JAX CLI, with a
+`-c` prelude that fails if `jax` was ever imported: `bench` with
+tests/test_cli.py's flags, `list`, `replay` (its tokens equal the JAX
+CLI's replay of the same bundle: `random:tiny-test` gives both packages
+the same weights), and an unported flag or FERRUM_* value ending in
+exit code 1 with `error:` on stderr. Also `EngineConfig.resolve`'s
+precedence, CLI > env > file > base.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Both CLIs serve random:tiny-test in f32 (FERRUM_DTYPE), so their greedy
+# tokens are compared without bf16 rounding in the way.
+ENV = {**os.environ, "JAX_PLATFORMS": "cpu", "FERRUM_DTYPE": "f32"}
+SMALL = ["--max-model-len", "256", "--max-num-seqs", "2"]
+
+
+def run_cli(*args, env=None, timeout=180):
+    """The port's CLI in a fresh interpreter; fails if jax is imported."""
+    code = ("import sys\n"
+            "from ferrum_tpu_torch.cli import main\n"
+            f"rc = main({list(args)!r})\n"
+            "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+            "sys.exit(rc)\n")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=timeout, env=env or ENV,
+                          cwd=REPO)
+
+
+def run_jax_cli(*args, timeout=300):
+    return subprocess.run(
+        [sys.executable, "-c",
+         "import jax; jax.config.update('jax_platforms','cpu');"
+         "from ferrum_tpu.cli import main; import sys;"
+         f"sys.exit(main({list(args)!r}))"],
+        capture_output=True, text=True, timeout=timeout, env=ENV, cwd=REPO)
+
+
+def test_bench_offline():
+    r = run_cli("bench", "random:tiny-test", "--device", "cpu",
+                "--concurrency", "2", "--num-requests", "4",
+                "--input-len", "8", "--output-len", "4",
+                "--max-model-len", "256", "--max-num-seqs", "2")
+    assert r.returncode == 0, r.stderr[-2000:]
+    rep = json.loads(r.stdout[r.stdout.index("{"):])
+    assert rep["schema"] == "ferrum-tpu-bench/v1"
+    cell = rep["cells"][0]
+    assert cell["completed"] == 4 and cell["errors"] == 0
+    assert cell["compilations_during_cell"] == 0, cell["compiled_in_cell"]
+
+
+def test_list():
+    r = run_cli("list")
+    assert r.returncode == 0, r.stderr
+    assert "llama-3.1-8b" in r.stdout and "qwen3-30b-a3b" in r.stdout
+    assert "not yet ported: qwen3-0.6b" in r.stdout
+
+
+def test_replay_matches_the_jax_cli(tmp_path):
+    """A bundle captured without observed tokens replays through both
+    CLIs to the same tokens; with those tokens as observed the port's
+    replay matches (exit 0), with them corrupted it reports the
+    mismatch (exit 2)."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+    from ferrum_tpu_torch.utils.replay import capture_bundle, save_bundle
+
+    req = InferenceRequest(prompt="replay me", request_id="r1",
+                           sampling=SamplingParams(max_tokens=6))
+    bundle = capture_bundle(req, EngineConfig(model="random:tiny-test"),
+                            "random:tiny-test")
+    path = str(tmp_path / "bundle.json")
+    save_bundle(bundle, path)
+    flags = ["--bundle", path, *SMALL]
+    ref = run_jax_cli("replay", "random:tiny-test", *flags)
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    r = run_cli("replay", "random:tiny-test", "--device", "cpu", *flags)
+    assert r.returncode == 0, r.stderr[-2000:]
+    toks = json.loads(r.stdout)["token_ids"]
+    assert len(toks) == 6 and toks == json.loads(ref.stdout)["token_ids"]
+    bundle["observed"]["response_token_ids"] = toks
+    save_bundle(bundle, path)
+    r = run_cli("replay", "random:tiny-test", "--device", "cpu", *flags)
+    assert r.returncode == 0 and json.loads(r.stdout)["matches_observed"]
+    bundle["observed"]["response_token_ids"] = [t + 1 for t in toks]
+    save_bundle(bundle, path)
+    r = run_cli("replay", "random:tiny-test", "--device", "cpu", *flags)
+    assert r.returncode == 2, r.stdout + r.stderr
+
+
+def test_unported_flag_exits_1_in_a_subprocess():
+    r = run_cli("bench", "random:tiny-test", "--device", "cpu",
+                "--kv-layout", "paged", *SMALL)
+    assert r.returncode == 1, r.stdout + r.stderr
+    assert "error:" in r.stderr and "kv_layout" in r.stderr \
+        and "not yet ported" in r.stderr
+
+
+@pytest.mark.parametrize("flags,env,field", [
+    (["--kv-layout", "paged"], {}, "kv_layout"),
+    (["--tp", "2"], {}, "tensor_parallel"),
+    (["--spec-draft", "random:tiny-test"], {}, "spec_draft_model"),
+    (["--quantization", "gguf_q4k"], {}, "quantization"),
+    (["--enable-prefix-cache"], {}, "enable_prefix_cache"),
+    (["--scheduler", "fifo"], {}, "scheduler"),
+    (["--kv-dtype", "int8"], {}, "kv_dtype"),
+    ([], {"FERRUM_KV_DTYPE": "int8"}, "kv_dtype"),
+    ([], {"FERRUM_ADAPTIVE_WINDOWS": "1"}, "adaptive_windows"),
+    ([], {"FERRUM_KV_LAYOUT": "paged"}, "kv_layout"),
+    (["--kv-capacity", "64"], {}, "kv_num_blocks"),
+    ([], {"FERRUM_KV_MAX_BLOCKS": "64"}, "kv_num_blocks"),
+])
+def test_unported_settings_exit_1(monkeypatch, capsys, tmp_path, flags, env,
+                                  field):
+    """Each unported flag or FERRUM_* value: exit code 1 and `error:`
+    naming the field, before any engine is built."""
+    from ferrum_tpu_torch.cli import main
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rc = main(["bench", "random:tiny-test", "--device", "cpu", "--config",
+               str(tmp_path / "none.toml"), *SMALL, *flags])
+    err = capsys.readouterr().err
+    assert rc == 1 and err.startswith("error:") and field in err, err
+    assert "not yet ported" in err
+
+
+def test_unknown_model_source_exits_1(capsys, tmp_path):
+    from ferrum_tpu_torch.cli import main
+
+    for src in ("random:qwen3-4b", str(tmp_path), "hf-org/model"):
+        rc = main(["bench", src, "--device", "cpu", *SMALL])
+        assert rc == 1 and capsys.readouterr().err.startswith("error:")
+
+
+def test_resolve_precedence(tmp_path):
+    """CLI > env > file > base on the port's fields; the fields the port
+    fixes pass at their fixed value and raise at any other."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.types import InvalidRequestError
+
+    toml = tmp_path / "ferrum.toml"
+    toml.write_text("[runtime]\nmax_num_seqs = 6\nmax_model_len = 512\n"
+                    "decode_multi_step = 4\nkv_layout = 'linear'\n"
+                    "unknown_key = 1\n")
+    env = {"FERRUM_MAX_MODEL_LEN": "1024", "FERRUM_DECODE_MULTI_STEP": "2",
+           "FERRUM_SEED": "9", "OTHER": "x"}
+    cfg = EngineConfig.resolve(
+        cli_overrides={"decode_multi_step": 3, "seed": None},
+        environ=env, toml_path=str(toml), max_num_seqs=5, max_model_len=64,
+        prefill_chunk_size=256, kv_layout="auto")
+    assert cfg.max_num_seqs == 6            # file over base
+    assert cfg.max_model_len == 1024        # env over file
+    assert cfg.decode_multi_step == 3       # CLI over env
+    assert cfg.seed == 9                    # an unset CLI value is no layer
+    assert cfg.prefill_chunk_size == 256    # base
+    base = EngineConfig.resolve(environ={}, toml_path=None)
+    assert base == EngineConfig()
+    with pytest.raises(InvalidRequestError, match="not yet ported"):
+        EngineConfig.resolve(environ={"FERRUM_TP": "2"})
+    with pytest.raises(InvalidRequestError, match="unknown config field"):
+        EngineConfig.resolve(environ={}, bogus=1)

@@ -66,6 +66,23 @@ def _prompts(concurrency):
     return PROMPTS + (PROMPT_4,) if concurrency == 4 else PROMPTS
 
 
+def _submit_all(engine, reqs):
+    """Submit every request before the engine's loop starts, so that its
+    first iteration admits them together: the schedule the mixed-window
+    checks rely on. (Submitting while the loop runs let it admit the
+    first one or two alone on a loaded host, and then hold the rest's
+    chunks for refill-first together with the long prompt's last chunk,
+    which then rides no window.)"""
+    start = engine.ensure_loop
+    engine.ensure_loop = lambda: None
+    try:
+        queues = [engine.submit(r) for r in reqs]
+    finally:
+        engine.ensure_loop = start
+    start()
+    return queues
+
+
 def _serve(engine, req_cls, samp_cls, prompts=PROMPTS, concurrency=3):
     """Generated tokens per prompt, read from each sequence when the
     scheduler finishes it, and the streamed token ids. concurrency 1
@@ -109,7 +126,7 @@ def _serve(engine, req_cls, samp_cls, prompts=PROMPTS, concurrency=3):
             for r in reqs:
                 drain(r, engine.submit(r))
         else:
-            queues = [engine.submit(r) for r in reqs]
+            queues = _submit_all(engine, reqs)
             for r, q in zip(reqs, queues):
                 drain(r, q)
     finally:
@@ -494,10 +511,10 @@ def test_one_kv_append_a_window(monkeypatch):
     engine = _torch_engine(cfg, init_random_quant_params(cfg, 0,
                                                          device="cpu"),
                            **PIPELINED)
-    qs = [engine.submit(InferenceRequest(
+    qs = _submit_all(engine, [InferenceRequest(
         prompt_token_ids=p, sampling=SamplingParams(max_tokens=12,
-                                                    ignore_eos=True)))
-          for p in _prompts(4)]
+                                                    ignore_eos=True))
+        for p in _prompts(4)])
     for q in qs:
         while not q.get(timeout=SERVE_TIMEOUT_S).finished:
             pass

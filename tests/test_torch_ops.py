@@ -405,6 +405,31 @@ def test_port_imports_neither_jax_nor_ferrum_tpu():
     assert not offenders, offenders
 
 
+# The measuring modules, the accuracy functions, the replay bundles and
+# the CLI (each also
+# walked by the two checks around this one).
+MEASURING_MODULES = ("types", "config", "utils/profile", "utils/replay",
+                     "bench/bench_engine", "bench/accuracy",
+                     "models/quantize", "engine/runner",
+                     "engine/engine", "engine/builder",
+                     "models/llama_family", "ops/kernels/build", "cli",
+                     "__main__")
+
+
+@pytest.mark.parametrize("mod", MEASURING_MODULES)
+def test_measuring_module_imports_neither_jax_nor_ferrum_tpu(mod):
+    path = os.path.join(PKG, f"{mod}.py")
+    assert path in set(_py_files())
+    for node in ast.walk(ast.parse(open(path).read())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        assert not [n for n in names if n.split(".")[0] in (
+            "jax", "jaxlib", "ferrum_tpu", "flax", "optax")], (mod, names)
+
+
 def test_port_imports_where_jax_cannot():
     """Every module of the package imports in a process where importing
     jax (or ferrum_tpu) raises."""
