@@ -42,15 +42,26 @@ Phases, in order, each printing JSON lines:
              K with V in one launch (bf16, f32, int8), the pair timed
              beside an empty kernel's launch, and K with V at a decode
              window's size (lane A at bucket 32 with a 256-token chunk
-             riding it: 16384 rows x 2 KiB each), the summary's row
+             riding it: 16384 rows x 2 KiB each), the summary's row,
+             and the same window as lane F appends it (int8 K and V with
+             their f32 scale planes in one launch); a paged decode step
+             as lane G appends it (32 layers x 32 lanes at scattered
+             blocks of its pool, pad lanes dropped), bf16 K and V and
+             the int8 four arrays;
+             kv_append_pages one array (bf16 / f32 / int8) and its pairs
+             form at a batched prefill's size (2048 rows x 2 KiB, 32
+             layers, scattered and dropped ids) with one to four arrays
+             (bf16 K; K and V; int8 K and V; int8 K and V with their f32
+             scale planes), each beside one launch an array -- K and V
+             in one launch the summary's row
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
              ties, as jax.lax.top_k) at 32 slots x 128256 against a full
              stable sort, timed beside both and torch.topk
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
-Then, for each of five lanes at full width and depth (lanes B and D at
-24 and 12 of their 48 layers, for the run's time: see LANES) -- A
+Then, for each of five lanes at full width and depth (lane B at 6 of
+its 48 layers, D at 12, for the run's time: see LANES) -- A
 llama-3.1-8b
 and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
 serve_moe, logits_moe), C llama-3.1-8b float-scale w4a8
@@ -116,6 +127,22 @@ time):
              weights on the host while lanes B-E run: exit code 0, 4
              requests completed without error, jax never imported; the
              weight draws' and the process's seconds
+Lanes F and G, on lane A's weights once its phases are done:
+  serve_int8_prefix (F)  kv_dtype int8, the linear layout with the prefix
+             store: two waves of 16 requests, each a shared 192-token
+             prefix and 64 own tokens, 64 generated; wave 2's hits and
+             reused tokens counted and its prefill tokens down by them,
+             one kv_append_rows launch a window carrying four arrays;
+             a new request's first-step logits with the prefix restored
+             from the store against the same request prefilled whole
+             in the same chunks and against the plain path (lane A's
+             tolerance); the share of wave 2's greedy tokens equal to
+             the same engine's with no store
+  serve_paged (G)  the paged layout with the prefix cache on a pool of
+             150 blocks: the same waves, every request complete, >= 1
+             preemption (recompute), shared prefix blocks, every
+             dispatch under the no-sync check; the share of wave 1's
+             greedy tokens equal to a pool where nothing is preempted
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
@@ -137,6 +164,7 @@ INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 PAGE = 32
 OOB_SENTINEL = 1 << 30
+PREFILL_ROWS = 2048              # one batched prefill's rows (llama)
 # llama-3.1-8b projection shapes (K, N) with fused q|k|v and gate|up.
 GEMM_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096),
                "gate_up": (4096, 28672), "down": (14336, 4096)}
@@ -176,21 +204,27 @@ SERVE_GROUPED_W4A16_A = 16384
 # solo request's tokens this lane's must equal. `layers`: a depth cut
 # (the model's first layers): lane D, the slowest lane on a busy host
 # (its sort-route decode makes ~1.06M launches per profile window at 48
-# layers: 560 of 1043 s of one run on an H100 with a slow host), runs
-# 12 of its 48 layers so the run stays well inside its 1200 s.
+# layers: 560 of 1043 s of one run on an H100 with a slow host), ran 12
+# of its 48 layers so the run stayed well inside its 1200 s. Since
+# lanes F and G joined the run (993.7 s with B at 48; 979.2 s with B at
+# 24; 1077.6 s on a slow host with B at 12 and C at 16), lane B runs 6
+# of its 48 layers; C keeps all 32 (its float-scale logits check holds
+# kernels 5 and 6 at full depth) and E all 32 (its solo request must
+# give A's tokens).
 LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
          lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="", profile=True, small=True, sync_check=True,
-         window_check=True, bench=True),
+         window_check=True, bench=True, fg=True),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
-         mode={}, float_scale=False, path=MOE_PATH,
+         layers=6, mode={}, float_scale=False, path=MOE_PATH,
          lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="_moe", profile=False, small=True),
     dict(name="C llama-3.1-8b float-scale w4a8", model="llama-3.1-8b",
-         mode={"w4a8": True, "w4a8_two_level": False}, float_scale=True,
+         mode={"w4a8": True, "w4a8_two_level": False},
+         float_scale=True,
          path=("w4a8_decode", "w4a16_gemm") + KV_PATH,
          lanes=(1, 1, 1, 1),
          tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None), tag="_fs",
@@ -1407,18 +1441,81 @@ def kv_rows_cases(torch, timer):
 WIN_T, WIN_LANES, WIN_P = 8, 32, 32
 
 
-def kv_window_case(torch, timer):
-    """kv_append_rows at the window size append_window_kv gives it: K and
-    V of one window in one launch, ids laid out as the model lays them
-    (layer-major, then step, then lane, then chunk row): 31 decoding
-    lanes at seeded positions, slot 5's lane a pad (dropped) while its
-    256-token chunk rides the window's rows. Equal to its plain version
-    bit for bit; timed beside two index_copy_ (one per array)."""
+def kv_array(torch, gen, dt, shape):
+    """Seeded cache or source contents: int8 over [-127, 127], else
+    normal draws in `dt`."""
+    if dt == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen,
+                             device="cuda", dtype=torch.int8)
+    return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+
+# The rows forms the served paths append: bf16 K and V; int8 K and V with
+# their f32 scale planes (Hkv = 8 scales a row: 32 bytes beside 1024).
+ROWS_BF16 = ("bf16 K, V", [("bfloat16", 1024)] * 2)
+ROWS_INT8 = ("int8 K, V, K scales, V scales",
+             [("int8", 1024)] * 2 + [("float32", 8)] * 2)
+
+
+def kv_rows_form_cases(torch, timer, gen, blk, off, b, forms, extra):
+    """Each form's (cache, rows) arrays in one append_rows_pairs launch at
+    the ids blk / off (blocks >= b dropped), bit for bit against
+    append_rows_pairs_plain on copies of the same caches; timed beside the
+    plain version and one index_copy_ an array, the bound from the bytes
+    moved. `extra`: fields every row carries."""
     from ferrum_tpu_torch.ops.kernels.kv_append import (
         append_rows_pairs, append_rows_pairs_plain)
+    n = blk.numel()
+    valid = blk < b
+    n_valid = int(valid.sum().item())
+    idx = (blk.long() * PAGE + off.long())[valid]
+    rows = []
+    for label, kinds in forms:
+        pairs = [(kv_array(torch, gen, getattr(torch, dt), (b, PAGE, w)),
+                  kv_array(torch, gen, getattr(torch, dt), (n, w)))
+                 for dt, w in kinds]
+        ref = append_rows_pairs_plain([(c.clone(), r) for c, r in pairs],
+                                      blk, off)
+        append_rows_pairs(pairs, blk, off)
+        torch.cuda.synchronize()
+        row = {"kernel": "kv_append_rows", "dtype": label,
+               "arrays": len(pairs), "rows": n, "f": kinds[0][1], **extra,
+               "equal": all(bool(torch.equal(c, w))
+                            for (c, _), w in zip(pairs, ref)),
+               "max_abs_err": max((c.float() - w.float()).abs().max().item()
+                                  for (c, _), w in zip(pairs, ref))}
+        del ref
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            sum(2 * n_valid * r[0].nbytes for _, r in pairs)
+            + blk.nbytes + off.nbytes, 0)
+        row["kernel_ms"] = timer(lambda: append_rows_pairs(pairs, blk, off))
+        row["plain_ms"] = timer(
+            lambda: append_rows_pairs_plain(pairs, blk, off), reps=10)
+        copies = [(c.view(-1, c.shape[-1]), r[valid]) for c, r in pairs]
+        row["library_ms"] = timer(lambda: [
+            flat_c.index_copy_(0, idx, src) for flat_c, src in copies])
+        rows.append(row)
+        emit({"phase": "kernel_case", **row})
+        if not row["equal"]:
+            raise AssertionError(f"kv_append_rows {label} ({extra['at']}): "
+                                 f"differs by {row['max_abs_err']}")
+        del pairs, copies
+        torch.cuda.empty_cache()
+    return rows
+
+
+def kv_window_case(torch, timer):
+    """kv_append_rows at the window size append_window_kv gives it: one
+    window in one launch, ids laid out as the model lays them
+    (layer-major, then step, then lane, then chunk row): 31 decoding
+    lanes at seeded positions, slot 5's lane a pad (dropped) while its
+    256-token chunk rides the window's rows. Two forms: bf16 K and V
+    (lanes A-E; the summary's row) and int8 K and V with their f32 scale
+    planes (lane F's window: four arrays of two widths in one launch).
+    Each bit for bit against its plain version (kv_rows_form_cases)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
-    layers, bps, f = 32, 1024 // PAGE, 1024
+    layers, bps = 32, 1024 // PAGE
     nb = WIN_LANES * bps
     b = layers * nb
     pos = torch.randint(256, 1024 - WIN_T, (WIN_LANES,), generator=gen,
@@ -1434,42 +1531,41 @@ def kv_window_case(torch, timer):
                       torch.full((layers, 1), OOB_SENTINEL, device="cuda"))
     blk = blk.reshape(-1).to(torch.int32).contiguous()
     off = (flat % PAGE).repeat(layers).to(torch.int32).contiguous()
-    n = blk.numel()
-    pairs = [(torch.randn(b, PAGE, f, generator=gen, device="cuda")
-              .to(torch.bfloat16),
-              torch.randn(n, f, generator=gen, device="cuda")
-              .to(torch.bfloat16)) for _ in range(2)]
-    ref = append_rows_pairs_plain([(c.clone(), r) for c, r in pairs],
-                                  blk, off)
-    append_rows_pairs(pairs, blk, off)
-    torch.cuda.synchronize()
-    row = {"kernel": "kv_append_rows", "dtype": "bfloat16", "arrays": 2,
-           "rows": n, "f": f, "window": True,
-           "at": f"one window: {layers} layers x T={WIN_T} x "
-                 f"({WIN_LANES} lanes + {WIN_P} chunk rows)",
-           "equal": all(bool(torch.equal(c, w))
-                        for (c, _), w in zip(pairs, ref)),
-           "max_abs_err": max((c.float() - w.float()).abs().max().item()
-                              for (c, _), w in zip(pairs, ref))}
-    del ref
-    valid = blk < b
-    n_valid = int(valid.sum().item())
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        2 * 2 * n_valid * f * 2 + blk.nbytes + off.nbytes, 0)
-    row["kernel_ms"] = timer(lambda: append_rows_pairs(pairs, blk, off))
-    row["plain_ms"] = timer(
-        lambda: append_rows_pairs_plain(pairs, blk, off), reps=10)
-    idx = (blk.long() * PAGE + off.long())[valid]
-    copies = [(c.view(-1, f), r[valid]) for c, r in pairs]
-    row["library_ms"] = timer(lambda: [
-        flat_c.index_copy_(0, idx, src) for flat_c, src in copies])
-    emit({"phase": "kernel_case", **row})
-    if not row["equal"]:
-        raise AssertionError(f"kv_append_rows at window size differs by "
-                             f"{row['max_abs_err']}")
-    del pairs, copies
-    torch.cuda.empty_cache()
-    return [row]
+    return kv_rows_form_cases(
+        torch, timer, gen, blk, off, b, (ROWS_BF16, ROWS_INT8),
+        {"window": True, "at": f"one window: {layers} layers x T={WIN_T} "
+                               f"x ({WIN_LANES} lanes + {WIN_P} chunk "
+                               f"rows)"})
+
+
+def kv_paged_step_case(torch, timer):
+    """kv_append_rows as a paged decode step appends (lane G: each step
+    of a window appends its own rows): 32 layers x 32 lanes (bucket 32),
+    16 decoding lanes at seeded positions up to FG_SHARED + FG_OWN +
+    FG_OUT, each in its own block of a G_BLOCKS pool at scattered ids
+    (the paged layout's block tables), the 16 pad lanes dropped, plus
+    one id of exactly B. Lane G's bf16 K and V, and the same step on an
+    int8 pool (K, V and their scale planes), bit for bit against the
+    plain version (kv_rows_form_cases)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    layers, lanes, live = 32, 32, FG_REQUESTS
+    b = layers * G_BLOCKS
+    pos = torch.randint(0, FG_SHARED + FG_OWN + FG_OUT, (lanes,),
+                        generator=gen, device="cuda")
+    lane_blk = torch.randperm(G_BLOCKS, generator=gen,
+                              device="cuda")[:lanes]
+    blk = torch.arange(layers, device="cuda")[:, None] * G_BLOCKS \
+        + lane_blk[None]
+    blk[:, live:] = OOB_SENTINEL                       # pad lanes
+    blk = blk.reshape(-1).to(torch.int32).contiguous()
+    blk[7] = b                                         # exactly B: dropped
+    off = (pos % PAGE).repeat(layers).to(torch.int32).contiguous()
+    return kv_rows_form_cases(
+        torch, timer, gen, blk, off, b, (ROWS_BF16, ROWS_INT8),
+        {"form": "paged step", "at": f"a paged decode step: {layers} "
+                                     f"layers x {lanes} lanes ({live} "
+                                     f"live) over {G_BLOCKS} blocks"})
 
 
 def kv_pages_cases(torch, timer):
@@ -1535,6 +1631,81 @@ def kv_pages_cases(torch, timer):
     return rows
 
 
+def kv_pages_pairs_cases(torch, timer):
+    """kv_append_pages' pairs form at a llama-3.1-8b batched prefill's
+    size (2048 rows: 64 pages a layer, 32 layers), ids scattered over
+    the pool as the paged layout's blocks, a short chunk's pad pages
+    (OOB_SENTINEL) and an id of exactly B dropped: one to four arrays
+    in one launch -- bf16 K; bf16 K and V; int8 K and V; int8 K and V
+    with their f32 scale planes -- bit for bit against the plain
+    version, timed beside one single-array launch per array (the
+    two-launch and four-launch forms it replaces), with the bound from
+    the bytes moved."""
+    from ferrum_tpu_torch.ops.kernels.kv_append import (
+        append_pages, append_pages_pairs, append_pages_pairs_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    layers, nb_layer, f, hkv = 32, 1024, 1024, 8
+    b = layers * nb_layer
+    n_pg = PREFILL_ROWS // PAGE
+    perm = torch.randperm(nb_layer, generator=gen, device="cuda")[:n_pg]
+    blk_seq = perm.clone()
+    blk_seq[40:] = torch.where(torch.arange(n_pg - 40, device="cuda") < 4,
+                               perm[40:], OOB_SENTINEL)
+    blk = torch.where(blk_seq[None] >= OOB_SENTINEL,
+                      torch.full((layers, 1), OOB_SENTINEL, device="cuda"),
+                      torch.arange(layers, device="cuda")[:, None]
+                      * nb_layer + blk_seq[None])
+    ids = blk.reshape(-1).to(torch.int32).contiguous()
+    ids[3] = b                            # exactly B: dropped
+    p = ids.numel()
+    valid = ids < b
+    n_valid = int(valid.sum().item())
+
+    rows = []
+    forms = (("bf16 K", [(torch.bfloat16, f)]),
+             ("bf16 K, V", [(torch.bfloat16, f)] * 2),
+             ("int8 K, V", [(torch.int8, f)] * 2),
+             ("int8 K, V, K scales, V scales",
+              [(torch.int8, f)] * 2 + [(torch.float32, hkv)] * 2))
+    for label, kinds in forms:
+        pairs = [(kv_array(torch, gen, dt, (b, PAGE, w)),
+                  kv_array(torch, gen, dt, (p, PAGE, w)))
+                 for dt, w in kinds]
+        ref = append_pages_pairs_plain([(c.clone(), q) for c, q in pairs],
+                                       ids)
+        append_pages_pairs(pairs, ids)
+        torch.cuda.synchronize()
+        row = {"kernel": "kv_append_pages", "form": "pairs",
+               "arrays": len(pairs), "dtype": label, "pages": p,
+               "f": f, "rows": PREFILL_ROWS,
+               "equal": all(bool(torch.equal(c, w))
+                            for (c, _), w in zip(pairs, ref)),
+               "max_abs_err": max((c.float() - w.float()).abs().max().item()
+                                  for (c, _), w in zip(pairs, ref))}
+        del ref
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            sum(2 * n_valid * q[0].nbytes for _, q in pairs) + ids.nbytes,
+            0)
+        row["kernel_ms"] = timer(lambda: append_pages_pairs(pairs, ids))
+        row["single_launches_ms"] = timer(
+            lambda: [append_pages(c, q, ids) for c, q in pairs])
+        row["plain_ms"] = timer(
+            lambda: append_pages_pairs_plain(pairs, ids), reps=10)
+        idx = ids.long()[valid]
+        srcs = [(c, q[valid]) for c, q in pairs]
+        row["library_ms"] = timer(
+            lambda: [c.index_copy_(0, idx, q) for c, q in srcs])
+        rows.append(row)
+        emit({"phase": "kernel_case", **row})
+        if not row["equal"]:
+            raise AssertionError(f"kv_append_pages pairs {label}: differs "
+                                 f"by {row['max_abs_err']}")
+        del pairs, srcs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _summed(sel, at):
     """One summary entry: the cases' times and bounds summed (None where
     a case lacks the number)."""
@@ -1568,13 +1739,13 @@ def summarize(cases):
                              and c[key] == at
                              and c.get("model", "llama-3.1-8b")
                              == "llama-3.1-8b"], f"{key}={at}")
-    # The appends: a decode window's K and V in one launch (the served
-    # path's size), a prefill's pages of one array.
+    # The appends: a decode window's K and V in one launch, a batched
+    # prefill's K and V pages in one launch (the served paths' sizes).
     for name in ("kv_append_rows", "kv_append_pages"):
         c = next(c for c in cases
-                 if c["kernel"] == name and c["dtype"] == "bfloat16"
-                 and c.get("arrays", 2) == 2
-                 and c.get("window", name != "kv_append_rows"))
+                 if c["kernel"] == name and c.get("arrays") == 2
+                 and "bf" in c["dtype"]
+                 and (c.get("window") or c.get("form") == "pairs"))
         out[name] = {k: c.get(k) for k in ("plain_ms", "library_ms",
                                            "bound_ms", "bound_by")}
         out[name]["ms"] = c.get("kernel_ms")
@@ -1718,11 +1889,13 @@ def build_engine(model, mode, float_scale, layers=None):
     # bench.py's engine settings: lane buckets 1, 8 and the top, T = 32
     # at bucket 1 and 8 elsewhere; the pipelined loop with mixed
     # prefill-in-window and refill-first are the defaults.
+    # The linear layout with no prefix store, as bench.py sets them.
     cfg = EngineConfig(
         max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
         prefill_chunk_size=PROMPT_LEN, max_num_batched_tokens=2048,
         kv_block_size=PAGE, kv_dtype="bf16", decode_multi_step=8, seed=0,
-        decode_bucket_spec="1,8", decode_t_spec="1:32", **mode)
+        decode_bucket_spec="1,8", decode_t_spec="1:32", kv_layout="linear",
+        prefix_cache_blocks=0, **mode)
     return mc, EngineBuilder(cfg).with_model(mc, params).build()
 
 
@@ -1883,6 +2056,289 @@ def serve_phase(torch, lane, want_solo=None):
             emit(line)
             by_run[f"{name} c={conc}"] = launches
     return by_run, mc, engine, solo
+
+
+# Lanes F and G: the KV cache's other forms on lane A's weights. Two
+# waves of 16 requests, each a 192-token prefix shared by all and 64
+# tokens of its own, 64 tokens generated.
+FG_REQUESTS, FG_SHARED, FG_OWN, FG_OUT = 16, 192, 64, 64
+# Lane G's paged pool: below the ~13 blocks a sequence holds at its
+# longest (256 + 64 tokens and the windows' lookahead) times 16.
+G_BLOCKS, G_BLOCKS_ROOMY = 150, 512
+
+
+def fg_waves(mc):
+    """The two waves' prompts: one shared prefix, own tails per wave."""
+    import numpy as np
+    shared = np.random.default_rng(100).integers(0, mc.vocab_size,
+                                                 FG_SHARED)
+    return [[np.concatenate([shared, np.random.default_rng(
+        200 + 50 * w + i).integers(0, mc.vocab_size, FG_OWN)])
+        for i in range(FG_REQUESTS)] for w in range(2)]
+
+
+def fg_engine(mc, params, **kv):
+    """An engine on lane A's params (built already: nothing requantized
+    or fused again) with A's settings and the KV fields `kv`."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine.builder import EngineBuilder
+    cfg = EngineConfig(
+        max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
+        prefill_chunk_size=PROMPT_LEN, max_num_batched_tokens=2048,
+        kv_block_size=PAGE, decode_multi_step=8, seed=0,
+        decode_bucket_spec="1,8", decode_t_spec="1:32", **kv)
+    return EngineBuilder(cfg).with_model(mc, params).build()
+
+
+def fg_serve(torch, engine, mc, waves, sync_check=False):
+    """Each wave's requests at once, the next wave after; the kernels'
+    launches over the run (counts from 0), per-wave metric deltas and
+    tokens. sync_check: every dispatch under set_sync_debug_mode
+    ("error")."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ferrum_tpu_torch.ops import kernels as K
+    runner = engine.runner
+    K.reset_launch_counts()
+    runner.sync_debug = "error" if sync_check else None
+    out, deltas = [], []
+    t0 = time.perf_counter()
+    try:
+        for prompts in waves:
+            m0 = dataclasses.replace(engine.metrics_snapshot())
+            with ThreadPoolExecutor(len(prompts)) as ex:
+                resps = list(ex.map(engine.infer, [
+                    request(p, FG_OUT) for p in prompts]))
+            m1 = engine.metrics_snapshot()
+            deltas.append({k: getattr(m1, k) - getattr(m0, k) for k in (
+                "tokens_prefilled", "tokens_decoded", "requests_completed",
+                "prefix_cache_hits", "prefix_cache_misses",
+                "prefix_cache_saved_tokens")})
+            for r in resps:
+                if r.completion_tokens != FG_OUT or not all(
+                        0 <= t < mc.vocab_size for t in r.token_ids):
+                    raise AssertionError(f"{r.request_id}: "
+                                         f"{r.completion_tokens} tokens")
+            out.append([r.token_ids for r in resps])
+        torch.cuda.synchronize()
+    finally:
+        runner.sync_debug = None
+    return out, deltas, counts(K), time.perf_counter() - t0
+
+
+def same_share(a, b):
+    """The share of greedy tokens equal position by position."""
+    pairs = [(x, y) for wa, wb in zip(a, b) for ra, rb in zip(wa, wb)
+             for x, y in zip(ra, rb)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+def check_path(name, launches, path):
+    idle = [k for k in path if launches[k] == 0]
+    stray = [k for k in off_path({"path": path}) if launches[k] != 0]
+    if idle or stray:
+        raise AssertionError(f"{name}: never launched {idle}, launched "
+                             f"{stray} off the path")
+
+
+def lane_f_logits(torch, mc, engine, prompts):
+    """On lane F's engine, idle after its waves, two prompts sharing the
+    192-token prefix. The first is prefilled into slot 0 in the chunks
+    the engine gives it (192, then 64), and its prefix blocks copied to
+    the store. The second's first-step logits (a) with the prefix
+    restored from the store into slot 1 and its 64 own tokens prefilled
+    over it, (b) prefilled whole into slot 2 in the same chunks with no
+    store -- the same arithmetic when the store round trip is exact --,
+    (c) as (a) through every kernel's plain version, and (d) prefilled
+    in one 256-token chunk (its own tokens then attend the prefix
+    unquantized: the int8 KV's effect, reported). (a) against (b) and
+    (c): lane A's tolerance."""
+    from ferrum_tpu_torch.engine import runner as runner_mod
+    from ferrum_tpu_torch.models import llama_family as lf
+    from ferrum_tpu_torch.ops.kernels import kv_append
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+
+    runner = engine.runner
+    params, kv, dev = runner.params, runner.kv, runner.device
+    n_pre = FG_SHARED // PAGE
+    store_blocks = engine.prefix_cache.pool.allocate(n_pre)
+
+    def prefill(slot, toks, start, end, restore=False):
+        base = slot * runner.max_pages
+        if restore:
+            runner.copy_prefix_blocks(store_blocks, list(range(
+                base, base + n_pre)), to_store=False)
+        toks = torch.as_tensor(toks, device=dev)
+        pos = torch.arange(start, end, device=dev)
+        h, _ = lf.prefill_forward_batched(
+            params, mc, kv, toks[start:end][None], pos[None],
+            runner._tables(torch.tensor([slot], device=dev)),
+            torch.tensor([end], device=dev), (slot * 1024 + pos)[None],
+            ctx_pad=runner.ctx_bucket(end), inv_freq=runner.inv_freq)
+        return lf.logits_from_hidden(params, mc, h[0, -1:])
+
+    src, req = prompts
+    n = len(req)
+    prefill(0, src, 0, FG_SHARED)
+    prefill(0, src, FG_SHARED, n)
+    runner.copy_prefix_blocks(list(range(n_pre)), store_blocks,
+                              to_store=True)
+    reused = prefill(1, req, FG_SHARED, n, restore=True)
+    prefill(2, req, 0, FG_SHARED)
+    whole = prefill(2, req, FG_SHARED, n)
+    one_chunk = prefill(3, req, 0, n)
+    swaps = [(qmm, "w4a8tl_decode", qmm.w4a8tl_plain),
+             (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
+             (lf, "append_rows_pairs", kv_append.append_rows_pairs_plain),
+             (lf, "append_pages_pairs", kv_append.append_pages_pairs_plain),
+             (runner_mod, "append_pages_pairs",
+              kv_append.append_pages_pairs_plain)]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    for m, k, fn in swaps:
+        setattr(m, k, fn)
+    try:
+        plain = prefill(4, req, FG_SHARED, n, restore=True)
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+    torch.cuda.synchronize()
+    scale = whole.abs().max().item()
+
+    def rel(x):
+        return (reused - x).abs().max().item() / scale
+
+    line = {"tolerance_rel": LANES[0]["tol"], "logit_scale": scale,
+            "reused_vs_prefilled_whole_rel": rel(whole),
+            "reused_vs_plain_rel": rel(plain),
+            "reused_vs_one_chunk_rel": rel(one_chunk),
+            "finite": bool(torch.isfinite(reused).all())}
+    if not (line["finite"] and line["reused_vs_prefilled_whole_rel"]
+            <= LANES[0]["tol"] and line["reused_vs_plain_rel"]
+            <= LANES[0]["tol"]):
+        raise AssertionError(f"lane F logits: {line}")
+    return line
+
+
+def lane_f(torch, mc, params):
+    """Lane F: lane A's weights, kv_dtype int8, the linear layout with
+    the prefix store (auto size). Two waves: the second's hits and reused
+    tokens counted, its prefill tokens down by the reused share, one
+    kv_append_rows launch a window carrying four arrays (K, V and their
+    scales); the reused-prefix logits checks (lane_f_logits); the share
+    of wave 2's greedy tokens equal to the same engine's with no store."""
+    import numpy as np
+
+    from ferrum_tpu_torch.models import llama_family as lf
+    engine = fg_engine(mc, params, kv_layout="linear", kv_dtype="int8",
+                       enable_prefix_cache=True, prefix_cache_blocks=-1)
+    if not (engine.runner.kv.quantized
+            and engine.runner.prefix_store is not None):
+        raise AssertionError("lane F: no int8 pool or no prefix store")
+    waves = fg_waves(mc)
+    rows_pairs = []
+    orig = lf.append_rows_pairs
+
+    def recorded(pairs, *a):
+        rows_pairs.append(len(pairs))
+        return orig(pairs, *a)
+
+    buckets0 = dict(engine.runner.windows_by_bucket)
+    lf.append_rows_pairs = recorded
+    try:
+        toks, deltas, launches, wall = fg_serve(torch, engine, mc, waves)
+    finally:
+        lf.append_rows_pairs = orig
+    windows = sum(engine.runner.windows_by_bucket.values()) \
+        - sum(buckets0.values())
+    check_path("F", launches, LLAMA_PATH)
+    w1, w2 = deltas
+    reused = FG_REQUESTS * FG_SHARED
+    ok = (w2["prefix_cache_hits"] == FG_REQUESTS
+          and w2["prefix_cache_saved_tokens"] == reused
+          and w1["tokens_prefilled"] == FG_REQUESTS * (FG_SHARED + FG_OWN)
+          and w2["tokens_prefilled"] == w1["tokens_prefilled"] - reused
+          and launches["kv_append_rows"] == windows == len(rows_pairs)
+          and set(rows_pairs) == {4})
+    line = {"phase": "serve_int8_prefix", "lane": "F llama-3.1-8b w4a8 "
+            "two-level, int8 KV, linear + prefix store",
+            "requests_per_wave": FG_REQUESTS, "shared_prefix": FG_SHARED,
+            "own_tokens": FG_OWN, "output_len": FG_OUT, "wall_s": wall,
+            "output_tok_s": 2 * FG_REQUESTS * FG_OUT / wall,
+            "store_blocks": engine.runner.prefix_store.num_blocks,
+            "waves": deltas, "windows": windows,
+            "kv_append_rows_per_window": launches["kv_append_rows"]
+            / max(windows, 1), "arrays_per_rows_launch": sorted(
+                set(rows_pairs)), "launches": launches, "card": smi_line()}
+    if not ok:
+        emit(line)
+        raise AssertionError("lane F: counts off")
+    rng = np.random.default_rng(999)
+    line["logits"] = lane_f_logits(torch, mc, engine, [
+        np.concatenate([waves[0][0][:FG_SHARED],
+                        rng.integers(0, mc.vocab_size, FG_OWN)])
+        for _ in range(2)])
+    engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    # The reused wave alone through an engine with no store: the same
+    # requests prefilled whole.
+    base = fg_engine(mc, params, kv_layout="linear", kv_dtype="int8",
+                     prefix_cache_blocks=0)
+    plain_toks = fg_serve(torch, base, mc, waves[1:])[0]
+    base.stop()
+    line["tokens_equal_to_no_store_share"] = same_share(toks[1:],
+                                                        plain_toks)
+    emit(line)
+    return launches
+
+
+def lane_g(torch, mc, params):
+    """Lane G: lane A's weights, the paged layout with the prefix cache,
+    a pool of G_BLOCKS: every request of both waves completes, at least
+    one sequence is preempted and recomputed, the second wave's prefix
+    blocks are shared, and no dispatch syncs the host (the no-sync
+    check); the share of wave 1's greedy tokens (the preempted wave)
+    equal to the same engine's on a pool where nothing is preempted."""
+    engine = fg_engine(mc, params, kv_layout="paged",
+                       kv_num_blocks=G_BLOCKS, enable_prefix_cache=True)
+    if engine.runner.attn_impl != "ref":
+        raise AssertionError("lane G: not the paged layout")
+    sync_canary(torch, engine.runner)
+    waves = fg_waves(mc)
+    toks, deltas, launches, wall = fg_serve(torch, engine, mc, waves,
+                                            sync_check=True)
+    check_path("G", launches, LLAMA_PATH)
+    pool = engine.pool
+    line = {"phase": "serve_paged", "lane": "G llama-3.1-8b w4a8 "
+            "two-level, paged + prefix cache", "kv_blocks": G_BLOCKS,
+            "requests_per_wave": FG_REQUESTS, "output_len": FG_OUT,
+            "wall_s": wall, "output_tok_s": 2 * FG_REQUESTS * FG_OUT / wall,
+            "waves": deltas,
+            "preemptions": engine.scheduler.stats.preemptions,
+            "shared_blocks_adopted": deltas[1]["prefix_cache_saved_tokens"]
+            // PAGE, "pool_shares": pool.stats.cow_shares,
+            "prefix_evictions": engine.prefix_cache.stats.evictions,
+            "no_sync_checked": True, "launches": launches,
+            "card": smi_line()}
+    engine.stop()
+    if not (line["preemptions"] >= 1 and deltas[1]["prefix_cache_hits"] >= 1
+            and line["shared_blocks_adopted"] >= 1
+            and all(d["requests_completed"] == FG_REQUESTS for d in deltas)):
+        emit(line)
+        raise AssertionError("lane G: checks failed")
+    del engine
+    torch.cuda.empty_cache()
+    # The preempted wave alone on a pool where nothing is preempted.
+    roomy = fg_engine(mc, params, kv_layout="paged",
+                      kv_num_blocks=G_BLOCKS_ROOMY, enable_prefix_cache=True)
+    roomy_toks = fg_serve(torch, roomy, mc, waves[:1])[0]
+    line["roomy_preemptions"] = roomy.scheduler.stats.preemptions
+    roomy.stop()
+    line["tokens_equal_to_roomy_pool_share"] = same_share(toks[:1],
+                                                          roomy_toks)
+    emit(line)
+    return launches
 
 
 # The window check's frame: 8 lanes (bucket 8) at 256-token prompts.
@@ -2064,7 +2520,7 @@ def logits_phase(torch, mc, engine, lane):
              (qmm, "w4a8_decode", qmm.w4a8_plain),
              (qmm, "w4a16_gemm", qmm.w4a16_plain),
              (lf, "append_rows_pairs", kv_append.append_rows_pairs_plain),
-             (lf, "append_pages", kv_append.append_pages_plain),
+             (lf, "append_pages_pairs", kv_append.append_pages_pairs_plain),
              (moe, "quant_bmm_all_experts", moe_gemm.bmm_plain),
              (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain),
              (moe_gemm, "grouped_w4a16", moe_gemm.grouped_w4a16_plain)]
@@ -2371,6 +2827,7 @@ def profile_sink_phase(torch, engine):
 CLI_ARGS = ("bench", "random:llama-3.1-8b", "--concurrency", "4",
             "--num-requests", "4", "--input-len", "256", "--output-len",
             "32", "--max-model-len", "1024", "--max-num-seqs", "4",
+            "--kv-layout", "linear", "--no-prefix-cache",
             "--output", "chiprun_out/cli_bench.json")
 # Runs `python -m ferrum_tpu_torch ...` through runpy, times the weight
 # draws (init_random_params) and fails if jax was ever imported. Its
@@ -2497,7 +2954,9 @@ def main() -> int:
     cases = (gemm_rows(torch, timer) + group_dot_rows(torch, timer)
              + float_scale_rows(torch, timer)
              + kv_rows_cases(torch, timer) + kv_window_case(torch, timer)
+             + kv_paged_step_case(torch, timer)
              + kv_pages_cases(torch, timer)
+             + kv_pages_pairs_cases(torch, timer)
              + moe_cases(torch, timer))
     onehot_cases(torch)
     prefill_exact_cases(torch)
@@ -2537,14 +2996,23 @@ def main() -> int:
             if lane.get("bench"):
                 bench_phase(torch, engine)
                 profile_sink_phase(torch, engine)
+            params = engine.runner.params
             engine.stop()
-            del engine, mc
+            del engine
             torch.cuda.empty_cache()
             if lane.get("bench"):
                 # The cli process draws its 8B weights on the host while
                 # the next lanes run (the card holds them); its bench
                 # runs after the last lane (cli_finish).
                 cli = cli_start()
+            if lane.get("fg"):
+                # Lanes F and G on lane A's weights.
+                by_path["F llama-3.1-8b int8 KV, linear + prefix store"] = \
+                    lane_f(torch, mc, params)
+                by_path["G llama-3.1-8b paged + prefix cache"] = \
+                    lane_g(torch, mc, params)
+            del params, mc
+            torch.cuda.empty_cache()
         cli_finish(cli)
     finally:
         if cli is not None and cli[1].poll() is None:

@@ -4,9 +4,9 @@ Port of `ferrum_tpu/cli.py`'s engine flags and its `bench`, `replay`
 and `list` subcommands; `run`, `serve`, `bench-serve`, `embed`,
 `transcribe`, `tts`, `pull`, `stop` and `route` wait for their modules
 (ROADMAP Queue 1). Every JAX engine flag is accepted, and one whose
-feature the port does not have yet (`--kv-layout paged`, `--tp 2`,
-`--spec-draft`, `--quantization gguf_q4k`, `--enable-prefix-cache`,
-...) raises InvalidRequestError, as `EngineConfig.resolve` does for a
+feature the port does not have yet (`--tp 2`, `--spec-draft`,
+`--quantization gguf_q4k`, `--scheduler fifo`, ...) raises
+InvalidRequestError, as `EngineConfig.resolve` does for a
 FERRUM_* variable or a ferrum.toml key; `main` turns it into exit code 1
 and `error: ...` on stderr. `--device` (default: the CUDA card) picks
 the device; `--device cpu` runs the plain PyTorch versions.
@@ -35,13 +35,13 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-num-batched-tokens", type=int, default=None)
     p.add_argument("--max-model-len", type=int, default=None)
     p.add_argument("--kv-capacity", type=int, default=None,
-                   help="KV block cap (0 = the linear layout's reservation)")
+                   help="KV blocks of the paged pool (0 = autosize)")
     p.add_argument("--kv-block-size", type=int, default=None)
     p.add_argument("--kv-dtype", default=None, choices=["bf16", "f32", "int8"])
     p.add_argument("--kv-layout", default=None,
                    choices=["paged", "linear", "auto"],
-                   help="auto (default) and linear: the linear layout; "
-                        "paged is not yet ported")
+                   help="auto (default): linear when every slot's region "
+                        "fits the card, else paged")
     p.add_argument("--quantization", default=None,
                    choices=["none", "gptq_int4", "gguf_q4k"])
     p.add_argument("--enable-prefix-cache", action="store_true", default=None)
@@ -97,7 +97,7 @@ def _build_engine(args) -> Any:
         "memory_profile_path": args.memory_profile_path,
     }
     # Base layer (lowest precedence), as the JAX CLI's: the layout
-    # "auto", which the port resolves to linear.
+    # "auto", which the builder resolves (engine/builder.py).
     cfg = EngineConfig.resolve(cli_overrides=overrides,
                                toml_path=args.config, kv_layout="auto")
     return EngineBuilder(cfg).build()

@@ -1,9 +1,9 @@
 """Engine configuration, with CLI > env > file > base precedence.
 
 Port of `ferrum_tpu/config.py`. Field names and defaults follow the JAX
-package. The fields the port does not have yet -- the paged layout,
-prefix caching, parallelism, speculative and adaptive decoding, ... --
-are not options here: `NOT_PORTED` holds the value the port fixes for
+package. The fields the port does not have yet -- the prefix offload
+tier, parallelism, speculative and adaptive decoding, ... -- are not
+options here: `NOT_PORTED` holds the value the port fixes for
 each (the JAX field and env names). `resolve` raises
 InvalidRequestError, naming the field and "not yet ported", when a
 source sets one of them to anything else; the JAX package's resolve
@@ -32,7 +32,17 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
     "FERRUM_MAX_MODEL_LEN": ("max_model_len", int, "max sequence length"),
     "FERRUM_PREFILL_CHUNK": ("prefill_chunk_size", int,
                              "max prefill chunk tokens"),
-    "FERRUM_KV_DTYPE": ("kv_dtype", str, "bf16|f32"),
+    "FERRUM_KV_DTYPE": ("kv_dtype", str, "bf16|f32|int8"),
+    "FERRUM_KV_LAYOUT": ("kv_layout", str, "paged|linear|auto"),
+    "FERRUM_KV_MAX_BLOCKS": ("kv_num_blocks", int,
+                             "KV pool blocks (0 = autosize)"),
+    "FERRUM_ENABLE_PREFIX_CACHE": ("enable_prefix_cache", bool,
+                                   "block-hash prefix reuse"),
+    "FERRUM_PREFIX_CACHE_POLICY": ("prefix_cache_policy", str,
+                                   "eviction policy: lru|fifo|clock"),
+    "FERRUM_PREFIX_CACHE_BLOCKS": ("prefix_cache_blocks", int,
+                                   "linear prefix-store blocks (-1 auto, "
+                                   "0 off)"),
     "FERRUM_DTYPE": ("dtype", str, "activation/weight dtype: bf16|f32"),
     "FERRUM_W4A8": ("w4a8", bool,
                     "int8-activation path for int4 matmuls"),
@@ -66,19 +76,11 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
 }
 
 # The JAX package's fields the port does not have, each at the value
-# the port fixes (a tuple: every value it accepts). "auto" for the
-# layout resolves to linear, the port's one layout.
+# the port fixes (a tuple: every value it accepts).
 NOT_PORTED: Dict[str, Any] = {
     "tokenizer": None,
     "enable_chunked_prefill": True,
     "scheduler": "continuous",
-    "kv_layout": ("linear", "auto"),
-    # A pinned KV capacity: under "auto" the JAX builder takes the paged
-    # layout for any nonzero value.
-    "kv_num_blocks": 0,
-    "enable_prefix_cache": False,
-    "prefix_cache_policy": "lru",
-    "prefix_cache_blocks": -1,
     "prefix_offload_mb": 0,
     "prefix_offload_algo": "int8",
     "gdn_chunk_block": 64,
@@ -100,15 +102,10 @@ NOT_PORTED: Dict[str, Any] = {
 }
 
 NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
-    "FERRUM_ENABLE_PREFIX_CACHE": ("enable_prefix_cache", bool),
-    "FERRUM_PREFIX_CACHE_POLICY": ("prefix_cache_policy", str),
     "FERRUM_PREFIX_OFFLOAD_MB": ("prefix_offload_mb", int),
     "FERRUM_PREFIX_OFFLOAD_ALGO": ("prefix_offload_algo", str),
-    "FERRUM_PREFIX_CACHE_BLOCKS": ("prefix_cache_blocks", int),
     "FERRUM_ENABLE_CHUNKED_PREFILL": ("enable_chunked_prefill", bool),
     "FERRUM_SCHEDULER": ("scheduler", str),
-    "FERRUM_KV_LAYOUT": ("kv_layout", str),
-    "FERRUM_KV_MAX_BLOCKS": ("kv_num_blocks", int),
     "FERRUM_QUANT": ("quantization", str),
     "FERRUM_SQUEEZE_EMBED": ("squeeze_embeddings", bool),
     "FERRUM_FUSE_PROJ": ("fuse_proj", bool),
@@ -196,9 +193,24 @@ class EngineConfig:
     max_num_batched_tokens: int = 2048  # per-iteration token budget
     max_model_len: int = 4096
     prefill_chunk_size: int = 512
-    # --- KV cache (the linear layout: max_model_len for every slot) ---
+    # --- KV cache ---
+    kv_num_blocks: int = 0              # paged pool; 0 = autosize
     kv_block_size: int = 32
-    kv_dtype: str = "bf16"              # bf16 | f32
+    kv_dtype: str = "bf16"              # bf16 | f32 | int8
+    # "paged": block tables over one pool, shared prefix blocks,
+    #          preemption (recompute) under block pressure.
+    # "linear": every slot owns a contiguous max_model_len region;
+    #          attention slices it, prefix reuse copies through a store
+    #          (kv/linear_prefix.py), no KV pressure.
+    # "auto":  linear when every slot's region fits the device memory
+    #          and kv_num_blocks is 0, else paged (engine/builder.py).
+    kv_layout: str = "paged"
+    enable_prefix_cache: bool = True
+    prefix_cache_policy: str = "lru"    # lru | fifo | clock
+    # Linear layout: blocks of the prefix store; -1 = an eighth of the
+    # slot pool (at least one sequence's), capped by free device
+    # memory; 0 = no copy-based reuse.
+    prefix_cache_blocks: int = -1
     # --- decoding ---
     decode_multi_step: int = 8          # steps per window, one host sync
     # Keep decode windows outstanding: window W+1 is dispatched (chained
@@ -267,10 +279,13 @@ class EngineConfig:
             raise InvalidRequestError(
                 "max_num_batched_tokens must be >= prefill_chunk_size",
                 param="max_num_batched_tokens")
-        if self.kv_dtype not in ("bf16", "f32"):
-            raise InvalidRequestError(
-                f"kv_dtype={self.kv_dtype!r} is not yet ported (bf16 or "
-                f"f32)", param="kv_dtype")
+        if self.kv_dtype not in ("bf16", "f32", "int8"):
+            raise InvalidRequestError("unknown kv_dtype", param="kv_dtype")
+        if self.kv_layout not in ("paged", "linear", "auto"):
+            raise InvalidRequestError("unknown kv_layout", param="kv_layout")
+        if self.prefix_cache_policy not in ("lru", "fifo", "clock"):
+            raise InvalidRequestError("unknown prefix_cache_policy",
+                                      param="prefix_cache_policy")
         if self.dtype not in ("bf16", "f32"):
             raise InvalidRequestError("dtype must be bf16 or f32",
                                       param="dtype")
@@ -341,6 +356,15 @@ class EngineConfig:
     @property
     def max_blocks_per_seq(self) -> int:
         return self.max_model_len // self.kv_block_size
+
+    @property
+    def resolved_prefix_cache_blocks(self) -> int:
+        """Blocks of the linear layout's prefix store: -1 → an eighth of
+        the slot pool, at least one sequence's; explicit values pass."""
+        if self.prefix_cache_blocks >= 0:
+            return self.prefix_cache_blocks
+        return max(self.max_blocks_per_seq,
+                   self.num_slots * self.max_blocks_per_seq // 8)
 
     @classmethod
     def resolve(cls, cli_overrides: Optional[Dict[str, Any]] = None,

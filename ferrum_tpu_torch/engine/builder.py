@@ -11,10 +11,16 @@ and MoE expert stacks). Without it the checkpoint's group scales are
 served as they are: float-scale w4a8 at decode m, w4a16 elsewhere.
 The model comes from `with_model`, else from `EngineConfig.model`:
 `random:<preset>` builds the JAX package's random dense weights
-(`init_random_params`, in `EngineConfig.dtype`); checkpoint loading, the
-paged layout and its HBM autosizing come with later slices. A profile
-path in the config sets the global profile sink at build, as in the
-JAX builder.
+(`init_random_params`, in `EngineConfig.dtype`); checkpoint loading
+comes with a later slice. The KV layout, as the JAX builder picks it:
+"auto" is linear when every slot's max_model_len region fits the
+autosized budget and kv_num_blocks is 0, else paged; the linear pool
+is num_slots regions, the paged one kv_num_blocks, or autosized from
+the card's memory after the weights (`autosize_kv_blocks`). On the
+CPU no device memory is there to read: autosizing takes a byte budget
+(`with_device_memory`) or raises naming kv_num_blocks, and "auto"
+without one takes linear. A profile path in the config sets the global
+profile sink at build, as in the JAX builder.
 
 The mode is a process-wide switch, as in the JAX package: `build()`
 sets both switches, so building a second engine with another `w4a8` or
@@ -41,6 +47,53 @@ from ..tokenizer import ByteTokenizer, make_byte_tokenizer
 from ..types import ModelLoadError
 from .engine import ContinuousBatchEngine
 from .runner import ModelRunner
+
+KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
+             "int8": torch.int8}
+
+
+def autosize_kv_blocks(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                       params_bytes: int, device_bytes: Optional[int] = None,
+                       reserve_frac: float = 0.22,
+                       device: Optional[torch.device] = None) -> int:
+    """The paged pool's blocks: what fits in the device memory after the
+    weights and a reserve for activations, at least one full sequence's
+    and at most every slot's. `device_bytes` defaults to the card's
+    total memory; on the CPU it must be given."""
+    if device_bytes is None:
+        if device is None or device.type != "cuda":
+            raise ModelLoadError(
+                "no device memory to autosize the KV pool from on the CPU: "
+                "set kv_num_blocks (or give a byte budget)")
+        device_bytes = torch.cuda.mem_get_info(device)[1]
+    elem = torch.empty(0, dtype=KV_DTYPES[engine_cfg.kv_dtype]).element_size()
+    block_bytes = (2 * model_cfg.num_layers * engine_cfg.kv_block_size
+                   * model_cfg.kv_size * elem)
+    if engine_cfg.kv_dtype == "int8":
+        # f32 per-(token, kv head) scales beside the int8 values.
+        block_bytes += (2 * model_cfg.num_layers * engine_cfg.kv_block_size
+                        * model_cfg.num_kv_heads * 4)
+    free = device_bytes * (1.0 - reserve_frac) - params_bytes
+    blocks = int(free // block_bytes)
+    min_blocks = engine_cfg.max_blocks_per_seq + 1
+    max_blocks = engine_cfg.num_slots * engine_cfg.max_blocks_per_seq + 1
+    if blocks < min_blocks:
+        raise ModelLoadError(
+            f"not enough device memory for KV: {blocks} blocks fit, need "
+            f"{min_blocks}")
+    return min(blocks, max_blocks)
+
+
+def params_nbytes(params) -> int:
+    """Bytes of every tensor in a params tree (dataclasses and lists)."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    if isinstance(params, (list, tuple)):
+        return sum(params_nbytes(p) for p in params)
+    if dataclasses.is_dataclass(params):
+        return sum(params_nbytes(getattr(params, f.name))
+                   for f in dataclasses.fields(params))
+    return 0
 
 
 def fuse_projections(params: ModelParams) -> ModelParams:
@@ -82,6 +135,7 @@ class EngineBuilder:
         self.model_cfg: Optional[ModelConfig] = None
         self.params: Optional[ModelParams] = None
         self.tokenizer: Optional[ByteTokenizer] = None
+        self.device_bytes: Optional[int] = None
 
     def with_model(self, model_cfg: ModelConfig,
                    params: ModelParams) -> "EngineBuilder":
@@ -91,6 +145,12 @@ class EngineBuilder:
 
     def with_tokenizer(self, tok: ByteTokenizer) -> "EngineBuilder":
         self.tokenizer = tok
+        return self
+
+    def with_device_memory(self, nbytes: int) -> "EngineBuilder":
+        """The device memory the KV autosizing budgets, in place of the
+        card's (the only budget it has on the CPU)."""
+        self.device_bytes = nbytes
         return self
 
     def _resolve_model(self, device: torch.device) -> None:
@@ -145,10 +205,30 @@ class EngineBuilder:
         if cfg.w4a8 and cfg.w4a8_two_level:
             self.params = apply_two_level(self.params)
         self.params = fuse_projections(self.params)
-        kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[
-            cfg.kv_dtype]
-        kv = PagedKvCache.create(
-            self.model_cfg, cfg.num_slots * cfg.max_blocks_per_seq,
-            cfg.kv_block_size, dtype=kv_dtype, device=device)
+
+        def autosize() -> int:
+            return autosize_kv_blocks(self.model_cfg, cfg,
+                                      params_nbytes(self.params),
+                                      self.device_bytes, device=device)
+
+        if cfg.kv_layout == "auto":
+            need = cfg.num_slots * cfg.max_blocks_per_seq
+            if cfg.kv_num_blocks:        # a pinned capacity is paged
+                fits = False
+            elif device.type != "cuda" and self.device_bytes is None:
+                fits = True              # no device memory bounds it
+            else:
+                try:
+                    fits = autosize() >= need
+                except ModelLoadError:
+                    fits = False
+            cfg.kv_layout = "linear" if fits else "paged"
+        if cfg.kv_layout == "linear":
+            num_blocks = cfg.num_slots * cfg.max_blocks_per_seq
+        else:
+            num_blocks = cfg.kv_num_blocks or autosize()
+        kv = PagedKvCache.create(self.model_cfg, num_blocks,
+                                 cfg.kv_block_size,
+                                 dtype=KV_DTYPES[cfg.kv_dtype], device=device)
         runner = ModelRunner(self.model_cfg, cfg, self.params, kv, device)
         return ContinuousBatchEngine(cfg, runner, self.tokenizer)

@@ -22,10 +22,19 @@ its prefill, is not a decode token). Each iteration emits an
 `engine.iteration` span, and every 256th an `engine.memory` snapshot
 (utils/profile.py).
 
+Prefix reuse by layout, as the JAX engine: on the linear layout a
+`LinearPrefixCache` over a device store (its queued saves flushed as
+one copy each iteration before admission; a hit's store → slot copy
+and the reused tokens' repetition counts issued at admission), on the
+paged layout a `PrefixCache` of shared blocks. Paged sequences
+preempted under block pressure are prefilled again (recompute) at
+re-admission; when every victim rides a window in flight, the loop
+breaks the pipeline chain so the next iteration can preempt.
+
 Everything runs on ONE CUDA stream; the loop leans on its order (see
 `_retire`). Not yet ported (later slices): adaptive window lengths,
-slack slots, prefix reuse, guided decoding, stop strings, speculative
-decoding and prompt scoring.
+slack slots, the prefix offload tier, guided decoding, stop strings,
+speculative decoding and prompt scoring.
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ import traceback
 from typing import Dict, Iterator, List, Optional
 
 from ..config import EngineConfig
+from ..kv.block_pool import BlockPool
+from ..kv.linear_prefix import LinearPrefixCache
+from ..kv.prefix_cache import PrefixCache
 from ..scheduler.continuous import ContinuousBatchScheduler
 from ..scheduler.sequence import Phase, Sequence
 from ..tokenizer import ByteTokenizer
@@ -66,7 +78,24 @@ class ContinuousBatchEngine:
         self.cfg = cfg
         self.runner = runner
         self.tokenizer = tokenizer
-        self.scheduler = ContinuousBatchScheduler(cfg)
+        self.pool = None
+        self.prefix_cache = None
+        if runner is not None:
+            self.pool = BlockPool(runner.kv.num_blocks, cfg.kv_block_size)
+            store = self._linear_store_blocks(cfg, runner) \
+                if cfg.kv_layout == "linear" and cfg.enable_prefix_cache \
+                else 0
+            if store > 0:
+                self.prefix_cache = LinearPrefixCache(
+                    runner, store, cfg.kv_block_size,
+                    policy=cfg.prefix_cache_policy)
+            else:
+                self.prefix_cache = PrefixCache(
+                    self.pool, enabled=cfg.enable_prefix_cache
+                    and cfg.kv_layout == "paged",
+                    policy=cfg.prefix_cache_policy)
+        self.scheduler = ContinuousBatchScheduler(cfg, self.pool,
+                                                  self.prefix_cache)
         self._requests: Dict[str, _RequestState] = {}
         self._lock = threading.Lock()
         self._work_event = threading.Event()
@@ -175,15 +204,34 @@ class ContinuousBatchEngine:
                 token_ids=[], finished=True,
                 finish_reason=FinishReason.ABORT))
 
+    @staticmethod
+    def _linear_store_blocks(cfg: EngineConfig, runner: ModelRunner) -> int:
+        """Blocks of the linear layout's prefix store: under auto (-1)
+        capped by the card's free memory, and 0 when that cannot hold
+        one full prompt; an explicit prefix_cache_blocks passes."""
+        blocks = cfg.resolved_prefix_cache_blocks
+        if cfg.prefix_cache_blocks < 0:
+            blocks = min(blocks, runner.prefix_store_budget_blocks())
+            if blocks < cfg.max_blocks_per_seq:
+                return 0
+        return blocks
+
     def metrics_snapshot(self) -> EngineMetricsSnapshot:
         m = self.metrics
         m.kv_blocks_total = self.runner.kv.num_blocks
         with self._lock:
             running = list(self.scheduler.running)
             m.waiting_requests = len(self.scheduler.waiting)
+            free = self.pool.num_free
         m.running_requests = len(running)
-        m.kv_blocks_free = m.kv_blocks_total - sum(
-            len(s.blocks.blocks) for s in running if s.blocks is not None)
+        if self.cfg.kv_layout == "linear":   # regions never leave the pool
+            free = m.kv_blocks_total - sum(
+                len(s.blocks.blocks) for s in running if s.blocks is not None)
+        m.kv_blocks_free = free
+        st = self.prefix_cache.stats
+        m.prefix_cache_hits = st.hits
+        m.prefix_cache_misses = st.misses
+        m.prefix_cache_saved_tokens = st.saved_prefill_tokens
         return m
 
     # ------------------------------------------------------------------
@@ -223,11 +271,27 @@ class ContinuousBatchEngine:
         # --- (b) schedule; sequences riding windows in flight pinned ---
         pinned = frozenset().union(*(w.covered for w in self._inflight_q))
         with self._lock:
+            # Queued prefix-store saves go first, as one copy: no
+            # admission below may overwrite a source region or restore a
+            # block still queued.
+            if isinstance(self.prefix_cache, LinearPrefixCache):
+                self.prefix_cache.flush_pending()
             batch = self.scheduler.next_batch(
                 pinned=pinned,
                 inflight_steps=sum(w.num_steps for w in self._inflight_q))
         for seq in batch.admitted:
             self.runner.admit_slot(seq)
+            if seq.pending_prefix_copy is not None:
+                # Linear prefix hit: the cached blocks into the slot's
+                # region, issued before the sequence's first chunk.
+                store_blocks, _covered = seq.pending_prefix_copy
+                self.runner.copy_prefix_blocks(
+                    store_blocks, seq.blocks.blocks[:len(store_blocks)],
+                    to_store=False)
+                seq.pending_prefix_copy = None
+            if seq.prefix_reused_tokens:
+                self.runner.add_prompt_counts(
+                    seq.slot, seq.prompt_tokens[:seq.prefix_reused_tokens])
         if not batch.is_empty:
             self.metrics.iterations_total += 1
         decoding = [s for s in batch.decode_seqs
@@ -246,7 +310,7 @@ class ContinuousBatchEngine:
         # --- (c) prefill: one chunk may ride the window ---
         pf_chunk = None
         if batch.prefill_chunks and cfg.mixed_prefill and decode_seqs \
-                and cfg.pipeline_decode:
+                and cfg.pipeline_decode and self.runner.attn_impl == "linear":
             pf_chunk = next(
                 (c for c in batch.prefill_chunks
                  if c.seq.num_output_tokens == 0
@@ -257,9 +321,13 @@ class ContinuousBatchEngine:
         # an iteration whose hold conditions are false (the JAX package
         # resets it on the forced iteration too, so a steady admission
         # stream held decode 8 iterations of every 9).
+        # Never under KV pressure or with a recompute in the wave: the
+        # held decodes are what frees blocks.
         hold_conds = (cfg.refill_first and len(batch.prefill_chunks) >= 2
                       and 0 < len(decoding) <= self.runner.num_slots // 2
-                      and not batch.deferred_decodes)
+                      and not batch.deferred_decodes
+                      and not any(c.seq.recompute
+                                  for c in batch.prefill_chunks))
         hold = hold_conds and self._hold_streak < MAX_HOLD_STREAK
         if hold:
             self._hold_streak += 1
@@ -363,6 +431,9 @@ class ContinuousBatchEngine:
         if pf is not None and window.pf_is_last \
                 and pf.phase == Phase.DECODING and not pf.output_tokens:
             self._accept_tokens(pf, lists[pf.request.request_id][-1:])
+        for seq in window.deferred:
+            with self._lock:
+                self.scheduler.finish(seq)
 
     def _accept_window_tokens(self, seqs, lists, t_steps) -> None:
         for seq in seqs:
@@ -425,12 +496,30 @@ class ContinuousBatchEngine:
             self._retire(seq)
 
     def _retire(self, seq: Sequence) -> None:
-        """Release a finished sequence's slot and region at once, even
-        while a window in flight still runs its lane (the JAX package's
-        linear-layout rule). That is safe only because everything runs
-        on ONE CUDA stream: the zombie lane writes inside the slot's own
-        region, and a replacement's admission, prefill and K/V writes
-        are issued after the window, so the stream orders them after
-        it. Issue nothing of the engine on a side stream."""
-        with self._lock:
-            self.scheduler.finish(seq)
+        """Release a finished sequence's slot and blocks.
+
+        Linear layout: at once, even while a window in flight still runs
+        its lane (the JAX package's rule). That is safe only because
+        everything runs on ONE CUDA stream: the zombie lane writes
+        inside the slot's own region, and a replacement's admission,
+        prefill and K/V writes are issued after the window, so the
+        stream orders them after it. Issue nothing of the engine on a
+        side stream.
+
+        Paged layout: the blocks go back to a shared pool, so their
+        release waits for the newest window in flight that covers the
+        sequence (it still writes them); its full prompt blocks, which
+        no window writes, go to the prefix cache now."""
+        infl = next((w for w in reversed(self._inflight_q)
+                     if seq.request.request_id in w.covered), None)
+        if infl is None or self.cfg.kv_layout == "linear":
+            with self._lock:
+                self.scheduler.finish(seq)
+            return
+        seq.phase = Phase.FINISHED        # out of every later schedule
+        if seq.blocks is not None \
+                and seq.num_prompt_tokens >= self.pool.page_size:
+            with self._lock:
+                self.prefix_cache.insert(seq.prompt_tokens,
+                                         seq.blocks.blocks)
+        infl.deferred.append(seq)

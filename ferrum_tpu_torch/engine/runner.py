@@ -1,8 +1,11 @@
 """ModelRunner: device state, batched prefill and fused decode windows.
 
-Port of `ferrum_tpu/engine/runner.py` for the linear layout. The JAX
-runner compiles one XLA program per (phase, bucket); PyTorch runs
-eagerly, so each call here issues the kernels directly:
+Port of `ferrum_tpu/engine/runner.py` for both KV layouts: "linear"
+(slot regions sliced, the attention `attn_impl="linear"`) and "paged"
+(block tables, pages gathered, `attn_impl="ref"`), bf16 / f32 / int8
+caches, and the linear layout's prefix store. The JAX runner compiles
+one XLA program per (phase, bucket); PyTorch runs eagerly, so each call
+here issues the kernels directly:
 
   run_prefill_batch    B sequences' chunks through one trunk pass (every
                        projection at m = B*T: the prefill GEMM kernel),
@@ -14,11 +17,19 @@ eagerly, so each call here issues the kernels directly:
                        one slot's prefill chunk riding the steps; each
                        step's sampled token feeds the next on the
                        device, the cache stays read-only and the
-                       window's K/V land with one append at its end.
-                       Returns without waiting (DecodeWindow).
+                       window's K/V land with one append at its end
+                       (linear); on the paged layout each step appends
+                       its own K/V (the JAX runner's paged window, which
+                       takes no riding chunk). Returns without waiting
+                       (DecodeWindow).
   sync_window          waits for one window's tokens alone.
   warm_prefill_siblings  no-op dispatches of the program keys a cell may
                        meet that the warm-up did not (see below).
+  copy_prefix_blocks   whole blocks between the pool and the prefix
+                       store: the source pages gathered (index_select),
+                       every array written in one `kv_append_pages`
+                       launch; add_prompt_counts seeds the repetition
+                       counts of a reused prefix.
 
 Windows chain on the device through the slot-indexed `last_toks`: a
 window reads the input token of every lane its predecessor covered
@@ -42,7 +53,9 @@ dispatches (`decode_device_time`), blocked in `sync_window`
 The port compiles no program: a key is the shape of the work a site
 issues -- `window` (lane bucket, context bucket, T, chunk rows, greedy)
 and `prefill` (batch pad, chunk pad, context pad, greedy), the JAX
-runner's sites -- plus `kernel_build`, one per CUDA library first used
+runner's sites, each logged with the runner's layout and KV dtype;
+`prefix_copy` (rows padded) and `counts` (tokens padded) as the JAX
+runner keys them -- plus `kernel_build`, one per CUDA library first used
 in the process (ops/kernels/build.py `LOADED`). A key first met inside
 a measured bench cell is a warm-up hole (bench/bench_engine.py counts
 them per cell). The CUDA graphs of a later slice are captured at the
@@ -53,7 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -66,6 +79,7 @@ from ..models.llama_family import (
     decode_forward, logits_from_hidden, make_inv_freq,
     prefill_forward_batched)
 from ..ops.kernels import build as kernel_build
+from ..ops.kernels.kv_append import append_pages_pairs
 from ..sampling.device import SlotSamplingParams, sample_step, update_counts
 from ..scheduler.continuous import PrefillChunk
 from ..scheduler.sequence import Sequence
@@ -125,6 +139,9 @@ class DecodeWindow:
     pf_seq: Optional[Sequence] = None
     pf_is_last: bool = False
     pf_tok: Optional[HostCopy] = None
+    # Paged layout: sequences that finished while this window could
+    # still write their blocks; released when it is read.
+    deferred: List[Sequence] = field(default_factory=list)
 
 
 class ModelRunner:
@@ -136,6 +153,15 @@ class ModelRunner:
         self.params = params
         self.kv = kv
         self.device = device
+        if engine_cfg.kv_layout not in ("linear", "paged"):
+            raise ValueError("the runner takes a resolved kv_layout, "
+                             f"not {engine_cfg.kv_layout!r}")
+        # Linear: slot regions sliced; paged: pages gathered through
+        # block tables (the JAX runner's attn_impl).
+        self.attn_impl = "linear" if engine_cfg.kv_layout == "linear" \
+            else "ref"
+        # Linear-layout prefix store (ensure_prefix_store).
+        self.prefix_store: Optional[PagedKvCache] = None
         s = engine_cfg.num_slots
         v = model_cfg.vocab_size
         self.num_slots = s
@@ -172,6 +198,8 @@ class ModelRunner:
         self.compile_log: list = []
         self._prefill_keys: set = set()
         self._window_keys: set = set()
+        self._copy_keys: set = set()
+        self._count_keys: set = set()
         self._chunk_lens: set = set()        # prompt chunk lengths seen
         self._builds_seen = len(kernel_build.LOADED)
         # "error" makes every dispatch fail on a host sync of the stream
@@ -200,7 +228,8 @@ class ModelRunner:
     def _note_key(self, keys: set, site: str, key) -> None:
         if key not in keys:
             keys.add(key)
-            self._note_compile(site, key)
+            self._note_compile(site, key + (self.cfg.kv_layout,
+                                            self.cfg.kv_dtype))
 
     def _note_kernel_builds(self) -> None:
         """A `kernel_build` entry for each CUDA library first used in the
@@ -234,6 +263,90 @@ class ModelRunner:
         self.samp["top_ks"][slot] = sp.top_k
         self.samp["top_ps"][slot] = sp.top_p
         self.samp["pens"][slot] = sp.repetition_penalty
+
+    # ------------------------------------------------------------------
+    # Prefix store (the linear layout's prefix cache; kv/linear_prefix.py)
+    # ------------------------------------------------------------------
+    def prefix_store_block_bytes(self) -> int:
+        """Device bytes of one prefix-store block: every layer's K and V
+        page (and their scale pages, int8)."""
+        kv = self.kv
+        n_layers = kv.k.shape[0]
+        f = kv.kv_heads * kv.head_dim
+        per = n_layers * self.page * f * kv.k.element_size() * 2
+        if kv.quantized:
+            per += n_layers * self.page * kv.kv_heads * 4 * 2
+        return per
+
+    def prefix_store_budget_blocks(self,
+                                   headroom_bytes: int = 4 << 30) -> int:
+        """Store blocks that fit in the card's free memory after a
+        headroom for transients (a batched prefill's logits pass 1 GB at
+        the 8B vocabulary). On the CPU no device memory bounds it."""
+        if self.device.type != "cuda":
+            return 1 << 30
+        free, _total = torch.cuda.mem_get_info(self.device)
+        return max(0, int(free - headroom_bytes)
+                   // self.prefix_store_block_bytes())
+
+    def ensure_prefix_store(self, num_blocks: int) -> None:
+        """The device-side prefix store: a block extent with the pool's
+        (layer, page, head) geometry and dtype."""
+        if self.prefix_store is not None:
+            return
+        kv = self.kv
+        self.prefix_store = PagedKvCache.create(
+            self.model_cfg, num_blocks, self.page, dtype=kv.k.dtype,
+            device=self.device)
+
+    def copy_prefix_blocks(self, src_blocks: List[int],
+                           dst_blocks: List[int], to_store: bool) -> None:
+        """Whole blocks, every layer, between the pool and the prefix
+        store (to_store: a save at finish; else a restore at admission).
+        The block count pads to a power of two (the JAX program's row
+        key): pad sources read block 0, pad destinations are >= B and
+        dropped. The source pages are gathered with index_select and
+        every array (K, V and an int8 cache's scales) lands in one
+        `kv_append_pages` launch, issued in stream order with the
+        windows and prefills that touch the same blocks."""
+        page = self.page
+        r_pad = _round_up_pow2(len(src_blocks) * page, page, 1 << 22)
+        self._note_key(self._copy_keys, "prefix_copy", (r_pad,))
+        n_pad = r_pad // page
+        src_ids = np.zeros(n_pad, np.int64)
+        dst_ids = np.full(n_pad, OOB_SENTINEL, np.int64)
+        src_ids[:len(src_blocks)] = src_blocks
+        dst_ids[:len(dst_blocks)] = dst_blocks
+        src, dst = (self.kv, self.prefix_store) if to_store \
+            else (self.prefix_store, self.kv)
+        n_layers = src.k.shape[0]
+        layer = np.arange(n_layers)[:, None]
+        src_all = (layer * src.num_blocks + src_ids[None]).reshape(-1)
+        dst_all = np.where(dst_ids[None] >= OOB_SENTINEL, OOB_SENTINEL,
+                           layer * dst.num_blocks + dst_ids[None])
+        dev = self._upload(np.concatenate([src_all, dst_all.reshape(-1)]))
+        src_dev = dev[:src_all.size]
+        dst_dev = dev[src_all.size:].to(torch.int32)
+        with self.sync_guard():
+            append_pages_pairs(
+                [(d, s.index_select(0, src_dev))
+                 for s, d in zip(src.flat_arrays(), dst.flat_arrays())],
+                dst_dev)
+        self._note_kernel_builds()
+
+    def add_prompt_counts(self, slot: int, tokens: List[int]) -> None:
+        """Repetition counts of prompt tokens a prefill did not process
+        (a reused prefix): the prefill counts only its own tokens."""
+        n = len(tokens)
+        if n == 0:
+            return
+        n_pad = _round_up_pow2(n, 8, 1 << 20)
+        self._note_key(self._count_keys, "counts", (n_pad,))
+        arr = np.full(n_pad, self.model_cfg.vocab_size, np.int64)
+        arr[:n] = tokens
+        toks = self._upload(arr)
+        with self.sync_guard():
+            update_counts(self.counts, torch.full_like(toks, slot), toks)
 
     def ctx_bucket(self, max_len: int) -> int:
         return _round_up_pow2(max_len, max(2 * self.page, 16),
@@ -323,15 +436,19 @@ class ModelRunner:
                               < seq.request.sampling.min_tokens),
                           seq.slot if c.is_last else self.num_slots)
             rows[seq.request.request_id] = i
-        dev = self._upload(np.concatenate([packed.reshape(-1),
-                                           scal.reshape(-1)]))
+        parts = [packed.reshape(-1), scal.reshape(-1)]
+        if self.attn_impl == "ref":
+            parts.append(self._host_tables([c.seq for c in chunks], b))
+        dev = self._upload(np.concatenate(parts))
         pk = dev[:packed.size].view(4, b, t_pad)
-        sc = dev[packed.size:].view(5, b)
+        sc = dev[packed.size:packed.size + 5 * b].view(5, b)
         slots = sc[0]
+        tables = self._tables(slots) if self.attn_impl == "linear" \
+            else dev[packed.size + 5 * b:].view(b, self.max_pages)
         h, _ = prefill_forward_batched(
             self.params, self.model_cfg, self.kv, pk[0], pk[1],
-            self._tables(slots), sc[2], pk[2], ctx_pad=ctx_pad,
-            inv_freq=self.inv_freq)
+            tables, sc[2], pk[2], ctx_pad=ctx_pad,
+            inv_freq=self.inv_freq, attn_impl=self.attn_impl)
         update_counts(self.counts, slots[:, None].expand(b, t_pad), pk[3])
         hs = h[torch.arange(b, device=self.device), sc[1]]      # [B, H]
         logits = logits_from_hidden(self.params, self.model_cfg, hs)
@@ -342,6 +459,15 @@ class ModelRunner:
         # row).
         update_counts(self.counts, sc[4], toks)
         return BatchPrefillResult(tokens=HostCopy(toks), rows=rows)
+
+    def _host_tables(self, seqs: List[Sequence], n: int) -> np.ndarray:
+        """Paged block tables [n, max_pages], flat: row i the blocks of
+        seqs[i]; rows past the sequences (pads) zero."""
+        tab = np.zeros((n, self.max_pages), np.int64)
+        for i, seq in enumerate(seqs):
+            ids = seq.blocks.blocks
+            tab[i, :len(ids)] = ids
+        return tab.reshape(-1)
 
     def _tables(self, slots: torch.Tensor) -> torch.Tensor:
         """Identity block tables of the linear layout for these slots."""
@@ -394,6 +520,11 @@ class ModelRunner:
         s_pad = warm[0] if warm is not None \
             else self.lane_bucket(max(1, len(seqs)))
         ident = s_pad == s
+        paged = self.attn_impl == "ref"
+        if paged and (pf_chunk is not None
+                      or (warm is not None and warm[2])):
+            raise ValueError("a prefill chunk rides only the linear "
+                             "layout's windows")
         # Lane rows: tokens, positions, cache lens, slots (the sink for
         # pads), min_tokens active, token from the carry; then the flat
         # slots of every step [T, s_pad].
@@ -428,6 +559,13 @@ class ModelRunner:
         covered = {seq.request.request_id for seq in seqs}
 
         parts = [lrows.reshape(-1), flat.reshape(-1)]
+        if paged:
+            tab = self._host_tables([], s_pad).reshape(s_pad, -1)
+            for seq in seqs:
+                lane = lanes[seq.request.request_id]
+                ids = seq.blocks.blocks
+                tab[lane, :len(ids)] = ids
+            parts.append(tab.reshape(-1))
         p_rows = 0
         if pf_chunk is not None or (warm is not None and warm[2]):
             if pf_chunk is not None:
@@ -467,6 +605,9 @@ class ModelRunner:
 
         lr = dev[:6 * s_pad].view(6, s_pad)
         flat_dev = dev[6 * s_pad:(6 + t) * s_pad].view(t, s_pad)
+        n_tab = s_pad * self.max_pages if paged else 0
+        tables = dev[(6 + t) * s_pad:(6 + t) * s_pad + n_tab].view(
+            s_pad, self.max_pages) if paged else None
         lane_slots = lr[3]
         tokens = torch.where(lr[5] == 1, self.last_toks[lane_slots], lr[0])
         positions, cache_len = lr[1], lr[2]
@@ -478,20 +619,38 @@ class ModelRunner:
         counts_l = self.counts[:s] if ident else self.counts[lane_slots]
         samp = self._sampling(lane_slots, lr[4] == 1)
         kv = self.kv
-        f = kv.kv_heads * kv.head_dim
+        if paged:
+            all_toks = self._paged_steps(tokens, positions, cache_len,
+                                         tables, flat_dev, ctx_pad, samp,
+                                         counts_l, lane_ids, greedy)
+            if not ident:
+                self.counts.index_copy_(0, lane_slots, counts_l)
+            self.last_toks.index_copy_(0, lane_slots, all_toks[t - 1])
+            return DecodeWindow(
+                seqs=list(seqs), covered=frozenset(covered),
+                toks=HostCopy(all_toks), end_pos=end_pos, num_steps=t,
+                lanes=lanes, s_pad=s_pad)
         n_layers = kv.k.shape[0]
         lc = lane_slots.clamp_max(s - 1)
+        # Under an int8 cache the window's K/V collect in bf16, as in
+        # the JAX runner.
+        acc_dtype = torch.bfloat16 if kv.quantized else kv.k.dtype
 
         def region(cache, li):
-            frame = cache[li].view(s, -1, f)
+            frame = cache[li].view(s, -1, cache.shape[-1])
             return frame[:, :ctx_pad] if ident else frame[lc, :ctx_pad]
 
         win = {"k": torch.zeros((n_layers, t, s_pad, kv.kv_heads,
-                                 kv.head_dim), dtype=kv.k.dtype,
+                                 kv.head_dim), dtype=acc_dtype,
                                 device=self.device),
                "cache_len": cache_len,
                "k_lins": [region(kv.k, li) for li in range(n_layers)],
                "v_lins": [region(kv.v, li) for li in range(n_layers)]}
+        if kv.quantized:
+            win["ks_lins"] = [region(kv.k_scale, li)
+                              for li in range(n_layers)]
+            win["vs_lins"] = [region(kv.v_scale, li)
+                              for li in range(n_layers)]
         win["v"] = torch.zeros_like(win["k"])
         steps_valid = torch.arange(t, device=self.device)
         pf_toks = pf_pos = None
@@ -500,16 +659,23 @@ class ModelRunner:
             pf_toks, pf_pos = pfd[0], pfd[2]
             # A no-op block's sink slot reads the last slot's region.
             pc = min(psl, s - 1)
+
+            def slot_ctx(cache, li):
+                return cache[li].view(s, -1, cache.shape[-1])[pc, :ctx_pad]
+
             win["pk"] = torch.zeros((n_layers, t, p_rows, kv.kv_heads,
-                                     kv.head_dim), dtype=kv.k.dtype,
+                                     kv.head_dim), dtype=acc_dtype,
                                     device=self.device)
             win["pv"] = torch.zeros_like(win["pk"])
             win["pf"] = {
                 "chunk_start": start, "valid_len": n,
-                "k_ctx": [kv.k[li].view(s, -1, f)[pc, :ctx_pad]
-                          for li in range(n_layers)],
-                "v_ctx": [kv.v[li].view(s, -1, f)[pc, :ctx_pad]
-                          for li in range(n_layers)]}
+                "k_ctx": [slot_ctx(kv.k, li) for li in range(n_layers)],
+                "v_ctx": [slot_ctx(kv.v, li) for li in range(n_layers)]}
+            if kv.quantized:
+                win["pf"]["ks_ctx"] = [slot_ctx(kv.k_scale, li)
+                                       for li in range(n_layers)]
+                win["pf"]["vs_ctx"] = [slot_ctx(kv.v_scale, li)
+                                       for li in range(n_layers)]
             last_t, last_j = (n - 1) // p_rows, (n - 1) % p_rows
         h_last = None
         steps = []
@@ -581,6 +747,26 @@ class ModelRunner:
             pf_seq=pf_chunk.seq if pf_chunk is not None else None,
             pf_is_last=bool(pf_chunk is not None and pf_chunk.is_last),
             pf_tok=pf_tok)
+
+    def _paged_steps(self, tokens, positions, cache_len, tables, flat,
+                     ctx_pad, samp, counts_l, lane_ids, greedy
+                     ) -> torch.Tensor:
+        """The paged layout's window: T per-step decode forwards over the
+        lanes' block tables, each appending its own K/V (the JAX runner's
+        scan over `decode_forward(attn_impl="ref")`); tokens [T, s_pad]."""
+        steps = []
+        for step in range(flat.shape[0]):
+            h, _ = decode_forward(
+                self.params, self.model_cfg, self.kv, tokens,
+                positions + step, tables, cache_len + step, flat[step],
+                ctx_pad=ctx_pad, inv_freq=self.inv_freq, attn_impl="ref")
+            logits = logits_from_hidden(self.params, self.model_cfg, h)
+            tokens = sample_step(logits, samp, counts_l, self.eos_mask,
+                                 greedy_only=greedy,
+                                 generator=self.generator)
+            update_counts(counts_l, lane_ids, tokens)
+            steps.append(tokens)
+        return torch.stack(steps)
 
     def sync_window(self, window: DecodeWindow) -> Dict[str, List[int]]:
         """A window's tokens per request id; waits for that window alone.
@@ -683,7 +869,7 @@ class ModelRunner:
         chunk length dispatched so far (the JAX runner takes the first
         two only: a cell of shorter prompts then meets its chunks' rows
         first inside the cell)."""
-        if not self.cfg.mixed_prefill:
+        if not self.cfg.mixed_prefill or self.attn_impl != "linear":
             return 0
         done = 0
         chunk_cap = max(16, min(self.cfg.prefill_chunk_size,

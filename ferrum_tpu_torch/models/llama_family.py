@@ -1,17 +1,21 @@
 """Llama-family decoder (GQA + SwiGLU + RoPE) as plain functions on tensors.
 
 Port of `ferrum_tpu/models/llama_family.py` for the served paths (dense
-llama, and qwen3-moe's sparse MLP through ops/moe.py): the linear
-(slot-contiguous) KV layout, decode steps (`attn_impl="linear"`) in
-either form -- the per-step form (`win=None`), which appends its K/V
-after the trunk, and the window form (`win`), whose cache stays
+llama, and qwen3-moe's sparse MLP through ops/moe.py), on both KV
+layouts: decode steps in either form -- the per-step form (`win=None`),
+which appends its K/V after the trunk, on the linear layout
+(`attn_impl="linear"`, slot regions sliced) or the paged one
+(`attn_impl="ref"`, pages gathered through block tables, f32 reference
+attention), and the window form (`win`, linear only), whose cache stays
 read-only while K/V collect in the window's accumulator and land with
 one `append_window_kv` after the window, optionally with one slot's
 prefill block riding the steps -- and batched chunked prefill with
-whole-page appends (`append="pages"`).
+whole-page appends, the context sliced or gathered by layout.
 
 The KV cache is [L, NB, page, F = Hkv*D] per K and V, seen by the
-append kernels as the layer-merged flat [L*NB, page, F]. Where the JAX
+append kernels as the layer-merged flat [L*NB, page, F]; an int8 cache
+(`kv_dtype="int8"`) adds f32 scale planes [L, NB, page, Hkv], written
+with K and V in the same launch (`quantize_kv`). Where the JAX
 package returns a new cache (updated in place by XLA buffer donation),
 the port writes the cache tensors IN PLACE and returns the same object.
 
@@ -31,8 +35,9 @@ import torch
 
 from ..device import resolve_device
 from ..ops.attention import (flat_decode_attention, flat_prefill_attention,
-                             flat_prefill_window_attention)
-from ..ops.kernels.kv_append import append_pages, append_rows_pairs
+                             flat_prefill_window_attention,
+                             paged_decode_attention_ref)
+from ..ops.kernels.kv_append import append_pages_pairs, append_rows_pairs
 from ..ops.linear import (DenseLinearParams, LinearParams, apply_linear,
                           matmul_f32)
 from ..ops.moe import moe_mlp
@@ -95,26 +100,60 @@ class ModelParams:
 
 @dataclass
 class PagedKvCache:
-    """Device KV pool: k/v [L, num_blocks, page, kv_heads*head_dim]."""
+    """Device KV pool: k/v [L, num_blocks, page, kv_heads*head_dim].
+
+    INT8: k/v hold symmetric per-(token, kv head) int8 values, with f32
+    scales k_scale/v_scale [L, num_blocks, page, kv_heads]."""
 
     k: torch.Tensor
     v: torch.Tensor
     page: int
     kv_heads: int
     head_dim: int
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:
         return self.k.shape[1]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     @classmethod
     def create(cls, cfg: ModelConfig, num_blocks: int, page: int,
                dtype=torch.bfloat16, device=None) -> "PagedKvCache":
         shape = (cfg.num_layers, num_blocks, page, cfg.kv_size)
+        ks = vs = None
+        if dtype == torch.int8:
+            sshape = (cfg.num_layers, num_blocks, page, cfg.num_kv_heads)
+            ks = torch.zeros(sshape, dtype=torch.float32, device=device)
+            vs = torch.zeros(sshape, dtype=torch.float32, device=device)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    page=page, kv_heads=cfg.num_kv_heads,
-                   head_dim=cfg.head_dim)
+                   head_dim=cfg.head_dim, k_scale=ks, v_scale=vs)
+
+    def flat_arrays(self) -> List[torch.Tensor]:
+        """The cache's arrays as the append kernels see them, layer-merged
+        [L*NB, page, w]: K, V (and the two scale planes)."""
+        n = self.k.shape[0] * self.num_blocks
+        out = [self.k.view(n, self.page, -1), self.v.view(n, self.page, -1)]
+        if self.quantized:
+            out += [self.k_scale.view(n, self.page, -1),
+                    self.v_scale.view(n, self.page, -1)]
+        return out
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-(row, kv head) int8 quantization for KV appends, the
+    JAX package's bit for bit: x [..., Hkv, D] → (int8 [..., Hkv, D], f32
+    scale [..., Hkv]); f32 amax / 127, round half to even, clip ±127."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -200,22 +239,57 @@ def _layer_block_ids(blk: torch.Tensor, valid: torch.Tensor, layers: int,
     return ids.reshape(-1).to(torch.int32)
 
 
+def _kv_parts(kv: PagedKvCache, k_new: torch.Tensor,
+              v_new: torch.Tensor) -> List[torch.Tensor]:
+    """New K and V [..., Hkv, D] as the cache stores them, flattened to
+    [rows, w] each: K, V (and their scales, quantized)."""
+    f = kv.kv_heads * kv.head_dim
+    if not kv.quantized:
+        return [k_new.reshape(-1, f).to(kv.k.dtype).contiguous(),
+                v_new.reshape(-1, f).to(kv.v.dtype).contiguous()]
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    return [kq.reshape(-1, f), vq.reshape(-1, f),
+            ks.reshape(-1, kv.kv_heads), vs.reshape(-1, kv.kv_heads)]
+
+
 def _append_kv_rows(kv: PagedKvCache, k_rows: torch.Tensor,
                     v_rows: torch.Tensor, flat: torch.Tensor) -> None:
     """Rows [L, n, Hkv, D] of K and V (every layer at the flat slots
-    [n], >= OOB_SENTINEL dropped) into the cache: one launch."""
+    [n], >= OOB_SENTINEL dropped) into the cache: one launch, with the
+    scale planes of an int8 cache."""
     nb, page = kv.num_blocks, kv.page
-    f = kv.kv_heads * kv.head_dim
     n_layers = kv.k.shape[0]
     fl = flat.to(torch.int64)
     blk_all = _layer_block_ids(fl // page, fl < OOB_SENTINEL, n_layers, nb)
     off_all = (fl % page).to(torch.int32).repeat(n_layers)
-    append_rows_pairs(
-        [(kv.k.view(n_layers * nb, page, f),
-          k_rows.reshape(-1, f).to(kv.k.dtype).contiguous()),
-         (kv.v.view(n_layers * nb, page, f),
-          v_rows.reshape(-1, f).to(kv.v.dtype).contiguous())],
-        blk_all, off_all)
+    append_rows_pairs(list(zip(kv.flat_arrays(),
+                               _kv_parts(kv, k_rows, v_rows))),
+                      blk_all, off_all)
+
+
+def _paged_cache(kv: PagedKvCache, li: int, tables: torch.Tensor,
+                 ctx_pad: int, dtype: torch.dtype):
+    """Layer li's K and V pages behind `tables` [S, max_pages] as a
+    cache [S * n, page, Hkv, D] and its block tables [S, n] (n =
+    ctx_pad / page). An int8 cache is dequantized to `dtype` -- the JAX
+    package dequantizes the whole pool first; the gathered pages are the
+    same values."""
+    page, hkv, d = kv.page, kv.kv_heads, kv.head_dim
+    if not kv.quantized:
+        return (kv.k[li].view(-1, page, hkv, d),
+                kv.v[li].view(-1, page, hkv, d), tables)
+    n = ctx_pad // page
+    tb = tables[:, :n].to(torch.int64)
+    s = tb.shape[0]
+
+    def deq(vals, sc):
+        g = vals[li][tb].to(torch.float32) * sc[li][tb][..., None]
+        return g.to(dtype).view(s * n, page, hkv, d)
+
+    idx = torch.arange(s * n, device=tables.device).view(s, n)
+    return (deq(kv.k.view(*kv.k.shape[:3], hkv, d), kv.k_scale),
+            deq(kv.v.view(*kv.v.shape[:3], hkv, d), kv.v_scale), idx)
 
 
 def decode_forward(
@@ -226,13 +300,16 @@ def decode_forward(
     context_lens: torch.Tensor,   # int [S] incl. the new token
     flat_slots: Optional[torch.Tensor],    # int [S]; >= OOB_SENTINEL = drop
     *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
-    win: Optional[dict] = None,
+    win: Optional[dict] = None, attn_impl: str = "linear",
 ):
-    """One batched decode step over S lanes of the linear layout.
+    """One batched decode step over S lanes.
 
     Per-step form (`win=None`) → (hidden [S, H], kv): this step's K/V
     join attention as the self term and are appended to the cache after
-    the trunk, one `append_rows_pairs` of L*S rows of K and of V.
+    the trunk, one `append_rows_pairs` of L*S rows of K and of V (and
+    their scales). attn_impl "linear": block_tables' S slots frame the
+    cache into slot regions; "ref" (the paged layout): each lane's pages
+    are gathered through its row of block_tables.
 
     Window form → (hidden [S (+P), H], win), the cache untouched. `win`:
       "k"/"v"      [L, T, S, Hkv, D] the window's accumulators; this
@@ -247,7 +324,7 @@ def decode_forward(
                    runs once over S+P rows and attention splits by
                    phase. "pf": "chunk_start", "valid_len" (ints),
                    "positions" [P], "k_ctx"/"v_ctx" per-layer [C, F]
-                   views of the slot's region.
+                   views of the slot's region (+ "ks_ctx"/"vs_ctx").
     The caller lands the window with `append_window_kv`."""
     if inv_freq is None:
         inv_freq = make_inv_freq(cfg, tokens.device)
@@ -256,6 +333,8 @@ def decode_forward(
         return _decode_forward_win(params, cfg, kv, tokens, positions,
                                    block_tables, context_lens, ctx_pad,
                                    inv_freq, win)
+    if attn_impl not in ("linear", "ref"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
     s_slots = block_tables.shape[0]
     new_ks: List[torch.Tensor] = []
     new_vs: List[torch.Tensor] = []
@@ -263,11 +342,24 @@ def decode_forward(
     def attn(li, q, k_new, v_new):
         new_ks.append(k_new)
         new_vs.append(v_new)
+        if attn_impl == "ref":
+            kc, vc, tables = _paged_cache(kv, li, block_tables, ctx_pad,
+                                          q.dtype)
+            return paged_decode_attention_ref(
+                q, kc, vc, tables, context_lens, ctx_pad=ctx_pad,
+                scale=cfg.attn_scale, k_self=k_new, v_self=v_new)
         k_lin = kv.k[li].reshape(s_slots, -1, f)[:, :ctx_pad]
         v_lin = kv.v[li].reshape(s_slots, -1, f)[:, :ctx_pad]
+        ks_lin = vs_lin = None
+        if kv.quantized:
+            ks_lin = kv.k_scale[li].reshape(s_slots, -1, kv.kv_heads)[
+                :, :ctx_pad]
+            vs_lin = kv.v_scale[li].reshape(s_slots, -1, kv.kv_heads)[
+                :, :ctx_pad]
         return flat_decode_attention(
             q, k_lin, v_lin, context_lens, k_new, v_new,
-            hkv=kv.kv_heads, scale=cfg.attn_scale)
+            hkv=kv.kv_heads, scale=cfg.attn_scale, k_scale=ks_lin,
+            v_scale=vs_lin)
 
     h = forward_hidden(params, cfg, tokens, positions, attn,
                        inv_freq=inv_freq)
@@ -283,15 +375,25 @@ def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
     step = win["step"]
     pf = win.get("pf")
 
+    quant = kv.quantized
+
     def attn(li, q, k_new, v_new):
+        ks_lin = vs_lin = None
         if "k_lins" in win:
             k_lin, v_lin = win["k_lins"][li], win["v_lins"][li]
+            if quant:
+                ks_lin, vs_lin = win["ks_lins"][li], win["vs_lins"][li]
         else:
             frame = block_tables.shape[0]
             k_lin = kv.k[li].reshape(frame, -1, f)[:, :ctx_pad]
             v_lin = kv.v[li].reshape(frame, -1, f)[:, :ctx_pad]
+            if quant:
+                hkv = kv.kv_heads
+                ks_lin = kv.k_scale[li].reshape(frame, -1, hkv)[:, :ctx_pad]
+                vs_lin = kv.v_scale[li].reshape(frame, -1, hkv)[:, :ctx_pad]
         q_d, kn_d, vn_d = q[:s], k_new[:s], v_new[:s]
-        # The window's K/V stay out of the cache until the window ends.
+        # The window's K/V stay out of the cache until the window ends
+        # (in the accumulator's dtype: bf16 under an int8 cache).
         win["k"][li, step] = kn_d
         win["v"][li, step] = vn_d
         # Step 0 has no earlier window rows: no window terms.
@@ -299,7 +401,8 @@ def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
             q_d, k_lin, v_lin, context_lens, kn_d, vn_d,
             hkv=kv.kv_heads, scale=cfg.attn_scale,
             k_win=win["k"][li] if step else None, v_win=win["v"][li],
-            win_valid=win["valid"], cache_len=win["cache_len"])
+            win_valid=win["valid"], cache_len=win["cache_len"],
+            k_scale=ks_lin, v_scale=vs_lin)
         if pf is None:
             return out_d
         kn_p, vn_p = k_new[s:], v_new[s:]
@@ -309,7 +412,9 @@ def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
             q[s:], pf["k_ctx"][li], pf["v_ctx"][li], pf["chunk_start"],
             win["pk"][li], win["pv"][li], step, pf["chunk_start"],
             pf["valid_len"], kn_p, vn_p, pf["positions"],
-            hkv=kv.kv_heads, scale=cfg.attn_scale)
+            hkv=kv.kv_heads, scale=cfg.attn_scale,
+            k_scale=pf["ks_ctx"][li] if quant else None,
+            v_scale=pf["vs_ctx"][li] if quant else None)
         return torch.cat([out_d, out_p])
 
     h = forward_hidden(params, cfg, tokens, positions, attn,
@@ -322,10 +427,12 @@ def append_window_kv(kv: PagedKvCache, win_k: torch.Tensor,
                      flat_mat: torch.Tensor) -> PagedKvCache:
     """A whole decode window's K/V -- win_k/win_v [L, W, S, Hkv, D] at
     the flat slots flat_mat int [W, S] (>= OOB_SENTINEL dropped) -- into
-    the cache in ONE `kv_append_rows` launch, in place."""
+    the cache in ONE `kv_append_rows` launch, in place (quantized, with
+    the scale planes, for an int8 cache)."""
     n_layers, w, s = win_k.shape[:3]
-    _append_kv_rows(kv, win_k.reshape(n_layers, w * s, -1),
-                    win_v.reshape(n_layers, w * s, -1), flat_mat.reshape(-1))
+    _append_kv_rows(kv, win_k.reshape(n_layers, w * s, *win_k.shape[3:]),
+                    win_v.reshape(n_layers, w * s, *win_v.shape[3:]),
+                    flat_mat.reshape(-1))
     return kv
 
 
@@ -337,15 +444,18 @@ def prefill_forward_batched(
     total_lens: torch.Tensor,     # int [B]: prefix + real chunk tokens
     flat_slots: torch.Tensor,     # int [B, T] (>= OOB_SENTINEL = drop)
     *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
+    attn_impl: str = "linear",
 ):
     """Chunked prefill of B sequences in one trunk pass (m = B*T for every
-    projection) → (hidden [B, T, H], kv). Each chunk starts on a page
-    boundary and T is a page multiple, so its K/V land as whole pages
-    (`append_pages`); pages whose first token is a pad are dropped."""
+    projection) → (hidden [B, T, H], kv). The context: each slot's
+    region sliced from its first block ("linear"), or its pages gathered
+    through block_tables ("ref", the paged layout). Each chunk starts on
+    a page boundary and T is a page multiple, so its K/V land as whole
+    pages, K, V (and an int8 cache's scales) in one `append_pages_pairs`
+    launch; pages whose first token is a pad are dropped."""
     if inv_freq is None:
         inv_freq = make_inv_freq(cfg, tokens.device)
     nb, page = kv.num_blocks, kv.page
-    f = kv.kv_heads * kv.head_dim
     n_layers = kv.k.shape[0]
     b, t_pad = tokens.shape
     if t_pad % page:
@@ -354,20 +464,33 @@ def prefill_forward_batched(
     new_ks: List[torch.Tensor] = []
     new_vs: List[torch.Tensor] = []
     rows = nb * page
-    starts = (block_tables[:, 0].to(torch.int64) * page).clamp(
-        0, rows - ctx_pad)                          # dynamic_slice clamps
-    window = starts[:, None] + torch.arange(ctx_pad, device=tokens.device)
+    if attn_impl == "linear":
+        starts = (block_tables[:, 0].to(torch.int64) * page).clamp(
+            0, rows - ctx_pad)                      # dynamic_slice clamps
+        window = starts[:, None] + torch.arange(ctx_pad,
+                                                device=tokens.device)
+    elif attn_impl == "ref":
+        tables = block_tables[:, :ctx_pad // page].to(torch.int64)
+        window = (tables[:, :, None] * page + torch.arange(
+            page, device=tokens.device)).reshape(b, ctx_pad)
+    else:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+
+    def ctx(arr, li):
+        """Layer li's context rows [B, ctx_pad, w] of a cache array."""
+        return arr[li].reshape(rows, -1)[window]
 
     def attn(li, q, k_new, v_new):
         new_ks.append(k_new)
         new_vs.append(v_new)
-        kl = kv.k[li].reshape(rows, f)[window]          # [B, ctx_pad, F]
-        vl = kv.v[li].reshape(rows, f)[window]
         out = flat_prefill_attention(
-            q.reshape(b, t_pad, *q.shape[1:]), kl, vl, positions,
-            total_lens, k_new.reshape(b, t_pad, *k_new.shape[1:]),
+            q.reshape(b, t_pad, *q.shape[1:]), ctx(kv.k, li), ctx(kv.v, li),
+            positions, total_lens,
+            k_new.reshape(b, t_pad, *k_new.shape[1:]),
             v_new.reshape(b, t_pad, *v_new.shape[1:]),
-            hkv=kv.kv_heads, scale=cfg.attn_scale)
+            hkv=kv.kv_heads, scale=cfg.attn_scale,
+            k_scale=ctx(kv.k_scale, li) if kv.quantized else None,
+            v_scale=ctx(kv.v_scale, li) if kv.quantized else None)
         return out.reshape(b * t_pad, *out.shape[2:])
 
     h = forward_hidden(params, cfg, tokens.reshape(-1),
@@ -377,12 +500,10 @@ def prefill_forward_batched(
     first = flat_slots.reshape(n_pg, page)[:, 0].to(torch.int64)
     blk_all = _layer_block_ids(first // page, first < OOB_SENTINEL,
                                n_layers, nb)
-    k_pages = torch.stack(new_ks).reshape(n_layers * n_pg, page, f)
-    v_pages = torch.stack(new_vs).reshape(n_layers * n_pg, page, f)
-    append_pages(kv.k.view(n_layers * nb, page, f),
-                 k_pages.to(kv.k.dtype).contiguous(), blk_all)
-    append_pages(kv.v.view(n_layers * nb, page, f),
-                 v_pages.to(kv.v.dtype).contiguous(), blk_all)
+    parts = _kv_parts(kv, torch.stack(new_ks), torch.stack(new_vs))
+    append_pages_pairs(
+        [(cache, part.view(n_layers * n_pg, page, -1))
+         for cache, part in zip(kv.flat_arrays(), parts)], blk_all)
     return h.reshape(b, t_pad, -1), kv
 
 

@@ -1,9 +1,19 @@
-"""Deferred-append attention over the linear (slot-contiguous) KV layout.
+"""Deferred-append attention over the KV cache's flat layout, and the
+paged layout's gather-based reference forms.
 
-Port of `ferrum_tpu/ops/attention.py::flat_decode_attention` (with its
-decode-window terms; without softcap, sliding windows and int8 KV),
-`flat_prefill_window_attention` and `flat_prefill_attention`. They are
-plain XLA in the JAX package, so they are plain PyTorch here.
+Port of `ferrum_tpu/ops/attention.py`: `flat_decode_attention` (with its
+decode-window terms and int8 KV; without softcap and sliding windows),
+`flat_prefill_window_attention`, `flat_prefill_attention`, and the
+paged layout's `gather_kv`, `paged_decode_attention_ref` and
+`paged_prefill_attention_ref`. They are plain XLA in the JAX package,
+so they are plain PyTorch here.
+
+INT8 KV: the cache holds int8 values with f32 scales per (token, kv
+head). A scale is constant within a head's F segment and each masked q
+row meets one segment, so the dequant commutes out of both products:
+scores *= k_scale after q.K, probabilities *= v_scale before x V. The
+tokens not cached yet (this step's, a window's, a chunk's) stay in full
+precision with a scale of 1.
 
 Layout: the cache is flat [C, F] per sequence with F = Hkv * D. A q
 head is masked into its own kv head's lane block ("masked q", [.., Hq,
@@ -49,6 +59,16 @@ def _unmask_out_flat(out_all: torch.Tensor, hq: int, hkv: int,
     return torch.gather(o4, -2, idx).squeeze(-2)
 
 
+def _head_scales(scale: torch.Tensor, rep: int) -> torch.Tensor:
+    """Scales [..., C, Hkv] → per q head [..., Hq, C]."""
+    return scale.transpose(-1, -2).repeat_interleave(rep, dim=-2)
+
+
+def _dequant_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 cache operand in the product's dtype (values, unscaled)."""
+    return x.to(dtype) if x.dtype == torch.int8 else x
+
+
 def flat_decode_attention(
     q: torch.Tensor,              # [S, Hq, D]
     k_flat: torch.Tensor,         # [S, C, F] slot-contiguous cache view
@@ -63,6 +83,8 @@ def flat_decode_attention(
     v_win: Optional[torch.Tensor] = None,
     win_valid: Optional[torch.Tensor] = None,  # bool [S, W]
     cache_len: Optional[torch.Tensor] = None,  # int [S] the cache's lens
+    k_scale: Optional[torch.Tensor] = None,   # f32 [S, C, Hkv] (int8 KV)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention: the cached history (positions < len - 1) plus the
     current token as an explicit self term (its K/V are appended after
@@ -76,7 +98,10 @@ def flat_decode_attention(
     rep = hq // hkv
     qf = (q.to(torch.float32) * scale).to(q.dtype)
     qt = _mask_q_flat(qf, hkv)                               # [S, Hq, F]
-    scores = matmul_f32(qt, k_flat.transpose(1, 2))          # [S, Hq, C]
+    scores = matmul_f32(qt, _dequant_operand(k_flat, qt.dtype)
+                        .transpose(1, 2))                    # [S, Hq, C]
+    if k_scale is not None:
+        scores = scores * _head_scales(k_scale, rep)
     hist_src = context_lens if cache_len is None else cache_len
     hist_len = hist_src.to(torch.int64)[:, None] - 1
     valid = torch.arange(ctx_pad, device=q.device)[None, :] < hist_len
@@ -92,11 +117,16 @@ def flat_decode_attention(
     e_hist = torch.exp(scores - m[:, :, None])
     e_self = torch.exp(self_sc - m)
     denom = torch.sum(e_hist, dim=-1) + e_self
-    p_hist = (e_hist / denom[:, :, None]).to(qt.dtype)
-    out_all = matmul_f32(p_hist[..., :ctx_pad], v_flat)      # [S, Hq, F]
+    p_all = e_hist / denom[:, :, None]
+    p_hist = p_all[..., :ctx_pad]
+    if v_scale is not None:
+        p_hist = p_hist * _head_scales(v_scale, rep)
+    out_all = matmul_f32(p_hist.to(qt.dtype),
+                         _dequant_operand(v_flat, qt.dtype))  # [S, Hq, F]
     if k_win is not None:
         vw = v_win.movedim(0, 1).reshape(s, -1, hkv * d).to(qt.dtype)
-        out_all = out_all + matmul_f32(p_hist[..., ctx_pad:], vw)
+        out_all = out_all + matmul_f32(p_all[..., ctx_pad:].to(qt.dtype),
+                                       vw)
     out = _unmask_out_flat(out_all, hq, hkv, d)
     v_rep = torch.repeat_interleave(v_self.to(torch.float32), rep, dim=1)
     out = out + (e_self / denom)[:, :, None] * v_rep
@@ -119,6 +149,8 @@ def flat_prefill_window_attention(
     *,
     hkv: int,
     scale: float,
+    k_scale: Optional[torch.Tensor] = None,   # f32 [C, Hkv] (int8 KV)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention of a P-row block riding a decode window
     (mixed prefill-in-window): one softmax over the slot's cached prefix
@@ -129,6 +161,7 @@ def flat_prefill_window_attention(
     c_pad = k_ctx.shape[0]
     t_steps = win_k.shape[0]
     f = hkv * d
+    rep = hq // hkv
     dev = q.device
     qf = (q.to(torch.float32) * scale).to(q.dtype)
     qt = _mask_q_flat(qf, hkv)                               # [P, Hq, F]
@@ -146,12 +179,18 @@ def flat_prefill_window_attention(
                             (w_idx < step * p) & (w_idx < valid_len),
                             qpos < chunk_start + valid_len])
     valid = valid_base[None, :] & (kpos[None, :] <= qpos[:, None])
-    scores = matmul_f32(qt.reshape(1, p * hq, f), k_all.t()[None])[0]
-    scores = torch.where(valid[:, None, :], scores.reshape(p, hq, -1),
-                         NEG_INF)
+    scores = matmul_f32(qt.reshape(1, p * hq, f),
+                        k_all.t()[None])[0].reshape(p, hq, -1)
+    ones = torch.ones(t_steps * p + p, hkv, dtype=torch.float32, device=dev)
+    if k_scale is not None:
+        scores = scores * _head_scales(torch.cat([k_scale, ones]), rep)
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
     any_valid = valid.any(dim=-1)
     scores = torch.where(any_valid[:, None, None], scores, 0.0)
-    probs = torch.softmax(scores, dim=-1).to(qt.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * _head_scales(torch.cat([v_scale, ones]), rep)
+    probs = probs.to(qt.dtype)
     out_all = matmul_f32(probs.reshape(1, p * hq, -1), v_all[None])[0]
     out = _unmask_out_flat(out_all.reshape(p, hq, f), hq, hkv, d)
     return out.to(q.dtype)
@@ -168,6 +207,8 @@ def flat_prefill_attention(
     *,
     hkv: int,
     scale: float,
+    k_scale: Optional[torch.Tensor] = None,   # f32 [(B,) C, Hkv] (int8)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention: the chunk attends to the cached prefix
     (positions < total_len - real chunk tokens) and to itself causally.
@@ -177,12 +218,17 @@ def flat_prefill_attention(
         return flat_prefill_attention(
             q[None], k_flat[None], v_flat[None], q_positions[None],
             total_len.reshape(1), k_new[None], v_new[None], hkv=hkv,
-            scale=scale)[0]
+            scale=scale,
+            k_scale=None if k_scale is None else k_scale[None],
+            v_scale=None if v_scale is None else v_scale[None])[0]
     b, t, hq, d = q.shape
     ctx_pad = k_flat.shape[1]
+    rep = hq // hkv
     dev = q.device
     qf = (q.to(torch.float32) * scale).to(q.dtype)
     qt = _mask_q_flat(qf, hkv)                               # [B, T, Hq, F]
+    k_flat = _dequant_operand(k_flat, qt.dtype)
+    v_flat = _dequant_operand(v_flat, qt.dtype)
     k_all = torch.cat([k_flat, k_new.reshape(b, t, hkv * d)
                        .to(k_flat.dtype)], dim=1)            # [B, C+T, F]
     v_all = torch.cat([v_flat, v_new.reshape(b, t, hkv * d)
@@ -195,10 +241,104 @@ def flat_prefill_attention(
     valid_base = torch.cat([iota < hist_len, qpos < tl], dim=1)
     valid = valid_base[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None])
     scores = matmul_f32(qt.reshape(b, t * hq, hkv * d),
-                        k_all.transpose(1, 2))
-    scores = torch.where(valid[:, :, None, :],
-                         scores.reshape(b, t, hq, -1), NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(qt.dtype)
+                        k_all.transpose(1, 2)).reshape(b, t, hq, -1)
+    ones = torch.ones(b, t, hkv, dtype=torch.float32, device=dev)
+    if k_scale is not None:
+        scores = scores * _head_scales(
+            torch.cat([k_scale, ones], dim=1), rep)[:, None]
+    scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * _head_scales(
+            torch.cat([v_scale, ones], dim=1), rep)[:, None]
+    probs = probs.to(qt.dtype)
     out_all = matmul_f32(probs.reshape(b, t * hq, -1), v_all)  # [B, T*Hq, F]
     out = _unmask_out_flat(out_all.reshape(b, t, hq, hkv * d), hq, hkv, d)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The paged layout: block-table gathers (f32 reference math, as the JAX
+# package's paged path)
+# ---------------------------------------------------------------------------
+
+def gather_kv(cache: torch.Tensor, block_tables: torch.Tensor,
+              ctx_pad: int, page: int) -> torch.Tensor:
+    """The first ctx_pad cached tokens of each sequence: cache [NB, page,
+    ...], block_tables int [S, max_pages] → [S, ctx_pad, ...]."""
+    tables = block_tables[:, :ctx_pad // page].to(torch.int64)
+    g = cache[tables]                               # [S, n_pages, page, ..]
+    return g.reshape(tables.shape[0], ctx_pad, *cache.shape[2:])
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,              # [S, Hq, D]
+    k_cache: torch.Tensor,        # [NB, page, Hkv, D]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,   # int [S, max_pages]
+    context_lens: torch.Tensor,   # int [S] incl. the new token
+    *,
+    ctx_pad: int,
+    scale: float,
+    k_self: Optional[torch.Tensor] = None,    # [S, Hkv, D] (deferred)
+    v_self: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """GQA decode attention over the paged cache, in f32 → [S, Hq, D].
+    Without k_self/v_self the new token's K/V are already cached; with
+    them the cache holds the history and the token joins as a self
+    term."""
+    s, hq, d = q.shape
+    page, hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    k = gather_kv(k_cache, block_tables, ctx_pad, page).to(torch.float32)
+    v = gather_kv(v_cache, block_tables, ctx_pad, page).to(torch.float32)
+    qf = q.to(torch.float32).reshape(s, hkv, rep, d) * scale
+    scores = torch.einsum("shrd,schd->shrc", qf, k)          # [S,Hkv,rep,C]
+    hist_len = context_lens.to(torch.int64)[:, None] \
+        - (0 if k_self is None else 1)
+    valid = torch.arange(ctx_pad, device=q.device)[None, :] < hist_len
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    if k_self is None:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("shrc,schd->shrd", probs, v)
+        return out.reshape(s, hq, d).to(q.dtype)
+    self_sc = torch.einsum("shrd,shd->shr", qf, k_self.to(torch.float32))
+    m = torch.maximum(torch.amax(scores, dim=-1), self_sc)
+    e_hist = torch.exp(scores - m[..., None])
+    e_self = torch.exp(self_sc - m)
+    denom = torch.sum(e_hist, dim=-1) + e_self
+    out = torch.einsum("shrc,schd->shrd", e_hist / denom[..., None], v)
+    out = out + (e_self / denom)[..., None] \
+        * v_self.to(torch.float32)[:, :, None, :]
+    return out.reshape(s, hq, d).to(q.dtype)
+
+
+def paged_prefill_attention_ref(
+    q: torch.Tensor,              # [T, Hq, D] one sequence's chunk
+    k_cache: torch.Tensor,        # [NB, page, Hkv, D]
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,    # int [max_pages]
+    q_positions: torch.Tensor,    # int [T] absolute (pads: large)
+    total_len: torch.Tensor,      # int scalar: prefix + real chunk tokens
+    *,
+    ctx_pad: int,
+    scale: float,
+) -> torch.Tensor:
+    """Chunked-prefill attention of one sequence whose chunk K/V are
+    already cached, in f32 → [T, Hq, D]: a query at position p attends
+    to the cached positions <= p."""
+    t, hq, d = q.shape
+    page, hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    k = gather_kv(k_cache, block_table[None], ctx_pad, page)[0].to(
+        torch.float32)
+    v = gather_kv(v_cache, block_table[None], ctx_pad, page)[0].to(
+        torch.float32)
+    qf = q.to(torch.float32).reshape(t, hkv, rep, d) * scale
+    scores = torch.einsum("thrd,chd->thrc", qf, k)
+    kpos = torch.arange(ctx_pad, device=q.device)[None, :]
+    valid = (kpos <= q_positions.to(torch.int64)[:, None]) \
+        & (kpos < total_len.to(torch.int64))
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    out = torch.einsum("thrc,chd->thrd", torch.softmax(scores, dim=-1), v)
+    return out.reshape(t, hq, d).to(q.dtype)

@@ -77,7 +77,7 @@ SIGNATURES = {
     },
     "kv_append": {
         "ferrum_kv_append_rows": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
-        "ferrum_kv_append_pages": [_P, _P, _P, _I, _I, _L, _P],
+        "ferrum_kv_append_pages": [_P, _P, _P, _I, _P, _I, _I, _P],
     },
 }
 

@@ -13,7 +13,11 @@
 //                          (K and V; int8 KV's two scale planes would be
 //                          two more) in one launch.
 //   ferrum_kv_append_pages replaces kv_append.py kv_append_pages:
-//                          cache[blk[i]] = pages[i] (prefill, whole pages).
+//                          cache[blk[i]] = pages[i] (prefill, whole pages,
+//                          and the prefix store's block copies), for one
+//                          to four (cache, pages) arrays that share blk
+//                          (K, V and int8 KV's two scale planes) in one
+//                          launch.
 //
 // What bounds them on the H100: pure data movement -- each valid row/page
 // is read once and written once, so HBM bandwidth (3.35 TB/s). The TPU
@@ -111,15 +115,41 @@ __global__ void append_rows_kernel(RowPairs rp, const int* __restrict__ blk,
   }
 }
 
-__global__ void append_pages_kernel(uint8_t* __restrict__ cache,
-                                    const uint8_t* __restrict__ pages,
-                                    const int* __restrict__ blk, int B,
-                                    long long page_bytes, int vec16) {
+// The (cache, pages) arrays of a pages launch, by value; vec16: the
+// array's pointers and page size are 16-byte multiples.
+struct PageArrays {
+  uint8_t* cache[kMaxPairs];
+  const uint8_t* pages[kMaxPairs];
+  long long page_bytes[kMaxPairs];
+  int vec16[kMaxPairs];
+};
+
+// Page p of array A to block b, the array's fields read by a static
+// index.
+template <int A>
+__device__ __forceinline__ void copy_array_page(const PageArrays& pa,
+                                                long long b, int p) {
+  const long long page_bytes = pa.page_bytes[A];
+  copy_bytes(pa.cache[A] + b * page_bytes,
+             pa.pages[A] + (long long)p * page_bytes, page_bytes,
+             pa.vec16[A], threadIdx.x, blockDim.x);
+}
+
+// Block (p, a) copies page p of array a to its block blk[p]. One copy
+// loop per array (the switch): picking the array's fields first and
+// running one loop on them made the copy 24% slower (one array, 8192
+// pages, H100), a block living for one page only.
+__global__ void append_pages_kernel(PageArrays pa,
+                                    const int* __restrict__ blk, int B) {
   const int p = blockIdx.x;
   const long long b = (long long)(unsigned)blk[p];
   if (b >= B) return;                      // dropped write (sentinel / pad)
-  copy_bytes(cache + b * page_bytes, pages + (long long)p * page_bytes,
-             page_bytes, vec16, threadIdx.x, blockDim.x);
+  switch (blockIdx.y) {
+    case 0: copy_array_page<0>(pa, b, p); break;
+    case 1: copy_array_page<1>(pa, b, p); break;
+    case 2: copy_array_page<2>(pa, b, p); break;
+    default: copy_array_page<3>(pa, b, p); break;
+  }
 }
 
 int aligned16(const void* a, const void* b, long long nbytes) {
@@ -174,15 +204,27 @@ extern "C" int ferrum_kv_append_rows(void* const* caches,
   return (int)cudaGetLastError();
 }
 
-// cache [B, page, F], pages [p, page, F] (page_bytes = page * F * element
-// size), blk int32 [p]. Returns cudaGetLastError().
-extern "C" int ferrum_kv_append_pages(void* cache, const void* pages,
-                                      const void* blk, int p, int B,
-                                      long long page_bytes, void* stream) {
+// `arrays` (1 to 4) caches [B, page, F_i] and their pages [p, page, F_i]
+// (page_bytes[i] = page * F_i * element size), caches[i] / pages[i] host
+// arrays of device pointers; blk int32 [p], shared. Returns
+// cudaGetLastError().
+extern "C" int ferrum_kv_append_pages(void* const* caches,
+                                      const void* const* pages,
+                                      const long long* page_bytes,
+                                      int arrays, const void* blk, int p,
+                                      int B, void* stream) {
+  if (arrays < 1 || arrays > kMaxPairs) return (int)cudaErrorInvalidValue;
   if (p <= 0) return 0;
-  append_pages_kernel<<<p, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(cache), static_cast<const uint8_t*>(pages),
-      static_cast<const int*>(blk), B, page_bytes,
-      aligned16(cache, pages, page_bytes));
+  PageArrays pa{};
+  for (int i = 0; i < arrays; ++i) {
+    if (page_bytes[i] < 1) return (int)cudaErrorInvalidValue;
+    pa.cache[i] = static_cast<uint8_t*>(caches[i]);
+    pa.pages[i] = static_cast<const uint8_t*>(pages[i]);
+    pa.page_bytes[i] = page_bytes[i];
+    pa.vec16[i] = aligned16(caches[i], pages[i], page_bytes[i]);
+  }
+  append_pages_kernel<<<dim3(p, arrays), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      pa, static_cast<const int*>(blk), B);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,10 @@ place and return it, so call sites read the same either way.
                                                 (cache, rows) pairs, as K
                                                 and V, in one launch
   append_pages(cache, pages, block_ids)         cache[blk] = pages[i]
+  append_pages_pairs(pairs, block_ids)          the same for up to four
+                                                (cache, pages) pairs, as K,
+                                                V and int8 KV's two scale
+                                                planes, in one launch
 
 A row or page whose block id is >= B (the model's OOB_SENTINEL) is
 dropped. (block, offset) pairs are unique within one call. On CUDA
@@ -54,6 +58,13 @@ def append_pages_plain(cache: torch.Tensor, pages: torch.Tensor,
     keep = (blk >= 0) & (blk < b)
     cache[blk[keep]] = pages[keep].to(cache.dtype)
     return cache
+
+
+def append_pages_pairs_plain(pairs: Sequence[Tuple[torch.Tensor,
+                                                   torch.Tensor]],
+                             block_ids: torch.Tensor) -> tuple:
+    return tuple(append_pages_plain(cache, pages, block_ids)
+                 for cache, pages in pairs)
 
 
 def _check_ids(ids: torch.Tensor, n: int, dev, name: str) -> None:
@@ -116,21 +127,42 @@ def append_rows_pairs(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 def append_pages(cache: torch.Tensor, pages: torch.Tensor,
                  block_ids: torch.Tensor) -> torch.Tensor:
     """cache [B, page, F]; pages [P, page, F]; block_ids int32 [P]."""
-    if not cache.is_cuda:
-        return append_pages_plain(cache, pages, block_ids)
-    b, page, f = cache.shape
-    p = pages.shape[0]
-    if not cache.is_contiguous():
-        raise ValueError("cache must be contiguous")
-    if pages.dtype != cache.dtype or pages.shape != (p, page, f) \
-            or not pages.is_contiguous() or pages.device != cache.device:
-        raise ValueError(f"pages must be contiguous {cache.dtype} "
-                         f"[{p}, {page}, {f}] on {cache.device}")
-    _check_ids(block_ids, p, cache.device, "block_ids")
-    stream = torch.cuda.current_stream(cache.device).cuda_stream
+    return append_pages_pairs([(cache, pages)], block_ids)[0]
+
+
+def append_pages_pairs(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                       block_ids: torch.Tensor) -> tuple:
+    """append_pages for each (cache [B, page, F_i], pages [P, page, F_i])
+    of `pairs` (one to four; every cache of one B and page), all at
+    block_ids int32 [P], in one launch on CUDA tensors. Returns the
+    caches."""
+    if not 1 <= len(pairs) <= MAX_PAIRS:
+        raise ValueError(f"1 to {MAX_PAIRS} (cache, pages) pairs, got "
+                         f"{len(pairs)}")
+    first = pairs[0][0]
+    if not first.is_cuda:
+        return append_pages_pairs_plain(pairs, block_ids)
+    b, page, _ = first.shape
+    p = block_ids.shape[0]
+    for cache, pages in pairs:
+        f = cache.shape[-1]
+        if cache.dim() != 3 or cache.shape[:2] != (b, page) \
+                or not cache.is_contiguous() or cache.device != first.device:
+            raise ValueError(f"caches must be contiguous [{b}, {page}, F] "
+                             f"on {first.device}")
+        if pages.dtype != cache.dtype or pages.shape != (p, page, f) \
+                or not pages.is_contiguous() or pages.device != cache.device:
+            raise ValueError(f"pages must be contiguous {cache.dtype} "
+                             f"[{p}, {page}, {f}] on {cache.device}")
+    _check_ids(block_ids, p, first.device, "block_ids")
+    k = len(pairs)
+    stream = torch.cuda.current_stream(first.device).cuda_stream
     err = library("kv_append").ferrum_kv_append_pages(
-        cache.data_ptr(), pages.data_ptr(), block_ids.data_ptr(), p, b,
-        page * f * cache.element_size(), stream)
+        (ctypes.c_void_p * k)(*(c.data_ptr() for c, _ in pairs)),
+        (ctypes.c_void_p * k)(*(q.data_ptr() for _, q in pairs)),
+        (ctypes.c_longlong * k)(*(page * c.shape[-1] * c.element_size()
+                                  for c, _ in pairs)),
+        k, block_ids.data_ptr(), p, b, stream)
     check(err, "kv_append_pages")
     KV_APPEND_PAGES.launches += 1
-    return cache
+    return tuple(c for c, _ in pairs)

@@ -1,20 +1,25 @@
-"""Continuous-batching scheduler: token budget, chunked prefill, admission.
+"""Continuous-batching scheduler: token budget, chunked prefill, admission,
+prefix reuse and preemption.
 
-Port of `ferrum_tpu/scheduler/continuous.py` for the linear KV layout
-and the arrival-order policy. One `next_batch(pinned, inflight_steps)`
-per engine iteration:
-  1. every decoding sequence (one budget token each), with its slot
-     region grown to cover the windows still in flight and the next;
+Port of `ferrum_tpu/scheduler/continuous.py` with the arrival-order
+policy. One `next_batch(pinned, inflight_steps)` per engine iteration:
+  1. every decoding sequence (one budget token each), its blocks grown
+     to cover the windows still in flight and the next; on the paged
+     layout, KV pressure first evicts prefix-cache blocks, then
+     preempts the most recently admitted sequence not riding a window
+     in flight (recompute: its KV is dropped and prompt + outputs are
+     prefilled again at re-admission); when no victim is free, one step
+     past the in-flight windows' exact write horizon (`inflight_steps`,
+     minimum progress: `decode_steps` = 1), else the decode is deferred
+     (`deferred_decodes`) and the engine breaks the pipeline chain;
   2. the next chunk of every prefilling sequence;
-  3. admission of waiting requests while slots and budget remain.
+  3. admission of waiting requests while slots and budget remain, with
+     the longest cached prefix reused: copied into the slot's region on
+     the linear layout (the engine issues the copy), shared blocks on
+     the paged one.
 Chunks are full-size or the whole remainder (the JAX package's rule,
 kept so both engines schedule the same chunks). Linear slots reserve
-their capacity, so KV-pressure preemption never happens here. The
-JAX package's minimum-progress path (one step past the in-flight
-windows' exact write horizon, `inflight_steps`; `deferred_decodes`,
-`decode_steps`) is ported with the loop that reads it; the linear
-layout never takes it (a region holds max_model_len), the paged
-layout's slice will.
+their capacity, so they never meet KV pressure.
 
 Host-only code; it runs once per iteration.
 """
@@ -26,18 +31,20 @@ from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
 from ..config import EngineConfig
-from ..kv.block_pool import SlotBlocks
-from ..types import CapacityError
+from ..kv.block_pool import BlockPool, SequenceBlocks, SlotBlocks
+from ..kv.prefix_cache import PrefixCache
+from ..utils import profile as _prof
 from .sequence import Phase, Sequence
+from ..types import CapacityError
 
 
 @dataclass
 class PrefillChunk:
     seq: Sequence
-    start: int            # first prompt position in this chunk
+    start: int            # first prefill-target position in this chunk
     tokens: List[int]
-    # True when this chunk completes the prompt → its last hidden state
-    # samples the first output token.
+    # True when this chunk completes the prefill target → its last
+    # hidden state samples the next output token.
     is_last: bool = False
 
 
@@ -45,12 +52,13 @@ class PrefillChunk:
 class ScheduledBatch:
     prefill_chunks: List[PrefillChunk] = field(default_factory=list)
     decode_seqs: List[Sequence] = field(default_factory=list)
+    preempted: List[Sequence] = field(default_factory=list)
     admitted: List[Sequence] = field(default_factory=list)
-    # Decodes whose region could not cover even one step past the
-    # windows in flight: the engine breaks the pipeline chain.
+    # Decodes KV pressure left out while every victim was pinned by a
+    # window in flight: the engine breaks the pipeline chain.
     deferred_decodes: List[Sequence] = field(default_factory=list)
-    # Set to 1 when some region covers only one more step: the whole
-    # batch's window is clamped to it (minimum progress). None = full.
+    # Set to 1 when some sequence's blocks cover only one more step: the
+    # whole batch's window is clamped to it (minimum progress).
     decode_steps: Optional[int] = None
 
     @property
@@ -58,9 +66,24 @@ class ScheduledBatch:
         return not self.prefill_chunks and not self.decode_seqs
 
 
+@dataclass
+class SchedulerStats:
+    iterations: int = 0
+    submitted: int = 0
+    finished: int = 0
+    preemptions: int = 0
+    tokens_prefilled_scheduled: int = 0
+    tokens_decoded_scheduled: int = 0
+
+
 class ContinuousBatchScheduler:
-    def __init__(self, cfg: EngineConfig):
+    def __init__(self, cfg: EngineConfig, pool: Optional[BlockPool] = None,
+                 prefix_cache: Optional[PrefixCache] = None):
         self.cfg = cfg
+        self.linear = cfg.kv_layout == "linear"
+        self.pool = pool or BlockPool(
+            cfg.num_slots * cfg.max_blocks_per_seq, cfg.kv_block_size)
+        self.prefix_cache = prefix_cache
         # Positions a decoding sequence may write past its host-visible
         # length: the windows in flight (up to pipeline_depth of them)
         # plus the one being scheduled. The JAX package counts
@@ -73,6 +96,7 @@ class ContinuousBatchScheduler:
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []     # admission order
         self._free_slots: List[int] = list(range(cfg.num_slots - 1, -1, -1))
+        self.stats = SchedulerStats()
 
     def submit(self, seq: Sequence) -> None:
         if seq.num_prompt_tokens + seq.request.sampling.max_tokens \
@@ -83,9 +107,11 @@ class ContinuousBatchScheduler:
                 f"{self.cfg.max_model_len}")
         seq.phase = Phase.WAITING
         self.waiting.append(seq)
+        self.stats.submitted += 1
 
     def finish(self, seq: Sequence) -> None:
-        """Release a finished sequence's slot and region."""
+        """Release a finished sequence's slot and blocks; its full prompt
+        blocks go to the prefix cache once the prompt is prefilled."""
         if seq in self.running:
             self.running.remove(seq)
         if seq in self.waiting:
@@ -94,18 +120,60 @@ class ContinuousBatchScheduler:
             self._free_slots.append(seq.slot)
             seq.slot = None
         if seq.blocks is not None:
+            if self.prefix_cache is not None \
+                    and seq.num_prompt_tokens >= self.pool.page_size \
+                    and seq.prefilled >= seq.num_prompt_tokens:
+                # An aborted sequence's later blocks were never written.
+                self.prefix_cache.insert(seq.prompt_tokens, seq.blocks.blocks)
             seq.blocks.release()
             seq.blocks = None
         seq.phase = Phase.FINISHED
+        self.stats.finished += 1
 
-    def _grow(self, seq: Sequence, tokens: int) -> bool:
-        """Reserve the region `tokens` positions need (at most
-        max_model_len); False if the region cannot hold them."""
-        try:
-            seq.blocks.ensure_capacity(min(tokens, self.cfg.max_model_len))
-        except CapacityError:
+    def _try_alloc(self, seq: Sequence, tokens: int) -> bool:
+        """Blocks for `tokens` positions (at most max_model_len), evicting
+        prefix-cache blocks under pool pressure; False if they do not
+        fit."""
+        tokens = min(tokens, self.cfg.max_model_len)
+        if self.linear:
+            try:
+                seq.blocks.ensure_capacity(tokens)
+            except CapacityError:
+                return False
+            return True
+        need = seq.blocks.blocks_needed_for(tokens)
+        if need == 0:
+            return True
+        if need > self.pool.num_free and self.prefix_cache is not None:
+            self.prefix_cache.evict(min_free_target=need)
+        if need > self.pool.num_free:
             return False
+        seq.blocks.ensure_capacity(tokens)
         return True
+
+    def _preempt_victim(self, batch: ScheduledBatch, exclude: Sequence,
+                        pinned: frozenset = frozenset()
+                        ) -> Optional[Sequence]:
+        """Drop the most recently admitted running sequence that no
+        window in flight still writes (pinned), for recompute later."""
+        for victim in reversed(self.running):
+            if victim is exclude \
+                    or victim.request.request_id in pinned:
+                continue
+            self.running.remove(victim)
+            if victim.slot is not None:
+                self._free_slots.append(victim.slot)
+            victim.blocks.release()
+            victim.blocks = None
+            victim.reset_for_recompute()
+            self.waiting.appendleft(victim)
+            batch.preempted.append(victim)
+            self.stats.preemptions += 1
+            _prof.emit_instant("engine.preempt", {
+                "request_id": victim.request.request_id,
+                "recompute_tokens": victim.total_tokens})
+            return victim
+        return None
 
     def next_batch(self, pinned: frozenset = frozenset(),
                    inflight_steps: int = -1) -> ScheduledBatch:
@@ -115,35 +183,46 @@ class ContinuousBatchScheduler:
         cfg = self.cfg
         batch = ScheduledBatch()
         budget = cfg.max_num_batched_tokens
+        self.stats.iterations += 1
 
         # --- 1. decode set ---
-        for seq in self.running:
-            if seq.phase != Phase.DECODING:
-                continue
+        for seq in [s for s in self.running if s.phase == Phase.DECODING]:
+            if seq.phase != Phase.DECODING or seq.blocks is None:
+                continue          # preempted as a victim this iteration
             if budget <= 0:
                 break
-            if not self._grow(seq, seq.total_tokens + self.decode_lookahead):
+            scheduled = True
+            while not self._try_alloc(
+                    seq, seq.total_tokens + self.decode_lookahead):
+                if self._preempt_victim(batch, seq, pinned) is not None:
+                    continue
                 if seq.request.request_id not in pinned:
                     inflight = 0
                 elif inflight_steps >= 0:
                     inflight = inflight_steps
                 else:
                     inflight = cfg.decode_multi_step * cfg.pipeline_depth
-                if not self._grow(seq, seq.total_tokens + inflight + 1):
+                if self._try_alloc(seq, seq.total_tokens + inflight + 1):
+                    batch.decode_steps = 1
+                else:
                     batch.deferred_decodes.append(seq)
-                    continue
-                batch.decode_steps = 1
-            batch.decode_seqs.append(seq)
-            budget -= 1
+                    scheduled = False
+                break
+            if scheduled:
+                batch.decode_seqs.append(seq)
+                budget -= 1
+        self.stats.tokens_decoded_scheduled += len(batch.decode_seqs)
 
         # --- 2. ongoing prefills (chunked) ---
         chunk_cap = cfg.prefill_chunk_size
-        for seq in self.running:
-            if seq.phase != Phase.PREFILLING or budget <= 0:
-                continue
+        for seq in [s for s in self.running if s.phase == Phase.PREFILLING]:
+            if budget <= 0:
+                break
             t = min(seq.prefill_remaining, chunk_cap, budget)
             if t < seq.prefill_remaining and t < chunk_cap:
                 continue          # only full-cap chunks or the remainder
+            if t <= 0 or not self._try_alloc(seq, seq.prefilled + t):
+                continue          # retried next iteration
             batch.prefill_chunks.append(self._chunk(seq, t))
             budget -= t
 
@@ -153,23 +232,57 @@ class ContinuousBatchScheduler:
             first = min(seq.prefill_remaining, chunk_cap, budget)
             if first < seq.prefill_remaining and first < chunk_cap:
                 break             # no odd-sized chunks: wait for budget
+            if first <= 0:
+                break
+            blocks = SlotBlocks(self.pool, self._free_slots[-1],
+                                cfg.max_blocks_per_seq) if self.linear \
+                else SequenceBlocks(self.pool)
+            seq.blocks = blocks
+            reused_blocks: List[int] = []
+            reused = 0
+            if self.prefix_cache is not None and seq.prefilled == 0:
+                reused_blocks, reused = self.prefix_cache.match_prefix(
+                    seq.prompt_tokens)
+            if reused:
+                if self.linear:
+                    blocks.adopt_copied_prefix(reused)
+                    seq.pending_prefix_copy = (reused_blocks, reused)
+                else:
+                    blocks.append_shared_prefix(reused_blocks, reused)
+                seq.prefilled = reused
+                seq.prefix_reused_tokens = reused
+                first = min(seq.prefill_remaining, chunk_cap, budget)
+                if first < seq.prefill_remaining and first < chunk_cap:
+                    # No odd-sized chunks: stay at the queue's head with
+                    # the prefix released.
+                    blocks.release()
+                    seq.blocks = None
+                    seq.prefilled = 0
+                    seq.prefix_reused_tokens = 0
+                    seq.pending_prefix_copy = None
+                    break
+            if not self._try_alloc(seq, seq.prefilled + first):
+                blocks.release()  # no KV room for the first chunk
+                seq.blocks = None
+                seq.prefilled = 0
+                break
             self.waiting.popleft()
             seq.slot = self._free_slots.pop()
-            seq.blocks = SlotBlocks(seq.slot, cfg.max_blocks_per_seq,
-                                    cfg.kv_block_size)
             seq.phase = Phase.PREFILLING
             self.running.append(seq)
             batch.admitted.append(seq)
             batch.prefill_chunks.append(self._chunk(seq, first))
             budget -= first
+        self.stats.tokens_prefilled_scheduled += sum(
+            len(c.tokens) for c in batch.prefill_chunks)
         return batch
 
     def _chunk(self, seq: Sequence, t: int) -> PrefillChunk:
-        self._grow(seq, seq.prefilled + t)
+        target = seq.prefill_target
         return PrefillChunk(
             seq=seq, start=seq.prefilled,
-            tokens=seq.prompt_tokens[seq.prefilled:seq.prefilled + t],
-            is_last=seq.prefilled + t == seq.num_prompt_tokens)
+            tokens=target[seq.prefilled:seq.prefilled + t],
+            is_last=seq.prefilled + t == len(target))
 
     def note_prefill_done(self, chunk: PrefillChunk) -> None:
         """Engine callback after a chunk's device step ran."""
@@ -177,3 +290,4 @@ class ContinuousBatchScheduler:
         seq.prefilled += len(chunk.tokens)
         if seq.is_prefill_done:
             seq.phase = Phase.DECODING
+            seq.recompute = False

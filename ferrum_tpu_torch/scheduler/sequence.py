@@ -1,9 +1,8 @@
 """Per-request sequence state (host side).
 
-Port of `ferrum_tpu/scheduler/sequence.py`, trimmed to the served path:
-the linear layout reserves each slot's capacity, so there is no
-preemption and no recompute; prefix reuse, guided decoding and prompt
-scoring come with later slices.
+Port of `ferrum_tpu/scheduler/sequence.py` for the served path: tokens,
+phase, block table, prefix reuse and recompute after a preemption;
+guided decoding and prompt scoring come with later slices.
 """
 
 from __future__ import annotations
@@ -11,7 +10,7 @@ from __future__ import annotations
 import enum
 from typing import FrozenSet, List, Optional
 
-from ..kv.block_pool import SlotBlocks
+from ..kv.block_pool import SequenceBlocks
 from ..types import InferenceRequest
 
 
@@ -19,6 +18,7 @@ class Phase(enum.Enum):
     WAITING = "waiting"
     PREFILLING = "prefilling"
     DECODING = "decoding"
+    PREEMPTED = "preempted"
     FINISHED = "finished"
 
 
@@ -29,8 +29,18 @@ class Sequence:
         self.output_tokens: List[int] = []
         self.phase = Phase.WAITING
         self.slot: Optional[int] = None
-        self.blocks: Optional[SlotBlocks] = None
-        self.prefilled = 0            # prompt tokens whose KV is written
+        self.blocks: Optional[SequenceBlocks] = None
+        # Tokens of the prefill target whose KV is written or adopted.
+        self.prefilled = 0
+        # True from a preemption of a sequence with output until its
+        # recompute prefill ends: the KV of prompt AND outputs is rebuilt.
+        self.recompute = False
+        # Prefix reuse at admission; on the linear layout
+        # pending_prefix_copy holds (store block ids, covered tokens)
+        # until the engine issues the store → slot copy.
+        self.prefix_reused_tokens = 0
+        self.pending_prefix_copy = None
+        self.preempt_count = 0
         self.detok_prefix_offset = 0
         self.detok_read_offset = 0
         self.eos_cache: Optional[FrozenSet[int]] = None
@@ -52,13 +62,31 @@ class Sequence:
         return self.prompt_tokens + self.output_tokens
 
     @property
+    def prefill_target(self) -> List[int]:
+        """Tokens whose KV the prefill must produce: the prompt, or after
+        a recompute preemption prompt + outputs (decode resumes at
+        total_tokens - 1, and the last chunk samples a new token)."""
+        return self.all_tokens if self.recompute else self.prompt_tokens
+
+    @property
     def prefill_remaining(self) -> int:
-        return self.num_prompt_tokens - self.prefilled
+        return len(self.prefill_target) - self.prefilled
 
     @property
     def is_prefill_done(self) -> bool:
-        return self.prefilled >= self.num_prompt_tokens
+        return self.prefilled >= len(self.prefill_target)
 
     def next_position(self) -> int:
         """Absolute position of the next token to decode."""
         return self.total_tokens - 1
+
+    def reset_for_recompute(self) -> None:
+        """Preemption: the KV is dropped; prompt and generated tokens are
+        prefilled again at re-admission."""
+        self.prefilled = 0
+        self.prefix_reused_tokens = 0
+        self.pending_prefix_copy = None
+        self.slot = None
+        self.phase = Phase.PREEMPTED
+        self.preempt_count += 1
+        self.recompute = bool(self.output_tokens)

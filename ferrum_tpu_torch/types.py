@@ -113,9 +113,10 @@ class InferenceResponse:
 @dataclass
 class EngineMetricsSnapshot:
     """The engine's counters (the JAX package's fields and defaults).
-    The port's KV pool is the linear layout's reservation, so
-    `kv_blocks_free` is the pool less the blocks running sequences hold,
-    and the prefix-cache fields stay 0 (no prefix cache yet)."""
+    `kv_blocks_free`: the paged pool's free blocks, or on the linear
+    layout the pool less the blocks running sequences hold; the
+    prefix-cache fields are the cache's hits, misses and reused
+    tokens."""
 
     iterations_total: int = 0
     requests_submitted: int = 0

@@ -36,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_engine import MAX_TOKENS, PROMPTS, UNPIPELINED, _engine_kw, \
-    _serve
+from test_torch_engine import (LINEAR, MAX_TOKENS, PROMPTS, UNPIPELINED,
+                               _engine_kw, _serve)
 from torch_parity import (flatten_jax_params, jax_model, route_w4a8tl,
                           torch_config)
 
@@ -161,9 +161,8 @@ def test_env_hash():
 def _port_engine(cfg, params, **kw):
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.engine.builder import EngineBuilder
-    return EngineBuilder(EngineConfig(device="cpu", **{**_engine_kw(),
-                                                       **kw})) \
-        .with_model(cfg, params).build()
+    return EngineBuilder(EngineConfig(device="cpu", **{
+        **_engine_kw(), **LINEAR, **kw})).with_model(cfg, params).build()
 
 
 def test_engine_metrics_match_jax(monkeypatch):
@@ -569,7 +568,8 @@ def test_port_bundle_replays(tmp_path):
     from ferrum_tpu_torch.utils import replay as tr
 
     cfg = EngineConfig(model="random:tiny-test", device="cpu",
-                       max_model_len=256, max_num_seqs=2)
+                       max_model_len=256, max_num_seqs=2,
+                       kv_layout="linear", prefix_cache_blocks=0)
     engine = EngineBuilder(cfg).build()
     try:
         req = InferenceRequest(prompt="replay me", request_id="r1",
@@ -689,7 +689,7 @@ def test_determinism_and_divergence_on_the_port():
 
     engine = EngineBuilder(EngineConfig(
         model="random:tiny-test", device="cpu", max_model_len=256,
-        max_num_seqs=2)).build()
+        max_num_seqs=2, kv_layout="linear", prefix_cache_blocks=0)).build()
     try:
         prompts = ta.DEFAULT_PROMPTS[:2]
         rep = ta.greedy_self_determinism(engine, prompts, max_tokens=8)

@@ -98,25 +98,87 @@ def test_replay_matches_the_jax_cli(tmp_path):
 
 def test_unported_flag_exits_1_in_a_subprocess():
     r = run_cli("bench", "random:tiny-test", "--device", "cpu",
-                "--kv-layout", "paged", *SMALL)
+                "--spec-draft", "random:tiny-test", *SMALL)
     assert r.returncode == 1, r.stdout + r.stderr
-    assert "error:" in r.stderr and "kv_layout" in r.stderr \
+    assert "error:" in r.stderr and "spec_draft_model" in r.stderr \
         and "not yet ported" in r.stderr
 
 
+# The KV layout, KV dtype, capacity and prefix-cache settings are ported:
+# each flag or FERRUM_* value reaches the port's EngineConfig as the JAX
+# CLI's resolve sets it (CLI > env > file > the CLI's base of "auto").
+KV_FIELDS = ("kv_layout", "kv_dtype", "kv_num_blocks", "enable_prefix_cache",
+             "prefix_cache_policy", "prefix_cache_blocks")
+
+
+class _Built(Exception):
+    """Raised by a stubbed EngineBuilder.build with the config it got."""
+
+
+def _resolved_cfg(monkeypatch, builder_mod, main_or_build, argv):
+    def build(self):
+        raise _Built(self.cfg)
+
+    monkeypatch.setattr(builder_mod.EngineBuilder, "build", build)
+    with pytest.raises(_Built) as got:
+        main_or_build(argv)
+    return got.value.args[0]
+
+
+@pytest.mark.parametrize("flags,env", [
+    (["--kv-layout", "paged"], {}),
+    (["--kv-dtype", "int8"], {}),
+    ([], {"FERRUM_KV_DTYPE": "int8"}),
+    ([], {"FERRUM_KV_LAYOUT": "paged"}),
+    (["--kv-capacity", "64"], {}),
+    ([], {"FERRUM_KV_MAX_BLOCKS": "64"}),
+    (["--enable-prefix-cache"], {"FERRUM_ENABLE_PREFIX_CACHE": "0"}),
+    (["--no-prefix-cache"], {"FERRUM_PREFIX_CACHE_POLICY": "clock",
+                             "FERRUM_PREFIX_CACHE_BLOCKS": "0"}),
+    (["--kv-layout", "linear"], {"FERRUM_KV_LAYOUT": "paged",
+                                 "FERRUM_KV_DTYPE": "f32"}),
+])
+def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
+    import argparse
+
+    from ferrum_tpu import cli as jax_cli
+    from ferrum_tpu.engine import builder as jax_builder
+    from ferrum_tpu_torch import cli
+    from ferrum_tpu_torch.engine import builder
+
+    for k in [k for k in os.environ if k.startswith("FERRUM_")]:
+        monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    argv = ["random:tiny-test", "--config", str(tmp_path / "none.toml"),
+            *SMALL, *flags]
+    mine = _resolved_cfg(monkeypatch, builder, cli.main,
+                         ["bench", "--device", "cpu", *argv])
+
+    def jax_build(a):
+        p = argparse.ArgumentParser()
+        jax_cli._add_engine_flags(p)
+        return jax_cli._build_engine(p.parse_args(a))
+
+    ref = _resolved_cfg(monkeypatch, jax_builder, jax_build, argv)
+    for name in KV_FIELDS:
+        assert getattr(mine, name) == getattr(ref, name), name
+    assert mine.kv_layout in ("auto", "linear", "paged")
+
+
 @pytest.mark.parametrize("flags,env,field", [
-    (["--kv-layout", "paged"], {}, "kv_layout"),
     (["--tp", "2"], {}, "tensor_parallel"),
     (["--spec-draft", "random:tiny-test"], {}, "spec_draft_model"),
     (["--quantization", "gguf_q4k"], {}, "quantization"),
-    (["--enable-prefix-cache"], {}, "enable_prefix_cache"),
     (["--scheduler", "fifo"], {}, "scheduler"),
-    (["--kv-dtype", "int8"], {}, "kv_dtype"),
-    ([], {"FERRUM_KV_DTYPE": "int8"}, "kv_dtype"),
     ([], {"FERRUM_ADAPTIVE_WINDOWS": "1"}, "adaptive_windows"),
-    ([], {"FERRUM_KV_LAYOUT": "paged"}, "kv_layout"),
-    (["--kv-capacity", "64"], {}, "kv_num_blocks"),
-    ([], {"FERRUM_KV_MAX_BLOCKS": "64"}, "kv_num_blocks"),
+    ([], {"FERRUM_PREFIX_OFFLOAD_MB": "64"}, "prefix_offload_mb"),
+    ([], {"FERRUM_PREFIX_OFFLOAD_ALGO": "int4"}, "prefix_offload_algo"),
+    ([], {"FERRUM_SLOT_SLACK": "2"}, "slot_slack"),
+    ([], {"FERRUM_SQUEEZE_EMBED": "1"}, "squeeze_embeddings"),
+    ([], {"FERRUM_FUSE_PROJ": "0"}, "fuse_proj"),
+    ([], {"FERRUM_GDN_CHUNKED": "0"}, "gdn_chunk_block"),
+    ([], {"FERRUM_SPEC_K": "2"}, "spec_num_tokens"),
 ])
 def test_unported_settings_exit_1(monkeypatch, capsys, tmp_path, flags, env,
                                   field):

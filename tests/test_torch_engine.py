@@ -56,6 +56,12 @@ LOOPS = {"unpipelined-c3": (UNPIPELINED, 3), "pipelined-c1": (PIPELINED, 1),
          "pipelined-c4": (PIPELINED, 4)}
 
 
+# The port's engines here serve the linear layout with no prefix store,
+# as the JAX engines they are held against (the defaults are the paged
+# layout and the prefix cache).
+LINEAR = dict(kv_layout="linear", enable_prefix_cache=False)
+
+
 def _engine_kw():
     return dict(max_num_seqs=4, max_model_len=256, kv_block_size=16,
                 prefill_chunk_size=32, max_num_batched_tokens=128,
@@ -152,9 +158,8 @@ def _jax_streams(jcfg, jparams, loop="unpipelined-c3"):
 def _torch_engine(cfg, params, **kw):
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.engine.builder import EngineBuilder
-    return EngineBuilder(EngineConfig(device="cpu", **{**_engine_kw(),
-                                                       **kw})) \
-        .with_model(cfg, params).build()
+    return EngineBuilder(EngineConfig(device="cpu", **{
+        **_engine_kw(), **LINEAR, **kw})).with_model(cfg, params).build()
 
 
 def _torch_streams(cfg, params, loop="unpipelined-c3"):
@@ -235,7 +240,7 @@ def test_stop_never_sweeps_while_the_loop_runs(monkeypatch):
     from ferrum_tpu_torch.types import (FinishReason, InferenceRequest,
                                         SamplingParams)
     engine = eng.ContinuousBatchEngine(
-        EngineConfig(device="cpu", **_engine_kw()), runner=None,
+        EngineConfig(device="cpu", **LINEAR, **_engine_kw()), runner=None,
         tokenizer=make_byte_tokenizer())
     entered, release = threading.Event(), threading.Event()
 
@@ -270,7 +275,8 @@ def test_decode_buckets_and_window_lengths_match_jax(buckets, slots):
     """EngineConfig.decode_buckets and t_for_bucket equal the JAX
     EngineConfig's for each bucket spec and slot count, under no
     decode_t_spec and under "1:32" and "1:32,8:16"; the JAX defaults of
-    the loop's fields too."""
+    the loop's and the KV cache's fields too, and the prefix store's
+    resolved size."""
     from ferrum_tpu.config import EngineConfig as JaxConfig
     from ferrum_tpu_torch.config import EngineConfig
     for t_spec in ("", "1:32", "1:32,8:16"):
@@ -283,8 +289,14 @@ def test_decode_buckets_and_window_lengths_match_jax(buckets, slots):
     mine, ref = EngineConfig(), JaxConfig(model="m")
     for name in ("pipeline_decode", "pipeline_depth", "mixed_prefill",
                  "refill_first", "decode_bucket_spec", "decode_t_spec",
-                 "decode_multi_step"):
+                 "decode_multi_step", "kv_layout", "kv_dtype",
+                 "kv_num_blocks", "enable_prefix_cache",
+                 "prefix_cache_policy", "prefix_cache_blocks"):
         assert getattr(mine, name) == getattr(ref, name), name
+    for blocks in (-1, 0, 5):
+        kw = dict(max_num_seqs=slots, prefix_cache_blocks=blocks)
+        assert EngineConfig(**kw).resolved_prefix_cache_blocks \
+            == JaxConfig(model="m", **kw).resolved_prefix_cache_blocks
 
 
 def _trace_step(sched, batch, it, script):
@@ -342,7 +354,7 @@ def test_next_batch_matches_jax_scheduler(pipelined):
     jcfg = JaxConfig(model="m", kv_layout="linear",
                      enable_prefix_cache=False, **kw)
     jsched = JaxSched(jcfg, BlockPool(4 * 512 // 16, 16))
-    sched = ContinuousBatchScheduler(EngineConfig(**kw))
+    sched = ContinuousBatchScheduler(EngineConfig(**LINEAR, **kw))
     lens = {"r0": 7, "r1": 200, "r2": 40, "r3": 13, "r4": 90, "r5": 33}
     arrive = {0: ["r0", "r1"], 1: ["r2"], 2: ["r3", "r4"], 6: ["r5"]}
     script = {"accept": 4 if pipelined else 1,
@@ -390,8 +402,8 @@ def _start(engine, slots_prompts):
             sampling=SamplingParams(max_tokens=16, ignore_eos=True,
                                     repetition_penalty=3.0)), prompt)
         seq.slot = slot
-        seq.blocks = SlotBlocks(slot, cfg.max_blocks_per_seq,
-                                cfg.kv_block_size)
+        seq.blocks = SlotBlocks(engine.scheduler.pool, slot,
+                                cfg.max_blocks_per_seq)
         seq.blocks.ensure_capacity(len(prompt) + 16)
         seq.phase = Phase.DECODING
         seq.prefilled = len(prompt)

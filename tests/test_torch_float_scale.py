@@ -400,7 +400,7 @@ def test_builder_requantizes_only_under_w4a8_two_level(monkeypatch, mode,
     jcfg, jparams = jax_model("tiny-quant", quantized=True, two_level=False)
     params = params_from_numpy(flatten_jax_params(jparams), "cpu")
     engine = EngineBuilder(EngineConfig(device="cpu", **te._engine_kw(),
-                                        **mode)) \
+                                        **te.LINEAR, **mode)) \
         .with_model(torch_config(jcfg), params).build()
     engine.stop()
     lp = engine.runner.params.layers[0]
@@ -504,7 +504,7 @@ def _streams(jcfg, jparams, mode):
     cfg = torch_config(jcfg)
     params = params_from_numpy(flatten_jax_params(jparams), "cpu")
     engine = EngineBuilder(EngineConfig(device="cpu", **te._engine_kw(),
-                                        **mode)).with_model(cfg,
+                                        **te.LINEAR, **mode)).with_model(cfg,
                                                             params).build()
     got, streamed = te._serve(engine, TReq, TSamp)
     jengine = JBuilder(JConfig(

@@ -11,7 +11,8 @@
                  fs_no_rows|fs_bn64|fs_bn128|fs_stages3|fs_stages6|
                  fs_threads128|fs_caps_off|fs_no_unpack|fs_no_fold|
                  gdec_bn<64|128>_s<3|4|6|8>_t<128|256>|gdec_bm32|
-                 kv_chunks1|kv_chunks2|kv_chunks8|kv_chunks16 ...]
+                 kv_chunks1|kv_chunks2|kv_chunks8|kv_chunks16|
+                 kv_page_select ...]
         [--ptxas]
         [--out FILE]
 
@@ -59,7 +60,11 @@ shapes, in bf16, as the tree's decode_forward makes them -- one launch
 (append_rows_pairs) where the tree has it, else two (append_rows each)
 -- (`ms`), one array alone (`single_ms`), two index_copy_ calls
 (`library_ms`) and an empty kernel's launch (`floor_ms`,
-torch.cuda._sleep(0)) with the same timer.
+torch.cuda._sleep(0)) with the same timer; and kv_append_pages: a
+llama-3.1-8b batched prefill's pages (2048 rows, scattered blocks) as
+bf16 K and V and as int8 K, V and their scale planes, and row 4's
+8192-page one-array case -- one launch (append_pages_pairs) where the
+tree has it, else one a array -- beside one array alone (`single_ms`).
 --sweep-splits adds to each w4a8tl_decode, w4a8tl_gd_decode and
 w4a8_decode case `sweep`, its time at each given K split count (a tree
 whose wrapper takes `splits`: one with the kernel's `<kernel>_plan`;
@@ -105,7 +110,9 @@ built with the decode-sized grouped launcher launching BN columns, an S
 stage ring and T threads a block everywhere, or 32-row chunks.
 kv_chunks1 / kv_chunks2 / kv_chunks8 / kv_chunks16 adds `ms_<probe>` to
 the kv_append_rows cases: kv_append.cu built with that many 16-byte
-chunks a thread. A probe launches with
+chunks a thread; kv_page_select likewise to the kv_append_pages cases:
+the array's fields picked by blockIdx.y before one copy loop (the form
+first written) instead of one loop per array. A probe launches with
 the K split count
 the tree's own rule picks; --ptxas prints each probe build's registers
 too.
@@ -141,7 +148,8 @@ BMM_T = (16, 32, 64)
 PREFILL = ("w4a8tl_prefill", "w4a8tl_prefill_mcache")
 DECODE = ("w4a8tl_decode", "w4a8tl_gd_decode")
 DEFAULT = PREFILL + DECODE + ("moe_grouped",)
-NEIGHBOURS = ("moe_bmm", "w4a8_decode", "w4a16_gemm", "kv_append_rows")
+NEIGHBOURS = ("moe_bmm", "w4a8_decode", "w4a16_gemm", "kv_append_rows",
+              "kv_append_pages")
 # kv_append_rows: (layers, F) of a decode step's appends, 32 slots, bf16.
 KV_SHAPES = {"llama-3.1-8b": (32, 1024), "qwen3-30b-a3b": (48, 512)}
 # --probe: (library, file of csrc/ edited, the rule replaced, its
@@ -276,6 +284,30 @@ PROBES.update({
                          r"constexpr int kRowChunks = \d+;",
                          f"constexpr int kRowChunks = {c};",
                          "kv_append_rows", True) for c in (1, 2, 8, 16)},
+    # The page kernel as first written: the array's fields picked by
+    # blockIdx.y, then one copy loop.
+    "kv_page_select": ("kv_append", "kv_append.cu", re.escape(
+        "  switch (blockIdx.y) {\n"
+        "    case 0: copy_array_page<0>(pa, b, p); break;\n"
+        "    case 1: copy_array_page<1>(pa, b, p); break;\n"
+        "    case 2: copy_array_page<2>(pa, b, p); break;\n"
+        "    default: copy_array_page<3>(pa, b, p); break;\n"
+        "  }"),
+        "  uint8_t* cache = pa.cache[0];\n"
+        "  const uint8_t* pages = pa.pages[0];\n"
+        "  long long page_bytes = pa.page_bytes[0];\n"
+        "  int vec16 = pa.vec16[0];\n"
+        "#pragma unroll\n"
+        "  for (int i = 1; i < kMaxPairs; ++i) {\n"
+        "    if ((int)blockIdx.y == i) {\n"
+        "      cache = pa.cache[i]; pages = pa.pages[i];\n"
+        "      page_bytes = pa.page_bytes[i]; vec16 = pa.vec16[i];\n"
+        "    }\n"
+        "  }\n"
+        "  copy_bytes(cache + b * page_bytes,\n"
+        "             pages + (long long)p * page_bytes, page_bytes, vec16,\n"
+        "             threadIdx.x, blockDim.x);",
+        "kv_append_pages", True),
 })
 # The launcher's rules probed on the group-dot kernel: gd_stages3 .. .
 PROBES.update({
@@ -737,6 +769,89 @@ def kv_rows(torch, smoke, timer, args, probe_libs):
     return rows
 
 
+def kv_pages(torch, smoke, timer, args, probe_libs):
+    """kv_append_pages as the tree's batched prefill appends its pages:
+    one llama-3.1-8b prefill of 2048 rows (64 pages a layer at
+    scattered blocks, 32 layers; a short chunk's pad pages dropped) as
+    bf16 K and V, and as int8 K and V with their f32 scale planes; and
+    row 4's one-array case of 8192 pages. `ms`: one launch
+    (append_pages_pairs) where the tree has it, else one append_pages a
+    array (`launches`); `single_ms` one array alone; each equal to the
+    plain appends; `ms_<probe>` for the kv_page_select probe."""
+    from ferrum_tpu_torch.ops.kernels import build
+    from ferrum_tpu_torch.ops.kernels import kv_append as kva
+    if not args.selected("kv_append_pages"):
+        return
+    pairs_fn = getattr(kva, "append_pages_pairs", None)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    page, layers, nb_layer = smoke.PAGE, 32, 1024
+    b = layers * nb_layer
+    n_pg = smoke.PREFILL_ROWS // page if hasattr(smoke, "PREFILL_ROWS") \
+        else 64
+    perm = torch.randperm(nb_layer, generator=gen, device="cuda")[:n_pg]
+    perm[44:] = smoke.OOB_SENTINEL
+    ids = torch.where(perm[None] >= smoke.OOB_SENTINEL,
+                      torch.full((layers, 1), smoke.OOB_SENTINEL,
+                                 device="cuda"),
+                      torch.arange(layers, device="cuda")[:, None]
+                      * nb_layer + perm[None])
+    ids = ids.reshape(-1).to(torch.int32).contiguous()
+    row4 = torch.arange(8192, device="cuda", dtype=torch.int32) * 4
+
+    def arr(dt, w, n):
+        if dt == torch.int8:
+            return torch.randint(-127, 128, (n, page, w), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return torch.randn(n, page, w, generator=gen, device="cuda").to(dt)
+
+    for label, kinds, blk in (
+            ("bf16 K, V", [(torch.bfloat16, 1024)] * 2, ids),
+            ("int8 K, V, K scales, V scales",
+             [(torch.int8, 1024)] * 2 + [(torch.float32, 8)] * 2, ids),
+            ("bf16 K (row 4's case)", [(torch.bfloat16, 1024)], row4)):
+        pairs = [(arr(dt, w, b), arr(dt, w, blk.numel())) for dt, w in kinds]
+        want = [kva.append_pages_plain(c.clone(), q, blk) for c, q in pairs]
+        if pairs_fn is not None:
+            def call():
+                pairs_fn(pairs, blk)
+        else:
+            def call():
+                for c, q in pairs:
+                    kva.append_pages(c, q, blk)
+        call()
+        ok = all(bool(torch.equal(c, w)) for (c, _), w in zip(pairs, want))
+        n_valid = int((blk < b).sum().item())
+        bound, by = smoke.bound_ms(
+            sum(2 * n_valid * q[0].nbytes for _, q in pairs) + blk.nbytes, 0)
+        row = {"tree": args.label, "kernel": "kv_append_pages",
+               "arrays": label, "pages": blk.numel(), "valid": n_valid,
+               "launches": 1 if pairs_fn is not None else len(pairs),
+               "ms": timer(call),
+               "single_ms": timer(lambda: kva.append_pages(
+                   pairs[0][0], pairs[0][1], blk)),
+               "bound_ms": bound, "bound_by": by}
+        saved = build._libs.get("kv_append")
+        for probe, lib in probe_libs.items():
+            if PROBES[probe][4] != "kv_append_pages":
+                continue
+            build._libs["kv_append"] = lib
+            row[f"ms_{probe}"] = timer(call)
+            if PROBES[probe][5]:
+                ok &= all(bool(torch.equal(c, w))
+                          for (c, _), w in zip(pairs, want))
+        build._libs["kv_append"] = saved
+        # The probes that compute another function wrote into the caches.
+        call()
+        row["equal"] = ok and all(bool(torch.equal(c, w))
+                                  for (c, _), w in zip(pairs, want))
+        emit(args.out, row)
+        if not ok:
+            raise AssertionError(f"kv_append_pages {label} differs")
+        del pairs, want
+        torch.cuda.empty_cache()
+
+
 def layer_lines(args, rows, kernel, key, at, sites):
     """One `layer` line: the rows of `kernel` at `key` == `at` over
     `sites` (the dense kernels' llama-3.1-8b ones), their times and
@@ -793,6 +908,7 @@ def main() -> int:
     for a in GROUPED_A:
         layer_lines(args, rows, "moe_grouped", "rows", a, tuple(MOE))
     kv_rows(torch, smoke, timer, args, probe_libs)
+    kv_pages(torch, smoke, timer, args, probe_libs)
     rows = neighbour_rows(torch, smoke, timer, args, probe_libs)
     for kernel, key, at, sites in (
             *(("moe_bmm", "t", t, tuple(MOE)) for t in BMM_T),
