@@ -60,8 +60,28 @@ Phases, in order, each printing JSON lines:
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
+  checkpoint (lane H) two local HF checkpoint directories written from a
+             seed into a temporary directory (removed after) with the
+             port's safetensors writer: H1 llama-3.1-8b at full width,
+             4 layers, GPTQ int4 g128 (layers 1 and 3 act-order), f16
+             scales, bf16 embed / norms / lm_head, two shards, llama3
+             rope scaling, a generation_config eos list and a
+             tokenizer.json in Llama-3's form (byte alphabet, 300 merges
+             trained here, its split regex, <|begin_of_text|> /
+             <|eot_id|>, TemplateProcessing); H2 qwen3-30b-a3b at full
+             width, 2 layers, 128 GPTQ experts, a Qwen2-form tokenizer.
+             For each: the card load equals the CPU load moved to the
+             card, leaf for leaf and bit for bit (load seconds, host
+             peak RSS, the card's peak memory); an engine built from the
+             directory with the default EngineConfig serves 32 text
+             prompts and one alone twice (every token in range, the
+             solo tokens repeat and equal the batch's),
+             every kernel of the lane's path launched in the 32 and no
+             other; the logits check on the loaded weights (lane A's
+             tolerance); the tokenizer round-trips the prompts and
+             generation_config.json's eos ids reach the model config
 Then, for each of five lanes at full width and depth (lane B at 6 of
-its 48 layers, D at 12, for the run's time: see LANES) -- A
+its 48 layers, D at 6, for the run's time: see LANES) -- A
 llama-3.1-8b
 and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
 serve_moe, logits_moe), C llama-3.1-8b float-scale w4a8
@@ -102,7 +122,7 @@ time):
              of the logit scale (the kernels are exact). C, D: 99% of the
              token rows within 2e-2 of it at the lane's depth (one-bf16-
              step GEMM differences can move a whole row on random
-             weights), also measured at 1, 2, 4 and 8 layers
+             weights), also measured at 1, 2, 4 (and C: 8) layers
   profile    (A, C, D) torch.profiler over 32 concurrent 256/32
              requests on the same engine: device time by kernel, device
              busy share
@@ -210,7 +230,9 @@ SERVE_GROUPED_W4A16_A = 16384
 # 24; 1077.6 s on a slow host with B at 12 and C at 16), lane B runs 6
 # of its 48 layers; C keeps all 32 (its float-scale logits check holds
 # kernels 5 and 6 at full depth) and E all 32 (its solo request must
-# give A's tokens).
+# give A's tokens). Lane H's checkpoints joined the run next (1047.1 s
+# before them, on a slow host): lane D runs 6 of its 48 layers, its
+# logits measured at 1, 2 and 4 layers and its depth.
 LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
@@ -230,11 +252,11 @@ LANES = (
          tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None), tag="_fs",
          profile=True),
     # 32 lanes: 256 grouped rows a step; 1 lane: 8.
-    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b", layers=12,
+    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b", layers=6,
          mode={"w4a8": False}, float_scale=True,
          path=("w4a16_gemm", "moe_grouped_w4a16") + KV_PATH,
          lanes=(32, 32, 1, 1),
-         tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None),
+         tol=2e-2, min_rows=0.99, depths=(1, 2, 4, None),
          tag="_moe_w4a16",
          profile=True),
     dict(name="E llama-3.1-8b w4a8 two-level group-dot",
@@ -2341,6 +2363,514 @@ def lane_g(torch, mc, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Lane H: local HF checkpoint directories, written here and served
+# ---------------------------------------------------------------------------
+
+# H1: llama-3.1-8b at full width, 4 layers, GPTQ int4 g128 (layers 1 and
+# 3 act-order, so both the fused path and the unfused, permuted one
+# run), f16 scales, bf16 embed / norms / lm_head, two shards; H2:
+# qwen3-30b-a3b at full width (128 experts, top-8), 2 layers, GPTQ
+# experts. Each with its tokenizer.json (Llama-3's and Qwen2's forms).
+H_LAYERS = {"llama-3.1-8b": 4, "qwen3-30b-a3b": 2}
+H_ACT_ORDER = (1, 3)
+H_REQUESTS, H_OUT, H_MERGES = 32, 32, 300
+H_WORDS = ("the model serves requests from a local checkpoint with weights "
+           "in safetensors shards and a tokenizer that reads its json file "
+           "quantized groups of one hundred twenty eight rows share a scale "
+           "and a zero the engine batches decode steps across lanes while "
+           "prefill chunks fill pages of the cache experts route tokens to "
+           "eight of their number each step").split()
+H_EXTRA = ("Ünïcödé text: 日本語のテキスト, 中文 and emoji 🙂🚀 stay whole; "
+           "numbers 1234567 and 3.14159 too.")
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                r"|\s+(?!\S)|\s+")
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+               r"|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# (split regex, normalizer, specials by id, bos, eos token, eos list)
+H_TOKENIZERS = {
+    "llama-3.1-8b": (LLAMA3_SPLIT, None, {
+        128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+        128009: "<|eot_id|>"}, "<|begin_of_text|>", "<|eot_id|>",
+        [128001, 128008, 128009]),
+    "qwen3-30b-a3b": (QWEN2_SPLIT, {"type": "NFC"}, {
+        151643: "<|endoftext|>", 151644: "<|im_start|>",
+        151645: "<|im_end|>"}, None, "<|im_end|>", [151645, 151643]),
+}
+
+
+def h_prompts():
+    """H_REQUESTS seeded prompts of 40-80 words, the first with
+    non-ASCII text."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    out = [" ".join(rng.choice(H_WORDS, rng.integers(40, 81)))
+           for _ in range(H_REQUESTS)]
+    out[0] = out[0] + " " + H_EXTRA
+    return out
+
+
+def h_tokenizer_json(model, corpus):
+    """A tokenizer.json in the checkpoint's form: the byte alphabet, the
+    first H_MERGES merges of a plain BPE training on `corpus` (pre-tokens
+    by the form's split regex), its specials; Llama-3's adds its BOS."""
+    import collections
+    import re
+
+    from ferrum_tpu_torch.tokenizer import BYTE_SYMBOL, translate_regex
+
+    split, norm, specials, bos, _, _ = H_TOKENIZERS[model]
+    rx = re.compile(translate_regex(split))
+    words = collections.Counter(
+        tuple(BYTE_SYMBOL[b] for b in w.encode())
+        for text in corpus for w in rx.findall(text))
+    vocab = {BYTE_SYMBOL[b]: b for b in range(256)}
+    merges = []
+    while len(merges) < H_MERGES:
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(f"{best[0]} {best[1]}")
+        vocab[best[0] + best[1]] = len(vocab)
+        merged = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if w[i:i + 2] == best:
+                    out.append(best[0] + best[1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    post = {"type": "ByteLevel", "add_prefix_space": True,
+            "trim_offsets": False, "use_regex": True}
+    if bos is not None:
+        bos_id = next(i for i, s in specials.items() if s == bos)
+        post = {"type": "Sequence", "processors": [post, {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "special_tokens": {bos: {"id": bos, "ids": [bos_id],
+                                     "tokens": [bos]}}}]}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": s, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, s in sorted(specials.items())],
+        "normalizer": norm,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": split},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": post,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False,
+                  "ignore_merges": model == "llama-3.1-8b",
+                  "vocab": vocab, "merges": merges}}
+
+
+def h_hf_config(mc, layers):
+    """config.json of a preset at `layers` layers, GPTQ int4 g128."""
+    d = {"vocab_size": mc.vocab_size, "hidden_size": mc.hidden_size,
+         "num_hidden_layers": layers, "num_attention_heads": mc.num_heads,
+         "num_key_value_heads": mc.num_kv_heads, "head_dim": mc.head_dim,
+         "intermediate_size": mc.intermediate_size,
+         "rms_norm_eps": mc.rms_norm_eps, "rope_theta": mc.rope_theta,
+         "max_position_embeddings": mc.max_position_embeddings,
+         "tie_word_embeddings": mc.tie_word_embeddings,
+         "bos_token_id": mc.bos_token_id,
+         "eos_token_id": list(mc.eos_token_ids), "torch_dtype": "bfloat16",
+         "quantization_config": {"quant_method": "gptq", "bits": 4,
+                                 "group_size": 128, "desc_act": True,
+                                 "sym": True, "checkpoint_format": "gptq"}}
+    if mc.moe is None:
+        rs = mc.rope_scaling
+        d.update(architectures=["LlamaForCausalLM"], rope_scaling={
+            "rope_type": rs.rope_type, "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor,
+            "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings":
+            rs.original_max_position_embeddings})
+    else:
+        d.update(architectures=["Qwen3MoeForCausalLM"],
+                 num_experts=mc.moe.num_experts,
+                 num_experts_per_tok=mc.moe.num_experts_per_tok,
+                 moe_intermediate_size=mc.moe.moe_intermediate_size,
+                 norm_topk_prob=mc.moe.norm_topk_prob,
+                 decoder_sparse_step=1, mlp_only_layers=[])
+    return d
+
+
+def h_tensors(torch, mc, layers, seed=0):
+    """The checkpoint's tensors, HF names, made on the card from a seed:
+    GPTQ qweight / qzeros (stored zeros 6..8, AutoGPTQ's z - 1) / f16
+    scales in [1e-3, 4e-3] / g_idx (a permuted group map in the
+    H_ACT_ORDER layers of a dense model) for every projection and expert,
+    bf16 embed, norms, router and lm_head."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bf = torch.bfloat16
+
+    def normal(*shape, std=0.02):
+        return (std * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+
+    def norm(n):
+        return (1 + 0.05 * torch.randn(n, generator=gen, device=dev)).to(bf)
+
+    def gptq(out, prefix, in_f, out_f, act_order):
+        g = in_f // 128
+        qw = torch.randint(-2 ** 31, 2 ** 31, (in_f // 8, out_f),
+                           generator=gen, device=dev, dtype=torch.int64)
+        nz = torch.randint(6, 9, (g, out_f // 8, 8), generator=gen,
+                           device=dev, dtype=torch.int64)
+        qz = (nz << (4 * torch.arange(8, device=dev))).sum(-1)
+        gi = torch.arange(in_f, device=dev, dtype=torch.int32) // 128
+        if act_order:
+            gi = gi[torch.randperm(in_f, generator=gen, device=dev)]
+        out.update({
+            f"{prefix}.qweight": qw.to(torch.int32),
+            f"{prefix}.qzeros": torch.where(qz >= 2 ** 31, qz - 2 ** 32,
+                                            qz).to(torch.int32),
+            f"{prefix}.scales": torch.empty(g, out_f, device=dev).uniform_(
+                1e-3, 4e-3, generator=gen).half(),
+            f"{prefix}.g_idx": gi})
+
+    h = mc.hidden_size
+    t = {"model.embed_tokens.weight": normal(mc.vocab_size, h)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        act = mc.moe is None and i in H_ACT_ORDER
+        t[f"{p}.input_layernorm.weight"] = norm(h)
+        t[f"{p}.post_attention_layernorm.weight"] = norm(h)
+        for name, i_f, o_f in (("q", h, mc.q_size), ("k", h, mc.kv_size),
+                               ("v", h, mc.kv_size), ("o", mc.q_size, h)):
+            gptq(t, f"{p}.self_attn.{name}_proj", i_f, o_f, act)
+        if mc.qk_norm:
+            t[f"{p}.self_attn.q_norm.weight"] = norm(mc.head_dim)
+            t[f"{p}.self_attn.k_norm.weight"] = norm(mc.head_dim)
+        if mc.moe is None:
+            inter = mc.intermediate_size
+            for name, i_f, o_f in (("gate", h, inter), ("up", h, inter),
+                                   ("down", inter, h)):
+                gptq(t, f"{p}.mlp.{name}_proj", i_f, o_f, act)
+        else:
+            e, mi = mc.moe.num_experts, mc.moe.moe_intermediate_size
+            t[f"{p}.mlp.gate.weight"] = normal(e, h)
+            for x in range(e):
+                for name, i_f, o_f in (("gate", h, mi), ("up", h, mi),
+                                       ("down", mi, h)):
+                    gptq(t, f"{p}.mlp.experts.{x}.{name}_proj", i_f, o_f,
+                         False)
+    t["model.norm.weight"] = norm(h)
+    t["lm_head.weight"] = normal(mc.vocab_size, h)
+    return t
+
+
+def write_h_checkpoint(torch, d, model, prompts):
+    """Write lane H's checkpoint of `model` under `d` (two shards, by
+    layer halves); returns (ModelConfig of the preset, bytes written)."""
+    import os
+
+    from ferrum_tpu_torch.models.configs import preset
+    from ferrum_tpu_torch.models.safetensors_io import write_safetensors
+
+    mc, layers = preset(model), H_LAYERS[model]
+    tensors = h_tensors(torch, mc, layers)
+    first = [n for n in tensors
+             if n.startswith("model.embed") or any(
+                 n.startswith(f"model.layers.{i}.")
+                 for i in range(layers // 2))]
+    rest = [n for n in tensors if n not in set(first)]
+    for k, names in enumerate((first, rest)):
+        write_safetensors(os.path.join(
+            d, f"model-0000{k + 1}-of-00002.safetensors"),
+            {n: tensors[n] for n in names}, metadata={"format": "pt"})
+    del tensors
+    _, _, specials, bos, eos, eos_list = H_TOKENIZERS[model]
+    files = {"config.json": h_hf_config(mc, layers),
+             "generation_config.json": {"bos_token_id": mc.bos_token_id,
+                                        "eos_token_id": eos_list},
+             "tokenizer.json": h_tokenizer_json(
+                 model, prompts + [H_EXTRA] + [" ".join(H_WORDS)] * 4),
+             "tokenizer_config.json": {
+                 "bos_token": bos, "eos_token": eos,
+                 "chat_template": "{% for m in messages %}{{ m.content }}"
+                                  "{% endfor %}",
+                 "added_tokens_decoder": {
+                     str(i): {"content": s, "special": True}
+                     for i, s in specials.items()}}}
+    for name, obj in files.items():
+        with open(os.path.join(d, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    return mc, nbytes
+
+
+def tensor_leaves(obj, path=""):
+    """(path, tensor) of every tensor in a params tree."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif isinstance(obj, (list, tuple)):
+        for i, x in enumerate(obj):
+            yield from tensor_leaves(x, f"{path}[{i}]")
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tensor_leaves(getattr(obj, f.name),
+                                     f"{path}.{f.name}")
+
+
+def rss_gib():
+    """The process's current RSS (VmRSS) in GiB."""
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) for line in f
+                    if line.startswith("VmRSS:")) / 2 ** 20
+
+
+def peak_rss_gib():
+    """The process's peak RSS so far (getrusage) in GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+class RssSampler:
+    """VmRSS sampled every 2 ms on a thread over a `with` block: its
+    peak there (the process's getrusage peak cannot be reset, and the
+    earlier phases set it)."""
+
+    def __enter__(self):
+        import threading
+        self.before = self.peak = rss_gib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, rss_gib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_gib())
+
+
+def h_load_check(torch, d):
+    """Check 1: the directory loaded onto the card equals, leaf for leaf
+    and bit for bit, the directory loaded on the CPU and moved to the
+    card. Returns the card load's numbers."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.models.loader import load_checkpoint
+
+    peak0 = peak_rss_gib()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        _, on_card, _ = load_checkpoint(d, EngineConfig(model=d), "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    _, on_cpu, _ = load_checkpoint(d, EngineConfig(model=d), "cpu")
+    cpu_load_s = time.perf_counter() - t0
+    card, host = list(tensor_leaves(on_card)), list(tensor_leaves(on_cpu))
+    if [p for p, _ in card] != [p for p, _ in host]:
+        raise AssertionError("the card and CPU loads differ in their leaves")
+    differ = [p for (p, a), (_, b) in zip(card, host)
+              if a.dtype != b.dtype or a.shape != b.shape
+              or not torch.equal(a, b.to(a.device))]
+    if differ:
+        raise AssertionError(f"card load != CPU load at {differ[:5]}")
+    return {"load_s": load_s, "cpu_load_s": cpu_load_s,
+            "leaves_equal": len(card),
+            "host_peak_rss_before_gib": peak0,
+            "host_peak_rss_gib": peak_rss_gib(),
+            "load_host_rss_before_gib": rss.before,
+            "load_host_rss_peak_gib": rss.peak,
+            "load_max_memory_allocated_gib": peak / 2 ** 30}
+
+
+def h_serve(torch, engine, mc, lane, prompts):
+    """Check 2: H_REQUESTS text prompts at once (the launch counts from 0
+    around them: every kernel of the lane's path, no other), and the
+    first prompt alone before and after: the same tokens each time, and
+    the batch's tokens for it. Returns (launches, the emitted line)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ferrum_tpu_torch.ops import kernels as K
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+
+    def req(text):
+        return InferenceRequest(prompt=text, sampling=SamplingParams(
+            max_tokens=H_OUT, ignore_eos=True))
+
+    solo = engine.infer(req(prompts[0])).token_ids
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(prompts)) as ex:
+        resps = list(ex.map(engine.infer, map(req, prompts)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(K)
+    check_path(lane["name"], launches, lane["path"])
+    for r in resps:
+        if r.completion_tokens != H_OUT or not all(
+                0 <= t < mc.vocab_size for t in r.token_ids):
+            raise AssertionError(f"{lane['name']}: {r.completion_tokens} "
+                                 f"tokens or a token out of the vocabulary")
+    repeat = engine.infer(req(prompts[0])).token_ids
+    if repeat != solo:
+        raise AssertionError(f"{lane['name']}: a repeated request gave "
+                             f"other tokens")
+    # Batched and solo decode compute the same tokens here. (Lane B's
+    # random MoE engine does not: its bf16 router GEMM rounds by row
+    # count and its top-8 of 128 has near-ties. These seeded weights
+    # have none on these prompts.)
+    if resps[0].token_ids != solo:
+        raise AssertionError(f"{lane['name']}: the batch's tokens for the "
+                             f"first prompt differ from the solo's")
+    tok = engine.tokenizer
+    line = {"requests": len(prompts), "output_len": H_OUT,
+            "prompt_tokens": [min(r.prompt_tokens for r in resps),
+                              max(r.prompt_tokens for r in resps)],
+            "wall_s": wall, "batched_vs_solo_same_tokens": True,
+            "repeat_identical": True,
+            "stream_text_equals_decode_share": sum(
+                r.text == tok.decode(r.token_ids) for r in resps)
+            / len(resps),
+            "launches": launches}
+    return launches, line
+
+
+def h_tokenizer_check(engine, mc, model, prompts):
+    """Check 4: encode -> decode round-trips the prompts (with and
+    without the BOS, which decode skips as special), a special token in
+    text is one id, and generation_config.json's eos ids reach the
+    model config."""
+    tok = engine.tokenizer
+    _, _, specials, bos, eos, eos_list = H_TOKENIZERS[model]
+    for text in prompts:
+        for add in (True, False):
+            ids = tok.encode(text, add_special_tokens=add)
+            if tok.decode(ids) != text:
+                raise AssertionError(f"{model}: {text[:40]!r} does not "
+                                     f"round-trip")
+    with_bos = tok.encode(prompts[1])
+    if bos is not None and with_bos[0] != tok.token_to_id(bos):
+        raise AssertionError(f"{model}: no BOS")
+    ids = tok.encode(f"a{eos}b", add_special_tokens=False)
+    if tok.token_to_id(eos) not in ids or tok.decode(
+            ids, skip_special_tokens=False) != f"a{eos}b":
+        raise AssertionError(f"{model}: the special {eos} is not one id")
+    if not set(eos_list) <= set(mc.eos_token_ids) \
+            or tuple(tok.eos_token_ids) != tuple(mc.eos_token_ids):
+        raise AssertionError(f"{model}: eos ids {mc.eos_token_ids} lack "
+                             f"generation_config's {eos_list}")
+    tokens = sum(len(tok.encode(t, add_special_tokens=False))
+                 for t in prompts)
+    return {"tokenizer_vocab": tok.vocab_size,
+            "chars_per_token": sum(map(len, prompts)) / tokens,
+            "eos_token_ids": list(mc.eos_token_ids),
+            "bos_token_id": tok.bos_token_id}
+
+
+H_LANES = (
+    dict(name="H1 llama-3.1-8b GPTQ checkpoint (act-order layers 1, 3)",
+         model="llama-3.1-8b", path=LLAMA_PATH, lanes=(1, 1, 1, 1),
+         tol=1e-3, min_rows=1.0, depths=(None,), tag="_ckpt_llama"),
+    dict(name="H2 qwen3-30b-a3b GPTQ checkpoint", model="qwen3-30b-a3b",
+         path=MOE_PATH, lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0,
+         depths=(None,), tag="_ckpt_moe"),
+)
+
+
+def checkpoint_phase(torch):
+    """Lane H: for each of H1 and H2, write the checkpoint directory
+    (temporary, removed after), check its card load against its CPU load
+    (check 1), build an engine from the directory with the default
+    EngineConfig and serve it (check 2), run the logits check on the
+    loaded weights (check 3, lane A's tolerance and form), check the
+    tokenizer and eos ids (check 4). Returns launch counts by run."""
+    import shutil
+    import tempfile
+
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine.builder import EngineBuilder
+
+    by_run = {}
+    prompts = h_prompts()
+    for lane in H_LANES:
+        model = lane["model"]
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="ferrum_ckpt_") as d:
+            t0 = time.perf_counter()
+            mc0, nbytes = write_h_checkpoint(torch, d, model, prompts)
+            torch.cuda.synchronize()
+            write_s = time.perf_counter() - t0
+            free_gib = shutil.disk_usage(d).free / 2 ** 30
+            torch.cuda.empty_cache()
+            line = {"phase": f"checkpoint{lane['tag']}",
+                    "lane": lane["name"], "checkpoint_gib": nbytes / 2 ** 30,
+                    "layers": H_LAYERS[model], "write_s": write_s,
+                    "disk_free_after_write_gib": free_gib,
+                    **h_load_check(torch, d)}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engine = EngineBuilder(EngineConfig(model=d)).build()
+            torch.cuda.synchronize()
+            line["engine_build_s"] = time.perf_counter() - t0
+            mc = engine.runner.model_cfg
+            if (mc.hidden_size, mc.vocab_size, mc.moe) != (
+                    mc0.hidden_size, mc0.vocab_size, mc0.moe):
+                raise AssertionError(f"{model}: config.json read as {mc}")
+            # act-order layers keep q / k / v and gate / up apart, each
+            # with its input permutation; the others are fused.
+            layers = engine.runner.params.layers
+            line["act_order_layers"] = [
+                i for i, lp in enumerate(layers)
+                if lp.qkv is None and lp.q.input_perm is not None]
+            line["fused_layers"] = [i for i, lp in enumerate(layers)
+                                    if lp.qkv is not None]
+            if mc.moe is None and line["act_order_layers"] != list(
+                    H_ACT_ORDER):
+                raise AssertionError(f"{model}: act-order layers "
+                                     f"{line['act_order_layers']}")
+            line.update(h_tokenizer_check(engine, mc, model, prompts))
+            launches, serve = h_serve(torch, engine, mc, lane, prompts)
+            line["serve"] = serve
+            line["kv_layout"] = engine.cfg.kv_layout
+            line["max_memory_allocated_gib"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            routes = logits_phase(torch, mc, engine, lane)
+            check_path(f"{lane['name']} logits run", routes, lane["path"])
+            engine.stop()
+            del engine
+            torch.cuda.empty_cache()
+        line["phase_s"] = time.perf_counter() - t_phase
+        line["card"] = smi_line()
+        emit(line)
+        by_run[lane["name"]] = launches
+    return by_run
+
+
 # The window check's frame: 8 lanes (bucket 8) at 256-token prompts.
 WCHECK_LANES = 8
 # Its tolerance on the hidden states (bf16): the share of token rows
@@ -2973,6 +3503,9 @@ def main() -> int:
 
     # Each served path: its kernels' counts from 0 over its serve run.
     by_path, solos = {}, {}
+    # Lane H: checkpoint directories written, loaded and served.
+    by_path.update(checkpoint_phase(torch))
+    torch.cuda.empty_cache()
     cli = None
     try:
         for lane in LANES:

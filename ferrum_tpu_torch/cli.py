@@ -5,13 +5,17 @@ and `list` subcommands; `run`, `serve`, `bench-serve`, `embed`,
 `transcribe`, `tts`, `pull`, `stop` and `route` wait for their modules
 (ROADMAP Queue 1). Every JAX engine flag is accepted, and one whose
 feature the port does not have yet (`--tp 2`, `--spec-draft`,
-`--quantization gguf_q4k`, `--scheduler fifo`, ...) raises
+`--scheduler fifo`, ...) raises
 InvalidRequestError, as `EngineConfig.resolve` does for a
 FERRUM_* variable or a ferrum.toml key; `main` turns it into exit code 1
 and `error: ...` on stderr. `--device` (default: the CUDA card) picks
-the device; `--device cpu` runs the plain PyTorch versions.
+the device; `--device cpu` runs the plain PyTorch versions. The model
+is `random:<preset>` or a local HF checkpoint directory (config.json,
+safetensors shards, tokenizer.json; `--quantization gptq_int4`
+quantizes a dense one on load).
 
 Usage: python -m ferrum_tpu_torch bench random:llama-3.1-8b [...]
+       python -m ferrum_tpu_torch bench /path/to/checkpoint [...]
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ from .types import FerrumError
 
 
 def _add_engine_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("model", help="random:<preset> (checkpoint loaders "
-                                 "are not yet ported)")
+    p.add_argument("model", help="checkpoint dir (HF config.json, "
+                                 "safetensors, tokenizer.json) or "
+                                 "random:<preset>")
     p.add_argument("--device", default=None,
                    help="cuda (default: the CUDA card) or cpu")
     p.add_argument("--max-num-seqs", type=int, default=None)
@@ -161,8 +166,7 @@ def cmd_list(args) -> int:
         except ValueError:
             missing.append(n)
             continue
-        family = "qwen3" if c.qk_norm else "llama"
-        print(f"{n:24} {family:10} {f'{c.num_layers}L/{c.hidden_size}H':14} "
+        print(f"{n:24} {c.family:10} {f'{c.num_layers}L/{c.hidden_size}H':14} "
               f"{'moe' if c.moe else 'dense'}")
     if missing:
         print("\nnot yet ported:", ", ".join(missing))
@@ -172,8 +176,7 @@ def cmd_list(args) -> int:
         local = [d for d in sorted(os.listdir(cache))
                  if os.path.isdir(os.path.join(cache, d))]
         if local:
-            print("\nlocal checkpoints under", cache,
-                  "(loaders not yet ported)")
+            print("\nlocal checkpoints under", cache)
             for d in local:
                 print(" ", d)
     return 0

@@ -44,6 +44,7 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
                                    "linear prefix-store blocks (-1 auto, "
                                    "0 off)"),
     "FERRUM_DTYPE": ("dtype", str, "activation/weight dtype: bf16|f32"),
+    "FERRUM_QUANT": ("quantization", str, "none|gptq_int4"),
     "FERRUM_W4A8": ("w4a8", bool,
                     "int8-activation path for int4 matmuls"),
     "FERRUM_W4A8_GD": ("w4a8_gd", str,
@@ -76,15 +77,16 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
 }
 
 # The JAX package's fields the port does not have, each at the value
-# the port fixes (a tuple: every value it accepts).
+# the port fixes (a tuple: every value it accepts; quantization's
+# gguf_q4k is the JAX value the port does not take yet).
 NOT_PORTED: Dict[str, Any] = {
     "tokenizer": None,
+    "quantization": ("none", "gptq_int4"),
     "enable_chunked_prefill": True,
     "scheduler": "continuous",
     "prefix_offload_mb": 0,
     "prefix_offload_algo": "int8",
     "gdn_chunk_block": 64,
-    "quantization": "none",
     "squeeze_embeddings": False,
     "fuse_proj": True,
     "fuse_sites": "qkv,gate_up",
@@ -106,7 +108,6 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
     "FERRUM_PREFIX_OFFLOAD_ALGO": ("prefix_offload_algo", str),
     "FERRUM_ENABLE_CHUNKED_PREFILL": ("enable_chunked_prefill", bool),
     "FERRUM_SCHEDULER": ("scheduler", str),
-    "FERRUM_QUANT": ("quantization", str),
     "FERRUM_SQUEEZE_EMBED": ("squeeze_embeddings", bool),
     "FERRUM_FUSE_PROJ": ("fuse_proj", bool),
     "FERRUM_TP": ("tensor_parallel", int),
@@ -187,7 +188,7 @@ def check_not_ported(values: Mapping[str, Any]) -> None:
 
 @dataclass
 class EngineConfig:
-    model: str = ""                     # source: random:<preset> (loaders later)
+    model: str = ""                     # checkpoint dir or random:<preset>
     # --- batching / scheduling ---
     max_num_seqs: int = 32              # decode slots
     max_num_batched_tokens: int = 2048  # per-iteration token budget
@@ -236,7 +237,11 @@ class EngineConfig:
     seed: int = 0
     device: Optional[str] = None        # None = the CUDA card
     # --- numerics / quant ---
-    dtype: str = "bf16"                 # random:<preset> weights: bf16 | f32
+    dtype: str = "bf16"                 # weights and activations: bf16 | f32
+    # none | gptq_int4 (gguf_q4k not yet ported); gptq_int4 on a dense
+    # checkpoint directory quantizes it on load (int4 g128), as in the
+    # JAX package.
+    quantization: str = "none"
     # w4a8: int4 weights x dynamic-int8 activations on the int8 tensor
     # cores; off = w4a16 (bf16 dequant, no activation quantization).
     w4a8: bool = True
@@ -286,6 +291,10 @@ class EngineConfig:
         if self.prefix_cache_policy not in ("lru", "fifo", "clock"):
             raise InvalidRequestError("unknown prefix_cache_policy",
                                       param="prefix_cache_policy")
+        if self.quantization not in ("none", "gptq_int4", "gguf_q4k"):
+            raise InvalidRequestError("unknown quantization",
+                                      param="quantization")
+        check_not_ported({"quantization": self.quantization})
         if self.dtype not in ("bf16", "f32"):
             raise InvalidRequestError("dtype must be bf16 or f32",
                                       param="dtype")

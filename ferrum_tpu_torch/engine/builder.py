@@ -9,12 +9,16 @@ ops/kernels/quant_matmul.py's table says) and, under
 w4a8 with `w4a8_two_level`, the two-level requantization (dense linears
 and MoE expert stacks). Without it the checkpoint's group scales are
 served as they are: float-scale w4a8 at decode m, w4a16 elsewhere.
-The model comes from `with_model`, else from `EngineConfig.model`:
-`random:<preset>` builds the JAX package's random dense weights
-(`init_random_params`, in `EngineConfig.dtype`); checkpoint loading
-comes with a later slice. The KV layout, as the JAX builder picks it:
-"auto" is linear when every slot's max_model_len region fits the
-autosized budget and kv_num_blocks is 0, else paged; the linear pool
+The model comes from `with_model`, else from `EngineConfig.model`: a
+local HF checkpoint directory (config.json, safetensors shards, GPTQ or
+dense -- quantized on load under `quantization="gptq_int4"` -- and its
+tokenizer.json; models/loader.py) loaded onto the engine's device, or
+`random:<preset>`, the JAX package's random dense weights
+(`init_random_params`, in `EngineConfig.dtype`). A `.gguf` path is not
+resolved here, as in the JAX builder (models/gguf.py loads one). The
+KV layout, as the JAX builder picks it: "auto" is linear when every
+slot's max_model_len region fits the autosized budget and
+kv_num_blocks is 0, else paged; the linear pool
 is num_slots regions, the paged one kv_num_blocks, or autosized from
 the card's memory after the weights (`autosize_kv_blocks`). On the
 CPU no device memory is there to read: autosizing takes a byte budget
@@ -38,12 +42,13 @@ import torch
 from ..config import EngineConfig
 from ..device import resolve_device
 from ..models.configs import ModelConfig, preset
+from ..models.loader import load_checkpoint
 from ..models.llama_family import (ModelParams, PagedKvCache,
                                    init_random_params)
 from ..ops.kernels.quant_matmul import set_w4a8, set_w4a8_gd
 from ..ops.linear import concat_linears
 from ..ops.quant import QuantLinearParams, requantize_two_level
-from ..tokenizer import ByteTokenizer, make_byte_tokenizer
+from ..tokenizer import Tokenizer, make_byte_tokenizer
 from ..types import ModelLoadError
 from .engine import ContinuousBatchEngine
 from .runner import ModelRunner
@@ -134,7 +139,7 @@ class EngineBuilder:
         self.cfg = cfg
         self.model_cfg: Optional[ModelConfig] = None
         self.params: Optional[ModelParams] = None
-        self.tokenizer: Optional[ByteTokenizer] = None
+        self.tokenizer: Optional[Tokenizer] = None
         self.device_bytes: Optional[int] = None
 
     def with_model(self, model_cfg: ModelConfig,
@@ -143,7 +148,7 @@ class EngineBuilder:
         self.params = params
         return self
 
-    def with_tokenizer(self, tok: ByteTokenizer) -> "EngineBuilder":
+    def with_tokenizer(self, tok: Tokenizer) -> "EngineBuilder":
         self.tokenizer = tok
         return self
 
@@ -154,7 +159,8 @@ class EngineBuilder:
         return self
 
     def _resolve_model(self, device: torch.device) -> None:
-        """`with_model` wins; else `cfg.model`: random:<preset>."""
+        """`with_model` wins; else `cfg.model`: a local HF checkpoint
+        directory (models/loader.py, onto `device`) or random:<preset>."""
         if self.model_cfg is not None:
             return
         src = self.cfg.model
@@ -170,12 +176,14 @@ class EngineBuilder:
             self.model_cfg = model_cfg
             return
         if os.path.isdir(src):
-            raise ModelLoadError(
-                f"{src!r}: checkpoint loaders are not yet ported (ROADMAP "
-                f"Queue 1 item 5)")
+            self.model_cfg, self.params, tok = load_checkpoint(
+                src, self.cfg, device)
+            if self.tokenizer is None:
+                self.tokenizer = tok
+            return
         raise ModelLoadError(
-            f"cannot resolve model source {src!r} (the port takes "
-            f"random:<preset>; checkpoint loaders: ROADMAP Queue 1 item 5)")
+            f"cannot resolve model source {src!r} (the port takes a local "
+            f"checkpoint directory or random:<preset>)")
 
     def build(self) -> ContinuousBatchEngine:
         cfg = self.cfg

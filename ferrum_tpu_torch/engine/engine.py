@@ -52,7 +52,7 @@ from ..kv.linear_prefix import LinearPrefixCache
 from ..kv.prefix_cache import PrefixCache
 from ..scheduler.continuous import ContinuousBatchScheduler
 from ..scheduler.sequence import Phase, Sequence
-from ..tokenizer import ByteTokenizer
+from ..tokenizer import Tokenizer
 from ..types import (EngineMetricsSnapshot, EngineStoppedError,
                      FinishReason, InferenceRequest, InferenceResponse,
                      InvalidRequestError, StreamChunk)
@@ -74,7 +74,7 @@ class _RequestState:
 
 class ContinuousBatchEngine:
     def __init__(self, cfg: EngineConfig, runner: ModelRunner,
-                 tokenizer: ByteTokenizer):
+                 tokenizer: Tokenizer):
         self.cfg = cfg
         self.runner = runner
         self.tokenizer = tokenizer

@@ -89,6 +89,49 @@ def quantize_weight_np(
     return packed, scale.astype(np.float32), zeros
 
 
+def repack_from_gptq(qweight: torch.Tensor, qzeros: torch.Tensor,
+                     scales: torch.Tensor,
+                     g_idx: Optional[torch.Tensor] = None, bits: int = 4
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int,
+                                Optional[torch.Tensor]]:
+    """GPTQ checkpoint tensors -> the packed layout, on their own device
+    (integer work only; the JAX package's `repack_from_gptq` bit for bit).
+
+    GPTQ stores qweight int32 [in/8, out] (8 nibbles along in, nibble j
+    of word r is row 8r + j) and qzeros int32 [in/g, out/8] (nibble j of
+    column c is column 8c + j) holding z - 1 (the AutoGPTQ convention), so
+    1 is added back and the zero clipped to [0, 15]; scales [in/g, out].
+    act-order (a g_idx other than arange(in) // g): the rows are sorted
+    by group, perm = argsort(g_idx, stable), and y = x[..., perm] @ W
+    (returned as the 5th element, int64; None without act-order).
+    Returns (qweight uint8 [in/2, out], scales f32, zeros int8, g, perm)."""
+    if bits != 4:
+        raise ValueError("only 4-bit GPTQ is supported")
+    in8, out_f = qweight.shape
+    in_f = in8 * 8
+    n_groups = qzeros.shape[0]
+    group_size = in_f // n_groups
+    if in_f % n_groups or in_f % 2:
+        raise ValueError(f"GPTQ in_features {in_f} / group {group_size}")
+    dev = qweight.device
+    shifts = torch.arange(8, device=dev, dtype=torch.int32) * 4
+    # An arithmetic shift keeps nibble j's bits in place: & 0xF takes them.
+    q = (qweight.to(torch.int32)[:, None, :] >> shifts[None, :, None]) & 0xF
+    q = q.reshape(in_f, out_f).to(torch.uint8)
+    z = (qzeros.to(torch.int32)[:, :, None] >> shifts[None, None, :]) & 0xF
+    z = (z.reshape(n_groups, qzeros.shape[1] * 8) + 1).clamp(0, 15)
+    perm = None
+    if g_idx is not None and g_idx.numel():
+        trivial = torch.arange(in_f, device=g_idx.device) // group_size
+        if not torch.equal(g_idx.to(torch.int64), trivial):
+            perm = torch.argsort(g_idx.to(torch.int64), stable=True)
+            q = q[perm.to(dev)]
+    half = in_f // 2
+    packed = q[:half] | (q[half:] << 4)
+    return (packed, scales.to(torch.float32), z.to(torch.int8), group_size,
+            perm)
+
+
 def make_quant_linear(w: torch.Tensor, group_size: int = 128,
                       symmetric: bool = True,
                       dtype=torch.bfloat16) -> QuantLinearParams:

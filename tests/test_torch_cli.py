@@ -170,6 +170,8 @@ def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
     (["--tp", "2"], {}, "tensor_parallel"),
     (["--spec-draft", "random:tiny-test"], {}, "spec_draft_model"),
     (["--quantization", "gguf_q4k"], {}, "quantization"),
+    ([], {"FERRUM_QUANT": "gguf_q4k"}, "quantization"),
+    ([], {"FERRUM_SESSION_CACHE_ENTRIES": "8"}, "session_cache_entries"),
     (["--scheduler", "fifo"], {}, "scheduler"),
     ([], {"FERRUM_ADAPTIVE_WINDOWS": "1"}, "adaptive_windows"),
     ([], {"FERRUM_PREFIX_OFFLOAD_MB": "64"}, "prefix_offload_mb"),
@@ -230,3 +232,64 @@ def test_resolve_precedence(tmp_path):
         EngineConfig.resolve(environ={"FERRUM_TP": "2"})
     with pytest.raises(InvalidRequestError, match="unknown config field"):
         EngineConfig.resolve(environ={}, bogus=1)
+
+
+def _checkpoint(tmp_path, name):
+    from test_torch_loader import make_dir
+    from test_torch_tokenizer import write_tokenizer_dir
+
+    d = make_dir(tmp_path, name)
+    write_tokenizer_dir(d, "qwen2", eos=[5, 6])
+    return d
+
+
+def test_bench_serves_a_checkpoint_directory(tmp_path):
+    """`bench <dir> --device cpu` on a tiny GPTQ checkpoint with its
+    tokenizer.json, in a process that never imports jax."""
+    d = _checkpoint(tmp_path, "qwen3_gptq_tied")
+    r = run_cli("bench", d, "--device", "cpu", "--concurrency", "2",
+                "--num-requests", "2", "--input-len", "8",
+                "--output-len", "4", *SMALL)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rep = json.loads(r.stdout[r.stdout.index("{"):])
+    cell = rep["cells"][0]
+    assert cell["completed"] == 2 and cell["errors"] == 0
+    assert rep["model"] == d
+
+
+@pytest.mark.parametrize("quant", ["gptq_int4", None])
+def test_quantization_flag_quantizes_a_dense_directory(monkeypatch, tmp_path,
+                                                       quant):
+    """`--quantization gptq_int4` on a dense directory quantizes it on
+    load (int4 g128, as the JAX CLI's); without it the linears stay
+    dense. The flag and FERRUM_QUANT both reach the config."""
+    from ferrum_tpu_torch import cli
+    from ferrum_tpu_torch.engine import builder
+    from ferrum_tpu_torch.ops.linear import DenseLinearParams
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+
+    d = _checkpoint(tmp_path, "llama_dense_quantize_on_load")
+    built = {}
+    build = builder.EngineBuilder.build
+
+    def keep(self):
+        built["engine"] = build(self)
+        return built["engine"]
+
+    monkeypatch.setattr(builder.EngineBuilder, "build", keep)
+    monkeypatch.setattr(cli, "cmd_bench", lambda args: (
+        cli._build_engine(args).stop(), 0)[1])
+    flags = ["--quantization", quant] if quant else []
+    assert cli.main(["bench", d, "--device", "cpu", "--config",
+                     str(tmp_path / "none.toml"), *SMALL, *flags]) == 0
+    engine = built["engine"]
+    qkv = engine.runner.params.layers[0].qkv
+    want = QuantLinearParams if quant else DenseLinearParams
+    assert isinstance(qkv, want)
+    assert engine.cfg.quantization == (quant or "none")
+    if quant:
+        monkeypatch.setenv("FERRUM_QUANT", quant)
+        assert cli.main(["bench", d, "--device", "cpu", "--config",
+                         str(tmp_path / "none.toml"), *SMALL]) == 0
+        assert isinstance(built["engine"].runner.params.layers[0].qkv,
+                          QuantLinearParams)

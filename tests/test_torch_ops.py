@@ -405,15 +405,35 @@ def test_port_imports_neither_jax_nor_ferrum_tpu():
     assert not offenders, offenders
 
 
-# The measuring modules, the accuracy functions, the replay bundles and
-# the CLI (each also
-# walked by the two checks around this one).
+# The packages the card's machine lacks: only the tests import them.
+HF_PACKAGES = ("safetensors", "tokenizers", "transformers", "regex")
+
+
+def test_port_imports_no_hf_packages():
+    """The loaders read safetensors, tokenizer.json and GGUF themselves."""
+    offenders = []
+    for path in _py_files():
+        for node in ast.walk(ast.parse(open(path).read())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [(os.path.relpath(path, REPO), n) for n in names
+                          if n.split(".")[0] in HF_PACKAGES]
+    assert not offenders, offenders
+
+
+# The measuring modules, the accuracy functions, the replay bundles, the
+# CLI and the loaders (each also walked by the two checks around this
+# one).
 MEASURING_MODULES = ("types", "config", "utils/profile", "utils/replay",
                      "bench/bench_engine", "bench/accuracy",
                      "models/quantize", "engine/runner",
                      "engine/engine", "engine/builder",
                      "models/llama_family", "ops/kernels/build", "cli",
-                     "__main__")
+                     "__main__", "models/configs", "models/loader",
+                     "models/safetensors_io", "models/gguf", "tokenizer")
 
 
 @pytest.mark.parametrize("mod", MEASURING_MODULES)
@@ -432,12 +452,14 @@ def test_measuring_module_imports_neither_jax_nor_ferrum_tpu(mod):
 
 def test_port_imports_where_jax_cannot():
     """Every module of the package imports in a process where importing
-    jax (or ferrum_tpu) raises."""
+    jax (or ferrum_tpu, or a package the card's machine lacks) raises."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'ferrum_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'ferrum_tpu',\n"
+        "                                  'safetensors', 'tokenizers',\n"
+        "                                  'transformers', 'regex'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import ferrum_tpu_torch as p\n"

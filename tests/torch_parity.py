@@ -326,6 +326,30 @@ def flatten_jax_params(params) -> dict:
     return out
 
 
+def flatten_torch_params(params) -> dict:
+    """The port's ModelParams -> the same flat dict `flatten_jax_params`
+    makes of the JAX package's (floats as f32, exact for bf16 / f16)."""
+    def np_of(t):
+        t = t.detach().cpu()
+        return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+    class _View:
+        def __init__(self, obj):
+            self._obj = obj
+
+        def __getattr__(self, name):
+            v = getattr(self._obj, name)
+            if isinstance(v, torch.Tensor):
+                return np_of(v)
+            if v is not None and hasattr(v, "__dataclass_fields__"):
+                return _View(v)
+            if isinstance(v, list):
+                return [_View(x) for x in v]
+            return v
+
+    return flatten_jax_params(_View(params))
+
+
 def jax_model(preset_name, quantized: bool, seed: int = 0,
               two_level: bool = True):
     """(jax ModelConfig, f32 JAX params) of a preset name or a JAX
