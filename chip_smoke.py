@@ -141,6 +141,27 @@ time):
              window.dispatch per window dispatched, one engine.compile
              per key the audit counted, an engine.memory line with the
              card's bytes in use; tools/analyze_profile.py reads the file
+  server     (A) the port's OpenAI-compatible server (server/app.py) in
+             this process on the same engine, on a free localhost port,
+             spoken to with http.client only: 8 concurrent greedy chat
+             completions (4 streaming, 4 not; usage equal to the chunks,
+             each stream well-formed, the streaming and non-streaming
+             texts of each prompt compared and counted); each of 2
+             prompts alone non-streaming, streaming and through
+             engine.infer on the rendered ids (the three texts and the
+             usage counts equal); /v1/completions with a stop string
+             from the greedy text (finish "stop", the text cut before
+             it); an echo + logprobs request of 256 prompt tokens (its
+             logprobs equal engine.infer's, and those a teacher-forced
+             forward of the plain versions on the card within lane A's
+             tolerance, argmax equal where the plain top two are
+             further apart than the largest difference); a seeded
+             sampled request twice (the same text); bench-serve at c = 1
+             and 4 (no failed request); engine.abort on a long request
+             (its last chunk says abort, running_requests back to 0).
+             Kernels 1-3 must launch and none off lane A's path; the
+             counts go into the summary as "A server". HTTP times beside
+             engine.infer's, with the card's name and power limit
   cli        `python -m ferrum_tpu_torch bench random:llama-3.1-8b` (dense
              bf16, the JAX CLI's random: weights, 4 x 256/32) in its own
              process, started when lane A's phases end and drawing its
@@ -2984,6 +3005,27 @@ def window_check(torch, mc, engine):
                              f"{line}")
 
 
+def plain_swaps():
+    """(module, name, plain version) of every kernel wrapper the model
+    calls: set by name for a comparison run through the plain versions
+    only."""
+    from ferrum_tpu_torch.models import llama_family as lf
+    from ferrum_tpu_torch.ops import moe
+    from ferrum_tpu_torch.ops.kernels import kv_append, moe_gemm
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+
+    return [(qmm, "w4a8tl_decode", qmm.w4a8tl_plain),
+            (qmm, "w4a8tl_gd_decode", qmm.w4a8tl_gd_plain),
+            (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
+            (qmm, "w4a8_decode", qmm.w4a8_plain),
+            (qmm, "w4a16_gemm", qmm.w4a16_plain),
+            (lf, "append_rows_pairs", kv_append.append_rows_pairs_plain),
+            (lf, "append_pages_pairs", kv_append.append_pages_pairs_plain),
+            (moe, "quant_bmm_all_experts", moe_gemm.bmm_plain),
+            (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain),
+            (moe_gemm, "grouped_w4a16", moe_gemm.grouped_w4a16_plain)]
+
+
 def logits_phase(torch, mc, engine, lane):
     """One 256-token prefill + one decode step per entry of lane["lanes"]
     of one prompt at full width, through the kernels and then through
@@ -2999,9 +3041,6 @@ def logits_phase(torch, mc, engine, lane):
 
     from ferrum_tpu_torch.models import llama_family as lf
     from ferrum_tpu_torch.ops import kernels as K
-    from ferrum_tpu_torch.ops import moe
-    from ferrum_tpu_torch.ops.kernels import kv_append, moe_gemm
-    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
 
     lanes, tol = lane["lanes"], lane["tol"]
     max_len = 1024
@@ -3043,17 +3082,7 @@ def logits_phase(torch, mc, engine, lane):
         torch.cuda.synchronize()
         return out, toks_fed
 
-    # The plain versions, swapped in by name for the comparison runs only.
-    swaps = [(qmm, "w4a8tl_decode", qmm.w4a8tl_plain),
-             (qmm, "w4a8tl_gd_decode", qmm.w4a8tl_gd_plain),
-             (qmm, "w4a8tl_prefill", qmm.w4a8tl_plain),
-             (qmm, "w4a8_decode", qmm.w4a8_plain),
-             (qmm, "w4a16_gemm", qmm.w4a16_plain),
-             (lf, "append_rows_pairs", kv_append.append_rows_pairs_plain),
-             (lf, "append_pages_pairs", kv_append.append_pages_pairs_plain),
-             (moe, "quant_bmm_all_experts", moe_gemm.bmm_plain),
-             (moe_gemm, "grouped_w4a8tl", moe_gemm.grouped_plain),
-             (moe_gemm, "grouped_w4a16", moe_gemm.grouped_w4a16_plain)]
+    swaps = plain_swaps()
     full = engine.runner.params
     by_depth, launches = [], None
     for depth in [d for d in lane["depths"]
@@ -3453,6 +3482,325 @@ def cli_finish(started, timeout_s=600):
           "process_wall_s": time.perf_counter() - t0, "card": smi_line()})
 
 
+# The server phase (lane A's engine): greedy chat requests of
+# SERVER_TOKENS tokens (a bucket-1 window is 32 steps, so a c = 1
+# request costs one window however few of them it keeps).
+SERVER_TOKENS, SERVER_PROMPTS, SCORE_LEN = 32, 2, 256
+
+
+def _http(port, method, path, body=None, timeout=300.0):
+    """(status, JSON body or SSE events, seconds, seconds to the first
+    SSE text) over one stdlib http.client connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    first = None
+    try:
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.getheader("Content-Type", "").startswith("text/event-stream"):
+            events = []
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                line = line.decode().strip()
+                if not line.startswith("data:"):
+                    continue
+                payload = line[5:].strip()
+                if payload == "[DONE]":
+                    events.append("DONE")
+                    continue
+                ev = json.loads(payload)
+                ch = (ev.get("choices") or [{}])[0]
+                if first is None and ((ch.get("delta") or {}).get("content")
+                                      or ch.get("text")):
+                    first = time.perf_counter() - t0
+                events.append(ev)
+            out = events
+        else:
+            out = json.loads(resp.read())
+        return resp.status, out, time.perf_counter() - t0, first
+    finally:
+        conn.close()
+
+
+def _sse_text(events):
+    if not events or events[-1] != "DONE":
+        raise AssertionError("server: SSE stream without [DONE]")
+    text = ""
+    for ev in events[:-1]:
+        for ch in ev.get("choices") or []:
+            text += (ch.get("delta") or {}).get("content") or \
+                ch.get("text") or ""
+    return text
+
+
+def server_phase(torch, mc, engine):
+    """The port's OpenAI-compatible server (server/app.py) in this
+    process on lane A's engine, on a free localhost port, spoken to with
+    stdlib http.client only, the launch counts set to 0 just before and
+    read just after:
+      * 8 concurrent greedy chat completions (SERVER_PROMPTS prompts,
+        each streaming and not, and more): every one completes with
+        `usage` equal to its chunks' count and a well-formed SSE stream;
+      * each prompt alone, non-streaming, streaming and through
+        engine.infer on the rendered prompt's ids: the three texts equal,
+        and the usage counts equal the engine's;
+      * a /v1/completions request with a stop string taken from the
+        greedy text: finish "stop", the text a prefix of the greedy text
+        without the stop string;
+      * an echo + logprobs scoring request of SCORE_LEN prompt tokens:
+        its logprobs equal engine.infer's score entries, and those a
+        teacher-forced forward of the plain versions on the card within
+        lane A's logits tolerance (argmax equal where the plain run's
+        top two are further apart than the largest difference);
+      * a seeded sampled request sent twice: the same tokens;
+      * bench-serve (bench/bench_serve.py) at c = 1 and 4: no failure;
+      * engine.abort on a long request: its last chunk says abort and
+        running_requests returns to 0.
+    Kernels 1-3 must launch and no kernel off lane A's path. Returns the
+    launch counts ("A server")."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ferrum_tpu_torch.bench.bench_serve import run_bench_serve
+    from ferrum_tpu_torch.models import llama_family as lf
+    from ferrum_tpu_torch.ops import kernels as K
+    from ferrum_tpu_torch.server.app import FerrumServer
+    from ferrum_tpu_torch.types import (FinishReason, InferenceRequest,
+                                        SamplingParams)
+
+    lane = LANES[0]
+    app = FerrumServer(engine, model_name=lane["model"])
+    K.reset_launch_counts()
+    t_phase = time.perf_counter()
+    srv = app.start()
+    port = srv.port
+    info = {}
+    try:
+        rng = np.random.default_rng(7)
+        words = ["alpha", "stream", "matrix", "delta", "cloud", "prime"]
+        prompts = [" ".join(rng.choice(words, 24)) for _ in
+                   range(SERVER_PROMPTS)]
+
+        def chat(text, stream, **kw):
+            return {"model": lane["model"], "messages": [
+                {"role": "user", "content": text}], "max_tokens":
+                SERVER_TOKENS, "temperature": 0, "ignore_eos": True,
+                "stream": stream, **kw}
+
+        # 1. 8 concurrent: each prompt streaming and not, then two more
+        # pairs of fresh prompts.
+        extra = [" ".join(rng.choice(words, 16)) for _ in range(2)]
+        bodies = [chat(p, s) for p in prompts + extra for s in (False, True)]
+        if len(bodies) != 8:
+            raise AssertionError("server: 8 concurrent requests expected")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            conc = list(ex.map(lambda b: _http(port, "POST",
+                                               "/v1/chat/completions", b),
+                               bodies))
+        conc_wall = time.perf_counter() - t0
+        same_pairs = 0
+        for b, (status, out, _, _) in zip(bodies, conc):
+            if status != 200:
+                raise AssertionError(f"server: concurrent status {status} "
+                                     f"{out}")
+            if b["stream"]:
+                usage = [e for e in out[:-1] if e.get("usage")]
+                finish = [e for e in out[:-1] if e.get("choices")
+                          and e["choices"][0].get("finish_reason")]
+                if usage or not finish or finish[-1]["choices"][0][
+                        "finish_reason"] != "length":
+                    raise AssertionError("server: concurrent stream form")
+            elif out["usage"]["completion_tokens"] != SERVER_TOKENS \
+                    or out["usage"]["total_tokens"] != \
+                    out["usage"]["prompt_tokens"] + SERVER_TOKENS:
+                raise AssertionError(f"server: usage {out['usage']}")
+        for i in range(0, 8, 2):
+            same_pairs += conc[i][1]["choices"][0]["message"]["content"] \
+                == _sse_text(conc[i + 1][1])
+
+        # 2. each prompt alone: non-streaming, streaming (with usage),
+        # engine.infer on the same ids.
+        alone = []
+        for p in prompts:
+            s1, whole, t_whole, _ = _http(port, "POST",
+                                          "/v1/chat/completions",
+                                          chat(p, False))
+            s2, events, t_stream, ttft = _http(
+                port, "POST", "/v1/chat/completions",
+                chat(p, True, stream_options={"include_usage": True}))
+            ids = engine.tokenizer.encode(app.renderer.render(
+                [{"role": "user", "content": p}]))
+            r = engine.infer(InferenceRequest(
+                prompt_token_ids=ids, sampling=SamplingParams(
+                    max_tokens=SERVER_TOKENS, ignore_eos=True)))
+            text = whole["choices"][0]["message"]["content"]
+            usage = [e for e in events[:-1] if e.get("usage")][-1]["usage"]
+            if (s1, s2) != (200, 200) or text != _sse_text(events) \
+                    or text != r.text:
+                raise AssertionError(f"server: HTTP text != SSE deltas != "
+                                     f"engine.infer ({text!r}, {r.text!r})")
+            if whole["usage"] != usage or usage != {
+                    "prompt_tokens": r.prompt_tokens,
+                    "completion_tokens": r.completion_tokens,
+                    "total_tokens": r.prompt_tokens + r.completion_tokens}:
+                raise AssertionError(f"server: usage {usage} vs engine "
+                                     f"{r.prompt_tokens}/{r.completion_tokens}")
+            # TPOT = (e2e - TTFT) / (tokens - 1), over HTTP from the
+            # stream's first text and its end.
+            n1 = max(r.completion_tokens - 1, 1)
+            alone.append({"http_e2e_s": t_whole, "http_stream_e2e_s":
+                          t_stream, "http_ttft_s": ttft,
+                          "http_tpot_ms": (t_stream - ttft) / n1 * 1e3,
+                          "infer_e2e_s": r.e2e_latency,
+                          "infer_ttft_s": r.ttft,
+                          "infer_tpot_ms": (r.e2e_latency - r.ttft) / n1
+                          * 1e3})
+        info["alone"] = alone
+
+        # 3. a stop string from the greedy text.
+        body = {"model": lane["model"], "prompt": prompts[0],
+                "max_tokens": SERVER_TOKENS, "temperature": 0,
+                "ignore_eos": True}
+        _, full, _, _ = _http(port, "POST", "/v1/completions", body)
+        full_text = full["choices"][0]["text"]
+        # The shortest string from the text's middle whose first match
+        # is there.
+        mid = len(full_text) // 2
+        stop = next((full_text[mid:mid + n] for n in range(3, 64)
+                     if full_text.find(full_text[mid:mid + n]) == mid),
+                    full_text[mid:])
+        _, cut, _, _ = _http(port, "POST", "/v1/completions",
+                             {**body, "stop": stop})
+        cut_text = cut["choices"][0]["text"]
+        if cut["choices"][0]["finish_reason"] != "stop" \
+                or not full_text.startswith(cut_text) or stop in cut_text \
+                or cut["usage"]["completion_tokens"] >= SERVER_TOKENS:
+            raise AssertionError(f"server: stop {stop!r} gave {cut}")
+        info["stop"] = {"stop": stop, "completion_tokens":
+                        cut["usage"]["completion_tokens"]}
+
+        # 4. scoring against a teacher-forced plain forward.
+        score_prompt = "".join(chr(c) for c in rng.integers(
+            32, 127, SCORE_LEN))
+        status, scored, t_score, _ = _http(port, "POST", "/v1/completions", {
+            "model": lane["model"], "prompt": score_prompt, "max_tokens": 0,
+            "echo": True, "logprobs": 1})
+        ids = engine.tokenizer.encode(score_prompt)
+        r = engine.infer(InferenceRequest(
+            prompt=score_prompt, echo=True,
+            sampling=SamplingParams(max_tokens=0, logprobs=1)))
+        lp_http = scored["choices"][0]["logprobs"]["token_logprobs"]
+        if status != 200 or len(ids) != SCORE_LEN \
+                or lp_http != [e["logprob"] for e in r.logprobs]:
+            raise AssertionError("server: scoring over HTTP != engine.infer")
+        dev = engine.runner.device
+        kv = lf.PagedKvCache.create(mc, SCORE_LEN // PAGE, PAGE,
+                                    dtype=torch.bfloat16, device=dev)
+        tok = torch.tensor(ids, device=dev)[None]
+        pos = torch.arange(SCORE_LEN, device=dev)[None]
+        saved = [(m, n, getattr(m, n)) for m, n, _ in plain_swaps()]
+        for m, n, fn in plain_swaps():
+            setattr(m, n, fn)
+        try:
+            h, _ = lf.prefill_forward_batched(
+                engine.runner.params, mc, kv, tok, pos,
+                torch.arange(SCORE_LEN // PAGE, device=dev)[None],
+                torch.tensor([SCORE_LEN], device=dev), pos,
+                ctx_pad=SCORE_LEN)
+            logits = lf.logits_from_hidden(engine.runner.params, mc,
+                                           h[0]).float()
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        lsm = torch.log_softmax(logits, -1)
+        tgt = torch.tensor(ids[1:], device=dev)
+        want_lp = lsm[:-1].gather(1, tgt[:, None])[:, 0].cpu().numpy()
+        top2 = torch.topk(logits[:-1], 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        want_am = logits[:-1].argmax(-1).cpu().numpy()
+        got_lp = np.array([e["logprob"] for e in r.logprobs[1:]])
+        got_am = np.array([e["argmax_id"] for e in r.logprobs[1:]])
+        scale = float(logits.abs().max())
+        diff = float(np.abs(got_lp - want_lp).max())
+        clear = gap > 2 * diff
+        if diff > 2 * lane["tol"] * scale \
+                or (got_am[clear] != want_am[clear]).any():
+            raise AssertionError(f"server: scoring vs plain {diff} (scale "
+                                 f"{scale}), argmax differs at "
+                                 f"{np.nonzero(got_am != want_am)[0][:8]}")
+        info["score"] = {"tokens": SCORE_LEN, "http_s": t_score,
+                         "max_abs_logprob_diff_vs_plain": diff,
+                         "logit_scale": scale, "tolerance_rel":
+                         lane["tol"], "argmax_checked": int(clear.sum()),
+                         "argmax_equal": int((got_am == want_am).sum())}
+
+        # 5. a seeded sampled request, twice.
+        seeded = {"model": lane["model"], "prompt": prompts[1],
+                  "max_tokens": SERVER_TOKENS, "temperature": 1.0,
+                  "top_k": 40, "seed": 1234, "ignore_eos": True}
+        runs = [_http(port, "POST", "/v1/completions", seeded)[1]
+                for _ in range(2)]
+        if runs[0]["choices"][0]["text"] != runs[1]["choices"][0]["text"]:
+            raise AssertionError("server: a seeded request gave two texts")
+
+        # 6. bench-serve at c = 1 and 4.
+        rep = run_bench_serve(f"http://127.0.0.1:{port}", lane["model"],
+                              concurrencies=(1, 4), num_requests=4,
+                              input_len=48, output_len=16, timeout=300)
+        for cell in rep["cells"]:
+            if cell["errors"] or cell["completed"] != 4:
+                raise AssertionError(f"server: bench-serve {cell}")
+        info["bench_serve"] = [
+            {k: c[k] for k in ("concurrency", "completed", "errors", "wall_s",
+                               "output_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+                               "e2e_p50_ms")} for c in rep["cells"]]
+
+        # 7. abort a long request.
+        long_req = InferenceRequest(
+            prompt_token_ids=ids[:64], sampling=SamplingParams(
+                max_tokens=512, ignore_eos=True))
+        q = engine.submit(long_req)
+        chunk = q.get(timeout=300)
+        engine.abort(long_req.request_id)
+        while not chunk.finished:
+            chunk = q.get(timeout=300)
+        deadline = time.monotonic() + 60
+        while engine.metrics_snapshot().running_requests \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if chunk.finish_reason != FinishReason.ABORT \
+                or engine.metrics_snapshot().running_requests:
+            raise AssertionError(f"server: abort gave {chunk.finish_reason}, "
+                                 f"{engine.metrics_snapshot()}")
+        info["abort"] = {"completion_tokens_at_abort":
+                         chunk.completion_tokens}
+    finally:
+        srv.stop()
+    if engine.runner.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = counts(K)
+    idle = [k for k in ("w4a8tl_decode", "w4a8tl_prefill", "kv_append_rows")
+            if launches[k] == 0]
+    stray = [k for k in off_path(lane) if launches[k] != 0]
+    if idle or stray:
+        raise AssertionError(f"server: never launched {idle}, launched "
+                             f"{stray}")
+    emit({"phase": "server", "lane": lane["name"],
+          "wall_s": time.perf_counter() - t_phase,
+          "concurrent": {"requests": 8, "wall_s": conc_wall,
+                         "stream_equals_nonstream_pairs": same_pairs},
+          **info, "launches": launches, "card": smi_line()})
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -3529,6 +3877,7 @@ def main() -> int:
             if lane.get("bench"):
                 bench_phase(torch, engine)
                 profile_sink_phase(torch, engine)
+                by_path["A server"] = server_phase(torch, mc, engine)
             params = engine.runner.params
             engine.stop()
             del engine

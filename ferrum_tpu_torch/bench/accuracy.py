@@ -1,17 +1,23 @@
 """Accuracy gates: greedy self-determinism, quant token divergence,
-teacher-forced logit metrics and weight-space quantization error.
+teacher-forced logit metrics, weight-space quantization error, and the
+HTTP client functions of the lm_eval loglikelihood contract.
 
-Port of `ferrum_tpu/bench/accuracy.py`'s engine-side functions (the
-HTTP ones wait for the server). `teacher_forced_logits` is a plain
-torch forward over one token list (no KV cache, no engine, f32 scores
-as the JAX reference's einsums); `quant_logit_metrics` and
-`weight_quant_error` are numpy, as in the JAX package.
+Port of `ferrum_tpu/bench/accuracy.py`. `teacher_forced_logits` is a
+plain torch forward over one token list (no KV cache, no engine, f32
+scores as the JAX reference's einsums); `quant_logit_metrics` and
+`weight_quant_error` are numpy, as in the JAX package. The HTTP
+functions (`completions_logprobs`, `loglikelihood`, `perplexity`,
+`compare_to_baseline`, `lm_eval_light`) are the JAX package's, stdlib
+urllib against a /v1/completions endpoint (server/app.py's echo +
+logprobs scoring round).
 """
 
 from __future__ import annotations
 
+import json
+import math
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -194,3 +200,134 @@ def weight_quant_error(params_f, params_q) -> Dict:
         "rel_err_max": float(vals.max()) if len(vals) else 0.0,
         "worst_tensor": (max(errs, key=errs.get) if errs else None),
     }
+
+
+# ---------------------------------------------------------------------------
+# HTTP: the lm_eval local-completions loglikelihood contract
+# ---------------------------------------------------------------------------
+
+def completions_logprobs(base_url: str, prompt: str,
+                         model: str = "ferrum",
+                         timeout: float = 300.0) -> Dict:
+    """POST /v1/completions with echo + logprobs + max_tokens=0 and
+    return the OpenAI logprobs object ({tokens, token_logprobs,
+    top_logprobs, text_offset})."""
+    import urllib.request
+
+    body = json.dumps({"model": model, "prompt": prompt,
+                       "max_tokens": 0, "echo": True,
+                       "logprobs": 1}).encode()
+    req = urllib.request.Request(
+        base_url.rstrip("/") + "/v1/completions", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        out = json.loads(resp.read())
+    return out["choices"][0]["logprobs"]
+
+
+def loglikelihood(base_url: str, context: str, continuation: str,
+                  model: str = "ferrum") -> Dict:
+    """Sum of the continuation tokens' logprobs given the context, and
+    whether each was the argmax (is_greedy), as loglikelihood tasks
+    score. Continuation tokens are found by text offset: a token
+    straddling the boundary counts toward the continuation."""
+    lp = completions_logprobs(base_url, context + continuation, model)
+    cut = len(context)
+    ll = 0.0
+    greedy = True
+    for off, tok_lp, top in zip(lp["text_offset"],
+                                lp["token_logprobs"],
+                                lp["top_logprobs"]):
+        if off < cut or tok_lp is None:
+            continue
+        ll += tok_lp
+        if top:
+            best = max(top.values())
+            greedy = greedy and tok_lp >= best - 1e-6
+    return {"loglikelihood": ll, "is_greedy": greedy}
+
+
+def perplexity(base_url: str, texts: Sequence[str],
+               model: str = "ferrum") -> Dict:
+    """Corpus perplexity over the scored positions:
+    {perplexity, tokens, total_logprob}."""
+    total_lp = 0.0
+    n = 0
+    for t in texts:
+        lp = completions_logprobs(base_url, t, model)
+        for tok_lp in lp["token_logprobs"]:
+            if tok_lp is not None:
+                total_lp += tok_lp
+                n += 1
+    return {"perplexity": math.exp(-total_lp / max(n, 1)),
+            "tokens": n, "total_logprob": total_lp}
+
+
+def compare_to_baseline(results: Dict[str, float],
+                        baseline: Dict[str, float],
+                        rtol: float = 0.05) -> Dict:
+    """Per-metric rtol comparison against a baseline; metrics missing
+    from the baseline are recorded, not failed."""
+    report = {"rtol": rtol, "metrics": {}, "passed": True}
+    for k, v in results.items():
+        base = baseline.get(k)
+        entry = {"value": v, "baseline": base}
+        if base is not None:
+            ok = abs(v - base) <= rtol * abs(base)
+            entry["passed"] = ok
+            report["passed"] = report["passed"] and ok
+        report["metrics"][k] = entry
+    return report
+
+
+# Primary result metric per lm_eval task.
+_TASK_METRIC = {"mmlu": "acc,none", "arc_easy": "acc,none",
+                "gsm8k": "exact_match,strict-match"}
+
+
+def lm_eval_light(base_url: str, tasks: Optional[Dict[str, int]] = None,
+                  rtol: float = 0.05,
+                  baseline: Optional[Dict[str, float]] = None,
+                  model: str = "ferrum",
+                  tokenizer: Optional[str] = None,
+                  num_concurrent: int = 4) -> Dict:
+    """lm-evaluation-harness subsets (mmlu 100q 5-shot, arc_easy 100q,
+    gsm8k 50q) against a /v1/completions endpoint through lm_eval's
+    local-completions model. Without the `lm_eval` package (it is not
+    on the card's machine) this returns a skipped report."""
+    tasks = tasks or {"mmlu": 100, "arc_easy": 100, "gsm8k": 50}
+    try:
+        import lm_eval
+    except ImportError:
+        return {"skipped": "lm_eval not installed (offline environment)",
+                "tasks": tasks}
+
+    model_args = (
+        f"base_url={base_url.rstrip('/')}/v1/completions,"
+        f"model={model},num_concurrent={num_concurrent},max_retries=2")
+    if tokenizer:
+        model_args += f",tokenizer={tokenizer},tokenizer_backend=huggingface"
+
+    results: Dict[str, float] = {}
+    raw = {}
+    for task, limit in tasks.items():
+        out = lm_eval.simple_evaluate(
+            model="local-completions", model_args=model_args,
+            tasks=[task], limit=limit,
+            num_fewshot=5 if task == "mmlu" else None)
+        raw[task] = out["results"]
+        metric = _TASK_METRIC.get(task, "acc,none")
+        # mmlu aggregates subtasks; take the task's own row when
+        # present, else the mean of its subtask rows.
+        row = out["results"].get(task)
+        if row is not None and metric in row:
+            results[task] = float(row[metric])
+        else:
+            vals = [float(r[metric]) for r in out["results"].values()
+                    if metric in r]
+            results[task] = sum(vals) / max(len(vals), 1)
+
+    report = {"tasks": tasks, "results": results}
+    if baseline:
+        report["gate"] = compare_to_baseline(results, baseline, rtol)
+    return report

@@ -1,9 +1,14 @@
-"""`python -m ferrum_tpu_torch`: the port's CLI (bench / replay / list).
+"""`python -m ferrum_tpu_torch`: the port's CLI (run / serve / bench /
+bench-serve / replay / list).
 
-Port of `ferrum_tpu/cli.py`'s engine flags and its `bench`, `replay`
-and `list` subcommands; `run`, `serve`, `bench-serve`, `embed`,
-`transcribe`, `tts`, `pull`, `stop` and `route` wait for their modules
-(ROADMAP Queue 1). Every JAX engine flag is accepted, and one whose
+Port of `ferrum_tpu/cli.py`'s engine flags and its `run` (one-shot
+`--prompt`, or the REPL with /exit, /clear, /system), `serve` (the
+OpenAI-compatible server, server/app.py; `--asr-model`, `--tts-model`
+and `--embed-model` are not yet ported and exit 1), `bench`,
+`bench-serve` (bench/bench_serve.py against a running server),
+`replay` and `list` subcommands; `embed`, `transcribe`, `tts`, `pull`,
+`stop` and `route` wait for their modules (ROADMAP Queue 1). Every JAX
+engine flag is accepted, and one whose
 feature the port does not have yet (`--tp 2`, `--spec-draft`,
 `--scheduler fifo`, ...) raises
 InvalidRequestError, as `EngineConfig.resolve` does for a
@@ -16,6 +21,9 @@ quantizes a dense one on load).
 
 Usage: python -m ferrum_tpu_torch bench random:llama-3.1-8b [...]
        python -m ferrum_tpu_torch bench /path/to/checkpoint [...]
+       python -m ferrum_tpu_torch serve /path/to/checkpoint --port 8000
+       python -m ferrum_tpu_torch run random:tiny-test --device cpu \
+           --prompt hello --max-tokens 8
 """
 
 from __future__ import annotations
@@ -24,10 +32,12 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import Any, Dict
 
 from .config import EngineConfig
-from .types import FerrumError
+from .types import (FerrumError, InferenceRequest, InvalidRequestError,
+                    SamplingParams)
 
 
 def _add_engine_flags(p: argparse.ArgumentParser) -> None:
@@ -108,6 +118,115 @@ def _build_engine(args) -> Any:
     return EngineBuilder(cfg).build()
 
 
+def cmd_run(args) -> int:
+    """One-shot generation (`--prompt`) or the REPL, through the model's
+    chat template."""
+    engine = _build_engine(args)
+    from .server.chat_template import ChatTemplateRenderer
+
+    renderer = ChatTemplateRenderer(
+        template=getattr(engine.tokenizer, "chat_template", None),
+        family=engine.runner.model_cfg.family)
+    sampling = SamplingParams(temperature=args.temperature,
+                              top_p=args.top_p, max_tokens=args.max_tokens)
+
+    def generate(messages):
+        prompt = renderer.render(messages)
+        req = InferenceRequest(
+            prompt_token_ids=engine.tokenizer.encode(prompt),
+            sampling=SamplingParams(**sampling.__dict__))
+        t0 = time.monotonic()
+        n_tok = 0
+        out = []
+        for chunk in engine.infer_stream(req):
+            if chunk.text:
+                if not args.json:
+                    print(chunk.text, end="", flush=True)
+                out.append(chunk.text)
+            n_tok = chunk.completion_tokens
+        dt = time.monotonic() - t0
+        print("", flush=True)
+        print(f"[{n_tok} tokens, {n_tok / max(dt, 1e-9):.1f} tok/s]",
+              file=sys.stderr)
+        return "".join(out)
+
+    try:
+        if args.prompt is not None:  # one-shot
+            msgs = []
+            if args.system:
+                msgs.append({"role": "system", "content": args.system})
+            msgs.append({"role": "user", "content": args.prompt})
+            text = generate(msgs)
+            if args.json:
+                print(json.dumps({"response": text}))
+            return 0
+
+        history = []
+        system = args.system
+        print("ferrum-tpu REPL — /exit, /clear, /system <msg>",
+              file=sys.stderr)
+        while True:
+            try:
+                line = input(">>> ")
+            except (EOFError, KeyboardInterrupt):
+                return 0
+            if line.strip() == "/exit":
+                return 0
+            if line.strip() == "/clear":
+                history.clear()
+                continue
+            if line.startswith("/system"):
+                system = line[len("/system"):].strip()
+                continue
+            history.append({"role": "user", "content": line})
+            msgs = ([{"role": "system", "content": system}] if system
+                    else []) + history
+            reply = generate(msgs)
+            history.append({"role": "assistant", "content": reply})
+    finally:
+        engine.stop()
+
+
+def cmd_serve(args) -> int:
+    for flag, value in (("--asr-model", args.asr_model),
+                        ("--tts-model", args.tts_model),
+                        ("--embed-model", args.embed_model)):
+        if value:
+            raise InvalidRequestError(
+                f"{flag} is not yet ported (ROADMAP Queue 1 item 14)",
+                param=flag)
+    engine = _build_engine(args)
+    from .server.app import serve
+
+    def announce(port):
+        print(f"serving {args.model} on http://{args.host}:{port}",
+              file=sys.stderr, flush=True)
+
+    try:
+        serve(engine, model_name=args.served_model_name or args.model,
+              host=args.host, port=args.port, api_key=args.api_key,
+              on_start=announce)
+    finally:
+        engine.stop()
+    return 0
+
+
+def cmd_bench_serve(args) -> int:
+    from .bench.bench_serve import run_bench_serve
+
+    report = run_bench_serve(
+        base_url=args.base_url, model=args.model,
+        concurrencies=tuple(int(c) for c in args.concurrency.split(",")),
+        num_requests=args.num_requests, input_len=args.input_len,
+        output_len=args.output_len, n_repeats=args.n_repeats)
+    out = json.dumps(report, indent=2)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(out)
+    print(out)
+    return 0
+
+
 def cmd_replay(args) -> int:
     """Re-run a captured request bundle and compare its tokens with the
     observed ones (exit 2 on a mismatch)."""
@@ -186,6 +305,28 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="ferrum-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("run", help="interactive chat / one-shot generation")
+    _add_engine_flags(p)
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--system", default=None)
+    p.add_argument("--temperature", type=float, default=0.7)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--max-tokens", type=int, default=512)
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
+    _add_engine_flags(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000,
+                   help="0 binds a free port (printed on stderr)")
+    p.add_argument("--api-key", default=None)
+    p.add_argument("--served-model-name", default=None)
+    p.add_argument("--asr-model", default=None, help="not yet ported")
+    p.add_argument("--tts-model", default=None, help="not yet ported")
+    p.add_argument("--embed-model", default=None, help="not yet ported")
+    p.set_defaults(fn=cmd_serve)
+
     p = sub.add_parser("bench", help="offline engine benchmark")
     _add_engine_flags(p)
     p.add_argument("--concurrency", default="1,4,16,32")
@@ -198,6 +339,18 @@ def main(argv=None) -> int:
     p.add_argument("--duration", type=float, default=30.0,
                    help="open-loop launch window in seconds")
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser(
+        "bench-serve", help="HTTP serving benchmark against a server")
+    p.add_argument("--base-url", default="http://127.0.0.1:8000")
+    p.add_argument("--model", default="default")
+    p.add_argument("--concurrency", default="1,4,16,32")
+    p.add_argument("--num-requests", type=int, default=64)
+    p.add_argument("--input-len", type=int, default=256)
+    p.add_argument("--output-len", type=int, default=128)
+    p.add_argument("--n-repeats", type=int, default=1)
+    p.add_argument("--output", default=None)
+    p.set_defaults(fn=cmd_bench_serve)
 
     p = sub.add_parser("list", help="list model presets")
     p.set_defaults(fn=cmd_list)

@@ -59,6 +59,10 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
                                    "1.0)"),
     "FERRUM_MEMORY_PROFILE_JSONL": ("memory_profile_path", str,
                                     "separate sink for memory snapshots"),
+    "FERRUM_SESSION_CACHE_ENTRIES": ("session_cache_entries", int,
+                                     "server X-Ferrum-Session entries"),
+    "FERRUM_SESSION_CACHE_TOKENS": ("session_cache_tokens", int,
+                                    "server X-Ferrum-Session token budget"),
     "FERRUM_DECODE_BUCKETS": ("decode_bucket_spec", str,
                               "decode lane buckets: '' = pow2 ladder, "
                               "'max' = full frame, or e.g. '1,8,32'"),
@@ -98,8 +102,6 @@ NOT_PORTED: Dict[str, Any] = {
     "greedy_argmax_device": True,
     "spec_draft_model": None,
     "spec_num_tokens": 4,
-    "session_cache_entries": 64,
-    "session_cache_tokens": 8192,
     "scheduler_trace_path": None,
 }
 
@@ -114,8 +116,6 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
     "FERRUM_DP": ("data_parallel", int),
     "FERRUM_EP": ("expert_parallel", int),
     "FERRUM_SCHEDULER_TRACE_JSONL": ("scheduler_trace_path", str),
-    "FERRUM_SESSION_CACHE_ENTRIES": ("session_cache_entries", int),
-    "FERRUM_SESSION_CACHE_TOKENS": ("session_cache_tokens", int),
     "FERRUM_GREEDY_ARGMAX": ("greedy_argmax_device", bool),
     "FERRUM_SPEC_DRAFT": ("spec_draft_model", str),
     "FERRUM_SPEC_K": ("spec_num_tokens", int),
@@ -262,6 +262,9 @@ class EngineConfig:
     profile_detail: str = "basic"       # off|basic|debug|full
     profile_sample_rate: float = 0.01
     memory_profile_path: Optional[str] = None
+    # --- server: the X-Ferrum-Session cache (server/app.py) ---
+    session_cache_entries: int = 64
+    session_cache_tokens: int = 8192
 
     def validate(self) -> None:
         if self.max_num_seqs < 1:

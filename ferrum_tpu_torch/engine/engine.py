@@ -12,7 +12,20 @@ background loop runs `run_iteration`, the JAX package's pipelined loop:
       and accept the oldest windows until at most `pipeline_depth` (1
       at <= 4 decoding sequences) stay in flight.
 Tokens are accepted a window at a time (EOS / max_tokens finishes),
-with one incremental detokenization and one chunk a window.
+with one incremental detokenization and one chunk a window. A request
+with stop strings takes the JAX engine's per-token path instead
+(`_accept_token`: the text is cut before the first match), and streams
+every token.
+
+Also the JAX engine's `submit` validation (empty prompt, max_tokens
+clamped to max_model_len, a prompt over it, the echo + logprobs rules,
+max_tokens == 0), `abort(request_id)` (drained at the head of the next
+iteration: the final chunk says ABORT; a linear slot is freed at once,
+a paged sequence's blocks after the window in flight, as `_retire`
+does), and prompt scoring: a scored request's chunks are dispatched
+alone with the runner's score rows, read the iteration after, and the
+request ends after its prefill with the assembled per-position
+logprobs (`_finish_prompt_only`).
 
 Counters: `metrics` (`metrics_snapshot()`), the JAX engine's
 EngineMetricsSnapshot at the JAX sites: iterations that scheduled work,
@@ -33,8 +46,8 @@ breaks the pipeline chain so the next iteration can preempt.
 
 Everything runs on ONE CUDA stream; the loop leans on its order (see
 `_retire`). Not yet ported (later slices): adaptive window lengths,
-slack slots, the prefix offload tier, guided decoding, stop strings,
-speculative decoding and prompt scoring.
+slack slots, the prefix offload tier, guided decoding (a request with
+`guided` options is refused), speculative decoding and LoRA.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ import queue
 import threading
 import time
 import traceback
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
+
+import numpy as np
 
 from ..config import EngineConfig
 from ..kv.block_pool import BlockPool
@@ -70,6 +85,7 @@ class _RequestState:
     def __init__(self, seq: Sequence):
         self.seq = seq
         self.out_queue: "queue.Queue[StreamChunk]" = queue.Queue()
+        self.aborted = False
 
 
 class ContinuousBatchEngine:
@@ -107,6 +123,8 @@ class ContinuousBatchEngine:
         self._inflight_q: "collections.deque[DecodeWindow]" = \
             collections.deque()
         self._pending_first: List = []
+        # Scored chunks whose rows are read next iteration.
+        self._pending_scores: List = []
         self._hold_streak = 0
         # The most windows in flight at once, over the engine's life.
         self.max_inflight = 0
@@ -130,13 +148,31 @@ class ContinuousBatchEngine:
                                       param="prompt")
         if not ids:
             raise InvalidRequestError("empty prompt", param="prompt")
+        sp = request.sampling
+        if len(ids) + sp.max_tokens > self.cfg.max_model_len:
+            # Clamp the generation budget rather than reject.
+            sp.max_tokens = max(1, self.cfg.max_model_len - len(ids))
         if len(ids) >= self.cfg.max_model_len:
             raise InvalidRequestError(
                 f"prompt length {len(ids)} exceeds max_model_len "
                 f"{self.cfg.max_model_len}", param="prompt")
-        if len(ids) + request.sampling.max_tokens > self.cfg.max_model_len:
-            # Clamp the generation budget rather than reject.
-            request.sampling.max_tokens = self.cfg.max_model_len - len(ids)
+        if request.echo and sp.logprobs is not None:
+            # Prompt scoring: prefill only.
+            if sp.max_tokens != 0:
+                raise InvalidRequestError(
+                    "echo+logprobs is supported for max_tokens=0 "
+                    "scoring only", param="echo")
+            if request.guided is not None:
+                raise InvalidRequestError(
+                    "echo+logprobs cannot be combined with guided "
+                    "decoding", param="echo")
+        elif sp.max_tokens == 0:
+            raise InvalidRequestError(
+                "max_tokens=0 requires echo+logprobs scoring",
+                param="max_tokens")
+        if request.guided is not None:
+            raise InvalidRequestError(
+                "guided decoding is not yet ported", param="guided")
         seq = Sequence(request, ids)
         state = _RequestState(seq)
         with self._lock:
@@ -176,7 +212,16 @@ class ContinuousBatchEngine:
             finish_reason=last.finish_reason or FinishReason.STOP,
             prompt_tokens=last.prompt_tokens,
             completion_tokens=last.completion_tokens, ttft=ttft,
-            e2e_latency=time.monotonic() - t0)
+            e2e_latency=time.monotonic() - t0, logprobs=last.logprobs)
+
+    def abort(self, request_id: str) -> None:
+        """Finish a request with ABORT at the head of the next iteration
+        (a no-op once it has finished)."""
+        with self._lock:
+            state = self._requests.get(request_id)
+            if state is not None:
+                state.aborted = True
+        self._work_event.set()
 
     def stop(self) -> None:
         """Stop the loop, accept what the windows and prefills in flight
@@ -266,6 +311,7 @@ class ContinuousBatchEngine:
         """One scheduler + device iteration; False when idle."""
         cfg = self.cfg
         iter_t0 = time.monotonic()
+        self._drain_aborts()
         did_work = self._accept_first_tokens()
 
         # --- (b) schedule; sequences riding windows in flight pinned ---
@@ -313,7 +359,7 @@ class ContinuousBatchEngine:
                 and cfg.pipeline_decode and self.runner.attn_impl == "linear":
             pf_chunk = next(
                 (c for c in batch.prefill_chunks
-                 if c.seq.num_output_tokens == 0
+                 if c.seq.num_output_tokens == 0 and not c.seq.score_mode
                  and len(c.tokens) <= 128 * t_steps), None)
         # Refill-first: while a wave of >= 2 prompts prefills at low
         # occupancy, hold decode so the next windows run fuller; at most
@@ -390,14 +436,29 @@ class ContinuousBatchEngine:
         return n
 
     def _accept_first_tokens(self) -> bool:
-        """(a) The first tokens of the prefills dispatched last iteration:
-        one wait per batched prefill."""
-        if not self._pending_first:
+        """(a) The score rows, then the first tokens, of the prefills
+        dispatched last iteration: one wait per batched prefill. A
+        request with max_tokens == 0 finishes here instead."""
+        if not self._pending_first and not self._pending_scores:
             return False
+        scores, self._pending_scores = self._pending_scores, []
+        for chunk, res in scores:
+            seq = chunk.seq
+            if seq.phase == Phase.FINISHED or seq.blocks is None:
+                continue
+            row = res.rows[seq.request.request_id]
+            n = len(chunk.tokens)
+            lp = res.score_lp.numpy()
+            seq.score_parts[chunk.start] = (
+                lp[0, row, :n], res.score_argmax.numpy()[row, :n],
+                lp[1, row, :n])
         pending, self._pending_first = self._pending_first, []
         fetched: Dict[int, object] = {}
         for seq, res in pending:
             if seq.phase == Phase.FINISHED or seq.blocks is None:
+                continue
+            if seq.request.sampling.max_tokens == 0:
+                self._finish_prompt_only(seq)
                 continue
             toks = fetched.get(id(res))
             if toks is None:
@@ -408,9 +469,17 @@ class ContinuousBatchEngine:
 
     def _dispatch_prefill(self, chunks) -> None:
         """Chunks sharing a (chunk, context) bucket go in one batched
-        prefill; final chunks' first tokens are fetched next iteration."""
+        prefill; final chunks' first tokens are fetched next iteration.
+        A scored chunk goes alone, its rows fetched next iteration too."""
         groups: Dict[tuple, list] = {}
-        for chunk in chunks:
+        for chunk in [c for c in chunks if c.seq.score_mode]:
+            res = self.runner.run_prefill_batch([chunk], score=True)
+            self.scheduler.note_prefill_done(chunk)
+            self.metrics.tokens_prefilled += len(chunk.tokens)
+            self._pending_scores.append((chunk, res))
+            if chunk.is_last:
+                self._pending_first.append((chunk.seq, res))
+        for chunk in [c for c in chunks if not c.seq.score_mode]:
             key = (self.runner.chunk_bucket(len(chunk.tokens)),
                    self.runner.ctx_bucket(chunk.start + len(chunk.tokens)))
             groups.setdefault(key, []).append(chunk)
@@ -453,8 +522,16 @@ class ContinuousBatchEngine:
                        decoded: bool = False) -> None:
         """Accept a window of tokens: stop at EOS (past min_tokens) or at
         max_tokens, detokenize once, emit one chunk. `decoded`: the
-        tokens came from a decode window (counted in tokens_decoded)."""
+        tokens came from a decode window (counted in tokens_decoded).
+        A request with stop strings takes `_accept_token` token by token
+        (the JAX engine's per-token path) until it finishes."""
         sp = seq.request.sampling
+        if sp.stop:
+            for tok in toks:
+                if seq.phase != Phase.DECODING:
+                    break
+                self._accept_token(seq, tok, decoded)
+            return
         if seq.eos_cache is None:
             seq.eos_cache = frozenset(self.tokenizer.eos_token_ids) \
                 | frozenset(sp.stop_token_ids)
@@ -494,6 +571,121 @@ class ContinuousBatchEngine:
                 self._requests.pop(seq.request.request_id, None)
                 self.metrics.requests_completed += 1
             self._retire(seq)
+
+    def _accept_token(self, seq: Sequence, token: int,
+                      decoded: bool) -> None:
+        """One token, as the JAX engine's `_accept_token`: EOS (past
+        min_tokens) or max_tokens finishes, an EOS token's text is
+        dropped, and the first stop string found in the decoded output
+        (searched from just before the text emitted so far) cuts the
+        text before it and finishes with STOP. Every token is streamed
+        (the JAX engine streams one only with text or a finish)."""
+        sp = seq.request.sampling
+        if seq.eos_cache is None:
+            seq.eos_cache = frozenset(self.tokenizer.eos_token_ids) \
+                | frozenset(sp.stop_token_ids)
+        seq.output_tokens.append(token)
+        if decoded:
+            self.metrics.tokens_decoded += 1
+        finish: Optional[FinishReason] = None
+        if not sp.ignore_eos and token in seq.eos_cache \
+                and seq.num_output_tokens >= sp.min_tokens:
+            finish = FinishReason.STOP
+        elif seq.num_output_tokens >= sp.max_tokens:
+            finish = FinishReason.LENGTH
+        text = ""
+        if finish is None or token not in seq.eos_cache:
+            text, seq.detok_prefix_offset, seq.detok_read_offset = \
+                self.tokenizer.decode_incremental(
+                    seq.output_tokens, seq.detok_prefix_offset,
+                    seq.detok_read_offset)
+        if finish is None and sp.stop and text:
+            emitted = seq.emitted_text_len
+            candidate = self.tokenizer.decode(seq.output_tokens)
+            for stop_s in sp.stop:
+                idx = candidate.find(stop_s, max(0, emitted - len(stop_s)))
+                if idx >= 0:
+                    text = candidate[emitted:idx]
+                    finish = FinishReason.STOP
+                    break
+        seq.emitted_text_len += len(text)
+        state = self._requests.get(seq.request.request_id)
+        if state is not None:
+            state.out_queue.put(StreamChunk(
+                request_id=seq.request.request_id, text=text,
+                token_ids=[token], finished=finish is not None,
+                finish_reason=finish, prompt_tokens=seq.num_prompt_tokens,
+                completion_tokens=seq.num_output_tokens))
+        if finish is not None:
+            with self._lock:
+                self._requests.pop(seq.request.request_id, None)
+                self.metrics.requests_completed += 1
+            self._retire(seq)
+
+    def _finish_prompt_only(self, seq: Sequence) -> None:
+        """End a max_tokens == 0 request after its prefill: one final
+        chunk (LENGTH) with the assembled prompt logprobs when scored."""
+        logprobs = self._assemble_prompt_logprobs(seq) \
+            if seq.score_mode else None
+        state = self._requests.get(seq.request.request_id)
+        if state is not None:
+            state.out_queue.put(StreamChunk(
+                request_id=seq.request.request_id, text="", token_ids=[],
+                finished=True, finish_reason=FinishReason.LENGTH,
+                prompt_tokens=seq.num_prompt_tokens, completion_tokens=0,
+                logprobs=logprobs))
+        with self._lock:
+            self._requests.pop(seq.request.request_id, None)
+            self.metrics.requests_completed += 1
+        self._retire(seq)
+
+    @staticmethod
+    def _assemble_prompt_logprobs(seq: Sequence) -> List[Dict[str, Any]]:
+        """The chunks' score rows as one entry a prompt token: entry p
+        holds the logprob of token p given the tokens before it (None at
+        p = 0) and the argmax there with its logprob. The chunk at
+        `start` scored the targets start + 1 .. start + len."""
+        n = seq.num_prompt_tokens
+        lp = np.full(n, np.nan, np.float64)
+        am = np.full(n, -1, np.int64)
+        am_lp = np.full(n, np.nan, np.float64)
+        for start in sorted(seq.score_parts):
+            t_lp, t_am, t_am_lp = seq.score_parts[start]
+            m = min(len(t_lp), n - 1 - start)   # the last has no target
+            if m <= 0:
+                continue
+            lp[start + 1:start + 1 + m] = t_lp[:m]
+            am[start + 1:start + 1 + m] = t_am[:m]
+            am_lp[start + 1:start + 1 + m] = t_am_lp[:m]
+        out = []
+        for p in range(n):
+            if p == 0 or np.isnan(lp[p]):
+                out.append({"token_id": seq.prompt_tokens[p],
+                            "logprob": None, "argmax_id": None,
+                            "argmax_logprob": None})
+            else:
+                out.append({"token_id": seq.prompt_tokens[p],
+                            "logprob": float(lp[p]),
+                            "argmax_id": int(am[p]),
+                            "argmax_logprob": float(am_lp[p])})
+        return out
+
+    def _drain_aborts(self) -> None:
+        """Finish every aborted request with ABORT and release it (as
+        `_retire` does: at once, or past the window in flight)."""
+        with self._lock:
+            dead = [st for st in self._requests.values() if st.aborted]
+            for st in dead:
+                self._requests.pop(st.seq.request.request_id, None)
+        for st in dead:
+            seq = st.seq
+            if seq.phase != Phase.FINISHED:
+                self._retire(seq)
+            st.out_queue.put(StreamChunk(
+                request_id=seq.request.request_id, text="", token_ids=[],
+                finished=True, finish_reason=FinishReason.ABORT,
+                prompt_tokens=seq.num_prompt_tokens,
+                completion_tokens=seq.num_output_tokens))
 
     def _retire(self, seq: Sequence) -> None:
         """Release a finished sequence's slot and blocks.

@@ -11,6 +11,10 @@ here issues the kernels directly:
                        projection at m = B*T: the prefill GEMM kernel),
                        first tokens sampled on the device; returns
                        without waiting for them (BatchPrefillResult).
+                       `score=True` (prompt scoring, one chunk) also
+                       returns each position's logprob of the next
+                       prompt token, its argmax and the argmax's
+                       logprob, reduced on the device.
   start_decode_window  T decode steps over the sequences packed into
                        the lanes of the smallest bucket that fits
                        (EngineConfig.decode_buckets), optionally with
@@ -43,6 +47,13 @@ since).
 Per-slot state has one row past the slots, the sink at index
 `num_slots`: pad lanes carry that slot id, so their gathers read the
 sink and their scatters write it, with no mask and no host sync.
+
+Sampling noise: one `torch.Generator` for the engine, drawn whole for
+every row of a step; a slot admitted with `SamplingParams.seed` takes
+its row from `seeded_gumbel` instead (keyed by the seed and the
+position of the token drawn), so a seeded request gives the same
+tokens alone, in a batch and in another slot. A draw with no seeded
+row computes no hash.
 
 Counters (the JAX runner's): `decode_steps`, `prefill_steps` (chunks
 dispatched, a window's riding chunk too), host seconds in the window
@@ -80,7 +91,8 @@ from ..models.llama_family import (
     prefill_forward_batched)
 from ..ops.kernels import build as kernel_build
 from ..ops.kernels.kv_append import append_pages_pairs
-from ..sampling.device import SlotSamplingParams, sample_step, update_counts
+from ..sampling.device import (SlotSamplingParams, lane_noise, sample_step,
+                               update_counts)
 from ..scheduler.continuous import PrefillChunk
 from ..scheduler.sequence import Sequence
 from ..utils import profile as _prof
@@ -120,6 +132,10 @@ class BatchPrefillResult:
 
     tokens: HostCopy                  # int64 [B]
     rows: Dict[str, int]              # request id -> row
+    # score=True: f32 [2, B, t_pad] (target logprob, argmax logprob) and
+    # int64 [B, t_pad] argmax ids, per chunk position.
+    score_lp: Optional[HostCopy] = None
+    score_argmax: Optional[HostCopy] = None
 
 
 @dataclass
@@ -175,10 +191,13 @@ class ModelRunner:
             "top_ks": torch.zeros(s + 1, dtype=torch.int64, device=device),
             "top_ps": torch.ones(s + 1, dtype=torch.float32, device=device),
             "pens": torch.ones(s + 1, dtype=torch.float32, device=device),
+            "seeds": torch.zeros(s + 1, dtype=torch.int64, device=device),
+            "seeded": torch.zeros(s + 1, dtype=torch.bool, device=device),
         }
         # Slot-indexed final tokens of the latest window: the chain carry.
         self.last_toks = torch.zeros(s + 1, dtype=torch.int64, device=device)
         self._temps = np.zeros(s, np.float32)      # host mirror (greedy)
+        self._seeded = np.zeros(s, bool)           # host mirror (noise)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(engine_cfg.seed)
         self.inv_freq = make_inv_freq(model_cfg, device)
@@ -200,6 +219,7 @@ class ModelRunner:
         self._window_keys: set = set()
         self._copy_keys: set = set()
         self._count_keys: set = set()
+        self._score_keys: set = set()
         self._chunk_lens: set = set()        # prompt chunk lengths seen
         self._builds_seen = len(kernel_build.LOADED)
         # "error" makes every dispatch fail on a host sync of the stream
@@ -263,6 +283,12 @@ class ModelRunner:
         self.samp["top_ks"][slot] = sp.top_k
         self.samp["top_ps"][slot] = sp.top_p
         self.samp["pens"][slot] = sp.repetition_penalty
+        self._seeded[slot] = sp.seed is not None
+        self.samp["seeded"][slot] = sp.seed is not None
+        if sp.seed is not None:
+            seed = sp.seed & 0xFFFFFFFFFFFFFFFF      # int64 two's complement
+            self.samp["seeds"][slot] = seed - (1 << 64) if seed >> 63 \
+                else seed
 
     # ------------------------------------------------------------------
     # Prefix store (the linear layout's prefix cache; kv/linear_prefix.py)
@@ -371,6 +397,16 @@ class ModelRunner:
             self.samp["top_ps"][slots], self.samp["pens"][slots],
             min_active)
 
+    def _noise(self, slots: torch.Tensor, positions: torch.Tensor,
+               seqs, greedy: bool) -> Optional[torch.Tensor]:
+        """A draw's noise when one of `seqs` has its own seed (else None:
+        sample_step draws from the generator itself, the same draw)."""
+        if greedy or not any(self._seeded[q.slot] for q in seqs):
+            return None
+        return lane_noise(slots, positions, self.samp["seeds"],
+                          self.samp["seeded"], self.model_cfg.vocab_size,
+                          self.generator)
+
     def _flat_rows(self, seq: Sequence, start: int, n: int) -> np.ndarray:
         """Flat cache slots of positions start .. start+n-1 of a sequence,
         OOB_SENTINEL past its reserved blocks."""
@@ -381,21 +417,24 @@ class ModelRunner:
                         blk * self.page + p % self.page, OOB_SENTINEL)
 
     # ------------------------------------------------------------------
-    def run_prefill_batch(self, chunks: List[PrefillChunk]
-                          ) -> BatchPrefillResult:
+    def run_prefill_batch(self, chunks: List[PrefillChunk],
+                          score: bool = False) -> BatchPrefillResult:
         """One trunk pass over every chunk (one per sequence); the token
         sampled at each chunk's last position is on its way to the host
-        when this returns."""
+        when this returns. `score`: the chunks' score rows too (the
+        engine dispatches a scored chunk alone: its [t_pad, V] logits are
+        the transient)."""
         t0 = time.perf_counter()
         with self.sync_guard():
-            res = self._prefill(chunks)
+            res = self._prefill(chunks, score=score)
         self.prefill_device_time += time.perf_counter() - t0
         self.prefill_steps += len(chunks)
         self._note_kernel_builds()
         return res
 
     def _prefill(self, chunks: List[PrefillChunk],
-                 warm: Optional[tuple] = None) -> BatchPrefillResult:
+                 warm: Optional[tuple] = None,
+                 score: bool = False) -> BatchPrefillResult:
         """warm: the key (b, t_pad, ctx_pad, greedy) of a no-op prefill
         with no chunks (every row a pad row)."""
         if warm is None:
@@ -407,18 +446,26 @@ class ModelRunner:
                               for c in chunks))
         else:
             b, t_pad, ctx_pad, greedy = warm
-        self._note_key(self._prefill_keys, "prefill",
-                       (b, t_pad, ctx_pad, greedy))
+        if score:
+            self._note_key(self._score_keys, "prefill_score",
+                           (b, t_pad, ctx_pad, greedy))
+        else:
+            self._note_key(self._prefill_keys, "prefill",
+                           (b, t_pad, ctx_pad, greedy))
         # int rows: tokens, positions (pads past the context), flat slots
         # (pads dropped), count tokens (pads = vocab, dropped); per-row
         # scalars: slot, last index, total length, min_tokens active,
         # final-chunk slot (else the sink). The rows of a warm-up take
         # the sink slot and write nothing.
         v = self.model_cfg.vocab_size
-        packed = np.zeros((4, b, t_pad), np.int64)
+        # Scoring adds a fifth row: each position's target, the next token
+        # of the prefill target (pads and the prompt's last = vocab).
+        packed = np.zeros((5 if score else 4, b, t_pad), np.int64)
         packed[1] = self.cfg.max_model_len + ctx_pad
         packed[2] = OOB_SENTINEL
         packed[3] = v
+        if score:
+            packed[4] = v
         scal = np.zeros((5, b), np.int64)
         scal[0] = scal[4] = self.num_slots
         rows: Dict[str, int] = {}
@@ -431,6 +478,9 @@ class ModelRunner:
             packed[1, i, :n] = np.arange(c.start, total)
             packed[2, i, :n] = self._flat_rows(seq, c.start, n)
             packed[3, i, :n] = c.tokens
+            if score:
+                nxt = seq.prefill_target[c.start + 1:total + 1]
+                packed[4, i, :len(nxt)] = nxt
             scal[:, i] = (seq.slot, n - 1, total,
                           int(seq.num_output_tokens
                               < seq.request.sampling.min_tokens),
@@ -440,7 +490,7 @@ class ModelRunner:
         if self.attn_impl == "ref":
             parts.append(self._host_tables([c.seq for c in chunks], b))
         dev = self._upload(np.concatenate(parts))
-        pk = dev[:packed.size].view(4, b, t_pad)
+        pk = dev[:packed.size].view(packed.shape[0], b, t_pad)
         sc = dev[packed.size:packed.size + 5 * b].view(5, b)
         slots = sc[0]
         tables = self._tables(slots) if self.attn_impl == "linear" \
@@ -450,15 +500,32 @@ class ModelRunner:
             tables, sc[2], pk[2], ctx_pad=ctx_pad,
             inv_freq=self.inv_freq, attn_impl=self.attn_impl)
         update_counts(self.counts, slots[:, None].expand(b, t_pad), pk[3])
+        score_lp = score_am = None
+        if score:
+            # Per position: lp(target | prefix), the argmax and its lp,
+            # from the f32 logits' max and logsumexp on the device.
+            lg = logits_from_hidden(self.params, self.model_cfg,
+                                    h.reshape(b * t_pad, -1)).float()
+            mx = lg.max(dim=-1).values
+            lse = mx + torch.log(torch.exp(lg - mx[:, None]).sum(-1))
+            tgt = pk[4].reshape(-1).clamp(0, v - 1)
+            t_lp = lg.gather(1, tgt[:, None])[:, 0] - lse
+            score_lp = HostCopy(torch.stack([t_lp, mx - lse]).view(
+                2, b, t_pad))
+            score_am = HostCopy(lg.argmax(dim=-1).view(b, t_pad))
         hs = h[torch.arange(b, device=self.device), sc[1]]      # [B, H]
         logits = logits_from_hidden(self.params, self.model_cfg, hs)
         toks = sample_step(logits, self._sampling(slots, sc[3] == 1),
                            self.counts[slots], self.eos_mask,
-                           greedy_only=greedy, generator=self.generator)
+                           greedy_only=greedy, generator=self.generator,
+                           noise=self._noise(slots, sc[2],
+                                             [c.seq for c in chunks],
+                                             greedy))
         # Final chunks count their token (other rows add to the sink
         # row).
         update_counts(self.counts, sc[4], toks)
-        return BatchPrefillResult(tokens=HostCopy(toks), rows=rows)
+        return BatchPrefillResult(tokens=HostCopy(toks), rows=rows,
+                                  score_lp=score_lp, score_argmax=score_am)
 
     def _host_tables(self, seqs: List[Sequence], n: int) -> np.ndarray:
         """Paged block tables [n, max_pages], flat: row i the blocks of
@@ -622,7 +689,8 @@ class ModelRunner:
         if paged:
             all_toks = self._paged_steps(tokens, positions, cache_len,
                                          tables, flat_dev, ctx_pad, samp,
-                                         counts_l, lane_ids, greedy)
+                                         counts_l, lane_ids, greedy,
+                                         lane_slots, seqs)
             if not ident:
                 self.counts.index_copy_(0, lane_slots, counts_l)
             self.last_toks.index_copy_(0, lane_slots, all_toks[t - 1])
@@ -698,7 +766,10 @@ class ModelRunner:
             logits = logits_from_hidden(self.params, self.model_cfg, h)
             tokens = sample_step(logits, samp, counts_l, self.eos_mask,
                                  greedy_only=greedy,
-                                 generator=self.generator)
+                                 generator=self.generator,
+                                 noise=self._noise(lane_slots,
+                                                   positions + step + 1,
+                                                   seqs, greedy))
             update_counts(counts_l, lane_ids, tokens)
             steps.append(tokens)
         all_toks = torch.stack(steps)                          # [T, s_pad]
@@ -736,7 +807,11 @@ class ModelRunner:
                                     self._sampling(slot_t, min_act),
                                     self.counts[psl:psl + 1], self.eos_mask,
                                     greedy_only=greedy,
-                                    generator=self.generator)
+                                    generator=self.generator,
+                                    noise=self._noise(
+                                        slot_t, slot_t.new_full(
+                                            (1,), start + n),
+                                        [seq_p], greedy))
                 update_counts(self.counts, slot_t, tok_p)
                 self.last_toks[psl:psl + 1] = tok_p
                 pf_tok = HostCopy(tok_p)
@@ -749,8 +824,8 @@ class ModelRunner:
             pf_tok=pf_tok)
 
     def _paged_steps(self, tokens, positions, cache_len, tables, flat,
-                     ctx_pad, samp, counts_l, lane_ids, greedy
-                     ) -> torch.Tensor:
+                     ctx_pad, samp, counts_l, lane_ids, greedy,
+                     lane_slots, seqs) -> torch.Tensor:
         """The paged layout's window: T per-step decode forwards over the
         lanes' block tables, each appending its own K/V (the JAX runner's
         scan over `decode_forward(attn_impl="ref")`); tokens [T, s_pad]."""
@@ -763,7 +838,10 @@ class ModelRunner:
             logits = logits_from_hidden(self.params, self.model_cfg, h)
             tokens = sample_step(logits, samp, counts_l, self.eos_mask,
                                  greedy_only=greedy,
-                                 generator=self.generator)
+                                 generator=self.generator,
+                                 noise=self._noise(lane_slots,
+                                                   positions + step + 1,
+                                                   seqs, greedy))
             update_counts(counts_l, lane_ids, tokens)
             steps.append(tokens)
         return torch.stack(steps)

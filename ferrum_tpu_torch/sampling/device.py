@@ -7,7 +7,10 @@ the top TOPK_CAP logits with Gumbel noise. The JAX package derives the
 noise from per-slot threefry keys, which PyTorch cannot reproduce: here
 it comes from the engine's own `torch.Generator`, or from the `noise`
 argument, which is how the parity tests feed both packages the same
-draw.
+draw. A request with its own `seed` draws instead from `seeded_gumbel`,
+a counter-based hash of (seed, position of the token drawn, candidate
+rank) in int64 tensor ops: its tokens do not depend on which lanes
+share the step or which slot it holds.
 """
 
 from __future__ import annotations
@@ -41,6 +44,48 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
     u = torch.rand(shape, generator=generator, device=device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit finalizer (xorshift-multiply) on int64 tensors holding
+    values below 2^32; the multipliers stay below 2^31, so no product
+    leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def seeded_gumbel(seeds: torch.Tensor, positions: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Gumbel noise f32 [S, k] of each row's own stream: a hash of its
+    int64 seed, the int64 position of the token drawn and the candidate
+    rank, made uniform in (0, 1) from its top 24 bits."""
+    key = _mix32((seeds & _M32) ^ _mix32(((seeds >> 32) & _M32)
+                                         ^ 0x9E3779B9))
+    key = _mix32((key + _mix32(positions & _M32)) & _M32)
+    rank = torch.arange(k, device=seeds.device, dtype=torch.int64)
+    h = _mix32((key[:, None] + rank[None, :] * 0x9E3779B9) & _M32)
+    h = _mix32(h ^ (key[:, None] >> 7))
+    u = ((h >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+    return -torch.log(-torch.log(u))
+
+
+def lane_noise(slots: torch.Tensor, positions: torch.Tensor,
+               seeds: torch.Tensor, seeded: torch.Tensor, vocab: int,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The sampling noise of one draw for the rows `slots`: the shared
+    generator's draw (taken whole, as `sample_step` takes it), replaced
+    by `seeded_gumbel` on the rows of a seeded slot. `positions`: each
+    row's position of the token drawn."""
+    k_cap = min(TOPK_CAP, vocab)
+    shared = gumbel_noise((slots.shape[0], k_cap), generator, slots.device)
+    own = seeded_gumbel(seeds[slots], positions.to(torch.int64), k_cap)
+    return torch.where(seeded[slots][:, None], own, shared)
 
 
 def topk_ids(x: torch.Tensor, k: int) -> torch.Tensor:

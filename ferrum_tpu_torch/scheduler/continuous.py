@@ -240,7 +240,9 @@ class ContinuousBatchScheduler:
             seq.blocks = blocks
             reused_blocks: List[int] = []
             reused = 0
-            if self.prefix_cache is not None and seq.prefilled == 0:
+            # A scored prompt needs every position prefilled.
+            if self.prefix_cache is not None and seq.prefilled == 0 \
+                    and not seq.score_mode:
                 reused_blocks, reused = self.prefix_cache.match_prefix(
                     seq.prompt_tokens)
             if reused:

@@ -1,8 +1,8 @@
 """Per-request sequence state (host side).
 
-Port of `ferrum_tpu/scheduler/sequence.py` for the served path: tokens,
-phase, block table, prefix reuse and recompute after a preemption;
-guided decoding and prompt scoring come with later slices.
+Port of `ferrum_tpu/scheduler/sequence.py` without guided decoding:
+tokens, phase, block table, prefix reuse, recompute after a preemption,
+the text emitted so far (stop strings) and prompt scoring's rows.
 """
 
 from __future__ import annotations
@@ -43,7 +43,13 @@ class Sequence:
         self.preempt_count = 0
         self.detok_prefix_offset = 0
         self.detok_read_offset = 0
+        self.emitted_text_len = 0
         self.eos_cache: Optional[FrozenSet[int]] = None
+        # Prompt scoring (echo + logprobs): per-chunk rows keyed by the
+        # chunk's start -- (target logprob, argmax id, argmax logprob).
+        self.score_mode = bool(request.echo
+                               and request.sampling.logprobs is not None)
+        self.score_parts: dict = {}
 
     @property
     def num_prompt_tokens(self) -> int:

@@ -1,13 +1,16 @@
 """Requests, responses and errors of the engine boundary.
 
-Port of `ferrum_tpu/types.py`, trimmed to the served path (no guided
-decoding, echo scoring, LoRA or stop strings yet), and the engine's
-metrics snapshot. Plain dataclasses.
+Port of `ferrum_tpu/types.py` without LoRA: sampling parameters with
+stop strings, per-request seeds and prompt scoring (`logprobs` with
+`InferenceRequest.echo`), the `GuidedOptions` type (the engine refuses a
+request that carries one: guided decoding is not yet ported), and the
+engine's metrics snapshot. Plain dataclasses.
 """
 
 from __future__ import annotations
 
 import enum
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -34,20 +37,27 @@ class CapacityError(FerrumError):
     code = "capacity_error"
 
 
+class NotSupportedError(FerrumError):
+    code = "not_supported"
+
+
 class EngineStoppedError(FerrumError):
     code = "engine_stopped"
 
 
 class FinishReason(str, enum.Enum):
-    STOP = "stop"            # EOS
+    STOP = "stop"            # EOS or stop string
     LENGTH = "length"        # max_tokens reached
+    TOOL_CALLS = "tool_calls"
     ABORT = "abort"
     ERROR = "error"
 
 
 @dataclass
 class SamplingParams:
-    """temperature == 0 means greedy; top_k == 0 and top_p == 1 are off."""
+    """temperature == 0 means greedy; top_k == 0 and top_p == 1 are off.
+    `seed`: the request's own sampling stream (runner.py); `logprobs`
+    with `InferenceRequest.echo` and max_tokens == 0 scores the prompt."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -55,8 +65,11 @@ class SamplingParams:
     repetition_penalty: float = 1.0
     max_tokens: int = 512
     min_tokens: int = 0
+    stop: List[str] = field(default_factory=list)
     stop_token_ids: List[int] = field(default_factory=list)
+    seed: Optional[int] = None
     ignore_eos: bool = False
+    logprobs: Optional[int] = None
 
     def validate(self) -> None:
         if self.temperature < 0.0:
@@ -67,8 +80,9 @@ class SamplingParams:
                                       param="top_p")
         if self.top_k < 0:
             raise InvalidRequestError("top_k must be >= 0", param="top_k")
-        if self.max_tokens < 1:
-            raise InvalidRequestError("max_tokens must be >= 1",
+        if self.max_tokens < 0:
+            # 0 = prompt-only scoring (echo + logprobs, no generation).
+            raise InvalidRequestError("max_tokens must be >= 0",
                                       param="max_tokens")
         if self.repetition_penalty <= 0.0:
             raise InvalidRequestError("repetition_penalty must be > 0",
@@ -76,15 +90,31 @@ class SamplingParams:
 
 
 @dataclass
+class GuidedOptions:
+    """Structured-output constraints (the JAX package's type; the port's
+    engine rejects them until guided decoding is ported)."""
+
+    regex: Optional[str] = None
+    json_schema: Optional[Dict[str, Any]] = None
+    json_mode: bool = False
+    strict: bool = True
+
+
+@dataclass
 class InferenceRequest:
     """`prompt_token_ids` may be given pre-tokenized; else `prompt` is
-    tokenized by the engine."""
+    tokenized by the engine. `echo` with `sampling.logprobs` and
+    max_tokens == 0: the engine returns per-prompt-position logprobs."""
 
     prompt: Optional[str] = None
     prompt_token_ids: Optional[List[int]] = None
     sampling: SamplingParams = field(default_factory=SamplingParams)
+    guided: Optional[GuidedOptions] = None
+    echo: bool = False
     request_id: str = field(
         default_factory=lambda: f"req-{uuid.uuid4().hex[:16]}")
+    priority: int = 0
+    arrival_time: float = field(default_factory=time.monotonic)
 
 
 @dataclass
@@ -96,6 +126,7 @@ class StreamChunk:
     finish_reason: Optional[FinishReason] = None
     prompt_tokens: int = 0
     completion_tokens: int = 0
+    logprobs: Optional[List[Dict[str, Any]]] = None
 
 
 @dataclass
@@ -108,6 +139,7 @@ class InferenceResponse:
     completion_tokens: int
     ttft: Optional[float] = None          # seconds, host clock
     e2e_latency: Optional[float] = None
+    logprobs: Optional[List[Dict[str, Any]]] = None
 
 
 @dataclass

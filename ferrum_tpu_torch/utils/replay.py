@@ -4,10 +4,11 @@ Port of `ferrum_tpu/utils/replay.py`, with the same `BUNDLE_SCHEMA`: a
 bundle is a JSON file holding the engine-boundary request (token ids,
 sampling params, guided options), the effective runtime config and the
 observed output, enough to re-run the request on any machine. A bundle
-the JAX package wrote loads here: a sampling field the port's
-`SamplingParams` lacks (stop strings, per-request seeds, logprobs) must
-hold the JAX default, and guided options must be absent; otherwise
-`request_from_bundle` raises InvalidRequestError naming the field.
+the JAX package wrote loads here, its sampling fields (stop strings,
+per-request seeds and logprobs too) into the port's `SamplingParams`;
+guided options must be absent (guided decoding is not yet ported), and
+a sampling field the port does not know raises InvalidRequestError
+naming it.
 """
 
 from __future__ import annotations
@@ -21,10 +22,6 @@ from ..config import EngineConfig
 from ..types import InferenceRequest, InvalidRequestError, SamplingParams
 
 BUNDLE_SCHEMA = 1
-
-# The JAX SamplingParams fields the port does not have, at their JAX
-# defaults (the only values the port can replay).
-_NOT_PORTED_SAMPLING = {"stop": [], "seed": None, "logprobs": None}
 
 
 def capture_bundle(request: InferenceRequest, cfg: EngineConfig,
@@ -74,13 +71,11 @@ def request_from_bundle(bundle: Dict[str, Any]) -> InferenceRequest:
     ported = {f.name for f in dataclasses.fields(SamplingParams)}
     kw = {}
     for name, value in r["sampling"].items():
-        if name in ported:
-            kw[name] = value
-        elif name not in _NOT_PORTED_SAMPLING \
-                or value != _NOT_PORTED_SAMPLING[name]:
+        if name not in ported:
             raise InvalidRequestError(
                 f"sampling.{name}={value!r} is not yet ported",
                 param=name)
+        kw[name] = value
     return InferenceRequest(
         prompt=r.get("prompt"),
         prompt_token_ids=r.get("prompt_token_ids"),

@@ -585,7 +585,25 @@ def test_port_bundle_replays(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("stop", ["\n"]), ("seed", 3), ("logprobs", 2),
+    ("stop", ["\n"]), ("seed", 3), ("logprobs", 2)])
+def test_ported_sampling_fields_load_from_bundle(field, value):
+    """Stop strings, seeds and logprobs (ported with the server) load
+    from a JAX bundle into the port's SamplingParams."""
+    from ferrum_tpu.config import EngineConfig as JaxConfig
+    from ferrum_tpu.types import InferenceRequest as JReq
+    from ferrum_tpu.utils import replay as jr
+    from ferrum_tpu_torch.utils import replay as tr
+
+    bundle = jr.capture_bundle(JReq(prompt_token_ids=[1, 2]),
+                               JaxConfig(model="m"), "m")
+    bundle["request"]["sampling"][field] = value
+    req = tr.request_from_bundle(bundle)
+    assert getattr(req.sampling, field) == value
+    assert req.request_id == bundle["request"]["request_id"] + "-replay"
+
+
+@pytest.mark.parametrize("field,value", [
+    ("lora_rank", 4), ("top_a", 0.1), ("min_p", 0.05),
     ("guided", {"regex": "a+", "json_schema": None, "json_mode": False,
                 "strict": True})])
 def test_unported_bundle_field_raises(tmp_path, field, value):

@@ -171,7 +171,8 @@ def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
     (["--spec-draft", "random:tiny-test"], {}, "spec_draft_model"),
     (["--quantization", "gguf_q4k"], {}, "quantization"),
     ([], {"FERRUM_QUANT": "gguf_q4k"}, "quantization"),
-    ([], {"FERRUM_SESSION_CACHE_ENTRIES": "8"}, "session_cache_entries"),
+    ([], {"FERRUM_SCHEDULER_TRACE_JSONL": "trace.jsonl"},
+     "scheduler_trace_path"),
     (["--scheduler", "fifo"], {}, "scheduler"),
     ([], {"FERRUM_ADAPTIVE_WINDOWS": "1"}, "adaptive_windows"),
     ([], {"FERRUM_PREFIX_OFFLOAD_MB": "64"}, "prefix_offload_mb"),

@@ -596,3 +596,392 @@ def test_refill_first_holds_at_most_eight_in_a_row():
         held.append(engine.runner.decode_steps == steps)
     engine.stop()
     assert held == [True] * 8 + [False] * 4, held
+
+
+# ---------------------------------------------------------------------------
+# Stop strings, abort, per-request seeds, prompt scoring, submit checks
+# ---------------------------------------------------------------------------
+
+def _jax_engine(jcfg, jparams, loop, **kw):
+    from ferrum_tpu.config import EngineConfig
+    from ferrum_tpu.engine.builder import EngineBuilder
+    mode, _ = LOOPS[loop]
+    cfg = EngineConfig(
+        model="parity", dtype="f32", kv_layout="linear",
+        enable_prefix_cache=False, adaptive_windows=False, **mode,
+        **{**_engine_kw(), **kw})
+    return EngineBuilder(cfg).with_model(jcfg, jparams).build()
+
+
+def _run_each(engine, reqs):
+    """Serve the requests one after another. Per request: (text, the
+    sequence's tokens when it finished, completion_tokens, finish
+    reason, streamed ids, logprobs). Stops the engine."""
+    done = {}
+    finish = engine.scheduler.finish
+
+    def record(seq):
+        done.setdefault(seq.request.request_id, list(seq.output_tokens))
+        finish(seq)
+
+    engine.scheduler.finish = record
+    out = []
+    try:
+        for r in reqs:
+            q = engine.submit(r)
+            deadline = time.monotonic() + SERVE_TIMEOUT_S
+            chunks = []
+            while not chunks or not chunks[-1].finished:
+                assert time.monotonic() < deadline, "engine did not finish"
+                try:
+                    chunks.append(q.get(timeout=1.0))
+                except queue.Empty:
+                    continue
+            last = chunks[-1]
+            out.append(("".join(c.text for c in chunks),
+                        done.get(r.request_id),
+                        last.completion_tokens, last.finish_reason.value,
+                        sum((c.token_ids for c in chunks), []),
+                        last.logprobs))
+    finally:
+        engine.stop()
+    return out
+
+
+def _stop_cases(tok, out, t):
+    """Stop strings whose first match ends at a token mid-window, at the
+    last token of a window and across two windows (the previous token's
+    last character and this one's first), for windows of t tokens after
+    the prefill's first token. Each is the shortest tail of the text up
+    to that token that the text before it does not hold."""
+    texts = [tok.decode(out[:k]) for k in range(len(out) + 1)]
+
+    def ending_at(k, span):
+        prev, cur = texts[k - 1], texts[k]
+        if not cur.startswith(prev) or len(cur) == len(prev) \
+                or "�" in cur:
+            return None
+        end = len(prev) + 1
+        for j in range(end - 1 - span, -1, -1):
+            if cur[j:end] not in prev:
+                return cur[j:end]
+        return None
+
+    cases = []
+    for targets, span in (((3, 2, 4), 0), ((1 + t, t, 2 + t), 0),
+                          ((2 + t, 3 + t, 1 + t), 1)):
+        for k in targets:
+            if k <= len(out):
+                stop = ending_at(k, span)
+                if stop:
+                    cases.append(stop)
+                    break
+    return cases
+
+
+@pytest.mark.parametrize("loop", ["unpipelined-c3", "pipelined-c1"])
+def test_stop_strings_match_jax_engine(monkeypatch, loop):
+    """Text, tokens, completion_tokens and finish reason equal the JAX
+    engine's, for a stop that lands mid-window, at a window's end and
+    across two windows; the port streams every token it accepts."""
+    from ferrum_tpu.types import InferenceRequest as JReq
+    from ferrum_tpu.types import SamplingParams as JSp
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+
+    route_w4a8tl(monkeypatch)
+    jcfg, jparams = jax_model("tiny-quant", quantized=True, seed=3)
+    cfg = torch_config(jcfg)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    t = 4 if loop.startswith("unpipelined") else 6
+    plain = _run_each(_torch_engine(cfg, params, **LOOPS[loop][0]), [
+        InferenceRequest(prompt_token_ids=list(p), sampling=SamplingParams(
+            max_tokens=MAX_TOKENS, ignore_eos=True)) for p in PROMPTS])
+    from ferrum_tpu_torch.tokenizer import make_byte_tokenizer
+    tok = make_byte_tokenizer(vocab_extra=cfg.vocab_size - 258)
+    specs = []
+    for p, res in zip(PROMPTS, plain):
+        for stop in _stop_cases(tok, res[1], t):
+            specs.append((p, stop))
+    assert len(specs) >= 6, specs
+    # Each stop ends by token MAX_TOKENS (the tokens whose margins the
+    # greedy parity test checks); the budget past it only keeps a stop
+    # at that token from finishing by length first.
+    budget = MAX_TOKENS + 4
+    got = _run_each(_torch_engine(cfg, params, **LOOPS[loop][0]), [
+        InferenceRequest(prompt_token_ids=list(p), sampling=SamplingParams(
+            max_tokens=budget, ignore_eos=True, stop=[s]))
+        for p, s in specs])
+    want = _run_each(_jax_engine(jcfg, jparams, loop), [
+        JReq(prompt_token_ids=list(p), sampling=JSp(
+            max_tokens=budget, ignore_eos=True, stop=[s]))
+        for p, s in specs])
+    for (p, s), g, w in zip(specs, got, want):
+        assert g[:4] == w[:4], (s, g, w)
+        assert g[4] == g[1]             # every accepted token streamed
+        assert g[3] == "stop" and g[2] <= MAX_TOKENS, (s, g)
+
+
+@pytest.mark.parametrize("layout", ["linear", "paged"])
+def test_abort_frees_the_slot_and_blocks(layout):
+    """abort(): the final chunk says ABORT (as the JAX engine's), the
+    request leaves the running set, its slot frees, and on the paged
+    layout its blocks return to the pool once the window in flight is
+    read."""
+    from ferrum_tpu_torch.models.configs import preset
+    from ferrum_tpu_torch.models.quantize import init_random_quant_params
+    from ferrum_tpu_torch.types import (FinishReason, InferenceRequest,
+                                        SamplingParams)
+
+    cfg = preset("tiny-quant")
+    kw = dict(PIPELINED)
+    if layout == "paged":
+        kw.update(kv_layout="paged", kv_num_blocks=48)
+    engine = _runner_engine(init_random_quant_params(cfg, 0, device="cpu"),
+                            cfg, **kw)
+    free0 = engine.pool.num_free
+    slots0 = sorted(engine.scheduler._free_slots)
+    try:
+        q = engine.submit(InferenceRequest(
+            prompt_token_ids=PROMPTS[1], sampling=SamplingParams(
+                max_tokens=200, ignore_eos=True)))
+        other = engine.submit(InferenceRequest(
+            prompt_token_ids=PROMPTS[0], sampling=SamplingParams(
+                max_tokens=200, ignore_eos=True)))
+        rid = next(iter(engine._requests))
+        for _ in range(4):
+            engine.run_iteration()
+        assert engine._inflight_q
+        engine.abort(rid)
+        engine.abort("no-such-request")
+        engine.run_iteration()
+        chunks = [q.get_nowait() for _ in range(q.qsize())]
+        assert chunks[-1].finished
+        assert chunks[-1].finish_reason == FinishReason.ABORT
+        assert chunks[-1].prompt_tokens == len(PROMPTS[1])
+        assert rid not in engine._requests
+        engine.abort(rid)                 # finished: a no-op
+        for _ in range(4):
+            engine.run_iteration()
+        assert engine.metrics_snapshot().running_requests == 1
+        assert len(engine.scheduler._free_slots) == len(slots0) - 1
+        for _ in range(3):
+            assert not other.get_nowait().finished
+        engine.abort(next(iter(engine._requests)))
+        for _ in range(3):
+            engine.run_iteration()
+        assert engine.metrics_snapshot().running_requests == 0
+        assert sorted(engine.scheduler._free_slots) == slots0
+        assert engine.pool.num_free == free0
+        assert not engine._inflight_q and not engine._requests
+    finally:
+        engine.stop()
+
+
+def test_abort_matches_jax_engine_final_chunk(monkeypatch):
+    """Both engines end an aborted request with one ABORT chunk carrying
+    the prompt's length, and serve the next request."""
+    from ferrum_tpu.types import InferenceRequest as JReq
+    from ferrum_tpu.types import SamplingParams as JSp
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+
+    route_w4a8tl(monkeypatch)
+    jcfg, jparams = jax_model("tiny-quant", quantized=True, seed=3)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    finals = []
+    for engine, req, sp in (
+            (_torch_engine(torch_config(jcfg), params, **PIPELINED),
+             InferenceRequest, SamplingParams),
+            (_jax_engine(jcfg, jparams, "pipelined-c1"), JReq, JSp)):
+        try:
+            r = req(prompt_token_ids=PROMPTS[1],
+                    sampling=sp(max_tokens=200, ignore_eos=True))
+            q = engine.submit(r)
+            first = q.get(timeout=SERVE_TIMEOUT_S)
+            engine.abort(r.request_id)
+            last = first
+            while not last.finished:
+                last = q.get(timeout=SERVE_TIMEOUT_S)
+            finals.append((last.finish_reason.value, last.prompt_tokens))
+            nxt = engine.infer(req(prompt_token_ids=PROMPTS[0],
+                                   sampling=sp(max_tokens=3,
+                                               ignore_eos=True)))
+            assert nxt.completion_tokens == 3
+            assert engine.metrics_snapshot().running_requests == 0
+        finally:
+            engine.stop()
+    assert finals[0] == finals[1] == ("abort", len(PROMPTS[1]))
+
+
+def test_seeded_request_same_alone_batched_and_in_another_slot():
+    """A seeded sampled request gives the same tokens alone (slot 0), in
+    a batch of 4 beside unseeded requests (slot 3), second of two in
+    the unpipelined loop (slot 1), and on the paged layout alone and
+    third of three (slot 2); another seed gives other tokens."""
+    from ferrum_tpu_torch.models.configs import preset
+    from ferrum_tpu_torch.models.quantize import init_random_quant_params
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+
+    cfg = preset("tiny-quant")
+    params = init_random_quant_params(cfg, 0, device="cpu")
+
+    def sampled(prompt, seed):
+        return InferenceRequest(
+            prompt_token_ids=list(prompt), sampling=SamplingParams(
+                max_tokens=10, temperature=1.0, top_k=50, seed=seed,
+                ignore_eos=True))
+
+    def run(kw, others, seed=1234):
+        engine = _torch_engine(cfg, params, **kw)
+        reqs = [sampled(p, None) for p in others] + [sampled(PROMPT_4, seed)]
+        slots = {}
+        admit = engine.runner.admit_slot
+
+        def record(seq):
+            slots[seq.request.request_id] = seq.slot
+            admit(seq)
+
+        engine.runner.admit_slot = record
+        try:
+            queues = _submit_all(engine, reqs)
+            toks = []
+            for q in queues:
+                ids = []
+                while True:
+                    c = q.get(timeout=SERVE_TIMEOUT_S)
+                    ids += c.token_ids
+                    if c.finished:
+                        break
+                toks.append(ids)
+        finally:
+            engine.stop()
+        return toks[-1], slots[reqs[-1].request_id]
+
+    alone, s0 = run(PIPELINED, [])
+    batch, s3 = run(PIPELINED, PROMPTS)
+    second, s1 = run(UNPIPELINED, PROMPTS[:1])
+    paged_kw = {**PIPELINED, "kv_layout": "paged", "kv_num_blocks": 64}
+    paged_alone, _ = run(paged_kw, [])
+    paged, s2 = run(paged_kw, PROMPTS[1:])
+    other, _ = run(PIPELINED, [], seed=99)
+    assert (s0, s3, s1, s2) == (0, 3, 1, 2)
+    assert len(alone) == 10 and alone == batch == second
+    # The paged layout's attention sums in another order: its logits may
+    # differ from the linear layout's in the last bits, so it is held to
+    # itself alone.
+    assert paged == paged_alone
+    assert other != alone
+
+
+def test_unseeded_noise_is_the_generator_draw():
+    """With no seeded row, lane_noise is the shared generator's draw,
+    the one sample_step takes itself; seeded rows depend on (seed,
+    position) only."""
+    from ferrum_tpu_torch.sampling.device import (TOPK_CAP, gumbel_noise,
+                                                  lane_noise, seeded_gumbel)
+
+    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    slots = torch.tensor([2, 0, 1])
+    seeds = torch.tensor([7, 8, 9, 0])
+    seeded = torch.zeros(4, dtype=torch.bool)
+    pos = torch.tensor([10, 11, 12])
+    got = lane_noise(slots, pos, seeds, seeded, 1024, g1)
+    assert torch.equal(got, gumbel_noise((3, TOPK_CAP), g2, "cpu"))
+    seeded[1] = True
+    mixed = lane_noise(slots, pos, seeds, seeded, 1024, g1)
+    own = seeded_gumbel(torch.tensor([8]), torch.tensor([12]), TOPK_CAP)
+    assert torch.equal(mixed[2], own[0])          # row 2 holds slot 1
+    assert torch.isfinite(own).all()
+    assert not torch.equal(own, seeded_gumbel(torch.tensor([8]),
+                                              torch.tensor([13]), TOPK_CAP))
+    big = seeded_gumbel(torch.tensor([-(1 << 63), (1 << 63) - 1]),
+                        torch.tensor([0, 4095]), TOPK_CAP)
+    assert torch.isfinite(big).all()
+
+
+@pytest.mark.parametrize("loop", ["unpipelined-c3", "pipelined-c1"])
+def test_prompt_scoring_matches_jax_score_mode(monkeypatch, loop):
+    """echo + logprobs with max_tokens=0: per-position logprobs within
+    5e-3 of the JAX engine's score mode and the same argmax ids, for a
+    one-chunk prompt and a 40-token prompt scored over two 32-token
+    chunks; no token is generated."""
+    from ferrum_tpu.types import InferenceRequest as JReq
+    from ferrum_tpu.types import SamplingParams as JSp
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+
+    route_w4a8tl(monkeypatch)
+    jcfg, jparams = jax_model("tiny-quant", quantized=True, seed=3)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    prompts = [PROMPTS[0], PROMPTS[1], PROMPT_4]
+    got = _run_each(
+        _torch_engine(torch_config(jcfg), params, **LOOPS[loop][0]),
+        [InferenceRequest(prompt_token_ids=list(p), echo=True,
+                          sampling=SamplingParams(max_tokens=0, logprobs=1))
+         for p in prompts])
+    want = _run_each(_jax_engine(jcfg, jparams, loop), [
+        JReq(prompt_token_ids=list(p), echo=True,
+             sampling=JSp(max_tokens=0, logprobs=1)) for p in prompts])
+    for p, g, w in zip(prompts, got, want):
+        assert g[2] == w[2] == 0 and g[3] == w[3] == "length"
+        glp, wlp = g[5], w[5]
+        assert len(glp) == len(wlp) == len(p)
+        assert glp[0]["logprob"] is None and wlp[0]["logprob"] is None
+        for a, b in zip(glp, wlp):
+            assert a["token_id"] == b["token_id"]
+            assert a["argmax_id"] == b["argmax_id"]
+            if b["logprob"] is None:
+                assert a["logprob"] is None
+                continue
+            assert a["logprob"] == pytest.approx(b["logprob"], abs=5e-3)
+            assert a["argmax_logprob"] == pytest.approx(
+                b["argmax_logprob"], abs=5e-3)
+
+
+def test_submit_validation_matches_jax(monkeypatch):
+    """The same error type and param as the JAX engine's submit, and the
+    same max_tokens clamp."""
+    from ferrum_tpu.types import InferenceRequest as JReq
+    from ferrum_tpu.types import InvalidRequestError as JErr
+    from ferrum_tpu.types import SamplingParams as JSp
+    from ferrum_tpu_torch.models.convert import params_from_numpy
+    from ferrum_tpu_torch.types import (InferenceRequest,
+                                        InvalidRequestError, SamplingParams)
+
+    route_w4a8tl(monkeypatch)
+    jcfg, jparams = jax_model("tiny-quant", quantized=True, seed=3)
+    params = params_from_numpy(flatten_jax_params(jparams), "cpu")
+    cases = [
+        dict(prompt_token_ids=[]),
+        dict(prompt_token_ids=list(range(3, 259))),
+        dict(prompt_token_ids=[5, 6], sp=dict(max_tokens=0)),
+        dict(prompt_token_ids=[5, 6], echo=True,
+             sp=dict(max_tokens=3, logprobs=1)),
+        dict(prompt_token_ids=[5, 6], sp=dict(max_tokens=-1)),
+        dict(prompt_token_ids=[5, 6], sp=dict(temperature=-0.5)),
+        dict(prompt_token_ids=[5, 6], sp=dict(top_p=0.0)),
+        dict(prompt_token_ids=list(range(3, 253)), sp=dict(max_tokens=100)),
+        dict(prompt_token_ids=list(range(3, 256)), sp=dict(max_tokens=9)),
+    ]
+    results = []
+    for engine, req_cls, sp_cls, err in (
+            (_runner_engine(params, torch_config(jcfg)), InferenceRequest,
+             SamplingParams, InvalidRequestError),
+            (_jax_engine(jcfg, jparams, "unpipelined-c3"), JReq, JSp, JErr)):
+        engine.ensure_loop = lambda: None
+        row = []
+        try:
+            for c in cases:
+                c = dict(c)
+                r = req_cls(sampling=sp_cls(**c.pop("sp", {})), **c)
+                try:
+                    engine.submit(r)
+                    row.append(("ok", r.sampling.max_tokens))
+                except err as e:
+                    row.append(("error", e.param))
+        finally:
+            engine.stop()
+        results.append(row)
+    assert results[0] == results[1]
+    assert ("ok", 6) in results[0] and ("error", "echo") in results[0]
