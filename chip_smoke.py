@@ -79,9 +79,15 @@ Phases, in order, each printing JSON lines:
              every kernel of the lane's path launched in the 32 and no
              other; the logits check on the loaded weights (lane A's
              tolerance); the tokenizer round-trips the prompts and
-             generation_config.json's eos ids reach the model config
-Then, for each of five lanes at full width and depth (lane B at 6 of
-its 48 layers, D at 6, for the run's time: see LANES) -- A
+             generation_config.json's eos ids reach the model config.
+             H1 also serves guided requests through engine.infer on its
+             tokenizer.json, under the no-sync check: a strict json
+             schema and a regex over the corpus words (multi-character
+             tokens), each in its language and the device-FSM path's
+             tokens equal to the host-masked path's ("H1 ... guided")
+Then, for each of five lanes at full width and depth (lane B at 4 of
+its 48 layers, C at 8 of 32, D at 4 of 48, for the run's time: see
+LANES) -- A
 llama-3.1-8b
 and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
 serve_moe, logits_moe), C llama-3.1-8b float-scale w4a8
@@ -128,7 +134,7 @@ time):
              busy share
   bench      (A) bench/bench_engine.py's run_bench on the same engine:
              cells c = 1 / 4 / 32 with 2 / 8 / 32 requests of 256/128,
-             three repeats each (a warm-up before each cell's first);
+             two repeats each (a warm-up before each cell's first);
              every cell and repeat completes its requests without error,
              meets no program key for the first time (the runner's
              compile audit), runs decode steps, and its decode dispatch,
@@ -162,6 +168,24 @@ time):
              Kernels 1-3 must launch and none off lane A's path; the
              counts go into the summary as "A server". HTTP times beside
              engine.infer's, with the card's name and power limit
+  guided     (A) guided decoding on the same engine, every dispatch
+             under the no-sync check: over HTTP guided_regex,
+             guided_choice, guided_json, a strict json_schema,
+             json_object and tool_choice="required", each streaming and
+             not (the text in its DFA's language or a live prefix at
+             length; a strict schema validated or the server's 400; the
+             SSE outcome equal to the non-streaming one; completions
+             texts equal to engine.infer's); 8 requests, 4 guided, in
+             bucket-8 windows, each text equal to the request's alone;
+             the device-FSM path's tokens equal to the host-masked
+             path's over three patterns, a refused FSM served on the
+             host path; a seeded sampled guided request twice (the same
+             text); guided_mask_rows / guided_advance on the card equal
+             to the CPU on the registered tables; kernels 1-3 launch and
+             none off A's path ("A guided"). Printed beside them: the
+             FSM build seconds at vocab 128256, the table bytes, TPOT
+             p50 guided vs plain at c = 1 and the kernels a guided step
+             and window add (torch.profiler) with their device time
   cli        `python -m ferrum_tpu_torch bench random:llama-3.1-8b` (dense
              bf16, the JAX CLI's random: weights, 4 x 256/32) in its own
              process, started when lane A's phases end and drawing its
@@ -193,6 +217,7 @@ carries `t_s`, the seconds since the script started.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import statistics
@@ -253,7 +278,13 @@ SERVE_GROUPED_W4A16_A = 16384
 # kernels 5 and 6 at full depth) and E all 32 (its solo request must
 # give A's tokens). Lane H's checkpoints joined the run next (1047.1 s
 # before them, on a slow host): lane D runs 6 of its 48 layers, its
-# logits measured at 1, 2 and 4 layers and its depth.
+# logits measured at 1, 2 and 4 layers and its depth. The guided phase
+# came next (974.7 s on an H100; 1184.8 s on an H100 with a host ~22%
+# slower in every phase; 1160.5 s on such a host with C at 16 and B, D
+# at 4 layers): now lane C runs 8 of its 32 layers (its logits measured
+# at 1, 2 and 4 layers and its depth), B and D 4 of their 48 (at 2
+# layers D's logits check fails: 97.5% of the rows within tolerance
+# against 99%), and the bench phase two repeats a cell.
 LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
@@ -262,18 +293,18 @@ LANES = (
          window_check=True, bench=True, fg=True),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
-         layers=6, mode={}, float_scale=False, path=MOE_PATH,
+         layers=4, mode={}, float_scale=False, path=MOE_PATH,
          lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="_moe", profile=False, small=True),
     dict(name="C llama-3.1-8b float-scale w4a8", model="llama-3.1-8b",
-         mode={"w4a8": True, "w4a8_two_level": False},
+         layers=8, mode={"w4a8": True, "w4a8_two_level": False},
          float_scale=True,
          path=("w4a8_decode", "w4a16_gemm") + KV_PATH,
          lanes=(1, 1, 1, 1),
          tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None), tag="_fs",
          profile=True),
     # 32 lanes: 256 grouped rows a step; 1 lane: 8.
-    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b", layers=6,
+    dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b", layers=4,
          mode={"w4a8": False}, float_scale=True,
          path=("w4a16_gemm", "moe_grouped_w4a16") + KV_PATH,
          lanes=(32, 32, 1, 1),
@@ -2815,7 +2846,8 @@ def h_tokenizer_check(engine, mc, model, prompts):
 H_LANES = (
     dict(name="H1 llama-3.1-8b GPTQ checkpoint (act-order layers 1, 3)",
          model="llama-3.1-8b", path=LLAMA_PATH, lanes=(1, 1, 1, 1),
-         tol=1e-3, min_rows=1.0, depths=(None,), tag="_ckpt_llama"),
+         tol=1e-3, min_rows=1.0, depths=(None,), tag="_ckpt_llama",
+         guided=True),
     dict(name="H2 qwen3-30b-a3b GPTQ checkpoint", model="qwen3-30b-a3b",
          path=MOE_PATH, lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0,
          depths=(None,), tag="_ckpt_moe"),
@@ -2877,6 +2909,9 @@ def checkpoint_phase(torch):
             line.update(h_tokenizer_check(engine, mc, model, prompts))
             launches, serve = h_serve(torch, engine, mc, lane, prompts)
             line["serve"] = serve
+            if lane.get("guided"):
+                by_run[f"{lane['name']} guided"], line["guided"] = \
+                    h_guided(torch, engine, mc, lane, prompts)
             line["kv_layout"] = engine.cfg.kv_layout
             line["max_memory_allocated_gib"] = \
                 torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3185,7 +3220,7 @@ def profile_phase(torch, mc, engine, tag, output_len=32):
 # bench's cells on lane A's engine: concurrency -> requests, each at
 # BENCH_REPEATS repeats, 256/128 (bench.py's cell shape).
 BENCH_CELLS = {1: 2, 4: 8, 32: 32}
-BENCH_REPEATS = 3
+BENCH_REPEATS = 2
 # The phase times are rounded to the millisecond in the report.
 ROUND_S = 1.5e-3
 
@@ -3802,6 +3837,486 @@ def server_phase(torch, mc, engine):
 
 
 # ---------------------------------------------------------------------------
+# guided decoding (lane A over HTTP and engine.infer; lane H1's checkpoint)
+# ---------------------------------------------------------------------------
+
+GUIDED_TOKENS = 48
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "n": {"type": "integer"}},
+    "required": ["ok", "n"]}
+# tests/test_guided_device.py's engine patterns, and one FSM that
+# build_token_fsm refuses (a state tells U+0100 from U+0101 apart): the
+# host-masked path, not forced.
+GUIDED_PATTERNS = (r"(yes|no)", r"-?\d\d", r"(foo|bar)+x")
+GUIDED_REFUSED = "[a-z]+(ā)?"
+GUIDED_TOOLS = [{"type": "function", "function": {
+    "name": "weather", "description": "the weather in a city",
+    "parameters": {"type": "object", "properties": {
+        "city": {"type": "string"}}, "required": ["city"]}}}]
+
+
+def _in_language(pattern, text, finish):
+    """The text is the pattern's (finish "stop"), or a prefix the DFA
+    can still walk (finish "length")."""
+    from ferrum_tpu_torch.sampling.regex_dfa import compile_regex
+    dfa = compile_regex(pattern)
+    if finish == "stop":
+        return dfa.fullmatch(text)
+    return finish == "length" and dfa.walk(dfa.start, text) is not None
+
+
+def _guided_req(prompt, guided, max_tokens=GUIDED_TOKENS, **sp):
+    from ferrum_tpu_torch.types import (GuidedOptions, InferenceRequest,
+                                        SamplingParams)
+    return InferenceRequest(
+        prompt=prompt, guided=None if guided is None
+        else GuidedOptions(**guided),
+        sampling=SamplingParams(max_tokens=max_tokens,
+                                **{"temperature": 0.0, **sp}))
+
+
+def _host_path(engine, fn):
+    """fn() with the device-FSM setup off: every guided request takes
+    the host-masked path."""
+    engine._setup_device_guided = lambda seq, opts: None
+    try:
+        return fn()
+    finally:
+        del engine._setup_device_guided
+
+
+def _check_launches(name, launches, lane):
+    idle = [k for k in ("w4a8tl_decode", "w4a8tl_prefill", "kv_append_rows")
+            if launches[k] == 0]
+    stray = [k for k in off_path(lane) if launches[k] != 0]
+    if idle or stray:
+        raise AssertionError(f"{name}: never launched {idle}, launched "
+                             f"{stray}")
+
+
+def guided_launches(torch, runner, vocab, reps=20):
+    """The kernels guided decoding adds, counted by torch.profiler (CUDA
+    activity) on the card over `reps` repetitions at a bucket-1 lane:
+    a step's (guided_mask_rows, the mask's `where` in sample_step,
+    guided_advance over every codepoint column) and a window's (the
+    init row's drain, the lanes' gather and scatter of their states),
+    with each form's device time from CUDA events. None when the
+    profiler sees no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ferrum_tpu_torch.sampling import device as sd
+
+    gtrans, gmask, gcps, _ = runner._guided_tables()
+    dev = runner.device
+    st = torch.ones(1, dtype=torch.int32, device=dev)
+    slots = torch.zeros(1, dtype=torch.int64, device=dev)
+    logits = torch.zeros(1, vocab, device=dev)
+    tok = torch.zeros(1, dtype=torch.int64, device=dev)
+    gi = torch.full((runner.num_slots + 1,), -1, dtype=torch.int64,
+                    device=dev)
+
+    def step():
+        torch.where(sd.guided_mask_rows(gmask, st, vocab), logits,
+                    float("-inf"))
+        sd.guided_advance(gtrans, gcps, st, tok)
+
+    def window():
+        runner._drain_ginit(gi)
+        runner.gstates.index_copy_(0, slots, runner.gstates[slots])
+
+    out = {}
+    for name, fn in (("step", step), ("window", window)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type.name == "CUDA")
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        t1.synchronize()
+        out[name] = {"kernels": n / reps if n else None,
+                     "ms": t0.elapsed_time(t1) / reps}
+    return out
+
+
+def guided_phase(torch, mc, engine):
+    """Guided decoding on lane A's engine (the server phase's process,
+    built and warm), every dispatch under the no-sync check
+    (runner.sync_debug = "error", after sync_canary shows it raises),
+    the launch counts set to 0 just before and read just after:
+      1. over HTTP, greedy, max_tokens 48, each streaming and not:
+         guided_regex (yes|no), guided_choice of two words, guided_json
+         and a strict response_format.json_schema (GUIDED_SCHEMA),
+         response_format json_object, tool_choice="required" with
+         GUIDED_TOOLS. Each text is its DFA's (finish stop) or a prefix
+         it can walk (length); a strict-schema answer validates or is
+         the server's 400 naming response_format.json_schema; the
+         required tool call is a tool call or the 400 naming
+         tool_choice; the SSE outcome equals the non-streaming one; the
+         completions texts equal engine.infer's;
+      2. eight requests (four guided by two patterns, four unguided)
+         submitted while the loop is held, so that they share bucket-8
+         windows: each text equals the same request's alone (the FREE
+         row leaves unguided lanes as they were);
+      3. the device-FSM path against the host-masked path on the same
+         engine over GUIDED_PATTERNS: the same tokens; GUIDED_REFUSED
+         takes the host path unforced (its FSM refused) and stays in its
+         language;
+      4. a seeded sampled guided request twice over HTTP: the same text,
+         in the language;
+      5. guided_mask_rows and guided_advance on the card against the
+         same functions on the CPU, bit for bit, on the registered
+         tables;
+      6. kernels 1-3 launch, none off lane A's path.
+    Part 1's requests (with the completions cases' engine.infer twins)
+    and part 4's pair go at once; part 3's sets each at once. Measured
+    beside them: the FSM build at the model's vocabulary (vocab_table,
+    then build_token_fsm of the schema, JSON mode and (yes|no)), the
+    registered table bytes, TPOT p50 at c = 1 (part 2's alone runs: 2
+    guided by [a-z ]+, 4 plain, 33 tokens each), and the kernels and
+    device time guided decoding adds a step and a window
+    (guided_launches).
+    Returns the launch counts ("A guided")."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ferrum_tpu_torch.ops import kernels as K
+    from ferrum_tpu_torch.sampling import device as sd
+    from ferrum_tpu_torch.sampling.guided import JsonModeProcessor
+    from ferrum_tpu_torch.sampling.regex_dfa import compile_regex
+    from ferrum_tpu_torch.sampling.schema import (
+        schema_to_regex, validate_json_against_subset)
+    from ferrum_tpu_torch.sampling.token_fsm import build_token_fsm, vocab_table
+    from ferrum_tpu_torch.server.app import FerrumServer
+
+    lane = LANES[0]
+    runner = engine.runner
+    tok = engine.tokenizer
+    schema_re = schema_to_regex(GUIDED_SCHEMA)
+    t0 = time.perf_counter()
+    vt = vocab_table(tok, mc.vocab_size)
+    fsm_info = {"vocab": mc.vocab_size, "vocab_table_s":
+                time.perf_counter() - t0,
+                "token_codepoints_max": int(vt.token_cps.shape[1]),
+                "fsms": {}}
+    for name, pat in (("json_schema", schema_re),
+                      ("json_object", JsonModeProcessor.JSON_REGEX),
+                      ("yes_no", "(yes|no)")):
+        t0 = time.perf_counter()
+        fsm = build_token_fsm(compile_regex(pat), vt, mc.vocab_size)
+        fsm_info["fsms"][name] = {"build_s": time.perf_counter() - t0,
+                                  "rows": fsm.num_states}
+    sync_canary(torch, runner)
+    prompt = "Answer the question about the weather in Paris today."
+    app = FerrumServer(engine, model_name=lane["model"])
+    K.reset_launch_counts()
+    t_phase = time.perf_counter()
+    runner.sync_debug = "error"
+    srv = app.start()
+    port = srv.port
+    info = {}
+    try:
+        # 1. the HTTP requests, each streaming and not, the completions
+        # cases' engine.infer twins and a seeded sampled pair, all at
+        # once (lane A's windows are batch-invariant: part 2 checks it).
+        def msgs():
+            return [{"role": "user", "content": prompt}]
+        cmpl = {"prompt": prompt}
+        cases = [
+            ("guided_regex", "/v1/completions",
+             {**cmpl, "guided_regex": "(yes|no)"}, "(yes|no)",
+             {"regex": "(yes|no)"}),
+            ("guided_choice", "/v1/completions",
+             {**cmpl, "guided_choice": ["sunny", "rainy"]}, "sunny|rainy",
+             {"regex": "sunny|rainy"}),
+            ("guided_json", "/v1/completions",
+             {**cmpl, "guided_json": GUIDED_SCHEMA}, schema_re,
+             {"json_schema": GUIDED_SCHEMA}),
+            ("json_schema", "/v1/chat/completions",
+             {"messages": msgs(), "response_format": {
+                 "type": "json_schema", "json_schema": {
+                     "name": "answer", "strict": True,
+                     "schema": GUIDED_SCHEMA}}}, schema_re, None),
+            ("json_object", "/v1/chat/completions",
+             {"messages": msgs(), "response_format": {
+                 "type": "json_object"}}, JsonModeProcessor.JSON_REGEX,
+             None),
+            ("tool_required", "/v1/chat/completions",
+             {"messages": msgs(), "tools": GUIDED_TOOLS,
+              "tool_choice": "required"}, None, None),
+        ]
+        seeded = {"model": lane["model"], "prompt": prompt,
+                  "guided_regex": "(ab|cd)+ [a-z]{2,8}",
+                  "max_tokens": 24, "temperature": 1.0, "top_k": 40,
+                  "seed": 4321}
+        jobs = [("http", (path, {"model": lane["model"],
+                                 "max_tokens": GUIDED_TOKENS,
+                                 "temperature": 0, "stream": stream,
+                                 **extra}))
+                for _, path, extra, _, _ in cases for stream in (False, True)]
+        jobs += [("infer", _guided_req(prompt, opts))
+                 for _, _, _, _, opts in cases if opts is not None]
+        jobs += [("http", ("/v1/completions", seeded))] * 2
+
+        def run(job):
+            kind, arg = job
+            if kind == "infer":
+                return engine.infer(arg)
+            return _http(port, "POST", *arg)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as ex:
+            results = list(ex.map(run, jobs))
+        http_s = time.perf_counter() - t0
+        infers = iter(r for (kind, _), r in zip(jobs, results)
+                      if kind == "infer")
+
+        def outcome(stream, res):
+            status, out = res[0], res[1]
+            if stream:
+                errs = [e for e in out[:-1] if "error" in e]
+                if errs:
+                    return ("error", errs[0]["error"]["param"])
+                fin = [e["choices"][0]["finish_reason"] for e in out[:-1]
+                       if e.get("choices")
+                       and e["choices"][0].get("finish_reason")]
+                calls = [d for e in out[:-1] for d in
+                         ((e.get("choices") or [{}])[0].get("delta")
+                          or {}).get("tool_calls") or []]
+                return ("ok", "" if calls else _sse_text(out), fin[-1],
+                        len(calls))
+            if status != 200:
+                return ("error", out["error"]["param"])
+            ch = out["choices"][0]
+            text = ch.get("text")
+            calls = (ch.get("message") or {}).get("tool_calls") or []
+            if text is None:
+                text = "" if calls else ch["message"]["content"] or ""
+            return ("ok", text, ch["finish_reason"], len(calls))
+
+        http = {}
+        for i, (name, _, _, pattern, opts) in enumerate(cases):
+            got, streamed = outcome(False, results[2 * i]), \
+                outcome(True, results[2 * i + 1])
+            if got != streamed:
+                raise AssertionError(f"guided {name}: streaming {streamed}"
+                                     f" != non-streaming {got}")
+            if got[0] == "error":
+                want = "tool_choice" if name == "tool_required" \
+                    else "response_format.json_schema"
+                if got[1] != want or name not in ("json_schema",
+                                                  "tool_required"):
+                    raise AssertionError(f"guided {name}: 400 {got}")
+            elif name == "tool_required":
+                if got[2] != "tool_calls" or not got[3]:
+                    raise AssertionError(f"guided {name}: {got}")
+            else:
+                if not _in_language(pattern, got[1], got[2]):
+                    raise AssertionError(f"guided {name}: {got[1]!r} "
+                                         f"({got[2]}) is not in the "
+                                         f"language")
+                if (name == "json_schema" or (name == "guided_json"
+                                              and got[2] == "stop")) \
+                        and not validate_json_against_subset(
+                            got[1], GUIDED_SCHEMA):
+                    raise AssertionError(f"guided {name}: {got[1]!r} "
+                                         f"fails the schema")
+            if opts is not None:
+                r = next(infers)
+                if got[0] != "ok" or r.text != got[1] \
+                        or r.finish_reason.value != got[2]:
+                    raise AssertionError(f"guided {name}: HTTP {got} != "
+                                         f"engine.infer {r.text!r}")
+            http[name] = {"outcome": got[0], "finish": got[2] if got[0] ==
+                          "ok" else None, "chars": len(got[1]) if got[0] ==
+                          "ok" else 0, "param": got[1] if got[0] == "error"
+                          else None}
+        info["http"] = http
+        info["http_wall_s"] = http_s
+
+        # 4. the seeded sampled guided pair (in the same burst).
+        runs = [res[1]["choices"][0] for res in results[-2:]]
+        if runs[0] != runs[1] or not _in_language(
+                seeded["guided_regex"], runs[0]["text"],
+                runs[0]["finish_reason"]):
+            raise AssertionError(f"guided: seeded {runs}")
+        info["seeded"] = {"text": runs[0]["text"]}
+
+        # 2. eight requests sharing bucket-8 windows vs each alone; the
+        # alone runs of [a-z ]+ (guided) and of the unguided prompts are
+        # the c = 1 TPOT samples (33 tokens: one bucket-1 window).
+        pats = ("[a-z ]+", "(yes|no)")
+        specs = [(f"{prompt} Case {i}.", {"regex": pats[i % 2]} if i < 4
+                  else None) for i in range(8)]
+
+        def req8(p, g):
+            return _guided_req(p, g, max_tokens=33, ignore_eos=True)
+        alone = [engine.infer(req8(p, g)) for p, g in specs]
+        tpot = {}
+        for name, rs in (("guided", alone[0:4:2]), ("plain", alone[4:])):
+            tpot[name] = statistics.median(
+                (r.e2e_latency - r.ttft) / (r.completion_tokens - 1) * 1e3
+                for r in rs)
+        info["tpot_p50_ms"] = tpot
+        info["tpot_tokens"] = [r.completion_tokens for r in alone]
+        b0 = dict(runner.windows_by_bucket)
+        gate = threading.Event()
+        run_iteration = engine.run_iteration
+
+        def held():
+            gate.wait()
+            return run_iteration()
+        engine.run_iteration = held
+        try:
+            time.sleep(0.2)                # the loop reaches the gate
+            queues = [engine.submit(req8(p, g)) for p, g in specs]
+        finally:
+            del engine.run_iteration
+            gate.set()
+        together = []
+        for q in queues:
+            text, chunk = "", None
+            while chunk is None or not chunk.finished:
+                chunk = q.get(timeout=300)
+                text += chunk.text
+            together.append((text, chunk.finish_reason.value))
+        buckets = {b: n - b0.get(b, 0) for b, n in
+                   runner.windows_by_bucket.items() if n - b0.get(b, 0)}
+        if [(r.text, r.finish_reason.value) for r in alone] != together:
+            raise AssertionError(f"guided: batched texts differ from alone "
+                                 f"{together} vs {[r.text for r in alone]}")
+        if not buckets.get(8) or buckets.get(32):
+            raise AssertionError(f"guided: the 8 rode windows {buckets}")
+        for (p, g), (text, fin) in zip(specs, together):
+            if g is not None and not _in_language(g["regex"], text, fin):
+                raise AssertionError(f"guided: {text!r} not in {g}")
+        info["batch8"] = {"windows_by_bucket": buckets,
+                          "texts_equal_alone": 8}
+
+        # 3. device-FSM path vs host-masked path (each set at once); a
+        # refused FSM on the host path, unforced.
+        def burst(reqs):
+            with ThreadPoolExecutor(len(reqs)) as ex:
+                return list(ex.map(engine.infer, reqs))
+        device = burst([_guided_req(prompt, {"regex": p})
+                        for p in GUIDED_PATTERNS])
+        t0 = time.perf_counter()
+        host = _host_path(engine, lambda: burst([
+            _guided_req(prompt, {"regex": p}) for p in GUIDED_PATTERNS]))
+        host_s = time.perf_counter() - t0
+        if [r.token_ids for r in device] != [r.token_ids for r in host]:
+            raise AssertionError(f"guided: device {[r.text for r in device]}"
+                                 f" != host {[r.text for r in host]}")
+        for p, r in zip(GUIDED_PATTERNS, device):
+            if not _in_language(p, r.text, r.finish_reason.value):
+                raise AssertionError(f"guided: {r.text!r} not in {p}")
+        refused = engine.infer(_guided_req(prompt, {"regex": GUIDED_REFUSED},
+                                           max_tokens=12))
+        if engine._fsm_cache[(GUIDED_REFUSED, False, False)][0] is not None \
+                or not _in_language(GUIDED_REFUSED, refused.text,
+                                    refused.finish_reason.value):
+            raise AssertionError(f"guided: refused FSM {refused.text!r}")
+        info["device_vs_host"] = {
+            "patterns": list(GUIDED_PATTERNS),
+            "texts": [r.text for r in device], "tokens_equal": True,
+            "host_tokens": sum(r.completion_tokens for r in host),
+            "host_s": host_s, "refused_fsm_text": refused.text}
+    finally:
+        srv.stop()
+        runner.sync_debug = None
+    torch.cuda.synchronize()
+    launches = counts(K)
+    _check_launches("guided", launches, lane)
+
+    # 5. the device functions on the card vs the CPU, registered tables.
+    gtrans, gmask, gcps, rows = runner._guided_tables()
+    gen = np.random.default_rng(3)
+    st = torch.from_numpy(gen.integers(0, rows, 64).astype(np.int32))
+    tk = torch.from_numpy(gen.integers(0, mc.vocab_size, 64))
+    dev = runner.device
+    for what, got, want in (
+            ("guided_mask_rows",
+             sd.guided_mask_rows(gmask, st.to(dev), mc.vocab_size).cpu(),
+             sd.guided_mask_rows(gmask.cpu(), st, mc.vocab_size)),
+            ("guided_advance",
+             sd.guided_advance(gtrans, gcps, st.to(dev), tk.to(dev)).cpu(),
+             sd.guided_advance(gtrans.cpu(), gcps.cpu(), st, tk))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"guided: {what} on the card != CPU")
+    added = guided_launches(torch, runner, mc.vocab_size)
+    emit({"phase": "guided", "lane": lane["name"],
+          "wall_s": time.perf_counter() - t_phase, "fsm_build": fsm_info,
+          "registered_fsms": len(runner._fsm_offsets),
+          "table_rows_bucket": rows,
+          "table_bytes": runner.guided_table_bytes(), **info,
+          "device_functions_equal_cpu": True, "no_sync_checked": True,
+          "guided_adds": added,
+          "launches": launches, "card": smi_line()})
+    return launches
+
+
+def h_guided(torch, engine, mc, lane, prompts):
+    """Lane H1 (the checkpoint's Llama-3-form tokenizer.json, the paged
+    layout), through engine.infer, greedy: a strict json schema, and a
+    regex over the corpus words whose matches cross multi-byte tokens;
+    each text in its language (the schema's validated at finish stop),
+    at least one token of several characters, and the device-FSM path's
+    tokens equal to the host-masked path's. Every dispatch under the
+    no-sync check; kernels 1-3 launch, none off the lane's path.
+    Returns (launches, the line's fields)."""
+    from ferrum_tpu_torch.ops import kernels as K
+    from ferrum_tpu_torch.sampling.schema import (
+        schema_to_regex, validate_json_against_subset)
+
+    regex = r"(the model|a checkpoint) [a-z ]{8,60}\."
+    cases = (("json_schema", {"json_schema": GUIDED_SCHEMA},
+              schema_to_regex(GUIDED_SCHEMA)),
+             ("regex", {"regex": regex}, regex))
+    # Two prompts' words: over 64 tokens, so the prefill takes kernel 2.
+    prompt = prompts[1] + " " + prompts[2]
+    runner = engine.runner
+    K.reset_launch_counts()
+    runner.sync_debug = "error"
+    out = {}
+    try:
+        for name, g, pat in cases:
+            t0 = time.perf_counter()
+            dev = engine.infer(_guided_req(prompt, g))
+            dev_s = time.perf_counter() - t0
+            host = _host_path(engine, lambda: engine.infer(
+                _guided_req(prompt, g)))
+            fin = dev.finish_reason.value
+            if dev.token_ids != host.token_ids \
+                    or not _in_language(pat, dev.text, fin):
+                raise AssertionError(f"{lane['name']} guided {name}: "
+                                     f"{dev.text!r} / {host.text!r}")
+            if name == "json_schema" and fin == "stop" and \
+                    not validate_json_against_subset(dev.text, GUIDED_SCHEMA):
+                raise AssertionError(f"{lane['name']}: {dev.text!r}")
+            widths = [len(engine.tokenizer.decode([t]))
+                      for t in dev.token_ids]
+            out[name] = {"text": dev.text, "finish": fin, "tokens":
+                         dev.completion_tokens, "chars_per_token_max":
+                         max(widths), "device_s": dev_s,
+                         "host_tokens_equal": True}
+        if max(v["chars_per_token_max"] for v in out.values()) < 2:
+            raise AssertionError(f"{lane['name']}: no multi-byte token")
+    finally:
+        runner.sync_debug = None
+    torch.cuda.synchronize()
+    launches = counts(K)
+    _check_launches(f"{lane['name']} guided", launches, lane)
+    return launches, {**out, "table_bytes": runner.guided_table_bytes()}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3878,9 +4393,14 @@ def main() -> int:
                 bench_phase(torch, engine)
                 profile_sink_phase(torch, engine)
                 by_path["A server"] = server_phase(torch, mc, engine)
+                by_path["A guided"] = guided_phase(torch, mc, engine)
             params = engine.runner.params
             engine.stop()
             del engine
+            # The servers' apps hold the engine in reference cycles (the
+            # router's bound methods): without a collection its cache
+            # and weights stayed on the card through lanes F-C.
+            gc.collect()
             torch.cuda.empty_cache()
             if lane.get("bench"):
                 # The cli process draws its 8B weights on the host while
@@ -3894,6 +4414,7 @@ def main() -> int:
                 by_path["G llama-3.1-8b paged + prefix cache"] = \
                     lane_g(torch, mc, params)
             del params, mc
+            gc.collect()
             torch.cuda.empty_cache()
         cli_finish(cli)
     finally:

@@ -8,7 +8,8 @@ schema string are the JAX package's. Each cell itemizes its time from
 the runner's counters (decode dispatch, decode sync, prefill) and
 counts the program keys first met inside it (`compilations_during_cell`,
 engine/runner.py's compile audit): nonzero means a warm-up hole.
-Guided decoding is not yet ported: `guided_schema` raises.
+`guided_schema` attaches a json_schema constraint to every request, as
+the JAX package's cells do.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..engine.engine import ContinuousBatchEngine
-from ..types import InferenceRequest, InvalidRequestError, SamplingParams
+from ..types import GuidedOptions, InferenceRequest, SamplingParams
 
 
 @dataclass
@@ -59,13 +60,6 @@ class ScalarStats:
         return cls(m, sd, 1.96 * sd / math.sqrt(len(xs)) if len(xs) > 1 else 0.0)
 
 
-def _no_guided(guided_schema: Optional[Dict]) -> None:
-    if guided_schema is not None:
-        raise InvalidRequestError(
-            "guided_schema: guided decoding is not yet ported (ROADMAP "
-            "Queue 1 item 9)", param="guided_schema")
-
-
 def _pct(xs: List[float], p: float) -> float:
     if not xs:
         return 0.0
@@ -93,8 +87,8 @@ def run_cell(engine: ContinuousBatchEngine, *, concurrency: int,
              seed: int = 0, warmup: int = 2,
              guided_schema: Optional[Dict] = None) -> Dict:
     """One closed-loop concurrency cell. Returns the cell report dict.
-    guided_schema: guided decoding is not yet ported (raises)."""
-    _no_guided(guided_schema)
+    guided_schema: attach a json_schema constraint to every request
+    (guided-throughput cells)."""
     rng = np.random.default_rng(seed)
     vocab = engine.runner.model_cfg.vocab_size
     eos = set(engine.tokenizer.eos_token_ids)
@@ -102,8 +96,11 @@ def run_cell(engine: ContinuousBatchEngine, *, concurrency: int,
 
     def mkreq():
         ids = rng.choice(cand, size=input_len).tolist()
+        guided = None
+        if guided_schema is not None:
+            guided = GuidedOptions(json_schema=guided_schema, strict=False)
         return InferenceRequest(
-            prompt_token_ids=ids,
+            prompt_token_ids=ids, guided=guided,
             sampling=SamplingParams(temperature=0.0, max_tokens=output_len,
                                     ignore_eos=True))
 
@@ -325,7 +322,6 @@ def run_bench(engine: ContinuousBatchEngine, *, concurrencies=(1, 4, 16, 32),
               guided_schema: Optional[Dict] = None) -> Dict:
     """n_repeats > 1 re-runs every cell (warmup only before the first
     repeat) and reports mean/stddev/ci95 over repeats."""
-    _no_guided(guided_schema)
     cells = []
     for c in concurrencies:
         n = (num_requests_per_cell or {}).get(c, max(2 * c, 8))

@@ -44,10 +44,21 @@ preempted under block pressure are prefilled again (recompute) at
 re-admission; when every victim rides a window in flight, the loop
 breaks the pipeline chain so the next iteration can preempt.
 
+Guided decoding, as the JAX engine: `submit` builds the request's host
+processor (sampling/guided.py) and compiles its DFA into device-FSM
+tables (sampling/token_fsm.py, cached per pattern), which the runner
+stacks; such a sequence rides the normal windows, masked and advanced
+on the device, its processor kept in step as the host shadow (state for
+a recompute re-admission, `is_complete`). An FSM `build_token_fsm`
+refuses (too many states, or codepoints >= 256 told apart) takes the
+host-masked path: one `run_decode` step a token with the logits read
+back and `sample_host` under the processor's mask. That path still runs
+the model on the card; only the draw is on the host. Guided sequences
+accept token by token; a guided chunk never rides a window.
+
 Everything runs on ONE CUDA stream; the loop leans on its order (see
 `_retire`). Not yet ported (later slices): adaptive window lengths,
-slack slots, the prefix offload tier, guided decoding (a request with
-`guided` options is refused), speculative decoding and LoRA.
+slack slots, the prefix offload tier, speculative decoding and LoRA.
 """
 
 from __future__ import annotations
@@ -65,12 +76,16 @@ from ..config import EngineConfig
 from ..kv.block_pool import BlockPool
 from ..kv.linear_prefix import LinearPrefixCache
 from ..kv.prefix_cache import PrefixCache
+from ..sampling.guided import build_guided_processor
+from ..sampling.host import sample_host
+from ..sampling.token_fsm import build_token_fsm, vocab_table
 from ..scheduler.continuous import ContinuousBatchScheduler
 from ..scheduler.sequence import Phase, Sequence
 from ..tokenizer import Tokenizer
 from ..types import (EngineMetricsSnapshot, EngineStoppedError,
-                     FinishReason, InferenceRequest, InferenceResponse,
-                     InvalidRequestError, StreamChunk)
+                     FinishReason, GuidedOptions, InferenceRequest,
+                     InferenceResponse, InvalidRequestError,
+                     NotSupportedError, StreamChunk)
 from ..utils import profile as _prof
 from .runner import DecodeWindow, ModelRunner
 
@@ -130,6 +145,10 @@ class ContinuousBatchEngine:
         self.max_inflight = 0
         self.metrics = EngineMetricsSnapshot()
         self._mem_profile_tick = 0
+        # Compiled device FSMs by pattern: (TokenFsm, its DFA, VocabTable),
+        # or Nones where build_token_fsm refused (the host-masked path).
+        self._fsm_cache: Dict[tuple, tuple] = {}
+        self._fsm_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # Public API
@@ -170,10 +189,11 @@ class ContinuousBatchEngine:
             raise InvalidRequestError(
                 "max_tokens=0 requires echo+logprobs scoring",
                 param="max_tokens")
-        if request.guided is not None:
-            raise InvalidRequestError(
-                "guided decoding is not yet ported", param="guided")
         seq = Sequence(request, ids)
+        if request.guided is not None:
+            seq.guided_processor = build_guided_processor(request.guided,
+                                                          self.tokenizer)
+            self._setup_device_guided(seq, request.guided)
         state = _RequestState(seq)
         with self._lock:
             self._requests[request.request_id] = state
@@ -182,6 +202,37 @@ class ContinuousBatchEngine:
         self.ensure_loop()
         self._work_event.set()
         return state.out_queue
+
+    def _setup_device_guided(self, seq: Sequence,
+                             opts: GuidedOptions) -> None:
+        """Compile the request's DFA into device-FSM tables (cached per
+        pattern) and register them with the runner, so the sequence
+        rides the windows. Where build_token_fsm refuses the FSM, the
+        sequence keeps no FSM: the host-masked path."""
+        key = (opts.regex, opts.json_schema is not None
+               and str(opts.json_schema), bool(opts.json_mode))
+        with self._fsm_lock:
+            hit = self._fsm_cache.get(key)
+            if hit is None:
+                vocab = self.runner.model_cfg.vocab_size
+                try:
+                    vt = vocab_table(self.tokenizer, vocab)
+                    fsm = build_token_fsm(seq.guided_processor.dfa, vt,
+                                          vocab)
+                    # DFA state ids are per instance: later requests'
+                    # processors share the DFA the FSM was built from.
+                    hit = (fsm, seq.guided_processor.dfa, vt)
+                except NotSupportedError:
+                    hit = (None, None, None)
+                self._fsm_cache[key] = hit
+        fsm, dfa, vt = hit
+        if fsm is None:
+            return
+        if seq.guided_processor.dfa is not dfa:
+            seq.guided_processor.dfa = dfa
+            seq.guided_processor.state = dfa.start
+        seq.guided_fsm_offset = self.runner.register_guided_fsm(fsm, vt)
+        seq.guided_fsm = fsm
 
     def infer_stream(self, request: InferenceRequest
                      ) -> Iterator[StreamChunk]:
@@ -338,15 +389,29 @@ class ContinuousBatchEngine:
             if seq.prefix_reused_tokens:
                 self.runner.add_prompt_counts(
                     seq.slot, seq.prompt_tokens[:seq.prefix_reused_tokens])
+            # The slot's FSM state: FREE for an unguided sequence (a
+            # guided window masks every lane by its slot's row), else the
+            # FSM's start, or the processor's state after a recompute.
+            if seq.guided_fsm is None:
+                self.runner.set_guided_state(seq.slot, 0)
+            else:
+                local = seq.guided_fsm.dfa_to_local.get(
+                    seq.guided_processor.state, seq.guided_fsm.dead)
+                self.runner.set_guided_state(
+                    seq.slot, seq.guided_fsm_offset + local)
         if not batch.is_empty:
             self.metrics.iterations_total += 1
         decoding = [s for s in batch.decode_seqs
                     if s.phase == Phase.DECODING]
+        # Host-masked guided sequences take one step a token with the
+        # logits read back; the rest (device-FSM guided too) ride windows.
+        host_guided = [s for s in decoding if self._host_masked(s)]
+        plain = [s for s in decoding if not self._host_masked(s)]
         # A sequence whose windows in flight reach its max_tokens finishes
         # when they are read: another window would only make tokens past
         # its end (the JAX engine dispatches it anyway; at c = 1 that is
         # a whole 32-step window a request).
-        decode_seqs = [s for s in decoding if self._tokens_ahead(s)
+        decode_seqs = [s for s in plain if self._tokens_ahead(s)
                        < s.request.sampling.max_tokens]
         t_steps = batch.decode_steps or max(1, cfg.decode_multi_step)
         if not batch.decode_steps and decode_seqs:
@@ -360,6 +425,7 @@ class ContinuousBatchEngine:
             pf_chunk = next(
                 (c for c in batch.prefill_chunks
                  if c.seq.num_output_tokens == 0 and not c.seq.score_mode
+                 and c.seq.guided_processor is None
                  and len(c.tokens) <= 128 * t_steps), None)
         # Refill-first: while a wave of >= 2 prompts prefills at low
         # occupancy, hold decode so the next windows run fuller; at most
@@ -370,7 +436,7 @@ class ContinuousBatchEngine:
         # Never under KV pressure or with a recompute in the wave: the
         # held decodes are what frees blocks.
         hold_conds = (cfg.refill_first and len(batch.prefill_chunks) >= 2
-                      and 0 < len(decoding) <= self.runner.num_slots // 2
+                      and 0 < len(plain) <= self.runner.num_slots // 2
                       and not batch.deferred_decodes
                       and not any(c.seq.recompute
                                   for c in batch.prefill_chunks))
@@ -413,6 +479,14 @@ class ContinuousBatchEngine:
             self._accept_window_tokens(
                 decode_seqs, self.runner.run_decode_multi(decode_seqs,
                                                           t_steps), t_steps)
+        if host_guided:
+            # One step with the logits read back (a window in flight keeps
+            # the card busy meanwhile); the host samples under the mask.
+            _toks, logits = self.runner.run_decode(host_guided,
+                                                   return_logits=True)
+            for seq in host_guided:
+                self._accept_token(seq, self._guided_sample(
+                    seq, logits[seq.request.request_id]), True)
         _prof.emit("engine.iteration", time.monotonic() - iter_t0, {
             "decode": len(decode_seqs),
             "prefill_chunks": len(batch.prefill_chunks)})
@@ -423,6 +497,10 @@ class ContinuousBatchEngine:
                                "waiting": len(self.scheduler.waiting)})
         return did_work or not batch.is_empty or bool(self._inflight_q) \
             or bool(batch.deferred_decodes)
+
+    @staticmethod
+    def _host_masked(seq: Sequence) -> bool:
+        return seq.guided_processor is not None and seq.guided_fsm is None
 
     def _tokens_ahead(self, seq: Sequence) -> int:
         """Tokens accepted plus those the windows in flight will give."""
@@ -460,11 +538,21 @@ class ContinuousBatchEngine:
             if seq.request.sampling.max_tokens == 0:
                 self._finish_prompt_only(seq)
                 continue
+            row = res.rows[seq.request.request_id]
+            if self._host_masked(seq):
+                # Sampled on the host under the mask (the device's token
+                # ignored it).
+                key = ("logits", id(res))
+                lg = fetched.get(key)
+                if lg is None:
+                    lg = fetched[key] = res.logits.numpy()
+                self._accept_tokens(seq, [self._guided_sample(seq,
+                                                              lg[row])])
+                continue
             toks = fetched.get(id(res))
             if toks is None:
                 toks = fetched[id(res)] = res.tokens.numpy()
-            self._accept_tokens(seq, [int(toks[res.rows[
-                seq.request.request_id]])])
+            self._accept_tokens(seq, [int(toks[row])])
         return True
 
     def _dispatch_prefill(self, chunks) -> None:
@@ -484,7 +572,11 @@ class ContinuousBatchEngine:
                    self.runner.ctx_bucket(chunk.start + len(chunk.tokens)))
             groups.setdefault(key, []).append(chunk)
         for group in groups.values():
-            res = self.runner.run_prefill_batch(group)
+            # A host-masked request ending its prompt needs the logits.
+            logits = any(self._host_masked(c.seq) and c.is_last
+                         for c in group)
+            res = self.runner.run_prefill_batch(
+                group, **({"return_logits": True} if logits else {}))
             for chunk in group:
                 self.scheduler.note_prefill_done(chunk)
                 self.metrics.tokens_prefilled += len(chunk.tokens)
@@ -523,10 +615,11 @@ class ContinuousBatchEngine:
         """Accept a window of tokens: stop at EOS (past min_tokens) or at
         max_tokens, detokenize once, emit one chunk. `decoded`: the
         tokens came from a decode window (counted in tokens_decoded).
-        A request with stop strings takes `_accept_token` token by token
-        (the JAX engine's per-token path) until it finishes."""
+        A request with stop strings or guided options takes
+        `_accept_token` token by token (the JAX engine's per-token path)
+        until it finishes."""
         sp = seq.request.sampling
-        if sp.stop:
+        if sp.stop or seq.guided_processor is not None:
             for tok in toks:
                 if seq.phase != Phase.DECODING:
                     break
@@ -578,8 +671,11 @@ class ContinuousBatchEngine:
         min_tokens) or max_tokens finishes, an EOS token's text is
         dropped, and the first stop string found in the decoded output
         (searched from just before the text emitted so far) cuts the
-        text before it and finishes with STOP. Every token is streamed
-        (the JAX engine streams one only with text or a finish)."""
+        text before it and finishes with STOP. A guided request whose
+        processor completes finishes with STOP; on the device-FSM path
+        the token advances the host shadow processor first. Every token
+        is streamed (the JAX engine streams one only with text or a
+        finish)."""
         sp = seq.request.sampling
         if seq.eos_cache is None:
             seq.eos_cache = frozenset(self.tokenizer.eos_token_ids) \
@@ -587,12 +683,17 @@ class ContinuousBatchEngine:
         seq.output_tokens.append(token)
         if decoded:
             self.metrics.tokens_decoded += 1
+        if seq.guided_fsm is not None:
+            seq.guided_processor.advance(seq, token)
         finish: Optional[FinishReason] = None
         if not sp.ignore_eos and token in seq.eos_cache \
                 and seq.num_output_tokens >= sp.min_tokens:
             finish = FinishReason.STOP
         elif seq.num_output_tokens >= sp.max_tokens:
             finish = FinishReason.LENGTH
+        elif seq.guided_processor is not None \
+                and seq.guided_processor.is_complete(seq):
+            finish = FinishReason.STOP
         text = ""
         if finish is None or token not in seq.eos_cache:
             text, seq.detok_prefix_offset, seq.detok_read_offset = \
@@ -621,6 +722,34 @@ class ContinuousBatchEngine:
                 self._requests.pop(seq.request.request_id, None)
                 self.metrics.requests_completed += 1
             self._retire(seq)
+
+    def _guided_sample(self, seq: Sequence, logits_row: np.ndarray) -> int:
+        """The host-masked draw, as the JAX engine's: sample_host under
+        the processor's mask with an rng seeded by the request's seed
+        (else the engine's) plus the tokens so far; the processor
+        advances. Where the model's vocabulary runs past the
+        tokenizer's, the mask is widened as the device tables are built
+        (token_fsm.py): the extra rows disallowed, an EOS id there
+        allowed iff the state accepts. (The JAX engine passes the
+        tokenizer-wide mask on, which numpy cannot broadcast: ROADMAP
+        Queue 3.)"""
+        proc = seq.guided_processor
+        mask = proc.allowed_mask(seq)
+        if len(mask) < len(logits_row):
+            wide = np.zeros(len(logits_row), bool)
+            wide[:len(mask)] = mask
+            if proc.dfa.is_accepting(proc.state):
+                for eid in self.tokenizer.eos_token_ids:
+                    if eid < len(wide):
+                        wide[eid] = True
+            mask = wide
+        rng = np.random.default_rng(
+            (seq.request.sampling.seed or self.cfg.seed)
+            + seq.num_output_tokens)
+        tok = sample_host(logits_row, seq.request.sampling, seq.all_tokens,
+                          rng, mask=mask)
+        proc.advance(seq, tok)
+        return tok
 
     def _finish_prompt_only(self, seq: Sequence) -> None:
         """End a max_tokens == 0 request after its prefill: one final

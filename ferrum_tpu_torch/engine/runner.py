@@ -27,6 +27,8 @@ here issues the kernels directly:
                        takes no riding chunk). Returns without waiting
                        (DecodeWindow).
   sync_window          waits for one window's tokens alone.
+  run_decode           one decode step, waited for, with its logits (the
+                       host-masked guided path samples on the host).
   warm_prefill_siblings  no-op dispatches of the program keys a cell may
                        meet that the warm-up did not (see below).
   copy_prefix_blocks   whole blocks between the pool and the prefix
@@ -48,6 +50,19 @@ Per-slot state has one row past the slots, the sink at index
 `num_slots`: pad lanes carry that slot id, so their gathers read the
 sink and their scatters write it, with no mask and no host sync.
 
+Guided decoding on the device (sampling/token_fsm.py): every FSM the
+engine registers is stacked under row 0, the FREE state (every token
+allowed, a self-loop), and uploaded padded to a power-of-two row bucket
+at the next guided dispatch. Each slot holds its state in `gstates`. A
+window or batched prefill with a guided sequence applies the queued
+slot resets from its host rows (`set_guided_state`: FREE for an
+unguided admission, the FSM's start or the processor's state for a
+guided one), masks every step's logits by each lane's row before
+sampling (unguided lanes sit at FREE) and folds each sampled token's
+codepoints through the table; the states go back to the slots with the
+window's other lane state, so they carry from window to window on the
+device.
+
 Sampling noise: one `torch.Generator` for the engine, drawn whole for
 every row of a step; a slot admitted with `SamplingParams.seed` takes
 its row from `seeded_gumbel` instead (keyed by the seed and the
@@ -62,9 +77,11 @@ dispatches (`decode_device_time`), blocked in `sync_window`
 (`prefill_device_time`), and the compile audit: `compilations` and
 `compile_log`, one (site, key) entry per program key first dispatched.
 The port compiles no program: a key is the shape of the work a site
-issues -- `window` (lane bucket, context bucket, T, chunk rows, greedy)
-and `prefill` (batch pad, chunk pad, context pad, greedy), the JAX
-runner's sites, each logged with the runner's layout and KV dtype;
+issues -- `window` (lane bucket, context bucket, T, chunk rows, greedy,
+guided, the FSM tables' row bucket), `prefill` (batch pad, chunk pad,
+context pad, greedy, logits returned, guided, row bucket) and `decode1`
+(run_decode's step), the JAX runner's sites, each logged with the
+runner's layout and KV dtype;
 `prefix_copy` (rows padded) and `counts` (tokens padded) as the JAX
 runner keys them -- plus `kernel_build`, one per CUDA library first used
 in the process (ops/kernels/build.py `LOADED`). A key first met inside
@@ -76,6 +93,7 @@ same keys.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -91,7 +109,8 @@ from ..models.llama_family import (
     prefill_forward_batched)
 from ..ops.kernels import build as kernel_build
 from ..ops.kernels.kv_append import append_pages_pairs
-from ..sampling.device import (SlotSamplingParams, lane_noise, sample_step,
+from ..sampling.device import (SlotSamplingParams, guided_advance,
+                               guided_mask_rows, lane_noise, sample_step,
                                update_counts)
 from ..scheduler.continuous import PrefillChunk
 from ..scheduler.sequence import Sequence
@@ -132,6 +151,9 @@ class BatchPrefillResult:
 
     tokens: HostCopy                  # int64 [B]
     rows: Dict[str, int]              # request id -> row
+    # return_logits: f32 [B, V], each row's last-position logits (the
+    # host-masked guided path samples its first token from them).
+    logits: Optional[HostCopy] = None
     # score=True: f32 [2, B, t_pad] (target logprob, argmax logprob) and
     # int64 [B, t_pad] argmax ids, per chunk position.
     score_lp: Optional[HostCopy] = None
@@ -158,6 +180,8 @@ class DecodeWindow:
     # Paged layout: sequences that finished while this window could
     # still write their blocks; released when it is read.
     deferred: List[Sequence] = field(default_factory=list)
+    # run_decode: the step's logits, f32 [s_pad, V].
+    logits: Optional[HostCopy] = None
 
 
 class ModelRunner:
@@ -226,6 +250,35 @@ class ModelRunner:
         # (torch.cuda.set_sync_debug_mode), to prove the pipeline free
         # of them.
         self.sync_debug: Optional[str] = None
+        self._decode1_keys: set = set()
+        # Guided decoding on the device (sampling/token_fsm.py): the
+        # stacked tables of every registered FSM, row 0 the FREE state
+        # (every token allowed, a self-loop) where unguided slots sit.
+        # The words are the JAX package's uint32 bits held as int32.
+        # FSMs are registered on the host by `submit` on the caller's
+        # thread (under the lock) and uploaded by the loop at its next
+        # guided dispatch. Per-slot states live on the device (the sink
+        # at s) and advance inside the windows; a slot's reset rides the
+        # next guided dispatch's host rows (`set_guided_state`).
+        self.gstates = torch.zeros(s + 1, dtype=torch.int32, device=device)
+        self._gtrans_np = np.zeros((1, 258), np.int32)
+        self._gmask_np = np.full((1, (v + 31) // 32), -1, np.int32)
+        self._gtokcp_np: Optional[np.ndarray] = None
+        self._gdev: Optional[tuple] = None     # (trans, mask, token_cps)
+        self._grows_bucket = 0
+        self._fsm_offsets: Dict[int, int] = {}            # id(fsm) -> row
+        self._pending_ginit: Dict[int, int] = {}          # slot -> state
+        self._guided_lock = threading.Lock()
+
+    def _upload_rows(self, parts: List[np.ndarray]) -> List[torch.Tensor]:
+        """int64 host rows to the device in ONE upload; each part's flat
+        view there."""
+        dev = self._upload(np.concatenate([p.reshape(-1) for p in parts]))
+        out, off = [], 0
+        for p in parts:
+            out.append(dev[off:off + p.size])
+            off += p.size
+        return out
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host rows to the device without blocking the host: a pinned
@@ -289,6 +342,74 @@ class ModelRunner:
             seed = sp.seed & 0xFFFFFFFFFFFFFFFF      # int64 two's complement
             self.samp["seeds"][slot] = seed - (1 << 64) if seed >> 63 \
                 else seed
+
+    # ------------------------------------------------------------------
+    # Guided decoding (device FSM)
+    # ------------------------------------------------------------------
+    def register_guided_fsm(self, fsm, vocab_table) -> int:
+        """Stack a TokenFsm's tables under the registered ones; returns
+        its first global row. Host only (any thread): the loop uploads
+        the tables at its next guided dispatch, padded to a power-of-two
+        row bucket (`grows` in the dispatch keys)."""
+        with self._guided_lock:
+            off = self._fsm_offsets.get(id(fsm))
+            if off is not None:
+                return off
+            off = self._gtrans_np.shape[0]
+            self._gtrans_np = np.concatenate(
+                [self._gtrans_np, fsm.trans + off])   # local -> global rows
+            self._gmask_np = np.concatenate(
+                [self._gmask_np, fsm.mask_words.view(np.int32)])
+            self._fsm_offsets[id(fsm)] = off
+            if self._gtokcp_np is None:
+                self._gtokcp_np = vocab_table.token_cps
+            self._gdev = None
+            return off
+
+    def set_guided_state(self, slot: int, state: int) -> None:
+        """Queue a slot's FSM state (0: FREE); the next guided dispatch
+        applies it through its host rows."""
+        self._pending_ginit[slot] = state
+
+    def guided_table_bytes(self) -> int:
+        """Device bytes of the uploaded guided tables (0 before any)."""
+        return sum(t.numel() * t.element_size() for t in self._gdev) \
+            if self._gdev is not None else 0
+
+    def _guided_tables(self):
+        """(trans, mask words, token codepoints, row bucket) on the
+        device, uploaded when an FSM was registered since the last
+        guided dispatch. Pad rows go to FREE and allow every token."""
+        with self._guided_lock:
+            rows = self._gtrans_np.shape[0]
+            bucket = max(2, 1 << (rows - 1).bit_length())
+            if self._gdev is None or bucket != self._grows_bucket:
+                pad = bucket - rows
+                trans = np.concatenate(
+                    [self._gtrans_np, np.zeros((pad, 258), np.int32)])
+                mask = np.concatenate(
+                    [self._gmask_np,
+                     np.full((pad, self._gmask_np.shape[1]), -1, np.int32)])
+                self._gdev = tuple(self._upload(a) for a in (
+                    trans, mask, self._gtokcp_np))
+                self._grows_bucket = bucket
+            return self._gdev + (bucket,)
+
+    def _ginit_row(self, drain: bool) -> np.ndarray:
+        """Per-slot init states for this dispatch, -1 where the device
+        state stays (the sink too). Drains every queued reset (a slot
+        outside the batch is no lane: harmless); a warm-up drains none."""
+        row = np.full(self.num_slots + 1, -1, np.int64)
+        if drain:
+            for slot, st in self._pending_ginit.items():
+                row[slot] = st
+            self._pending_ginit.clear()
+        return row
+
+    def _drain_ginit(self, gi: torch.Tensor) -> None:
+        """Apply a dispatch's uploaded init row to the slot states."""
+        self.gstates.copy_(torch.where(gi >= 0, gi.to(torch.int32),
+                                       self.gstates))
 
     # ------------------------------------------------------------------
     # Prefix store (the linear layout's prefix cache; kv/linear_prefix.py)
@@ -418,15 +539,19 @@ class ModelRunner:
 
     # ------------------------------------------------------------------
     def run_prefill_batch(self, chunks: List[PrefillChunk],
-                          score: bool = False) -> BatchPrefillResult:
+                          score: bool = False,
+                          return_logits: bool = False) -> BatchPrefillResult:
         """One trunk pass over every chunk (one per sequence); the token
         sampled at each chunk's last position is on its way to the host
         when this returns. `score`: the chunks' score rows too (the
         engine dispatches a scored chunk alone: its [t_pad, V] logits are
-        the transient)."""
+        the transient). `return_logits`: each row's last-position logits
+        too. A row of a device-FSM guided sequence samples under its
+        slot's mask, and a final chunk advances the slot's state."""
         t0 = time.perf_counter()
         with self.sync_guard():
-            res = self._prefill(chunks, score=score)
+            res = self._prefill(chunks, score=score,
+                                return_logits=return_logits)
         self.prefill_device_time += time.perf_counter() - t0
         self.prefill_steps += len(chunks)
         self._note_kernel_builds()
@@ -434,9 +559,11 @@ class ModelRunner:
 
     def _prefill(self, chunks: List[PrefillChunk],
                  warm: Optional[tuple] = None,
-                 score: bool = False) -> BatchPrefillResult:
-        """warm: the key (b, t_pad, ctx_pad, greedy) of a no-op prefill
-        with no chunks (every row a pad row)."""
+                 score: bool = False,
+                 return_logits: bool = False) -> BatchPrefillResult:
+        """warm: the key (b, t_pad, ctx_pad, greedy, return_logits,
+        guided, grows) of a no-op prefill with no chunks (every row a
+        pad row)."""
         if warm is None:
             b = len(chunks)
             t_pad = self.chunk_bucket(max(len(c.tokens) for c in chunks))
@@ -444,14 +571,20 @@ class ModelRunner:
                           for c in chunks)
             greedy = bool(all(self._temps[c.seq.slot] == 0
                               for c in chunks))
+            guided = any(c.seq.guided_fsm_offset is not None
+                         for c in chunks)
         else:
-            b, t_pad, ctx_pad, greedy = warm
+            b, t_pad, ctx_pad, greedy, return_logits, guided, _ = warm
+        grows = 0
+        if guided:
+            gtrans, gmask, gcps, grows = self._guided_tables()
         if score:
             self._note_key(self._score_keys, "prefill_score",
                            (b, t_pad, ctx_pad, greedy))
         else:
             self._note_key(self._prefill_keys, "prefill",
-                           (b, t_pad, ctx_pad, greedy))
+                           (b, t_pad, ctx_pad, greedy, return_logits, guided,
+                            grows))
         # int rows: tokens, positions (pads past the context), flat slots
         # (pads dropped), count tokens (pads = vocab, dropped); per-row
         # scalars: slot, last index, total length, min_tokens active,
@@ -486,15 +619,17 @@ class ModelRunner:
                               < seq.request.sampling.min_tokens),
                           seq.slot if c.is_last else self.num_slots)
             rows[seq.request.request_id] = i
-        parts = [packed.reshape(-1), scal.reshape(-1)]
+        parts = [packed, scal]
         if self.attn_impl == "ref":
             parts.append(self._host_tables([c.seq for c in chunks], b))
-        dev = self._upload(np.concatenate(parts))
-        pk = dev[:packed.size].view(packed.shape[0], b, t_pad)
-        sc = dev[packed.size:packed.size + 5 * b].view(5, b)
+        if guided:
+            parts.append(self._ginit_row(drain=warm is None))
+        views = self._upload_rows(parts)
+        pk = views[0].view(packed.shape[0], b, t_pad)
+        sc = views[1].view(5, b)
         slots = sc[0]
         tables = self._tables(slots) if self.attn_impl == "linear" \
-            else dev[packed.size + 5 * b:].view(b, self.max_pages)
+            else views[2].view(b, self.max_pages)
         h, _ = prefill_forward_batched(
             self.params, self.model_cfg, self.kv, pk[0], pk[1],
             tables, sc[2], pk[2], ctx_pad=ctx_pad,
@@ -515,17 +650,30 @@ class ModelRunner:
             score_am = HostCopy(lg.argmax(dim=-1).view(b, t_pad))
         hs = h[torch.arange(b, device=self.device), sc[1]]      # [B, H]
         logits = logits_from_hidden(self.params, self.model_cfg, hs)
+        mask = None
+        if guided:
+            self._drain_ginit(views[-1])
+            st = self.gstates[slots]
+            mask = guided_mask_rows(gmask, st, v)
         toks = sample_step(logits, self._sampling(slots, sc[3] == 1),
                            self.counts[slots], self.eos_mask,
                            greedy_only=greedy, generator=self.generator,
                            noise=self._noise(slots, sc[2],
                                              [c.seq for c in chunks],
-                                             greedy))
+                                             greedy),
+                           allowed_mask=mask)
+        if guided:
+            # Only a final chunk's token is kept: its row advances.
+            st2 = guided_advance(gtrans, gcps, st, toks)
+            self.gstates.index_copy_(0, slots,
+                                     torch.where(sc[4] == slots, st2, st))
         # Final chunks count their token (other rows add to the sink
         # row).
         update_counts(self.counts, sc[4], toks)
-        return BatchPrefillResult(tokens=HostCopy(toks), rows=rows,
-                                  score_lp=score_lp, score_argmax=score_am)
+        return BatchPrefillResult(
+            tokens=HostCopy(toks), rows=rows, score_lp=score_lp,
+            score_argmax=score_am,
+            logits=HostCopy(logits.float()) if return_logits else None)
 
     def _host_tables(self, seqs: List[Sequence], n: int) -> np.ndarray:
         """Paged block tables [n, max_pages], flat: row i the blocks of
@@ -578,10 +726,13 @@ class ModelRunner:
         return window
 
     def _window(self, seqs, num_steps, prev, pf_chunk,
-                warm: Optional[tuple] = None) -> DecodeWindow:
-        """warm: (s_pad, ctx_pad, p_rows, greedy) of a no-op window with
-        no sequences (every lane a pad lane; a chunk block of p_rows pad
-        rows on the sink slot when p_rows > 0)."""
+                warm: Optional[tuple] = None,
+                single: bool = False) -> DecodeWindow:
+        """warm: (s_pad, ctx_pad, p_rows, greedy, guided) of a no-op
+        window with no sequences (every lane a pad lane; a chunk
+        block of p_rows pad rows on the sink slot when p_rows > 0).
+        single: run_decode's step (one step, its logits kept, the
+        argmax taken: the host samples)."""
         s = self.num_slots
         t = num_steps
         s_pad = warm[0] if warm is not None \
@@ -625,14 +776,14 @@ class ModelRunner:
             max_len = max(max_len, pos + 1)
         covered = {seq.request.request_id for seq in seqs}
 
-        parts = [lrows.reshape(-1), flat.reshape(-1)]
+        parts = [lrows, flat]
         if paged:
             tab = self._host_tables([], s_pad).reshape(s_pad, -1)
             for seq in seqs:
                 lane = lanes[seq.request.request_id]
                 ids = seq.blocks.blocks
                 tab[lane, :len(ids)] = ids
-            parts.append(tab.reshape(-1))
+            parts.append(tab)
         p_rows = 0
         if pf_chunk is not None or (warm is not None and warm[2]):
             if pf_chunk is not None:
@@ -658,23 +809,33 @@ class ModelRunner:
                 if pf_chunk.is_last:
                     covered.add(seq_p.request.request_id)
                     end_pos[psl] = start + n
-            parts.append(pf.reshape(-1))
-        dev = self._upload(np.concatenate(parts))
+            parts.append(pf)
+        pf_part = len(parts) - 1
         if warm is not None:
-            ctx_pad, greedy = warm[1], warm[3]
+            ctx_pad, greedy, guided = warm[1], warm[3], warm[4]
         else:
             ctx_pad = self.ctx_bucket(max_len + t)
-            greedy = bool(all(self._temps[q.slot] == 0 for q in seqs)
-                          and (pf_chunk is None
-                               or self._temps[pf_chunk.seq.slot] == 0))
-        self._note_key(self._window_keys, "window",
-                       (s_pad, ctx_pad, t, p_rows, greedy))
+            greedy = single or bool(
+                all(self._temps[q.slot] == 0 for q in seqs)
+                and (pf_chunk is None
+                     or self._temps[pf_chunk.seq.slot] == 0))
+            guided = any(q.guided_fsm_offset is not None for q in seqs)
+        grows = 0
+        if guided:
+            # The init row rides this dispatch's one upload.
+            gtrans, gmask, gcps, grows = self._guided_tables()
+            parts.append(self._ginit_row(drain=warm is None))
+        views = self._upload_rows(parts)
+        if single:
+            self._note_key(self._decode1_keys, "decode1", (s_pad, ctx_pad))
+        else:
+            self._note_key(self._window_keys, "window",
+                           (s_pad, ctx_pad, t, p_rows, greedy, guided,
+                            grows))
 
-        lr = dev[:6 * s_pad].view(6, s_pad)
-        flat_dev = dev[6 * s_pad:(6 + t) * s_pad].view(t, s_pad)
-        n_tab = s_pad * self.max_pages if paged else 0
-        tables = dev[(6 + t) * s_pad:(6 + t) * s_pad + n_tab].view(
-            s_pad, self.max_pages) if paged else None
+        lr = views[0].view(6, s_pad)
+        flat_dev = views[1].view(t, s_pad)
+        tables = views[2].view(s_pad, self.max_pages) if paged else None
         lane_slots = lr[3]
         tokens = torch.where(lr[5] == 1, self.last_toks[lane_slots], lr[0])
         positions, cache_len = lr[1], lr[2]
@@ -685,19 +846,50 @@ class ModelRunner:
         # counts updates drop), gathered copies otherwise.
         counts_l = self.counts[:s] if ident else self.counts[lane_slots]
         samp = self._sampling(lane_slots, lr[4] == 1)
-        kv = self.kv
-        if paged:
-            all_toks = self._paged_steps(tokens, positions, cache_len,
-                                         tables, flat_dev, ctx_pad, samp,
-                                         counts_l, lane_ids, greedy,
-                                         lane_slots, seqs)
+        v = self.model_cfg.vocab_size
+        lane = {"logits": None}
+        if guided:
+            # Pending resets first, then the lanes' states (pad lanes:
+            # the sink, which stays FREE).
+            self._drain_ginit(views[-1])
+            lane["gst"] = self.gstates[lane_slots]
+
+        def draw(logits, step):
+            """One step's tokens: under the lanes' guided masks, each
+            lane's state advanced by its token; the counts updated."""
+            if single:
+                lane["logits"] = logits
+            mask = guided_mask_rows(gmask, lane["gst"], v) if guided \
+                else None
+            toks = sample_step(logits, samp, counts_l, self.eos_mask,
+                               greedy_only=greedy, generator=self.generator,
+                               noise=self._noise(lane_slots,
+                                                 positions + step + 1,
+                                                 seqs, greedy),
+                               allowed_mask=mask)
+            if guided:
+                lane["gst"] = guided_advance(gtrans, gcps, lane["gst"], toks)
+            update_counts(counts_l, lane_ids, toks)
+            return toks
+
+        def finish(all_toks, **extra) -> DecodeWindow:
+            """Lane state back to the slots (pad lanes: the sink row)."""
             if not ident:
                 self.counts.index_copy_(0, lane_slots, counts_l)
             self.last_toks.index_copy_(0, lane_slots, all_toks[t - 1])
+            if guided:
+                self.gstates.index_copy_(0, lane_slots, lane["gst"])
             return DecodeWindow(
                 seqs=list(seqs), covered=frozenset(covered),
                 toks=HostCopy(all_toks), end_pos=end_pos, num_steps=t,
-                lanes=lanes, s_pad=s_pad)
+                lanes=lanes, s_pad=s_pad,
+                logits=HostCopy(lane["logits"].float()) if single else None,
+                **extra)
+
+        kv = self.kv
+        if paged:
+            return finish(self._paged_steps(tokens, positions, cache_len,
+                                            tables, flat_dev, ctx_pad, draw))
         n_layers = kv.k.shape[0]
         lc = lane_slots.clamp_max(s - 1)
         # Under an int8 cache the window's K/V collect in bf16, as in
@@ -723,7 +915,7 @@ class ModelRunner:
         steps_valid = torch.arange(t, device=self.device)
         pf_toks = pf_pos = None
         if p_rows:
-            pfd = dev[(6 + t) * s_pad:].view(4, t, p_rows)
+            pfd = views[pf_part].view(4, t, p_rows)
             pf_toks, pf_pos = pfd[0], pfd[2]
             # A no-op block's sink slot reads the last slot's region.
             pc = min(psl, s - 1)
@@ -763,14 +955,8 @@ class ModelRunner:
                 if step == last_t:
                     h_last = h[s_pad + last_j:s_pad + last_j + 1]
                 h = h[:s_pad]
-            logits = logits_from_hidden(self.params, self.model_cfg, h)
-            tokens = sample_step(logits, samp, counts_l, self.eos_mask,
-                                 greedy_only=greedy,
-                                 generator=self.generator,
-                                 noise=self._noise(lane_slots,
-                                                   positions + step + 1,
-                                                   seqs, greedy))
-            update_counts(counts_l, lane_ids, tokens)
+            tokens = draw(logits_from_hidden(self.params, self.model_cfg, h),
+                          step)
             steps.append(tokens)
         all_toks = torch.stack(steps)                          # [T, s_pad]
 
@@ -781,11 +967,7 @@ class ModelRunner:
             win_v = torch.cat([win_v, win["pv"]], dim=2)
             flat_all = torch.cat([flat_dev, pfd[3]], dim=1)
         append_window_kv(kv, win_k, win_v, flat_all)
-
-        # Lane state back to the slots (pad lanes: the sink row).
-        if not ident:
-            self.counts.index_copy_(0, lane_slots, counts_l)
-        self.last_toks.index_copy_(0, lane_slots, all_toks[t - 1])
+        window = finish(all_toks, p_rows=p_rows)
 
         pf_tok = None
         if p_rows:
@@ -815,34 +997,25 @@ class ModelRunner:
                 update_counts(self.counts, slot_t, tok_p)
                 self.last_toks[psl:psl + 1] = tok_p
                 pf_tok = HostCopy(tok_p)
-        return DecodeWindow(
-            seqs=list(seqs), covered=frozenset(covered),
-            toks=HostCopy(all_toks), end_pos=end_pos, num_steps=t,
-            lanes=lanes, s_pad=s_pad, p_rows=p_rows,
-            pf_seq=pf_chunk.seq if pf_chunk is not None else None,
-            pf_is_last=bool(pf_chunk is not None and pf_chunk.is_last),
-            pf_tok=pf_tok)
+        window.pf_seq = pf_chunk.seq if pf_chunk is not None else None
+        window.pf_is_last = bool(pf_chunk is not None and pf_chunk.is_last)
+        window.pf_tok = pf_tok
+        return window
 
     def _paged_steps(self, tokens, positions, cache_len, tables, flat,
-                     ctx_pad, samp, counts_l, lane_ids, greedy,
-                     lane_slots, seqs) -> torch.Tensor:
+                     ctx_pad, draw) -> torch.Tensor:
         """The paged layout's window: T per-step decode forwards over the
         lanes' block tables, each appending its own K/V (the JAX runner's
-        scan over `decode_forward(attn_impl="ref")`); tokens [T, s_pad]."""
+        scan over `decode_forward(attn_impl="ref")`); tokens [T, s_pad]
+        from `draw(logits, step)`."""
         steps = []
         for step in range(flat.shape[0]):
             h, _ = decode_forward(
                 self.params, self.model_cfg, self.kv, tokens,
                 positions + step, tables, cache_len + step, flat[step],
                 ctx_pad=ctx_pad, inv_freq=self.inv_freq, attn_impl="ref")
-            logits = logits_from_hidden(self.params, self.model_cfg, h)
-            tokens = sample_step(logits, samp, counts_l, self.eos_mask,
-                                 greedy_only=greedy,
-                                 generator=self.generator,
-                                 noise=self._noise(lane_slots,
-                                                   positions + step + 1,
-                                                   seqs, greedy))
-            update_counts(counts_l, lane_ids, tokens)
+            tokens = draw(logits_from_hidden(self.params, self.model_cfg, h),
+                          step)
             steps.append(tokens)
         return torch.stack(steps)
 
@@ -872,6 +1045,25 @@ class ModelRunner:
         """One window, waited for (the unpipelined loop)."""
         return self.sync_window(self.start_decode_window(seqs, num_steps))
 
+    def run_decode(self, seqs: List[Sequence], return_logits: bool = False):
+        """One decode step for `seqs` (each from its last token), waited
+        for: {request id: token} (+ {request id: f32 [V] logits} with
+        return_logits). The host-masked guided path samples from the
+        logits itself, so the step takes the argmax and draws no noise;
+        its K/V append and counts go as in a window."""
+        t0 = time.perf_counter()
+        with self.sync_guard():
+            window = self._window(seqs, 1, None, None, single=True)
+        self.decode_device_time += time.perf_counter() - t0
+        self.decode_steps += 1
+        self._note_kernel_builds()
+        toks = window.toks.numpy()[0]
+        out = {rid: int(toks[lane]) for rid, lane in window.lanes.items()}
+        if not return_logits:
+            return out
+        lg = window.logits.numpy()
+        return out, {rid: lg[lane] for rid, lane in window.lanes.items()}
+
     # ------------------------------------------------------------------
     # Warm-up: no-op dispatches of the keys a cell may meet
     # ------------------------------------------------------------------
@@ -885,7 +1077,8 @@ class ModelRunner:
         of keys added."""
         done = 0
         budget = self.cfg.max_num_batched_tokens
-        for (_, t_pad, ctx_pad, greedy) in sorted(self._prefill_keys):
+        for (_, t_pad, ctx_pad, greedy, rl, guided, _g) in sorted(
+                self._prefill_keys):
             # A (b, t_pad) group's chunks each hold > t_pad / 2 tokens,
             # and the scheduler admits within the token budget: no larger
             # batch is ever dispatched.
@@ -894,7 +1087,8 @@ class ModelRunner:
             max_b = min(max(1, budget // max(1, t_pad // 2 + 1)),
                         max(self.num_slots, 1))
             for b in range(1, max_b + 1):
-                key = (b, t_pad, ctx_pad, greedy)
+                key = (b, t_pad, ctx_pad, greedy, rl, guided,
+                       self._grows_now(guided))
                 if key not in self._prefill_keys:
                     self._prefill([], warm=key).tokens.numpy()
                     done += 1
@@ -902,10 +1096,17 @@ class ModelRunner:
         self._note_kernel_builds()
         return done
 
+    def _grows_now(self, guided: bool) -> int:
+        """A warm-up's row bucket: the tables' current one (a guided
+        dispatch never meets an older one again), 0 unguided."""
+        return self._grows_bucket if guided else 0
+
     def _warm_window(self, s_pad: int, ctx_pad: int, t: int, p_rows: int,
-                     greedy: bool) -> None:
-        self._window([], t, None, None,
-                     warm=(s_pad, ctx_pad, p_rows, greedy)).toks.numpy()
+                     greedy: bool, guided: bool, _grows: int) -> None:
+        """A no-op window at this key; a guided one runs on the current
+        tables and applies no queued reset."""
+        self._window([], t, None, None, warm=(
+            s_pad, ctx_pad, p_rows, greedy, guided)).toks.numpy()
 
     def warm_decode_buckets(self) -> int:
         """For every window key seen, the same window at every other lane
@@ -916,7 +1117,9 @@ class ModelRunner:
         never reaches its own bucket.)"""
         done = 0
         t_spec = bool(self.cfg.decode_t_spec)
-        for (s_pad, ctx_pad, t, p_rows, greedy) in sorted(self._window_keys):
+        for (s_pad, ctx_pad, t, p_rows, greedy, guided, _g) in sorted(
+                self._window_keys):
+            gd = (guided, self._grows_now(guided))
             for b in self.cfg.decode_buckets:
                 if b == s_pad:
                     continue
@@ -924,7 +1127,8 @@ class ModelRunner:
                 # Another T needs its own chunk geometry: the plain window
                 # here, warm_mixed_windows adds its mixed variants.
                 for ctx in self._ctx_at_t(ctx_pad, t, t_b):
-                    key = (b, ctx, t_b, p_rows if t_b == t else 0, greedy)
+                    key = (b, ctx, t_b, p_rows if t_b == t else 0, greedy,
+                           *gd)
                     if key not in self._window_keys:
                         self._warm_window(*key)
                         done += 1
@@ -953,13 +1157,15 @@ class ModelRunner:
         chunk_cap = max(16, min(self.cfg.prefill_chunk_size,
                                 self.cfg.max_num_batched_tokens))
         lengths = self._chunk_lens | {256, chunk_cap}
-        for (s_pad, ctx_pad, t, p0, greedy) in sorted(self._window_keys):
+        for (s_pad, ctx_pad, t, p0, greedy, guided, _g) in sorted(
+                self._window_keys):
+            gd = (guided, self._grows_now(guided))
             if p0:
                 continue
             p_want = {_round_up_pow2(-(-n // t), 8, 512)
                       for n in lengths if n <= 128 * t}
             for p_rows in sorted(p_want):
-                key = (s_pad, ctx_pad, t, p_rows, greedy)
+                key = (s_pad, ctx_pad, t, p_rows, greedy, *gd)
                 if key not in self._window_keys:
                     self._warm_window(*key)
                     done += 1

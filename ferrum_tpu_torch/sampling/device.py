@@ -11,6 +11,12 @@ draw. A request with its own `seed` draws instead from `seeded_gumbel`,
 a counter-based hash of (seed, position of the token drawn, candidate
 rank) in int64 tensor ops: its tokens do not depend on which lanes
 share the step or which slot it holds.
+
+Guided decoding: `sample_step(allowed_mask=...)` hard-masks the logits
+first; `guided_mask_rows` unpacks each slot's row of the packed FSM
+masks and `guided_advance` folds the sampled tokens through the FSM's
+transition table, both in plain torch ops with no host sync (the JAX
+package computes them in plain XLA, no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -112,11 +118,18 @@ def sample_step(
     greedy_only: bool = False,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,   # f32 [S, min(TOPK_CAP, V)]
+    allowed_mask: Optional[torch.Tensor] = None,   # bool [S, V] (guided)
 ) -> torch.Tensor:
     """Returns the sampled tokens, int64 [S]. `greedy_only`: every slot
     has temperature 0, skip the top-k/top-p machinery. `eos_ids` may be
-    given as a bool [V] mask on the logits' device (no host copy)."""
+    given as a bool [V] mask on the logits' device (no host copy).
+    `allowed_mask`: the guided hard mask, applied before everything else
+    (the JAX order: mask, repetition penalty, min_tokens EOS gate); rows
+    of unguided slots are all True. A row left with no allowed token
+    gives token 0, as jnp.argmax and jax.lax.top_k do."""
     s, v = logits.shape
+    if allowed_mask is not None:
+        logits = torch.where(allowed_mask, logits, float("-inf"))
     logits = apply_repetition_penalty(logits, counts,
                                       params.repetition_penalty)
     eos = eos_ids
@@ -147,6 +160,35 @@ def sample_step(
     choice = torch.argmax(vals + noise, dim=-1)
     sampled = torch.gather(idx, 1, choice[:, None])[:, 0]
     return torch.where(params.temperature <= 0.0, greedy_tok, sampled)
+
+
+def guided_mask_rows(mask_words: torch.Tensor, states: torch.Tensor,
+                     vocab: int) -> torch.Tensor:
+    """Each slot's packed guided vocab mask, gathered and unpacked to
+    bool [S, V]. `mask_words` int32 [R, W] holds the JAX package's
+    uint32 words bit for bit; an arithmetic shift then `& 1` reads the
+    same bit. Row 0 is the FREE state (all ones): unguided slots sit
+    there, so the mask is a no-op for them."""
+    rows = mask_words[states]                                 # [S, W]
+    shifts = torch.arange(32, dtype=mask_words.dtype,
+                          device=mask_words.device)
+    bits = (rows[:, :, None] >> shifts) & 1
+    return bits.reshape(states.shape[0], -1)[:, :vocab] != 0
+
+
+def guided_advance(trans: torch.Tensor, token_cps: torch.Tensor,
+                   states: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """Fold the sampled tokens' codepoints through the transition table
+    (the device form of RegexGuidedProcessor.advance): one gather a
+    column of `token_cps` [V, Lmax], all Lmax of them, with no early
+    exit (no host sync). PAD columns keep the state, so EOS and special
+    tokens (empty text) are no-ops; the FREE row self-loops."""
+    cps = token_cps[tokens]                                   # [S, Lmax]
+    st = states
+    for col in range(cps.shape[1]):
+        st = trans[st, cps[:, col]]
+    return st
 
 
 def update_counts(counts: torch.Tensor, slot_ids: torch.Tensor,

@@ -1,8 +1,8 @@
 """Per-request sequence state (host side).
 
-Port of `ferrum_tpu/scheduler/sequence.py` without guided decoding:
-tokens, phase, block table, prefix reuse, recompute after a preemption,
-the text emitted so far (stop strings) and prompt scoring's rows.
+Port of `ferrum_tpu/scheduler/sequence.py`: tokens, phase, block table,
+prefix reuse, recompute after a preemption, the text emitted so far
+(stop strings), prompt scoring's rows and the guided processor and FSM.
 """
 
 from __future__ import annotations
@@ -50,6 +50,13 @@ class Sequence:
         self.score_mode = bool(request.echo
                                and request.sampling.logprobs is not None)
         self.score_parts: dict = {}
+        # Guided decoding: the host processor (sampling/guided.py), and
+        # on the device-FSM path its TokenFsm (sampling/token_fsm.py)
+        # and the FSM's first row in the runner's stacked tables. A
+        # processor with no FSM is the host-masked path.
+        self.guided_processor = None
+        self.guided_fsm = None
+        self.guided_fsm_offset: Optional[int] = None
 
     @property
     def num_prompt_tokens(self) -> int:

@@ -10,14 +10,16 @@ in `data: [DONE]` with stream_options.include_usage, tool-call parsing
 /v1/ paths and the opt-in X-Ferrum-Session cache. The engine is driven
 from the event loop through `run_in_executor`, as in the JAX server.
 
+Guided requests as the JAX server answers them: response_format
+json_object (JSON mode), a strict json_schema (outside the subset a 400
+before generation, param "response_format.json_schema"; the output
+validated after it, a 400 if it fails), and on /v1/completions
+guided_regex / guided_json / guided_choice. A non-strict json_schema
+runs unmasked. Streaming is buffered for a strict schema, JSON mode and
+parsed tools. tool_choice="required" puts no mask on the output: with
+no valid tool call in it the answer is a 400 (param "tool_choice").
+
 Differences, on purpose:
-  * Guided decoding is not yet ported. A request whose JAX path builds
-    GuidedOptions answers 400 invalid_request_error naming the JAX
-    field: response_format json_object ("response_format"), a strict
-    json_schema ("response_format.json_schema"), guided_regex /
-    guided_json / guided_choice (that field) and tool_choice="required"
-    ("tool_choice"). A non-strict json_schema runs unmasked, as in the
-    JAX server.
   * /v1/embeddings and /v1/audio/* have no engine to attach yet: they
     answer as the JAX server does without one (400, param "model").
   * Request validation is openai_types.py's, not pydantic's: the same
@@ -32,6 +34,7 @@ import json
 import time
 from typing import Any, Dict, List, Optional
 
+from ..sampling.schema import schema_to_regex, validate_json_against_subset
 from ..types import (FerrumError, FinishReason, InferenceRequest,
                      InvalidRequestError, NotSupportedError, SamplingParams)
 from .chat_template import ChatTemplateRenderer
@@ -48,9 +51,16 @@ SSE_HEADERS = {"Content-Type": "text/event-stream",
                "Cache-Control": "no-cache"}
 
 
-def _not_ported(param: str) -> InvalidRequestError:
+def _schema_failed() -> InvalidRequestError:
     return InvalidRequestError(
-        "guided decoding is not yet ported to this server", param=param)
+        "generated output failed strict schema validation",
+        param="response_format.json_schema")
+
+
+def _no_tool_call() -> InvalidRequestError:
+    return InvalidRequestError(
+        "model did not produce a valid required tool call",
+        param="tool_choice")
 
 
 class SessionCache:
@@ -186,16 +196,21 @@ class FerrumServer:
 
         sampling = sampling_from_chat(req)
         guided = guided_from_chat(req)
-        if guided is not None:
-            if guided.json_mode:
-                raise _not_ported("response_format")
+        strict_schema = None
+        if guided is not None and guided.json_schema is not None:
             if guided.strict:
-                raise _not_ported("response_format.json_schema")
-            guided = None  # non-strict schema: best effort, no mask
+                # Fail fast outside the subset (an explicit 400).
+                try:
+                    schema_to_regex(guided.json_schema)
+                except NotSupportedError as e:
+                    raise InvalidRequestError(
+                        f"unsupported json_schema subset: {e.message}",
+                        param="response_format.json_schema")
+                strict_schema = guided.json_schema
+            else:
+                guided = None  # non-strict schema: best effort, no mask
 
         tool_choice = req.tool_choice
-        if tool_choice == "required":
-            raise _not_ported("tool_choice")
         if tool_choice == "none":
             declared_names = None
             parse_tools = False
@@ -209,24 +224,30 @@ class FerrumServer:
 
         inf_req = InferenceRequest(
             prompt_token_ids=self.engine.tokenizer.encode(prompt),
-            sampling=sampling)
+            sampling=sampling, guided=guided)
 
         rid = completion_id()
         if req.stream:
             return await self._stream_chat(
-                request, req, inf_req, rid, parse_tools, declared_names,
-                required_tool, session_id, messages)
+                request, req, inf_req, rid, strict_schema, parse_tools,
+                declared_names, required_tool, session_id, messages)
 
         chunks = await self._collect(inf_req)
         text = "".join(c.text for c in chunks)
         last = chunks[-1]
         finish = (last.finish_reason or FinishReason.STOP).value
 
+        if strict_schema is not None and \
+                not validate_json_against_subset(text, strict_schema):
+            raise _schema_failed()
+
         tool_calls = []
         content = text
         if parse_tools:
             content, tool_calls = parse_tool_calls(
                 text, declared_names, required_tool)
+            if tool_choice == "required" and not tool_calls:
+                raise _no_tool_call()
         function_call = None
         if req.functions and tool_calls:
             function_call = dict(tool_calls[0]["function"])
@@ -248,9 +269,9 @@ class FerrumServer:
                 {"role": "assistant", "content": text}],
             lambda s: max(1, len(s) // 4))
 
-    async def _stream_chat(self, request, req, inf_req, rid, parse_tools,
-                           declared_names, required_tool, session_id,
-                           rendered_messages):
+    async def _stream_chat(self, request, req, inf_req, rid, strict_schema,
+                           parse_tools, declared_names, required_tool,
+                           session_id, rendered_messages):
         resp = StreamResponse(request, headers={**SSE_HEADERS,
                                                 "Connection": "keep-alive"})
         await resp.prepare()
@@ -263,8 +284,10 @@ class FerrumServer:
         await send(chat_chunk(rid, self.model_name,
                               {"role": "assistant", "content": ""}))
 
-        # Tool parsing can't stream raw deltas: the text is buffered.
-        buffered = parse_tools
+        # A strict schema, JSON mode and tool parsing can't stream raw
+        # deltas: the text is buffered.
+        buffered = strict_schema is not None or parse_tools \
+            or (inf_req.guided is not None and inf_req.guided.json_mode)
         full_text = []
         last = None
         while True:
@@ -281,8 +304,20 @@ class FerrumServer:
         text = "".join(full_text)
         finish = (last.finish_reason or FinishReason.STOP).value
         if buffered:
-            content, tool_calls = parse_tool_calls(
-                text, declared_names, required_tool)
+            failed = None
+            if strict_schema is not None and \
+                    not validate_json_against_subset(text, strict_schema):
+                failed = _schema_failed()
+            content, tool_calls = (text, [])
+            if failed is None and parse_tools:
+                content, tool_calls = parse_tool_calls(
+                    text, declared_names, required_tool)
+                if req.tool_choice == "required" and not tool_calls:
+                    failed = _no_tool_call()
+            if failed is not None:
+                await send(error_body(failed.message, param=failed.param))
+                await resp.write(b"data: [DONE]\n\n")
+                return resp
             if tool_calls:
                 if req.functions:
                     await send(chat_chunk(
@@ -331,12 +366,9 @@ class FerrumServer:
             min_tokens=req.min_tokens or 0,
             logprobs=req.logprobs if score else None,
             stop=stop, seed=req.seed, ignore_eos=bool(req.ignore_eos))
-        if guided_from_completion(req) is not None:
-            raise _not_ported(next(f for f in ("guided_regex", "guided_json",
-                                               "guided_choice")
-                                   if getattr(req, f)))
         inf_req = InferenceRequest(prompt=req.prompt, sampling=sampling,
-                                   echo=score)
+                                   echo=score,
+                                   guided=guided_from_completion(req))
         rid = completion_id("cmpl")
 
         if score:

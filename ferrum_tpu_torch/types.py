@@ -2,8 +2,7 @@
 
 Port of `ferrum_tpu/types.py` without LoRA: sampling parameters with
 stop strings, per-request seeds and prompt scoring (`logprobs` with
-`InferenceRequest.echo`), the `GuidedOptions` type (the engine refuses a
-request that carries one: guided decoding is not yet ported), and the
+`InferenceRequest.echo`), `GuidedOptions` (guided decoding), and the
 engine's metrics snapshot. Plain dataclasses.
 """
 
@@ -91,8 +90,10 @@ class SamplingParams:
 
 @dataclass
 class GuidedOptions:
-    """Structured-output constraints (the JAX package's type; the port's
-    engine rejects them until guided decoding is ported)."""
+    """Structured-output constraints (the JAX package's type): a regex,
+    a JSON schema (its subset: sampling/schema.py) or JSON mode. `strict`
+    is the server's: a strict schema fails fast outside the subset and
+    its output is validated after generation."""
 
     regex: Optional[str] = None
     json_schema: Optional[Dict[str, Any]] = None

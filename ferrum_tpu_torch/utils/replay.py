@@ -5,10 +5,9 @@ bundle is a JSON file holding the engine-boundary request (token ids,
 sampling params, guided options), the effective runtime config and the
 observed output, enough to re-run the request on any machine. A bundle
 the JAX package wrote loads here, its sampling fields (stop strings,
-per-request seeds and logprobs too) into the port's `SamplingParams`;
-guided options must be absent (guided decoding is not yet ported), and
-a sampling field the port does not know raises InvalidRequestError
-naming it.
+per-request seeds and logprobs too) into the port's `SamplingParams`,
+its guided options into `GuidedOptions`; a sampling field the port does
+not know raises InvalidRequestError naming it.
 """
 
 from __future__ import annotations
@@ -19,7 +18,8 @@ import time
 from typing import Any, Dict, Optional
 
 from ..config import EngineConfig
-from ..types import InferenceRequest, InvalidRequestError, SamplingParams
+from ..types import (GuidedOptions, InferenceRequest, InvalidRequestError,
+                     SamplingParams)
 
 BUNDLE_SCHEMA = 1
 
@@ -37,7 +37,8 @@ def capture_bundle(request: InferenceRequest, cfg: EngineConfig,
             "prompt_token_ids": request.prompt_token_ids,
             "prompt": request.prompt,
             "sampling": dataclasses.asdict(request.sampling),
-            "guided": None,
+            "guided": dataclasses.asdict(request.guided)
+            if request.guided else None,
         },
         "effective_config": {
             k: v for k, v in dataclasses.asdict(cfg).items()
@@ -65,9 +66,6 @@ def load_bundle(path: str) -> Dict[str, Any]:
 
 def request_from_bundle(bundle: Dict[str, Any]) -> InferenceRequest:
     r = bundle["request"]
-    if r.get("guided"):
-        raise InvalidRequestError(
-            "guided: guided decoding is not yet ported", param="guided")
     ported = {f.name for f in dataclasses.fields(SamplingParams)}
     kw = {}
     for name, value in r["sampling"].items():
@@ -80,6 +78,7 @@ def request_from_bundle(bundle: Dict[str, Any]) -> InferenceRequest:
         prompt=r.get("prompt"),
         prompt_token_ids=r.get("prompt_token_ids"),
         sampling=SamplingParams(**kw),
+        guided=GuidedOptions(**r["guided"]) if r.get("guided") else None,
         request_id=r["request_id"] + "-replay")
 
 

@@ -285,8 +285,9 @@ def test_runner_counters_and_compile_audit():
         assert runner.compilations == n0, runner.compile_log[n0:]
         runner.warm_prefill_siblings()
         keys = runner._prefill_keys
-        for (_, t_pad, ctx, greedy) in keys:
-            assert {(b, t_pad, ctx, greedy) for b in (1, 2, 3, 4)} <= keys
+        for (_, t_pad, ctx, greedy, *rest) in keys:
+            assert {(b, t_pad, ctx, greedy, *rest)
+                    for b in (1, 2, 3, 4)} <= keys
         n1 = len(runner.compile_log)
         _wave(engine, prompts[:3])
         assert not [e for e in runner.compile_log[n1:] if e[0] == "prefill"]
@@ -311,10 +312,14 @@ def _keys(d, prefix=""):
     return out
 
 
-def test_run_cell_keys_match_jax():
-    """The port's cell report has the JAX cell's keys exactly (the JAX
-    engine on tiny-quant, built as tests/test_engine_e2e.py's
-    tiny_engine builds its model)."""
+GUIDED_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                                 "n": {"type": "integer"}},
+                 "required": ["ok", "n"]}
+
+
+def _jax_cell(**kw):
+    """The JAX run_cell on tiny-quant, built as tests/test_engine_e2e.py's
+    tiny_engine builds its model."""
     import jax.numpy as jnp
 
     from ferrum_tpu.bench.bench_engine import run_cell as jax_run_cell
@@ -323,7 +328,6 @@ def test_run_cell_keys_match_jax():
     from ferrum_tpu.models.configs import preset
     from ferrum_tpu.models.llama_family import init_random_params
     from ferrum_tpu.tokenizer import make_byte_tokenizer
-    from ferrum_tpu_torch.bench.bench_engine import run_cell
 
     mc = preset("tiny-quant")
     jax_engine = JaxBuilder(JaxConfig(
@@ -334,9 +338,18 @@ def test_run_cell_keys_match_jax():
         .with_tokenizer(make_byte_tokenizer(
             vocab_extra=mc.vocab_size - 258)).build()
     try:
-        ref = jax_run_cell(jax_engine, **CELL)
+        return jax_run_cell(jax_engine, **CELL, **kw)
     finally:
         jax_engine.stop()
+
+
+def test_run_cell_keys_match_jax():
+    """The port's cell report has the JAX cell's keys exactly (the JAX
+    engine on tiny-quant, built as tests/test_engine_e2e.py's
+    tiny_engine builds its model)."""
+    from ferrum_tpu_torch.bench.bench_engine import run_cell
+
+    ref = _jax_cell()
     engine = _tiny_quant(max_num_seqs=2)
     try:
         cell = run_cell(engine, **CELL)
@@ -405,15 +418,36 @@ def test_open_loop_cell_completes_all_launched():
     assert cell["ttft_p50_ms"] > 0 and cell["output_tok_s"] > 0
 
 
-def test_guided_schema_is_not_yet_ported():
-    from ferrum_tpu_torch.bench.bench_engine import run_bench, run_cell
-    from ferrum_tpu_torch.types import InvalidRequestError
+def test_guided_cell_matches_jax():
+    """run_cell with guided_schema: every request carries the schema
+    (unmasked by strictness, as the JAX cells attach it) on the
+    device-FSM path. The cell's keys and its request, completion and
+    error counts equal the JAX run_cell's; no key is first met inside
+    the cell (the guided window and prefill keys are warmed)."""
+    from ferrum_tpu_torch.bench import bench_engine as be
 
-    for fn in (run_cell, run_bench):
-        with pytest.raises(InvalidRequestError, match="not yet ported"):
-            fn(None, concurrency=1, num_requests=1,
-               guided_schema={"type": "object"}) if fn is run_cell \
-                else fn(None, guided_schema={"type": "object"})
+    ref = _jax_cell(guided_schema=GUIDED_SCHEMA)
+    engine = _tiny_quant(max_num_seqs=2)
+    submitted = []
+    submit = engine.submit
+
+    def recorded(req):
+        submitted.append(req.guided)
+        return submit(req)
+
+    engine.submit = recorded
+    try:
+        cell = be.run_cell(engine, **CELL, guided_schema=GUIDED_SCHEMA)
+        keys = engine.runner._window_keys | engine.runner._prefill_keys
+    finally:
+        engine.stop()
+    assert _keys(cell) == _keys(ref)
+    for k in ("requested", "completed", "errors"):
+        assert cell[k] == ref[k], k
+    assert cell["completed"] == 4 and cell["compilations_during_cell"] == 0
+    assert submitted and all(g is not None and g.json_schema == GUIDED_SCHEMA
+                             and not g.strict for g in submitted)
+    assert any(k[-2] for k in keys)          # a guided key was dispatched
 
 
 # ---------------------------------------------------------------------------
@@ -602,10 +636,34 @@ def test_ported_sampling_fields_load_from_bundle(field, value):
     assert req.request_id == bundle["request"]["request_id"] + "-replay"
 
 
+@pytest.mark.parametrize("guided", [
+    {"regex": "a+", "json_schema": None, "json_mode": False, "strict": True},
+    {"regex": None, "json_schema": {"type": "object", "properties": {
+        "a": {"type": "integer"}}}, "json_mode": False, "strict": False},
+    {"regex": None, "json_schema": None, "json_mode": True, "strict": True}])
+def test_guided_bundle_round_trips(guided):
+    """A JAX bundle's guided options load into the port's GuidedOptions,
+    and the port's capture writes them back as the JAX capture does."""
+    from ferrum_tpu.config import EngineConfig as JaxConfig
+    from ferrum_tpu.types import GuidedOptions as JOpts
+    from ferrum_tpu.types import InferenceRequest as JReq
+    from ferrum_tpu.utils import replay as jr
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.types import GuidedOptions
+    from ferrum_tpu_torch.utils import replay as tr
+
+    bundle = jr.capture_bundle(JReq(prompt_token_ids=[1, 2],
+                                    guided=JOpts(**guided)),
+                               JaxConfig(model="m"), "m")
+    req = tr.request_from_bundle(bundle)
+    assert req.guided == GuidedOptions(**guided)
+    again = tr.capture_bundle(req, EngineConfig(), "m")
+    assert again["request"]["guided"] == bundle["request"]["guided"] \
+        == guided
+
+
 @pytest.mark.parametrize("field,value", [
-    ("lora_rank", 4), ("top_a", 0.1), ("min_p", 0.05),
-    ("guided", {"regex": "a+", "json_schema": None, "json_mode": False,
-                "strict": True})])
+    ("lora_rank", 4), ("top_a", 0.1), ("min_p", 0.05)])
 def test_unported_bundle_field_raises(tmp_path, field, value):
     from ferrum_tpu.config import EngineConfig as JaxConfig
     from ferrum_tpu.types import InferenceRequest as JReq
@@ -615,10 +673,7 @@ def test_unported_bundle_field_raises(tmp_path, field, value):
 
     bundle = jr.capture_bundle(JReq(prompt_token_ids=[1, 2]),
                                JaxConfig(model="m"), "m")
-    if field == "guided":
-        bundle["request"]["guided"] = value
-    else:
-        bundle["request"]["sampling"][field] = value
+    bundle["request"]["sampling"][field] = value
     with pytest.raises(InvalidRequestError, match="not yet ported") as e:
         tr.request_from_bundle(bundle)
     assert e.value.param == field
