@@ -53,13 +53,23 @@ Phases, in order, each printing JSON lines:
              layers, scattered and dropped ids) with one to four arrays
              (bf16 K; K and V; int8 K and V; int8 K and V with their f32
              scale planes), each beside one launch an array -- K and V
-             in one launch the summary's row
+             in one launch the summary's row; for lane I
+             (gemma-3-12b), rows 1 and 2 exact at its four projections
+             (K = 3840, 4096, 15360) at m = 32 and 2048 beside
+             torch._int_mm, each decode case with its plan, and a line a
+             size summing the layer; rows 3 and 4 at its 4 KiB rows
+             (F = 2048: a paged decode step and a batched prefill's
+             pages, bf16 and int8 with its scale planes)
   sampling   sample_step's candidate pick (topk_ids: lower ids first among
              ties, as jax.lax.top_k) at 32 slots x 128256 against a full
              stable sort, timed beside both and torch.topk
   attention  the bf16 decode and prefill attention at the served shapes
              against the same function on the CPU, which takes every
              product and sum in f32 (the JAX package's precision)
+  attention_window  the same at lane I's shapes (16 / 8 heads of 256)
+             with its sliding window of 1024, without and with a softcap
+             of 50, a bf16 cache and an int8 one; the window changes
+             every case's output
   checkpoint (lane H) two local HF checkpoint directories written from a
              seed into a temporary directory (removed after) with the
              port's safetensors writer: H1 llama-3.1-8b at full width,
@@ -85,8 +95,8 @@ Phases, in order, each printing JSON lines:
              schema and a regex over the corpus words (multi-character
              tokens), each in its language and the device-FSM path's
              tokens equal to the host-masked path's ("H1 ... guided")
-Then, for each of five lanes at full width and depth (lane B at 4 of
-its 48 layers, C at 8 of 32, D at 4 of 48, for the run's time: see
+Then, for each of five lanes at full width and depth (lane B at 2 of
+its 48 layers, C at 4 of 32, D at 4 of 48, for the run's time: see
 LANES) -- A
 llama-3.1-8b
 and B qwen3-30b-a3b with two-level w4a8 weights (serve, logits;
@@ -129,11 +139,11 @@ time):
              token rows within 2e-2 of it at the lane's depth (one-bf16-
              step GEMM differences can move a whole row on random
              weights), also measured at 1, 2, 4 (and C: 8) layers
-  profile    (A, C, D) torch.profiler over 32 concurrent 256/32
+  profile    (A, C, D) torch.profiler over 32 concurrent 256/16
              requests on the same engine: device time by kernel, device
              busy share
   bench      (A) bench/bench_engine.py's run_bench on the same engine:
-             cells c = 1 / 4 / 32 with 2 / 8 / 32 requests of 256/128,
+             cells c = 1 / 4 / 32 with 1 / 4 / 32 requests of 256/128,
              two repeats each (a warm-up before each cell's first);
              every cell and repeat completes its requests without error,
              meets no program key for the first time (the runner's
@@ -209,6 +219,24 @@ Lanes F and G, on lane A's weights once its phases are done:
              dispatch under the no-sync check; the share of wave 1's
              greedy tokens equal to a pool where nothing is preempted
 
+Lane I, after the cli phase, on the card alone: gemma-3-12b (the text
+config of google/gemma-3-12b-it through the port's config mapping) at
+full width, 12 of its 48 layers (layers 5 and 11 global, ten local with
+a window of 1024), random bf16 weights drawn on the card (seed 0) ->
+quantize_model_params -> the default EngineConfig at max_model_len 2048
+(two-level w4a8, the paged layout with the prefix cache):
+  logits_gemma3  one 1536-token prompt through a batched prefill and 16
+             decode steps, kernels vs plain versions: every logit within
+             1e-3 of the logit scale; the plain prefill with the window
+             widened past the prompt equals it below position 1024 and
+             differs at every position from 1024 on
+  serve_gemma3, profile_gemma3  32 x 256/128 (every request 128 tokens,
+             rows 1-4 launched and no other kernel; TTFT, TPOT), then
+             the profile phase (busy share)
+  long_gemma3  4 requests of 1536/64, alone and batched, on the paged
+             layout and on the linear one: the greedy tokens equal
+             across the four runs
+
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
 with no result line; so does a machine without CUDA. Every phase line
@@ -281,10 +309,15 @@ SERVE_GROUPED_W4A16_A = 16384
 # logits measured at 1, 2 and 4 layers and its depth. The guided phase
 # came next (974.7 s on an H100; 1184.8 s on an H100 with a host ~22%
 # slower in every phase; 1160.5 s on such a host with C at 16 and B, D
-# at 4 layers): now lane C runs 8 of its 32 layers (its logits measured
-# at 1, 2 and 4 layers and its depth), B and D 4 of their 48 (at 2
-# layers D's logits check fails: 97.5% of the rows within tolerance
-# against 99%), and the bench phase two repeats a cell.
+# at 4 layers): lane C went to 8 of its 32 layers, B and D to 4 of
+# their 48 (at 2 layers D's logits check fails: 97.5% of the rows
+# within tolerance against 99%), and the bench phase to two repeats a
+# cell. Lane I
+# (gemma-3-12b) came next: 1078.1 s on an H100 whose host ran lane A's
+# serve ~17% slower than usual, so C runs 4 of its 32 layers (its logits
+# measured at 1 and 2 layers and its depth: 99.6% of the rows within
+# tolerance at 4 layers in that run) and B 2 of its 48 (its logits
+# check is exact at any depth).
 LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
@@ -293,15 +326,15 @@ LANES = (
          window_check=True, bench=True, fg=True),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
-         layers=4, mode={}, float_scale=False, path=MOE_PATH,
+         layers=2, mode={}, float_scale=False, path=MOE_PATH,
          lanes=(32, 32, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
          tag="_moe", profile=False, small=True),
     dict(name="C llama-3.1-8b float-scale w4a8", model="llama-3.1-8b",
-         layers=8, mode={"w4a8": True, "w4a8_two_level": False},
+         layers=4, mode={"w4a8": True, "w4a8_two_level": False},
          float_scale=True,
          path=("w4a8_decode", "w4a16_gemm") + KV_PATH,
          lanes=(1, 1, 1, 1),
-         tol=2e-2, min_rows=0.99, depths=(1, 2, 4, 8, None), tag="_fs",
+         tol=2e-2, min_rows=0.99, depths=(1, 2, None), tag="_fs",
          profile=True),
     # 32 lanes: 256 grouped rows a step; 1 lane: 8.
     dict(name="D qwen3-30b-a3b w4a16", model="qwen3-30b-a3b", layers=4,
@@ -1819,6 +1852,7 @@ def summarize(cases):
         c = next(c for c in cases
                  if c["kernel"] == name and c.get("arrays") == 2
                  and "bf" in c["dtype"]
+                 and c.get("model", "llama-3.1-8b") == "llama-3.1-8b"
                  and (c.get("window") or c.get("form") == "pairs"))
         out[name] = {k: c.get(k) for k in ("plain_ms", "library_ms",
                                            "bound_ms", "bound_by")}
@@ -3172,7 +3206,7 @@ def logits_phase(torch, mc, engine, lane):
     return launches
 
 
-def profile_phase(torch, mc, engine, tag, output_len=32):
+def profile_phase(torch, mc, engine, tag, output_len=16):
     """torch.profiler over 32 concurrent 256/`output_len` requests on the
     served engine; device time by kernel and the device's busy share of
     the wall time (the profiler's own host cost inflates the wall time,
@@ -3218,8 +3252,9 @@ def profile_phase(torch, mc, engine, tag, output_len=32):
 # ---------------------------------------------------------------------------
 
 # bench's cells on lane A's engine: concurrency -> requests, each at
-# BENCH_REPEATS repeats, 256/128 (bench.py's cell shape).
-BENCH_CELLS = {1: 2, 4: 8, 32: 32}
+# BENCH_REPEATS repeats, 256/128 (bench.py's cell shape); one wave a
+# repeat (two at c = 1 and 4 before lane I joined), for the run's time.
+BENCH_CELLS = {1: 1, 4: 4, 32: 32}
 BENCH_REPEATS = 2
 # The phase times are rounded to the millisecond in the report.
 ROUND_S = 1.5e-3
@@ -4320,6 +4355,461 @@ def h_guided(torch, engine, mc, lane, prompts):
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# lane I: gemma-3-12b (windowed attention) at full width
+# ---------------------------------------------------------------------------
+
+# The text config of Google's published google/gemma-3-12b-it (its
+# config.json's "text_config", wrapped as Gemma3ForConditionalGeneration
+# as the file is), every field the port's mapping reads written out: the
+# published file leaves head_dim, query_pre_attn_scalar, the rope bases,
+# rms_norm_eps and the vocabulary to Gemma3TextConfig's defaults, which
+# the mapping does not share (head_dim would fall to 3840 / 16 = 240).
+GEMMA3_12B = {
+    "architectures": ["Gemma3ForConditionalGeneration"],
+    "eos_token_id": [1, 106],
+    "text_config": {
+        "hidden_size": 3840, "intermediate_size": 15360,
+        "num_hidden_layers": 48, "num_attention_heads": 16,
+        "num_key_value_heads": 8, "head_dim": 256,
+        "query_pre_attn_scalar": 256, "sliding_window": 1024,
+        "sliding_window_pattern": 6, "rope_theta": 1000000.0,
+        "rope_local_base_freq": 10000.0,
+        "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+        "vocab_size": 262208, "rms_norm_eps": 1e-6,
+        "max_position_embeddings": 131072, "tie_word_embeddings": True,
+        "final_logit_softcapping": None, "attn_logit_softcapping": None,
+        "bos_token_id": 2, "eos_token_id": [1, 106]},
+}
+# 12 of its 48 layers: layers 5 and 11 global, the other ten local.
+I_LAYERS = 12
+I_MAX_LEN = 2048
+I_LONG, I_LONG_OUT, I_LONG_REQS = 1536, 64, 4
+I_DECODE_STEPS = 16
+# gemma-3-12b's projections (K, N), q|k|v and gate|up fused; rows 1 and 2
+# at a decode window's 32 lanes and a batched prefill's 2048 rows.
+I_SHAPES = {"qkv": (3840, 8192), "o": (4096, 3840),
+            "gate_up": (3840, 30720), "down": (15360, 3840)}
+I_M = (32, 2048)
+LANE_I = dict(name="I gemma-3-12b w4a8 two-level", model="gemma-3-12b",
+              mode={}, path=LLAMA_PATH, tag="_gemma3")
+
+
+def gemma_config():
+    """Lane I's model config: GEMMA3_12B through the port's mapping, cut
+    to I_LAYERS."""
+    import dataclasses
+
+    from ferrum_tpu_torch.models.configs import config_from_hf_dict
+    mc = config_from_hf_dict(GEMMA3_12B)
+    return dataclasses.replace(mc, num_layers=I_LAYERS)
+
+
+def gemma_rows(torch, timer):
+    """Rows 1 and 2 (w4a8tl_decode at m = 32, w4a8tl_prefill at m = 2048)
+    at gemma-3-12b's four projections -- the first dense K (3840) that is
+    not a multiple of 512, and K = 15360 --, exact against their plain
+    versions, timed beside torch._int_mm on the int8 w8; then one line
+    summing a layer's projections a size."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    kernels = {32: ("w4a8tl_decode", qmm.w4a8tl_decode),
+               2048: ("w4a8tl_prefill", qmm.w4a8tl_prefill)}
+    rows = []
+    for site, (k, n) in I_SHAPES.items():
+        p = make_gemm_weight(torch, k, n, gen)
+        w8_cm = int_mm_weight(torch, p)
+        for m in I_M:
+            x = torch.randn(m, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = qmm.quantize_activation_rows(x)
+            kernel, fn = kernels[m]
+            row = {"kernel": kernel, "site": site, "m": m, "k": k, "n": n,
+                   "model": "gemma-3-12b"}
+            if kernel == "w4a8tl_decode":
+                row["plan"] = qmm.w4a8tl_decode_plan(m, n, k)
+            two_level_case(rows, timer, row, fn, qmm.w4a8tl_plain, p,
+                           w8_cm, xq, xs)
+        del p, w8_cm
+        torch.cuda.empty_cache()
+    for m in I_M:
+        sel = [c for c in rows if c["m"] == m]
+        emit({"phase": "kernel_layer", "model": "gemma-3-12b",
+              "kernel": sel[0]["kernel"], **_summed(sel, f"m={m}"),
+              "card": smi_line()})
+    return rows
+
+
+def gemma_kv_cases(torch, timer):
+    """Rows 3 and 4 at lane I's 4 KiB rows (8 kv heads x 256 x bf16; the
+    lanes before had 2 KiB): a paged decode step's K and V (12 layers x
+    32 lanes scattered over a 2049-block pool, 4 pad lanes dropped), bf16
+    and int8 with its scale planes (F = 2048 int8 values and 8 scales a
+    row), and a batched prefill's pages (2048 rows: 64 pages a layer)
+    in the same two forms, each bit for bit against its plain version."""
+    from ferrum_tpu_torch.ops.kernels.kv_append import (
+        append_pages_pairs, append_pages_pairs_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    layers, lanes, pool = I_LAYERS, 32, 2049
+    b = layers * pool
+    pos = torch.randint(0, I_MAX_LEN, (lanes,), generator=gen,
+                        device="cuda")
+    lane_blk = torch.randperm(pool, generator=gen, device="cuda")[:lanes]
+    blk = torch.arange(layers, device="cuda")[:, None] * pool \
+        + lane_blk[None]
+    blk[:, -4:] = OOB_SENTINEL
+    blk = blk.reshape(-1).to(torch.int32).contiguous()
+    off = (pos % PAGE).repeat(layers).to(torch.int32).contiguous()
+    forms = (("bf16 K, V", [("bfloat16", 2048)] * 2),
+             ("int8 K, V, K scales, V scales",
+              [("int8", 2048)] * 2 + [("float32", 8)] * 2))
+    rows = kv_rows_form_cases(
+        torch, timer, gen, blk, off, b, forms,
+        {"model": "gemma-3-12b", "form": "paged step",
+         "at": f"{layers} layers x {lanes} lanes, F = 2048"})
+    n_pg = PREFILL_ROWS // PAGE
+    ids = (torch.arange(layers, device="cuda")[:, None] * pool
+           + torch.randperm(pool, generator=gen, device="cuda")[:n_pg][None])
+    ids[0, 3] = OOB_SENTINEL
+    ids = ids.reshape(-1).to(torch.int32).contiguous()
+    for label, kinds in forms:
+        pairs = [(kv_array(torch, gen, getattr(torch, dt), (b, PAGE, w)),
+                  kv_array(torch, gen, getattr(torch, dt),
+                           (ids.numel(), PAGE, w))) for dt, w in kinds]
+        ref = append_pages_pairs_plain([(c.clone(), s) for c, s in pairs],
+                                       ids)
+        append_pages_pairs(pairs, ids)
+        torch.cuda.synchronize()
+        valid = int((ids < b).sum().item())
+        row = {"kernel": "kv_append_pages", "dtype": label,
+               "arrays": len(pairs), "pages": ids.numel(),
+               "f": kinds[0][1], "model": "gemma-3-12b", "form": "pairs",
+               "equal": all(bool(torch.equal(c, w))
+                            for (c, _), w in zip(pairs, ref)),
+               "max_abs_err": max((c.float() - w.float()).abs().max().item()
+                                  for (c, _), w in zip(pairs, ref))}
+        del ref
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            sum(2 * valid * s[0].nbytes for _, s in pairs) + ids.nbytes, 0)
+        row["kernel_ms"] = timer(lambda: append_pages_pairs(pairs, ids))
+        row["plain_ms"] = timer(
+            lambda: append_pages_pairs_plain(pairs, ids), reps=10)
+        row["library_ms"] = None
+        rows.append(row)
+        emit({"phase": "kernel_case", **row})
+        if not row["equal"]:
+            raise AssertionError(f"kv_append_pages {label} at F = 2048: "
+                                 f"differs by {row['max_abs_err']}")
+        del pairs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def attention_window_phase(torch, device):
+    """The windowed attention at lane I's shapes (Hq = 16, Hkv = 8, D =
+    256, scale 256^-0.5): decode over 32 slots with caches of up to 2048
+    tokens and prefill chunks of 128 over 1152 cached tokens, sliding
+    window 1024, without and with a softcap of 50, a bf16 cache and an
+    int8 one (values and f32 scales), on `device` against the same
+    function on CPU copies of the inputs (every product and sum in f32,
+    the JAX package's precision); attention_phase's tolerance. The
+    window bites: on the card the same inputs without it give other
+    outputs."""
+    from ferrum_tpu_torch.ops.attention import (flat_decode_attention,
+                                                flat_prefill_attention)
+    hq, hkv, d, sw = 16, 8, 256, 1024
+    f, scale = hkv * d, 256 ** -0.5
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(14)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(torch.bfloat16)
+
+    def cache(kv, *shape):
+        if kv == "bf16":
+            return rnd(*shape), None
+        vals = torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8)
+        return vals, torch.rand(*shape[:-1], hkv, generator=gen) * 0.02
+
+    s, c = SERVE_REQUESTS, I_MAX_LEN
+    b, t, cp = 2, 128, 1152
+    pos = torch.arange(t)[None] + torch.tensor([cp, 1000])[:, None]
+    total = torch.tensor([cp + t, 1000 + 100])
+    pos[1, 100:] = 1 << 20                        # pad rows past the end
+    out = {"phase": "attention_window", "card": smi_line(),
+           "heads": [hq, hkv, d], "sliding_window": sw,
+           "tolerance": f"<= {ATTN_DIFF_SHARE} of outputs differ, each by "
+                        f"<= 2^-7 of max |out|"}
+    for kv in ("bf16", "int8"):
+        kd, ksd = cache(kv, s, c, f)
+        vd, vsd = cache(kv, s, c, f)
+        dec = [rnd(s, hq, d, std=6.0), kd, vd,
+               torch.randint(1, c + 1, (s,), generator=gen),
+               rnd(s, hkv, d), rnd(s, hkv, d)]
+        kp, ksp = cache(kv, b, cp, f)
+        vp, vsp = cache(kv, b, cp, f)
+        pre = [rnd(b, t, hq, d, std=6.0), kp, vp, pos, total,
+               rnd(b, t, hkv, d), rnd(b, t, hkv, d)]
+        for cap in (None, 50.0):
+            for name, fn, args, scales in (
+                    ("decode", flat_decode_attention, dec, (ksd, vsd)),
+                    ("prefill", flat_prefill_attention, pre, (ksp, vsp))):
+                kw = dict(hkv=hkv, scale=scale, sliding_window=sw,
+                          softcap=cap, k_scale=scales[0], v_scale=scales[1])
+                want = fn(*args, **kw).float()
+                dkw = {k: (v.to(device) if torch.is_tensor(v) else v)
+                       for k, v in kw.items()}
+                dargs = [a.to(device) for a in args]
+                got = fn(*dargs, **dkw).float().cpu()
+                unwindowed = fn(*dargs, **{**dkw, "sliding_window": None}
+                                ).float().cpu()
+                if name == "prefill":
+                    real = pos < total[:, None]
+                    got, want = got[real], want[real]
+                    unwindowed = unwindowed[real]
+                diff = (got - want).abs()
+                share = (diff > 0).float().mean().item()
+                worst = diff.max().item() / want.abs().max().item()
+                key = f"{name} {kv}" + (f" softcap {cap}" if cap else "")
+                out[key] = {"share_differing": share,
+                            "max_abs_diff_over_max_out": worst,
+                            "window_changes_output": not torch.equal(
+                                unwindowed, got)}
+                if share > ATTN_DIFF_SHARE or worst > 2 ** -7 \
+                        or not out[key]["window_changes_output"]:
+                    emit(out)
+                    raise AssertionError(f"windowed {key} attention on "
+                                         f"{device}: {out[key]}")
+    emit(out)
+
+
+def gemma_params(torch, mc, seed=0):
+    """Random bf16 weights of lane I's model drawn on the card
+    (torch.Generator(seed)): init_random_params' layout (normal 0.02
+    linears and embedding, the sandwich norms present) with the
+    zero-centred norm weights drawn too (normal 0.1), so the (1 + w)
+    form is exercised; the host never holds them."""
+    from ferrum_tpu_torch.models.llama_family import LayerParams, ModelParams
+    from ferrum_tpu_torch.ops.linear import DenseLinearParams
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def normal(*shape, std=0.02):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+
+    def lin(i, o):
+        return DenseLinearParams(w=normal(i, o), bias=None)
+
+    def norm(n):
+        return normal(n, std=0.1)
+
+    h, inter = mc.hidden_size, mc.intermediate_size
+    layers = [LayerParams(
+        input_norm=norm(h), q=lin(h, mc.q_size), k=lin(h, mc.kv_size),
+        v=lin(h, mc.kv_size), o=lin(mc.q_size, h),
+        q_norm=norm(mc.head_dim), k_norm=norm(mc.head_dim),
+        pre_mlp_norm=norm(h), gate=lin(h, inter), up=lin(h, inter),
+        down=lin(inter, h), post_attn_norm=norm(h), post_mlp_norm=norm(h))
+        for _ in range(mc.num_layers)]
+    return ModelParams(embed=normal(mc.vocab_size, h), layers=layers,
+                       final_norm=norm(h), lm_head=None)
+
+
+def gemma_engine(mc, params, **kw):
+    """The default EngineConfig at max_model_len 2048 (two-level w4a8, the
+    paged layout with the prefix cache), and `kw`."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine.builder import EngineBuilder
+    return EngineBuilder(EngineConfig(max_model_len=I_MAX_LEN, **kw)) \
+        .with_model(mc, params).build()
+
+
+def gemma_logits(torch, mc, params):
+    """One 1536-token prompt through a batched prefill and 16 one-lane
+    decode steps, through the kernels and through their plain versions
+    (both on the card, the plain run fed the kernel run's tokens): every
+    logit within 1e-3 of the logit scale (the kernels are exact). The
+    witness: the plain prefill with the window widened past the prompt
+    (4096: the same ten local layers on their local RoPE, nothing
+    masked) equals the windowed one at positions < 1024 and differs at
+    positions >= 1024. Returns the kernel run's launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from ferrum_tpu_torch.models import llama_family as lf
+    from ferrum_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    n_blocks = I_MAX_LEN // PAGE
+    prompt = torch.from_numpy(np.random.default_rng(21).integers(
+        0, mc.vocab_size, I_LONG)).to(dev)[None]
+    tables = torch.arange(n_blocks, device=dev)[None]
+
+    def run(cfg, fed=None, decode=True):
+        kv = lf.PagedKvCache.create(cfg, n_blocks, PAGE,
+                                    dtype=torch.bfloat16, device=dev)
+        pos = torch.arange(I_LONG, device=dev)[None]
+        h, kv = lf.prefill_forward_batched(
+            params, cfg, kv, prompt, pos, tables,
+            torch.tensor([I_LONG], device=dev), pos, ctx_pad=PAGE)
+        out = [lf.logits_from_hidden(params, cfg, h[0])]
+        toks = []
+        tok = out[0][-1:].argmax(-1)
+        for step in range(I_DECODE_STEPS if decode else 0):
+            tok = tok if fed is None else fed[step]
+            toks.append(tok)
+            p = torch.full((1,), I_LONG + step, device=dev)
+            h, kv = lf.decode_forward(params, cfg, kv, tok, p, tables,
+                                      p + 1, p, ctx_pad=I_MAX_LEN)
+            out.append(lf.logits_from_hidden(params, cfg, h))
+            tok = out[-1].argmax(-1)
+        torch.cuda.synchronize()
+        return out, toks
+
+    K.reset_launch_counts()
+    with_kernels, fed = run(mc)
+    launches = counts(K)
+    missed = [k for k in LANE_I["path"] if launches[k] == 0]
+    stray = [k for k in off_path(LANE_I) if launches[k] != 0]
+    if missed or stray:
+        raise AssertionError(f"lane I logits run: never launched {missed}, "
+                             f"launched {stray}")
+    swaps = plain_swaps()
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        plain, _ = run(mc, fed)
+        wide, _ = run(dataclasses.replace(mc, sliding_window=4096),
+                      decode=False)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    scale = max(b.abs().max().item() for b in plain)
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(with_kernels, plain))
+    finite = all(bool(torch.isfinite(a).all()) for a in with_kernels)
+    w_diff = (wide[0] - plain[0]).abs().amax(-1)          # per position
+    line = {"phase": "logits_gemma3", "lane": LANE_I["name"],
+            "layers": mc.num_layers,
+            "steps": f"prefill {I_LONG} + {I_DECODE_STEPS} decode steps",
+            "tolerance_rel": 1e-3, "max_abs_diff": diff,
+            "max_rel_diff": diff / scale, "logit_scale": scale,
+            "finite": finite, "identical": diff == 0.0,
+            "window_witness": {
+                "below_1024_max_abs_diff": w_diff[:1024].max().item(),
+                "from_1024_min_row_max_abs_diff": w_diff[1024:].min().item(),
+                "from_1024_rows_differing":
+                    (w_diff[1024:] > 0).float().mean().item()},
+            "launches": launches, "card": smi_line()}
+    emit(line)
+    wit = line["window_witness"]
+    if not finite or diff > 1e-3 * scale:
+        raise AssertionError(f"lane I logits differ: {line}")
+    if wit["below_1024_max_abs_diff"] != 0.0 \
+            or wit["from_1024_rows_differing"] < 1.0:
+        raise AssertionError(f"lane I: the sliding window does not bite "
+                             f"as it should: {wit}")
+    del with_kernels, plain, wide
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gemma_long(torch, engine, mc, tag):
+    """I_LONG_REQS requests of a 1536-token prompt and 64 greedy tokens,
+    each alone (one after another), then all at once: the tokens of each
+    request, alone and batched."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    prompts = np.random.default_rng(22).integers(
+        0, mc.vocab_size, (I_LONG_REQS, I_LONG))
+    t0 = time.perf_counter()
+    alone = [engine.infer(request(p, I_LONG_OUT)).token_ids
+             for p in prompts]
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(I_LONG_REQS) as ex:
+        batched = [r.token_ids for r in ex.map(
+            engine.infer, [request(p, I_LONG_OUT) for p in prompts])]
+    t2 = time.perf_counter()
+    emit({"phase": f"long{tag}", "requests": I_LONG_REQS,
+          "prompt_len": I_LONG, "output_len": I_LONG_OUT,
+          "alone_s": t1 - t0, "batched_s": t2 - t1,
+          "batched_equal_alone": batched == alone})
+    return alone, batched
+
+
+def lane_i(torch):
+    """Lane I: gemma-3-12b at full width, 12 of its 48 layers, random bf16
+    weights drawn on the card (seed 0) -> quantize_model_params -> the
+    default engine (two-level w4a8, paged + prefix cache) at
+    max_model_len 2048: the logits check, 32 x 256/128 served (every
+    request 128 tokens, rows 1-4 launched and no other kernel; TTFT,
+    TPOT), its profile (busy share), then 4 requests of 1536/64 alone
+    and batched on the paged layout and on the linear one: the greedy
+    tokens equal across the four runs. Returns the 32-request serve
+    run's launch counts."""
+    import numpy as np
+
+    from ferrum_tpu_torch.models.quantize import quantize_model_params
+
+    t0 = time.perf_counter()
+    mc = gemma_config()
+    params = quantize_model_params(gemma_params(torch, mc))
+    engine = gemma_engine(mc, params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    by_run = {}
+    try:
+        gemma_logits(torch, mc, engine.runner.params)
+        prompts = np.random.default_rng(0).integers(
+            0, mc.vocab_size, (SERVE_REQUESTS, PROMPT_LEN))
+        launches, _, line = serve_run(torch, engine, mc, LANE_I, prompts,
+                                      LANE_I["path"])
+        emit({**line, "engine_build_s": build_s,
+              "kv_layout": engine.cfg.kv_layout,
+              "sliding_window": mc.sliding_window,
+              "local_layers": sum(mc.layer_sliding_window(i) is not None
+                                  for i in range(mc.num_layers))})
+        by_run[LANE_I["name"]] = launches
+        profile_phase(torch, mc, engine, LANE_I["tag"])
+        runs = {"paged": gemma_long(torch, engine, mc, "_gemma3_paged")}
+    finally:
+        engine.stop()
+    params = engine.runner.params
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    linear = gemma_engine(mc, params, kv_layout="linear",
+                          enable_prefix_cache=False)
+    try:
+        runs["linear"] = gemma_long(torch, linear, mc, "_gemma3_linear")
+    finally:
+        linear.stop()
+    del linear, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = runs["paged"][0]
+    streams = {f"{layout} {form}": toks for layout, pair in runs.items()
+               for form, toks in zip(("alone", "batched"), pair)}
+    equal = {k: toks == ref for k, toks in streams.items()}
+    share = {k: float(np.mean([a == b for x, y in zip(toks, ref)
+                               for a, b in zip(x, y)]))
+             for k, toks in streams.items()}
+    emit({"phase": "long_gemma3", "equal_to_paged_alone": equal,
+          "token_share_equal": share, "card": smi_line()})
+    if not all(equal.values()):
+        raise AssertionError(f"lane I: the long-prompt tokens differ "
+                             f"across layouts / batching: {share}")
+    return by_run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4350,7 +4840,8 @@ def main() -> int:
              + kv_paged_step_case(torch, timer)
              + kv_pages_cases(torch, timer)
              + kv_pages_pairs_cases(torch, timer)
-             + moe_cases(torch, timer))
+             + moe_cases(torch, timer)
+             + gemma_rows(torch, timer) + gemma_kv_cases(torch, timer))
     onehot_cases(torch)
     prefill_exact_cases(torch)
     decode_exact_cases(torch, timer)
@@ -4363,6 +4854,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     attention_phase(torch, "cuda")
+    attention_window_phase(torch, "cuda")
 
     # Each served path: its kernels' counts from 0 over its serve run.
     by_path, solos = {}, {}
@@ -4417,6 +4909,8 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
         cli_finish(cli)
+        # Lane I: gemma-3-12b, windowed attention, on the card alone.
+        by_path.update(lane_i(torch))
     finally:
         if cli is not None and cli[1].poll() is None:
             cli[1].kill()

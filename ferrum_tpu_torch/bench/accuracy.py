@@ -96,27 +96,35 @@ def teacher_forced_logits(params, cfg, tokens: Sequence[int]
                           ) -> torch.Tensor:
     """Full-sequence causal logits f32 [N, vocab] for one token list: the
     model's trunk with a plain causal GQA attention (f32 scores and
-    weights, -1e30 masked), on the params' device."""
+    weights, -1e30 masked; each layer's sliding window and the
+    attention softcap), on the params' device."""
     from ..models.llama_family import (forward_hidden, logits_from_hidden,
-                                       make_inv_freq)
+                                       make_inv_freq, make_local_inv_freq)
 
     dev = params.embed.device
     toks = torch.tensor(list(tokens), dtype=torch.int64, device=dev)
     pos = torch.arange(toks.shape[0], device=dev)
     g = cfg.num_heads // cfg.num_kv_heads
-    mask = pos[None, :] <= pos[:, None]
+    cap = cfg.attn_logit_softcap
 
     def attn(li, q, k, v):
         kf = k.repeat_interleave(g, dim=1).to(torch.float32)  # [N, Hq, D]
         vf = v.repeat_interleave(g, dim=1).to(torch.float32)
         s = torch.einsum("qhd,khd->hqk", q.to(torch.float32), kf)
-        s = torch.where(mask[None], s * cfg.attn_scale,
-                        torch.tensor(-1e30, device=dev))
+        s = s * cfg.attn_scale
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        mask = pos[None, :] <= pos[:, None]
+        sw = cfg.layer_sliding_window(li)
+        if sw is not None:
+            mask = mask & (pos[None, :] > pos[:, None] - sw)
+        s = torch.where(mask[None], s, torch.tensor(-1e30, device=dev))
         w = torch.softmax(s, dim=-1)
         return torch.einsum("hqk,khd->qhd", w, vf).to(q.dtype)
 
     h = forward_hidden(params, cfg, toks, pos, attn,
-                       inv_freq=make_inv_freq(cfg, dev))
+                       inv_freq=make_inv_freq(cfg, dev),
+                       inv_freq_local=make_local_inv_freq(cfg, dev))
     return logits_from_hidden(params, cfg, h).to(torch.float32)
 
 

@@ -105,7 +105,7 @@ from ..config import EngineConfig
 from ..models.configs import ModelConfig
 from ..models.llama_family import (
     OOB_SENTINEL, ModelParams, PagedKvCache, append_window_kv,
-    decode_forward, logits_from_hidden, make_inv_freq,
+    decode_forward, logits_from_hidden, make_inv_freq, make_local_inv_freq,
     prefill_forward_batched)
 from ..ops.kernels import build as kernel_build
 from ..ops.kernels.kv_append import append_pages_pairs
@@ -225,6 +225,8 @@ class ModelRunner:
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(engine_cfg.seed)
         self.inv_freq = make_inv_freq(model_cfg, device)
+        # gemma3's sliding-window layers' table (None elsewhere).
+        self.inv_freq_local = make_local_inv_freq(model_cfg, device)
         self.eos_mask = torch.zeros(v, dtype=torch.bool, device=device)
         self.eos_mask[list(model_cfg.eos_token_ids)] = True
         # Counters read by callers: windows by lane bucket, windows that
@@ -633,7 +635,8 @@ class ModelRunner:
         h, _ = prefill_forward_batched(
             self.params, self.model_cfg, self.kv, pk[0], pk[1],
             tables, sc[2], pk[2], ctx_pad=ctx_pad,
-            inv_freq=self.inv_freq, attn_impl=self.attn_impl)
+            inv_freq=self.inv_freq, inv_freq_local=self.inv_freq_local,
+            attn_impl=self.attn_impl)
         update_counts(self.counts, slots[:, None].expand(b, t_pad), pk[3])
         score_lp = score_am = None
         if score:
@@ -950,7 +953,8 @@ class ModelRunner:
             h, win = decode_forward(
                 self.params, self.model_cfg, kv, fwd_tok, fwd_pos, None,
                 cache_len + step, None, ctx_pad=ctx_pad,
-                inv_freq=self.inv_freq, win=win)
+                inv_freq=self.inv_freq, inv_freq_local=self.inv_freq_local,
+                win=win)
             if p_rows:
                 if step == last_t:
                     h_last = h[s_pad + last_j:s_pad + last_j + 1]
@@ -1013,7 +1017,8 @@ class ModelRunner:
             h, _ = decode_forward(
                 self.params, self.model_cfg, self.kv, tokens,
                 positions + step, tables, cache_len + step, flat[step],
-                ctx_pad=ctx_pad, inv_freq=self.inv_freq, attn_impl="ref")
+                ctx_pad=ctx_pad, inv_freq=self.inv_freq,
+                inv_freq_local=self.inv_freq_local, attn_impl="ref")
             tokens = draw(logits_from_hidden(self.params, self.model_cfg, h),
                           step)
             steps.append(tokens)

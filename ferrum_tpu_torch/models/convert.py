@@ -65,7 +65,7 @@ def params_from_numpy(tree: Dict[str, np.ndarray],
         norm = {name: (to(tree[f"{p}.{name}"]) if f"{p}.{name}" in tree
                        else None)
                 for name in ("input_norm", "pre_mlp_norm", "q_norm",
-                             "k_norm")}
+                             "k_norm", "post_attn_norm", "post_mlp_norm")}
         moe = None
         if f"{p}.moe.router.w" in tree:
             moe = MoeLayerParams(**{

@@ -10,8 +10,9 @@ into the packed int4 layout, so one kernel family serves GPTQ and GGUF.
 Q4_K numerics follow ggml's dequantize_row_q4_K (super-blocks of 256 =
 8 sub-blocks of 32, 6-bit scales and mins, w = d*sc*q - dmin*m); Q6_K
 follows dequantize_row_q6_K. A matching encoder (quantize_q4k_np) is
-provided for tests and export. Families the port's trunk does not run
-(gemma3) raise in `config_from_gguf`, as `config_from_hf_dict` raises.
+provided for tests and export. A gemma3 GGUF raises in
+`config_from_gguf`: the JAX mapping drops its window, sandwich norms,
+embedding scale and local rope (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -406,8 +407,11 @@ def config_from_gguf(g: GgufFile):
     if family is None:
         raise ModelLoadError(f"unsupported GGUF architecture {arch!r}")
     if family == "gemma3":
-        raise ModelLoadError("GGUF architecture 'gemma3' is not yet ported "
-                             "(ROADMAP Queue 1 item 8)",
+        # The JAX config_from_gguf maps gemma3 without its sliding window,
+        # sandwich norms, embedding scale or local rope: another model.
+        raise ModelLoadError("GGUF architecture 'gemma3': the JAX package's "
+                             "mapping computes another model from it "
+                             "(ROADMAP Queue 3), so the port refuses it",
                              param="general.architecture")
 
     def mk(key, default=None):

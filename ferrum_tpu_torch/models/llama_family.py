@@ -1,7 +1,10 @@
 """Llama-family decoder (GQA + SwiGLU + RoPE) as plain functions on tensors.
 
 Port of `ferrum_tpu/models/llama_family.py` for the served paths (dense
-llama, and qwen3-moe's sparse MLP through ops/moe.py), on both KV
+llama / mistral / qwen2 / qwen3, qwen3-moe's sparse MLP through
+ops/moe.py, and gemma3: (1 + w) norms, sandwich norms around attention
+and MLP, GeGLU, the sqrt(hidden) embedding scale, a local RoPE table
+for its sliding-window layers and the logit softcaps), on both KV
 layouts: decode steps in either form -- the per-step form (`win=None`),
 which appends its K/V after the trunk, on the linear layout
 (`attn_impl="linear"`, slot regions sliced) or the paged one
@@ -88,6 +91,9 @@ class LayerParams:
     qkv: Optional[LinearParams] = None
     gate_up: Optional[LinearParams] = None
     moe: Optional[MoeLayerParams] = None
+    # gemma3 sandwich norms: norm(attn out), norm(mlp out).
+    post_attn_norm: Optional[torch.Tensor] = None
+    post_mlp_norm: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -161,8 +167,35 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def make_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
+    """The global RoPE table (with the config's rope scaling)."""
     return torch.from_numpy(rope_inv_freq(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device)
+
+
+def make_local_inv_freq(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
+    """gemma3's table for its sliding-window layers (`rope_local_theta`,
+    no scaling); None for the other families."""
+    if cfg.family != "gemma3":
+        return None
+    return torch.from_numpy(rope_inv_freq(
+        cfg.head_dim, cfg.rope_local_theta)).to(device)
+
+
+def _rope_tables(cfg: ModelConfig, device, inv_freq, inv_freq_local):
+    """(global, local) tables: those given, the missing ones made."""
+    if inv_freq is None:
+        inv_freq = make_inv_freq(cfg, device)
+    if inv_freq_local is None:
+        inv_freq_local = make_local_inv_freq(cfg, device)
+    return inv_freq, inv_freq_local
+
+
+def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return torch.nn.functional.silu(x)
+    if kind == "gelu_tanh":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(kind)
 
 
 def _mlp(x: torch.Tensor, lp: LayerParams, cfg: ModelConfig,
@@ -174,7 +207,7 @@ def _mlp(x: torch.Tensor, lp: LayerParams, cfg: ModelConfig,
     else:
         g = apply_linear(lp.gate, x)
         u = apply_linear(lp.up, x)
-    return apply_linear(lp.down, torch.nn.functional.silu(g) * u)
+    return apply_linear(lp.down, _activation(g, cfg.activation) * u)
 
 
 AttnFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
@@ -184,16 +217,25 @@ AttnFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
 
 def forward_hidden(params: ModelParams, cfg: ModelConfig,
                    tokens: torch.Tensor, positions: torch.Tensor,
-                   attn_fn: AttnFn, *, inv_freq: torch.Tensor
+                   attn_fn: AttnFn, *, inv_freq: torch.Tensor,
+                   inv_freq_local: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Token ids [N] → final-norm hidden states [N, hidden]; the phase's
-    attention (and its KV bookkeeping) is injected as `attn_fn`."""
+    attention (and its KV bookkeeping) is injected as `attn_fn`. gemma3's
+    sliding-window layers rotate with `inv_freq_local` where given."""
+    # gemma3 stores zero-centred norm weights, applied as (1 + w).
+    gemma = cfg.family == "gemma3"
     h = embed_lookup(params.embed, tokens)
-    cos, sin = rope_cos_sin(positions, inv_freq)
+    if cfg.embedding_multiplier is not None:
+        h = (h.to(torch.float32) * cfg.embedding_multiplier).to(h.dtype)
+    cos_g, sin_g = rope_cos_sin(positions, inv_freq)
+    if inv_freq_local is not None:
+        cos_l, sin_l = rope_cos_sin(positions, inv_freq_local)
+    eps = cfg.rms_norm_eps
     kv_sz = cfg.kv_size
     residual = h
     for li, lp in enumerate(params.layers):
-        x = rms_norm(residual, lp.input_norm, cfg.rms_norm_eps)
+        x = rms_norm(residual, lp.input_norm, eps, gemma_style=gemma)
         if lp.qkv is not None:
             qkv = apply_linear(lp.qkv, x)
             q_sz = qkv.shape[-1] - 2 * kv_sz
@@ -208,26 +250,39 @@ def forward_hidden(params: ModelParams, cfg: ModelConfig,
         k = k.reshape(-1, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(-1, cfg.num_kv_heads, cfg.head_dim)
         if lp.q_norm is not None:
-            q = rms_norm(q, lp.q_norm, cfg.rms_norm_eps)
-            k = rms_norm(k, lp.k_norm, cfg.rms_norm_eps)
+            q = rms_norm(q, lp.q_norm, eps, gemma_style=gemma)
+            k = rms_norm(k, lp.k_norm, eps, gemma_style=gemma)
+        local = gemma and inv_freq_local is not None \
+            and cfg.layer_sliding_window(li) is not None
+        cos, sin = (cos_l, sin_l) if local else (cos_g, sin_g)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attn_fn(li, q, k, v).reshape(-1, cfg.q_size)
         attn = apply_linear(lp.o, attn)
+        if lp.post_attn_norm is not None:
+            attn = rms_norm(attn, lp.post_attn_norm, eps, gemma_style=gemma)
         x, residual = fused_add_rms_norm(attn, residual, lp.pre_mlp_norm,
-                                         cfg.rms_norm_eps)
+                                         eps, gemma_style=gemma)
         mlp = _mlp(x, lp, cfg, li)
+        if lp.post_mlp_norm is not None:
+            mlp = rms_norm(mlp, lp.post_mlp_norm, eps, gemma_style=gemma)
         residual = (residual.to(torch.float32)
                     + mlp.to(torch.float32)).to(residual.dtype)
-    return rms_norm(residual, params.final_norm, cfg.rms_norm_eps)
+    return rms_norm(residual, params.final_norm, eps, gemma_style=gemma)
 
 
 def logits_from_hidden(params: ModelParams, cfg: ModelConfig,
                        h: torch.Tensor) -> torch.Tensor:
-    """hidden [N, H] → logits f32 [N, vocab]."""
+    """hidden [N, H] → logits f32 [N, vocab] (softcapped where the
+    config says)."""
     if params.lm_head is not None:
-        return apply_linear(params.lm_head, h).to(torch.float32)
-    return matmul_f32(h, params.embed.t())
+        logits = apply_linear(params.lm_head, h).to(torch.float32)
+    else:
+        logits = matmul_f32(h, params.embed.t())
+    cap = cfg.final_logit_softcap
+    if cap:
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def _layer_block_ids(blk: torch.Tensor, valid: torch.Tensor, layers: int,
@@ -300,6 +355,7 @@ def decode_forward(
     context_lens: torch.Tensor,   # int [S] incl. the new token
     flat_slots: Optional[torch.Tensor],    # int [S]; >= OOB_SENTINEL = drop
     *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
+    inv_freq_local: Optional[torch.Tensor] = None,
     win: Optional[dict] = None, attn_impl: str = "linear",
 ):
     """One batched decode step over S lanes.
@@ -325,14 +381,16 @@ def decode_forward(
                    phase. "pf": "chunk_start", "valid_len" (ints),
                    "positions" [P], "k_ctx"/"v_ctx" per-layer [C, F]
                    views of the slot's region (+ "ks_ctx"/"vs_ctx").
-    The caller lands the window with `append_window_kv`."""
-    if inv_freq is None:
-        inv_freq = make_inv_freq(cfg, tokens.device)
+    The caller lands the window with `append_window_kv`. Each layer
+    attends through its own sliding window and the config's softcap;
+    `inv_freq` / `inv_freq_local` are the RoPE tables (made here where
+    not given)."""
+    ropes = _rope_tables(cfg, tokens.device, inv_freq, inv_freq_local)
     f = kv.kv_heads * kv.head_dim
     if win is not None:
         return _decode_forward_win(params, cfg, kv, tokens, positions,
                                    block_tables, context_lens, ctx_pad,
-                                   inv_freq, win)
+                                   ropes, win)
     if attn_impl not in ("linear", "ref"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     s_slots = block_tables.shape[0]
@@ -342,12 +400,14 @@ def decode_forward(
     def attn(li, q, k_new, v_new):
         new_ks.append(k_new)
         new_vs.append(v_new)
+        mask = dict(sliding_window=cfg.layer_sliding_window(li),
+                    softcap=cfg.attn_logit_softcap)
         if attn_impl == "ref":
             kc, vc, tables = _paged_cache(kv, li, block_tables, ctx_pad,
                                           q.dtype)
             return paged_decode_attention_ref(
                 q, kc, vc, tables, context_lens, ctx_pad=ctx_pad,
-                scale=cfg.attn_scale, k_self=k_new, v_self=v_new)
+                scale=cfg.attn_scale, k_self=k_new, v_self=v_new, **mask)
         k_lin = kv.k[li].reshape(s_slots, -1, f)[:, :ctx_pad]
         v_lin = kv.v[li].reshape(s_slots, -1, f)[:, :ctx_pad]
         ks_lin = vs_lin = None
@@ -359,17 +419,17 @@ def decode_forward(
         return flat_decode_attention(
             q, k_lin, v_lin, context_lens, k_new, v_new,
             hkv=kv.kv_heads, scale=cfg.attn_scale, k_scale=ks_lin,
-            v_scale=vs_lin)
+            v_scale=vs_lin, **mask)
 
     h = forward_hidden(params, cfg, tokens, positions, attn,
-                       inv_freq=inv_freq)
+                       inv_freq=ropes[0], inv_freq_local=ropes[1])
     _append_kv_rows(kv, torch.stack(new_ks), torch.stack(new_vs),
                     flat_slots)
     return h, kv
 
 
 def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
-                        context_lens, ctx_pad, inv_freq, win):
+                        context_lens, ctx_pad, ropes, win):
     f = kv.kv_heads * kv.head_dim
     s = win["k"].shape[2]
     step = win["step"]
@@ -378,6 +438,8 @@ def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
     quant = kv.quantized
 
     def attn(li, q, k_new, v_new):
+        mask = dict(sliding_window=cfg.layer_sliding_window(li),
+                    softcap=cfg.attn_logit_softcap)
         ks_lin = vs_lin = None
         if "k_lins" in win:
             k_lin, v_lin = win["k_lins"][li], win["v_lins"][li]
@@ -402,7 +464,7 @@ def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
             hkv=kv.kv_heads, scale=cfg.attn_scale,
             k_win=win["k"][li] if step else None, v_win=win["v"][li],
             win_valid=win["valid"], cache_len=win["cache_len"],
-            k_scale=ks_lin, v_scale=vs_lin)
+            k_scale=ks_lin, v_scale=vs_lin, **mask)
         if pf is None:
             return out_d
         kn_p, vn_p = k_new[s:], v_new[s:]
@@ -414,11 +476,11 @@ def _decode_forward_win(params, cfg, kv, tokens, positions, block_tables,
             pf["valid_len"], kn_p, vn_p, pf["positions"],
             hkv=kv.kv_heads, scale=cfg.attn_scale,
             k_scale=pf["ks_ctx"][li] if quant else None,
-            v_scale=pf["vs_ctx"][li] if quant else None)
+            v_scale=pf["vs_ctx"][li] if quant else None, **mask)
         return torch.cat([out_d, out_p])
 
     h = forward_hidden(params, cfg, tokens, positions, attn,
-                       inv_freq=inv_freq)
+                       inv_freq=ropes[0], inv_freq_local=ropes[1])
     return h, win
 
 
@@ -444,6 +506,7 @@ def prefill_forward_batched(
     total_lens: torch.Tensor,     # int [B]: prefix + real chunk tokens
     flat_slots: torch.Tensor,     # int [B, T] (>= OOB_SENTINEL = drop)
     *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
+    inv_freq_local: Optional[torch.Tensor] = None,
     attn_impl: str = "linear",
 ):
     """Chunked prefill of B sequences in one trunk pass (m = B*T for every
@@ -452,9 +515,9 @@ def prefill_forward_batched(
     through block_tables ("ref", the paged layout). Each chunk starts on
     a page boundary and T is a page multiple, so its K/V land as whole
     pages, K, V (and an int8 cache's scales) in one `append_pages_pairs`
-    launch; pages whose first token is a pad are dropped."""
-    if inv_freq is None:
-        inv_freq = make_inv_freq(cfg, tokens.device)
+    launch; pages whose first token is a pad are dropped. Each layer
+    attends through its own sliding window and the config's softcap."""
+    ropes = _rope_tables(cfg, tokens.device, inv_freq, inv_freq_local)
     nb, page = kv.num_blocks, kv.page
     n_layers = kv.k.shape[0]
     b, t_pad = tokens.shape
@@ -489,12 +552,15 @@ def prefill_forward_batched(
             k_new.reshape(b, t_pad, *k_new.shape[1:]),
             v_new.reshape(b, t_pad, *v_new.shape[1:]),
             hkv=kv.kv_heads, scale=cfg.attn_scale,
+            sliding_window=cfg.layer_sliding_window(li),
+            softcap=cfg.attn_logit_softcap,
             k_scale=ctx(kv.k_scale, li) if kv.quantized else None,
             v_scale=ctx(kv.v_scale, li) if kv.quantized else None)
         return out.reshape(b * t_pad, *out.shape[2:])
 
     h = forward_hidden(params, cfg, tokens.reshape(-1),
-                       positions.reshape(-1), attn, inv_freq=inv_freq)
+                       positions.reshape(-1), attn, inv_freq=ropes[0],
+                       inv_freq_local=ropes[1])
 
     n_pg = (b * t_pad) // page
     first = flat_slots.reshape(n_pg, page)[:, 0].to(torch.int64)
@@ -520,9 +586,10 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
     order (a layer's MLP, then q, k, v, o; the embedding, then an untied
     lm_head), each a float64 normal cast to float32 and then to `dtype`
     (round to nearest even, as jnp.asarray). Dense linears, and dense
-    expert stacks [E, ...] in MoE layers. Each tensor goes to the device
-    as it is drawn, so the host holds one at a time. On the card unless
-    `device` says otherwise."""
+    expert stacks [E, ...] in MoE layers; norms are ones, or zeros where
+    they apply as (1 + w) (the sandwich-norm family, gemma3). Each tensor
+    goes to the device as it is drawn, so the host holds one at a time.
+    On the card unless `device` says otherwise."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -533,8 +600,14 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
     def lin(i: int, o: int) -> DenseLinearParams:
         return DenseLinearParams(w=normal(i, o), bias=None)
 
+    # Zero-centred (1 + w) norms store the identity as zeros.
+    unit = 0.0 if cfg.sandwich_norms else 1.0
+
     def ones(n: int) -> torch.Tensor:
-        return torch.ones(n, dtype=dtype, device=dev)
+        return torch.full((n,), unit, dtype=dtype, device=dev)
+
+    def sandwich(n: int) -> Optional[torch.Tensor]:
+        return ones(n) if cfg.sandwich_norms else None
 
     h = cfg.hidden_size
     layers = []
@@ -557,7 +630,8 @@ def init_random_params(cfg: ModelConfig, seed: int = 0,
             input_norm=ones(h), q=q, k=k, v=v, o=o,
             q_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
             k_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
-            pre_mlp_norm=ones(h), gate=gate, up=up, down=down, moe=moe))
+            pre_mlp_norm=ones(h), gate=gate, up=up, down=down, moe=moe,
+            post_attn_norm=sandwich(h), post_mlp_norm=sandwich(h)))
     embed = normal(cfg.vocab_size, h)
     lm_head = None if cfg.tie_word_embeddings else lin(h, cfg.vocab_size)
     return ModelParams(embed=embed, layers=layers, final_norm=ones(h),

@@ -182,6 +182,9 @@ def params_from_hf(cfg: ModelConfig, src: TensorSource, dtype=torch.bfloat16,
     `config_from_hf_dict` admits; None = the CUDA card, raising without
     one)."""
     device = resolve_device(device)
+    # gemma3: post_attention_layernorm is the attention's sandwich norm;
+    # pre_/post_feedforward_layernorm wrap the MLP.
+    gemma = cfg.family == "gemma3"
     layers = []
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}"
@@ -207,9 +210,16 @@ def params_from_hf(cfg: ModelConfig, src: TensorSource, dtype=torch.bfloat16,
             q=q, k=k, v=v, o=o,
             q_norm=_maybe(src, f"{a}.q_norm.weight", dtype, device),
             k_norm=_maybe(src, f"{a}.k_norm.weight", dtype, device),
-            pre_mlp_norm=_norm(src, f"{p}.post_attention_layernorm.weight",
-                               dtype, device),
-            gate=gate, up=up, down=down, moe=moe))
+            pre_mlp_norm=_norm(
+                src, f"{p}.pre_feedforward_layernorm.weight" if gemma
+                else f"{p}.post_attention_layernorm.weight", dtype, device),
+            gate=gate, up=up, down=down, moe=moe,
+            post_attn_norm=_maybe(
+                src, f"{p}.post_attention_layernorm.weight", dtype, device)
+            if gemma else None,
+            post_mlp_norm=_maybe(
+                src, f"{p}.post_feedforward_layernorm.weight", dtype, device)
+            if gemma else None))
     lm_head = None
     if not cfg.tie_word_embeddings:
         if "lm_head.qweight" in src:

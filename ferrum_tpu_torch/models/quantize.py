@@ -2,8 +2,10 @@
 
 Port of `ferrum_tpu/models/quantize.py`: `quantize_model_params` (the
 JAX package's round-to-nearest group quantization of every transformer
-linear and expert stack, through the same numpy quantizer, so the
-packed bytes and scales equal the JAX package's) and
+linear and expert stack -- dense linears on their own device through
+`make_quant_linear`, expert stacks through the numpy quantizer, the
+same f32 arithmetic either way, so the packed bytes and scales equal
+the JAX package's) and
 `init_random_quant_params` (dense layers, and MoE layers' expert stacks
 [E, ...] with a bf16 router).
 Throughput is weight-value independent, so the served-path benchmark
@@ -27,7 +29,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.linear import DenseLinearParams
-from ..ops.quant import QuantLinearParams, quantize_weight_np
+from ..ops.quant import (QuantLinearParams, make_quant_linear,
+                         quantize_weight_np)
 from ..types import InvalidRequestError
 from .configs import ModelConfig
 from .llama_family import LayerParams, ModelParams, MoeLayerParams
@@ -38,7 +41,10 @@ def init_random_quant_params(cfg: ModelConfig, seed: int = 0,
                              group_size: int = 128,
                              dtype=torch.bfloat16) -> ModelParams:
     """Random int4 g128 model (two-level fields set), bf16 embeddings,
-    norms and lm_head; on the card unless `device` says otherwise."""
+    norms and lm_head; on the card unless `device` says otherwise. As in
+    the JAX package, every family gets ones norms and no sandwich norms
+    (gemma3 included: ROADMAP Queue 3); a gemma3 model is built with
+    `init_random_params` and `quantize_model_params` instead."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -98,21 +104,17 @@ def init_random_quant_params(cfg: ModelConfig, seed: int = 0,
 
 def _quant_dense(lin, group_size: int, dtype):
     """A dense [in, out] linear → int4 on its own device (the JAX
-    `_quant_dense`); already-quantized or oddly-shaped linears pass."""
+    `_quant_dense`, through `make_quant_linear`: quantize_weight_np's f32
+    arithmetic in torch, so a weight on the card never crosses to the
+    host); already-quantized or oddly-shaped linears pass."""
     if lin is None or not isinstance(lin, DenseLinearParams):
         return lin
-    w = lin.w.to(torch.float32).cpu().numpy()
-    if w.shape[0] % group_size:
+    if lin.w.shape[0] % group_size:
         return lin
-    packed, scales, zeros = quantize_weight_np(w, group_size)
-    dev = lin.w.device
-    return QuantLinearParams(
-        qweight=torch.from_numpy(packed).to(dev),
-        scales=torch.from_numpy(scales).to(dev, dtype),
-        zeros=torch.from_numpy(zeros).to(dev),
-        bias=None if lin.bias is None else lin.bias.to(dtype),
-        in_features=w.shape[0], out_features=w.shape[1],
-        group_size=group_size)
+    p = make_quant_linear(lin.w, group_size, symmetric=True, dtype=dtype)
+    if lin.bias is not None:
+        p.bias = lin.bias.to(dtype)
+    return p
 
 
 def _quant_expert_stack(w: torch.Tensor, group_size: int, dtype
@@ -158,7 +160,9 @@ def quantize_model_params(params: ModelParams, group_size: int = 128,
             v=_quant_dense(lp.v, group_size, dtype),
             o=_quant_dense(lp.o, group_size, dtype),
             q_norm=lp.q_norm, k_norm=lp.k_norm,
+            post_attn_norm=lp.post_attn_norm,
             pre_mlp_norm=lp.pre_mlp_norm,
+            post_mlp_norm=lp.post_mlp_norm,
             gate=_quant_dense(lp.gate, group_size, dtype),
             up=_quant_dense(lp.up, group_size, dtype),
             down=_quant_dense(lp.down, group_size, dtype),

@@ -2,11 +2,24 @@
 paged layout's gather-based reference forms.
 
 Port of `ferrum_tpu/ops/attention.py`: `flat_decode_attention` (with its
-decode-window terms and int8 KV; without softcap and sliding windows),
-`flat_prefill_window_attention`, `flat_prefill_attention`, and the
-paged layout's `gather_kv`, `paged_decode_attention_ref` and
-`paged_prefill_attention_ref`. They are plain XLA in the JAX package,
-so they are plain PyTorch here.
+decode-window terms and int8 KV), `flat_prefill_window_attention`,
+`flat_prefill_attention`, and the paged layout's `gather_kv`,
+`paged_decode_attention_ref` and `paged_prefill_attention_ref`, each
+with a sliding window and a logit softcap. They are plain XLA in the
+JAX package, so they are plain PyTorch here.
+
+Sliding window `sw`, as the JAX package masks it: a decode query at
+context length `ctx` sees the cached positions >= ctx - sw (its own
+token always); a prefill query at position p the keys at positions
+> p - sw. The one departure: a decode window's in-window terms (the
+tokens of its earlier steps, not cached yet) are windowed like the
+history, where the JAX package lets every one of them in (ROADMAP
+Queue 3). The two agree while a window's steps stay within sw, as they
+do at every published window; the port's window form then also equals
+its per-step form at any length.
+
+Softcap `cap`: scores -> cap * tanh(scores / cap) after the scale (and
+an int8 cache's k_scale), before the mask.
 
 INT8 KV: the cache holds int8 values with f32 scales per (token, kv
 head). A scale is constant within a head's F segment and each masked q
@@ -69,6 +82,13 @@ def _dequant_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype) if x.dtype == torch.int8 else x
 
 
+def _maybe_softcap(scores: torch.Tensor, cap: Optional[float]
+                   ) -> torch.Tensor:
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
 def flat_decode_attention(
     q: torch.Tensor,              # [S, Hq, D]
     k_flat: torch.Tensor,         # [S, C, F] slot-contiguous cache view
@@ -79,6 +99,8 @@ def flat_decode_attention(
     *,
     hkv: int,
     scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
     k_win: Optional[torch.Tensor] = None,     # [W, S, Hkv, D] in-window K
     v_win: Optional[torch.Tensor] = None,
     win_valid: Optional[torch.Tensor] = None,  # bool [S, W]
@@ -92,7 +114,9 @@ def flat_decode_attention(
     (history < cache_len - 1), and the tokens generated earlier in the
     window, not cached yet, join as the `win_valid` rows of k_win/v_win:
     their scores extend the history's, under one softmax (one mask, max
-    and sum over both, where the JAX package takes three of each)."""
+    and sum over both, where the JAX package takes three of each).
+    With a sliding window, the history and the window's rows before
+    position len - sw drop out (module docstring)."""
     s, hq, d = q.shape
     ctx_pad = k_flat.shape[1]
     rep = hq // hkv
@@ -104,14 +128,23 @@ def flat_decode_attention(
         scores = scores * _head_scales(k_scale, rep)
     hist_src = context_lens if cache_len is None else cache_len
     hist_len = hist_src.to(torch.int64)[:, None] - 1
-    valid = torch.arange(ctx_pad, device=q.device)[None, :] < hist_len
+    pos = torch.arange(ctx_pad, device=q.device)[None, :]
+    valid = pos < hist_len
     if k_win is not None:
         kw = k_win.movedim(0, 1).reshape(s, -1, hkv * d).to(qt.dtype)
         scores = torch.cat([scores, matmul_f32(qt, kw.transpose(1, 2))],
                            dim=-1)                           # [S, Hq, C+W]
+        # Window row j holds the token at position cache_len - 1 + j.
+        pos = torch.cat([pos.expand(s, ctx_pad), hist_len + torch.arange(
+            k_win.shape[0], device=q.device)[None, :]], dim=-1)
         valid = torch.cat([valid, win_valid], dim=-1)
+    if sliding_window is not None:
+        valid = valid & (pos >= context_lens.to(torch.int64)[:, None]
+                         - sliding_window)
+    scores = _maybe_softcap(scores, softcap)
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    self_sc = matmul_f32(qt, k_self.reshape(s, hkv * d, 1))[..., 0]  # [S, Hq]
+    self_sc = _maybe_softcap(matmul_f32(
+        qt, k_self.reshape(s, hkv * d, 1))[..., 0], softcap)  # [S, Hq]
 
     m = torch.maximum(torch.amax(scores, dim=-1), self_sc)
     e_hist = torch.exp(scores - m[:, :, None])
@@ -149,6 +182,8 @@ def flat_prefill_window_attention(
     *,
     hkv: int,
     scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,   # f32 [C, Hkv] (int8 KV)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -179,11 +214,14 @@ def flat_prefill_window_attention(
                             (w_idx < step * p) & (w_idx < valid_len),
                             qpos < chunk_start + valid_len])
     valid = valid_base[None, :] & (kpos[None, :] <= qpos[:, None])
+    if sliding_window is not None:
+        valid = valid & (kpos[None, :] > qpos[:, None] - sliding_window)
     scores = matmul_f32(qt.reshape(1, p * hq, f),
                         k_all.t()[None])[0].reshape(p, hq, -1)
     ones = torch.ones(t_steps * p + p, hkv, dtype=torch.float32, device=dev)
     if k_scale is not None:
         scores = scores * _head_scales(torch.cat([k_scale, ones]), rep)
+    scores = _maybe_softcap(scores, softcap)
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
     any_valid = valid.any(dim=-1)
     scores = torch.where(any_valid[:, None, None], scores, 0.0)
@@ -207,6 +245,8 @@ def flat_prefill_attention(
     *,
     hkv: int,
     scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,   # f32 [(B,) C, Hkv] (int8)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -218,7 +258,7 @@ def flat_prefill_attention(
         return flat_prefill_attention(
             q[None], k_flat[None], v_flat[None], q_positions[None],
             total_len.reshape(1), k_new[None], v_new[None], hkv=hkv,
-            scale=scale,
+            scale=scale, sliding_window=sliding_window, softcap=softcap,
             k_scale=None if k_scale is None else k_scale[None],
             v_scale=None if v_scale is None else v_scale[None])[0]
     b, t, hq, d = q.shape
@@ -240,12 +280,15 @@ def flat_prefill_attention(
     kpos = torch.cat([iota, qpos], dim=1)                    # [B, C+T]
     valid_base = torch.cat([iota < hist_len, qpos < tl], dim=1)
     valid = valid_base[:, None, :] & (kpos[:, None, :] <= qpos[:, :, None])
+    if sliding_window is not None:
+        valid = valid & (kpos[:, None, :] > qpos[:, :, None] - sliding_window)
     scores = matmul_f32(qt.reshape(b, t * hq, hkv * d),
                         k_all.transpose(1, 2)).reshape(b, t, hq, -1)
     ones = torch.ones(b, t, hkv, dtype=torch.float32, device=dev)
     if k_scale is not None:
         scores = scores * _head_scales(
             torch.cat([k_scale, ones], dim=1), rep)[:, None]
+    scores = _maybe_softcap(scores, softcap)
     scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
@@ -280,6 +323,8 @@ def paged_decode_attention_ref(
     *,
     ctx_pad: int,
     scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
     k_self: Optional[torch.Tensor] = None,    # [S, Hkv, D] (deferred)
     v_self: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -296,13 +341,19 @@ def paged_decode_attention_ref(
     scores = torch.einsum("shrd,schd->shrc", qf, k)          # [S,Hkv,rep,C]
     hist_len = context_lens.to(torch.int64)[:, None] \
         - (0 if k_self is None else 1)
-    valid = torch.arange(ctx_pad, device=q.device)[None, :] < hist_len
+    pos = torch.arange(ctx_pad, device=q.device)[None, :]
+    valid = pos < hist_len
+    if sliding_window is not None:
+        valid = valid & (pos >= context_lens.to(torch.int64)[:, None]
+                         - sliding_window)
+    scores = _maybe_softcap(scores, softcap)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     if k_self is None:
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("shrc,schd->shrd", probs, v)
         return out.reshape(s, hq, d).to(q.dtype)
-    self_sc = torch.einsum("shrd,shd->shr", qf, k_self.to(torch.float32))
+    self_sc = _maybe_softcap(torch.einsum(
+        "shrd,shd->shr", qf, k_self.to(torch.float32)), softcap)
     m = torch.maximum(torch.amax(scores, dim=-1), self_sc)
     e_hist = torch.exp(scores - m[..., None])
     e_self = torch.exp(self_sc - m)
@@ -323,6 +374,8 @@ def paged_prefill_attention_ref(
     *,
     ctx_pad: int,
     scale: float,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention of one sequence whose chunk K/V are
     already cached, in f32 → [T, Hq, D]: a query at position p attends
@@ -337,8 +390,11 @@ def paged_prefill_attention_ref(
     qf = q.to(torch.float32).reshape(t, hkv, rep, d) * scale
     scores = torch.einsum("thrd,chd->thrc", qf, k)
     kpos = torch.arange(ctx_pad, device=q.device)[None, :]
-    valid = (kpos <= q_positions.to(torch.int64)[:, None]) \
-        & (kpos < total_len.to(torch.int64))
+    qpos = q_positions.to(torch.int64)[:, None]
+    valid = (kpos <= qpos) & (kpos < total_len.to(torch.int64))
+    if sliding_window is not None:
+        valid = valid & (kpos > qpos - sliding_window)
+    scores = _maybe_softcap(scores, softcap)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     out = torch.einsum("thrc,chd->thrd", torch.softmax(scores, dim=-1), v)
     return out.reshape(t, hq, d).to(q.dtype)

@@ -10,18 +10,24 @@ from __future__ import annotations
 import torch
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float) -> torch.Tensor:
-    """RMSNorm over the last axis."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             *, gemma_style: bool = False) -> torch.Tensor:
+    """RMSNorm over the last axis. gemma_style: the weight is stored as
+    (w - 1) and applied as (1 + w), added in f32 after the cast (Gemma
+    checkpoints)."""
     dtype = x.dtype
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.reciprocal(torch.sqrt(var + eps))
-    return (xf * weight.to(torch.float32)).to(dtype)
+    w = weight.to(torch.float32)
+    if gemma_style:
+        w = 1.0 + w
+    return (xf * w).to(dtype)
 
 
 def fused_add_rms_norm(x: torch.Tensor, residual: torch.Tensor,
-                       weight: torch.Tensor, eps: float):
+                       weight: torch.Tensor, eps: float,
+                       *, gemma_style: bool = False):
     """(x + residual) then RMSNorm; returns (normed, new_residual)."""
     s = (x.to(torch.float32) + residual.to(torch.float32)).to(x.dtype)
-    return rms_norm(s, weight, eps), s
+    return rms_norm(s, weight, eps, gemma_style=gemma_style), s

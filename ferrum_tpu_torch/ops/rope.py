@@ -1,7 +1,7 @@
 """Rotary position embeddings, NeoX/HF half-split layout (plain PyTorch).
 
 Port of `ferrum_tpu/ops/rope.py`, including Llama-3.1 frequency-band
-rope scaling. Frequencies are computed on the host in float64 and kept
+rope scaling and linear scaling (gemma3's global layers). Frequencies are computed on the host in float64 and kept
 in f32, exactly as the JAX package does.
 """
 
@@ -32,7 +32,11 @@ def rope_inv_freq(head_dim: int, theta: float,
         mid = (1.0 - smooth) * inv / scaling.factor + smooth * inv
         is_mid = (wavelen <= low_wl) & (wavelen >= high_wl)
         inv = np.where(is_mid, mid, scaled)
+    elif scaling is not None and scaling.rope_type == "linear":
+        inv = inv / scaling.factor
     elif scaling is not None and scaling.rope_type != "default":
+        # The JAX package computes other types as unscaled RoPE
+        # (ROADMAP Queue 3); the config mapping refuses them.
         raise NotImplementedError(f"rope scaling {scaling.rope_type!r}")
     return inv.astype(np.float32)
 

@@ -3,27 +3,37 @@
 `FerrumTokenizer` is the port of `ferrum_tpu/tokenizer.py`'s, without
 the HuggingFace `tokenizers` package (the card's machine has none): it
 reads `tokenizer.json` itself and implements what Llama-3.x and
-Qwen2/Qwen3 tokenizers use --
+Qwen2/Qwen3 tokenizers use (byte-level BPE) and what Gemma 3's and
+Mistral 7B v0.1's use (SentencePiece-style BPE: no pre-tokenizer, "▁"
+for spaces, byte fallback) --
 
   added tokens  split out of the raw text first (leftmost-longest),
                 `lstrip` / `rstrip` honoured; those marked `normalized`
-                split out after normalization
-  normalizer    none, or NFC (`unicodedata`)
+                split out after normalization (their content normalized)
+  normalizer    none, NFC (`unicodedata`), Replace (a String pattern),
+                Prepend, or a Sequence of them
   pre-tokenizer Split(Regex, Isolated) steps, then ByteLevel (with or
-                without its own GPT-2 regex, `add_prefix_space`)
-  model         BPE with `merges` in rank order (the leftmost
-                lowest-rank pair merged first) and `ignore_merges` (a
-                pre-token found whole in the vocab is not merged)
-  post-process  TemplateProcessing (Llama-3's BOS), ByteLevel, or a
-                Sequence of them
+                without its own GPT-2 regex, `add_prefix_space`); or
+                none (each normalized piece is one word)
+  model         BPE with `merges` in rank order (the lowest-rank pair
+                merged first, the leftmost among equals, as the
+                `tokenizers` heap does), `ignore_merges` (a pre-token
+                found whole in the vocab is not merged), `byte_fallback`
+                (a character outside the vocab as its <0xNN> byte
+                tokens) and `unk_token` / `fuse_unk`
+  post-process  TemplateProcessing (Llama-3's and Gemma's BOS),
+                ByteLevel, or a Sequence of them
   decoder       ByteLevel: a token's symbols back to bytes (a token with
                 a symbol outside the byte alphabet as its UTF-8 bytes),
-                the bytes decoded as UTF-8 with U+FFFD for what is not
+                the bytes decoded as UTF-8 with U+FFFD for what is not;
+                or a Sequence of Replace (a String pattern), ByteFallback
+                (runs of <0xNN> tokens as UTF-8, U+FFFD a byte where
+                invalid), Fuse and Strip
 
 -- with the metadata of `tokenizer_config.json` (chat template, eos and
 bos, `added_tokens_decoder` specials) and `generation_config.json`'s eos
-list. Any other component (Metaspace, WordPiece, Unigram,
-`byte_fallback`, ...) raises ModelLoadError naming it.
+list. Any other component (Metaspace, WordPiece, Unigram, byte fallback
+under a ByteLevel pre-tokenizer, ...) raises ModelLoadError naming it.
 
 The Split regexes use `\\p{L}`, `\\p{N}` and `\\s`, which stdlib `re`
 lacks or reads otherwise: they are expanded into explicit character
@@ -42,6 +52,7 @@ both packages.
 
 from __future__ import annotations
 
+import heapq
 import json
 import os
 import re
@@ -223,10 +234,12 @@ def _unsupported(part: str, what: Any) -> ModelLoadError:
 class _AddedTokens:
     """Added tokens matched in text: leftmost-longest (longer alternatives
     first in one regex), then widened over White_Space by lstrip/rstrip
-    as the `tokenizers` library widens them."""
+    as the `tokenizers` library widens them. `norm` maps a token's
+    content to the form it is matched in (normalized tokens)."""
 
-    def __init__(self, tokens: List[dict]):
-        self._tok = {t["content"]: t for t in tokens}
+    def __init__(self, tokens: List[dict], norm=None):
+        self._tok = {(norm(t["content"]) if norm else t["content"]): t
+                     for t in tokens}
         alts = sorted(self._tok, key=len, reverse=True)
         self._rx = re.compile("|".join(map(re.escape, alts))) \
             if alts else None
@@ -271,26 +284,32 @@ class FerrumTokenizer:
         self.chat_template = chat_template
         self._special_ids = special_ids or set()
         self._load_model(spec.get("model") or {})
+        self._normalize = self._load_normalizer(spec.get("normalizer"))
         self._load_added(spec.get("added_tokens") or [])
-        self._nfc = self._load_normalizer(spec.get("normalizer"))
         self._splits, self._byte_level = self._load_pre_tokenizer(
             spec.get("pre_tokenizer"))
+        if self._byte_fallback and self._byte_level is not None:
+            raise _unsupported("model.byte_fallback",
+                               "with a ByteLevel pre-tokenizer")
         self._prefix, self._suffix = self._load_post_processor(
             spec.get("post_processor"))
-        dec = spec.get("decoder")
-        if not dec or dec.get("type") != "ByteLevel":
-            raise _unsupported("decoder", dec and dec.get("type"))
+        self._decoders = self._load_decoder(spec.get("decoder"))
         self._cache: Dict[str, List[int]] = {}
 
     # -- construction ------------------------------------------------------
     def _load_model(self, m: Dict[str, Any]) -> None:
         if m.get("type") != "BPE":
             raise _unsupported("model", m.get("type"))
-        for key in ("byte_fallback", "continuing_subword_prefix",
-                    "end_of_word_suffix", "dropout", "unk_token"):
+        for key in ("continuing_subword_prefix", "end_of_word_suffix",
+                    "dropout"):
             if m.get(key):
                 raise _unsupported(f"model.{key}", m[key])
+        self._byte_fallback = bool(m.get("byte_fallback", False))
+        self._unk = m.get("unk_token")
+        self._fuse_unk = bool(m.get("fuse_unk", False))
         self._vocab: Dict[str, int] = dict(m["vocab"])
+        if self._unk is not None and self._unk not in self._vocab:
+            raise _unsupported("model.unk_token", self._unk)
         self._id_to_token = {i: t for t, i in self._vocab.items()}
         self._ranks: Dict[Tuple[str, str], int] = {}
         for r, mg in enumerate(m.get("merges") or []):
@@ -309,21 +328,66 @@ class FerrumTokenizer:
         self._raw_split = _AddedTokens(
             [t for t in added if not t.get("normalized")])
         self._norm_split = _AddedTokens(
-            [t for t in added if t.get("normalized")])
+            [t for t in added if t.get("normalized")], self._normalize)
 
     @staticmethod
-    def _load_normalizer(n: Optional[Dict[str, Any]]) -> bool:
+    def _load_normalizer(n: Optional[Dict[str, Any]]):
+        """The normalizer as one str -> str function (None: none)."""
         if n is None:
-            return False
-        if n.get("type") == "NFC":
-            return True
-        if n.get("type") == "Sequence" and all(
-                s.get("type") == "NFC" for s in n.get("normalizers", [])):
-            return bool(n.get("normalizers"))
-        raise _unsupported("normalizer", n.get("type"))
+            return None
+        steps = n.get("normalizers", []) if n.get("type") == "Sequence" \
+            else [n]
+        fns = []
+        for st in steps:
+            kind = st.get("type")
+            if kind == "NFC":
+                fns.append(lambda x: unicodedata.normalize("NFC", x))
+            elif kind == "Prepend":
+                fns.append(lambda x, pre=st["prepend"]: pre + x if x else x)
+            elif kind == "Replace" and "String" in st.get("pattern", {}):
+                fns.append(lambda x, a=st["pattern"]["String"],
+                           b=st["content"]: x.replace(a, b))
+            else:
+                raise _unsupported("normalizer", kind if kind != "Replace"
+                                   else st.get("pattern"))
+        if not fns:
+            return None
+
+        def normalize(x: str) -> str:
+            for fn in fns:
+                x = fn(x)
+            return x
+        return normalize
+
+    @staticmethod
+    def _load_decoder(d: Optional[Dict[str, Any]]):
+        """"ByteLevel", or the SentencePiece-style chain as a list of
+        (kind, args) steps."""
+        if d and d.get("type") == "ByteLevel":
+            return "ByteLevel"
+        steps = d.get("decoders", []) if d and d.get("type") == "Sequence" \
+            else [d]
+        chain = []
+        for st in steps:
+            kind = st and st.get("type")
+            if kind == "Replace" and "String" in st.get("pattern", {}):
+                chain.append((kind, (st["pattern"]["String"],
+                                     st["content"])))
+            elif kind in ("ByteFallback", "Fuse"):
+                chain.append((kind, ()))
+            elif kind == "Strip":
+                chain.append((kind, (st["content"], int(st["start"]),
+                                     int(st["stop"]))))
+            else:
+                raise _unsupported("decoder", kind)
+        return chain
 
     @staticmethod
     def _load_pre_tokenizer(p: Optional[Dict[str, Any]]):
+        """(Split patterns, ByteLevel's (add_prefix_space, use_regex)), or
+        ([], None) without a pre-tokenizer."""
+        if p is None:
+            return [], None
         steps = (p.get("pretokenizers", []) if p and
                  p.get("type") == "Sequence" else [p])
         if not steps or not steps[-1] or steps[-1].get("type") != "ByteLevel":
@@ -411,6 +475,8 @@ class FerrumTokenizer:
 
     # -- encode --------------------------------------------------------------
     def _pre_tokens(self, text: str) -> List[str]:
+        if self._byte_level is None:
+            return [text]
         pieces = [text]
         for pat in self._splits:
             rx = _compiled(pat)
@@ -425,6 +491,65 @@ class FerrumTokenizer:
                 out.append("".join(BYTE_SYMBOL[b] for b in s.encode()))
         return out
 
+    def _symbols(self, word: str) -> List[str]:
+        """A word's initial symbols, as `tokenizers`' BPE makes them: each
+        character in the vocab; else its <0xNN> byte tokens (byte
+        fallback, when all are in the vocab); else the unk token (runs
+        of them fused under fuse_unk; a pending unk lands before the
+        next character found in the vocab, or at the end); else
+        dropped."""
+        syms: List[str] = []
+        unk = 0                                   # pending unk symbols
+        for ch in word:
+            if ch in self._vocab:
+                syms.extend([self._unk] * unk)
+                unk = 0
+                syms.append(ch)
+                continue
+            if self._byte_fallback:
+                bs = [f"<0x{b:02X}>" for b in ch.encode()]
+                if all(b in self._vocab for b in bs):
+                    syms.extend(bs)
+                    continue
+            if self._unk is not None:
+                if unk and not self._fuse_unk:
+                    syms.append(self._unk)
+                unk = 1
+        return syms + [self._unk] * unk
+
+    def _merge(self, syms: List[str]) -> List[str]:
+        """Apply the merges: the lowest rank first, the leftmost among
+        equal ranks, each merge re-queueing its new neighbour pairs
+        (`tokenizers`' Word::merge_all)."""
+        n = len(syms)
+        prev = list(range(-1, n - 1))
+        nxt = list(range(1, n + 1))
+        heap = []
+        for i in range(n - 1):
+            r = self._ranks.get((syms[i], syms[i + 1]))
+            if r is not None:
+                heap.append((r, i, syms[i] + syms[i + 1]))
+        heapq.heapify(heap)
+        while heap:
+            _, i, new = heapq.heappop(heap)
+            j = nxt[i]
+            if not syms[i] or j >= n or syms[i] + syms[j] != new \
+                    or (syms[i], syms[j]) not in self._ranks:
+                continue
+            syms[i], syms[j] = new, ""
+            nxt[i] = nxt[j]
+            if nxt[i] < n:
+                prev[nxt[i]] = i
+            if prev[i] >= 0:
+                r = self._ranks.get((syms[prev[i]], new))
+                if r is not None:
+                    heapq.heappush(heap, (r, prev[i], syms[prev[i]] + new))
+            if nxt[i] < n:
+                r = self._ranks.get((new, syms[nxt[i]]))
+                if r is not None:
+                    heapq.heappush(heap, (r, i, new + syms[nxt[i]]))
+        return [x for x in syms if x]
+
     def _bpe(self, word: str) -> List[int]:
         hit = self._cache.get(word)
         if hit is not None:
@@ -432,20 +557,7 @@ class FerrumTokenizer:
         if self._ignore_merges and word in self._vocab:
             ids = [self._vocab[word]]
         else:
-            # A byte symbol missing from the vocab is dropped, as
-            # `tokenizers` drops it without an unk token.
-            syms = [ch for ch in word if ch in self._vocab]
-            while len(syms) > 1:
-                best = None
-                for j in range(len(syms) - 1):
-                    r = self._ranks.get((syms[j], syms[j + 1]))
-                    if r is not None and (best is None or r < best[0]):
-                        best = (r, j)
-                if best is None:
-                    break
-                j = best[1]
-                syms[j:j + 2] = [syms[j] + syms[j + 1]]
-            ids = [self._vocab[s] for s in syms]
+            ids = [self._vocab[x] for x in self._merge(self._symbols(word))]
         if len(self._cache) < 100_000:
             self._cache[word] = ids
         return ids
@@ -456,8 +568,8 @@ class FerrumTokenizer:
             if tok is not None:
                 ids.append(self._added[tok])
                 continue
-            if self._nfc:
-                piece = unicodedata.normalize("NFC", piece)
+            if self._normalize is not None:
+                piece = self._normalize(piece)
             for tok2, sub in self._norm_split.split(piece):
                 if tok2 is not None:
                     ids.append(self._added[tok2])
@@ -477,11 +589,16 @@ class FerrumTokenizer:
 
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True
                ) -> str:
-        out = bytearray()
+        tokens = []
         for i in ids:
             t = self._token(int(i))
             if t is None or (skip_special_tokens and t in self._special):
                 continue
+            tokens.append(t)
+        if self._decoders != "ByteLevel":
+            return "".join(_decode_chain(self._decoders, tokens))
+        out = bytearray()
+        for t in tokens:
             bs = [SYMBOL_BYTE.get(c) for c in t]
             out.extend(t.encode() if None in bs else bs)
         return out.decode("utf-8", errors="replace")
@@ -505,6 +622,55 @@ class FerrumTokenizer:
         if len(full_text) > len(prefix_text) and not full_text.endswith("�"):
             return full_text[len(prefix_text):], read_offset, len(ids)
         return "", prefix_offset, read_offset
+
+
+def _byte_token(t: str) -> Optional[int]:
+    """The byte of a <0xNN> token, else None."""
+    if len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
+        try:
+            return int(t[3:5], 16)
+        except ValueError:
+            return None
+    return None
+
+
+def _decode_chain(chain, tokens: List[str]) -> List[str]:
+    """The SentencePiece-style decoder steps over the token strings, as
+    `tokenizers` applies them (each step maps the list to a new one)."""
+    for kind, args in chain:
+        if kind == "Replace":
+            tokens = [t.replace(args[0], args[1]) for t in tokens]
+        elif kind == "Fuse":
+            tokens = ["".join(tokens)]
+        elif kind == "Strip":
+            content, start, stop = args
+            out = []
+            for t in tokens:
+                a = 0
+                while a < min(start, len(t)) and t[a] == content:
+                    a += 1
+                b = 0
+                while b < min(stop, len(t) - a) and t[-1 - b] == content:
+                    b += 1
+                out.append(t[a:len(t) - b])
+            tokens = out
+        else:                                       # ByteFallback
+            out, run = [], []
+            for t in tokens + [None]:
+                b = None if t is None else _byte_token(t)
+                if b is not None:
+                    run.append(b)
+                    continue
+                if run:
+                    try:
+                        out.append(bytes(run).decode("utf-8"))
+                    except UnicodeDecodeError:
+                        out.extend("\ufffd" * len(run))
+                    run = []
+                if t is not None:
+                    out.append(t)
+            tokens = out
+    return tokens
 
 
 # ---------------------------------------------------------------------------

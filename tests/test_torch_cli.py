@@ -61,7 +61,10 @@ def test_list():
     r = run_cli("list")
     assert r.returncode == 0, r.stderr
     assert "llama-3.1-8b" in r.stdout and "qwen3-30b-a3b" in r.stdout
-    assert "not yet ported: qwen3-0.6b" in r.stdout
+    # Every preset the JAX CLI lists is ported.
+    for name in ("qwen3-0.6b", "qwen3-4b", "qwen3-8b"):
+        assert name in r.stdout
+    assert "not yet ported" not in r.stdout
 
 
 def test_replay_matches_the_jax_cli(tmp_path):
@@ -201,7 +204,9 @@ def test_unported_settings_exit_1(monkeypatch, capsys, tmp_path, flags, env,
 def test_unknown_model_source_exits_1(capsys, tmp_path):
     from ferrum_tpu_torch.cli import main
 
-    for src in ("random:qwen3-4b", str(tmp_path), "hf-org/model"):
+    # A preset of the JAX package's the port lacks (qwen3_next: ROADMAP
+    # Queue 1 item 11), an empty directory, a hub id.
+    for src in ("random:qwen3-next-80b-a3b", str(tmp_path), "hf-org/model"):
         rc = main(["bench", src, "--device", "cpu", *SMALL])
         assert rc == 1 and capsys.readouterr().err.startswith("error:")
 

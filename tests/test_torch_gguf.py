@@ -128,7 +128,7 @@ def test_config_from_gguf_refuses_gemma3(tmp_path):
     path = str(tmp_path / "g.gguf")
     gguf.write_gguf(path, {"general.architecture": "gemma3"},
                     {"x.weight": (np.zeros(4, np.float32), gguf.GGML_F32)})
-    with pytest.raises(ModelLoadError, match="item 8"):
+    with pytest.raises(ModelLoadError, match="Queue 3"):
         gguf.config_from_gguf(gguf.read_gguf(path))
 
 

@@ -4,8 +4,10 @@ Local checkpoint directories are written here (safetensors shards from
 numpy, seeded; nothing is downloaded) and read by both packages:
 
 - `config_from_hf_dict` field by field for llama (with llama3 rope
-  scaling), qwen2, qwen3 and qwen3_moe; what the port's trunk does not
-  run raises ModelLoadError;
+  scaling), qwen2, qwen3, qwen3_moe, gemma3 (plain, wrapped as
+  Gemma3ForConditionalGeneration, with softcaps and linear rope scaling)
+  and mistral with a sliding window; what the port's trunk does not run,
+  and what the JAX mapping reads and drops, raises ModelLoadError;
 - `repack_from_gptq` bit for bit (groups 32 / 64 / 128, with and without
   act-order, zero nibbles random, all 0 and all 15);
 - the port's safetensors reader against `safetensors` (numpy for F32,
@@ -14,12 +16,14 @@ numpy, seeded; nothing is downloaded) and read by both packages:
 - `load_checkpoint` leaf by leaf against the JAX one: integers exact,
   floats exact after the same casts (GPTQ llama with act-order, a tied
   qwen3 with q/k norms, qwen3_moe expert stacks, a dense f32 directory
-  quantized on load, a dense f16 qwen2 with q/k/v bias);
+  quantized on load, a dense f16 qwen2 with q/k/v bias, gemma3 dense and
+  GPTQ with its sandwich norms, mistral with a window);
 - a BF16 directory, leaf by leaf against the JAX loader;
 - engines built from a directory serve the JAX engine's greedy tokens;
-- HF parity: tiny Llama and Qwen3 from `transformers`, saved with
-  `save_pretrained`, read by the port's reader, give HF's logits within
-  2e-4 (tests/test_hf_parity.py's tolerance).
+- HF parity: tiny Llama, Qwen3, Mistral with a window and Gemma 3 from
+  `transformers`, saved with `save_pretrained`, read by the port's
+  reader, give HF's logits within tests/test_hf_parity.py's tolerances
+  (2e-4; gemma3 6e-4).
 """
 
 import dataclasses
@@ -31,7 +35,7 @@ import pytest
 import torch
 
 from torch_parity import (flatten_jax_params, flatten_torch_params,
-                          route_moe_w4a8tl, route_w4a8tl)
+                          route_moe_w4a8tl, route_w4a8tl, torch_config)
 
 # Engine-test model: the smallest widths the int4 g128 layout takes
 # (in/2 a group multiple), a vocabulary that holds the engine tests'
@@ -65,6 +69,19 @@ def _qwen3_cfg(**kw):
     return d
 
 
+def _gemma_cfg(**kw):
+    d = dict(architectures=["Gemma3ForCausalLM"], vocab_size=VOCAB,
+             hidden_size=H, num_hidden_layers=3, num_attention_heads=HEADS,
+             num_key_value_heads=KV_HEADS, head_dim=HEAD_DIM,
+             intermediate_size=INTER, rms_norm_eps=1e-6, rope_theta=1e6,
+             rope_local_base_freq=1e4, sliding_window=16,
+             sliding_window_pattern=3, query_pre_attn_scalar=48,
+             max_position_embeddings=4096, tie_word_embeddings=True,
+             bos_token_id=2, eos_token_id=[1, 106])
+    d.update(kw)
+    return d
+
+
 def _moe_cfg(**kw):
     d = _qwen3_cfg(architectures=["Qwen3MoeForCausalLM"],
                    tie_word_embeddings=False, num_experts=MOE_E,
@@ -87,6 +104,23 @@ CONFIGS = {
                   tie_word_embeddings=False, eos_token_id=3),
     "qwen3": dict(_qwen3_cfg(), layer_types=["full_attention"] * 2),
     "qwen3_moe": _moe_cfg(),
+    "gemma3": _gemma_cfg(),
+    "gemma3_wrapped": dict(architectures=["Gemma3ForConditionalGeneration"],
+                           text_config={
+                               k: v for k, v in _gemma_cfg().items()
+                               if k != "architectures"},
+                           eos_token_id=[1, 106]),
+    "gemma3_softcaps": _gemma_cfg(
+        final_logit_softcapping=30.0, attn_logit_softcapping=50.0,
+        rope_scaling=dict(rope_type="linear", factor=8.0),
+        layer_types=["sliding_attention", "full_attention",
+                     "sliding_attention"]),
+    "mistral_window": dict(_llama_cfg(), architectures=["MistralForCausalLM"],
+                           rope_scaling=None, sliding_window=8),
+    "mistral_window_layer_types": dict(
+        _llama_cfg(), architectures=["MistralForCausalLM"],
+        rope_scaling=None, sliding_window=8,
+        layer_types=["sliding_attention", "full_attention"]),
 }
 
 
@@ -103,16 +137,24 @@ def test_config_from_hf_dict_matches_jax(name):
         assert g == w, (name, f.name, g, w)
 
 
+# What the port's trunk does not run ("item N"), and what the JAX mapping
+# reads and then computes as another model ("Queue 3"): a window or a
+# softcap on a family whose mapping drops it, yarn computed unscaled.
 UNPORTED = {
-    "gemma3": (dict(_qwen3_cfg(), architectures=["Gemma3ForCausalLM"]),
-               "item 8"),
-    "mistral_window": (dict(_llama_cfg(), architectures=[
-        "MistralForCausalLM"], sliding_window=8), "item 8"),
     "use_sliding_window": (dict(_qwen3_cfg(), use_sliding_window=True,
-                                sliding_window=64), "item 8"),
-    "softcap": (dict(_llama_cfg(), final_logit_softcapping=30.0), "item 8"),
+                                sliding_window=64), "Queue 3"),
+    "softcap": (dict(_llama_cfg(), final_logit_softcapping=30.0),
+                "Queue 3"),
+    "attn_softcap_mistral": (dict(_llama_cfg(), architectures=[
+        "MistralForCausalLM"], attn_logit_softcapping=50.0), "Queue 3"),
     "sliding_layer_types": (dict(_qwen3_cfg(), layer_types=[
-        "sliding_attention", "full_attention"]), "item 8"),
+        "sliding_attention", "full_attention"]), "Queue 3"),
+    "mistral_layer_types_no_window": (dict(_llama_cfg(), architectures=[
+        "MistralForCausalLM"], layer_types=["sliding_attention",
+                                            "full_attention"]), "Queue 3"),
+    "chunked_layer_types": (dict(_gemma_cfg(), layer_types=[
+        "chunked_attention", "full_attention", "full_attention"]),
+        "Queue 3"),
     "qwen3_next": (dict(_moe_cfg(), architectures=[
         "Qwen3NextForCausalLM"]), "item 11"),
     "linear_layer_types": (dict(_qwen3_cfg(), layer_types=[
@@ -120,10 +162,34 @@ UNPORTED = {
     "shared_expert": (dict(_moe_cfg(), shared_expert_intermediate_size=64),
                       "item 11"),
     "yarn": (dict(_llama_cfg(), rope_scaling=dict(rope_type="yarn",
-                                                  factor=4.0)), "item 8"),
+                                                  factor=4.0)), "Queue 3"),
+    "gemma3_yarn": (dict(_gemma_cfg(), rope_scaling=dict(
+        rope_type="yarn", factor=8.0)), "Queue 3"),
     "unknown_arch": (dict(_llama_cfg(), architectures=["GPT2LMHeadModel"]),
                      "unsupported architectures"),
 }
+
+
+# The cases the port refused before it ran windows and softcaps, now
+# mapped as the JAX package maps them.
+PORTED = {
+    "gemma3": dict(_qwen3_cfg(), architectures=["Gemma3ForCausalLM"]),
+    "mistral_window": dict(_llama_cfg(), architectures=[
+        "MistralForCausalLM"], sliding_window=8),
+    "softcap": _gemma_cfg(final_logit_softcapping=30.0),
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_config_now_ported_matches_jax(name):
+    from ferrum_tpu.models.configs import config_from_hf_dict as jax_map
+    from ferrum_tpu_torch.models.configs import config_from_hf_dict
+
+    got, want = config_from_hf_dict(PORTED[name]), jax_map(PORTED[name])
+    assert got == torch_config(want)
+    assert got.sliding_window is not None
+    for li in range(got.num_layers):
+        assert got.layer_sliding_window(li) == want.layer_sliding_window(li)
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -330,7 +396,8 @@ def checkpoint_tensors(cfg: dict, seed=0, gptq=False, act_order_layers=(),
     hd = cfg.get("head_dim") or h // cfg["num_attention_heads"]
     qs, kvs = cfg["num_attention_heads"] * hd, \
         cfg["num_key_value_heads"] * hd
-    qwen = cfg["architectures"][0].startswith("Qwen3")
+    qwen = cfg["architectures"][0].startswith(("Qwen3", "Gemma3"))
+    gemma = cfg["architectures"][0].startswith("Gemma3")
     bias = cfg["architectures"][0].startswith("Qwen2")
     t = {"model.embed_tokens.weight": _dense_np(rng, v, h, fdt, 0.5),
          "model.norm.weight": (1 + 0.1 * rng.normal(size=h)).astype(fdt)}
@@ -339,7 +406,9 @@ def checkpoint_tensors(cfg: dict, seed=0, gptq=False, act_order_layers=(),
     for i in range(cfg["num_hidden_layers"]):
         p = f"model.layers.{i}"
         act = i in act_order_layers
-        for name in ("input_layernorm", "post_attention_layernorm"):
+        for name in ("input_layernorm", "post_attention_layernorm") + (
+                ("pre_feedforward_layernorm", "post_feedforward_layernorm")
+                if gemma else ()):
             t[f"{p}.{name}.weight"] = (1 + 0.1 * rng.normal(size=h)
                                        ).astype(fdt)
         for name, i_f, o_f in (("q", h, qs), ("k", h, kvs), ("v", h, kvs),
@@ -401,6 +470,11 @@ DIRS = {
     "qwen2_dense_f16_bias": (CONFIGS["qwen2"], False, (), np.float16, "none"),
     "qwen3_moe_dense_quantize_on_load": (_moe_cfg(), False, (), np.float32,
                                          "gptq_int4"),
+    "gemma3_dense": (_gemma_cfg(), False, (), np.float32, "none"),
+    "gemma3_gptq": (CONFIGS["gemma3_softcaps"], True, (2,), np.float16,
+                    "none"),
+    "mistral_window_dense_f16": (CONFIGS["mistral_window"], False, (),
+                                 np.float16, "none"),
 }
 
 
@@ -654,17 +728,14 @@ def _port_logits(cfg, params, tokens):
     return lf.logits_from_hidden(params, cfg, h[0, :len(tokens)]).numpy()
 
 
-@pytest.mark.parametrize("family", ["llama", "qwen3"])
-def test_hf_parity_through_the_port_reader(tmp_path, family):
-    from transformers import (LlamaConfig, LlamaForCausalLM, Qwen3Config,
-                              Qwen3ForCausalLM)
-
-    from ferrum_tpu_torch.models.configs import config_from_hf_json
-    from ferrum_tpu_torch.models.loader import TensorSource, params_from_hf
+def _hf_model(family):
+    """A tiny `transformers` model of the family, seeded (the configs of
+    tests/test_hf_parity.py for mistral with a window and gemma3)."""
+    import transformers as tf
 
     torch.manual_seed(11)
     if family == "llama":
-        m = LlamaForCausalLM(LlamaConfig(
+        return tf.LlamaForCausalLM(tf.LlamaConfig(
             vocab_size=128, hidden_size=64, num_hidden_layers=3,
             num_attention_heads=4, num_key_value_heads=2,
             intermediate_size=128, rms_norm_eps=1e-5, rope_theta=10000.0,
@@ -672,20 +743,54 @@ def test_hf_parity_through_the_port_reader(tmp_path, family):
                               low_freq_factor=1.0, high_freq_factor=4.0,
                               original_max_position_embeddings=64),
             max_position_embeddings=512, tie_word_embeddings=False))
-    else:
-        m = Qwen3ForCausalLM(Qwen3Config(
+    if family == "qwen3":
+        return tf.Qwen3ForCausalLM(tf.Qwen3Config(
             vocab_size=128, hidden_size=64, num_hidden_layers=3,
             num_attention_heads=4, num_key_value_heads=2, head_dim=16,
             intermediate_size=128, rms_norm_eps=1e-6, rope_theta=10000.0,
             max_position_embeddings=512, tie_word_embeddings=True))
-    m = m.eval()
+    if family == "mistral_window":
+        return tf.MistralForCausalLM(tf.MistralConfig(
+            vocab_size=128, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2,
+            intermediate_size=128, rms_norm_eps=1e-5, rope_theta=10000.0,
+            sliding_window=8, max_position_embeddings=512,
+            tie_word_embeddings=False))
+    return tf.Gemma3ForCausalLM(tf.Gemma3TextConfig(
+        vocab_size=128, hidden_size=64, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        intermediate_size=128, rms_norm_eps=1e-6, rope_theta=10000.0,
+        rope_local_base_freq=10000.0, sliding_window=8,
+        query_pre_attn_scalar=16.0,
+        layer_types=["sliding_attention", "sliding_attention",
+                     "sliding_attention", "full_attention"],
+        max_position_embeddings=512, tie_word_embeddings=True))
+
+
+# tests/test_hf_parity.py's tolerances: 2e-4, gemma3 6e-4 (f32).
+HF_FAMILIES = {"llama": 2e-4, "qwen3": 2e-4, "mistral_window": 2e-4,
+               "gemma3": 6e-4}
+
+
+@pytest.mark.parametrize("family", list(HF_FAMILIES))
+def test_hf_parity_through_the_port_reader(tmp_path, family):
+    """A tiny `transformers` model saved with save_pretrained, read by the
+    port's config mapping and reader: the port's prefill logits (24
+    tokens, past the windows of 8) equal HF's within the family's
+    tolerance, argmax for argmax."""
+    pytest.importorskip("transformers")
+    from ferrum_tpu_torch.models.configs import config_from_hf_json
+    from ferrum_tpu_torch.models.loader import TensorSource, params_from_hf
+
+    m = _hf_model(family).eval()
     m.save_pretrained(str(tmp_path), safe_serialization=True)
     cfg = config_from_hf_json(str(tmp_path / "config.json"))
     params = params_from_hf(cfg, TensorSource.from_dir(str(tmp_path)),
                             dtype=torch.float32, device="cpu")
-    tokens = np.random.default_rng(3).integers(0, 128, 20).tolist()
+    tokens = np.random.default_rng(3).integers(0, 128, 24).tolist()
     with torch.no_grad():
         want = m(torch.tensor([tokens])).logits[0].float().numpy()
     got = _port_logits(cfg, params, tokens)
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    tol = HF_FAMILIES[family]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     assert (got.argmax(-1) == want.argmax(-1)).all()

@@ -66,6 +66,85 @@ def test_rope_llama3_matches_jax():
                                np.asarray(jr.apply_rope(x, cj, sj)), **TOL)
 
 
+def test_gemma_style_norms_match_jax():
+    """rms_norm and fused_add_rms_norm with gemma_style: (1 + w) in f32
+    after the cast, random w (not the zeros a random init stores), f32
+    and bf16 activations."""
+    from ferrum_tpu.ops import norms as jn
+    from ferrum_tpu_torch.ops import norms as tn
+    rng = np.random.default_rng(4)
+    x, r = rng.normal(0, 2, (3, 64)).astype(np.float32), \
+        rng.normal(0, 1, (3, 64)).astype(np.float32)
+    w = rng.normal(0, 0.5, 64).astype(np.float32)
+    got = tn.rms_norm(_t(x), _t(w), 1e-6, gemma_style=True).numpy()
+    np.testing.assert_allclose(got, np.asarray(jn.rms_norm(
+        x, w, 1e-6, gemma_style=True)), **TOL)
+    assert not np.allclose(got, tn.rms_norm(_t(x), _t(w), 1e-6).numpy())
+    for g, wt in zip(tn.fused_add_rms_norm(_t(x), _t(r), _t(w), 1e-6,
+                                           gemma_style=True),
+                     jn.fused_add_rms_norm(x, r, w, 1e-6, gemma_style=True)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wt), **TOL)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    tb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    want = np.asarray(jn.rms_norm(xb, jnp.asarray(w, jnp.bfloat16), 1e-6,
+                                  gemma_style=True).astype(jnp.float32))
+    got = tn.rms_norm(tb, wb, 1e-6, gemma_style=True).float().numpy()
+    # bf16 out: within one bf16 step of the output's scale.
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 ** -7 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("factor", [1.0, 8.0])
+def test_rope_linear_and_local_tables_match_jax(factor):
+    """Linear rope scaling (the frequencies / factor) and gemma3's two
+    tables (make_rope_tables: the global one scaled, the local one at
+    rope_local_theta unscaled) equal the JAX package's bit for bit."""
+    from ferrum_tpu.models.configs import ModelConfig as JCfg, RopeScaling
+    from ferrum_tpu.models.llama_family import make_rope_tables
+    from ferrum_tpu.ops import rope as jr
+    from ferrum_tpu_torch.models import llama_family as lf
+    from ferrum_tpu_torch.ops import rope as tr
+    from torch_parity import torch_config
+    jcfg = JCfg(family="gemma3", head_dim=256, rope_theta=1e6,
+                rope_local_theta=1e4,
+                rope_scaling=RopeScaling(rope_type="linear", factor=factor))
+    cfg = torch_config(jcfg)
+    inv_g, inv_l = make_rope_tables(jcfg)
+    np.testing.assert_array_equal(lf.make_inv_freq(cfg, "cpu").numpy(),
+                                  np.asarray(inv_g))
+    np.testing.assert_array_equal(lf.make_local_inv_freq(cfg, "cpu").numpy(),
+                                  np.asarray(inv_l))
+    plain = tr.rope_inv_freq(256, 1e6)
+    np.testing.assert_array_equal(
+        tr.rope_inv_freq(256, 1e6, cfg.rope_scaling),
+        jr.rope_inv_freq(256, 1e6, jcfg.rope_scaling))
+    assert np.array_equal(np.asarray(inv_g), plain) == (factor == 1.0)
+    assert lf.make_local_inv_freq(torch_config(JCfg()), "cpu") is None
+
+
+def test_gelu_tanh_matches_jax():
+    """The gemma3 MLP activation: jax.nn.gelu(approximate=True) (f32,
+    1e-6)."""
+    from ferrum_tpu.models.llama_family import _activation as jact
+    from ferrum_tpu_torch.models.llama_family import _activation
+    x = np.random.default_rng(5).normal(0, 3, (4, 257)).astype(np.float32)
+    for kind in ("gelu_tanh", "silu"):
+        np.testing.assert_allclose(_activation(_t(x), kind).numpy(),
+                                   np.asarray(jact(x, kind)), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "qwen3-4b", "qwen3-8b",
+                                  "llama-3.3-70b"])
+def test_presets_match_jax(name):
+    """The JAX package's presets the port now has, field for field."""
+    from ferrum_tpu.models.configs import preset as jax_preset
+    from ferrum_tpu_torch.models.configs import preset
+    from torch_parity import torch_config
+    assert preset(name) == torch_config(jax_preset(name))
+
+
 HQ, HKV, D = 4, 2, 16
 F = HKV * D
 

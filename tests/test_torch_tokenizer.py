@@ -10,6 +10,16 @@ a fixed corpus (no download), in the forms real checkpoints use:
 - "gpt2": ByteLevel with its own regex and add_prefix_space, and added
   tokens with lstrip / rstrip and one marked `normalized`.
 
+and two SentencePiece-style forms, BPE with byte fallback and an unk
+token over a limited alphabet (so CJK, emoji and accents fall back to
+<0xNN> byte tokens), no pre-tokenizer:
+
+- "gemma": Gemma 3's normalizer Replace(" " -> "▁"), decoder
+  Sequence(Replace("▁" -> " "), ByteFallback, Fuse), <bos> prepended;
+- "mistral": Mistral 7B v0.1's normalizer Sequence(Prepend("▁"),
+  Replace), decoder Sequence(Replace, ByteFallback, Fuse, Strip(" ", 1,
+  0)), <s> prepended.
+
 Each has added special tokens. The port's `encode` (with and without
 special tokens), `decode` (with and without skipping them) and
 `decode_incremental` must equal the JAX FerrumTokenizer's on fixed
@@ -40,7 +50,11 @@ CORPUS = [
 ] * 20
 SPECIALS = {"llama3": ["<|begin_of_text|>", "<|eot_id|>"],
             "qwen2": ["<|endoftext|>", "<|im_start|>", "<|im_end|>"],
-            "gpt2": ["<|endoftext|>"]}
+            "gpt2": ["<|endoftext|>"],
+            "gemma": ["<pad>", "<unk>", "<bos>", "<start_of_turn>",
+                      "<end_of_turn>"],
+            "mistral": ["<unk>", "<s>", "</s>"]}
+BOS = {"llama3": "<|begin_of_text|>", "gemma": "<bos>", "mistral": "<s>"}
 FORMS = list(SPECIALS)
 TEXTS = [
     "Hello world", "It's DON'T we'LL They'Ve I'M", "日本語 中文 🙂🚀 テキスト",
@@ -52,10 +66,46 @@ TEXTS = [
 ]
 
 
+def train_sentencepiece(form):
+    """A SentencePiece-style tokenizers.Tokenizer of the form ("gemma" or
+    "mistral"), trained on CORPUS over a 60-character alphabet, with the
+    256 <0xNN> byte tokens appended to its vocab."""
+    from tokenizers import (Tokenizer, decoders, models, normalizers,
+                            processors, trainers)
+
+    tok = Tokenizer(models.BPE(unk_token="<unk>", fuse_unk=True,
+                               byte_fallback=True))
+    space = normalizers.Replace(" ", "\u2581")
+    tok.normalizer = space if form == "gemma" else normalizers.Sequence(
+        [normalizers.Prepend("\u2581"), space])
+    tok.decoder = decoders.Sequence(
+        [decoders.Replace("\u2581", " "), decoders.ByteFallback(),
+         decoders.Fuse()]
+        + ([decoders.Strip(" ", 1, 0)] if form == "mistral" else []))
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=500, special_tokens=SPECIALS[form], limit_alphabet=60,
+        show_progress=False))
+    spec = json.loads(tok.to_str())
+    vocab = spec["model"]["vocab"]
+    base = max(vocab.values()) + 1
+    vocab.update({f"<0x{b:02X}>": base + b for b in range(256)})
+    spec["model"].update(byte_fallback=True, unk_token="<unk>",
+                         fuse_unk=True)
+    tok = Tokenizer.from_str(json.dumps(spec))
+    bos = BOS[form]
+    tok.post_processor = processors.TemplateProcessing(
+        single=f"{bos} $A", pair=f"{bos} $A {bos} $B",
+        special_tokens=[(bos, tok.token_to_id(bos))])
+    return tok
+
+
 def train(form):
     """A tokenizers.Tokenizer of the form, trained on CORPUS."""
     from tokenizers import (Regex, Tokenizer, decoders, models, normalizers,
                             pre_tokenizers, processors, trainers)
+
+    if form in ("gemma", "mistral"):
+        return train_sentencepiece(form)
 
     tok = Tokenizer(models.BPE(ignore_merges=form == "llama3"))
     byte_level = pre_tokenizers.ByteLevel(add_prefix_space=False,
@@ -102,8 +152,8 @@ def write_tokenizer_dir(d, form, eos=None):
            "added_tokens_decoder": {
                str(tok.token_to_id(s)): {"content": s, "special": True}
                for s in specials}}
-    if form == "llama3":
-        cfg["bos_token"] = specials[0]
+    if form in BOS:
+        cfg["bos_token"] = BOS[form]
     with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
         json.dump(cfg, f)
     if eos is not None:
@@ -190,7 +240,7 @@ def test_metadata_matches_jax(tmp_path_factory, form):
     assert port._special_ids == ref._special_ids
     assert port.chat_template == ref.chat_template
     assert port.vocab_size == ref.vocab_size
-    for s in SPECIALS[form] + ["Ġthe", "nope"]:
+    for s in SPECIALS[form] + ["Ġthe", "nope", "<0x41>", "\u2581the"]:
         assert port.token_to_id(s) == ref.token_to_id(s)
 
 
@@ -230,6 +280,13 @@ UNSUPPORTED = {
     "wordpiece_decoder": ("decoder", {"type": "WordPiece", "prefix": "##"}),
     "single_word": ("added_tokens.single_word", True),
     "regex_word_class": ("pre_tokenizer", r"\w+"),
+    "replace_regex": ("normalizer", {"type": "Replace",
+                                     "pattern": {"Regex": " +"},
+                                     "content": "\u2581"}),
+    "ctc_decoder": ("decoder", {"type": "Sequence", "decoders": [
+        {"type": "ByteFallback"}, {"type": "CTC"}]}),
+    "bytelevel_in_sequence": ("decoder", {"type": "Sequence", "decoders": [
+        {"type": "ByteLevel"}, {"type": "Fuse"}]}),
 }
 
 

@@ -309,7 +309,8 @@ def flatten_jax_params(params) -> dict:
     if params.lm_head is not None:
         _linear(out, "lm_head", params.lm_head)
     for i, lp in enumerate(params.layers):
-        for name in ("input_norm", "pre_mlp_norm", "q_norm", "k_norm"):
+        for name in ("input_norm", "pre_mlp_norm", "q_norm", "k_norm",
+                     "post_attn_norm", "post_mlp_norm"):
             v = getattr(lp, name)
             if v is not None:
                 out[f"layers.{i}.{name}"] = _np(v)
