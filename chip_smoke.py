@@ -196,12 +196,17 @@ time):
              FSM build seconds at vocab 128256, the table bytes, TPOT
              p50 guided vs plain at c = 1 and the kernels a guided step
              and window add (torch.profiler) with their device time
-  cli        `python -m ferrum_tpu_torch bench random:llama-3.1-8b` (dense
-             bf16, the JAX CLI's random: weights, 4 x 256/32) in its own
-             process, started when lane A's phases end and drawing its
-             weights on the host while lanes B-E run: exit code 0, 4
-             requests completed without error, jax never imported; the
-             weight draws' and the process's seconds
+  cli        `python -m ferrum_tpu_torch bench random:qwen3-0.6b`
+             (dense bf16, the JAX CLI's random: weights, 4 x 256/32)
+             twice, each in its own process: "plain" through decode
+             windows, "spec" with `--spec-draft random:qwen3-0.6b
+             --spec-k 4` (speculative rounds). Both start when lane A's
+             phases end and draw their weights on the host while lanes
+             B-E run; their benches run one after the other once the
+             lanes are done: exit code 0, 4 requests completed without
+             error, jax never imported; plain ran decode windows and no
+             round, spec ran rounds (spec.stats in its line); the weight
+             draws' and the process's seconds
 Lanes F and G, on lane A's weights once its phases are done:
   serve_int8_prefix (F)  kv_dtype int8, the linear layout with the prefix
              store: two waves of 16 requests, each a shared 192-token
@@ -236,6 +241,32 @@ quantize_model_params -> the default EngineConfig at max_model_len 2048
   long_gemma3  4 requests of 1536/64, alone and batched, on the paged
              layout and on the linear one: the greedy tokens equal
              across the four runs
+
+Lane J, after lane I: speculative decoding. Target qwen3-8b at full
+width, 12 of its 36 layers; draft qwen3-0.6b at full width, 4 of its 28
+(both cut for the run's time); two-level w4a8 random weights drawn on
+the card (seed 0); the default EngineConfig with spec_num_tokens = 4
+(rounds: K + 1 draft steps at m = 32, one verify pass at m = 160 with
+its K/V rows in one kv_append_rows launch):
+  verify_logits_spec  one round's verify pass (8 sequences, positions
+             250..254, off the page grid) through the kernels and the
+             plain versions from the same cache: every logit within 1e-3
+             of the logit scale, the appended rows equal
+  serve_spec  the plain engine at 32 and 8 x 256/64, the spec engine at
+             32 x 256/64 under the no-sync check (and a seeded sampled
+             request twice: the same tokens), a spec engine with draft =
+             target at 8 x 256/64: every request 64 tokens, rows 1-4
+             launched and no other kernel; tok/s, TTFT p50, TPOT p50 and
+             the acceptance rate of each run
+  lane_j     each spec stream against the argmax of a teacher-forced
+             plain forward: a token may differ only where the plain top
+             two logits are within 1e-3 of the logit scale (counted);
+             the plain engine's streams likewise, for information
+The kernel phase holds rows 1-4 at lane J's shapes: w4a8tl_decode at the
+draft's projections at m = 32, w4a8tl_prefill at the target's at m =
+160, kv_append_rows at the verify's 12 layers x 32 lanes x 5 rows and a
+draft step's 4 x 32, off the page grid, and kv_append_pages at the
+target's prompt prefill (12 layers x 64 pages), each exact.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
@@ -3451,17 +3482,26 @@ def profile_sink_phase(torch, engine):
           "card": smi_line()})
 
 
-# The cli phase: the port's CLI on the card in its own process, dense
-# bf16 random:llama-3.1-8b (the JAX CLI's random: source).
-CLI_ARGS = ("bench", "random:llama-3.1-8b", "--concurrency", "4",
+# The cli phase: the port's CLI on the card, dense bf16
+# random:qwen3-0.6b (the JAX CLI's random: source), in two processes:
+# "plain" serves it through decode windows, "spec" with the same preset
+# as its speculative draft (--spec-draft random:, K = 4). The dense
+# random:llama-3.1-8b's ~8 G host normals (~200 s of a host core) would
+# bound the lanes after A; the three 0.6b draws are ~1/9 of them.
+CLI_BASE = ("bench", "random:qwen3-0.6b", "--concurrency", "4",
             "--num-requests", "4", "--input-len", "256", "--output-len",
             "32", "--max-model-len", "1024", "--max-num-seqs", "4",
-            "--kv-layout", "linear", "--no-prefix-cache",
-            "--output", "chiprun_out/cli_bench.json")
+            "--kv-layout", "linear", "--no-prefix-cache")
+CLI_RUNS = {
+    "plain": CLI_BASE + ("--output", "chiprun_out/cli_bench.json"),
+    "spec": CLI_BASE + ("--spec-draft", "random:qwen3-0.6b", "--spec-k",
+                        "4", "--output", "chiprun_out/cli_spec_bench.json"),
+}
 # Runs `python -m ferrum_tpu_torch ...` through runpy, times the weight
 # draws (init_random_params) and fails if jax was ever imported. Its
 # bench waits for a line on stdin (after the engine is built), so the
-# card runs it alone once the lanes are done.
+# card runs it alone once the lanes are done; after it, the engine's
+# decode windows and steps and its spec.stats (None without a draft).
 CLI_PRELUDE = """
 import json, runpy, sys, time
 T0 = time.perf_counter()
@@ -3476,7 +3516,16 @@ def gated(*a, **kw):
           file=sys.stderr, flush=True)
     t0 = time.perf_counter()
     out = run_bench(*a, **kw)
-    print(json.dumps({"run_bench_s": time.perf_counter() - t0}),
+    eng = a[0]
+    st = eng.spec.stats if eng.spec is not None else None
+    print(json.dumps({"run_bench_s": time.perf_counter() - t0,
+                      "windows": sum(eng.runner.windows_by_bucket.values()),
+                      "decode_steps": eng.runner.decode_steps,
+                      "spec_stats": st and {
+                          "proposals": st.proposals,
+                          "drafted_tokens": st.drafted_tokens,
+                          "accepted_tokens": st.accepted_tokens,
+                          "acceptance_rate": st.acceptance_rate}}),
           file=sys.stderr, flush=True)
     return out
 be.run_bench = gated
@@ -3502,54 +3551,88 @@ sys.exit(rc)
 
 
 def cli_start():
-    """Start the cli phase's process (it draws its weights on the host
-    while later phases run; see main)."""
+    """Start the cli phase's processes, one a CLI_RUNS entry (they draw
+    their weights on the host while later phases run; see main)."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
-    code = CLI_PRELUDE.replace("ARGS", repr(list(CLI_ARGS)))
-    return time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-c", code], stdin=subprocess.PIPE,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+    procs = {}
+    for name, args in CLI_RUNS.items():
+        code = CLI_PRELUDE.replace("ARGS", repr(list(args)))
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c", code], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=here))
+    return procs
 
 
-def cli_finish(started, timeout_s=600):
-    """Let the cli phase's process run its bench (the lanes are done)
-    and wait for it: exit code 0, its report's one cell completed 4
-    requests with no error, and no jax imported."""
-    t0, proc = started
-    try:
-        out, err = proc.communicate(input="go\n", timeout=timeout_s)
-    finally:
+def cli_stop(procs):
+    """Kill what is left of the cli phase's processes."""
+    for _, proc in (procs or {}).values():
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    if proc.returncode != 0:
-        raise AssertionError(f"cli: exit {proc.returncode}\n{err[-3000:]}")
+
+
+def cli_finish(procs, timeout_s=600):
+    """Let the cli phase's processes run their benches one after the
+    other (the lanes are done) and wait for each: exit code 0, its
+    report's one cell completed 4 requests with no error, jax never
+    imported; the plain run served through decode windows and ran no
+    round, the spec run ran speculative rounds (the engine's
+    spec.stats)."""
     import os
 
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chiprun_out", "cli_bench.json")) as f:
-        report = json.load(f)
-    cell = report["cells"][0]
-    if cell["completed"] != 4 or cell["errors"] != 0:
-        raise AssertionError(f"cli: {cell['completed']} completed, "
-                             f"{cell['error_samples']}")
-    timing = {}
-    for line in err.splitlines():
-        if line.startswith("{"):
-            timing.update(json.loads(line))
-    emit({"phase": "cli", "command": "python -m ferrum_tpu_torch "
-          + " ".join(CLI_ARGS), "rc": proc.returncode, "no_jax": True,
-          "schema": report["schema"], "completed": cell["completed"],
-          "errors": cell["errors"], "output_tok_s": cell["output_tok_s"],
-          "ttft_p50_ms": cell["ttft_p50_ms"],
-          "tpot_p50_ms": cell["tpot_p50_ms"],
-          "compilations_during_cell": cell["compilations_during_cell"],
-          "phase_times": cell["phase_times"], **timing,
-          "started_t_s": t0 - T0,
-          "process_wall_s": time.perf_counter() - t0, "card": smi_line()})
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        for name, (t0, proc) in procs.items():
+            out, err = proc.communicate(input="go\n", timeout=timeout_s)
+            tag = f"cli {name}"
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag}: exit {proc.returncode}\n"
+                                     f"{err[-3000:]}")
+            args = CLI_RUNS[name]
+            with open(os.path.join(
+                    here, args[args.index("--output") + 1])) as f:
+                report = json.load(f)
+            cell = report["cells"][0]
+            if cell["completed"] != 4 or cell["errors"] != 0:
+                raise AssertionError(f"{tag}: {cell['completed']} completed,"
+                                     f" {cell['error_samples']}")
+            timing = {"init_random_params_s": []}   # target's, draft's
+            for line in err.splitlines():
+                if line.startswith("{"):
+                    got = json.loads(line)
+                    draws = got.pop("init_random_params_s", None)
+                    if draws is not None:
+                        timing["init_random_params_s"].append(draws)
+                    timing.update(got)
+            st = timing.get("spec_stats")
+            if name == "spec" and not (st and st["proposals"] > 0):
+                raise AssertionError(f"{tag}: no speculative round ran: "
+                                     f"{timing}")
+            if name == "plain" and (st is not None
+                                    or timing.get("windows", 0) <= 0
+                                    or timing.get("decode_steps", 0) <= 0):
+                raise AssertionError(f"{tag}: no decode window ran: "
+                                     f"{timing}")
+            emit({"phase": "cli", "run": name,
+                  "command": "python -m ferrum_tpu_torch " + " ".join(args),
+                  "rc": proc.returncode, "no_jax": True,
+                  "schema": report["schema"], "completed": cell["completed"],
+                  "errors": cell["errors"],
+                  "output_tok_s": cell["output_tok_s"],
+                  "ttft_p50_ms": cell["ttft_p50_ms"],
+                  "tpot_p50_ms": cell["tpot_p50_ms"],
+                  "compilations_during_cell":
+                      cell["compilations_during_cell"],
+                  "phase_times": cell["phase_times"], **timing,
+                  "started_t_s": t0 - T0,
+                  "process_wall_s": time.perf_counter() - t0,
+                  "card": smi_line()})
+    finally:
+        cli_stop(procs)
 
 
 # The server phase (lane A's engine): greedy chat requests of
@@ -4810,6 +4893,433 @@ def lane_i(torch):
     return by_run
 
 
+# Lane J: speculative decoding. The target qwen3-8b at full width, 12 of
+# its 36 layers; the draft qwen3-0.6b at full width, 4 of its 28 (both
+# cut for the run's time: the run must stay near 800 s on the usual
+# host, and a round's host time grows with the layers of both models);
+# two-level w4a8 random weights (seed 0), K = 4.
+J_TARGET, J_TARGET_LAYERS = "qwen3-8b", 12
+J_DRAFT, J_DRAFT_LAYERS = "qwen3-0.6b", 4
+J_K, J_OUT, J_SAME_REQS = 4, 64, 8
+# qwen3-8b's projections (K, N), q|k|v and gate|up fused: row 2 at the
+# verify's m = 32 x (K+1); qwen3-0.6b's: row 1 at the draft's 32 lanes.
+J_TARGET_SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096),
+                   "gate_up": (4096, 24576), "down": (12288, 4096)}
+J_DRAFT_SHAPES = {"qkv": (1024, 4096), "o": (2048, 1024),
+                  "gate_up": (1024, 6144), "down": (3072, 1024)}
+J_VERIFY_M = SERVE_REQUESTS * (J_K + 1)
+LANE_J = dict(name="J qwen3-8b + qwen3-0.6b draft, speculative",
+              model=J_TARGET, mode={}, path=LLAMA_PATH, tag="_spec")
+
+
+def spec_rows(torch, timer):
+    """Rows 1 and 2 at lane J's shapes, exact against their plain
+    versions, timed beside torch._int_mm on the int8 w8: w4a8tl_decode
+    at the draft's four projections at m = 32 (a draft step), and
+    w4a8tl_prefill at the target's at m = 160 (a verify pass: 32 lanes x
+    K + 1 = 5 positions); then one line summing a layer's projections
+    each."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    rows = []
+    for model, shapes, m, kernel, fn in (
+            (J_DRAFT, J_DRAFT_SHAPES, SERVE_DECODE_M, "w4a8tl_decode",
+             qmm.w4a8tl_decode),
+            (J_TARGET, J_TARGET_SHAPES, J_VERIFY_M, "w4a8tl_prefill",
+             qmm.w4a8tl_prefill)):
+        sel = []
+        for site, (k, n) in shapes.items():
+            p = make_gemm_weight(torch, k, n, gen)
+            w8_cm = int_mm_weight(torch, p)
+            x = torch.randn(m, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = qmm.quantize_activation_rows(x)
+            row = {"kernel": kernel, "site": site, "m": m, "k": k, "n": n,
+                   "model": model, "form": "speculative"}
+            if kernel == "w4a8tl_decode":
+                row["plan"] = qmm.w4a8tl_decode_plan(m, n, k)
+            two_level_case(sel, timer, row, fn, qmm.w4a8tl_plain, p, w8_cm,
+                           xq, xs)
+            del p, w8_cm
+            torch.cuda.empty_cache()
+        emit({"phase": "kernel_layer", "model": model, "kernel": kernel,
+              **_summed(sel, f"m={m}"), "card": smi_line()})
+        rows += sel
+    return rows
+
+
+def spec_kv_cases(torch, timer):
+    """Rows 3 and 4 at lane J's shapes, bit for bit: the verify's K and V
+    rows (12 layers x 32 lanes x 5 positions, each lane's run starting
+    off the page grid, 4 dead lanes dropped) and a draft step's (4
+    layers x 32 lanes) into a 1025-block pool (the pool's size is no
+    part of the work), bf16; the target prompt prefill's pages (12 layers
+    x 64 pages) in the pairs form, K and V."""
+    from ferrum_tpu_torch.ops.kernels.kv_append import (
+        append_pages_pairs, append_pages_pairs_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    pool, lanes, k1 = 1025, SERVE_REQUESTS, J_K + 1
+    rows = []
+    for layers, steps, form in ((J_TARGET_LAYERS, k1, "verify rows"),
+                                (J_DRAFT_LAYERS, 1, "draft step")):
+        b = layers * pool
+        start = torch.randint(0, 240, (lanes,), generator=gen,
+                              device="cuda") * 4 + 1      # off the grid
+        pos = start[:, None] + torch.arange(steps, device="cuda")[None]
+        # Each lane's own blocks (no two lanes share one).
+        tables = torch.randperm(pool, generator=gen, device="cuda")[
+            :lanes * 32].view(lanes, 32)
+        blk_l = torch.gather(tables, 1, pos // PAGE)          # [S, steps]
+        blk_l[-4:] = OOB_SENTINEL
+        blk = torch.where(blk_l[None] < OOB_SENTINEL,
+                          torch.arange(layers, device="cuda")[:, None, None]
+                          * pool + blk_l[None], OOB_SENTINEL)
+        blk = blk.reshape(-1).to(torch.int32).contiguous()
+        off = (pos % PAGE).reshape(-1).repeat(layers).to(
+            torch.int32).contiguous()
+        rows += kv_rows_form_cases(
+            torch, timer, gen, blk, off, b, (ROWS_BF16,),
+            {"model": J_TARGET if steps > 1 else J_DRAFT, "form": form,
+             "at": f"{layers} layers x {lanes} lanes x {steps}"})
+    layers = J_TARGET_LAYERS
+    b = layers * pool
+    n_pg = PREFILL_ROWS // PAGE
+    ids = (torch.arange(layers, device="cuda")[:, None] * pool
+           + torch.randperm(pool, generator=gen, device="cuda")[:n_pg][None])
+    ids[0, 5] = OOB_SENTINEL
+    ids = ids.reshape(-1).to(torch.int32).contiguous()
+    pairs = [(kv_array(torch, gen, torch.bfloat16, (b, PAGE, 1024)),
+              kv_array(torch, gen, torch.bfloat16, (ids.numel(), PAGE, 1024)))
+             for _ in range(2)]
+    ref = append_pages_pairs_plain([(c.clone(), p) for c, p in pairs], ids)
+    append_pages_pairs(pairs, ids)
+    torch.cuda.synchronize()
+    valid = int((ids < b).sum().item())
+    row = {"kernel": "kv_append_pages", "dtype": "bf16 K, V", "arrays": 2,
+           "pages": ids.numel(), "f": 1024, "model": J_TARGET,
+           "form": "pairs, prompt prefill",
+           "equal": all(bool(torch.equal(c, w))
+                        for (c, _), w in zip(pairs, ref)),
+           "max_abs_err": max((c.float() - w.float()).abs().max().item()
+                              for (c, _), w in zip(pairs, ref))}
+    del ref
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        sum(2 * valid * p[0].nbytes for _, p in pairs) + ids.nbytes, 0)
+    row["kernel_ms"] = timer(lambda: append_pages_pairs(pairs, ids))
+    row["plain_ms"] = timer(lambda: append_pages_pairs_plain(pairs, ids),
+                            reps=10)
+    flat_ids = ids.long()[ids < b]
+    srcs = [(c, p[ids < b]) for c, p in pairs]
+    row["library_ms"] = timer(lambda: [c.index_copy_(0, flat_ids, p)
+                                       for c, p in srcs])
+    rows.append(row)
+    emit({"phase": "kernel_case", **row})
+    if not row["equal"]:
+        raise AssertionError(f"kv_append_pages at lane J's prefill: differs "
+                             f"by {row['max_abs_err']}")
+    del pairs, srcs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def j_models(torch):
+    """Lane J's target and draft: (config, two-level params) each, drawn
+    on the card (seed 0); the draft's q|k|v and gate|up fused as
+    EngineBuilder fuses the target's (it serves a draft as given)."""
+    import dataclasses
+
+    from ferrum_tpu_torch.engine.builder import fuse_projections
+    from ferrum_tpu_torch.models.configs import preset
+    from ferrum_tpu_torch.models.quantize import init_random_quant_params
+    out = []
+    for name, layers in ((J_TARGET, J_TARGET_LAYERS),
+                         (J_DRAFT, J_DRAFT_LAYERS)):
+        mc = dataclasses.replace(preset(name), num_layers=layers)
+        out.append((mc, fuse_projections(init_random_quant_params(mc,
+                                                                  seed=0))))
+    return out
+
+
+def j_engine(target, draft=None, **kw):
+    """The default EngineConfig (two-level w4a8, the paged layout with the
+    prefix cache, T = 8, KV autosized), K = J_K, and `kw`."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine.builder import EngineBuilder
+    b = EngineBuilder(EngineConfig(spec_num_tokens=J_K, **kw)) \
+        .with_model(*target)
+    if draft is not None:
+        b = b.with_draft_model(*draft)
+    return b.build()
+
+
+def j_serve(torch, engine, mc, prompts, label, sync_check=False):
+    """len(prompts) concurrent greedy 256/J_OUT requests, the launch
+    counts from 0; every request J_OUT tokens, rows 1-4 launched and no
+    other kernel. Returns (launches, token lists, the line)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ferrum_tpu_torch.ops import kernels as K
+
+    import dataclasses
+
+    runner = engine.runner
+    st0 = dataclasses.astuple(engine.spec.stats) if engine.spec else None
+    rounds0 = engine.spec.rounds if engine.spec else 0
+    runner.sync_debug = "error" if sync_check else None
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            resps = list(ex.map(engine.infer,
+                                [request(p, J_OUT) for p in prompts]))
+        torch.cuda.synchronize()
+    finally:
+        runner.sync_debug = None
+    wall = time.perf_counter() - t0
+    launches = counts(K)
+    for r in resps:
+        if r.completion_tokens != J_OUT or len(r.token_ids) != J_OUT \
+                or not all(0 <= t < mc.vocab_size for t in r.token_ids):
+            raise AssertionError(f"lane J {label}: {r.request_id} gave "
+                                 f"{len(r.token_ids)} tokens")
+    missed = [k for k in LANE_J["path"] if launches[k] == 0]
+    stray = [k for k in off_path(LANE_J) if launches[k] != 0]
+    if missed or stray:
+        raise AssertionError(f"lane J {label}: never launched {missed}, "
+                             f"launched {stray}")
+    ttft = [r.ttft for r in resps]
+    tpot = [(r.e2e_latency - r.ttft) / (J_OUT - 1) for r in resps]
+    line = {"phase": "serve_spec", "lane": LANE_J["name"], "run": label,
+            "requests": len(prompts), "prompt_len": PROMPT_LEN,
+            "output_len": J_OUT, "wall_s": wall,
+            "output_tok_s": len(prompts) * J_OUT / wall,
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "tpot_p50_ms": statistics.median(tpot) * 1e3,
+            "no_sync_checked": sync_check, "launches": launches,
+            "kv_layout": engine.cfg.kv_layout, "card": smi_line()}
+    if engine.spec is not None:
+        st = [a - b for a, b in zip(dataclasses.astuple(engine.spec.stats),
+                                    st0)]
+        line.update(spec_k=engine.spec.k, rounds=engine.spec.rounds - rounds0,
+                    proposals=st[0], drafted_tokens=st[1],
+                    accepted_tokens=st[2],
+                    acceptance_rate=st[2] / max(st[1], 1))
+    emit(line)
+    return launches, [r.token_ids for r in resps], line
+
+
+def j_teacher_forced(torch, mc, params, prompts, streams):
+    """Each stream against the argmax of a teacher-forced forward of the
+    plain versions on the card over prompt + stream (one batched
+    prefill of 8 sequences at a time): a token may differ only where the
+    plain top two logits are within 1e-3 of the logit scale (a near-tie
+    the bf16 attention sums can flip). Returns the counts."""
+    from ferrum_tpu_torch.models import llama_family as lf
+    dev = torch.device("cuda")
+    n_tok = PROMPT_LEN + J_OUT
+    t_pad = -(-n_tok // PAGE) * PAGE
+    out = {"positions": 0, "equal": 0, "near_ties": 0, "near_tie_flips": 0,
+           "flips": 0, "min_gap_rel": None}
+    saved = [(m, n, getattr(m, n)) for m, n, _ in plain_swaps()]
+    for m, n, fn in plain_swaps():
+        setattr(m, n, fn)
+    try:
+        for i in range(0, len(prompts), 8):
+            seqs = [list(map(int, p)) + list(s)
+                    for p, s in zip(prompts[i:i + 8], streams[i:i + 8])]
+            b = len(seqs)
+            nb = t_pad // PAGE
+            kv = lf.PagedKvCache.create(mc, b * nb, PAGE,
+                                        dtype=torch.bfloat16, device=dev)
+            tok = torch.zeros(b, t_pad, dtype=torch.int64, device=dev)
+            tok[:, :n_tok] = torch.tensor(seqs, device=dev)
+            pos = torch.arange(t_pad, device=dev)[None].expand(b, t_pad)
+            flat = torch.where(pos < n_tok, pos + torch.arange(
+                b, device=dev)[:, None] * t_pad, OOB_SENTINEL)
+            h, _ = lf.prefill_forward_batched(
+                params, mc, kv, tok, pos.contiguous(),
+                torch.arange(b * nb, device=dev).view(b, nb),
+                torch.full((b,), n_tok, device=dev), flat, ctx_pad=t_pad)
+            gen = h[:, PROMPT_LEN - 1:n_tok - 1]
+            logits = lf.logits_from_hidden(
+                params, mc, gen.reshape(-1, gen.shape[-1])).float()
+            scale = logits.abs().max()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gap = ((top2[:, 0] - top2[:, 1]) / scale).cpu()
+            am = logits.argmax(-1).cpu()
+            got = torch.tensor([s[PROMPT_LEN:] for s in seqs]).reshape(-1)
+            near = gap <= 1e-3
+            eq = am == got
+            out["positions"] += got.numel()
+            out["equal"] += int(eq.sum())
+            out["near_ties"] += int(near.sum())
+            out["near_tie_flips"] += int((~eq & near).sum())
+            out["flips"] += int((~eq & ~near).sum())
+            g = float(gap.min())
+            out["min_gap_rel"] = g if out["min_gap_rel"] is None \
+                else min(out["min_gap_rel"], g)
+            del h, logits, kv
+            torch.cuda.empty_cache()
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    return out
+
+
+def j_verify_logits(torch, mc, params):
+    """One round's verify pass, kernels against plain versions on the same
+    inputs: 8 sequences of 250 prompt tokens prefilled (kernels), then
+    prefill_forward_batched(append="rows") over 5 positions from 250 --
+    off the page grid -- through the kernels and, from a copy of the same
+    cache, through the plain versions: every logit within 1e-3 of the
+    logit scale, and the appended rows equal."""
+    import numpy as np
+
+    from ferrum_tpu_torch.models import llama_family as lf
+    dev = torch.device("cuda")
+    b, n, k1, ctx = 8, 250, J_K + 1, 512
+    nb = ctx // PAGE
+    rng = np.random.default_rng(23)
+    kv = lf.PagedKvCache.create(mc, b * nb, PAGE, dtype=torch.bfloat16,
+                                device=dev)
+    tables = torch.arange(b * nb, device=dev).view(b, nb)
+    t_pad = 256
+    tok = torch.zeros(b, t_pad, dtype=torch.int64, device=dev)
+    tok[:, :n] = torch.from_numpy(rng.integers(0, mc.vocab_size, (b, n)))
+    pos = torch.arange(t_pad, device=dev)[None].expand(b, t_pad).contiguous()
+    flat = torch.where(pos < n, tables[:, :1] * PAGE + pos, OOB_SENTINEL)
+    lf.prefill_forward_batched(params, mc, kv, tok, pos, tables,
+                               torch.full((b,), n, device=dev), flat,
+                               ctx_pad=t_pad)
+    vt = torch.from_numpy(rng.integers(0, mc.vocab_size, (b, k1))).to(dev)
+    vp = (n + torch.arange(k1, device=dev))[None].expand(b, k1).contiguous()
+    vf = tables[:, :1] * PAGE + vp
+    plain_kv = lf.PagedKvCache(k=kv.k.clone(), v=kv.v.clone(), page=PAGE,
+                               kv_heads=kv.kv_heads, head_dim=kv.head_dim)
+
+    def verify(cache):
+        h, _ = lf.prefill_forward_batched(
+            params, mc, cache, vt, vp, tables,
+            torch.full((b,), n + k1, device=dev), vf, ctx_pad=ctx,
+            attn_impl="ref", append="rows")
+        return lf.logits_from_hidden(params, mc,
+                                     h.reshape(b * k1, -1)).float()
+
+    got = verify(kv)
+    saved = [(m, nm, getattr(m, nm)) for m, nm, _ in plain_swaps()]
+    for m, nm, fn in plain_swaps():
+        setattr(m, nm, fn)
+    try:
+        want = verify(plain_kv)
+    finally:
+        for m, nm, fn in saved:
+            setattr(m, nm, fn)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    rows_equal = bool(torch.equal(kv.k, plain_kv.k)
+                      and torch.equal(kv.v, plain_kv.v))
+    line = {"phase": "verify_logits_spec", "sequences": b,
+            "positions": f"{n}..{n + k1 - 1}", "max_abs_diff": diff,
+            "logit_scale": scale, "max_rel_diff": diff / scale,
+            "tolerance_rel": 1e-3, "cache_equal": rows_equal,
+            "card": smi_line()}
+    emit(line)
+    if not (diff <= 1e-3 * scale and rows_equal
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"lane J verify logits: {line}")
+
+
+def lane_j(torch):
+    """Lane J (see J_TARGET): the verify logits check; the plain engine and
+    the spec engine (draft qwen3-0.6b) each serving 32 x 256/64 greedy
+    (the spec run under the no-sync check), a spec engine with draft =
+    target serving 8 x 256/64 (beside the plain engine's 8); every spec
+    stream against a teacher-forced plain forward; a seeded sampled
+    request twice. Returns the launch counts by run."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    target, draft = j_models(torch)
+    mc = target[0]
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    j_verify_logits(torch, mc, target[1])
+    prompts = np.random.default_rng(30).integers(
+        0, mc.vocab_size, (SERVE_REQUESTS, PROMPT_LEN))
+    by_run, lines, streams = {}, {}, {}
+    plain = j_engine(target)
+    try:
+        sync_canary(torch, plain.runner)
+        for label, sel in (("plain c=32", prompts),
+                           ("plain c=8", prompts[:J_SAME_REQS])):
+            launches, streams[label], lines[label] = j_serve(
+                torch, plain, mc, sel, label)
+    finally:
+        plain.stop()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, d, sel in (("spec c=32", draft, prompts),
+                          ("spec draft=target c=8", target,
+                           prompts[:J_SAME_REQS])):
+        engine = j_engine(target, d)
+        try:
+            launches, streams[label], lines[label] = j_serve(
+                torch, engine, mc, sel, label, sync_check=True)
+            by_run[f"{LANE_J['name']} {label}"] = launches
+            if label == "spec c=32":
+                from ferrum_tpu_torch.types import (InferenceRequest,
+                                                    SamplingParams)
+                seeded = [engine.infer(InferenceRequest(
+                    prompt_token_ids=[int(t) for t in prompts[0][:100]],
+                    sampling=SamplingParams(
+                        max_tokens=J_OUT, temperature=0.8, top_k=40,
+                        seed=4321, ignore_eos=True))) for _ in range(2)]
+                if seeded[0].token_ids != seeded[1].token_ids:
+                    raise AssertionError("lane J: a seeded sampled request "
+                                         "gave two texts")
+        finally:
+            engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The plain engine's streams too, for information: its decode steps
+    # attend through the paged layout's f32 reference, the forward here
+    # through the flat bf16 prefill attention.
+    forced = {label: j_teacher_forced(torch, mc, target[1],
+                                      prompts[:len(streams[label])],
+                                      streams[label])
+              for label in ("spec c=32", "spec draft=target c=8",
+                            "plain c=32")}
+    share = {label: float(np.mean([a == b for x, y in zip(
+        streams[label], streams["plain c=32"]) for a, b in zip(x, y)]))
+        for label in ("spec c=32", "spec draft=target c=8")}
+    emit({"phase": "lane_j", "lane": LANE_J["name"],
+          "target": f"{J_TARGET} at {J_TARGET_LAYERS} of 36 layers",
+          "draft": f"{J_DRAFT} at {J_DRAFT_LAYERS} of 28 layers",
+          "spec_k": J_K, "weights_draw_s": draw_s,
+          "teacher_forced": forced, "seeded_twice_equal": True,
+          "token_share_equal_to_plain": share,
+          "acceptance_rate": {k: v.get("acceptance_rate")
+                              for k, v in lines.items()},
+          "output_tok_s": {k: v["output_tok_s"] for k, v in lines.items()},
+          "ttft_p50_ms": {k: v["ttft_p50_ms"] for k, v in lines.items()},
+          "tpot_p50_ms": {k: v["tpot_p50_ms"] for k, v in lines.items()},
+          "card": smi_line()})
+    bad = {k: v for k, v in forced.items()
+           if v["flips"] and k.startswith("spec")}
+    if bad:
+        raise AssertionError(f"lane J: spec tokens off the plain argmax "
+                             f"outside near-ties: {bad}")
+    del target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_run
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4841,7 +5351,8 @@ def main() -> int:
              + kv_pages_cases(torch, timer)
              + kv_pages_pairs_cases(torch, timer)
              + moe_cases(torch, timer)
-             + gemma_rows(torch, timer) + gemma_kv_cases(torch, timer))
+             + gemma_rows(torch, timer) + gemma_kv_cases(torch, timer)
+             + spec_rows(torch, timer) + spec_kv_cases(torch, timer))
     onehot_cases(torch)
     prefill_exact_cases(torch)
     decode_exact_cases(torch, timer)
@@ -4895,9 +5406,9 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             if lane.get("bench"):
-                # The cli process draws its 8B weights on the host while
-                # the next lanes run (the card holds them); its bench
-                # runs after the last lane (cli_finish).
+                # The cli processes draw their weights on the host while
+                # the next lanes run (the card holds them); their benches
+                # run after the last lane (cli_finish).
                 cli = cli_start()
             if lane.get("fg"):
                 # Lanes F and G on lane A's weights.
@@ -4911,10 +5422,10 @@ def main() -> int:
         cli_finish(cli)
         # Lane I: gemma-3-12b, windowed attention, on the card alone.
         by_path.update(lane_i(torch))
+        # Lane J: speculative decoding.
+        by_path.update(lane_j(torch))
     finally:
-        if cli is not None and cli[1].poll() is None:
-            cli[1].kill()
-            cli[1].communicate()
+        cli_stop(cli)
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -9,21 +9,25 @@ and `--embed-model` are not yet ported and exit 1), `bench`,
 `replay` and `list` subcommands; `embed`, `transcribe`, `tts`, `pull`,
 `stop` and `route` wait for their modules (ROADMAP Queue 1). Every JAX
 engine flag is accepted, and one whose
-feature the port does not have yet (`--tp 2`, `--spec-draft`,
-`--scheduler fifo`, ...) raises
+feature the port does not have yet (`--tp 2`, `--scheduler fifo`, ...)
+raises
 InvalidRequestError, as `EngineConfig.resolve` does for a
 FERRUM_* variable or a ferrum.toml key; `main` turns it into exit code 1
 and `error: ...` on stderr. `--device` (default: the CUDA card) picks
 the device; `--device cpu` runs the plain PyTorch versions. The model
 is `random:<preset>` or a local HF checkpoint directory (config.json,
 safetensors shards, tokenizer.json; `--quantization gptq_int4`
-quantizes a dense one on load).
+quantizes a dense one on load). `--spec-draft` (a checkpoint directory
+or random:<preset>) and `--spec-k` serve with speculative decoding in
+`run`, `serve` and `bench`.
 
 Usage: python -m ferrum_tpu_torch bench random:llama-3.1-8b [...]
        python -m ferrum_tpu_torch bench /path/to/checkpoint [...]
        python -m ferrum_tpu_torch serve /path/to/checkpoint --port 8000
        python -m ferrum_tpu_torch run random:tiny-test --device cpu \
            --prompt hello --max-tokens 8
+       python -m ferrum_tpu_torch bench random:qwen3-0.6b \
+           --spec-draft random:qwen3-0.6b --spec-k 4
 """
 
 from __future__ import annotations
@@ -67,9 +71,12 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prefill-chunk", type=int, default=None)
     p.add_argument("--decode-multi-step", type=int, default=None)
     p.add_argument("--tp", type=int, default=None, dest="tensor_parallel")
-    p.add_argument("--spec-draft", default=None, dest="spec_draft_model")
+    p.add_argument("--spec-draft", default=None, dest="spec_draft_model",
+                   help="draft model for speculative decoding "
+                        "(checkpoint dir or random:<preset>)")
     p.add_argument("--spec-k", type=int, default=None,
-                   dest="spec_num_tokens")
+                   dest="spec_num_tokens",
+                   help="speculative draft length (tokens per round)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--config", default="ferrum.toml",
                    help="ferrum.toml path (CLI > env > file precedence)")

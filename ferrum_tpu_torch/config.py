@@ -2,7 +2,7 @@
 
 Port of `ferrum_tpu/config.py`. Field names and defaults follow the JAX
 package. The fields the port does not have yet -- the prefix offload
-tier, parallelism, speculative and adaptive decoding, ... -- are not
+tier, parallelism, adaptive decoding, ... -- are not
 options here: `NOT_PORTED` holds the value the port fixes for
 each (the JAX field and env names). `resolve` raises
 InvalidRequestError, naming the field and "not yet ported", when a
@@ -78,6 +78,9 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
                                "dispatch window W+1 before reading W"),
     "FERRUM_MIXED_PREFILL": ("mixed_prefill", bool,
                              "one prefill chunk rides each decode window"),
+    "FERRUM_SPEC_DRAFT": ("spec_draft_model", str,
+                          "draft model for speculative decoding"),
+    "FERRUM_SPEC_K": ("spec_num_tokens", int, "speculative draft length"),
 }
 
 # The JAX package's fields the port does not have, each at the value
@@ -100,8 +103,6 @@ NOT_PORTED: Dict[str, Any] = {
     "adaptive_windows": False,
     "slot_slack": 0,
     "greedy_argmax_device": True,
-    "spec_draft_model": None,
-    "spec_num_tokens": 4,
     "scheduler_trace_path": None,
 }
 
@@ -117,8 +118,6 @@ NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
     "FERRUM_EP": ("expert_parallel", int),
     "FERRUM_SCHEDULER_TRACE_JSONL": ("scheduler_trace_path", str),
     "FERRUM_GREEDY_ARGMAX": ("greedy_argmax_device", bool),
-    "FERRUM_SPEC_DRAFT": ("spec_draft_model", str),
-    "FERRUM_SPEC_K": ("spec_num_tokens", int),
     "FERRUM_SLOT_SLACK": ("slot_slack", int),
     "FERRUM_ADAPTIVE_WINDOWS": ("adaptive_windows", bool),
     "FERRUM_GDN_CHUNKED": ("gdn_chunk_block", int),
@@ -234,6 +233,10 @@ class EngineConfig:
     # Window length per bucket, e.g. "1:32,8:16"; other buckets run
     # decode_multi_step.
     decode_t_spec: str = ""
+    # Speculative decoding: the draft model (a checkpoint directory or
+    # random:<preset>; None = off) and its proposals a round (K).
+    spec_draft_model: Optional[str] = None
+    spec_num_tokens: int = 4
     seed: int = 0
     device: Optional[str] = None        # None = the CUDA card
     # --- numerics / quant ---
@@ -312,6 +315,9 @@ class EngineConfig:
         if self.decode_multi_step < 1:
             raise InvalidRequestError("decode_multi_step must be >= 1",
                                       param="decode_multi_step")
+        if self.spec_num_tokens < 1:
+            raise InvalidRequestError("spec_num_tokens must be >= 1",
+                                      param="spec_num_tokens")
         if not 1 <= self.pipeline_depth <= 4:
             raise InvalidRequestError("pipeline_depth must be in [1, 4]",
                                       param="pipeline_depth")

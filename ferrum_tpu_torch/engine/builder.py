@@ -26,6 +26,13 @@ CPU no device memory is there to read: autosizing takes a byte budget
 without one takes linear. A profile path in the config sets the global
 profile sink at build, as in the JAX builder.
 
+Speculative decoding (engine/spec_decode.py): a draft model from
+`with_draft_model`, else from `EngineConfig.spec_draft_model` -- a
+checkpoint directory (the port's `load_checkpoint`) or random:<preset>
+(`init_random_params(draft_cfg, cfg.seed)`, as the JAX package's
+EngineBuilder) --, served as given (no requantization or fusion, as
+there), its vocabulary the target's (else ModelLoadError).
+
 The mode is a process-wide switch, as in the JAX package: `build()`
 sets both switches, so building a second engine with another `w4a8` or
 `w4a8_gd` changes the route of the first one too.
@@ -52,6 +59,7 @@ from ..tokenizer import Tokenizer, make_byte_tokenizer
 from ..types import ModelLoadError
 from .engine import ContinuousBatchEngine
 from .runner import ModelRunner
+from .spec_decode import SpecDecoder
 
 KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
              "int8": torch.int8}
@@ -141,11 +149,21 @@ class EngineBuilder:
         self.params: Optional[ModelParams] = None
         self.tokenizer: Optional[Tokenizer] = None
         self.device_bytes: Optional[int] = None
+        self._draft = None
 
     def with_model(self, model_cfg: ModelConfig,
                    params: ModelParams) -> "EngineBuilder":
         self.model_cfg = model_cfg
         self.params = params
+        return self
+
+    def with_draft_model(self, draft_cfg: ModelConfig,
+                         draft_params: ModelParams) -> "EngineBuilder":
+        """An explicit draft model for speculative decoding; sets
+        spec_draft_model to "explicit" when the config names none."""
+        self._draft = (draft_cfg, draft_params)
+        if not self.cfg.spec_draft_model:
+            self.cfg.spec_draft_model = "explicit"
         return self
 
     def with_tokenizer(self, tok: Tokenizer) -> "EngineBuilder":
@@ -239,4 +257,39 @@ class EngineBuilder:
                                  cfg.kv_block_size,
                                  dtype=KV_DTYPES[cfg.kv_dtype], device=device)
         runner = ModelRunner(self.model_cfg, cfg, self.params, kv, device)
-        return ContinuousBatchEngine(cfg, runner, self.tokenizer)
+        spec = self._build_spec(runner, device) if cfg.spec_draft_model \
+            else None
+        return ContinuousBatchEngine(cfg, runner, self.tokenizer, spec=spec)
+
+    def _build_spec(self, runner: ModelRunner,
+                    device: torch.device) -> SpecDecoder:
+        """The draft model (explicit, a checkpoint directory or
+        random:<preset>) and its SpecDecoder on the target's block
+        geometry."""
+        cfg = self.cfg
+        src = cfg.spec_draft_model
+        if self._draft is not None:
+            draft_cfg, draft_params = self._draft
+        elif os.path.isdir(src):
+            draft_cfg, draft_params, _tok = load_checkpoint(src, cfg, device)
+        elif src.startswith("random:"):
+            try:
+                draft_cfg = preset(src.split(":", 1)[1])
+            except ValueError as e:
+                raise ModelLoadError(str(e)) from None
+            dtype = torch.bfloat16 if cfg.dtype == "bf16" else torch.float32
+            draft_params = init_random_params(draft_cfg, cfg.seed,
+                                              dtype=dtype, device=device)
+        else:
+            raise ModelLoadError(
+                f"cannot resolve draft model source {src!r}")
+        if draft_cfg.vocab_size != self.model_cfg.vocab_size:
+            raise ModelLoadError(
+                "speculative draft must share the target vocab "
+                f"({draft_cfg.vocab_size} != {self.model_cfg.vocab_size})")
+        if draft_params.embed.device.type != device.type:
+            raise ModelLoadError(f"draft params live on "
+                                 f"{draft_params.embed.device}, the engine "
+                                 f"on {device}")
+        return SpecDecoder(runner, draft_cfg, draft_params,
+                           k=cfg.spec_num_tokens)

@@ -56,9 +56,20 @@ back and `sample_host` under the processor's mask. That path still runs
 the model on the card; only the draw is on the host. Guided sequences
 accept token by token; a guided chunk never rides a window.
 
+Speculative decoding (`spec`, engine/spec_decode.py), as the JAX
+engine: rounds of a draft model's K proposals and one target verify
+replace the decode windows of the plain (and device-FSM guided)
+sequences, pipelined at depth 1 (round R+1 dispatched, chained on the
+device, before round R is read); mixed prefill and refill-first are
+off. A round's variable per-slot token lists are accepted token by
+token (every token streamed), up to a finished sequence; `spec.stats`
+counts proposals, drafted and accepted tokens. No round starts while
+KV pressure defers a decode and every victim rides the round in flight
+(the chain breaks so the next iteration can preempt).
+
 Everything runs on ONE CUDA stream; the loop leans on its order (see
 `_retire`). Not yet ported (later slices): adaptive window lengths,
-slack slots, the prefix offload tier, speculative decoding and LoRA.
+slack slots, the prefix offload tier and LoRA.
 """
 
 from __future__ import annotations
@@ -88,6 +99,7 @@ from ..types import (EngineMetricsSnapshot, EngineStoppedError,
                      NotSupportedError, StreamChunk)
 from ..utils import profile as _prof
 from .runner import DecodeWindow, ModelRunner
+from .spec_decode import SpecDecoder, SpecWindow
 
 # Refill-first holds decode for at most this many iterations in a row.
 MAX_HOLD_STREAK = 8
@@ -105,10 +117,11 @@ class _RequestState:
 
 class ContinuousBatchEngine:
     def __init__(self, cfg: EngineConfig, runner: ModelRunner,
-                 tokenizer: Tokenizer):
+                 tokenizer: Tokenizer, spec: Optional[SpecDecoder] = None):
         self.cfg = cfg
         self.runner = runner
         self.tokenizer = tokenizer
+        self.spec = spec
         self.pool = None
         self.prefix_cache = None
         if runner is not None:
@@ -410,9 +423,12 @@ class ContinuousBatchEngine:
         # A sequence whose windows in flight reach its max_tokens finishes
         # when they are read: another window would only make tokens past
         # its end (the JAX engine dispatches it anyway; at c = 1 that is
-        # a whole 32-step window a request).
-        decode_seqs = [s for s in plain if self._tokens_ahead(s)
-                       < s.request.sampling.max_tokens]
+        # a whole 32-step window a request). Rounds take every plain
+        # sequence, as the JAX engine's (its acceptance counts with them).
+        spec = self.spec
+        decode_seqs = plain if spec is not None else [
+            s for s in plain
+            if self._tokens_ahead(s) < s.request.sampling.max_tokens]
         t_steps = batch.decode_steps or max(1, cfg.decode_multi_step)
         if not batch.decode_steps and decode_seqs:
             t_steps = cfg.t_for_bucket(
@@ -421,7 +437,8 @@ class ContinuousBatchEngine:
         # --- (c) prefill: one chunk may ride the window ---
         pf_chunk = None
         if batch.prefill_chunks and cfg.mixed_prefill and decode_seqs \
-                and cfg.pipeline_decode and self.runner.attn_impl == "linear":
+                and cfg.pipeline_decode and spec is None \
+                and self.runner.attn_impl == "linear":
             pf_chunk = next(
                 (c for c in batch.prefill_chunks
                  if c.seq.num_output_tokens == 0 and not c.seq.score_mode
@@ -435,7 +452,8 @@ class ContinuousBatchEngine:
         # stream held decode 8 iterations of every 9).
         # Never under KV pressure or with a recompute in the wave: the
         # held decodes are what frees blocks.
-        hold_conds = (cfg.refill_first and len(batch.prefill_chunks) >= 2
+        hold_conds = (cfg.refill_first and spec is None
+                      and len(batch.prefill_chunks) >= 2
                       and 0 < len(plain) <= self.runner.num_slots // 2
                       and not batch.deferred_decodes
                       and not any(c.seq.recompute
@@ -452,12 +470,16 @@ class ContinuousBatchEngine:
 
         # --- (d) dispatch W+1, then fetch and accept the oldest ---
         new_window = None
-        if decode_seqs and cfg.pipeline_decode and not hold \
+        newest = self._inflight_q[-1] if self._inflight_q else None
+        if spec is not None:
+            # Rounds replace windows (pipelined whatever pipeline_decode
+            # says, as the JAX engine's).
+            if decode_seqs and not (batch.deferred_decodes and pinned):
+                new_window = spec.start_round(decode_seqs, prev=newest)
+        elif decode_seqs and cfg.pipeline_decode and not hold \
                 and not (batch.deferred_decodes and pinned):
             new_window = self.runner.start_decode_window(
-                decode_seqs, t_steps,
-                prev=self._inflight_q[-1] if self._inflight_q else None,
-                pf_chunk=pf_chunk)
+                decode_seqs, t_steps, prev=newest, pf_chunk=pf_chunk)
             if pf_chunk is not None:
                 self.scheduler.note_prefill_done(pf_chunk)
                 self.metrics.tokens_prefilled += len(pf_chunk.tokens)
@@ -468,14 +490,15 @@ class ContinuousBatchEngine:
             self._inflight_q.append(new_window)
             self.max_inflight = max(self.max_inflight,
                                     len(self._inflight_q))
-            depth = 1 if len(batch.decode_seqs) <= 4 \
+            depth = 1 if spec is not None or len(batch.decode_seqs) <= 4 \
                 else cfg.pipeline_depth
         else:
             depth = 0                  # nothing dispatched: drain
         while len(self._inflight_q) > depth:
             self._process_window(self._inflight_q.popleft())
             did_work = True
-        if decode_seqs and not cfg.pipeline_decode and not hold:
+        if decode_seqs and not cfg.pipeline_decode and not hold \
+                and spec is None:
             self._accept_window_tokens(
                 decode_seqs, self.runner.run_decode_multi(decode_seqs,
                                                           t_steps), t_steps)
@@ -583,9 +606,22 @@ class ContinuousBatchEngine:
                 if chunk.is_last:
                     self._pending_first.append((chunk.seq, res))
 
-    def _process_window(self, window: DecodeWindow) -> None:
+    def _process_window(self, window) -> None:
         """Fetch a window's tokens and accept them; a mixed-prefill chunk
-        that ended its prompt gives its sequence's first token."""
+        that ended its prompt gives its sequence's first token. A round
+        (SpecWindow) gives each lane 1..K+1 tokens, accepted one by one
+        until its sequence finishes."""
+        if isinstance(window, SpecWindow):
+            lists = self.spec.sync_round(window)
+            for seq in window.seqs:
+                for tok in lists[seq.request.request_id]:
+                    if seq.phase != Phase.DECODING:
+                        break
+                    self._accept_token(seq, tok, True)
+            for seq in window.deferred:
+                with self._lock:
+                    self.scheduler.finish(seq)
+            return
         lists = self.runner.sync_window(window)
         self._accept_window_tokens(window.seqs, lists, window.num_steps)
         pf = window.pf_seq

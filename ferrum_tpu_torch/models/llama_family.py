@@ -13,7 +13,9 @@ attention), and the window form (`win`, linear only), whose cache stays
 read-only while K/V collect in the window's accumulator and land with
 one `append_window_kv` after the window, optionally with one slot's
 prefill block riding the steps -- and batched chunked prefill with
-whole-page appends, the context sliced or gathered by layout.
+whole-page appends (or row appends at any start: speculative
+verification), the context sliced or gathered by layout, and the
+single-sequence `prefill_forward`.
 
 The KV cache is [L, NB, page, F = Hkv*D] per K and V, seen by the
 append kernels as the layer-merged flat [L*NB, page, F]; an int8 cache
@@ -507,21 +509,27 @@ def prefill_forward_batched(
     flat_slots: torch.Tensor,     # int [B, T] (>= OOB_SENTINEL = drop)
     *, ctx_pad: int, inv_freq: Optional[torch.Tensor] = None,
     inv_freq_local: Optional[torch.Tensor] = None,
-    attn_impl: str = "linear",
+    attn_impl: str = "linear", append: str = "pages",
 ):
     """Chunked prefill of B sequences in one trunk pass (m = B*T for every
     projection) → (hidden [B, T, H], kv). The context: each slot's
     region sliced from its first block ("linear"), or its pages gathered
-    through block_tables ("ref", the paged layout). Each chunk starts on
-    a page boundary and T is a page multiple, so its K/V land as whole
-    pages, K, V (and an int8 cache's scales) in one `append_pages_pairs`
-    launch; pages whose first token is a pad are dropped. Each layer
-    attends through its own sliding window and the config's softcap."""
+    through block_tables ("ref", the paged layout). append "pages": each
+    chunk starts on a page boundary and T is a page multiple, so its K/V
+    land as whole pages, K, V (and an int8 cache's scales) in one
+    `append_pages_pairs` launch; pages whose first token is a pad are
+    dropped. append "rows" (speculative verification): chunks start at
+    any position and T is any length; the L*B*T rows land at their flat
+    slots in one `append_rows_pairs` launch, rows at >= OOB_SENTINEL
+    dropped. Each layer attends through its own sliding window and the
+    config's softcap."""
     ropes = _rope_tables(cfg, tokens.device, inv_freq, inv_freq_local)
     nb, page = kv.num_blocks, kv.page
     n_layers = kv.k.shape[0]
     b, t_pad = tokens.shape
-    if t_pad % page:
+    if append not in ("pages", "rows"):
+        raise ValueError(f"unknown append {append!r}")
+    if append == "pages" and t_pad % page:
         raise ValueError(f"chunk pad {t_pad} is not a multiple of the page "
                          f"size {page}")
     new_ks: List[torch.Tensor] = []
@@ -561,6 +569,10 @@ def prefill_forward_batched(
     h = forward_hidden(params, cfg, tokens.reshape(-1),
                        positions.reshape(-1), attn, inv_freq=ropes[0],
                        inv_freq_local=ropes[1])
+    if append == "rows":
+        _append_kv_rows(kv, torch.stack(new_ks), torch.stack(new_vs),
+                        flat_slots.reshape(-1))
+        return h.reshape(b, t_pad, -1), kv
 
     n_pg = (b * t_pad) // page
     first = flat_slots.reshape(n_pg, page)[:, 0].to(torch.int64)
@@ -571,6 +583,33 @@ def prefill_forward_batched(
         [(cache, part.view(n_layers * n_pg, page, -1))
          for cache, part in zip(kv.flat_arrays(), parts)], blk_all)
     return h.reshape(b, t_pad, -1), kv
+
+
+def prefill_forward(
+    params: ModelParams, cfg: ModelConfig, kv: PagedKvCache,
+    tokens: torch.Tensor,         # int [T] one sequence's chunk (padded)
+    positions: torch.Tensor,      # int [T] absolute; pads past total_len
+    block_table: torch.Tensor,    # int [max_pages]
+    total_len: torch.Tensor,      # int scalar: prefix + real chunk tokens
+    flat_slots: torch.Tensor,     # int [T] (>= OOB_SENTINEL = drop)
+    *, ctx_pad: int, attn_impl: str = "ref",
+    inv_freq: Optional[torch.Tensor] = None,
+    inv_freq_local: Optional[torch.Tensor] = None,
+):
+    """One sequence's chunked prefill → (hidden [T, H], kv): the batched
+    form at B = 1 (page-aligned chunk, whole-page appends). As in the
+    JAX package, an int8 cache is refused here (the engine's path,
+    `prefill_forward_batched`, takes it)."""
+    if kv.quantized:
+        raise NotImplementedError(
+            "single-sequence prefill_forward does not support int8 KV; "
+            "the engine path (prefill_forward_batched) does")
+    h, kv = prefill_forward_batched(
+        params, cfg, kv, tokens[None], positions[None], block_table[None],
+        total_len.reshape(1), flat_slots[None], ctx_pad=ctx_pad,
+        inv_freq=inv_freq, inv_freq_local=inv_freq_local,
+        attn_impl=attn_impl)
+    return h[0], kv
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ noise from per-slot threefry keys, which PyTorch cannot reproduce: here
 it comes from the engine's own `torch.Generator`, or from the `noise`
 argument, which is how the parity tests feed both packages the same
 draw. A request with its own `seed` draws instead from `seeded_gumbel`,
-a counter-based hash of (seed, position of the token drawn, candidate
-rank) in int64 tensor ops: its tokens do not depend on which lanes
-share the step or which slot it holds.
+a counter-based hash of (seed, position of the token drawn, draw kind,
+candidate rank) in int64 tensor ops: its tokens do not depend on which
+lanes share the step or which slot it holds. `processed_probs` gives the
+full distribution a draw is taken from (speculative verification).
 
 Guided decoding: `sample_step(allowed_mask=...)` hard-masks the logits
 first; `guided_mask_rows` unpacks each slot's row of the packed FSM
@@ -66,31 +67,46 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def seeded_gumbel(seeds: torch.Tensor, positions: torch.Tensor,
-                  k: int) -> torch.Tensor:
-    """Gumbel noise f32 [S, k] of each row's own stream: a hash of its
-    int64 seed, the int64 position of the token drawn and the candidate
-    rank, made uniform in (0, 1) from its top 24 bits."""
+# Draw kinds of the seeded streams: the token draw of a window or
+# prefill (kind 0, the first kind), and a speculative round's draft
+# noise, accept uniforms and residual noise.
+DRAW_SAMPLE, DRAW_DRAFT, DRAW_ACCEPT, DRAW_RESIDUAL = 0, 1, 2, 3
+
+
+def seeded_uniform(seeds: torch.Tensor, positions: torch.Tensor, k: int,
+                   kind: int = DRAW_SAMPLE) -> torch.Tensor:
+    """Uniforms f32 [S, k] in (0, 1) of each row's own stream: a hash of
+    its int64 seed, the int64 position of the token drawn, the draw kind
+    and the rank, made uniform from its top 24 bits."""
     key = _mix32((seeds & _M32) ^ _mix32(((seeds >> 32) & _M32)
                                          ^ 0x9E3779B9))
     key = _mix32((key + _mix32(positions & _M32)) & _M32)
+    if kind:
+        key = _mix32(key ^ ((kind * 0x632BE5AB) & _M32))
     rank = torch.arange(k, device=seeds.device, dtype=torch.int64)
     h = _mix32((key[:, None] + rank[None, :] * 0x9E3779B9) & _M32)
     h = _mix32(h ^ (key[:, None] >> 7))
-    u = ((h >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
-    return -torch.log(-torch.log(u))
+    return ((h >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def seeded_gumbel(seeds: torch.Tensor, positions: torch.Tensor, k: int,
+                  kind: int = DRAW_SAMPLE) -> torch.Tensor:
+    """Gumbel noise f32 [S, k] of each row's own stream (`seeded_uniform`
+    through -log(-log u))."""
+    return -torch.log(-torch.log(seeded_uniform(seeds, positions, k, kind)))
 
 
 def lane_noise(slots: torch.Tensor, positions: torch.Tensor,
                seeds: torch.Tensor, seeded: torch.Tensor, vocab: int,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               kind: int = DRAW_SAMPLE) -> torch.Tensor:
     """The sampling noise of one draw for the rows `slots`: the shared
     generator's draw (taken whole, as `sample_step` takes it), replaced
     by `seeded_gumbel` on the rows of a seeded slot. `positions`: each
     row's position of the token drawn."""
     k_cap = min(TOPK_CAP, vocab)
     shared = gumbel_noise((slots.shape[0], k_cap), generator, slots.device)
-    own = seeded_gumbel(seeds[slots], positions.to(torch.int64), k_cap)
+    own = seeded_gumbel(seeds[slots], positions.to(torch.int64), k_cap, kind)
     return torch.where(seeded[slots][:, None], own, shared)
 
 
@@ -107,6 +123,45 @@ def topk_ids(x: torch.Tensor, k: int) -> torch.Tensor:
     b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
     rev = torch.arange(v - 1, -1, -1, device=x.device)
     return torch.topk(b.to(torch.int64) * (1 << 32) + rev, k, dim=-1).indices
+
+
+def _processed_logits(logits: torch.Tensor, params: SlotSamplingParams,
+                      counts: torch.Tensor,
+                      eos_ids: Union[Tuple[int, ...], torch.Tensor],
+                      allowed_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The guided hard mask, the repetition penalty and the min-tokens EOS
+    mask, in the JAX order. `eos_ids` may be a bool [V] mask on the
+    logits' device (no host copy)."""
+    if allowed_mask is not None:
+        logits = torch.where(allowed_mask, logits, float("-inf"))
+    logits = apply_repetition_penalty(logits, counts,
+                                      params.repetition_penalty)
+    eos = eos_ids
+    if not isinstance(eos, torch.Tensor):
+        eos = torch.zeros(logits.shape[1], dtype=torch.bool,
+                          device=logits.device)
+        eos[list(eos_ids)] = True
+    return torch.where(params.min_tokens_active[:, None] & eos[None, :],
+                       float("-inf"), logits)
+
+
+def _candidates(logits: torch.Tensor, params: SlotSamplingParams):
+    """Temperature, top-k (capped at TOPK_CAP) and top-p with rank 0 kept:
+    (candidate ids [S, cap], descending; their scaled logits, -inf where
+    cut)."""
+    temp = params.temperature.clamp_min(1e-5)[:, None]
+    k_cap = min(TOPK_CAP, logits.shape[1])
+    scaled = logits / temp
+    idx = topk_ids(scaled, k_cap)                            # descending
+    vals = torch.gather(scaled, 1, idx)
+    rank = torch.arange(k_cap, device=logits.device)[None, :]
+    k_eff = torch.where(params.top_k[:, None] > 0, params.top_k[:, None],
+                        torch.full_like(params.top_k[:, None], k_cap))
+    vals = torch.where(rank < k_eff, vals, float("-inf"))
+    probs = torch.softmax(vals, dim=-1)
+    cum_before = torch.cumsum(probs, dim=-1) - probs
+    keep = (cum_before < params.top_p[:, None]) | (rank == 0)
+    return idx, torch.where(keep, vals, float("-inf"))
 
 
 def sample_step(
@@ -127,39 +182,41 @@ def sample_step(
     (the JAX order: mask, repetition penalty, min_tokens EOS gate); rows
     of unguided slots are all True. A row left with no allowed token
     gives token 0, as jnp.argmax and jax.lax.top_k do."""
-    s, v = logits.shape
-    if allowed_mask is not None:
-        logits = torch.where(allowed_mask, logits, float("-inf"))
-    logits = apply_repetition_penalty(logits, counts,
-                                      params.repetition_penalty)
-    eos = eos_ids
-    if not isinstance(eos, torch.Tensor):
-        eos = torch.zeros(v, dtype=torch.bool, device=logits.device)
-        eos[list(eos_ids)] = True
-    logits = torch.where(params.min_tokens_active[:, None] & eos[None, :],
-                         float("-inf"), logits)
+    logits = _processed_logits(logits, params, counts, eos_ids,
+                               allowed_mask)
     greedy_tok = torch.argmax(logits, dim=-1)
     if greedy_only:
         return greedy_tok
-
-    temp = params.temperature.clamp_min(1e-5)[:, None]
-    k_cap = min(TOPK_CAP, v)
-    scaled = logits / temp
-    idx = topk_ids(scaled, k_cap)                            # descending
-    vals = torch.gather(scaled, 1, idx)
-    rank = torch.arange(k_cap, device=logits.device)[None, :]
-    k_eff = torch.where(params.top_k[:, None] > 0, params.top_k[:, None],
-                        torch.full_like(params.top_k[:, None], k_cap))
-    vals = torch.where(rank < k_eff, vals, float("-inf"))
-    probs = torch.softmax(vals, dim=-1)
-    cum_before = torch.cumsum(probs, dim=-1) - probs
-    keep = (cum_before < params.top_p[:, None]) | (rank == 0)
-    vals = torch.where(keep, vals, float("-inf"))
+    idx, vals = _candidates(logits, params)
     if noise is None:
-        noise = gumbel_noise((s, k_cap), generator, logits.device)
+        noise = gumbel_noise(vals.shape, generator, logits.device)
     choice = torch.argmax(vals + noise, dim=-1)
     sampled = torch.gather(idx, 1, choice[:, None])[:, 0]
     return torch.where(params.temperature <= 0.0, greedy_tok, sampled)
+
+
+def processed_probs(
+    logits: torch.Tensor,            # f32 [S, V]
+    params: SlotSamplingParams,
+    counts: torch.Tensor,            # int [S, V]
+    eos_ids: Union[Tuple[int, ...], torch.Tensor],
+    allowed_mask: Optional[torch.Tensor] = None,   # bool [S, V] (guided)
+) -> torch.Tensor:
+    """The full-vocabulary distribution f32 [S, V] that `sample_step`
+    draws from: its mask, penalty, EOS mask, temperature, top-k and
+    top-p, then the softmax of what is left. Greedy rows (temperature 0)
+    get a one-hot at the argmax. Speculative verification's accept ratio
+    and residual draw use it (the JAX package's `processed_probs`)."""
+    logits = _processed_logits(logits, params, counts, eos_ids,
+                               allowed_mask)
+    s, v = logits.shape
+    # (F.one_hot checks its input's range on the host: a sync.)
+    onehot = torch.zeros((s, v), dtype=torch.float32, device=logits.device)
+    onehot.scatter_(1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
+    idx, vals = _candidates(logits, params)
+    full = torch.zeros((s, v), dtype=torch.float32, device=logits.device)
+    full.scatter_(1, idx, torch.softmax(vals, dim=-1))
+    return torch.where(params.temperature[:, None] <= 0.0, onehot, full)
 
 
 def guided_mask_rows(mask_words: torch.Tensor, states: torch.Tensor,

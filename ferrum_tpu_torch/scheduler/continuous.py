@@ -4,8 +4,9 @@ prefix reuse and preemption.
 Port of `ferrum_tpu/scheduler/continuous.py` with the arrival-order
 policy. One `next_batch(pinned, inflight_steps)` per engine iteration:
   1. every decoding sequence (one budget token each), its blocks grown
-     to cover the windows still in flight and the next; on the paged
-     layout, KV pressure first evicts prefix-cache blocks, then
+     to cover the windows (or speculative rounds) still in flight and
+     the next; on the paged layout, KV pressure first evicts
+     prefix-cache blocks, then
      preempts the most recently admitted sequence not riding a window
      in flight (recompute: its KV is dropped and prompt + outputs are
      prefilled again at re-admission); when no victim is free, one step
@@ -92,7 +93,20 @@ class ContinuousBatchScheduler:
         # windows never has its last positions' K/V dropped.
         steps = max(cfg.t_for_bucket(b) for b in cfg.decode_buckets)
         depth = cfg.pipeline_depth if cfg.pipeline_decode else 0
-        self.decode_lookahead = steps * (1 + depth)
+        # Speculative rounds: a round writes K+1 positions, and the one
+        # scheduled is chained on the one in flight, so a sequence may
+        # write 2 (K+1) positions past its host-visible length (rounds
+        # pipeline at depth 1 whatever pipeline_decode says). 2 (K+1)
+        # alone would do; the port keeps the JAX scheduler's
+        # max(steps, K+1) * (1 + depth) above it, so that the paged
+        # pool hands out the JAX engine's blocks: the draft attends to
+        # the stale rows in them (ROADMAP Queue 3), and its acceptance
+        # counts equal the JAX engine's only on the same blocks.
+        self.spec_steps = cfg.spec_num_tokens + 1 \
+            if cfg.spec_draft_model else 0
+        steps = max(steps, self.spec_steps)
+        self.decode_lookahead = max(steps * (1 + depth),
+                                    2 * self.spec_steps)
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []     # admission order
         self._free_slots: List[int] = list(range(cfg.num_slots - 1, -1, -1))
@@ -202,7 +216,10 @@ class ContinuousBatchScheduler:
                     inflight = inflight_steps
                 else:
                     inflight = cfg.decode_multi_step * cfg.pipeline_depth
-                if self._try_alloc(seq, seq.total_tokens + inflight + 1):
+                # Minimum progress: one step, or under speculation one
+                # whole round (its rows past the blocks would be lost).
+                if self._try_alloc(seq, seq.total_tokens + inflight
+                                   + max(1, self.spec_steps)):
                     batch.decode_steps = 1
                 else:
                     batch.deferred_decodes.append(seq)

@@ -101,9 +101,9 @@ def test_replay_matches_the_jax_cli(tmp_path):
 
 def test_unported_flag_exits_1_in_a_subprocess():
     r = run_cli("bench", "random:tiny-test", "--device", "cpu",
-                "--spec-draft", "random:tiny-test", *SMALL)
+                "--tp", "2", *SMALL)
     assert r.returncode == 1, r.stdout + r.stderr
-    assert "error:" in r.stderr and "spec_draft_model" in r.stderr \
+    assert "error:" in r.stderr and "tensor_parallel" in r.stderr \
         and "not yet ported" in r.stderr
 
 
@@ -171,7 +171,7 @@ def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
 
 @pytest.mark.parametrize("flags,env,field", [
     (["--tp", "2"], {}, "tensor_parallel"),
-    (["--spec-draft", "random:tiny-test"], {}, "spec_draft_model"),
+    (["--scheduler", "priority"], {}, "scheduler"),
     (["--quantization", "gguf_q4k"], {}, "quantization"),
     ([], {"FERRUM_QUANT": "gguf_q4k"}, "quantization"),
     ([], {"FERRUM_SCHEDULER_TRACE_JSONL": "trace.jsonl"},
@@ -184,7 +184,7 @@ def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
     ([], {"FERRUM_SQUEEZE_EMBED": "1"}, "squeeze_embeddings"),
     ([], {"FERRUM_FUSE_PROJ": "0"}, "fuse_proj"),
     ([], {"FERRUM_GDN_CHUNKED": "0"}, "gdn_chunk_block"),
-    ([], {"FERRUM_SPEC_K": "2"}, "spec_num_tokens"),
+    ([], {"FERRUM_DP": "2"}, "data_parallel"),
 ])
 def test_unported_settings_exit_1(monkeypatch, capsys, tmp_path, flags, env,
                                   field):
