@@ -226,7 +226,7 @@ Lanes F and G, on lane A's weights once its phases are done:
 
 Lane I, after the cli phase, on the card alone: gemma-3-12b (the text
 config of google/gemma-3-12b-it through the port's config mapping) at
-full width, 12 of its 48 layers (layers 5 and 11 global, ten local with
+full width, 8 of its 48 layers (layer 5 global, seven local with
 a window of 1024), random bf16 weights drawn on the card (seed 0) ->
 quantize_model_params -> the default EngineConfig at max_model_len 2048
 (two-level w4a8, the paged layout with the prefix cache):
@@ -243,7 +243,7 @@ quantize_model_params -> the default EngineConfig at max_model_len 2048
              across the four runs
 
 Lane J, after lane I: speculative decoding. Target qwen3-8b at full
-width, 12 of its 36 layers; draft qwen3-0.6b at full width, 4 of its 28
+width, 8 of its 36 layers; draft qwen3-0.6b at full width, 4 of its 28
 (both cut for the run's time); two-level w4a8 random weights drawn on
 the card (seed 0); the default EngineConfig with spec_num_tokens = 4
 (rounds: K + 1 draft steps at m = 32, one verify pass at m = 160 with
@@ -267,6 +267,39 @@ draft's projections at m = 32, w4a8tl_prefill at the target's at m =
 160, kv_append_rows at the verify's 12 layers x 32 lanes x 5 rows and a
 draft step's 4 x 32, off the page grid, and kv_append_pages at the
 target's prompt prefill (12 layers x 64 pages), each exact.
+
+Lane K, after lane J: the engine's remaining settings. qwen3-30b-a3b at
+full width, 2 of its 48 layers (lane B's depth), random two-level int4
+weights drawn on the card (seed 0), EngineConfig()'s defaults (adaptive
+windows, the paged layout with the prefix cache, KV autosized) with
+squeeze_embeddings, fuse_sites="qkv,gate_up,moe", slot_slack=2 and the
+priority scheduler writing its trace to a temporary file:
+  logits_k   a 256-token prefill (its last row's logits) and decode
+             steps at 32 and 1 lanes through the kernels, the plain
+             versions and a fuse_proj=False build of the same weights:
+             all three equal bit for bit (int8 table, float-scale int4
+             lm_head, fused expert gate|up)
+  serve_k    run_cell at 32 concurrent 256/64 (64 requests) and at 4:
+             no program key met inside a cell; windows by length, with
+             16-step ones at <= 4 lanes and 4-step ones while requests
+             wait; lane K's kernels launch (w4a8_decode for the
+             lm_head) and no other
+  slack_k    4 of 32 decoding requests aborted with the loop held and 4
+             new ones submitted: >= 1 admission while a release waits
+  priority_k 16 requests of priority 0 then 4 of priority 1: the trace,
+             read back, admits the 4 first
+  lane_k     the card's memory with and without the squeeze (weights,
+             table and lm_head bytes, after the build, peak)
+The kernel phase holds lane K's cases: row 6 (the squeezed float-scale
+lm_head) and row 1 (a two-level one) at K = 2048, N = 151936, m = 1 and
+32, rows 11 and 10 on the fused gate|up stack (N = 1536; bmm t = 32,
+grouped 256 and 16384 rows), each exact; and dense_moe: one
+qwen3-30b-a3b layer with bf16 expert stacks through ops/moe.py's dense
+route at 32 and 256 tokens, within two bf16 steps of the same function
+on the CPU. The cli phase's plain run serves with FERRUM_SQUEEZE_EMBED=1
+(its tied table int8, in its line) and both runs with
+FERRUM_ADAPTIVE_WINDOWS=0; lanes A-G state adaptive_windows=False, as
+bench.py does.
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
@@ -715,19 +748,76 @@ def stack_bytes(p, experts):
     return experts * per
 
 
+def bmm_case(torch, rows, timer, p, w_bf16, site, t, bx, gen, **extra):
+    """moe_bmm at t rows (on one shared row block, bx = 1, or each
+    expert's own, bx = MOE_E) equal to its plain version, beside
+    torch.bmm on the bf16 stack."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (
+        bmm_plain, moe_bmm_plan, quant_bmm_all_experts)
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
+        quantize_activation_rows)
+    k, n = p.in_features, p.out_features
+    x = torch.randn(bx, t, k, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    xq, xs = quantize_activation_rows(x.reshape(bx * t, k))
+    xq3, xs3 = xq.reshape(bx, t, k), xs.reshape(bx, t, 1)
+    row = {"kernel": "moe_bmm", "site": site, "t": t, "k": k, "n": n,
+           "experts": MOE_E, "shared_rows": bx == 1,
+           "plan": moe_bmm_plan(t, n, k, MOE_E), **extra}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        stack_bytes(p, MOE_E) + xq3.nbytes + xs3.nbytes
+        + 2 * MOE_E * t * n, 2.0 * MOE_E * t * k * n)
+    xb = x.expand(MOE_E, t, k)
+    check_case(rows, row, timer,
+               lambda: quant_bmm_all_experts(xq3, xs3, p, torch.bfloat16),
+               lambda: bmm_plain(xq3, xs3, p, torch.bfloat16),
+               lambda: torch.bmm(xb, w_bf16), exact=True)
+
+
+def grouped_case(torch, rows, timer, p, w_bf16, site, a, gen, **extra):
+    """moe_grouped over `a` expert-sorted rows routed by a random router,
+    equal to its plain version, its launch on a prebuilt tile map timed
+    apart, beside torch._grouped_mm on the bf16 stack."""
+    from ferrum_tpu_torch.ops.kernels.moe_gemm import (
+        grouped_bm, grouped_map, grouped_plain, grouped_plan,
+        grouped_w4a8tl, grouped_w4a8tl_on_map)
+    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
+        quantize_activation_rows)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    k, n = p.in_features, p.out_features
+    sizes = routed_sizes(torch, gen, a)
+    gs = sizes.to(torch.int32)
+    x = torch.randn(a, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+    xq, xs = quantize_activation_rows(x)
+    active = int((sizes > 0).sum().item())
+    row = {"kernel": "moe_grouped", "site": site, "rows": a, "k": k, "n": n,
+           "experts": MOE_E, "active_experts": active,
+           "empty_experts": MOE_E - active,
+           "library": "torch._grouped_mm (bf16)"
+           if grouped_mm is not None else None, **extra}
+    if grouped_bm(a) == 16:
+        row["plan"] = grouped_plan(a, n, k, MOE_E)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        stack_bytes(p, active) + xq.nbytes + xs.nbytes + 2 * a * n,
+        2.0 * a * k * n)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    tmap = grouped_map(gs, a)
+    check_case(rows, row, timer,
+               lambda: grouped_w4a8tl(xq, xs, p, gs, torch.bfloat16),
+               lambda: grouped_plain(xq, xs, p, gs, torch.bfloat16),
+               None if grouped_mm is None
+               else lambda: grouped_mm(x, w_bf16, offs=offs),
+               exact=True,
+               launch=lambda: grouped_w4a8tl_on_map(
+                   xq, xs, p, tmap, torch.bfloat16))
+
+
 def moe_cases(torch, timer):
     """The two MoE kernels at the qwen3-30b-a3b expert shapes against
     their plain versions (exact equality), with their times."""
-    from ferrum_tpu_torch.ops.kernels.moe_gemm import (
-        bmm_plain, grouped_bm, grouped_map, grouped_plain, grouped_plan,
-        grouped_w4a8tl, grouped_w4a8tl_on_map, moe_bmm_plan,
-        quant_bmm_all_experts)
-    from ferrum_tpu_torch.ops.kernels.quant_matmul import (
-        quantize_activation_rows)
     from ferrum_tpu_torch.ops.quant import dequantize
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    grouped_mm = getattr(torch, "_grouped_mm", None)
     rows = []
 
     for site, (k, n) in MOE_SHAPES.items():
@@ -736,49 +826,9 @@ def moe_cases(torch, timer):
         w_bf16 = dequantize(p, torch.bfloat16)            # [E, K, N]
         bx = 1 if site != "down" else MOE_E
         for t in BMM_T:
-            x = torch.randn(bx, t, k, generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            xq, xs = quantize_activation_rows(x.reshape(bx * t, k))
-            xq3, xs3 = xq.reshape(bx, t, k), xs.reshape(bx, t, 1)
-            row = {"kernel": "moe_bmm", "site": site, "t": t, "k": k,
-                   "n": n, "experts": MOE_E, "shared_rows": bx == 1,
-                   "plan": moe_bmm_plan(t, n, k, MOE_E)}
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                stack_bytes(p, MOE_E) + xq3.nbytes + xs3.nbytes
-                + 2 * MOE_E * t * n, 2.0 * MOE_E * t * k * n)
-            xb = x.expand(MOE_E, t, k)
-            check_case(rows, row, timer,
-                       lambda: quant_bmm_all_experts(
-                           xq3, xs3, p, torch.bfloat16),
-                       lambda: bmm_plain(xq3, xs3, p, torch.bfloat16),
-                       lambda: torch.bmm(xb, w_bf16), exact=True)
+            bmm_case(torch, rows, timer, p, w_bf16, site, t, bx, gen)
         for a in GROUPED_A:
-            sizes = routed_sizes(torch, gen, a)
-            gs = sizes.to(torch.int32)
-            x = torch.randn(a, k, generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            xq, xs = quantize_activation_rows(x)
-            active = int((sizes > 0).sum().item())
-            row = {"kernel": "moe_grouped", "site": site, "rows": a, "k": k,
-                   "n": n, "experts": MOE_E, "active_experts": active,
-                   "empty_experts": MOE_E - active,
-                   "library": "torch._grouped_mm (bf16)"
-                   if grouped_mm is not None else None}
-            if grouped_bm(a) == 16:
-                row["plan"] = grouped_plan(a, n, k, MOE_E)
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                stack_bytes(p, active) + xq.nbytes + xs.nbytes + 2 * a * n,
-                2.0 * a * k * n)
-            offs = torch.cumsum(sizes, 0).to(torch.int32)
-            tmap = grouped_map(gs, a)
-            check_case(rows, row, timer,
-                       lambda: grouped_w4a8tl(xq, xs, p, gs, torch.bfloat16),
-                       lambda: grouped_plain(xq, xs, p, gs, torch.bfloat16),
-                       None if grouped_mm is None
-                       else lambda: grouped_mm(x, w_bf16, offs=offs),
-                       exact=True,
-                       launch=lambda: grouped_w4a8tl_on_map(
-                           xq, xs, p, tmap, torch.bfloat16))
+            grouped_case(torch, rows, timer, p, w_bf16, site, a, gen)
         del p, w_bf16
         torch.cuda.empty_cache()
         grouped_w4a16_cases(torch, timer, site, k, n, gen, rows)
@@ -2026,15 +2076,17 @@ def build_engine(model, mode, float_scale, layers=None):
     if float_scale:
         drop_two_level(params)
     # bench.py's engine settings: lane buckets 1, 8 and the top, T = 32
-    # at bucket 1 and 8 elsewhere; the pipelined loop with mixed
-    # prefill-in-window and refill-first are the defaults.
-    # The linear layout with no prefix store, as bench.py sets them.
+    # at bucket 1 and 8 elsewhere, no adaptive window lengths; the
+    # pipelined loop with mixed prefill-in-window and refill-first are
+    # the defaults. The linear layout with no prefix store, as bench.py
+    # sets them.
     cfg = EngineConfig(
         max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
         prefill_chunk_size=PROMPT_LEN, max_num_batched_tokens=2048,
         kv_block_size=PAGE, kv_dtype="bf16", decode_multi_step=8, seed=0,
-        decode_bucket_spec="1,8", decode_t_spec="1:32", kv_layout="linear",
-        prefix_cache_blocks=0, **mode)
+        decode_bucket_spec="1,8", decode_t_spec="1:32",
+        adaptive_windows=False, kv_layout="linear", prefix_cache_blocks=0,
+        **mode)
     return mc, EngineBuilder(cfg).with_model(mc, params).build()
 
 
@@ -2225,7 +2277,8 @@ def fg_engine(mc, params, **kv):
         max_num_seqs=SERVE_REQUESTS, max_model_len=1024,
         prefill_chunk_size=PROMPT_LEN, max_num_batched_tokens=2048,
         kv_block_size=PAGE, decode_multi_step=8, seed=0,
-        decode_bucket_spec="1,8", decode_t_spec="1:32", **kv)
+        decode_bucket_spec="1,8", decode_t_spec="1:32",
+        adaptive_windows=False, **kv)
     return EngineBuilder(cfg).with_model(mc, params).build()
 
 
@@ -3126,6 +3179,63 @@ def plain_swaps():
             (moe_gemm, "grouped_w4a16", moe_gemm.grouped_w4a16_plain)]
 
 
+def forward_logits(torch, params, cfg, prompt, lanes, others, fed=None,
+                   last_only=False):
+    """Logits of a 256-token prefill of `prompt` [1, 256] and one decode
+    step per entry of `lanes` (n rows: the previous step's argmax in lane
+    0, others[step, 1:n] in the rest, only lane 0 writing the cache), at
+    full width on the card; bf16 KV, pages of PAGE. Decode steps take
+    the argmax of the previous step's logits, or the tokens `fed` (a
+    kernel run's: bf16 logits tie often over a 100k+ vocabulary, and an
+    argmax flipped by one ulp would feed two runs different tokens).
+    last_only: the prefill's logits of its last row alone (as the engine
+    computes them). Returns (logits by step, the tokens fed)."""
+    from ferrum_tpu_torch.models import llama_family as lf
+
+    max_len = 1024
+    n_blocks = max_len // PAGE
+    dev = torch.device("cuda")
+    tables = torch.arange(n_blocks, device=dev)[None]
+    kv = lf.PagedKvCache.create(cfg, n_blocks, PAGE, dtype=torch.bfloat16,
+                                device=dev)
+    pos = torch.arange(PROMPT_LEN, device=dev)[None]
+    h, kv = lf.prefill_forward_batched(
+        params, cfg, kv, prompt, pos, tables,
+        torch.tensor([PROMPT_LEN], device=dev), pos, ctx_pad=256)
+    out = [lf.logits_from_hidden(params, cfg,
+                                 h[0, -1:] if last_only else h[0])]
+    toks_fed = []
+    tok = out[0][-1:].argmax(-1)
+    for step, n in enumerate(lanes):
+        tok = tok if fed is None else fed[step]
+        toks_fed.append(tok)
+        p = torch.full((n,), PROMPT_LEN + step, device=dev)
+        toks = torch.cat([tok, others[step, 1:n]])
+        flat = torch.full_like(p, lf.OOB_SENTINEL)
+        flat[0] = PROMPT_LEN + step
+        h, kv = lf.decode_forward(params, cfg, kv, toks, p,
+                                  tables.expand(n, -1), p + 1, flat,
+                                  ctx_pad=512)
+        out.append(lf.logits_from_hidden(params, cfg, h))
+        tok = out[-1][:1].argmax(-1)
+    torch.cuda.synchronize()
+    return out, toks_fed
+
+
+def plain_run(fn):
+    """fn() with every kernel wrapper the model calls set to its plain
+    version (plain_swaps), restored after."""
+    swaps = plain_swaps()
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        return fn()
+    finally:
+        for mod, name, fn_ in saved:
+            setattr(mod, name, fn_)
+
+
 def logits_phase(torch, mc, engine, lane):
     """One 256-token prefill + one decode step per entry of lane["lanes"]
     of one prompt at full width, through the kernels and then through
@@ -3139,50 +3249,18 @@ def logits_phase(torch, mc, engine, lane):
 
     import numpy as np
 
-    from ferrum_tpu_torch.models import llama_family as lf
     from ferrum_tpu_torch.ops import kernels as K
 
     lanes, tol = lane["lanes"], lane["tol"]
-    max_len = 1024
-    n_blocks = max_len // PAGE
-    dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(rng.integers(0, mc.vocab_size, PROMPT_LEN)
-                              ).to(dev)[None]
+                              ).to("cuda")[None]
     others = torch.from_numpy(rng.integers(
-        0, mc.vocab_size, (len(lanes), max(lanes)))).to(dev)
-    tables = torch.arange(n_blocks, device=dev)[None]
+        0, mc.vocab_size, (len(lanes), max(lanes)))).to("cuda")
 
     def run(params, cfg, fed=None):
-        """Logits of every step; decode steps take the argmax of the
-        previous step's logits, or the tokens `fed` (the kernel run's:
-        bf16 logits tie often over a 100k+ vocabulary, and an argmax
-        flipped by one ulp would feed the two runs different tokens)."""
-        kv = lf.PagedKvCache.create(cfg, n_blocks, PAGE,
-                                    dtype=torch.bfloat16, device=dev)
-        pos = torch.arange(PROMPT_LEN, device=dev)[None]
-        h, kv = lf.prefill_forward_batched(
-            params, cfg, kv, prompt, pos, tables,
-            torch.tensor([PROMPT_LEN], device=dev), pos, ctx_pad=256)
-        out = [lf.logits_from_hidden(params, cfg, h[0])]
-        toks_fed = []
-        tok = out[0][-1:].argmax(-1)
-        for step, n in enumerate(lanes):
-            tok = tok if fed is None else fed[step]
-            toks_fed.append(tok)
-            p = torch.full((n,), PROMPT_LEN + step, device=dev)
-            toks = torch.cat([tok, others[step, 1:n]])
-            flat = torch.full_like(p, lf.OOB_SENTINEL)
-            flat[0] = PROMPT_LEN + step
-            h, kv = lf.decode_forward(params, cfg, kv, toks, p,
-                                      tables.expand(n, -1), p + 1, flat,
-                                      ctx_pad=512)
-            out.append(lf.logits_from_hidden(params, cfg, h))
-            tok = out[-1][:1].argmax(-1)
-        torch.cuda.synchronize()
-        return out, toks_fed
+        return forward_logits(torch, params, cfg, prompt, lanes, others, fed)
 
-    swaps = plain_swaps()
     full = engine.runner.params
     by_depth, launches = [], None
     for depth in [d for d in lane["depths"]
@@ -3194,14 +3272,7 @@ def logits_phase(torch, mc, engine, lane):
         with_kernels, fed = run(params, cfg)
         if depth is None:
             launches = counts(K)
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-        for mod, name, fn in swaps:
-            setattr(mod, name, fn)
-        try:
-            plain, _ = run(params, cfg, fed)
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
+        plain, _ = plain_run(lambda: run(params, cfg, fed))
         diff = max((a - b).abs().max().item()
                    for a, b in zip(with_kernels, plain))
         scale = max(b.abs().max().item() for b in plain)
@@ -3497,6 +3568,14 @@ CLI_RUNS = {
     "spec": CLI_BASE + ("--spec-draft", "random:qwen3-0.6b", "--spec-k",
                         "4", "--output", "chiprun_out/cli_spec_bench.json"),
 }
+# Each run's FERRUM_* variables, read by the CLI's config resolution:
+# window lengths fixed as before adaptive windows became the default;
+# the plain run serves its tied embedding squeezed to int8 (the tied
+# int8 logits on the card), which its line's embed_dtype shows.
+CLI_ENV = {
+    "plain": {"FERRUM_ADAPTIVE_WINDOWS": "0", "FERRUM_SQUEEZE_EMBED": "1"},
+    "spec": {"FERRUM_ADAPTIVE_WINDOWS": "0"},
+}
 # Runs `python -m ferrum_tpu_torch ...` through runpy, times the weight
 # draws (init_random_params) and fails if jax was ever imported. Its
 # bench waits for a line on stdin (after the engine is built), so the
@@ -3518,7 +3597,9 @@ def gated(*a, **kw):
     out = run_bench(*a, **kw)
     eng = a[0]
     st = eng.spec.stats if eng.spec is not None else None
+    emb = eng.runner.params.embed
     print(json.dumps({"run_bench_s": time.perf_counter() - t0,
+                      "embed_dtype": str(getattr(emb, "q", emb).dtype),
                       "windows": sum(eng.runner.windows_by_bucket.values()),
                       "decode_steps": eng.runner.decode_steps,
                       "spec_stats": st and {
@@ -3563,7 +3644,7 @@ def cli_start():
         procs[name] = (time.perf_counter(), subprocess.Popen(
             [sys.executable, "-c", code], stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd=here))
+            cwd=here, env={**os.environ, **CLI_ENV[name]}))
     return procs
 
 
@@ -3617,6 +3698,9 @@ def cli_finish(procs, timeout_s=600):
                                     or timing.get("decode_steps", 0) <= 0):
                 raise AssertionError(f"{tag}: no decode window ran: "
                                      f"{timing}")
+            if name == "plain" and timing.get("embed_dtype") != "torch.int8":
+                raise AssertionError(f"{tag}: FERRUM_SQUEEZE_EMBED=1 left "
+                                     f"the embedding {timing}")
             emit({"phase": "cli", "run": name,
                   "command": "python -m ferrum_tpu_torch " + " ".join(args),
                   "rc": proc.returncode, "no_jax": True,
@@ -4464,8 +4548,12 @@ GEMMA3_12B = {
         "final_logit_softcapping": None, "attn_logit_softcapping": None,
         "bos_token_id": 2, "eos_token_id": [1, 106]},
 }
-# 12 of its 48 layers: layers 5 and 11 global, the other ten local.
-I_LAYERS = 12
+# 8 of its 48 layers: layer 5 global, the other seven local (cut from
+# 12 to make room for lane K in the run's time).
+I_LAYERS = 8
+# The kernel cases keep the 12-layer shapes PERF.md's numbers were
+# taken at.
+I_KV_LAYERS = 12
 I_MAX_LEN = 2048
 I_LONG, I_LONG_OUT, I_LONG_REQS = 1536, 64, 4
 I_DECODE_STEPS = 16
@@ -4535,7 +4623,7 @@ def gemma_kv_cases(torch, timer):
         append_pages_pairs, append_pages_pairs_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
-    layers, lanes, pool = I_LAYERS, 32, 2049
+    layers, lanes, pool = I_KV_LAYERS, 32, 2049
     b = layers * pool
     pos = torch.randint(0, I_MAX_LEN, (lanes,), generator=gen,
                         device="cuda")
@@ -4829,7 +4917,7 @@ def gemma_long(torch, engine, mc, tag):
 
 
 def lane_i(torch):
-    """Lane I: gemma-3-12b at full width, 12 of its 48 layers, random bf16
+    """Lane I: gemma-3-12b at full width, 8 of its 48 layers, random bf16
     weights drawn on the card (seed 0) -> quantize_model_params -> the
     default engine (two-level w4a8, paged + prefix cache) at
     max_model_len 2048: the logits check, 32 x 256/128 served (every
@@ -4893,12 +4981,16 @@ def lane_i(torch):
     return by_run
 
 
-# Lane J: speculative decoding. The target qwen3-8b at full width, 12 of
-# its 36 layers; the draft qwen3-0.6b at full width, 4 of its 28 (both
-# cut for the run's time: the run must stay near 800 s on the usual
-# host, and a round's host time grows with the layers of both models);
-# two-level w4a8 random weights (seed 0), K = 4.
-J_TARGET, J_TARGET_LAYERS = "qwen3-8b", 12
+# Lane J: speculative decoding. The target qwen3-8b at full width, 8 of
+# its 36 layers (cut from 12 to make room for lane K); the draft
+# qwen3-0.6b at full width, 4 of its 28 (both cut for the run's time:
+# the run must stay near 800 s on the usual host, and a round's host
+# time grows with the layers of both models); two-level w4a8 random
+# weights (seed 0), K = 4.
+J_TARGET, J_TARGET_LAYERS = "qwen3-8b", 8
+# The kernel cases keep the 12-layer shapes PERF.md's numbers were
+# taken at.
+J_KV_LAYERS = 12
 J_DRAFT, J_DRAFT_LAYERS = "qwen3-0.6b", 4
 J_K, J_OUT, J_SAME_REQS = 4, 64, 8
 # qwen3-8b's projections (K, N), q|k|v and gate|up fused: row 2 at the
@@ -4962,7 +5054,7 @@ def spec_kv_cases(torch, timer):
     gen.manual_seed(16)
     pool, lanes, k1 = 1025, SERVE_REQUESTS, J_K + 1
     rows = []
-    for layers, steps, form in ((J_TARGET_LAYERS, k1, "verify rows"),
+    for layers, steps, form in ((J_KV_LAYERS, k1, "verify rows"),
                                 (J_DRAFT_LAYERS, 1, "draft step")):
         b = layers * pool
         start = torch.randint(0, 240, (lanes,), generator=gen,
@@ -4983,7 +5075,7 @@ def spec_kv_cases(torch, timer):
             torch, timer, gen, blk, off, b, (ROWS_BF16,),
             {"model": J_TARGET if steps > 1 else J_DRAFT, "form": form,
              "at": f"{layers} layers x {lanes} lanes x {steps}"})
-    layers = J_TARGET_LAYERS
+    layers = J_KV_LAYERS
     b = layers * pool
     n_pg = PREFILL_ROWS // PAGE
     ids = (torch.arange(layers, device="cuda")[:, None] * pool
@@ -5320,6 +5412,460 @@ def lane_j(torch):
     return by_run
 
 
+# ---------------------------------------------------------------------------
+# Lane K: the engine's remaining settings at their JAX defaults
+# ---------------------------------------------------------------------------
+
+# qwen3-30b-a3b at 2 of its 48 layers (lane B's model and depth), random
+# two-level int4 weights drawn on the card (seed 0), with EngineConfig()'s
+# defaults (adaptive windows, the paged layout with the prefix cache, KV
+# autosized) and the settings below.
+K_MODEL, K_LAYERS = "qwen3-30b-a3b", 2
+K_SETTINGS = dict(squeeze_embeddings=True, fuse_sites="qkv,gate_up,moe",
+                  slot_slack=2, scheduler="priority")
+K_OUT = 64
+K_LM_HEAD = (2048, 151936)          # the lm_head's (K, N)
+K_GATE_UP = (2048, 2 * 768)         # the fused expert gate|up stack
+K_GROUPED_A = (256, 16384)          # a 32-token decode, a batched prefill
+K_PATH = MOE_PATH + ("w4a8_decode",)
+K_NAME = ("K qwen3-30b-a3b settings (squeeze, moe fusion, slack, priority, "
+          "adaptive windows)")
+K_PRIORITY = (16, 4)                # priority 0 requests, then priority 1
+
+
+def k_rows(torch, timer):
+    """Lane K's kernel cases, each exact against its plain version:
+    row 6 (w4a8_decode) at the squeezed lm_head (the builder quantizes it
+    after the two-level pass: float-scale) at m = 1 and 32, with its plan
+    and the f32 split planes' bytes; row 1 (w4a8tl_decode) at that shape
+    with a two-level lm_head (a squeezed random draw's), beside
+    torch._int_mm; rows 11 (moe_bmm, t = 32) and 10 (moe_grouped at 256
+    and 16384 rows) on the fused gate|up expert stack (N = 1536)."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    from ferrum_tpu_torch.ops.quant import dequantize, requantize_two_level
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    rows = []
+    k, n = K_LM_HEAD
+    fs = make_gemm_weight(torch, k, n, gen, two_level=False)
+    tl = requantize_two_level(fs)
+    w8_cm = int_mm_weight(torch, tl)
+    wbytes = fs.qweight.nbytes + fs.scales.nbytes + fs.zeros.nbytes
+    for m in (1, SERVE_DECODE_M):
+        x = torch.randn(m, k, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        xq, xs = qmm.quantize_activation_rows(x)
+        plan = qmm.w4a8_decode_plan(m, n, k)
+        row = {"kernel": "w4a8_decode", "model": K_MODEL, "site": "lm_head",
+               "m": m, "k": k, "n": n, "plan": plan,
+               "plane_bytes": 4 * m * n * plan["planes"]}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            wbytes + xq.nbytes + xs.nbytes + 2 * m * n, 2.0 * m * k * n)
+        check_case(rows, row, timer,
+                   lambda: qmm.w4a8_decode(xq, xs, fs, torch.bfloat16),
+                   lambda: qmm.w4a8_plain(xq, xs, fs, torch.bfloat16),
+                   None, exact=True)
+        if not scratch_zero(torch):
+            raise AssertionError("w4a8_decode lm_head: split-K counters "
+                                 "not zero after the case")
+        two_level_case(rows, timer, {
+            "kernel": "w4a8tl_decode", "model": K_MODEL, "site": "lm_head",
+            "m": m, "k": k, "n": n,
+            "plan": qmm.w4a8tl_decode_plan(m, n, k)},
+            qmm.w4a8tl_decode, qmm.w4a8tl_plain, tl, w8_cm, xq, xs)
+    del fs, tl, w8_cm
+    torch.cuda.empty_cache()
+    k, n = K_GATE_UP
+    p = make_moe_stack(torch, k, n, gen)
+    w_bf16 = dequantize(p, torch.bfloat16)
+    tag = {"model": f"{K_MODEL} gate|up fused"}
+    bmm_case(torch, rows, timer, p, w_bf16, "gate_up", SERVE_BMM_T, 1, gen,
+             **tag)
+    for a in K_GROUPED_A:
+        grouped_case(torch, rows, timer, p, w_bf16, "gate_up", a, gen, **tag)
+    del p, w_bf16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_moe_cases(torch, timer):
+    """One qwen3-30b-a3b MoE layer with dense bf16 expert stacks (128
+    experts, full width; an f32 router, so that the card and the CPU
+    route alike) through ops/moe.py's dense route (ragged_dot: bf16
+    operands, f32 sums) at t = 32 tokens (256 rows) and 256 tokens (2048
+    rows), against the same function on the CPU (the plain form the CPU
+    tests hold against the JAX package: bf16 operands widened to f32,
+    f32 sums): every output within two bf16 steps, 2^-6 |want| + 2^-10
+    max|want| (the card's sums run in another order, and a bf16 rounding
+    of the activation can move). Timed beside its bound (the active
+    experts' bf16 stacks and bf16 ops)."""
+    from ferrum_tpu_torch.models.configs import preset
+    from ferrum_tpu_torch.models.llama_family import MoeLayerParams
+    from ferrum_tpu_torch.ops.linear import DenseLinearParams
+    from ferrum_tpu_torch.ops.moe import moe_mlp, route_topk
+
+    mc = preset(K_MODEL)
+    h, e = mc.hidden_size, mc.moe.num_experts
+    inter = mc.moe.moe_intermediate_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+
+    def normal(*shape, std=0.02, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std
+                ).to(dtype)
+
+    p = MoeLayerParams(
+        router=DenseLinearParams(w=normal(h, e, dtype=torch.float32),
+                                 bias=None),
+        gate=normal(e, h, inter), up=normal(e, h, inter),
+        down=normal(e, inter, h))
+    on_cpu = MoeLayerParams(
+        router=DenseLinearParams(w=p.router.w.cpu(), bias=None),
+        gate=p.gate.cpu(), up=p.up.cpu(), down=p.down.cpu())
+    out = []
+    for t in (SERVE_DECODE_M, PROMPT_LEN):
+        x = normal(t, h, std=1.0)
+        got = moe_mlp(x, p, mc)
+        want = moe_mlp(x.cpu(), on_cpu, mc).to("cuda")
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        ok = bool((diff <= 2.0 ** -6 * w.abs() + 2.0 ** -10 * w.abs().max()
+                   ).all())
+        _, ids = route_topk(x.float() @ p.router.w, mc.moe.num_experts_per_tok,
+                            mc.moe.norm_topk_prob)
+        active = int(torch.unique(ids).numel())
+        rows = t * mc.moe.num_experts_per_tok
+        line = {"phase": "dense_moe", "model": K_MODEL, "tokens": t,
+                "rows": rows, "experts": e, "active_experts": active,
+                "ok": ok, "max_abs_err": diff.max().item(),
+                "share_differing": (diff > 0).float().mean().item(),
+                "tolerance": "2^-6 |want| + 2^-10 max|want|",
+                "ms": timer(lambda: moe_mlp(x, p, mc), reps=5, warmup=1)}
+        line["bound_ms"], line["bound_by"] = bound_ms(
+            active * 3 * h * inter * 2 + x.nbytes + got.nbytes,
+            2.0 * rows * 3 * h * inter, BF16_FLOPS_PER_S)
+        emit({**line, "card": smi_line()})
+        out.append(line)
+        if not ok:
+            raise AssertionError(f"dense MoE at t = {t}: {line}")
+    del p, on_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def k_draw(mc):
+    """Lane K's weights, drawn on the card (the same for every call)."""
+    from ferrum_tpu_torch.models.quantize import init_random_quant_params
+    return init_random_quant_params(mc, seed=0)
+
+
+def k_engine(mc, params, **kw):
+    """An engine at EngineConfig()'s defaults with K_SETTINGS and `kw`."""
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine.builder import EngineBuilder
+    return EngineBuilder(EngineConfig(**{**K_SETTINGS, **kw})) \
+        .with_model(mc, params).build()
+
+
+def k_logits(torch, mc, engine):
+    """(b) Logits for fed tokens on the squeezed, moe-fused engine's
+    weights -- a 256-token prefill (its last row's logits, as the engine
+    computes them), two decode steps at 32 lanes (the all-experts route)
+    and two at 1 (sort + grouped) -- through the kernels and through
+    their plain versions: equal bit for bit (every kernel on this path
+    is integer-exact; the lm_head is float-scale row 6 at m <= 32).
+    (c) The same weights built with fuse_proj=False (split q / k / v and
+    expert gate / up): the same logits bit for bit. Returns the kernel
+    run's logits."""
+    import numpy as np
+
+    from ferrum_tpu_torch.models.llama_family import QuantEmbedding
+    from ferrum_tpu_torch.ops.quant import QuantLinearParams
+
+    params = engine.runner.params
+    if not isinstance(params.embed, QuantEmbedding) \
+            or params.lm_head.scales2 is not None \
+            or params.layers[0].moe.gate_up is None:
+        raise AssertionError("lane K: the build did not squeeze (int8 "
+                             "table, float-scale lm_head) or fuse the moe "
+                             "site")
+    lanes = (32, 32, 1, 1)
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, mc.vocab_size, PROMPT_LEN)
+                              ).to("cuda")[None]
+    others = torch.from_numpy(rng.integers(
+        0, mc.vocab_size, (len(lanes), max(lanes)))).to("cuda")
+    got, fed = forward_logits(torch, params, mc, prompt, lanes, others,
+                              last_only=True)
+    plain, _ = plain_run(lambda: forward_logits(
+        torch, params, mc, prompt, lanes, others, fed, last_only=True))
+    split_engine = k_engine(mc, k_draw(mc), fuse_proj=False,
+                            kv_num_blocks=64)
+    split = split_engine.runner.params
+    split_engine.stop()
+    if split.layers[0].qkv is not None or split.layers[0].moe.gate_up \
+            is not None or not isinstance(split.lm_head, QuantLinearParams):
+        raise AssertionError("lane K: fuse_proj=False fused or left the "
+                             "lm_head unsqueezed")
+    unfused, _ = forward_logits(torch, split, mc, prompt, lanes, others,
+                                fed, last_only=True)
+    line = {"phase": "logits_k", "steps": f"prefill {PROMPT_LEN} (last "
+            f"row) + decode at lanes {list(lanes)}",
+            "equal_to_plain": all(torch.equal(a, b)
+                                  for a, b in zip(got, plain)),
+            "fuse_proj_off_equal": all(torch.equal(a, b)
+                                       for a, b in zip(got, unfused)),
+            "finite": all(bool(torch.isfinite(a).all()) for a in got),
+            "max_abs_diff_plain": max((a - b).abs().max().item()
+                                      for a, b in zip(got, plain)),
+            "max_abs_diff_unfused": max((a - b).abs().max().item()
+                                        for a, b in zip(got, unfused)),
+            "logit_scale": max(a.abs().max().item() for a in got)}
+    emit(line)
+    del split, unfused, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (line["equal_to_plain"] and line["fuse_proj_off_equal"]
+            and line["finite"]):
+        raise AssertionError(f"lane K logits: {line}")
+
+
+def k_memory(torch, mc):
+    """(f) The card's memory with and without the squeeze, each on fresh
+    weights and a 1024-block pool: the weights' bytes, the embedding's
+    and the lm_head's, the allocation once drawn, the peak over the
+    build (the squeeze's transients), the allocation after it and the
+    peak over a 4 x 256/64 serve."""
+    import numpy as np
+
+    from ferrum_tpu_torch.engine.builder import params_nbytes
+
+    out = {}
+    prompts = np.random.default_rng(5).integers(0, mc.vocab_size,
+                                                (4, PROMPT_LEN))
+    for squeeze in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = k_draw(mc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine = k_engine(mc, params, kv_num_blocks=1024,
+                          squeeze_embeddings=squeeze)
+        del params
+        p = engine.runner.params
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        build_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for r in [request(x, K_OUT) for x in prompts]:
+            engine.infer(r)
+        torch.cuda.synchronize()
+        out["squeezed" if squeeze else "bf16"] = {
+            "weights_gib": params_nbytes(p) / 2**30,
+            "embed_bytes": params_nbytes(p.embed),
+            "lm_head_bytes": params_nbytes(p.lm_head),
+            "drawn_gib": base / 2**30,
+            "build_peak_gib": build_peak / 2**30,
+            "allocated_after_build_gib": after / 2**30,
+            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        engine.stop()
+        del engine, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def k_serve(torch, engine, mc):
+    """(d) run_cell at 32 concurrent 256/64 requests (64 in all: each
+    ending request's worker submits the next), then at 4 (4 in all);
+    each cell after its warm-up meets no program key.
+    The windows by length: 16-step windows at <= 4 lanes (adaptive
+    doubling) and halved 4-step ones while requests wait (the first
+    admission wave). Every kernel of K_PATH launches (moe_grouped's
+    decode-sized loop too) and no other. Returns (launches, line)."""
+    from ferrum_tpu_torch.bench.bench_engine import run_cell
+    from ferrum_tpu_torch.ops import kernels as K
+
+    runner = engine.runner
+    log = []
+    start = runner.start_decode_window
+
+    def logged(seqs, t, **kw):
+        log.append((t, len(seqs), len(engine.scheduler.waiting)))
+        return start(seqs, t, **kw)
+
+    runner.start_decode_window = logged
+    K.reset_launch_counts()
+    cells = {}
+    try:
+        for conc, n in ((SERVE_REQUESTS, 2 * SERVE_REQUESTS), (4, 4)):
+            cell = run_cell(engine, concurrency=conc, num_requests=n,
+                            input_len=PROMPT_LEN, output_len=K_OUT)
+            cells[conc] = cell
+            if cell["completed"] != n or cell["errors"] \
+                    or cell["compilations_during_cell"]:
+                raise AssertionError(f"lane K c={conc}: {cell['completed']}"
+                                     f" of {n}, {cell['error_samples']}, "
+                                     f"{cell['compiled_in_cell']}")
+    finally:
+        del runner.start_decode_window
+    launches = counts(K)
+    by_len = {}
+    for t, lanes, _ in log:
+        by_len[t] = by_len.get(t, 0) + 1
+    doubled = sum(1 for t, lanes, _ in log if t == 16 and lanes <= 4)
+    halved = sum(1 for t, _, waiting in log if t == 4 and waiting)
+    idle = [k for k in K_PATH + (GROUPED_DECODE,) if launches[k] == 0]
+    stray = [k.name for k in K.KERNELS
+             if k.name not in K_PATH and launches[k.name] != 0]
+    line = {"phase": "serve_k", "lane": K_NAME,
+            "windows_by_length": by_len, "doubled_at_le_4_lanes": doubled,
+            "halved_while_waiting": halved,
+            "slack_admissions": engine.slack_admissions,
+            "num_slots": runner.num_slots,
+            "kv_blocks": runner.kv.num_blocks,
+            "cells": {c: {k: v[k] for k in (
+                "completed", "output_tok_s", "ttft_p50_ms", "tpot_p50_ms",
+                "compilations_during_cell")} for c, v in cells.items()},
+            "launches": launches}
+    emit({**line, "card": smi_line()})
+    if idle or stray or not doubled or not halved:
+        raise AssertionError(f"lane K serve: never launched {idle}, "
+                             f"launched {stray}, {line}")
+    return launches
+
+
+def hold_loop(engine):
+    """Hold the engine's loop at the head of its next iteration (the
+    windows it dispatched stay in flight); returns the release."""
+    import threading
+
+    gate = threading.Event()
+    run = engine.run_iteration
+
+    def held():
+        gate.wait()
+        return run()
+
+    engine.run_iteration = held
+    time.sleep(0.2)                 # the loop ends the pass it is in
+
+    def release():
+        gate.set()
+        del engine.run_iteration
+    return release
+
+
+def k_slack(torch, engine, mc):
+    """(d) The slack witness: 32 requests of 256/64 decoding; with the
+    loop held (windows in flight), 4 are aborted and 4 new ones
+    submitted. The aborted ones' releases wait for the windows in
+    flight (paged), and the new ones take the two slack lanes meanwhile
+    (engine.slack_admissions). (A request ending at max_tokens is
+    released when its last window is read: the port dispatches no window
+    past it, so the cells above defer no release.)"""
+    import numpy as np
+
+    prompts = np.random.default_rng(9).integers(
+        0, mc.vocab_size, (SERVE_REQUESTS + 4, PROMPT_LEN))
+    reqs = [request(x, K_OUT) for x in prompts[:SERVE_REQUESTS]]
+    queues = [engine.submit(r) for r in reqs]
+    for q in queues:
+        q.get(timeout=300)          # decoding: its first token came
+    before = engine.slack_admissions
+    release = hold_loop(engine)
+    try:
+        for r in reqs[:4]:
+            engine.abort(r.request_id)
+        queues += [engine.submit(request(x, K_OUT))
+                   for x in prompts[SERVE_REQUESTS:]]
+    finally:
+        release()
+    for q in queues:
+        while not q.get(timeout=300).finished:
+            pass
+    line = {"phase": "slack_k", "aborted": 4, "submitted": 4,
+            "slack_admissions": engine.slack_admissions - before,
+            "num_slots": engine.runner.num_slots}
+    emit(line)
+    if line["slack_admissions"] < 1:
+        raise AssertionError(f"lane K: no slack admission: {line}")
+
+
+def k_priority(torch, engine, mc, trace):
+    """(e) 16 requests of priority 0, then 4 of priority 1, submitted
+    while the loop is held: the trace JSONL, read back, admits the 4
+    first."""
+    import numpy as np
+
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
+
+    lo, hi = K_PRIORITY
+    prompts = np.random.default_rng(7).integers(0, mc.vocab_size,
+                                                (lo + hi, PROMPT_LEN))
+    reqs = [InferenceRequest(
+        prompt_token_ids=[int(t) for t in x], priority=int(i >= lo),
+        sampling=SamplingParams(max_tokens=8, ignore_eos=True))
+        for i, x in enumerate(prompts)]
+    release = hold_loop(engine)
+    try:
+        queues = [engine.submit(r) for r in reqs]
+    finally:
+        release()
+    for q in queues:
+        while not q.get(timeout=300).finished:
+            pass
+    ids = {r.request_id: r.priority for r in reqs}
+    with open(trace) as f:
+        admitted = [rid for line in f for rid in json.loads(line)["admitted"]
+                    if rid in ids]
+    first = [ids[rid] for rid in admitted[:hi]]
+    emit({"phase": "priority_k", "admitted_priorities": [
+        ids[rid] for rid in admitted], "trace_records_read": True})
+    if len(admitted) != lo + hi or first != [1] * hi:
+        raise AssertionError(f"lane K priority: admitted {admitted}")
+
+
+def lane_k(torch):
+    """Lane K (see K_SETTINGS): the logits checks (b, c), the serve cells
+    and the slack witness (d), priority admission through the trace (e)
+    and the memory with and without the squeeze (f); the kernel cases
+    (a) are k_rows. The
+    engine's trace file lives in a temporary directory, removed after.
+    Returns the launch counts by run."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from ferrum_tpu_torch.models.configs import preset
+
+    mc = dataclasses.replace(preset(K_MODEL), num_layers=K_LAYERS)
+    memory = k_memory(torch, mc)
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "scheduler_trace.jsonl")
+        t0 = time.perf_counter()
+        engine = k_engine(mc, k_draw(mc), scheduler_trace_path=trace)
+        build_s = time.perf_counter() - t0
+        try:
+            k_logits(torch, mc, engine)
+            launches = k_serve(torch, engine, mc)
+            k_slack(torch, engine, mc)
+            k_priority(torch, engine, mc, trace)
+        finally:
+            engine.stop()
+    cfg = engine.cfg
+    emit({"phase": "lane_k", "lane": K_NAME,
+          "model": f"{K_MODEL} at {K_LAYERS} of 48 layers",
+          "settings": K_SETTINGS, "adaptive_windows": cfg.adaptive_windows,
+          "kv_layout": cfg.kv_layout, "prefix_cache": cfg.enable_prefix_cache,
+          "engine_build_s": build_s, "memory": memory, "card": smi_line()})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {K_NAME: launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5352,7 +5898,9 @@ def main() -> int:
              + kv_pages_pairs_cases(torch, timer)
              + moe_cases(torch, timer)
              + gemma_rows(torch, timer) + gemma_kv_cases(torch, timer)
-             + spec_rows(torch, timer) + spec_kv_cases(torch, timer))
+             + spec_rows(torch, timer) + spec_kv_cases(torch, timer)
+             + k_rows(torch, timer))
+    dense_moe_cases(torch, timer)
     onehot_cases(torch)
     prefill_exact_cases(torch)
     decode_exact_cases(torch, timer)
@@ -5424,6 +5972,8 @@ def main() -> int:
         by_path.update(lane_i(torch))
         # Lane J: speculative decoding.
         by_path.update(lane_j(torch))
+        # Lane K: the engine's remaining settings.
+        by_path.update(lane_k(torch))
     finally:
         cli_stop(cli)
 

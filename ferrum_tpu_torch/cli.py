@@ -8,12 +8,16 @@ and `--embed-model` are not yet ported and exit 1), `bench`,
 `bench-serve` (bench/bench_serve.py against a running server),
 `replay` and `list` subcommands; `embed`, `transcribe`, `tts`, `pull`,
 `stop` and `route` wait for their modules (ROADMAP Queue 1). Every JAX
-engine flag is accepted, and one whose
-feature the port does not have yet (`--tp 2`, `--scheduler fifo`, ...)
-raises
-InvalidRequestError, as `EngineConfig.resolve` does for a
-FERRUM_* variable or a ferrum.toml key; `main` turns it into exit code 1
-and `error: ...` on stderr. `--device` (default: the CUDA card) picks
+engine flag is accepted (`--scheduler continuous|fifo|priority` among
+them), and one whose feature the port does not have yet (`--tp 2`,
+`--quantization gguf_q4k`) raises InvalidRequestError, as
+`EngineConfig.resolve` does for a FERRUM_* variable or a ferrum.toml
+key (FERRUM_PREFIX_OFFLOAD_MB, ...); `main` turns it into exit code 1
+and `error: ...` on stderr. The engine settings without a flag come
+from FERRUM_* variables as in the JAX CLI (FERRUM_ADAPTIVE_WINDOWS,
+FERRUM_SLOT_SLACK, FERRUM_SQUEEZE_EMBED, FERRUM_FUSE_PROJ,
+FERRUM_FUSE_SITES, FERRUM_ENABLE_CHUNKED_PREFILL,
+FERRUM_SCHEDULER_TRACE_JSONL, ...). `--device` (default: the CUDA card) picks
 the device; `--device cpu` runs the plain PyTorch versions. The model
 is `random:<preset>` or a local HF checkpoint directory (config.json,
 safetensors shards, tokenizer.json; `--quantization gptq_int4`

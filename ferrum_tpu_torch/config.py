@@ -2,8 +2,9 @@
 
 Port of `ferrum_tpu/config.py`. Field names and defaults follow the JAX
 package. The fields the port does not have yet -- the prefix offload
-tier, parallelism, adaptive decoding, ... -- are not
-options here: `NOT_PORTED` holds the value the port fixes for
+tier, GDN's prefill tile, parallelism, GGUF quantization -- and the two
+the JAX engine reads nowhere (`tokenizer`, `greedy_argmax_device`) are
+not options here: `NOT_PORTED` holds the value the port fixes for
 each (the JAX field and env names). `resolve` raises
 InvalidRequestError, naming the field and "not yet ported", when a
 source sets one of them to anything else; the JAX package's resolve
@@ -81,6 +82,27 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
     "FERRUM_SPEC_DRAFT": ("spec_draft_model", str,
                           "draft model for speculative decoding"),
     "FERRUM_SPEC_K": ("spec_num_tokens", int, "speculative draft length"),
+    "FERRUM_ENABLE_CHUNKED_PREFILL": ("enable_chunked_prefill", bool, ""),
+    "FERRUM_SCHEDULER": ("scheduler", str, "continuous|fifo|priority"),
+    "FERRUM_SCHEDULER_TRACE_JSONL": ("scheduler_trace_path", str,
+                                     "per-iteration scheduler trace JSONL "
+                                     "path"),
+    "FERRUM_SLOT_SLACK": ("slot_slack", int,
+                          "extra device lanes beyond max_num_seqs so "
+                          "admissions never wait on deferred releases"),
+    "FERRUM_ADAPTIVE_WINDOWS": ("adaptive_windows", bool,
+                                "adaptive decode-window lengths (double at "
+                                "low occupancy, halve in pileups)"),
+    "FERRUM_SQUEEZE_EMBED": ("squeeze_embeddings", bool,
+                             "int8 embeddings + int4 untied lm_head "
+                             "(single-chip 30B fit posture)"),
+    "FERRUM_FUSE_PROJ": ("fuse_proj", bool,
+                         "build-time q|k|v and gate|up fusion "
+                         "(single-chip; auto-off under a mesh)"),
+    "FERRUM_FUSE_SITES": ("fuse_sites", str,
+                          "comma list of build-time fusion sites: "
+                          "qkv,gate_up,moe (moe off by default — "
+                          "see engine/builder.fuse_projections)"),
 }
 
 # The JAX package's fields the port does not have, each at the value
@@ -89,39 +111,23 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
 NOT_PORTED: Dict[str, Any] = {
     "tokenizer": None,
     "quantization": ("none", "gptq_int4"),
-    "enable_chunked_prefill": True,
-    "scheduler": "continuous",
     "prefix_offload_mb": 0,
     "prefix_offload_algo": "int8",
     "gdn_chunk_block": 64,
-    "squeeze_embeddings": False,
-    "fuse_proj": True,
-    "fuse_sites": "qkv,gate_up",
     "tensor_parallel": 1,
     "data_parallel": 1,
     "expert_parallel": 1,
-    "adaptive_windows": False,
-    "slot_slack": 0,
     "greedy_argmax_device": True,
-    "scheduler_trace_path": None,
 }
 
 NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
     "FERRUM_PREFIX_OFFLOAD_MB": ("prefix_offload_mb", int),
     "FERRUM_PREFIX_OFFLOAD_ALGO": ("prefix_offload_algo", str),
-    "FERRUM_ENABLE_CHUNKED_PREFILL": ("enable_chunked_prefill", bool),
-    "FERRUM_SCHEDULER": ("scheduler", str),
-    "FERRUM_SQUEEZE_EMBED": ("squeeze_embeddings", bool),
-    "FERRUM_FUSE_PROJ": ("fuse_proj", bool),
     "FERRUM_TP": ("tensor_parallel", int),
     "FERRUM_DP": ("data_parallel", int),
     "FERRUM_EP": ("expert_parallel", int),
-    "FERRUM_SCHEDULER_TRACE_JSONL": ("scheduler_trace_path", str),
     "FERRUM_GREEDY_ARGMAX": ("greedy_argmax_device", bool),
-    "FERRUM_SLOT_SLACK": ("slot_slack", int),
-    "FERRUM_ADAPTIVE_WINDOWS": ("adaptive_windows", bool),
     "FERRUM_GDN_CHUNKED": ("gdn_chunk_block", int),
-    "FERRUM_FUSE_SITES": ("fuse_sites", str),
 }
 
 
@@ -181,6 +187,15 @@ def check_not_ported(values: Mapping[str, Any]) -> None:
                 f"{name}={ok[0]!r})", param=name)
 
 
+def adaptive_window_steps(t_steps: int, n_active: int) -> int:
+    """Low-occupancy window doubling (the JAX runner's
+    `adaptive_window_steps`): at <= 4 active lanes a window twice as
+    long, at most 16 steps."""
+    if n_active <= 4:
+        return min(2 * t_steps, 16)
+    return t_steps
+
+
 # ---------------------------------------------------------------------------
 # EngineConfig
 # ---------------------------------------------------------------------------
@@ -193,6 +208,13 @@ class EngineConfig:
     max_num_batched_tokens: int = 2048  # per-iteration token budget
     max_model_len: int = 4096
     prefill_chunk_size: int = 512
+    # Off: a prompt that fits the token budget is prefilled whole (the
+    # chunk cap is max_num_batched_tokens).
+    enable_chunked_prefill: bool = True
+    # continuous: admission in arrival order; fifo: a prompt that fits
+    # one batch is prefilled whole (admission waits for the budget);
+    # priority: request.priority (higher first), then arrival.
+    scheduler: str = "continuous"
     # --- KV cache ---
     kv_num_blocks: int = 0              # paged pool; 0 = autosize
     kv_block_size: int = 32
@@ -213,6 +235,16 @@ class EngineConfig:
     prefix_cache_blocks: int = -1
     # --- decoding ---
     decode_multi_step: int = 8          # steps per window, one host sync
+    # Adaptive window lengths (no decode_t_spec, pipelined): twice as
+    # long (at most 16) at <= 4 decoding sequences with nothing
+    # waiting and no prefill chunk, half as long (at least 4) while an
+    # admission pile-up prefills.
+    adaptive_windows: bool = True
+    # Extra lanes beyond max_num_seqs: a paged sequence's release waits
+    # for the window in flight, and a slack lane admits its replacement
+    # meanwhile. Each costs one more lane in every per-slot array (and a
+    # slot region on the linear layout).
+    slot_slack: int = 0
     # Keep decode windows outstanding: window W+1 is dispatched (chained
     # on the device from W's last tokens) before W's tokens are fetched,
     # so host bookkeeping overlaps the card's work.
@@ -259,8 +291,20 @@ class EngineConfig:
     # float-scale w4a8 GEMM on the effective scales elsewhere; off = that
     # float-scale GEMM everywhere. Bools map to off / all.
     w4a8_gd: str = "mxu"
+    # An int8 embedding table (f32 row scales) and an int4 untied
+    # lm_head, made at build after the two-level pass (so the lm_head
+    # serves float-scale): the JAX package's single-chip 30B fit.
+    squeeze_embeddings: bool = False
+    # Build-time fusion (engine/builder.fuse_projections) at the sites
+    # of fuse_sites: qkv, gate_up, and moe (the expert stacks' gate|up;
+    # off by default, as in the JAX package).
+    fuse_proj: bool = True
+    fuse_sites: str = "qkv,gate_up"
 
     # --- observability (utils/profile.py's locked schema) ---
+    # One JSON line an iteration: the scheduler's batch (scheduler/
+    # continuous.py `_trace`).
+    scheduler_trace_path: Optional[str] = None
     profile_path: Optional[str] = None
     profile_detail: str = "basic"       # off|basic|debug|full
     profile_sample_rate: float = 0.01
@@ -290,6 +334,8 @@ class EngineConfig:
             raise InvalidRequestError(
                 "max_num_batched_tokens must be >= prefill_chunk_size",
                 param="max_num_batched_tokens")
+        if self.scheduler not in ("continuous", "fifo", "priority"):
+            raise InvalidRequestError("unknown scheduler", param="scheduler")
         if self.kv_dtype not in ("bf16", "f32", "int8"):
             raise InvalidRequestError("unknown kv_dtype", param="kv_dtype")
         if self.kv_layout not in ("paged", "linear", "auto"):
@@ -331,12 +377,15 @@ class EngineConfig:
 
     @property
     def num_slots(self) -> int:
-        return self.max_num_seqs
+        """Device lanes: max_num_seqs plus the slack lanes."""
+        return self.max_num_seqs + max(0, self.slot_slack)
 
     @property
     def decode_buckets(self) -> Tuple[int, ...]:
-        """Padded decode lane counts, ascending, ending at num_slots. A
-        window packs its sequences into the smallest bucket that fits.
+        """Padded decode lane counts, ascending, ending at num_slots (with
+        slack lanes more than max_num_seqs sequences may decode while a
+        release is deferred). A window packs its sequences into the
+        smallest bucket that fits.
         The auto ladder drops the half-frame bucket, as the JAX package
         does (there its lane gather cost more than the full frame's
         slice)."""
@@ -370,6 +419,42 @@ class EngineConfig:
             if int(b) == bucket:
                 return max(1, int(t))
         return base
+
+    @property
+    def chunk_cap(self) -> int:
+        """The scheduler's chunk cap: prefill_chunk_size, or the token
+        budget without chunked prefill."""
+        return self.prefill_chunk_size if self.enable_chunked_prefill \
+            else self.max_num_batched_tokens
+
+    @property
+    def max_chunk_tokens(self) -> int:
+        """The longest chunk the scheduler emits: chunk_cap, or the token
+        budget under fifo, whose prompts that fit it are prefilled
+        whole. (The JAX runner pads every chunk to at most
+        prefill_chunk_size, and its fifo admission keeps chunk_cap, so
+        the JAX package fails on a longer unchunked prompt and never
+        admits one under fifo: ROADMAP Queue 3.)"""
+        return self.max_num_batched_tokens if self.scheduler == "fifo" \
+            else self.chunk_cap
+
+    def window_lengths(self, bucket: Optional[int] = None
+                       ) -> Tuple[int, ...]:
+        """The window lengths the engine dispatches at lane bucket
+        `bucket` (None: at any) outside minimum progress: the bucket's
+        length, and under adaptive windows (no decode_t_spec) the halved
+        one and, pipelined, the doubled one at the buckets that hold at
+        most 4 lanes (engine.run_iteration)."""
+        buckets = self.decode_buckets if bucket is None else (bucket,)
+        out = {self.t_for_bucket(b) for b in buckets}
+        if self.adaptive_windows and not self.decode_t_spec:
+            base = max(1, self.decode_multi_step)
+            out.add(max(4, base // 2))
+            small = min((b for b in self.decode_buckets if b >= 4),
+                        default=self.decode_buckets[-1])
+            if self.pipeline_decode and min(buckets) <= small:
+                out.add(adaptive_window_steps(base, 1))
+        return tuple(sorted(out))
 
     @property
     def max_blocks_per_seq(self) -> int:

@@ -2,17 +2,24 @@
 
 Port of `ferrum_tpu/engine/builder.py` for the served path: explicit
 model config + params (`with_model`), the linear KV layout (every slot
-reserves a full max_model_len region), q|k|v and gate|up fusion, the
+reserves a full max_model_len region), build-time fusion at the sites
+of `fuse_sites` (q|k|v and gate|up by default, the expert stacks'
+gate|up with "moe"; none with `fuse_proj=False`), the
 quantized-matmul mode (`EngineConfig.w4a8`, and `w4a8_gd`: the decode
 kernel of two-level weights, mxu | all | down | off, routed as
 ops/kernels/quant_matmul.py's table says) and, under
 w4a8 with `w4a8_two_level`, the two-level requantization (dense linears
 and MoE expert stacks). Without it the checkpoint's group scales are
 served as they are: float-scale w4a8 at decode m, w4a16 elsewhere.
-The model comes from `with_model`, else from `EngineConfig.model`: a
-local HF checkpoint directory (config.json, safetensors shards, GPTQ or
-dense -- quantized on load under `quantization="gptq_int4"` -- and its
-tokenizer.json; models/loader.py) loaded onto the engine's device, or
+`squeeze_embeddings` then drops the table to int8 and an untied dense
+lm_head to int4 (after the two-level pass, as in the JAX builder, so
+that lm_head serves float-scale; a table already int8 is kept with its
+lm_head). Expert stacks may be int4 or dense (bf16 / f32 `[E, in, out]`
+tensors, ops/moe.py's dense route). The model comes from `with_model`,
+else from `EngineConfig.model`: a local HF checkpoint directory
+(config.json, safetensors shards, GPTQ or dense -- quantized on load
+under `quantization="gptq_int4"` -- and its tokenizer.json;
+models/loader.py) loaded onto the engine's device, or
 `random:<preset>`, the JAX package's random dense weights
 (`init_random_params`, in `EngineConfig.dtype`). A `.gguf` path is not
 resolved here, as in the JAX builder (models/gguf.py loads one). The
@@ -51,7 +58,8 @@ from ..device import resolve_device
 from ..models.configs import ModelConfig, preset
 from ..models.loader import load_checkpoint
 from ..models.llama_family import (ModelParams, PagedKvCache,
-                                   init_random_params)
+                                   QuantEmbedding, init_random_params)
+from ..models.quantize import _quant_dense, quantize_embedding
 from ..ops.kernels.quant_matmul import set_w4a8, set_w4a8_gd
 from ..ops.linear import concat_linears
 from ..ops.quant import QuantLinearParams, requantize_two_level
@@ -109,21 +117,47 @@ def params_nbytes(params) -> int:
     return 0
 
 
-def fuse_projections(params: ModelParams) -> ModelParams:
-    """q|k|v and gate|up fused into one linear each (one kernel launch
-    per site instead of 2-3), layer by layer and in place, so the split
-    weights are freed as each layer is fused. MoE layers have no dense
-    gate/up; their expert stacks stay split (the JAX package's default
-    fuse sites), sharing one activation quantization instead."""
+def fuse_projections(params: ModelParams,
+                     sites: str = "qkv,gate_up") -> ModelParams:
+    """Fusion at the comma-listed `sites`: q|k|v ("qkv") and a dense
+    MLP's gate|up ("gate_up") into one linear each (one kernel launch
+    per site instead of 2-3), and an MoE layer's expert stacks' gate|up
+    ("moe": `concat_linears` of int4 stacks, `torch.cat` of dense ones;
+    off by default, as in the JAX package, whose grouped gate and up
+    share one activation quantization instead). Layer by layer and in
+    place, so the split weights are freed as each layer is fused;
+    unsupported combinations keep the split form."""
+    want = set(sites.split(","))
     for lp in params.layers:
-        if lp.qkv is None and lp.q is not None:
+        if "qkv" in want and lp.qkv is None and lp.q is not None:
             qkv = concat_linears([lp.q, lp.k, lp.v])
             if qkv is not None:
                 lp.qkv, lp.q, lp.k, lp.v = qkv, None, None, None
-        if lp.gate_up is None and lp.gate is not None:
+        if "gate_up" in want and lp.gate_up is None \
+                and lp.gate is not None and lp.moe is None:
             gu = concat_linears([lp.gate, lp.up])
             if gu is not None:
                 lp.gate_up, lp.gate, lp.up = gu, None, None
+        m = lp.moe
+        if "moe" in want and m is not None and m.gate_up is None:
+            if isinstance(m.gate, QuantLinearParams):
+                gu = concat_linears([m.gate, m.up])
+            elif isinstance(m.gate, torch.Tensor):
+                gu = torch.cat([m.gate, m.up], dim=-1)
+            else:
+                gu = None
+            if gu is not None:
+                m.gate_up, m.gate, m.up = gu, None, None
+    return params
+
+
+def squeeze_embeddings(params: ModelParams) -> ModelParams:
+    """The table to int8 and an untied dense lm_head to int4 g128 with
+    bf16 group scales, whatever the model's dtype (the JAX builder's
+    squeeze); a table already int8 keeps its lm_head."""
+    if not isinstance(params.embed, QuantEmbedding):
+        params.lm_head = _quant_dense(params.lm_head, 128, torch.bfloat16)
+        params.embed = quantize_embedding(params.embed)
     return params
 
 
@@ -215,11 +249,6 @@ class EngineBuilder:
                 detail=cfg.profile_detail,
                 memory_path=cfg.memory_profile_path)
         self._resolve_model(device)
-        if any(lp.moe is not None and not isinstance(
-                lp.moe.down, QuantLinearParams) for lp in self.params.layers):
-            raise ModelLoadError(
-                "dense (unquantized) expert stacks are not yet ported "
-                "(ROADMAP Queue 1 item 16)")
         if self.params.embed.device.type != device.type:
             raise ModelLoadError(f"params live on {self.params.embed.device}"
                                  f", the engine on {device}")
@@ -230,7 +259,10 @@ class EngineBuilder:
         set_w4a8_gd(cfg.w4a8_gd)
         if cfg.w4a8 and cfg.w4a8_two_level:
             self.params = apply_two_level(self.params)
-        self.params = fuse_projections(self.params)
+        if cfg.squeeze_embeddings:
+            self.params = squeeze_embeddings(self.params)
+        if cfg.fuse_proj:
+            self.params = fuse_projections(self.params, cfg.fuse_sites)
 
         def autosize() -> int:
             return autosize_kv_blocks(self.model_cfg, cfg,

@@ -67,9 +67,22 @@ counts proposals, drafted and accepted tokens. No round starts while
 KV pressure defers a decode and every victim rides the round in flight
 (the chain breaks so the next iteration can preempt).
 
+Adaptive window lengths (`adaptive_windows`, the JAX default), at the
+JAX engine's conditions: without decode_t_spec, a pipelined window at
+<= 4 decoding sequences with no prefill chunk scheduled and nothing
+waiting runs twice as long (at most 16 steps); while chunks prefill and
+requests wait (an admission pile-up) it runs half as long (at least 4).
+Slack lanes (`slot_slack`): the scheduler's slots number max_num_seqs
++ slot_slack, so a replacement is admitted while a paged predecessor's
+release waits for the window in flight (one ended by EOS, a stop or an
+abort; the port dispatches no window past max_tokens, so a request
+ending there is released when its last window is read);
+`slack_admissions` counts the admissions that took the lanes past
+max_num_seqs while such a release waited.
+
 Everything runs on ONE CUDA stream; the loop leans on its order (see
-`_retire`). Not yet ported (later slices): adaptive window lengths,
-slack slots, the prefix offload tier and LoRA.
+`_retire`). Not yet ported (later slices): the prefix offload tier and
+LoRA.
 """
 
 from __future__ import annotations
@@ -83,7 +96,7 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from ..config import EngineConfig
+from ..config import EngineConfig, adaptive_window_steps
 from ..kv.block_pool import BlockPool
 from ..kv.linear_prefix import LinearPrefixCache
 from ..kv.prefix_cache import PrefixCache
@@ -156,6 +169,9 @@ class ContinuousBatchEngine:
         self._hold_streak = 0
         # The most windows in flight at once, over the engine's life.
         self.max_inflight = 0
+        # Admissions that took the occupied lanes past max_num_seqs while
+        # a release waited for a window in flight.
+        self.slack_admissions = 0
         self.metrics = EngineMetricsSnapshot()
         self._mem_profile_tick = 0
         # Compiled device FSMs by pattern: (TokenFsm, its DFA, VocabTable),
@@ -304,6 +320,7 @@ class ContinuousBatchEngine:
                     f"stop(); no request was aborted")
         if self._loop_error is None:
             self._drain()
+        self.scheduler.close()
         with self._lock:
             states = list(self._requests.values())
             self._requests.clear()
@@ -389,6 +406,10 @@ class ContinuousBatchEngine:
             batch = self.scheduler.next_batch(
                 pinned=pinned,
                 inflight_steps=sum(w.num_steps for w in self._inflight_q))
+        if batch.admitted and self.scheduler.lanes_in_use \
+                > cfg.max_num_seqs and any(w.deferred
+                                           for w in self._inflight_q):
+            self.slack_admissions += len(batch.admitted)
         for seq in batch.admitted:
             self.runner.admit_slot(seq)
             if seq.pending_prefix_copy is not None:
@@ -433,6 +454,15 @@ class ContinuousBatchEngine:
         if not batch.decode_steps and decode_seqs:
             t_steps = cfg.t_for_bucket(
                 self.runner.lane_bucket(len(decode_seqs)))
+        # Adaptive lengths (decode_t_spec, when set, is the length rule).
+        if not batch.decode_steps and cfg.adaptive_windows \
+                and not cfg.decode_t_spec:
+            if cfg.pipeline_decode and not batch.prefill_chunks \
+                    and not self.scheduler.waiting:
+                t_steps = adaptive_window_steps(t_steps,
+                                                len(batch.decode_seqs))
+            elif batch.prefill_chunks and self.scheduler.waiting:
+                t_steps = max(4, t_steps // 2)
 
         # --- (c) prefill: one chunk may ride the window ---
         pf_chunk = None

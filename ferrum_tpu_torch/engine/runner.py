@@ -509,9 +509,12 @@ class ModelRunner:
         return self.cfg.decode_buckets[-1]
 
     def chunk_bucket(self, t: int) -> int:
-        # A page multiple (whole-page appends).
+        # A page multiple (whole-page appends), up to the largest chunk
+        # (an unchunked prompt's whole length; the JAX runner caps it at
+        # prefill_chunk_size, too few for one: ROADMAP Queue 3).
         lo = max(8, self.page, min(64, self.cfg.prefill_chunk_size))
-        return _round_up_pow2(t, lo, max(self.cfg.prefill_chunk_size, lo))
+        cap = -(-self.cfg.max_chunk_tokens // self.page) * self.page
+        return _round_up_pow2(t, lo, max(cap, lo))
 
     def _sampling(self, slots: torch.Tensor,
                   min_active: torch.Tensor) -> SlotSamplingParams:
@@ -1114,41 +1117,46 @@ class ModelRunner:
             s_pad, ctx_pad, p_rows, greedy, guided)).toks.numpy()
 
     def warm_decode_buckets(self) -> int:
-        """For every window key seen, the same window at every other lane
-        bucket (at that bucket's window length under decode_t_spec), so
-        a cell's shrinking tail, or a wave the warm-up never held
-        together, meets no new key. (The JAX runner warms the smaller
-        buckets only: a warm-up wave whose requests end inside one window
-        never reaches its own bucket.)"""
+        """For every window key seen, the same window at every lane
+        bucket and every length the engine dispatches there (under
+        adaptive windows the doubled and halved ones too, as the JAX
+        runner's warm-up adds them), so a cell's shrinking tail, or a
+        wave the warm-up never held together, meets no new key. (The
+        JAX runner warms the smaller buckets only: a warm-up wave whose
+        requests end inside one window never reaches its own bucket.)
+        A length outside that set (minimum progress's one step) is
+        warmed as it is at every bucket."""
         done = 0
-        t_spec = bool(self.cfg.decode_t_spec)
+        normal = self.cfg.window_lengths()
         for (s_pad, ctx_pad, t, p_rows, greedy, guided, _g) in sorted(
                 self._window_keys):
             gd = (guided, self._grows_now(guided))
             for b in self.cfg.decode_buckets:
-                if b == s_pad:
-                    continue
-                t_b = self.cfg.t_for_bucket(b) if t_spec else t
-                # Another T needs its own chunk geometry: the plain window
-                # here, warm_mixed_windows adds its mixed variants.
-                for ctx in self._ctx_at_t(ctx_pad, t, t_b):
-                    key = (b, ctx, t_b, p_rows if t_b == t else 0, greedy,
-                           *gd)
-                    if key not in self._window_keys:
-                        self._warm_window(*key)
-                        done += 1
+                for t_b in (self.cfg.window_lengths(b) if t in normal
+                            else (t,)):
+                    # Another T needs its own chunk geometry: the plain
+                    # window here, warm_mixed_windows adds its mixed
+                    # variants.
+                    for ctx in self._ctx_at_t(ctx_pad, t, t_b):
+                        key = (b, ctx, t_b, p_rows if t_b == t else 0,
+                               greedy, *gd)
+                        if key not in self._window_keys:
+                            self._warm_window(*key)
+                            done += 1
         return done
 
     def _ctx_at_t(self, ctx_pad: int, t: int, t_b: int) -> List[int]:
         """The context buckets a window of t_b steps can take where one
-        of t steps took ctx_pad: ctx_bucket(m + t) == ctx_pad bounds the
-        window's length m, so m + t_b falls in ctx_pad's bucket or the
-        next one up (t_b > t) or down (t_b < t)."""
-        if t_b > t:
-            return sorted({ctx_pad, self.ctx_bucket(ctx_pad + t_b - t)})
-        if t_b < t:
-            return sorted({ctx_pad, self.ctx_bucket(ctx_pad // 2)})
-        return [ctx_pad]
+        of t steps took ctx_pad: ctx_pad == ctx_bucket(m + t) bounds the
+        window's length m (>= 2), and m + t_b falls in the buckets that
+        range shifted by t_b - t covers."""
+        lo_len = ctx_pad // 2 + 1 if ctx_pad > self.ctx_bucket(1) \
+            else 2 + t
+        out = [self.ctx_bucket(max(1, lo_len + t_b - t))]
+        hi = self.ctx_bucket(max(1, ctx_pad + t_b - t))
+        while out[-1] < hi:
+            out.append(self.ctx_bucket(out[-1] + 1))
+        return out
 
     def warm_mixed_windows(self) -> int:
         """The mixed variants of every plain window key seen: the chunk
@@ -1159,8 +1167,7 @@ class ModelRunner:
         if not self.cfg.mixed_prefill or self.attn_impl != "linear":
             return 0
         done = 0
-        chunk_cap = max(16, min(self.cfg.prefill_chunk_size,
-                                self.cfg.max_num_batched_tokens))
+        chunk_cap = max(16, self.cfg.max_chunk_tokens)
         lengths = self._chunk_lens | {256, chunk_cap}
         for (s_pad, ctx_pad, t, p0, greedy, guided, _g) in sorted(
                 self._window_keys):

@@ -6,8 +6,11 @@ names, flattened with dots ("embed", "final_norm", "lm_head.w",
 "layers.0.moe.gate.qweight", ...). Linears are dense (`w`, optional
 `bias`) or packed int4 (`qweight`, `scales`, `zeros` and optional
 `bias`, `input_perm`, `scales2`, `chan_scale`); MoE expert stacks carry
-a leading expert dim on each tensor. A missing `lm_head` means tied
-embeddings. The caller does the flattening, so the port never sees a
+a leading expert dim on each tensor, or are one dense [E, in, out] array
+under their own name ("layers.0.moe.gate", or "...moe.gate_up" fused).
+An int8 embedding table is "embed.q" with its f32 row scales
+"embed.scale". A missing `lm_head` means tied embeddings. The caller
+does the flattening, so the port never sees a
 JAX object.
 """
 
@@ -20,7 +23,8 @@ import torch
 
 from ..ops.linear import DenseLinearParams, LinearParams
 from ..ops.quant import QuantLinearParams
-from .llama_family import LayerParams, ModelParams, MoeLayerParams
+from .llama_family import (LayerParams, ModelParams, MoeLayerParams,
+                           QuantEmbedding)
 
 _LINEARS = ("q", "k", "v", "o", "gate", "up", "down", "qkv", "gate_up")
 _QUANT_OPTIONAL = ("bias", "input_perm", "scales2", "chan_scale")
@@ -28,6 +32,8 @@ _QUANT_OPTIONAL = ("bias", "input_perm", "scales2", "chan_scale")
 
 def _linear(tree: Dict[str, np.ndarray], prefix: str, to) -> Optional[
         LinearParams]:
+    if prefix in tree:                          # a dense expert stack
+        return to(tree[prefix])
     if f"{prefix}.w" in tree:
         bias = tree.get(f"{prefix}.bias")
         return DenseLinearParams(w=to(tree[f"{prefix}.w"]),
@@ -72,6 +78,9 @@ def params_from_numpy(tree: Dict[str, np.ndarray],
                 name: _linear(tree, f"{p}.moe.{name}", to)
                 for name in ("router", "gate", "up", "down", "gate_up")})
         layers.append(LayerParams(**norm, **lin, moe=moe))
-    return ModelParams(embed=to(tree["embed"]), layers=layers,
+    embed = QuantEmbedding(q=to(tree["embed.q"]),
+                           scale=to(tree["embed.scale"])) \
+        if "embed.q" in tree else to(tree["embed"])
+    return ModelParams(embed=embed, layers=layers,
                        final_norm=to(tree["final_norm"]),
                        lm_head=_linear(tree, "lm_head", to))

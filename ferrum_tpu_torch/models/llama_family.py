@@ -99,8 +99,23 @@ class LayerParams:
 
 
 @dataclass
+class QuantEmbedding:
+    """int8 per-row symmetric embedding table (`squeeze_embeddings`):
+    151936 x 2048 drops from 0.58 to 0.29 GiB. A lookup dequantizes the
+    gathered rows only; tied logits contract against the int8 table and
+    rescale per vocab row (the row scale commutes out of the dot)."""
+
+    q: torch.Tensor                        # int8 [vocab, hidden]
+    scale: torch.Tensor                    # f32 [vocab, 1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+
+@dataclass
 class ModelParams:
-    embed: torch.Tensor                    # [vocab, hidden]
+    embed: Union[torch.Tensor, QuantEmbedding]   # [vocab, hidden]
     layers: List[LayerParams]
     final_norm: torch.Tensor
     lm_head: Optional[LinearParams]        # None = tied to embed
@@ -164,8 +179,34 @@ def quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(embed, tokens: torch.Tensor,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Gather embedding rows; an int8 table's rows are dequantized in f32
+    and cast to `dtype` (bf16 whatever the model's dtype, as the JAX
+    package's lookup)."""
+    if isinstance(embed, QuantEmbedding):
+        return (embed.q[tokens].to(torch.float32)
+                * embed.scale[tokens]).to(dtype)
     return embed[tokens]
+
+
+# Vocabulary rows a tied int8 logits product widens to the activations'
+# dtype at a time (a 8192 x 4096 bf16 block is 64 MiB).
+TIED_INT8_ROWS = 8192
+
+
+def tied_int8_logits(h: torch.Tensor, embed: QuantEmbedding) -> torch.Tensor:
+    """h [N, H] . bf16(q)^T with f32 sums, times each vocab row's scale
+    → f32 [N, vocab]: the JAX package's tied int8 logits. Widening int8
+    to h's dtype is exact, so the product runs over TIED_INT8_ROWS rows
+    of the table at a time instead of widening all of it each call."""
+    v = embed.q.shape[0]
+    out = torch.empty((h.shape[0], v), dtype=torch.float32, device=h.device)
+    for a in range(0, v, TIED_INT8_ROWS):
+        b = min(v, a + TIED_INT8_ROWS)
+        out[:, a:b] = matmul_f32(h, embed.q[a:b].to(h.dtype).t()) \
+            * embed.scale[a:b].t()
+    return out
 
 
 def make_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
@@ -279,6 +320,8 @@ def logits_from_hidden(params: ModelParams, cfg: ModelConfig,
     config says)."""
     if params.lm_head is not None:
         logits = apply_linear(params.lm_head, h).to(torch.float32)
+    elif isinstance(params.embed, QuantEmbedding):
+        logits = tied_int8_logits(h, params.embed)
     else:
         logits = matmul_f32(h, params.embed.t())
     cap = cfg.final_logit_softcap

@@ -148,7 +148,7 @@ def _expert_stack(src: TensorSource, layer_prefix: str, proj: str,
     input permutations cannot share one activation gather in the grouped
     kernels), dense experts quantized on load
     (models/quantize.py::_quant_expert_stack), or a dense [E, in, out]
-    stack, which the builder refuses (ROADMAP Queue 1 item 16)."""
+    stack (`quantization="none"`: ops/moe.py's dense route)."""
     names = [f"{layer_prefix}.mlp.experts.{e}.{proj}"
              for e in range(num_experts)]
     if f"{names[0]}.qweight" in src:

@@ -7,7 +7,10 @@ linear and expert stack -- dense linears on their own device through
 same f32 arithmetic either way, so the packed bytes and scales equal
 the JAX package's) and
 `init_random_quant_params` (dense layers, and MoE layers' expert stacks
-[E, ...] with a bf16 router).
+[E, ...] with a bf16 router), and the embedding squeeze
+(`quantize_embedding`: an int8 table with f32 row scales, bit for bit
+the JAX package's; `squeeze_embeddings=True` also quantizes an untied
+lm_head to int4).
 Throughput is weight-value independent, so the served-path benchmark
 uses random packed bytes; the weights are generated directly on the
 device from an explicit `torch.Generator(seed)`. Like the JAX
@@ -28,23 +31,52 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.linear import DenseLinearParams
+from ..ops.linear import DenseLinearParams, concat_linears
 from ..ops.quant import (QuantLinearParams, make_quant_linear,
                          quantize_weight_np)
-from ..types import InvalidRequestError
 from .configs import ModelConfig
-from .llama_family import LayerParams, ModelParams, MoeLayerParams
+from .llama_family import (LayerParams, ModelParams, MoeLayerParams,
+                           QuantEmbedding)
+
+# Vocabulary rows `quantize_embedding` widens to f32 at a time, and
+# output columns `_quant_dense` quantizes at a time.
+SQUEEZE_ROWS = 16384
+QUANT_COLS = 16384
+
+
+def quantize_embedding(embed) -> QuantEmbedding:
+    """[vocab, h] → per-row symmetric int8 (the JAX `quantize_embedding`:
+    f32 amax / 127 (at least 1e-8 / 127), round half to even, clip ±127),
+    on the table's own device, SQUEEZE_ROWS rows at a time."""
+    if isinstance(embed, QuantEmbedding):
+        return embed
+    v = embed.shape[0]
+    q = torch.empty(embed.shape, dtype=torch.int8, device=embed.device)
+    scale = torch.empty((v, 1), dtype=torch.float32, device=embed.device)
+    for a in range(0, v, SQUEEZE_ROWS):
+        w = embed[a:a + SQUEEZE_ROWS].to(torch.float32)
+        sc = torch.clamp_min(w.abs().amax(dim=1, keepdim=True), 1e-8) \
+            / 127.0
+        q[a:a + SQUEEZE_ROWS] = torch.clamp(torch.round(w / sc), -127, 127)
+        scale[a:a + SQUEEZE_ROWS] = sc
+    return QuantEmbedding(q=q, scale=scale)
 
 
 def init_random_quant_params(cfg: ModelConfig, seed: int = 0,
                              device: Optional[Union[str, torch.device]] = None,
                              group_size: int = 128,
-                             dtype=torch.bfloat16) -> ModelParams:
+                             dtype=torch.bfloat16,
+                             squeeze_embeddings: bool = False
+                             ) -> ModelParams:
     """Random int4 g128 model (two-level fields set), bf16 embeddings,
     norms and lm_head; on the card unless `device` says otherwise. As in
     the JAX package, every family gets ones norms and no sandwich norms
     (gemma3 included: ROADMAP Queue 3); a gemma3 model is built with
-    `init_random_params` and `quantize_model_params` instead."""
+    `init_random_params` and `quantize_model_params` instead.
+    squeeze_embeddings: the squeezed forms drawn directly, as the JAX
+    package draws them (no bf16 table in between): an int8 table with
+    row scales 0.02 / 127 and an untied lm_head in the two-level int4
+    form of the other linears."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -95,9 +127,18 @@ def init_random_quant_params(cfg: ModelConfig, seed: int = 0,
             q_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
             k_norm=ones(cfg.head_dim) if cfg.qk_norm else None,
             pre_mlp_norm=ones(h), gate=gate, up=up, down=down, moe=moe))
-    embed = normal(cfg.vocab_size, h)
-    lm_head = None if cfg.tie_word_embeddings else DenseLinearParams(
-        w=normal(h, cfg.vocab_size), bias=None)
+    if squeeze_embeddings:
+        embed = QuantEmbedding(
+            q=torch.randint(-127, 128, (cfg.vocab_size, h), generator=gen,
+                            device=dev, dtype=torch.int8),
+            scale=torch.full((cfg.vocab_size, 1), 0.02 / 127.0,
+                             dtype=torch.float32, device=dev))
+        lm_head = None if cfg.tie_word_embeddings \
+            else qlin(h, cfg.vocab_size)
+    else:
+        embed = normal(cfg.vocab_size, h)
+        lm_head = None if cfg.tie_word_embeddings else DenseLinearParams(
+            w=normal(h, cfg.vocab_size), bias=None)
     return ModelParams(embed=embed, layers=layers, final_norm=ones(h),
                        lm_head=lm_head)
 
@@ -106,12 +147,18 @@ def _quant_dense(lin, group_size: int, dtype):
     """A dense [in, out] linear → int4 on its own device (the JAX
     `_quant_dense`, through `make_quant_linear`: quantize_weight_np's f32
     arithmetic in torch, so a weight on the card never crosses to the
-    host); already-quantized or oddly-shaped linears pass."""
+    host), QUANT_COLS output columns at a time (each column's groups
+    are its own: a 151936-wide lm_head would take ~4 GiB of f32
+    transients whole); already-quantized or oddly-shaped linears
+    pass."""
     if lin is None or not isinstance(lin, DenseLinearParams):
         return lin
     if lin.w.shape[0] % group_size:
         return lin
-    p = make_quant_linear(lin.w, group_size, symmetric=True, dtype=dtype)
+    parts = [make_quant_linear(lin.w[:, a:a + QUANT_COLS], group_size,
+                               symmetric=True, dtype=dtype)
+             for a in range(0, lin.w.shape[1], QUANT_COLS)]
+    p = parts[0] if len(parts) == 1 else concat_linears(parts)
     if lin.bias is not None:
         p.bias = lin.bias.to(dtype)
     return p
@@ -139,10 +186,8 @@ def quantize_model_params(params: ModelParams, group_size: int = 128,
     """Every transformer linear (q / k / v / o, gate / up / down) and
     expert stack to int4 g`group_size` (symmetric RTN); embeddings, norms,
     the router and lm_head stay as they are (GPTQ checkpoints'
-    convention). The int8-embedding squeeze is not yet ported."""
-    if squeeze_embeddings:
-        raise InvalidRequestError("squeeze_embeddings is not yet ported",
-                                  param="squeeze_embeddings")
+    convention). squeeze_embeddings: the table to int8
+    (`quantize_embedding`) and an untied lm_head to int4 too."""
     layers = []
     for lp in params.layers:
         moe = lp.moe
@@ -167,5 +212,9 @@ def quantize_model_params(params: ModelParams, group_size: int = 128,
             up=_quant_dense(lp.up, group_size, dtype),
             down=_quant_dense(lp.down, group_size, dtype),
             moe=moe))
-    return ModelParams(embed=params.embed, layers=layers,
-                       final_norm=params.final_norm, lm_head=params.lm_head)
+    embed, lm_head = params.embed, params.lm_head
+    if squeeze_embeddings:
+        embed = quantize_embedding(embed)
+        lm_head = _quant_dense(lm_head, group_size, dtype)
+    return ModelParams(embed=embed, layers=layers,
+                       final_norm=params.final_norm, lm_head=lm_head)

@@ -50,8 +50,10 @@ def apply_linear(p: LinearParams, x: torch.Tensor) -> torch.Tensor:
     Dense: f32 sums (on the card a bf16 product accumulates in f32 and
     rounds once to bf16, as XLA's preferred_element_type=f32 path does)."""
     if isinstance(p, DenseLinearParams):
-        if x.dtype == torch.float32:
-            y = x @ p.w.to(torch.float32)
+        if x.dtype == torch.float32 or p.w.dtype == torch.float32:
+            # jnp's promotion: bf16 activations (a squeezed table's
+            # rows) against an f32 weight give f32.
+            y = x.to(torch.float32) @ p.w.to(torch.float32)
         else:
             y = torch.matmul(x, p.w)
         if p.bias is not None:

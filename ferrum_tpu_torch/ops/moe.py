@@ -1,7 +1,8 @@
 """Sparse MoE MLP: top-k routing, expert dispatch and the combine.
 
-Port of `ferrum_tpu/ops/moe.py`. Two routes, chosen as the TPU chooses
-them (moe.py:228-237), on every device:
+Port of `ferrum_tpu/ops/moe.py`. Int4 expert stacks take one of two
+routes, chosen as the TPU chooses them (moe.py:228-237), on every
+device:
 
   all-experts  w4a8 on, two-level stacks, t*k >= E and t <= 64 (decode
                batches): every expert on every row through
@@ -16,24 +17,33 @@ them (moe.py:228-237), on every device:
                activations quantized once for gate and up only on the
                former), weighted rows summed back per token
 
-Both combines sum a token's k weighted rows one at a time in ascending
+Dense stacks (bf16 or f32 tensors gate / up [E, H, I], down [E, I, H],
+or a fused gate_up [E, H, 2I]) take the sort route through
+`ragged_dot`, `jax.lax.ragged_dot`'s function in plain PyTorch: each
+expert's rows times its matrix, the operands as they are (bf16 on the
+card), f32 sums. It reads the group sizes on the host, one sync a
+call; the JAX package computes this route outside any Pallas kernel.
+
+The combines sum a token's k weighted rows one at a time in ascending
 expert order -- the order of the JAX package's `.at[token_of].add` over
 expert-sorted rows -- so the result does not depend on atomics or a
-reduction's split. There is no host sync on either route.
+reduction's split. The int4 routes make no host sync.
 
-`moe_mlp_gather_decode` (unwired in the JAX package) is not ported.
+`moe_mlp_gather_decode` (the routed experts' stacks gathered, then the
+all-experts kernel over them) is ported with its test only: the JAX
+package leaves it unwired (moe.py:238-241).
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Tuple
+from typing import TYPE_CHECKING, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .kernels.moe_gemm import quant_bmm_all_experts, quant_grouped_matmul
 from .kernels.quant_matmul import quantize_activation_rows, w4a8_enabled
-from .linear import apply_linear
+from .linear import apply_linear, matmul_f32
 from .quant import QuantLinearParams
 
 if TYPE_CHECKING:
@@ -123,20 +133,76 @@ def moe_mlp_dense_decode(x: torch.Tensor, p: "MoeLayerParams",
     return _sum_in_order(rows).to(x.dtype)
 
 
+def moe_mlp_gather_decode(x: torch.Tensor, p: "MoeLayerParams",
+                          cfg: "ModelConfig"):
+    """Routed-experts-only decode (unwired, as in the JAX package, where
+    it measured slower than the all-experts route on the TPU): the t*k
+    routed experts' fused gate|up and down stacks gathered, each
+    assignment's row through the all-experts kernel at E' = t*k, the
+    rows weighted and summed per token. None without a fused gate_up.
+    The JAX form pads each assignment to 32 rows for the TPU's int8
+    tile; rows are independent, so one row each computes its row 0."""
+    import dataclasses
+
+    if p.gate_up is None:
+        return None
+    m = cfg.moe
+    t, k = x.shape[0], m.num_experts_per_tok
+    a = t * k
+    weights, ids = route_topk(apply_linear(p.router, x), k,
+                              m.norm_topk_prob)                  # [t, k]
+    flat_ids = ids.reshape(-1)                                   # [A]
+
+    def gather(q: QuantLinearParams) -> QuantLinearParams:
+        return dataclasses.replace(
+            q, qweight=q.qweight[flat_ids], scales=q.scales[flat_ids],
+            zeros=q.zeros[flat_ids],
+            scales2=None if q.scales2 is None else q.scales2[flat_ids],
+            chan_scale=None if q.chan_scale is None
+            else q.chan_scale[flat_ids])
+
+    xq, xs = quantize_activation_rows(x)
+    token_of = torch.arange(t, device=x.device).repeat_interleave(k)
+    g, u = torch.chunk(quant_bmm_all_experts(
+        xq[token_of][:, None], xs[token_of][:, None], gather(p.gate_up),
+        torch.bfloat16), 2, dim=-1)                              # [A, 1, I]
+    act = _silu_mul(g, u, torch.bfloat16)
+    inter = act.shape[-1]
+    aq, a_s = quantize_activation_rows(act.reshape(a, inter))
+    y = quant_bmm_all_experts(aq[:, None], a_s[:, None], gather(p.down),
+                              torch.bfloat16)[:, 0]              # [A, H]
+    rows = y.to(torch.float32) * weights.reshape(-1)[:, None]
+    # The JAX scatter-add over token_of adds each token's k rows in
+    # routing order.
+    return _sum_in_order(rows.reshape(t, k, -1)).to(x.dtype)
+
+
+def ragged_dot(x: torch.Tensor, w: torch.Tensor,
+               sizes: List[int]) -> torch.Tensor:
+    """`jax.lax.ragged_dot` with f32 sums: x [A, K] holds the rows of
+    expert 0, then 1, ... (`sizes` of each); row r of the result is
+    x[r] @ w[expert of r], f32 [A, N] (0 past the last group)."""
+    out = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[lo:lo + n] = matmul_f32(x[lo:lo + n], w[e])
+        lo += n
+    return out
+
+
 def moe_mlp(x: torch.Tensor, p: "MoeLayerParams",
             cfg: "ModelConfig") -> torch.Tensor:
-    """Sparse MoE MLP over x [t, H] → [t, H] (int4 expert stacks)."""
+    """Sparse MoE MLP over x [t, H] → [t, H] (int4 or dense expert
+    stacks)."""
     m = cfg.moe
     t = x.shape[0]
     k = m.num_experts_per_tok
     e = m.num_experts
     first = p.gate_up if p.gate_up is not None else p.gate
-    if not (isinstance(first, QuantLinearParams)
-            and isinstance(p.down, QuantLinearParams)):
-        raise NotImplementedError(
-            "the port serves int4 expert stacks (QuantLinearParams); dense "
-            "stacks run through moe_mlp_ref")
-    if (w4a8_enabled() and first.scales2 is not None
+    dense = not isinstance(first, QuantLinearParams)
+    if (not dense and w4a8_enabled() and first.scales2 is not None
             and p.down.scales2 is not None and t * k >= e and t <= 64):
         return moe_mlp_dense_decode(x, p, cfg)
 
@@ -149,19 +215,30 @@ def moe_mlp(x: torch.Tensor, p: "MoeLayerParams",
         sorted_ids, torch.arange(e + 1, device=x.device)).diff().to(
             torch.int32)
     xs = x[order // k]                                       # [A, H]
-    # gate and up consume the same rows: quantize once (two-level only).
-    aq = quantize_activation_rows(xs) \
-        if w4a8_enabled() and first.scales2 is not None else None
-    if p.gate_up is not None:
-        g, u = torch.chunk(quant_grouped_matmul(
-            xs, p.gate_up, sorted_ids, group_sizes, act_quant=aq), 2, dim=-1)
+    if dense:
+        sizes = group_sizes.tolist()
+        if p.gate_up is not None:
+            g, u = torch.chunk(ragged_dot(xs, p.gate_up, sizes), 2, dim=-1)
+        else:
+            g = ragged_dot(xs, p.gate, sizes)
+            u = ragged_dot(xs, p.up, sizes)
+        act = (F.silu(g) * u).to(x.dtype)
+        y = ragged_dot(act, p.down, sizes)
     else:
-        g = quant_grouped_matmul(xs, p.gate, sorted_ids, group_sizes,
-                                 act_quant=aq)
-        u = quant_grouped_matmul(xs, p.up, sorted_ids, group_sizes,
-                                 act_quant=aq)
-    act = _silu_mul(g, u, x.dtype)
-    y = quant_grouped_matmul(act, p.down, sorted_ids, group_sizes)  # [A, H]
+        # gate and up consume the same rows: quantize once (two-level).
+        aq = quantize_activation_rows(xs) \
+            if w4a8_enabled() and first.scales2 is not None else None
+        if p.gate_up is not None:
+            g, u = torch.chunk(quant_grouped_matmul(
+                xs, p.gate_up, sorted_ids, group_sizes, act_quant=aq), 2,
+                dim=-1)
+        else:
+            g = quant_grouped_matmul(xs, p.gate, sorted_ids, group_sizes,
+                                     act_quant=aq)
+            u = quant_grouped_matmul(xs, p.up, sorted_ids, group_sizes,
+                                     act_quant=aq)
+        act = _silu_mul(g, u, x.dtype)
+        y = quant_grouped_matmul(act, p.down, sorted_ids, group_sizes)
     # Weighted combine back to token order: token i's rows sit at the
     # sorted positions of assignments i*k .. i*k+k-1, which ascend with
     # the expert id.

@@ -1,15 +1,24 @@
 """Continuous-batching scheduler: token budget, chunked prefill, admission,
 prefix reuse and preemption.
 
-Port of `ferrum_tpu/scheduler/continuous.py` with the arrival-order
-policy. One `next_batch(pinned, inflight_steps)` per engine iteration:
+Port of `ferrum_tpu/scheduler/continuous.py` with its three policies
+(`EngineConfig.scheduler`): "continuous" admits in arrival order,
+"priority" inserts a request ahead of every waiting one of lower
+`priority` (then arrival order), and "fifo" never chunks a prompt that
+fits one batch (its admission waits for the budget instead).
+`enable_chunked_prefill=False` caps a chunk at the whole token budget
+instead of `prefill_chunk_size`. With `scheduler_trace_path` set, each
+`next_batch` appends one JSON line (`_trace`, the JAX package's keys).
+One `next_batch(pinned, inflight_steps)` per engine iteration:
   1. every decoding sequence (one budget token each), its blocks grown
      to cover the windows (or speculative rounds) still in flight and
      the next; on the paged layout, KV pressure first evicts
      prefix-cache blocks, then
      preempts the most recently admitted sequence not riding a window
      in flight (recompute: its KV is dropped and prompt + outputs are
-     prefilled again at re-admission); when no victim is free, one step
+     prefilled again at re-admission; also, where prefilling sequences
+     alone hold the pool and none can take a chunk, the newest of
+     them, `_break_prefill_stall`); when no victim is free, one step
      past the in-flight windows' exact write horizon (`inflight_steps`,
      minimum progress: `decode_steps` = 1), else the decode is deferred
      (`deferred_decodes`) and the engine breaks the pipeline chain;
@@ -20,13 +29,18 @@ policy. One `next_batch(pinned, inflight_steps)` per engine iteration:
      the paged one.
 Chunks are full-size or the whole remainder (the JAX package's rule,
 kept so both engines schedule the same chunks). Linear slots reserve
-their capacity, so they never meet KV pressure.
+their capacity, so they never meet KV pressure. Slots number
+`num_slots` = max_num_seqs + slot_slack: the slack lanes admit a
+replacement while a paged predecessor's release waits for the window
+in flight (engine.py `_retire`).
 
 Host-only code; it runs once per iteration.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional
@@ -85,13 +99,16 @@ class ContinuousBatchScheduler:
         self.pool = pool or BlockPool(
             cfg.num_slots * cfg.max_blocks_per_seq, cfg.kv_block_size)
         self.prefix_cache = prefix_cache
+        self.policy = cfg.scheduler
         # Positions a decoding sequence may write past its host-visible
         # length: the windows in flight (up to pipeline_depth of them)
         # plus the one being scheduled. The JAX package counts
         # decode_multi_step steps a window; the port counts the longest
-        # window any bucket runs (decode_t_spec), so a bucket with longer
-        # windows never has its last positions' K/V dropped.
-        steps = max(cfg.t_for_bucket(b) for b in cfg.decode_buckets)
+        # window the engine can dispatch (a bucket's decode_t_spec
+        # length, or adaptive windows' doubled one), so a longer window
+        # never has its last positions' K/V dropped (ROADMAP Queue 3).
+        steps = max(cfg.t_for_bucket(b) for b in cfg.decode_buckets) \
+            if cfg.spec_draft_model else max(cfg.window_lengths())
         depth = cfg.pipeline_depth if cfg.pipeline_decode else 0
         # Speculative rounds: a round writes K+1 positions, and the one
         # scheduled is chained on the one in flight, so a sequence may
@@ -111,6 +128,19 @@ class ContinuousBatchScheduler:
         self.running: List[Sequence] = []     # admission order
         self._free_slots: List[int] = list(range(cfg.num_slots - 1, -1, -1))
         self.stats = SchedulerStats()
+        self._trace_fh = open(cfg.scheduler_trace_path, "a") \
+            if cfg.scheduler_trace_path else None
+
+    @property
+    def lanes_in_use(self) -> int:
+        """Slots held: running sequences and deferred releases."""
+        return self.cfg.num_slots - len(self._free_slots)
+
+    def close(self) -> None:
+        """Close the trace file (the engine's stop)."""
+        if self._trace_fh is not None:
+            self._trace_fh.close()
+            self._trace_fh = None
 
     def submit(self, seq: Sequence) -> None:
         if seq.num_prompt_tokens + seq.request.sampling.max_tokens \
@@ -120,7 +150,14 @@ class ContinuousBatchScheduler:
                 f"({seq.request.sampling.max_tokens}) exceeds max_model_len "
                 f"{self.cfg.max_model_len}")
         seq.phase = Phase.WAITING
-        self.waiting.append(seq)
+        if self.policy == "priority":
+            # Ahead of the first waiting request of lower priority.
+            idx = next((i for i, s in enumerate(self.waiting)
+                        if seq.request.priority > s.request.priority),
+                       len(self.waiting))
+            self.waiting.insert(idx, seq)
+        else:
+            self.waiting.append(seq)
         self.stats.submitted += 1
 
     def finish(self, seq: Sequence) -> None:
@@ -231,7 +268,7 @@ class ContinuousBatchScheduler:
         self.stats.tokens_decoded_scheduled += len(batch.decode_seqs)
 
         # --- 2. ongoing prefills (chunked) ---
-        chunk_cap = cfg.prefill_chunk_size
+        chunk_cap = cfg.chunk_cap
         for seq in [s for s in self.running if s.phase == Phase.PREFILLING]:
             if budget <= 0:
                 break
@@ -246,8 +283,12 @@ class ContinuousBatchScheduler:
         # --- 3. admit waiting requests while slots + budget remain ---
         while self.waiting and self._free_slots and budget > 0:
             seq = self.waiting[0]
-            first = min(seq.prefill_remaining, chunk_cap, budget)
-            if first < seq.prefill_remaining and first < chunk_cap:
+            # fifo: a prompt that fits one batch goes whole.
+            cap = cfg.max_num_batched_tokens if self.policy == "fifo" \
+                and seq.prefill_remaining <= cfg.max_num_batched_tokens \
+                else chunk_cap
+            first = min(seq.prefill_remaining, cap, budget)
+            if first < seq.prefill_remaining and first < cap:
                 break             # no odd-sized chunks: wait for budget
             if first <= 0:
                 break
@@ -270,8 +311,8 @@ class ContinuousBatchScheduler:
                     blocks.append_shared_prefix(reused_blocks, reused)
                 seq.prefilled = reused
                 seq.prefix_reused_tokens = reused
-                first = min(seq.prefill_remaining, chunk_cap, budget)
-                if first < seq.prefill_remaining and first < chunk_cap:
+                first = min(seq.prefill_remaining, cap, budget)
+                if first < seq.prefill_remaining and first < cap:
                     # No odd-sized chunks: stay at the queue's head with
                     # the prefix released.
                     blocks.release()
@@ -294,7 +335,39 @@ class ContinuousBatchScheduler:
             budget -= first
         self.stats.tokens_prefilled_scheduled += sum(
             len(c.tokens) for c in batch.prefill_chunks)
+        if batch.is_empty and not pinned:
+            self._break_prefill_stall(batch)
+        self._trace(batch, budget)
         return batch
+
+    def _break_prefill_stall(self, batch: ScheduledBatch) -> None:
+        """Two or more prefilling sequences hold blocks, none can take its
+        next chunk, and nothing decodes or rides a window to free any:
+        the newest goes back to the queue (recompute), so the others
+        proceed. (The JAX scheduler preempts only for a decode, and
+        waits here forever: ROADMAP Queue 3.)"""
+        stuck = [s for s in self.running if s.phase == Phase.PREFILLING]
+        if len(stuck) >= 2 and len(stuck) == len(self.running):
+            self._preempt_victim(batch, stuck[0])
+
+    def _trace(self, batch: ScheduledBatch, budget_left: int) -> None:
+        """One JSON line of this iteration's batch (the JAX keys)."""
+        if self._trace_fh is None:
+            return
+        self._trace_fh.write(json.dumps({
+            "t": time.time(),
+            "iteration": self.stats.iterations,
+            "decode": len(batch.decode_seqs),
+            "prefill_chunks": [[c.seq.request.request_id, c.start,
+                                len(c.tokens)] for c in batch.prefill_chunks],
+            "admitted": [s.request.request_id for s in batch.admitted],
+            "preempted": [s.request.request_id for s in batch.preempted],
+            "waiting": len(self.waiting),
+            "running": len(self.running),
+            "free_blocks": self.pool.num_free,
+            "budget_left": budget_left,
+        }) + "\n")
+        self._trace_fh.flush()
 
     def _chunk(self, seq: Sequence, t: int) -> PrefillChunk:
         target = seq.prefill_target

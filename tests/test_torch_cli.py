@@ -171,18 +171,10 @@ def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
 
 @pytest.mark.parametrize("flags,env,field", [
     (["--tp", "2"], {}, "tensor_parallel"),
-    (["--scheduler", "priority"], {}, "scheduler"),
     (["--quantization", "gguf_q4k"], {}, "quantization"),
     ([], {"FERRUM_QUANT": "gguf_q4k"}, "quantization"),
-    ([], {"FERRUM_SCHEDULER_TRACE_JSONL": "trace.jsonl"},
-     "scheduler_trace_path"),
-    (["--scheduler", "fifo"], {}, "scheduler"),
-    ([], {"FERRUM_ADAPTIVE_WINDOWS": "1"}, "adaptive_windows"),
     ([], {"FERRUM_PREFIX_OFFLOAD_MB": "64"}, "prefix_offload_mb"),
     ([], {"FERRUM_PREFIX_OFFLOAD_ALGO": "int4"}, "prefix_offload_algo"),
-    ([], {"FERRUM_SLOT_SLACK": "2"}, "slot_slack"),
-    ([], {"FERRUM_SQUEEZE_EMBED": "1"}, "squeeze_embeddings"),
-    ([], {"FERRUM_FUSE_PROJ": "0"}, "fuse_proj"),
     ([], {"FERRUM_GDN_CHUNKED": "0"}, "gdn_chunk_block"),
     ([], {"FERRUM_DP": "2"}, "data_parallel"),
 ])
@@ -199,6 +191,49 @@ def test_unported_settings_exit_1(monkeypatch, capsys, tmp_path, flags, env,
     err = capsys.readouterr().err
     assert rc == 1 and err.startswith("error:") and field in err, err
     assert "not yet ported" in err
+
+
+# The engine settings ported since (scheduler policies, the trace,
+# adaptive windows, slack lanes, the squeeze, fusion, unchunked prefill):
+# each flag or FERRUM_* value resolves to the JAX CLI's value.
+@pytest.mark.parametrize("flags,env,field", [
+    (["--scheduler", "priority"], {}, "scheduler"),
+    (["--scheduler", "fifo"], {}, "scheduler"),
+    ([], {"FERRUM_SCHEDULER_TRACE_JSONL": "trace.jsonl"},
+     "scheduler_trace_path"),
+    ([], {"FERRUM_ADAPTIVE_WINDOWS": "0"}, "adaptive_windows"),
+    ([], {"FERRUM_SLOT_SLACK": "2"}, "slot_slack"),
+    ([], {"FERRUM_SQUEEZE_EMBED": "1"}, "squeeze_embeddings"),
+    ([], {"FERRUM_FUSE_PROJ": "0"}, "fuse_proj"),
+    ([], {"FERRUM_FUSE_SITES": "qkv,gate_up,moe"}, "fuse_sites"),
+    ([], {"FERRUM_ENABLE_CHUNKED_PREFILL": "0"}, "enable_chunked_prefill"),
+])
+def test_ported_settings_resolve_as_jax(monkeypatch, tmp_path, flags, env,
+                                        field):
+    import argparse
+
+    from ferrum_tpu import cli as jax_cli
+    from ferrum_tpu.engine import builder as jax_builder
+    from ferrum_tpu_torch import cli
+    from ferrum_tpu_torch.engine import builder
+
+    for k in [k for k in os.environ if k.startswith("FERRUM_")]:
+        monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    argv = ["random:tiny-test", "--config", str(tmp_path / "none.toml"),
+            *SMALL, *flags]
+    mine = _resolved_cfg(monkeypatch, builder, cli.main,
+                         ["bench", "--device", "cpu", *argv])
+
+    def jax_build(a):
+        p = argparse.ArgumentParser()
+        jax_cli._add_engine_flags(p)
+        return jax_cli._build_engine(p.parse_args(a))
+
+    ref = _resolved_cfg(monkeypatch, jax_builder, jax_build, argv)
+    assert getattr(mine, field) == getattr(ref, field)
+    assert getattr(mine, field) != getattr(type(mine)(), field)
 
 
 def test_unknown_model_source_exits_1(capsys, tmp_path):

@@ -354,7 +354,11 @@ def test_next_batch_matches_jax_scheduler(pipelined):
     jcfg = JaxConfig(model="m", kv_layout="linear",
                      enable_prefix_cache=False, **kw)
     jsched = JaxSched(jcfg, BlockPool(4 * 512 // 16, 16))
-    sched = ContinuousBatchScheduler(EngineConfig(**LINEAR, **kw))
+    # The port reserves for adaptive windows' doubled length, the JAX
+    # scheduler for decode_multi_step (ROADMAP Queue 3): held at the
+    # fixed length, both reserve alike.
+    sched = ContinuousBatchScheduler(EngineConfig(
+        **LINEAR, adaptive_windows=False, **kw))
     lens = {"r0": 7, "r1": 200, "r2": 40, "r3": 13, "r4": 90, "r5": 33}
     arrive = {0: ["r0", "r1"], 1: ["r2"], 2: ["r3", "r4"], 6: ["r5"]}
     script = {"accept": 4 if pipelined else 1,

@@ -681,15 +681,26 @@ def test_loaders_default_to_the_card(tmp_path, entry):
 
 def test_dense_expert_stack_reaches_the_builder(tmp_path):
     """A dense MoE directory without quantize-on-load loads as bf16 expert
-    stacks, which the builder refuses (ROADMAP Queue 1 item 16)."""
+    stacks [E, in, out], which the builder serves through ops/moe.py's
+    dense route (tests/test_torch_settings.py holds it against the JAX
+    package)."""
     from ferrum_tpu_torch.config import EngineConfig
     from ferrum_tpu_torch.engine.builder import EngineBuilder
-    from ferrum_tpu_torch.types import ModelLoadError
+    from ferrum_tpu_torch.types import InferenceRequest, SamplingParams
 
     d = make_dir(tmp_path, "qwen3_moe_dense_quantize_on_load")
-    with pytest.raises(ModelLoadError, match="item 16"):
-        EngineBuilder(EngineConfig(model=d, device="cpu", kv_layout="linear",
-                                   max_num_seqs=2, max_model_len=256)).build()
+    engine = EngineBuilder(EngineConfig(
+        model=d, device="cpu", kv_layout="linear", max_num_seqs=2,
+        max_model_len=256)).build()
+    try:
+        moe = engine.runner.params.layers[0].moe
+        assert moe.down.dtype == torch.bfloat16 and moe.down.dim() == 3
+        out = engine.infer(InferenceRequest(
+            prompt_token_ids=[5, 9, 17, 3], sampling=SamplingParams(
+                max_tokens=4, ignore_eos=True, temperature=0.0)))
+        assert out.completion_tokens == 4
+    finally:
+        engine.stop()
 
 
 def test_act_order_experts_raise(tmp_path):

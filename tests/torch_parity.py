@@ -285,6 +285,9 @@ def _np(a, dtype=None):
 
 
 def _linear(out: dict, prefix: str, lin) -> None:
+    if not hasattr(lin, "w") and not hasattr(lin, "qweight"):
+        out[prefix] = _np(lin)          # a dense expert stack [E, in, out]
+        return
     if hasattr(lin, "w"):
         out[f"{prefix}.w"] = _np(lin.w)
         if lin.bias is not None:
@@ -304,8 +307,15 @@ def _linear(out: dict, prefix: str, lin) -> None:
 
 def flatten_jax_params(params) -> dict:
     """JAX ModelParams → flat {dotted field name: numpy array} (the
-    input format of ferrum_tpu_torch.models.convert.params_from_numpy)."""
-    out = {"embed": _np(params.embed), "final_norm": _np(params.final_norm)}
+    input format of ferrum_tpu_torch.models.convert.params_from_numpy):
+    an int8 table as embed.q / embed.scale, a dense expert stack under
+    its own name (layers.i.moe.gate, ...; a fused one as .gate_up)."""
+    out = {"final_norm": _np(params.final_norm)}
+    if hasattr(params.embed, "q"):      # QuantEmbedding: int8 + f32 scales
+        out["embed.q"] = _np(params.embed.q, np.int8)
+        out["embed.scale"] = _np(params.embed.scale)
+    else:
+        out["embed"] = _np(params.embed)
     if params.lm_head is not None:
         _linear(out, "lm_head", params.lm_head)
     for i, lp in enumerate(params.layers):
