@@ -116,14 +116,17 @@ time):
              requests; launch counts of every kernel over that run, each
              of the lane's kernels required, every other kernel required
              to stay at 0; windows by bucket, mixed windows, the most
-             windows in flight, kv_append_rows launches a window; E's
-             solo request must give A's tokens (its decode kernel
-             computes A's function bit for bit). Lane A's run dispatches
+             windows in flight, kv_append_rows launches a window; the
+             prompt of request 0 alone before the run and (but on E)
+             again after it gives the same tokens; E's solo request
+             must give A's tokens (its decode kernel computes A's
+             function bit for bit). Lane A's run dispatches
              under torch.cuda.set_sync_debug_mode("error"): a host sync
              of the stream inside a window or prefill dispatch fails it
-  serve_c1, serve_c4 (A: serve, B: serve_moe)  the same with 1 and 4
-             requests: 1- and 8-lane windows (on B the MoE sort route:
-             moe_grouped's <= 256-row loop must launch, moe_bmm need not)
+  serve_c1, serve_c4 (B: serve_moe)  the same with 1 and 4 requests:
+             1- and 8-lane windows (the MoE sort route: moe_grouped's
+             <= 256-row loop must launch, moe_bmm need not); lane A's
+             bench cells serve 1 and 4 requests instead
   window_check (A)  a T = 8 window through decode_forward's window form
              and one append against 8 per-step calls from the same state
              (8 lanes, 256-token prompts): hidden states within one bf16
@@ -207,7 +210,8 @@ time):
              error, jax never imported; plain ran decode windows and no
              round, spec ran rounds (spec.stats in its line); the weight
              draws' and the process's seconds
-Lanes F and G, on lane A's weights once its phases are done:
+Lanes F and G (with G's offload form), on lane A's weights once its
+phases are done:
   serve_int8_prefix (F)  kv_dtype int8, the linear layout with the prefix
              store: two waves of 16 requests, each a shared 192-token
              prefix and 64 own tokens, 64 generated; wave 2's hits and
@@ -223,6 +227,21 @@ Lanes F and G, on lane A's weights once its phases are done:
              preemption (recompute), shared prefix blocks, every
              dispatch under the no-sync check; the share of wave 1's
              greedy tokens equal to a pool where nothing is preempted
+             (the offload form's wave 1)
+  serve_paged_offload (G offload)  the paged layout with the prefix
+             cache and a 64 MiB host offload tier (bf16 KV, the int8
+             strategy), the pool autosized: wave 1, the release waited
+             for, every cached block evicted (each spills), wave 2:
+             >= 6 saves and restores (the shared prefix's 192 / 32
+             blocks), every wave-2 request reusing the prefix, rows 1-4
+             launched and no other kernel, the `kv_block_io` key in the
+             compile audit, a block group kept with the `none` strategy
+             back bit for bit on the card; printed: the share of wave
+             2's greedy tokens equal to lane G's, the ms a block group
+             to spill (read + compress) and to restore (decompress +
+             upload) beside the device ms of prefilling the prefix (its
+             kernels' time, torch.profiler). Not under the no-sync
+             check (a spill's read is a declared sync)
 
 Lane I, after the cli phase, on the card alone: gemma-3-12b (the text
 config of google/gemma-3-12b-it through the port's config mapping) at
@@ -243,7 +262,7 @@ quantize_model_params -> the default EngineConfig at max_model_len 2048
              across the four runs
 
 Lane J, after lane I: speculative decoding. Target qwen3-8b at full
-width, 8 of its 36 layers; draft qwen3-0.6b at full width, 4 of its 28
+width, 4 of its 36 layers; draft qwen3-0.6b at full width, 4 of its 28
 (both cut for the run's time); two-level w4a8 random weights drawn on
 the card (seed 0); the default EngineConfig with spec_num_tokens = 4
 (rounds: K + 1 draft steps at m = 32, one verify pass at m = 160 with
@@ -300,6 +319,30 @@ on the CPU. The cli phase's plain run serves with FERRUM_SQUEEZE_EMBED=1
 (its tied table int8, in its line) and both runs with
 FERRUM_ADAPTIVE_WINDOWS=0; lanes A-G state adaptive_windows=False, as
 bench.py does.
+
+Lane L, after lane K: LoRA adapters. llama-3.1-8b at full width, 4 of
+its 32 layers, random two-level int4 (seed 0) drawn on the card; a PEFT
+adapter (r = 16, lora_alpha = 32, all seven projections of every layer,
+bf16 A / B from seed 1) written with the port's safetensors writer into
+a temporary directory, loaded with `load_lora_adapter` and applied
+before the build (`apply_lora`), `EngineConfig()`'s defaults; a B = 0
+adapter beside it:
+  serve_lora the base engine, the adapter engine and the B = 0 one at
+             32 x 256/64: every request 64 tokens, rows 1-4 launched and
+             no other kernel, the adapter engines' projections split
+             (LoRA over a two-level base, nothing fused); tok/s, TTFT
+             p50, TPOT p50 of each
+  logits_lora  a 256-token prefill and decode steps at 32 and 1 lanes
+             on the adapter engine's params, kernels vs plain versions:
+             every logit within 1e-3 of the logit scale
+  lane_l     (each engine serves a warm-up wave of 4 x 256/4 first)
+             the B = 0 engine's tokens equal the base engine's bit for
+             bit, the adapter moves some, and the base params keep their
+             split linears through both builds
+The kernel phase holds rows 1 and 2 at the split projections (q, o
+4096 x 4096; k, v 4096 x 1024; gate, up 4096 x 14336; down 14336 x
+4096) at m = 32 and 2048, exact, with a line a size summing a layer's
+seven (`lora_rows`).
 
 Then the kernel summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero
@@ -381,12 +424,17 @@ SERVE_GROUPED_W4A16_A = 16384
 # serve ~17% slower than usual, so C runs 4 of its 32 layers (its logits
 # measured at 1 and 2 layers and its depth: 99.6% of the rows within
 # tolerance at 4 layers in that run) and B 2 of its 48 (its logits
-# check is exact at any depth).
+# check is exact at any depth). Before lanes G's offload form and L
+# joined (930.7 s): lane A no longer serves 1 and 4 requests apart from
+# its bench cells, which serve the same 256/128 requests at c = 1 and 4
+# twice each on the same engine (27 s), and lane E's solo request runs
+# once, before its serve, where its tokens must equal A's (12 s); lane
+# A keeps the repeat.
 LANES = (
     dict(name="A llama-3.1-8b w4a8 two-level", model="llama-3.1-8b",
          mode={}, float_scale=False, path=LLAMA_PATH,
          lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
-         tag="", profile=True, small=True, sync_check=True,
+         tag="", profile=True, small=False, sync_check=True,
          window_check=True, bench=True, fg=True),
     # 32 lanes: the all-experts route; 1 lane: sort + grouped.
     dict(name="B qwen3-30b-a3b w4a8 two-level", model="qwen3-30b-a3b",
@@ -412,7 +460,7 @@ LANES = (
          model="llama-3.1-8b", mode={"w4a8_gd": "all"}, float_scale=False,
          path=("w4a8tl_gd_decode", "w4a8tl_prefill") + KV_PATH,
          lanes=(1, 1, 1, 1), tol=1e-3, min_rows=1.0, depths=(None,),
-         tag="_gd", profile=False,
+         tag="_gd", profile=False, repeat=False,
          solo_as="A llama-3.1-8b w4a8 two-level"),
 )
 T0 = time.perf_counter()
@@ -2204,8 +2252,9 @@ def serve_phase(torch, lane, want_solo=None):
     other), then for lanes with `small` 1 and 4 concurrent ones (their
     path without moe_bmm: 1- and 8-lane windows take the MoE sort
     route, so moe_grouped must launch its <= 256-row loop). The prompt
-    of request 0 alone, before and after the 32, must give the same
-    tokens, and `want_solo` where given. Returns (launch counts by run,
+    of request 0 alone, before and (unless the lane sets `repeat`
+    False) after the 32, must give the same tokens, and `want_solo`
+    where given. Returns (launch counts by run,
     model config, engine, the solo request's tokens)."""
     import numpy as np
 
@@ -2225,13 +2274,13 @@ def serve_phase(torch, lane, want_solo=None):
         sync_canary(torch, engine.runner)
     launches, resps, line = serve_run(torch, engine, mc, lane, prompts,
                                       path, lane.get("sync_check", False))
-    repeat = engine.infer(request(prompts[0])).token_ids
-    if repeat != solo:
+    repeat = lane.get("repeat", True)
+    if repeat and engine.infer(request(prompts[0])).token_ids != solo:
         raise AssertionError("a repeated request gave other tokens")
     if want_solo is not None and solo != want_solo:
         raise AssertionError(f"{name}: the solo request's tokens differ "
                              f"from lane {lane['solo_as']}'s")
-    emit({**line, "engine_build_s": build_s, "repeat_identical": True,
+    emit({**line, "engine_build_s": build_s, "repeat_identical": repeat,
           **({"solo_tokens_equal_to": lane["solo_as"]}
              if want_solo is not None else {}),
           "batched_vs_solo_same_tokens": sum(
@@ -2255,7 +2304,7 @@ def serve_phase(torch, lane, want_solo=None):
 FG_REQUESTS, FG_SHARED, FG_OWN, FG_OUT = 16, 192, 64, 64
 # Lane G's paged pool: below the ~13 blocks a sequence holds at its
 # longest (256 + 64 tokens and the windows' lookahead) times 16.
-G_BLOCKS, G_BLOCKS_ROOMY = 150, 512
+G_BLOCKS = 150
 
 
 def fg_waves(mc):
@@ -2491,7 +2540,8 @@ def lane_g(torch, mc, params):
     one sequence is preempted and recomputed, the second wave's prefix
     blocks are shared, and no dispatch syncs the host (the no-sync
     check); the share of wave 1's greedy tokens (the preempted wave)
-    equal to the same engine's on a pool where nothing is preempted."""
+    equal to a pool where nothing is preempted: the offload form's wave
+    1 (lane_g_offload). Returns the launch counts of both forms."""
     engine = fg_engine(mc, params, kv_layout="paged",
                        kv_num_blocks=G_BLOCKS, enable_prefix_cache=True)
     if engine.runner.attn_impl != "ref":
@@ -2521,16 +2571,205 @@ def lane_g(torch, mc, params):
         raise AssertionError("lane G: checks failed")
     del engine
     torch.cuda.empty_cache()
-    # The preempted wave alone on a pool where nothing is preempted.
-    roomy = fg_engine(mc, params, kv_layout="paged",
-                      kv_num_blocks=G_BLOCKS_ROOMY, enable_prefix_cache=True)
-    roomy_toks = fg_serve(torch, roomy, mc, waves[:1])[0]
-    line["roomy_preemptions"] = roomy.scheduler.stats.preemptions
-    roomy.stop()
+    off_launches, roomy_toks, roomy_preemptions = lane_g_offload(
+        torch, mc, params, waves, toks)
+    line["roomy_preemptions"] = roomy_preemptions
     line["tokens_equal_to_roomy_pool_share"] = same_share(toks[:1],
                                                           roomy_toks)
     emit(line)
-    return launches
+    if roomy_preemptions:
+        raise AssertionError("lane G: the roomy pool preempted")
+    return launches, off_launches
+
+
+# Lane G's offload form: a 64 MiB host tier (the int8 strategy) behind
+# the prefix cache; the wave's shared prefix is FG_SHARED / PAGE = 6
+# block groups of 4 MiB (bf16 K and V, 32 layers), ~2 MiB each held.
+G_OFFLOAD_MB = 64
+G_SHARED_BLOCKS = FG_SHARED // PAGE
+def wait_released(engine, timeout_s=60.0):
+    """Until no sequence runs and no window is in flight (a paged
+    sequence's blocks go back after its last window is read)."""
+    t0 = time.perf_counter()
+    while engine.scheduler.running or engine._inflight_q:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError("the engine did not release its sequences")
+        time.sleep(0.01)
+
+
+def prefill_device_ms(torch, params, cfg, tokens, reps=3):
+    """One sequence's batched prefill of `tokens` (a fresh bf16 cache of
+    its pages): the device ms -- its kernels' time summed by
+    torch.profiler, a mean over `reps` runs after a warm-up (CUDA events
+    around ~2000 eager launches would count the host's pace once the
+    launch queue fills) -- and the host-clock ms of one run, waited for."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ferrum_tpu_torch.models import llama_family as lf
+    dev = torch.device("cuda")
+    n = len(tokens)
+    kv = lf.PagedKvCache.create(cfg, n // PAGE, PAGE, dtype=torch.bfloat16,
+                                device=dev)
+    toks = torch.tensor([int(t) for t in tokens], device=dev)[None]
+    pos = torch.arange(n, device=dev)[None]
+    tables = torch.arange(n // PAGE, device=dev)[None]
+    lens = torch.tensor([n], device=dev)
+
+    def run():
+        lf.prefill_forward_batched(params, cfg, kv, toks, pos, tables, lens,
+                                   pos, ctx_pad=n)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages()
+                  if e.device_type.name == "CUDA")
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy_us / 1e3 / reps, host_ms
+
+
+def block_io_costs(torch, engine, blocks, reps=3):
+    """Per block group (host clock, medians over `blocks` x reps): the
+    spill -- read_kv_block (its blocking copy) and the tier's compress
+    -- and the restore -- decompress and write_kv_block until the upload
+    has landed; the restores go to a block taken from the pool for the
+    purpose."""
+    runner, tier = engine.runner, engine.prefix_cache.offload
+    scratch = engine.pool.allocate(1)[0]
+    out = {k: [] for k in ("read", "compress", "decompress", "upload")}
+    try:
+        for b in blocks:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                arrays = runner.read_kv_block(b)
+                t1 = time.perf_counter()
+                comp = [tier.strategy.compress(a) for a in arrays]
+                t2 = time.perf_counter()
+                back = [tier.strategy.decompress(c) for c in comp]
+                t3 = time.perf_counter()
+                runner.write_kv_block(scratch, back)
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                for key, a, z in (("read", t0, t1), ("compress", t1, t2),
+                                  ("decompress", t2, t3),
+                                  ("upload", t3, t4)):
+                    out[key].append((z - a) * 1e3)
+    finally:
+        engine.pool.free(scratch)
+    ms = {f"{k}_ms": statistics.median(v) for k, v in out.items()}
+    ms["spill_ms"] = ms["read_ms"] + ms["compress_ms"]
+    ms["restore_ms"] = ms["decompress_ms"] + ms["upload_ms"]
+    return ms
+
+
+def none_roundtrip(torch, engine, block):
+    """One block group read, kept with the `none` strategy, written into
+    another block and read back: equal bit for bit, on the host and in
+    the pool."""
+    from ferrum_tpu_torch.kv.compression import NoCompression
+    none = NoCompression()
+    runner, kv = engine.runner, engine.runner.kv
+    other = engine.pool.allocate(1)[0]
+    try:
+        arrays = runner.read_kv_block(block)
+        runner.write_kv_block(other, tuple(none.decompress(none.compress(a))
+                                           for a in arrays))
+        again = runner.read_kv_block(other)
+        return all(torch.equal(a, b) for a, b in zip(arrays, again)) \
+            and all(torch.equal(t[:, block], t[:, other])
+                    for t in (kv.k, kv.v))
+    finally:
+        engine.pool.free(other)
+
+
+def lane_g_offload(torch, mc, params, waves, g_toks):
+    """Lane G's offload form: lane A's params (built already), the paged
+    layout with the prefix cache and a G_OFFLOAD_MB host tier (bf16 KV,
+    the int8 strategy), the pool autosized (nothing preempted). Wave 1;
+    the release waited for; every cached block evicted (each spills to
+    the tier); wave 2, whose shared prefix comes back from the tier.
+    Checks: >= G_SHARED_BLOCKS saves and restores, every wave-2 request
+    reusing the prefix, rows 1-4 launched and no other kernel, and a
+    block group kept with the `none` strategy coming back bit for bit.
+    Printed: the share of wave 2's greedy tokens equal to lane G's wave
+    2 (no eviction there), the spill and restore ms per block group
+    against the device ms of prefilling the prefix. Not under the
+    no-sync check: each spill is a declared host sync. Returns (launch
+    counts, wave 1's tokens, wave 1's preemptions)."""
+    from ferrum_tpu_torch.kv.prefix_cache import _hash_chain
+
+    engine = fg_engine(mc, params, kv_layout="paged",
+                       enable_prefix_cache=True,
+                       prefix_offload_mb=G_OFFLOAD_MB)
+    cache, pool, runner = engine.prefix_cache, engine.pool, engine.runner
+    tier = cache.offload
+    if tier is None or tier.strategy.name != "int8" \
+            or runner.kv.k.dtype != torch.bfloat16:
+        raise AssertionError("lane G offload: no int8 tier on a bf16 cache")
+    try:
+        w1, d1, l1, wall1 = fg_serve(torch, engine, mc, waves[:1])
+        preempted = engine.scheduler.stats.preemptions
+        wait_released(engine)
+        t0 = time.perf_counter()
+        evicted = cache.evict(min_free_target=pool.num_blocks)
+        evict_s = time.perf_counter() - t0
+        spilled = dict(vars(tier.stats))
+        w2, d2, l2, wall2 = fg_serve(torch, engine, mc, waves[1:])
+        stats = dict(vars(tier.stats))
+        launches = {k: l1[k] + l2[k] for k in l1}
+        check_path("G offload", launches, LLAMA_PATH)
+        parent, chain = 0, []
+        shared = [int(t) for t in waves[1][0][:FG_SHARED]]
+        for i in range(G_SHARED_BLOCKS):
+            parent = _hash_chain(parent, shared[i * PAGE:(i + 1) * PAGE])
+            chain.append(cache._by_hash[parent])
+        none_equal = none_roundtrip(torch, engine, chain[0])
+        costs = block_io_costs(torch, engine, chain)
+        prefill_ms, prefill_host_ms = prefill_device_ms(
+            torch, runner.params, mc, shared)
+        audit = [k for site, k in runner.compile_log if site == "kv_block_io"]
+    finally:
+        engine.stop()
+    line = {"phase": "serve_paged_offload",
+            "lane": "G llama-3.1-8b w4a8 two-level, paged + prefix cache "
+            "+ host offload tier", "offload_mb": G_OFFLOAD_MB,
+            "algo": tier.strategy.name, "kv_blocks": pool.num_blocks,
+            "requests_per_wave": FG_REQUESTS, "output_len": FG_OUT,
+            "wall_s": [wall1, wall2], "waves": d1 + d2,
+            "wave1_preemptions": preempted, "evicted_blocks": evicted,
+            "evict_s": evict_s, "tier_after_evict": spilled,
+            "tier": stats, "kv_block_io_audit": audit,
+            "none_roundtrip_equal": none_equal,
+            "wave2_tokens_equal_to_lane_g_share": same_share(g_toks[1:2],
+                                                             w2),
+            "per_block_group": {**costs, "bytes": 2 * mc.num_layers * PAGE
+                                * mc.kv_size * 2},
+            "prefix_prefill_device_ms": prefill_ms,
+            "prefix_prefill_host_ms": prefill_host_ms,
+            "prefill_device_ms_per_block": prefill_ms / G_SHARED_BLOCKS,
+            "launches": launches, "card": smi_line()}
+    emit(line)
+    reused = d2[0]["prefix_cache_saved_tokens"]
+    if not (stats["saves"] >= G_SHARED_BLOCKS
+            and stats["restores"] >= G_SHARED_BLOCKS
+            and reused >= FG_REQUESTS * FG_SHARED and none_equal
+            and all(d["requests_completed"] == FG_REQUESTS
+                    for d in d1 + d2) and audit):
+        raise AssertionError("lane G offload: checks failed")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, w1, preempted
 
 
 # ---------------------------------------------------------------------------
@@ -4981,13 +5220,15 @@ def lane_i(torch):
     return by_run
 
 
-# Lane J: speculative decoding. The target qwen3-8b at full width, 8 of
-# its 36 layers (cut from 12 to make room for lane K); the draft
+# Lane J: speculative decoding. The target qwen3-8b at full width, 4 of
+# its 36 layers (cut from 12 to 8 to make room for lane K, and to 4 for
+# lanes G's offload form and L: a round's host time, ~20 s of the
+# lane's serves at 8 layers); the draft
 # qwen3-0.6b at full width, 4 of its 28 (both cut for the run's time:
 # the run must stay near 800 s on the usual host, and a round's host
 # time grows with the layers of both models); two-level w4a8 random
 # weights (seed 0), K = 4.
-J_TARGET, J_TARGET_LAYERS = "qwen3-8b", 8
+J_TARGET, J_TARGET_LAYERS = "qwen3-8b", 4
 # The kernel cases keep the 12-layer shapes PERF.md's numbers were
 # taken at.
 J_KV_LAYERS = 12
@@ -5866,6 +6107,273 @@ def lane_k(torch):
     return {K_NAME: launches}
 
 
+# ---------------------------------------------------------------------------
+# Lane L: LoRA adapters over the two-level int4 base
+# ---------------------------------------------------------------------------
+
+# llama-3.1-8b at full width, 4 of its 32 layers (H_LAYERS' depth), random
+# two-level int4 (seed 0) drawn on the card; a PEFT adapter with r = 16,
+# lora_alpha = 32 on all seven projections of every layer, bf16 A / B
+# drawn from seed 1, applied before the build at EngineConfig()'s
+# defaults. The adapter keeps every projection split: rows 1 and 2 run
+# at the split shapes (L_SPLIT).
+L_MODEL, L_LAYERS = "llama-3.1-8b", H_LAYERS["llama-3.1-8b"]
+L_RANK, L_ALPHA, L_OUT = 16, 32, 64
+L_NAME = "L llama-3.1-8b LoRA r=16 over two-level int4"
+L_SITES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+           "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+           "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+           "down": "mlp.down_proj"}
+# llama-3.1-8b's split projections (K, N) and the sites of each shape.
+L_SPLIT = {(4096, 4096): ("q", "o"), (4096, 1024): ("k", "v"),
+           (4096, 14336): ("gate", "up"), (14336, 4096): ("down",)}
+L_M = (SERVE_DECODE_M, SERVE_PREFILL_M)
+
+
+def lora_rows(torch, timer):
+    """Rows 1 and 2 (w4a8tl_decode at m = 32, w4a8tl_prefill at m = 2048)
+    at llama-3.1-8b's split projections (lane L's path: an adapter keeps
+    q / k / v and gate / up unfused), exact against their plain versions,
+    timed beside torch._int_mm; then one line a size summing a layer's
+    seven projections (each shape times its sites)."""
+    from ferrum_tpu_torch.ops.kernels import quant_matmul as qmm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    kernels = {SERVE_DECODE_M: ("w4a8tl_decode", qmm.w4a8tl_decode),
+               SERVE_PREFILL_M: ("w4a8tl_prefill", qmm.w4a8tl_prefill)}
+    rows = []
+    for (k, n), sites in L_SPLIT.items():
+        p = make_gemm_weight(torch, k, n, gen)
+        w8_cm = int_mm_weight(torch, p)
+        for m in L_M:
+            x = torch.randn(m, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            xq, xs = qmm.quantize_activation_rows(x)
+            kernel, fn = kernels[m]
+            row = {"kernel": kernel, "site": ", ".join(sites), "m": m,
+                   "k": k, "n": n, "model": f"{L_MODEL} split"}
+            if kernel == "w4a8tl_decode":
+                row["plan"] = qmm.w4a8tl_decode_plan(m, n, k)
+            two_level_case(rows, timer, row, fn, qmm.w4a8tl_plain, p,
+                           w8_cm, xq, xs)
+        del p, w8_cm
+        torch.cuda.empty_cache()
+    for m in L_M:
+        sel = [c for c in rows if c["m"] == m]
+
+        def tot(key):
+            vals = [c.get(key) for c in sel]
+            return None if None in vals else sum(
+                v * len(c["site"].split(", ")) for v, c in zip(vals, sel))
+        emit({"phase": "kernel_layer", "model": f"{L_MODEL} split",
+              "kernel": sel[0]["kernel"], "m": m,
+              "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"),
+              "library_ms": tot("library_ms"), "bound_ms": tot("bound_ms"),
+              "sites": "q, k, v, o, gate, up, down", "card": smi_line()})
+    return rows
+
+
+def l_write_adapter(torch, mc, d, zero_b=False):
+    """A PEFT adapter directory written with the port's safetensors
+    writer: adapter_config.json (r, lora_alpha) and lora_A [r, in] /
+    lora_B [out, r] of every projection of every layer, bf16, N(0, 0.02)
+    from seed 1 (B zeros with zero_b)."""
+    import os
+
+    from ferrum_tpu_torch.models.safetensors_io import write_safetensors
+    shapes = {"q": (mc.hidden_size, mc.q_size),
+              "k": (mc.hidden_size, mc.kv_size),
+              "v": (mc.hidden_size, mc.kv_size),
+              "o": (mc.q_size, mc.hidden_size),
+              "gate": (mc.hidden_size, mc.intermediate_size),
+              "up": (mc.hidden_size, mc.intermediate_size),
+              "down": (mc.intermediate_size, mc.hidden_size)}
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    tensors = {}
+    for li in range(mc.num_layers):
+        for attr, (k, n) in shapes.items():
+            p = f"base_model.model.model.layers.{li}.{L_SITES[attr]}"
+            a = 0.02 * torch.randn(L_RANK, k, generator=gen)
+            b = 0.02 * torch.randn(n, L_RANK, generator=gen)
+            tensors[f"{p}.lora_A.weight"] = a.to(torch.bfloat16)
+            tensors[f"{p}.lora_B.weight"] = (
+                torch.zeros_like(b) if zero_b else b).to(torch.bfloat16)
+    os.makedirs(d)
+    with open(os.path.join(d, "adapter_config.json"), "w") as f:
+        json.dump({"r": L_RANK, "lora_alpha": L_ALPHA, "peft_type": "LORA",
+                   "target_modules": [v.split(".")[1]
+                                      for v in L_SITES.values()]}, f)
+    write_safetensors(os.path.join(d, "adapter_model.safetensors"), tensors)
+
+
+def l_engine(mc, params):
+    from ferrum_tpu_torch.config import EngineConfig
+    from ferrum_tpu_torch.engine.builder import EngineBuilder
+    return EngineBuilder(EngineConfig()).with_model(mc, params).build()
+
+
+def l_serve(torch, engine, mc, prompts, label):
+    """len(prompts) concurrent greedy 256/L_OUT requests, the launch
+    counts from 0: every request L_OUT tokens, rows 1-4 launched and no
+    other kernel. Returns (launches, token lists, the line)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ferrum_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(prompts)) as ex:
+        resps = list(ex.map(engine.infer,
+                            [request(p, L_OUT) for p in prompts]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(K)
+    for r in resps:
+        if r.completion_tokens != L_OUT or not all(
+                0 <= t < mc.vocab_size for t in r.token_ids):
+            raise AssertionError(f"lane L {label}: {r.request_id} gave "
+                                 f"{r.completion_tokens} tokens")
+    check_path(f"L {label}", launches, LLAMA_PATH)
+    ttft = [r.ttft for r in resps]
+    tpot = [(r.e2e_latency - r.ttft) / (L_OUT - 1) for r in resps]
+    line = {"phase": "serve_lora", "lane": L_NAME, "run": label,
+            "requests": len(prompts), "prompt_len": PROMPT_LEN,
+            "output_len": L_OUT, "wall_s": wall,
+            "output_tok_s": len(prompts) * L_OUT / wall,
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "tpot_p50_ms": statistics.median(tpot) * 1e3,
+            "launches": launches, "kv_layout": engine.cfg.kv_layout,
+            "card": smi_line()}
+    emit(line)
+    return launches, [r.token_ids for r in resps], line
+
+
+def l_logits(torch, mc, engine):
+    """A 256-token prefill and decode steps at 32 and 1 lanes on the
+    adapter engine's built params, through the kernels and through their
+    plain versions (the low-rank products are the same torch.matmul in
+    both): every logit within 1e-3 of the logit scale (lane A's rule)."""
+    import numpy as np
+
+    params = engine.runner.params
+    lanes = (32, 32, 1, 1)
+    rng = np.random.default_rng(13)
+    prompt = torch.from_numpy(rng.integers(0, mc.vocab_size, PROMPT_LEN)
+                              ).to("cuda")[None]
+    others = torch.from_numpy(rng.integers(
+        0, mc.vocab_size, (len(lanes), max(lanes)))).to("cuda")
+    got, fed = forward_logits(torch, params, mc, prompt, lanes, others)
+    plain, _ = plain_run(lambda: forward_logits(torch, params, mc, prompt,
+                                                lanes, others, fed))
+    scale = max(a.abs().max().item() for a in got)
+    diff = max((a - b).abs().max().item() for a, b in zip(got, plain))
+    line = {"phase": "logits_lora", "lane": L_NAME,
+            "steps": f"prefill {PROMPT_LEN} + decode at lanes {list(lanes)}",
+            "max_abs_diff": diff, "logit_scale": scale,
+            "within_rule": diff <= 1e-3 * scale,
+            "finite": all(bool(torch.isfinite(a).all()) for a in got),
+            "card": smi_line()}
+    emit(line)
+    del got, plain
+    if not (line["within_rule"] and line["finite"]):
+        raise AssertionError(f"lane L logits: {line}")
+
+
+def l_split(params) -> bool:
+    """Every projection of every layer a LoRA wrapper over a two-level
+    base, none fused."""
+    from ferrum_tpu_torch.ops.linear import LoraLinearParams
+    return all(lp.qkv is None and lp.gate_up is None and all(
+        isinstance(getattr(lp, a), LoraLinearParams)
+        and getattr(lp, a).base.scales2 is not None for a in L_SITES)
+        for lp in params.layers)
+
+
+def lane_l(torch):
+    """Lane L: the base engine, the adapter engine (built params split,
+    logits == plain, served beside the base) and a B = 0 adapter engine,
+    whose greedy tokens must equal the base engine's bit for bit; the
+    base params keep their split linears through both builds. Returns
+    the launch counts by run."""
+    import dataclasses
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ferrum_tpu_torch.models.configs import preset
+    from ferrum_tpu_torch.models.lora import apply_lora, load_lora_adapter
+    from ferrum_tpu_torch.models.quantize import init_random_quant_params
+
+    mc = dataclasses.replace(preset(L_MODEL), num_layers=L_LAYERS)
+    base_params = init_random_quant_params(mc, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        l_write_adapter(torch, mc, os.path.join(d, "adapter"))
+        l_write_adapter(torch, mc, os.path.join(d, "zero"), zero_b=True)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        adapter, scale = load_lora_adapter(os.path.join(d, "adapter"))
+        zero, zscale = load_lora_adapter(os.path.join(d, "zero"))
+        load_s = time.perf_counter() - t0
+    if len(adapter) != 7 * L_LAYERS or scale != L_ALPHA / L_RANK:
+        raise AssertionError(f"lane L: {len(adapter)} pairs, scale {scale}")
+    prompts = np.random.default_rng(11).integers(
+        0, mc.vocab_size, (SERVE_REQUESTS, PROMPT_LEN))
+    warm = np.random.default_rng(12).integers(0, mc.vocab_size,
+                                              (4, PROMPT_LEN))
+    runs, lines = {}, {}
+    for label, ad, sc in (("base", None, None), ("adapter", adapter, scale),
+                          ("B = 0", zero, zscale)):
+        params = base_params if ad is None else apply_lora(base_params, ad,
+                                                           sc)
+        t0 = time.perf_counter()
+        engine = l_engine(mc, params)
+        build_s = time.perf_counter() - t0
+        try:
+            if ad is not None and not l_split(engine.runner.params):
+                raise AssertionError(f"lane L {label}: the build fused or "
+                                     f"did not requantize an adapter site")
+            if label == "adapter":
+                l_logits(torch, mc, engine)
+            # A warm-up wave, so no engine's measured serve is its first.
+            with ThreadPoolExecutor(len(warm)) as ex:
+                list(ex.map(engine.infer, [request(p, 4) for p in warm]))
+            launches, toks, line = l_serve(torch, engine, mc, prompts, label)
+        finally:
+            engine.stop()
+        runs[label] = (launches, toks)
+        lines[label] = {**line, "engine_build_s": build_s}
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    base_kept = all(lp.qkv is None and lp.q is not None
+                    for lp in base_params.layers)
+    zero_equal = runs["B = 0"][1] == runs["base"][1]
+    moved = 1.0 - same_share([runs["adapter"][1]], [runs["base"][1]])
+    emit({"phase": "lane_l", "lane": L_NAME,
+          "model": f"{L_MODEL} at {L_LAYERS} of 32 layers",
+          "rank": L_RANK, "lora_alpha": L_ALPHA, "pairs": len(adapter),
+          "adapter_write_s": write_s, "adapter_load_s": load_s,
+          "runs": {k: {f: v[f] for f in ("output_tok_s", "ttft_p50_ms",
+                                          "tpot_p50_ms", "wall_s",
+                                          "engine_build_s")}
+                   for k, v in lines.items()},
+          "zero_adapter_tokens_equal_base": zero_equal,
+          "adapter_tokens_differing_from_base_share": moved,
+          "base_params_kept_split": base_kept, "card": smi_line()})
+    if not (zero_equal and base_kept and moved > 0):
+        raise AssertionError("lane L: the B = 0 tokens differ from the "
+                             "base's, the base params changed, or the "
+                             "adapter moved no token")
+    del base_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"{L_NAME} {k}": v[0] for k, v in runs.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5899,7 +6407,7 @@ def main() -> int:
              + moe_cases(torch, timer)
              + gemma_rows(torch, timer) + gemma_kv_cases(torch, timer)
              + spec_rows(torch, timer) + spec_kv_cases(torch, timer)
-             + k_rows(torch, timer))
+             + k_rows(torch, timer) + lora_rows(torch, timer))
     dense_moe_cases(torch, timer)
     onehot_cases(torch)
     prefill_exact_cases(torch)
@@ -5962,8 +6470,9 @@ def main() -> int:
                 # Lanes F and G on lane A's weights.
                 by_path["F llama-3.1-8b int8 KV, linear + prefix store"] = \
                     lane_f(torch, mc, params)
-                by_path["G llama-3.1-8b paged + prefix cache"] = \
-                    lane_g(torch, mc, params)
+                (by_path["G llama-3.1-8b paged + prefix cache"],
+                 by_path["G offload: paged + prefix cache + host tier"]) \
+                    = lane_g(torch, mc, params)
             del params, mc
             gc.collect()
             torch.cuda.empty_cache()
@@ -5974,6 +6483,8 @@ def main() -> int:
         by_path.update(lane_j(torch))
         # Lane K: the engine's remaining settings.
         by_path.update(lane_k(torch))
+        # Lane L: LoRA adapters over the two-level int4 base.
+        by_path.update(lane_l(torch))
     finally:
         cli_stop(cli)
 

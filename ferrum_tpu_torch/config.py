@@ -1,11 +1,11 @@
 """Engine configuration, with CLI > env > file > base precedence.
 
 Port of `ferrum_tpu/config.py`. Field names and defaults follow the JAX
-package. The fields the port does not have yet -- the prefix offload
-tier, GDN's prefill tile, parallelism, GGUF quantization -- and the two
-the JAX engine reads nowhere (`tokenizer`, `greedy_argmax_device`) are
-not options here: `NOT_PORTED` holds the value the port fixes for
-each (the JAX field and env names). `resolve` raises
+package. The fields the port does not have yet -- GDN's prefill tile,
+parallelism, GGUF quantization -- and the two the JAX engine reads
+nowhere (`tokenizer`, `greedy_argmax_device`) are not options here:
+`NOT_PORTED` holds the value the port fixes for each (the JAX field and
+env names). `resolve` raises
 InvalidRequestError, naming the field and "not yet ported", when a
 source sets one of them to anything else; the JAX package's resolve
 drops unknown keys, the port never drops a request silently.
@@ -41,6 +41,11 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
                                    "block-hash prefix reuse"),
     "FERRUM_PREFIX_CACHE_POLICY": ("prefix_cache_policy", str,
                                    "eviction policy: lru|fifo|clock"),
+    "FERRUM_PREFIX_OFFLOAD_MB": ("prefix_offload_mb", int,
+                                 "host-RAM budget (MiB) for the compressed "
+                                 "prefix offload tier (0 = off; paged layout)"),
+    "FERRUM_PREFIX_OFFLOAD_ALGO": ("prefix_offload_algo", str,
+                                   "offload compression: none|int8|int4|fp8"),
     "FERRUM_PREFIX_CACHE_BLOCKS": ("prefix_cache_blocks", int,
                                    "linear prefix-store blocks (-1 auto, "
                                    "0 off)"),
@@ -111,8 +116,6 @@ ENV_REGISTRY: Dict[str, Tuple[str, type, str]] = {
 NOT_PORTED: Dict[str, Any] = {
     "tokenizer": None,
     "quantization": ("none", "gptq_int4"),
-    "prefix_offload_mb": 0,
-    "prefix_offload_algo": "int8",
     "gdn_chunk_block": 64,
     "tensor_parallel": 1,
     "data_parallel": 1,
@@ -121,8 +124,6 @@ NOT_PORTED: Dict[str, Any] = {
 }
 
 NOT_PORTED_ENV: Dict[str, Tuple[str, type]] = {
-    "FERRUM_PREFIX_OFFLOAD_MB": ("prefix_offload_mb", int),
-    "FERRUM_PREFIX_OFFLOAD_ALGO": ("prefix_offload_algo", str),
     "FERRUM_TP": ("tensor_parallel", int),
     "FERRUM_DP": ("data_parallel", int),
     "FERRUM_EP": ("expert_parallel", int),
@@ -233,6 +234,12 @@ class EngineConfig:
     # slot pool (at least one sequence's), capped by free device
     # memory; 0 = no copy-based reuse.
     prefix_cache_blocks: int = -1
+    # Paged layout with the prefix cache: the host-RAM budget (MiB) of
+    # the compressed offload tier -- evicted prefix blocks kept on the
+    # host and restored on a later chain hit (kv/compression.py
+    # HostOffloadTier); 0 = off. Each spill waits for its read.
+    prefix_offload_mb: int = 0
+    prefix_offload_algo: str = "int8"   # none | int8 | int4 | fp8
     # --- decoding ---
     decode_multi_step: int = 8          # steps per window, one host sync
     # Adaptive window lengths (no decode_t_spec, pipelined): twice as
@@ -343,6 +350,10 @@ class EngineConfig:
         if self.prefix_cache_policy not in ("lru", "fifo", "clock"):
             raise InvalidRequestError("unknown prefix_cache_policy",
                                       param="prefix_cache_policy")
+        if self.prefix_offload_algo not in ("none", "int8", "int4", "fp8"):
+            raise InvalidRequestError(
+                "prefix_offload_algo must be none, int8, int4 or fp8",
+                param="prefix_offload_algo")
         if self.quantization not in ("none", "gptq_int4", "gguf_q4k"):
             raise InvalidRequestError("unknown quantization",
                                       param="quantization")

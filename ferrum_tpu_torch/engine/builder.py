@@ -40,6 +40,12 @@ checkpoint directory (the port's `load_checkpoint`) or random:<preset>
 EngineBuilder) --, served as given (no requantization or fusion, as
 there), its vocabulary the target's (else ModelLoadError).
 
+LoRA-wrapped projections (models/lora.py `apply_lora`, applied before
+the build) have their int4 base requantized like any other and their
+fusion site kept split. The requantize, squeeze and fusion passes
+return new params containers and leave the given params as they were,
+so a base engine and an adapter engine can be built from one object.
+
 The mode is a process-wide switch, as in the JAX package: `build()`
 sets both switches, so building a second engine with another `w4a8` or
 `w4a8_gd` changes the route of the first one too.
@@ -61,7 +67,7 @@ from ..models.llama_family import (ModelParams, PagedKvCache,
                                    QuantEmbedding, init_random_params)
 from ..models.quantize import _quant_dense, quantize_embedding
 from ..ops.kernels.quant_matmul import set_w4a8, set_w4a8_gd
-from ..ops.linear import concat_linears
+from ..ops.linear import LoraLinearParams, concat_linears
 from ..ops.quant import QuantLinearParams, requantize_two_level
 from ..tokenizer import Tokenizer, make_byte_tokenizer
 from ..types import ModelLoadError
@@ -124,20 +130,25 @@ def fuse_projections(params: ModelParams,
     per site instead of 2-3), and an MoE layer's expert stacks' gate|up
     ("moe": `concat_linears` of int4 stacks, `torch.cat` of dense ones;
     off by default, as in the JAX package, whose grouped gate and up
-    share one activation quantization instead). Layer by layer and in
-    place, so the split weights are freed as each layer is fused;
-    unsupported combinations keep the split form."""
+    share one activation quantization instead). Unsupported combinations
+    keep the split form: a LoRA-wrapped projection keeps its layer's
+    site split, and the other sites of that layer still fuse. A fused
+    layer is a new LayerParams: the caller's params object is left as it
+    was (a base engine and an adapter engine may be built from one), so
+    the split weights live on while the caller holds them."""
     want = set(sites.split(","))
+    layers = []
     for lp in params.layers:
+        fused = {}
         if "qkv" in want and lp.qkv is None and lp.q is not None:
             qkv = concat_linears([lp.q, lp.k, lp.v])
             if qkv is not None:
-                lp.qkv, lp.q, lp.k, lp.v = qkv, None, None, None
+                fused.update(qkv=qkv, q=None, k=None, v=None)
         if "gate_up" in want and lp.gate_up is None \
                 and lp.gate is not None and lp.moe is None:
             gu = concat_linears([lp.gate, lp.up])
             if gu is not None:
-                lp.gate_up, lp.gate, lp.up = gu, None, None
+                fused.update(gate_up=gu, gate=None, up=None)
         m = lp.moe
         if "moe" in want and m is not None and m.gate_up is None:
             if isinstance(m.gate, QuantLinearParams):
@@ -147,33 +158,51 @@ def fuse_projections(params: ModelParams,
             else:
                 gu = None
             if gu is not None:
-                m.gate_up, m.gate, m.up = gu, None, None
-    return params
+                fused["moe"] = dataclasses.replace(m, gate_up=gu, gate=None,
+                                                   up=None)
+        layers.append(dataclasses.replace(lp, **fused) if fused else lp)
+    return dataclasses.replace(params, layers=layers)
 
 
 def squeeze_embeddings(params: ModelParams) -> ModelParams:
     """The table to int8 and an untied dense lm_head to int4 g128 with
     bf16 group scales, whatever the model's dtype (the JAX builder's
-    squeeze); a table already int8 keeps its lm_head."""
-    if not isinstance(params.embed, QuantEmbedding):
-        params.lm_head = _quant_dense(params.lm_head, 128, torch.bfloat16)
-        params.embed = quantize_embedding(params.embed)
-    return params
+    squeeze); a table already int8 keeps its lm_head. Returns new
+    params, as the JAX builder's `dataclasses.replace`."""
+    if isinstance(params.embed, QuantEmbedding):
+        return params
+    return dataclasses.replace(
+        params, lm_head=_quant_dense(params.lm_head, 128, torch.bfloat16),
+        embed=quantize_embedding(params.embed))
+
+
+def _two_level(lin):
+    """One linear in the two-level form; through a LoRA wrapper to its
+    base, as the JAX builder's tree_map reaches it."""
+    if isinstance(lin, QuantLinearParams):
+        return requantize_two_level(lin)
+    if isinstance(lin, LoraLinearParams):
+        return dataclasses.replace(lin, base=_two_level(lin.base))
+    return lin
 
 
 def apply_two_level(params: ModelParams) -> ModelParams:
-    """Requantize every int4 linear into the two-level w4a8 form, in
-    place (a no-op for params that already carry scales2)."""
-    def rq(lin):
-        return requantize_two_level(lin) \
-            if isinstance(lin, QuantLinearParams) else lin
+    """Every int4 linear (a LoRA wrapper's base too) in the two-level
+    w4a8 form (unchanged where it already carries scales2), in new
+    params containers as the JAX package's tree_map makes them."""
+    def mapped(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _two_level(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
 
+    layers = []
     for lp in params.layers:
-        for obj in (lp, lp.moe) if lp.moe is not None else (lp,):
-            for f in dataclasses.fields(obj):
-                setattr(obj, f.name, rq(getattr(obj, f.name)))
-    params.lm_head = rq(params.lm_head)
-    return params
+        lp = mapped(lp)
+        if lp.moe is not None:
+            lp.moe = mapped(lp.moe)
+        layers.append(lp)
+    return dataclasses.replace(params, layers=layers,
+                               lm_head=_two_level(params.lm_head))
 
 
 class EngineBuilder:

@@ -39,10 +39,13 @@ Prefix reuse by layout, as the JAX engine: on the linear layout a
 `LinearPrefixCache` over a device store (its queued saves flushed as
 one copy each iteration before admission; a hit's store → slot copy
 and the reused tokens' repetition counts issued at admission), on the
-paged layout a `PrefixCache` of shared blocks. Paged sequences
-preempted under block pressure are prefilled again (recompute) at
-re-admission; when every victim rides a window in flight, the loop
-breaks the pipeline chain so the next iteration can preempt.
+paged layout a `PrefixCache` of shared blocks, with the host offload
+tier under `prefix_offload_mb` (evicted blocks kept compressed in host
+RAM and restored on a later chain hit; kv/compression.py). Paged
+sequences preempted under block pressure are prefilled again
+(recompute) at re-admission; when every victim rides a window in
+flight, the loop breaks the pipeline chain so the next iteration can
+preempt.
 
 Guided decoding, as the JAX engine: `submit` builds the request's host
 processor (sampling/guided.py) and compiles its DFA into device-FSM
@@ -81,8 +84,7 @@ ending there is released when its last window is read);
 max_num_seqs while such a release waited.
 
 Everything runs on ONE CUDA stream; the loop leans on its order (see
-`_retire`). Not yet ported (later slices): the prefix offload tier and
-LoRA.
+`_retire`).
 """
 
 from __future__ import annotations
@@ -98,6 +100,7 @@ import numpy as np
 
 from ..config import EngineConfig, adaptive_window_steps
 from ..kv.block_pool import BlockPool
+from ..kv.compression import HostOffloadTier, make_strategy
 from ..kv.linear_prefix import LinearPrefixCache
 from ..kv.prefix_cache import PrefixCache
 from ..sampling.guided import build_guided_processor
@@ -147,10 +150,20 @@ class ContinuousBatchEngine:
                     runner, store, cfg.kv_block_size,
                     policy=cfg.prefix_cache_policy)
             else:
+                # The host offload tier: the paged layout with the prefix
+                # cache only, as in the JAX engine.
+                offload = block_io = None
+                if cfg.kv_layout == "paged" and cfg.enable_prefix_cache \
+                        and cfg.prefix_offload_mb > 0:
+                    offload = HostOffloadTier(
+                        cfg.prefix_offload_mb << 20,
+                        make_strategy(cfg.prefix_offload_algo))
+                    block_io = (runner.read_kv_block, runner.write_kv_block)
                 self.prefix_cache = PrefixCache(
                     self.pool, enabled=cfg.enable_prefix_cache
                     and cfg.kv_layout == "paged",
-                    policy=cfg.prefix_cache_policy)
+                    policy=cfg.prefix_cache_policy, offload=offload,
+                    block_io=block_io)
         self.scheduler = ContinuousBatchScheduler(cfg, self.pool,
                                                   self.prefix_cache)
         self._requests: Dict[str, _RequestState] = {}

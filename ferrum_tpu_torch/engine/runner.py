@@ -36,11 +36,16 @@ here issues the kernels directly:
                        every array written in one `kv_append_pages`
                        launch; add_prompt_counts seeds the repetition
                        counts of a reused prefix.
+  read_kv_block /      one paged pool block to the host and back (the
+  write_kv_block       prefix cache's offload tier): the read waits for
+                       its copies, the one host sync outside
+                       `sync_window` / `HostCopy`; the write goes up
+                       from pinned memory in stream order.
 
 Windows chain on the device through the slot-indexed `last_toks`: a
 window reads the input token of every lane its predecessor covered
 from there, so window W+1 is dispatched before W's tokens are read.
-Nothing here synchronizes the stream: host rows go up from pinned
+Nothing else here synchronizes the stream: host rows go up from pinned
 memory without blocking, and results come back into pinned memory with
 an event recorded after the copy, which `HostCopy.numpy()` waits on
 alone (a stream sync would also wait for every window dispatched
@@ -82,11 +87,12 @@ guided, the FSM tables' row bucket), `prefill` (batch pad, chunk pad,
 context pad, greedy, logits returned, guided, row bucket) and `decode1`
 (run_decode's step), the JAX runner's sites, each logged with the
 runner's layout and KV dtype;
-`prefix_copy` (rows padded) and `counts` (tokens padded) as the JAX
-runner keys them -- plus `kernel_build`, one per CUDA library first used
-in the process (ops/kernels/build.py `LOADED`). A key first met inside
-a measured bench cell is a warm-up hole (bench/bench_engine.py counts
-them per cell). The CUDA graphs of a later slice are captured at the
+`prefix_copy` (rows padded), `counts` (tokens padded) and
+`kv_block_io` (whether the cache is int8) as the JAX runner keys them
+-- plus `kernel_build`, one per CUDA library first used in the process
+(ops/kernels/build.py `LOADED`). A key first met inside a measured
+bench cell is a warm-up hole (bench/bench_engine.py counts them per
+cell). The CUDA graphs of a later slice are captured at the
 same keys.
 """
 
@@ -246,6 +252,7 @@ class ModelRunner:
         self._copy_keys: set = set()
         self._count_keys: set = set()
         self._score_keys: set = set()
+        self._block_io_keys: set = set()
         self._chunk_lens: set = set()        # prompt chunk lengths seen
         self._builds_seen = len(kernel_build.LOADED)
         # "error" makes every dispatch fail on a host sync of the stream
@@ -496,6 +503,54 @@ class ModelRunner:
         toks = self._upload(arr)
         with self.sync_guard():
             update_counts(self.counts, torch.full_like(toks, slot), toks)
+
+    # ------------------------------------------------------------------
+    # KV block host I/O (the paged prefix cache's offload tier;
+    # kv/compression.py)
+    # ------------------------------------------------------------------
+    def _block_arrays(self) -> List[torch.Tensor]:
+        kv = self.kv
+        return [kv.k, kv.v] + ([kv.k_scale, kv.v_scale]
+                               if kv.quantized else [])
+
+    def read_kv_block(self, block_id: int) -> tuple:
+        """One pool block to the host: (k, v[, k_scale, v_scale]) CPU
+        tensors, k / v [L, page, kv_size], the scales [L, page,
+        kv_heads]. A DECLARED HOST SYNC on the eviction path, as the JAX
+        runner's blocking readback: each array is copied into a pinned
+        buffer of its own (the tier may keep it as it is), and the host
+        waits on one event after the copies, so the block holds every
+        write enqueued before. The no-sync check's runs use no tier."""
+        self._note_key(self._block_io_keys, "kv_block_io",
+                       (self.kv.quantized,))
+        srcs = [a[:, block_id] for a in self._block_arrays()]
+        if self.device.type != "cuda":
+            return tuple(s.clone() for s in srcs)
+        out = []
+        for s in srcs:
+            host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+            host.copy_(s, non_blocking=True)
+            out.append(host)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return tuple(out)
+
+    def write_kv_block(self, block_id: int, arrays: tuple) -> None:
+        """A host block group (read_kv_block's form) into pool block
+        `block_id` (the restore path), in stream order: every array goes
+        up from pinned memory without blocking -- the caching host
+        allocator reuses a pinned buffer only after its copy's event, so
+        the next restore cannot overwrite one in flight -- and lands
+        before any prefill enqueued after it reads the block."""
+        self._note_key(self._block_io_keys, "kv_block_io",
+                       (self.kv.quantized,))
+        with self.sync_guard():
+            for dst, a in zip(self._block_arrays(), arrays):
+                src = a.to(dst.dtype)
+                if dst.is_cuda:
+                    src = src.pin_memory().to(dst.device, non_blocking=True)
+                dst[:, block_id].copy_(src)
 
     def ctx_bucket(self, max_len: int) -> int:
         return _round_up_pow2(max_len, max(2 * self.page, 16),

@@ -1,7 +1,6 @@
 """Block-hash-chain prefix cache over the paged pool.
 
-Port of `ferrum_tpu/kv/prefix_cache.py` without its host offload tier
-(`prefix_offload_mb` is not yet ported). Each FULL block of a prompt is
+Port of `ferrum_tpu/kv/prefix_cache.py`. Each FULL block of a prompt is
 keyed by the hash chain hash(parent_hash, tokens_in_block) -- the same
 blake2b chain as the JAX package, so both give one key to one prefix.
 At admission the longest chain of cached full blocks is adopted by
@@ -13,6 +12,12 @@ Eviction reclaims only blocks whose sole owner is the cache (refcount
   fifo  -- oldest inserted first (matches ignored)
   clock -- second chance: a match sets a referenced bit that spares the
            block one sweep
+
+With a host offload tier (kv/compression.py `HostOffloadTier`, the
+engine's `prefix_offload_mb`), a reclaimed block is first read to the
+host and kept there compressed; a later chain that reaches its hash
+restores it into a newly allocated block, only while the pool has a
+free block (no eviction cascade), as in the JAX cache.
 """
 
 from __future__ import annotations
@@ -47,12 +52,16 @@ class PrefixCache:
     eviction policy (lru | fifo | clock)."""
 
     def __init__(self, pool: BlockPool, enabled: bool = True,
-                 policy: str = "lru"):
+                 policy: str = "lru", offload=None, block_io=None):
         if policy not in ("lru", "fifo", "clock"):
             raise ValueError(f"unknown eviction policy {policy!r}")
         self.pool = pool
         self.enabled = enabled
         self.policy = policy
+        # The host tier and its device accessors (read_block(b) → arrays,
+        # write_block(b, arrays): runner.read_kv_block / write_kv_block).
+        self.offload = offload
+        self._read_block, self._write_block = block_io or (None, None)
         # hash → physical block id (the cache holds one refcount on
         # each); order = insertion (fifo / clock) or recency (lru).
         self._by_hash: "collections.OrderedDict[int, int]" = \
@@ -81,6 +90,8 @@ class PrefixCache:
         for start in range(0, usable - page + 1, page):
             h = _hash_chain(parent, tokens[start:start + page])
             b = self._by_hash.get(h)
+            if b is None and self.offload is not None and h in self.offload:
+                b = self._restore_from_offload(h)
             if b is None:
                 break
             self._touch(h)
@@ -144,12 +155,32 @@ class PrefixCache:
         b = self._by_hash[h]
         if self.pool.refcount(b) != 1:
             return 0
+        if self.offload is not None and self._read_block is not None \
+                and h not in self.offload:
+            # Spill to the host tier before the device block dies.
+            self.offload.put(h, self._read_block(b))
         del self._by_hash[h]
         del self._hash_of_block[b]
         self._referenced.pop(h, None)
         self.pool.free(b)
         self.stats.evictions += 1
         return 1
+
+    def _restore_from_offload(self, h: int):
+        """An offloaded block back on the device, in a block allocated
+        now (the cache holds its one refcount); None without a free
+        block or without the entry."""
+        if self._write_block is None or self.pool.num_free == 0:
+            return None
+        arrays = self.offload.get(h)
+        if arrays is None:
+            return None
+        b = self.pool.allocate(1)[0]
+        self._write_block(b, arrays)
+        self._by_hash[h] = b
+        self._hash_of_block[b] = h
+        self.stats.cached_blocks = len(self._by_hash)
+        return b
 
     def clear(self) -> None:
         for b in list(self._by_hash.values()):

@@ -1,8 +1,9 @@
 """One `apply_linear` over the weight formats of the served path.
 
 Port of `ferrum_tpu/ops/linear.py`: dense weights stored [in, out]
-(y = x @ w) and packed int4 weights (ops/kernels/quant_matmul.py).
-LoRA adapters belong to a later slice.
+(y = x @ w), packed int4 weights (ops/kernels/quant_matmul.py's route
+table), and LoRA adapters over either (y = base(x) + scale * (x @ A) @
+B; models/lora.py wraps them).
 """
 
 from __future__ import annotations
@@ -23,7 +24,17 @@ class DenseLinearParams:
     bias: Optional[torch.Tensor]
 
 
-LinearParams = Union[DenseLinearParams, QuantLinearParams]
+@dataclass
+class LoraLinearParams:
+    """Low-rank adapted linear: y = base(x) + scale * (x @ A) @ B."""
+
+    base: Union[DenseLinearParams, QuantLinearParams]
+    lora_a: torch.Tensor    # [in, r]
+    lora_b: torch.Tensor    # [r, out]
+    scale: float
+
+
+LinearParams = Union[DenseLinearParams, QuantLinearParams, LoraLinearParams]
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,13 +73,26 @@ def apply_linear(p: LinearParams, x: torch.Tensor) -> torch.Tensor:
     if isinstance(p, QuantLinearParams):
         from .kernels.quant_matmul import quant_matmul
         return quant_matmul(x, p)
+    if isinstance(p, LoraLinearParams):
+        # The base through its own route (an int4 base launches its
+        # kernel); the two low-rank products with f32 sums, as the JAX
+        # package's jnp.dot(..., preferred_element_type=f32) pair.
+        y = apply_linear(p.base, x)
+        x2 = x.reshape(-1, x.shape[-1])
+        delta = matmul_f32(matmul_f32(x2, p.lora_a),
+                           p.lora_b.to(torch.float32))
+        delta = delta.reshape(*x.shape[:-1], delta.shape[-1])
+        return y + (p.scale * delta).to(y.dtype)
     raise TypeError(f"unknown linear params type {type(p)!r}")
 
 
 def concat_linears(ps: Sequence[LinearParams]) -> Optional[LinearParams]:
     """Fuse linears that share one input into one wider linear (output
-    features concatenated). None when unsupported (mixed types, act-order
-    perms, mismatched quant geometry): callers keep the split path."""
+    features concatenated). None when unsupported (mixed types, LoRA,
+    act-order perms, mismatched quant geometry): callers keep the split
+    path."""
+    if any(isinstance(p, LoraLinearParams) for p in ps):
+        return None
     if all(isinstance(p, DenseLinearParams) for p in ps):
         bias = None
         if any(p.bias is not None for p in ps):
@@ -106,3 +130,12 @@ def concat_linears(ps: Sequence[LinearParams]) -> Optional[LinearParams]:
             scales2=cat("scales2") if all(two_level) else None,
             chan_scale=cat("chan_scale") if all(two_level) else None)
     return None
+
+
+def linear_out_features(p: LinearParams) -> int:
+    """Output features of a linear, through a LoRA wrapper."""
+    if isinstance(p, DenseLinearParams):
+        return p.w.shape[-1]
+    if isinstance(p, QuantLinearParams):
+        return p.out_features
+    return linear_out_features(p.base)

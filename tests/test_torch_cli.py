@@ -173,8 +173,6 @@ def test_kv_settings_reach_the_config(monkeypatch, tmp_path, flags, env):
     (["--tp", "2"], {}, "tensor_parallel"),
     (["--quantization", "gguf_q4k"], {}, "quantization"),
     ([], {"FERRUM_QUANT": "gguf_q4k"}, "quantization"),
-    ([], {"FERRUM_PREFIX_OFFLOAD_MB": "64"}, "prefix_offload_mb"),
-    ([], {"FERRUM_PREFIX_OFFLOAD_ALGO": "int4"}, "prefix_offload_algo"),
     ([], {"FERRUM_GDN_CHUNKED": "0"}, "gdn_chunk_block"),
     ([], {"FERRUM_DP": "2"}, "data_parallel"),
 ])
@@ -207,6 +205,8 @@ def test_unported_settings_exit_1(monkeypatch, capsys, tmp_path, flags, env,
     ([], {"FERRUM_FUSE_PROJ": "0"}, "fuse_proj"),
     ([], {"FERRUM_FUSE_SITES": "qkv,gate_up,moe"}, "fuse_sites"),
     ([], {"FERRUM_ENABLE_CHUNKED_PREFILL": "0"}, "enable_chunked_prefill"),
+    ([], {"FERRUM_PREFIX_OFFLOAD_MB": "64"}, "prefix_offload_mb"),
+    ([], {"FERRUM_PREFIX_OFFLOAD_ALGO": "int4"}, "prefix_offload_algo"),
 ])
 def test_ported_settings_resolve_as_jax(monkeypatch, tmp_path, flags, env,
                                         field):

@@ -45,7 +45,8 @@ from torch_parity import (flatten_jax_params, flatten_torch_params,
 
 MOVED = ("adaptive_windows", "slot_slack", "scheduler",
          "enable_chunked_prefill", "scheduler_trace_path", "fuse_proj",
-         "fuse_sites", "squeeze_embeddings")
+         "fuse_sites", "squeeze_embeddings", "prefix_offload_mb",
+         "prefix_offload_algo")
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +67,7 @@ def test_moved_settings_match_jax_defaults_env_and_checks():
         assert name not in tc.NOT_PORTED
     assert set(tc.NOT_PORTED) == {
         "tokenizer", "greedy_argmax_device", "quantization",
-        "prefix_offload_mb", "prefix_offload_algo", "gdn_chunk_block",
+        "gdn_chunk_block",
         "tensor_parallel", "data_parallel", "expert_parallel"}
     for env, entry in tc.ENV_REGISTRY.items():
         if entry[0] in MOVED:
